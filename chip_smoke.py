@@ -6,20 +6,37 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` of every CUDA kernel of the served path (in parallel);
+2. build: ``nvcc`` of every CUDA kernel of the served and trained paths (one
+   process per source, all started together);
 3. kernel vs plain: ``quad_sample_fwd`` against its plain PyTorch version at
    both flagship shapes (computed from the flagship frustum geometry) and a
    small ragged shape with out-of-bounds coords, in bf16 (atol 0.04) and f32
    (atol 1e-5), with the kernel's time beside its memory bound, the plain
    version's time and ``F.grid_sample``'s (a yardstick the port never calls);
-4. small reference: the TINY test model on the card (kernel) against the same
+4. kernel vs plain, backward: ``quad_sample_bwd`` against its plain version at
+   the same flagship shapes, the ragged shape and a contention shape (every
+   query on one 2x2 patch, exact arithmetic, compared bit for bit), in bf16
+   and f32 (tolerances at ``bwd_case``), with its time beside its bound, the
+   plain version's and ``aten.grid_sampler_2d_backward``'s (a yardstick);
+5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
-5. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
+6. small reference, training: one training step of the TINY model (its
+   backbone's residual scales at 0) on the card (kernels) against the same
+   step on the CPU (plain versions), f32 with TF32 off: loss terms,
+   gradients, updated parameters and BN statistics (tolerances in
+   ``hgsfusion_tpu_torch/train/step_compare.py``);
+7. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
    516x1936, 320x320x31 voxels, 8192 radar points) with random weights from a
-   seed, one warm-up frame, then 3 frames in bf16 with the kernel launch
-   counter at 0 before and 2 per frame after; per-stage times, frames/s and
-   peak device memory.
+   seed, one warm-up frame, then 3 frames in bf16 with the launch counters at
+   0 before and 2 forward launches per frame after; per-stage times, frames/s
+   and peak device memory;
+8. train: the same config and batch with its ``gt_boxes``, one warm-up
+   training step, then 3 steps with the counters at 0 before and 2 forward
+   and 2 backward launches per step after; finite losses, a positive anchor,
+   the frozen backbone bit-identical, every other trainable tensor moved,
+   the backbone's BN statistics moved; step times, peak memory, loss terms
+   and the device time by kernel of one profiled step.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -29,10 +46,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -40,21 +59,36 @@ import torch.nn.functional as F
 
 from hgsfusion_tpu_torch import native
 from hgsfusion_tpu_torch.config import HGSFusionConfig, vod_pallas_config
+from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.ops import quad_sample
-from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad
+from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.train.optim import FROZEN_PREFIX, build_optimizer
+from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps, perturb_inputs,
+                                                    sensitivity, step_record,
+                                                    zero_residual_scales)
+from hgsfusion_tpu_torch.train.trainer import make_train_step
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-KERNEL_SOURCES = ["quad_sample"]
+KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
+F32_U = 2.0 ** -24  # f32 unit round-off
+# the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
+FLAGSHIP_SHAPES = {"A": (1, 129, 484, 64), "B": (1, 65, 242, 192)}
+# the optimizer's schedule length in the training phases (a short OneCycle)
+TRAIN_TOTAL_STEPS = 100
+# the weights of the small training reference: a seed whose step the CPU's
+# own probes find well conditioned (step_compare.SENS_CAP)
+TRAIN_REF_SEED = 3
 
 
 def tiny_batch(b: int = 1, n: int = 128):
-    """tests/test_model.py::make_tiny_batch with RandomState(0)."""
+    """tests/test_model.py::make_tiny_batch with RandomState(0), gt boxes
+    included."""
     rng = np.random.RandomState(0)
     pts = np.zeros((b, n, 17), np.float32)
     pts[..., 0] = rng.uniform(0.5, 15.5, (b, n))
@@ -71,6 +105,9 @@ def tiny_batch(b: int = 1, n: int = 128):
         "trans_cam_to_img": np.tile(np.array(
             [[80.0, 0, 48, 0], [0, 80, 32, 0], [0, 0, 1, 0]], np.float32), (b, 1, 1)),
         "lidar_aug_matrix": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "gt_boxes": np.tile(np.array([[6.0, 1.0, -0.8, 3.9, 1.6, 1.56, 0.3, 1],
+                                      [10.0, -2.0, -0.5, 0.8, 0.6, 1.73, -0.5, 2]]
+                                     + [[0.0] * 8] * 6, np.float32), (b, 1, 1)),
     }
 
 
@@ -135,19 +172,22 @@ def sampler_case(name, features, coords, dtype, tol, timed: bool):
     return row
 
 
-def phase_kernel_vs_plain(dev):
+def flagship_uv(dev):
+    """The flagship frame's (u, v) sampling grid (1, 320, 320, 31, 2)."""
     cfg = vod_pallas_config()
     batch = flagship_batch(cfg)
     gen = FrustumGridGenerator(cfg.grid_size, cfg.pc_range, cfg.disc_cfg, cfg.bev_aug)
     grid = gen(*(torch.from_numpy(batch[k]).to(dev) for k in
                  ("trans_lidar_to_cam", "trans_cam_to_img")), cfg.image_size,
                bda=torch.from_numpy(batch["lidar_aug_matrix"]).to(dev))
-    uv = grid[..., 0:2].contiguous()
+    return grid[..., 0:2].contiguous()
+
+
+def phase_kernel_vs_plain(dev):
+    uv = flagship_uv(dev)
     g = torch.Generator(device="cpu").manual_seed(1)
-    # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
-    shapes = {"A": (1, 129, 484, 64), "B": (1, 65, 242, 192)}
     rows = []
-    for name, shape in shapes.items():
+    for name, shape in FLAGSHIP_SHAPES.items():
         feats = torch.randn(shape, generator=g).to(dev)
         rows.append(sampler_case(name, feats, uv, torch.bfloat16, BF16_TOL, timed=True))
         rows.append(sampler_case(name, feats, uv, torch.float32, F32_TOL, timed=False))
@@ -155,6 +195,84 @@ def phase_kernel_vs_plain(dev):
     coords = (torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3).to(dev)
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         rows.append(sampler_case("ragged", feats, coords, dtype, tol, timed=False))
+    return rows
+
+
+def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
+    """``quad_sample_bwd`` vs its plain version on one input.
+
+    Both sum in f32 (in another order) and round once. f32: atol 1e-5 x
+    (1 + max|ref|). bf16: 1e-6 + 2^-7 |ref| (one bf16 rounding) + n u S per
+    element, where S is the pixel's sum of |w g| over its n contributions
+    (the order bound of an f32 sum, u = 2^-24). ``exact``: small-integer
+    cotangents and weights of 1/4, whose sums are exact in f32 whatever the
+    order: compared bit for bit.
+    """
+    dev = coords.device
+    b, h, w, c = shape
+    idx, w4 = quad_sample.quad_indices(torch.empty(shape, dtype=dtype, device=dev), coords)
+    n = idx.numel()
+    padded = (b, h + 2, w + 2, c)
+    if exact:
+        g = torch.randint(-4, 5, (n, c), generator=gen).to(dtype).to(dev)
+    else:
+        g = torch.randn((n, c), generator=gen).to(dtype).to(dev)
+    got = quad_sample.quad_sample_bwd(g, idx, w4, padded)
+    torch.cuda.synchronize()
+    ref = quad_sample_bwd_plain(g, idx, w4, padded)
+    diff = (got.float() - ref.float()).abs()
+    if exact:
+        tol = torch.zeros_like(diff)
+    elif dtype == torch.float32:
+        tol = torch.full_like(diff, F32_TOL * (1 + float(ref.abs().max())))
+    else:
+        s_abs = quad_sample_bwd_plain(g.float().abs(), idx, w4.abs(), padded)
+        taps = torch.cat([idx.long() + o for o in (0, 1, w + 2, w + 3)])
+        n_max = int(torch.bincount(taps[w4.t().reshape(-1) != 0]).max())
+        tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + n_max * F32_U * s_abs
+    row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+           "queries": n, "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max()) if not exact else 0.0}
+    if timed:
+        isz = g.element_size()
+        nbytes = n * c * isz + n * 4 + n * 16 + b * (h + 2) * (w + 2) * c * 4
+        ops = 2.0 * 4 * n * c  # an f32 multiply-add per tap and channel
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S \
+            else "operations"
+        row["bytes"] = nbytes
+        # the wrapper: zero the f32 map, the kernel, crop and cast
+        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_bwd(g, idx, w4, padded))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample_bwd_plain(g, idx, w4, padded),
+                                  iters=3, warmup=1)
+        # the same input gradient from one PyTorch call, on the NCHW map
+        fmap = torch.zeros((b, c, h, w), dtype=dtype, device=dev)
+        grid = coords.reshape(b, -1, coords.shape[-2], 2).to(dtype)
+        gout = g.reshape(b, grid.shape[1], grid.shape[2], c).permute(0, 3, 1, 2).contiguous()
+        row["library_ms"] = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, fmap, grid, 0, 0, True, [True, False]))
+    print("  " + json.dumps(row))
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} "
+                             f"over its tolerance")
+    return row
+
+
+def phase_kernel_vs_plain_bwd(dev):
+    uv = flagship_uv(dev)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows = []
+    for name, shape in FLAGSHIP_SHAPES.items():
+        rows.append(bwd_case(name, shape, uv, torch.bfloat16, gen, timed=True))
+        rows.append(bwd_case(name, shape, uv, torch.float32, gen, timed=False))
+    coords = (torch.rand((2, 37, 3, 2), generator=gen) * 2.6 - 1.3).to(dev)
+    # contention: 65,536 queries at the center of one 2x2 patch of a 9x9
+    # map (normalized -0.375 is pixel 2.5 exactly), all weights 1/4
+    centre = torch.full((1, 256, 256, 2), -0.375, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(bwd_case("ragged", (2, 11, 17, 40), coords, dtype, gen, timed=False))
+        rows.append(bwd_case("contention", (1, 9, 9, 64), centre, dtype, gen, timed=False,
+                             exact=True))
     return rows
 
 
@@ -186,6 +304,126 @@ def phase_small_reference(dev):
     return errs
 
 
+def run_train_step(cfg, device, batch, seed: int, perturb_seed=None):
+    """One training step of a model built from ``seed`` (its backbone's
+    residual scales at 0) on ``device``: ``step_compare.step_record`` and
+    the step's learning rate. With ``perturb_seed``, the images and points
+    are first perturbed by ``step_compare.PERTURB`` relative."""
+    model = zero_residual_scales(HGSFusionModel(cfg, device=device, seed=seed))
+    assigner = TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range,
+                              cfg.class_names, device=model.device)
+    opt, lr_schedule = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    step = make_train_step(model, assigner, cap, cfg.loss_weights, cfg)
+    b = model.batch_to_device(batch)
+    if perturb_seed is not None:
+        b = perturb_inputs(b, perturb_seed)
+    _, tb = step(b)
+    return step_record(model, cap, tb), float(lr_schedule(0))
+
+
+def phase_small_reference_train(dev):
+    """TINY training step: card (kernels) vs CPU (plain versions)."""
+    batch = tiny_batch()
+    ref, lr = run_train_step(TINY, "cpu", batch, seed=TRAIN_REF_SEED)
+    probes = [run_train_step(TINY, "cpu", batch, seed=TRAIN_REF_SEED, perturb_seed=s)[0]["grads"]
+              for s in (1, 2)]
+    got, _ = run_train_step(TINY, dev, batch, seed=TRAIN_REF_SEED)
+    report = compare_steps(ref, got, sensitivity(ref["grads"], probes), lr)
+    report["loss_terms_cpu"] = {k: float(v) for k, v in ref["tb"].items()}
+    report["loss_terms_card"] = {k: float(v) for k, v in got["tb"].items()}
+    print("  " + json.dumps(report))
+    return report
+
+
+def phase_train(dev):
+    cfg = vod_pallas_config()
+    model = HGSFusionModel(cfg, device=dev, seed=0)
+    batch = model.batch_to_device(flagship_batch(cfg))
+    assigner = TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range,
+                              cfg.class_names, device=dev)
+    positives = int((assigner(batch["gt_boxes"])["box_cls_labels"] > 0).sum())
+    if positives == 0:
+        raise AssertionError("no anchor is positive for the synthetic gt boxes")
+    opt, _ = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    step = make_train_step(model, assigner, cap, cfg.loss_weights, cfg)
+    params = dict(model.named_parameters())
+    trainable = [k for k, p in params.items() if p.requires_grad]
+    frozen = {k: p.detach().clone() for k, p in params.items() if k.startswith(FROZEN_PREFIX)}
+    before = {k: p.detach().clone() for k, p in params.items() if p.requires_grad}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith(FROZEN_PREFIX) and k.endswith(("running_mean", "running_var"))}
+
+    step(batch)  # warm-up: cuDNN plans, allocator
+    moving = {k for k, g in zip(trainable, cap.grads)
+              if bool(before[k].any()) or (g is not None and bool(g.any()))}
+    cap.grads = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: 3 training steps
+    for k in quad_sample.launches:
+        quad_sample.launches[k] = 0
+    wall, terms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, tb = step(batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        terms.append({k: float(v) for k, v in tb.items()})
+    launches = dict(quad_sample.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 6}
+    if launches != want:
+        raise AssertionError(f"launches in 3 steps {launches}, want {want}")
+    for t in terms:
+        if not all(math.isfinite(v) for v in t.values()):
+            raise AssertionError(f"non-finite loss terms {t}")
+    params = dict(model.named_parameters())
+    for k, v in frozen.items():
+        if not torch.equal(params[k], v):
+            raise AssertionError(f"frozen backbone parameter {k} changed")
+    still = sorted(k for k in moving if torch.equal(params[k], before[k]))
+    if still:
+        raise AssertionError(f"trainable tensors that did not move: {still}")
+    state = model.state_dict()
+    same = sorted(k for k, v in stats.items() if torch.equal(state[k], v))
+    if same:
+        raise AssertionError(f"backbone BN statistics that did not move: {same}")
+
+    # one more step with CUDA's sync debugging on: the step never makes the
+    # host wait for the device
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    if syncs:
+        raise AssertionError("the training step made the host wait for the device at "
+                             f"{sorted(set(syncs))}")
+    # one more step under the profiler: device time by kernel
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.count)
+                  for e in prof.key_averages()), key=lambda r: -r[1])
+    result = {
+        "steps": 3, "launches": launches, "step_s": wall, "steps_per_s": 3 / sum(wall),
+        "peak_memory_bytes": peak, "positive_anchors": positives, "loss_terms": terms,
+        "trainable_tensors": len(before), "moved": len(moving), "frozen_tensors": len(frozen),
+        "profiled_step_device_ms": sum(ms for _, ms, _ in ops),
+        "profiled_step_top": [{"op": k[:90], "device_ms": ms, "calls": n}
+                              for k, ms, n in ops[:15]],
+    }
+    print("  " + json.dumps(result))
+    return result
+
+
 def phase_serve(dev):
     cfg = vod_pallas_config()
     t0 = time.perf_counter()
@@ -198,17 +436,19 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     # the main path: 3 frames through the serving entry point
-    quad_sample.launches = 0
+    for k in quad_sample.launches:
+        quad_sample.launches[k] = 0
     wall = []
     for _ in range(3):
         t0 = time.perf_counter()
         dets = model.serve(batch)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-    launches = quad_sample.launches
+    launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != 2 * 3:
-        raise AssertionError(f"quad_sample_fwd launched {launches} times in 3 frames, want 6")
+    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 0}
+    if launches != want:
+        raise AssertionError(f"launches in 3 frames {launches}, want {want}")
     n_valid = int(dets["valid"].sum())
     assert dets["boxes"].shape == (1, cfg.nms_post_max_size, 7), dets["boxes"].shape
     assert 0 <= n_valid <= cfg.nms_post_max_size
@@ -244,7 +484,7 @@ def phase_serve(dev):
         worst = post_process(preds, model.anchors, model.box_coder, cfg, 0.0,
                              cfg.nms_thresh, cfg.nms_pre_max_size, cfg.nms_post_max_size)
     result = {
-        "frames": 3, "launches": {quad_sample.KERNEL: launches},
+        "frames": 3, "launches": launches,
         "frame_s": wall, "frames_per_s": 3 / sum(wall),
         "stage_ms": {s: ev[i].elapsed_time(ev[i + 1]) for i, s in enumerate(stages)},
         "peak_memory_bytes": peak, "valid_boxes": n_valid,
@@ -286,26 +526,39 @@ def main(argv=None) -> int:
     for name, r in (report.get("build") or {}).items():
         print(f"  {name}: {r['seconds']:.1f} s\n" + r["ptxas"].strip())
     phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
+    phase("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev)
     phase("small_reference", phase_small_reference, dev)
+    phase("small_reference_train", phase_small_reference_train, dev)
     phase("serve", phase_serve, dev)
+    torch.cuda.empty_cache()
+    phase("train", phase_train, dev)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
-    timed = [r for r in report["kernel_vs_plain"] if "ms" in r]
-    kernels = [{
-        "name": quad_sample.KERNEL, "route": "cuda",
-        "source": "hgsfusion_tpu_torch/csrc/quad_sample.cu",
-        "replaces": "hgsfusion_tpu/ops/pallas_sample.py:108",
-        "launches": report["serve"]["launches"][quad_sample.KERNEL],
-        # per frame: the two bf16 calls (A, B) of the served path, summed
-        "max_abs_err": max(r["max_abs_err"] for r in timed),
-        "ms": sum(r["ms"] for r in timed),
-        "plain_ms": sum(r["plain_ms"] for r in timed),
-        "bound_ms": sum(r["bound_ms"] for r in timed),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed) else "operations",
-        "library_ms": sum(r["library_ms"] for r in timed),
-    }]
+    def kernel_row(name, source, replaces, rows, path):
+        # per frame or step: the two bf16 calls (A, B) of the path, summed
+        timed = [r for r in rows if "ms" in r]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": report[path]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
+            else "operations",
+            "library_ms": sum(r["library_ms"] for r in timed),
+        }
+
+    kernels = [
+        kernel_row(quad_sample.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
+                   "hgsfusion_tpu/ops/pallas_sample.py:108",
+                   [r for r in report["kernel_vs_plain"] if "ms" in r], "serve"),
+        kernel_row(quad_sample.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
+                   "hgsfusion_tpu/ops/pallas_sample.py:226",
+                   [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], "train"),
+    ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

@@ -1,9 +1,11 @@
 """Static model configuration and the YAML loader.
 
 ``HGSFusionConfig`` carries the fields of the JAX package's
-``models/detector.py::HGSFusionConfig`` that the ported serving path reads,
-with the same names and defaults, plus the anchor generator and the
-post-processing values the serving entry point needs. ``load_config`` and
+``models/detector.py::HGSFusionConfig`` that the ported serving and training
+paths read, with the same names and defaults, plus what the JAX package
+reads from the YAML beside it: the anchor generator with the target
+assigner's thresholds, the loss weights, the post-processing values and the
+OPTIMIZATION block. ``load_config`` and
 ``model_config_from_yaml`` read the repo's reference-schema YAMLs as the JAX
 package's ``config.py`` does; ``vod_pallas_config`` is the flagship preset
 (``configs/hgsfusion_vod_pallas.yaml``, bf16) in plain Python, so serving
@@ -20,14 +22,35 @@ import torch
 _VOD_ANCHORS = (
     {"class_name": "Car", "anchor_sizes": ((3.9, 1.6, 1.56),),
      "anchor_rotations": (0.0, 1.57), "anchor_bottom_heights": (-1.78,),
-     "align_center": False, "feature_map_stride": 1},
+     "align_center": False, "feature_map_stride": 1,
+     "matched_threshold": 0.6, "unmatched_threshold": 0.45},
     {"class_name": "Pedestrian", "anchor_sizes": ((0.8, 0.6, 1.73),),
      "anchor_rotations": (0.0, 1.57), "anchor_bottom_heights": (-0.6,),
-     "align_center": False, "feature_map_stride": 1},
+     "align_center": False, "feature_map_stride": 1,
+     "matched_threshold": 0.5, "unmatched_threshold": 0.35},
     {"class_name": "Cyclist", "anchor_sizes": ((1.76, 0.6, 1.73),),
      "anchor_rotations": (0.0, 1.57), "anchor_bottom_heights": (-0.6,),
-     "align_center": False, "feature_map_stride": 1},
+     "align_center": False, "feature_map_stride": 1,
+     "matched_threshold": 0.5, "unmatched_threshold": 0.35},
 )
+# DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS and OPTIMIZATION of configs/hgsfusion_vod.yaml
+_VOD_LOSS_WEIGHTS = {"cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+                     "code_weights": (1.0,) * 7}
+_VOD_OPTIMIZATION = {
+    "BATCH_SIZE_PER_DEVICE": 1, "NUM_EPOCHS": 25, "OPTIMIZER": "adam_onecycle",
+    "LR": 0.001, "WEIGHT_DECAY": 0.01, "MOMENTUM": 0.9, "MOMS": (0.95, 0.85),
+    "PCT_START": 0.4, "DIV_FACTOR": 10, "DECAY_STEP_LIST": (35, 45), "LR_DECAY": 0.1,
+    "LR_CLIP": 1e-07, "LR_WARMUP": False, "WARMUP_EPOCH": 1, "GRAD_NORM_CLIP": 10,
+}
+
+
+def _frozen(v):
+    """YAML lists as tuples, so configs compare and print alike."""
+    if isinstance(v, dict):
+        return {k: _frozen(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return tuple(_frozen(x) for x in v)
+    return v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +95,17 @@ class HGSFusionConfig:
     dir_limit_offset: float = 0.0
     code_size: int = 7
     compute_dtype: str = "float32"
-    # port-only: DENSE_HEAD.ANCHOR_GENERATOR_CONFIG and POST_PROCESSING
+    # port-only: DENSE_HEAD.ANCHOR_GENERATOR_CONFIG (with the target
+    # assigner's thresholds), LOSS_WEIGHTS, POST_PROCESSING and OPTIMIZATION
     anchor_generator: Tuple[Dict[str, Any], ...] = _VOD_ANCHORS
+    loss_weights: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: dict(_VOD_LOSS_WEIGHTS))
     score_thresh: float = 0.1
     nms_thresh: float = 0.01
     nms_pre_max_size: int = 4096
     nms_post_max_size: int = 500
+    optimization: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: dict(_VOD_OPTIMIZATION))
 
     @property
     def grid_size(self) -> Tuple[int, int, int]:
@@ -178,7 +206,9 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
          "anchor_rotations": tuple(float(r) for r in c["anchor_rotations"]),
          "anchor_bottom_heights": tuple(float(h) for h in c["anchor_bottom_heights"]),
          "align_center": c.get("align_center", False),
-         "feature_map_stride": c.get("feature_map_stride", 1)}
+         "feature_map_stride": c.get("feature_map_stride", 1),
+         "matched_threshold": float(c["matched_threshold"]),
+         "unmatched_threshold": float(c["unmatched_threshold"])}
         for c in head["ANCHOR_GENERATOR_CONFIG"])
     nms = model.get("POST_PROCESSING", {}).get("NMS_CONFIG", {})
     return HGSFusionConfig(
@@ -220,6 +250,8 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         dir_limit_offset=head.get("DIR_LIMIT_OFFSET", 0.0),
         compute_dtype=model.get("COMPUTE_DTYPE", "float32"),
         anchor_generator=anchors,
+        loss_weights=_frozen(head["LOSS_CONFIG"]["LOSS_WEIGHTS"]),
+        optimization=_frozen(cfg["OPTIMIZATION"]),
         score_thresh=model.get("POST_PROCESSING", {}).get("SCORE_THRESH", 0.1),
         nms_thresh=nms.get("NMS_THRESH", 0.01),
         nms_pre_max_size=nms.get("NMS_PRE_MAXSIZE", 4096),

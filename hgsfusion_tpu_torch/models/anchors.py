@@ -1,10 +1,16 @@
-"""Dense grid anchors (counterpart of ``hgsfusion_tpu/models/anchors.py``:
-generate_anchors, flatten_anchors). Static, computed with numpy."""
+"""Dense grid anchors and the axis-aligned target assigner (counterpart of
+``hgsfusion_tpu/models/anchors.py``: generate_anchors, flatten_anchors,
+_assign_single_class, TargetAssigner). The anchors are static, computed with
+numpy; the assignment runs on the anchors' device with no host read."""
 from __future__ import annotations
 
 from typing import List, Sequence
 
 import numpy as np
+import torch
+
+from ..utils.box_coder import ResidualCoder
+from ..utils.box_utils import boxes3d_nearest_bev_iou
 
 
 def generate_anchors(anchor_configs: Sequence[dict], grid_size, pc_range):
@@ -51,3 +57,82 @@ def flatten_anchors(all_anchors: List[np.ndarray]) -> np.ndarray:
     index = (((z*ny + y)*nx + x)*n_cls_sets + set)*n_rot + rot."""
     cat = np.concatenate(all_anchors, axis=-3)
     return cat.reshape(-1, cat.shape[-1])
+
+
+def _assign_single_class(anchors, gt_boxes, gt_mask, gt_classes, matched_thr: float,
+                         unmatched_thr: float, box_coder: ResidualCoder):
+    """Assign one class's anchors, batched over images.
+
+    anchors (A, 7); gt_boxes (B, M, 7); gt_mask (B, M) bool (this class and
+    valid); gt_classes (B, M) int. Returns labels (B, A) int32 (-1 ignored,
+    0 background), bbox_targets (B, A, 7) and reg_weights (B, A). An anchor
+    is positive at IoU >= matched_thr or as the best anchor of a gt (ties:
+    every anchor at the gt's maximum); a gt with no overlap forces nothing,
+    and an image without a gt of this class is all background. ``argmax``
+    takes the first maximum, as ``jnp.argmax`` does.
+    """
+    iou = boxes3d_nearest_bev_iou(anchors, gt_boxes)  # (B, A, M)
+    iou = torch.where(gt_mask[:, None, :], iou, torch.full_like(iou, -1.0))
+    anchor_max, anchor_arg = iou.max(dim=2).values, torch.argmax(iou, dim=2)
+    gt_max = iou.max(dim=1).values  # (B, M)
+    force_gt = gt_mask & (gt_max > 0)
+    force_anchor = ((iou == gt_max[:, None, :]) & force_gt[:, None, :]).any(dim=2)
+    pos = anchor_max >= matched_thr
+    bg = anchor_max < unmatched_thr
+    cls_of_anchor = torch.gather(gt_classes, 1, anchor_arg).to(torch.int32)
+
+    labels = torch.where(bg, 0, -1).to(torch.int32)
+    labels = torch.where(pos | force_anchor, cls_of_anchor, labels)
+    labels = torch.where(gt_mask.any(dim=1, keepdim=True), labels, torch.zeros_like(labels))
+
+    fg = labels > 0
+    matched = torch.gather(gt_boxes, 1, anchor_arg[..., None].expand(-1, -1, gt_boxes.shape[-1]))
+    targets = box_coder.encode(matched, anchors.expand_as(matched))
+    targets = torch.where(fg[..., None], targets, torch.zeros_like(targets))
+    return labels, targets, fg.to(torch.float32)
+
+
+class TargetAssigner:
+    """Axis-aligned target assigner over padded gt boxes (single-head anchor
+    order, that of ``flatten_anchors``). The per-class thresholds come from
+    each anchor config's ``matched_threshold`` / ``unmatched_threshold``."""
+
+    def __init__(self, anchor_configs, grid_size, pc_range, class_names,
+                 use_multihead: bool = False, device="cpu"):
+        if use_multihead:
+            raise NotImplementedError("the multi-head anchor order is not ported "
+                                      "(ROADMAP queue 1, the inherited zoo)")
+        self.class_names = list(class_names)
+        self.box_coder = ResidualCoder()
+        self.anchor_configs = list(anchor_configs)
+        all_anchors, _ = generate_anchors(anchor_configs, grid_size, pc_range)
+        self.per_class_anchors = [torch.from_numpy(a.reshape(-1, a.shape[-1])).to(device)
+                                  for a in all_anchors]
+        self.anchor_shapes = [a.shape for a in all_anchors]
+        self.flat_anchors = torch.from_numpy(flatten_anchors(all_anchors)).to(device)
+        self.matched = [float(c["matched_threshold"]) for c in anchor_configs]
+        self.unmatched = [float(c["unmatched_threshold"]) for c in anchor_configs]
+
+    def __call__(self, gt_boxes):
+        """gt_boxes (B, M, 8) padded, class id in the last column (0 = pad) ->
+        {box_cls_labels (B, A), box_reg_targets (B, A, 7), reg_weights (B, A)}
+        in the flat anchor order."""
+        gt7 = gt_boxes[..., :-1]
+        gt_cls = gt_boxes[..., -1].to(torch.int32)
+        b = gt_boxes.shape[0]
+        labels_c, targets_c, weights_c = [], [], []
+        for ci, anchors in enumerate(self.per_class_anchors):
+            class_id = self.class_names.index(self.anchor_configs[ci]["class_name"]) + 1
+            labels, targets, weights = _assign_single_class(
+                anchors, gt7, gt_cls == class_id, gt_cls, self.matched[ci],
+                self.unmatched[ci], self.box_coder)
+            nz, ny, nx, ns, nr, _ = self.anchor_shapes[ci]
+            # interleave the classes per location: (B, nz*ny*nx, ncls, ns*nr)
+            labels_c.append(labels.reshape(b, nz * ny * nx, ns * nr))
+            targets_c.append(targets.reshape(b, nz * ny * nx, ns * nr, targets.shape[-1]))
+            weights_c.append(weights.reshape(b, nz * ny * nx, ns * nr))
+        return {
+            "box_cls_labels": torch.cat(labels_c, dim=-1).reshape(b, -1),
+            "box_reg_targets": torch.cat(targets_c, dim=-2).reshape(b, -1, targets_c[0].shape[-1]),
+            "reg_weights": torch.cat(weights_c, dim=-1).reshape(b, -1),
+        }

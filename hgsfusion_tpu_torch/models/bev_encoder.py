@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (MaskedBatchNorm, bn_eval, compute_dtype, conv_nhwc,
+from .layers import (MaskedBatchNorm, batch_norm, compute_dtype, conv_nhwc,
                      upsample_bilinear_align_corners)
 
 
@@ -111,8 +111,10 @@ class _DownStage(nn.Sequential):
 
 class PillarResNet18BEV(nn.Module):
     """SpMiddlePillarEncoder18: 4 stages at strides 1/2/4/8, channels
-    32/64/128/256; returns the stages in ``out_indices``. Stages past the
-    last requested one are not run (their output would be discarded)."""
+    32/64/128/256; returns the stages in ``out_indices``. In eval mode the
+    stages past the last requested one are not run (their output would be
+    discarded); in train mode they run without autograd, for their BN
+    statistics."""
 
     def __init__(self, in_planes: int = 32, out_indices=(0, 1, 2), dtype=None):
         super().__init__()
@@ -129,9 +131,15 @@ class PillarResNet18BEV(nn.Module):
         x = x.to(compute_dtype(self.dtype))
         x = self.conv1[1](self.conv1[0](x, mask), mask)
         outs = [x]
-        for stage in (self.conv2, self.conv3, self.conv4)[:max(self.out_indices)]:
-            x, mask = stage(x, mask)
-            outs.append(x)
+        for i, stage in enumerate((self.conv2, self.conv3, self.conv4)):
+            if i < max(self.out_indices):
+                x, mask = stage(x, mask)
+                outs.append(x)
+            elif self.training:
+                # the JAX module runs every stage, so in train mode the unused
+                # ones still update their batch statistics
+                with torch.no_grad():
+                    x, mask = stage(x, mask)
         return [outs[i] for i in self.out_indices]
 
 
@@ -162,7 +170,7 @@ class FPNLSS(nn.Module):
     def _convs(self, seq, x):
         dt = compute_dtype(self.dtype)
         for i in (0, 3):
-            x = torch.relu(bn_eval(conv_nhwc(x, seq[i], dt), seq[i + 1], dt))
+            x = torch.relu(batch_norm(conv_nhwc(x, seq[i], dt), seq[i + 1], dt))
         return x
 
     def forward(self, feats):

@@ -11,8 +11,12 @@ Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 
 The module tree carries the reference pcdet names (``fusion_vfe.image_vfe.
 ffn.ddn.model.backbone...``, ``dense_head.conv_cls``, ...), so
-``state_dict()`` speaks the reference checkpoint's keys. Inference only:
-every BatchNorm uses its running statistics.
+``state_dict()`` speaks the reference checkpoint's keys. In eval mode (the
+default, and ``serve``) every BatchNorm uses its running statistics; in train
+mode every BatchNorm, the frozen backbone's included, normalizes with batch
+statistics and updates its running ones, as the JAX model under
+``train=True``. The backbone runs without autograd: nothing upstream of the
+trainable channel reduces trains.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from .resnet import ResNetDeepLabBackbone, preprocess_images
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "post_process", "resolve_device"]
 
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
-              "trans_cam_to_img", "lidar_aug_matrix")
+              "trans_cam_to_img", "lidar_aug_matrix", "gt_boxes")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -148,7 +152,8 @@ class HGSFusionModel(nn.Module):
     def image_features(self, batch):
         """Backbone + per-scale channel reduce: 4 NHWC maps."""
         ffn = self.fusion_vfe.image_vfe.ffn
-        taps = ffn.ddn.model.backbone(preprocess_images(batch["images"]))
+        with torch.no_grad():  # frozen: its BN statistics still update in train mode
+            taps = ffn.ddn.model.backbone(preprocess_images(batch["images"]))
         return [reduce(t) for reduce, t in zip(ffn.channel_reduce, taps)]
 
     def view_transform(self, feats, batch):
@@ -180,7 +185,9 @@ class HGSFusionModel(nn.Module):
                             cfg.nms_pre_max_size, cfg.nms_post_max_size)
 
     def serve(self, batch):
-        """One batch of frames -> fixed-shape detections (see post_process)."""
+        """One batch of frames -> fixed-shape detections (see post_process),
+        in eval mode."""
+        self.eval()
         with torch.inference_mode():
             return self.post_process(self(self.batch_to_device(batch)))
 

@@ -18,7 +18,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.quad_sample import grid_sample_2d_quad_kernel
-from .layers import bn_eval, compute_dtype
+from ..utils.common import device_constant
+from .layers import batch_norm, compute_dtype, matmul_f32
 
 
 def bin_depths(depth, mode: str, depth_min: float, depth_max: float, num_bins: int):
@@ -47,9 +48,9 @@ class FrustumGridGenerator:
 
     def lidar_grid(self, device):
         """Voxel-center lidar coordinates, (Y, X, Z, 3)."""
-        pc_min = torch.tensor(self.pc_range[:3], dtype=torch.float32, device=device)
-        pc_max = torch.tensor(self.pc_range[3:], dtype=torch.float32, device=device)
-        n = torch.tensor([self.nx, self.ny, self.nz], dtype=torch.float32, device=device)
+        pc_min = device_constant(self.pc_range[:3], torch.float32, device)
+        pc_max = device_constant(self.pc_range[3:], torch.float32, device)
+        n = device_constant((self.nx, self.ny, self.nz), torch.float32, device)
         voxel = (pc_max - pc_min) / n
         ix = torch.arange(self.nx, dtype=torch.float32, device=device) + 0.5
         iy = torch.arange(self.ny, dtype=torch.float32, device=device) + 0.5
@@ -69,7 +70,7 @@ class FrustumGridGenerator:
                     "BEV_AUG is enabled but the batch has no lidar_aug_matrix "
                     "— sampling would silently use the augmented (misaligned) "
                     "voxel positions")
-            inv_bda = torch.linalg.inv(bda)
+            inv_bda = torch.linalg.inv_ex(bda).inverse  # no host read of the check
             pts = (torch.einsum("byxzi,bji->byxzj", pts, inv_bda[:, :3, :3])
                    + inv_bda[:, None, None, None, :3, 3])
         cam = (torch.einsum("byxzi,bji->byxzj", pts, lidar_to_cam[:, :3, :3])
@@ -80,8 +81,8 @@ class FrustumGridGenerator:
         uv = p[..., 0:2] / p[..., 2:3]
         dbin = bin_depths(depth, **self.disc_cfg)
         h, w = image_shape
-        norm = torch.tensor([w - 1, h - 1, self.disc_cfg["num_bins"] - 1],
-                            dtype=torch.float32, device=uv.device)
+        norm = device_constant((w - 1, h - 1, self.disc_cfg["num_bins"] - 1), torch.float32,
+                               uv.device)
         grid = torch.cat([uv, dbin[..., None]], dim=-1) / norm * 2.0 - 1.0
         return torch.where(torch.isfinite(grid), grid, torch.full_like(grid, -2.0))
 
@@ -124,7 +125,15 @@ class FrustumToVoxelMultiScale(nn.Module):
         """features: list of (B, Hi, Wi, Ci); grid (B, Y, X, Z, 3) ->
         (B, Y, X, Z, out_channels) in the compute dtype."""
         cdt = compute_dtype(self.dtype)
-        conv, bn = self.channel_reduce
+        vox = self.accumulate(features, grid)
+        return torch.relu_(batch_norm(vox.to(cdt), self.channel_reduce[1], cdt))
+
+    def accumulate(self, features, grid):
+        """The f32 accumulator before the BN: the Conv3d bias plus, for each
+        gather group, its sampled features (compute dtype) times its kernel
+        rows (compute dtype), each product reaching the sum unrounded."""
+        cdt = compute_dtype(self.dtype)
+        conv = self.channel_reduce[0]
         kernel = conv.weight.reshape(conv.weight.shape[0], -1).t()  # (sum C, O)
         uv = grid[..., 0:2]
         # same-resolution maps share one gather (layers 2-4 all live at /8)
@@ -142,5 +151,5 @@ class FrustumToVoxelMultiScale(nn.Module):
             f = torch.cat([t.to(cdt) for t in fs], dim=-1) if len(fs) > 1 else fs[0].to(cdt)
             cg = f.shape[-1]
             sampled = grid_sample_2d_quad_kernel(f, uv)  # (B, Y, X, Z, cg)
-            flat.add_(sampled.reshape(-1, cg) @ kernel[k_off:k_off + cg].to(cdt))
-        return torch.relu_(bn_eval(vox.to(cdt), bn, cdt))
+            flat.add_(matmul_f32(sampled.reshape(-1, cg), kernel[k_off:k_off + cg].to(cdt)))
+        return vox

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import SEBlock, bn_eval, compute_dtype, conv_nhwc, resize_bilinear
+from .layers import SEBlock, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
 
 
 class FusionAfterBEVSE(nn.Module):
@@ -29,5 +29,5 @@ class FusionAfterBEVSE(nn.Module):
             image_bev = resize_bilinear(image_bev, radar_bev.shape[1:3])
         dt = compute_dtype(self.dtype)
         x = torch.cat([image_bev.to(radar_bev.dtype), radar_bev], dim=-1)
-        x = torch.relu(bn_eval(conv_nhwc(x, self.fuse_conv[0], dt), self.fuse_conv[1], dt))
+        x = torch.relu(batch_norm(conv_nhwc(x, self.fuse_conv[0], dt), self.fuse_conv[1], dt))
         return self.se_block(x)

@@ -3,9 +3,10 @@
 Counterpart of ``hgsfusion_tpu/models/layers.py``. Modules keep the
 reference pcdet/torchvision parameter names; their forward takes and returns
 channels-last tensors (B, H, W, C) and runs convolutions on a permuted NCHW
-view, so no copy is made on either side. Serving runs the running-statistics
-(eval) form of every BatchNorm; ``MaskedBatchNorm`` also has the
-batch-statistics form.
+view, so no copy is made on either side. Every BatchNorm goes through
+``batch_norm``, which follows its module's mode: running statistics in eval
+mode (serving), batch statistics with flax's running-average update in train
+mode.
 
 A ``dtype`` of None computes in float32, as a flax module with no dtype
 promotes bf16 activations against its f32 parameters.
@@ -31,6 +32,62 @@ def bn_eval(x, bn, dtype=None, dim: int = -1):
     shape[dim] = -1
     return torch.addcmul(shift.to(dtype).view(shape), x.to(dtype),
                          scale.to(dtype).view(shape))
+
+
+def batch_norm(x, bn, dtype=None, dim: int = -1):
+    """BatchNorm along ``dim`` in ``bn``'s mode, output in ``dtype`` (default:
+    x's dtype). ``bn`` is any BatchNorm module; eval mode is ``bn_eval``.
+
+    Train mode follows ``flax.linen.BatchNorm``, not torch: statistics over
+    every axis but ``dim`` in f32, the variance as max(0, E[x^2] - E[x]^2)
+    (flax's fast variance), and that *biased* variance both normalizes and
+    enters the running average, with flax momentum 1 - ``bn.momentum``.
+    """
+    if not bn.training:
+        return bn_eval(x, bn, dtype, dim)
+    dtype = x.dtype if dtype is None else dtype
+    dim = dim % x.dim()
+    axes = [d for d in range(x.dim()) if d != dim]
+    xf = x.to(torch.float32)
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = 1.0 - bn.momentum
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        bn.num_batches_tracked += 1
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """a @ b of two half-precision CUDA matrices, accumulated and returned in
+    f32 by one ``torch.mm(..., out_dtype=float32)``; its gradients are f32
+    products rounded once to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """(N, K) @ (K, O) -> f32, never rounded to a narrower type: the
+    ``einsum(..., preferred_element_type=float32)`` of the JAX package. A
+    bf16/f16 pair on CUDA takes one mixed-precision product; elsewhere the
+    operands are upcast (the CPU has no such product)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
+        return _MatmulF32.apply(a, b)
+    return a.to(torch.float32) @ b.to(torch.float32)
 
 
 def conv_nhwc(x, conv: nn.Conv2d, dtype):
@@ -59,8 +116,11 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x, mask, use_running_average: bool = True):
-        """x (..., C); mask (..., 1) bool/float broadcastable to x."""
+    def forward(self, x, mask, use_running_average: bool | None = None):
+        """x (..., C); mask (..., 1) bool/float broadcastable to x. Batch
+        statistics in train mode unless ``use_running_average`` says."""
+        if use_running_average is None:
+            use_running_average = not self.training
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
@@ -100,7 +160,7 @@ class ConvBNReLU(nn.Module):
 
     def forward(self, x):
         y = conv_nhwc(x, self.conv, compute_dtype(self.dtype))
-        return torch.relu(bn_eval(y, self.bn, torch.float32))
+        return torch.relu(batch_norm(y, self.bn, torch.float32))
 
 
 class SEBlock(nn.Module):

@@ -1,7 +1,9 @@
-"""DSM spatial sync: BEV collapse + radar-occupancy gating of the image BEV.
+"""DSM spatial sync: BEV collapse + radar-occupancy gating of the image BEV,
+and the occupancy loss.
 
 Counterpart of ``hgsfusion_tpu/models/occupancy.py`` (Conv2DCollapse,
-RadarOccupancy2D with serial ASPP and the MUL gate). Parameter names follow
+RadarOccupancy2D with serial ASPP and the MUL gate, rasterize_gt_boxes_bev,
+binary_focal_loss, occupancy_loss). Parameter names follow
 the reference RadarOccupancy2DV2: ``map_to_bev.block.{conv, bn}`` and
 ``pred_occupancy.{0,1,3,4,6,7,9}``.
 """
@@ -12,7 +14,8 @@ import math
 import torch
 import torch.nn as nn
 
-from .layers import bn_eval, compute_dtype, conv_nhwc, resize_bilinear
+from ..utils.common import device_constant
+from .layers import batch_norm, compute_dtype, conv_nhwc, resize_bilinear
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -40,7 +43,7 @@ class Conv2DCollapse(nn.Module):
         o = self.block.conv.weight.shape[0]
         k = self.block.conv.weight.reshape(o, c, z).permute(2, 1, 0).reshape(z * c, o)
         out = (voxel.to(cdt).reshape(b * y * x, z * c) @ k.to(cdt)).reshape(b, y, x, o)
-        return torch.relu_(bn_eval(out, self.block.bn, cdt))
+        return torch.relu_(batch_norm(out, self.block.bn, cdt))
 
 
 class RadarOccupancy2D(nn.Module):
@@ -80,7 +83,73 @@ class RadarOccupancy2D(nn.Module):
         p = self.pred_occupancy
         h = radar_bev
         for i in (0, 3, 6):
-            h = torch.relu(bn_eval(conv_nhwc(h, p[i], dt), p[i + 1], dt))
+            h = torch.relu(batch_norm(conv_nhwc(h, p[i], dt), p[i + 1], dt))
         h = conv_nhwc(h, p[9], torch.float32)
         occupancy = torch.sigmoid(h)
         return image_bev * occupancy, occupancy
+
+
+def _rotated_bev_footprint(gt_boxes, nx: int, ny: int, pc_range, voxel_size,
+                           max_half_extent: int):
+    """Rotated xy footprint of the gt boxes on the BEV voxel grid.
+
+    Per box, integer voxel offsets dx, dy in [-d, d) (d = floor(half-dim /
+    voxel)) are rotated by the heading (x toward y), floored, shifted by the
+    floored center voxel and clamped into the grid; a static (2K)^2 offset
+    grid with a per-box membership mask (K = ``max_half_extent``). Returns
+    (px, py, osel): (B, M, P) x/y voxel indices and the bool mask of the
+    real (in-extent, valid-box) offsets.
+    """
+    k = max_half_extent
+    dev = gt_boxes.device
+    vox = device_constant(tuple(voxel_size[:2]), torch.float32, dev)
+    low = device_constant(tuple(pc_range[:2]), torch.float32, dev)
+    center = torch.floor((gt_boxes[..., 0:2] - low) / vox)  # (B, M, 2)
+    halfdim = torch.floor(gt_boxes[..., 3:5] / 2.0 / vox)
+    heading = gt_boxes[..., 6]
+    valid = gt_boxes[..., -1] > 0
+
+    offs = torch.arange(-k, k, dtype=torch.float32, device=dev)
+    dxg, dyg = torch.meshgrid(offs, offs, indexing="ij")
+    dxg, dyg = dxg.reshape(-1), dyg.reshape(-1)  # (P,)
+    in_x = (dxg >= -halfdim[..., 0:1]) & (dxg < halfdim[..., 0:1])
+    in_y = (dyg >= -halfdim[..., 1:2]) & (dyg < halfdim[..., 1:2])
+    osel = in_x & in_y & valid[..., None]  # (B, M, P)
+
+    cosa = torch.cos(heading)[..., None]
+    sina = torch.sin(heading)[..., None]
+    rx = torch.floor(dxg * cosa - dyg * sina)
+    ry = torch.floor(dxg * sina + dyg * cosa)
+    px = torch.clamp(center[..., 0:1] + rx, 0, nx - 1).to(torch.int64)
+    py = torch.clamp(center[..., 1:2] + ry, 0, ny - 1).to(torch.int64)
+    return px, py, osel
+
+
+def rasterize_gt_boxes_bev(gt_boxes, grid_size, pc_range, voxel_size,
+                           max_half_extent: int = 48):
+    """Binary BEV occupancy target (B, ny, nx) f32 of the gt boxes (B, M, 8);
+    a box's footprint is limited to +/- ``max_half_extent`` voxels per axis."""
+    nx, ny = int(grid_size[0]), int(grid_size[1])
+    px, py, osel = _rotated_bev_footprint(gt_boxes, nx, ny, pc_range, voxel_size,
+                                          max_half_extent)
+    flat = torch.where(osel, py * nx + px, torch.full_like(px, nx * ny))  # dump slot
+    b = gt_boxes.shape[0]
+    tgt = torch.zeros((b, nx * ny + 1), dtype=torch.float32, device=gt_boxes.device)
+    tgt.scatter_(1, flat.reshape(b, -1), 1.0)
+    return tgt[:, :nx * ny].reshape(b, ny, nx)
+
+
+def binary_focal_loss(probs, labels, alpha: float = 0.25, gamma: float = 2.0,
+                      eps: float = 1e-7):
+    """Mean binary focal loss on probabilities."""
+    loss_pos = -alpha * torch.pow(1 - probs, gamma) * torch.log(probs + eps) * labels
+    loss_neg = -(1 - alpha) * torch.pow(probs, gamma) * torch.log(1 - probs + eps) * (1 - labels)
+    return torch.mean(loss_pos + loss_neg)
+
+
+def occupancy_loss(occupancy, gt_boxes, grid_size, pc_range, voxel_size,
+                   max_half_extent: int = 32):
+    """Focal loss of the predicted occupancy (B, ny, nx, 1) against the
+    rasterized gt boxes."""
+    target = rasterize_gt_boxes_bev(gt_boxes, grid_size, pc_range, voxel_size, max_half_extent)
+    return binary_focal_loss(occupancy[..., 0], target)

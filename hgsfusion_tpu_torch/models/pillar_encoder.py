@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.voxelize import points_to_pillar_ids, scatter_any_dense, scatter_max_dense
+from ..utils.common import device_constant
 from .layers import MaskedBatchNorm, compute_dtype
 
 
@@ -58,7 +59,7 @@ class PillarFeatureNet(nn.Module):
         occupancy mask (B, ny, nx, 1) bool)."""
         ny, nx = self.grid_shape
         pt_features = self._split_encode(points)
-        pc_min = torch.tensor(self.pc_range[:3], dtype=points.dtype, device=points.device)
+        pc_min = device_constant(tuple(self.pc_range[:3]), points.dtype, points.device)
         xyz_rel = points[..., 0:3] - pc_min
         ids, in_grid = points_to_pillar_ids(xyz_rel, points_valid, self.pillar_size, nx, ny)
         # z center is the absolute range midpoint while xyz is relative: an

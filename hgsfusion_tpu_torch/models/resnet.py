@@ -12,7 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import bn_eval, compute_dtype
+from ..utils.common import device_constant
+from .layers import batch_norm, compute_dtype
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -24,8 +25,8 @@ def preprocess_images(images):
     mask = images == 0
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    mean = device_constant(IMAGENET_MEAN, images.dtype, images.device)
+    std = device_constant(IMAGENET_STD, images.dtype, images.device)
     return torch.where(mask, torch.zeros((), dtype=images.dtype, device=images.device),
                        (images - mean) / std)
 
@@ -55,12 +56,12 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         """x: NCHW in the compute dtype."""
         dt = compute_dtype(self.dtype)
-        out = torch.relu_(bn_eval(_conv(x, self.conv1, dt), self.bn1, dt, 1))
-        out = torch.relu_(bn_eval(_conv(out, self.conv2, dt), self.bn2, dt, 1))
-        out = bn_eval(_conv(out, self.conv3, dt), self.bn3, dt, 1)
+        out = torch.relu_(batch_norm(_conv(x, self.conv1, dt), self.bn1, dt, 1))
+        out = torch.relu_(batch_norm(_conv(out, self.conv2, dt), self.bn2, dt, 1))
+        out = batch_norm(_conv(out, self.conv3, dt), self.bn3, dt, 1)
         identity = x
         if self.downsample is not None:
-            identity = bn_eval(_conv(x, self.downsample[0], dt), self.downsample[1], dt, 1)
+            identity = batch_norm(_conv(x, self.downsample[0], dt), self.downsample[1], dt, 1)
         return torch.relu_(out + identity)
 
 
@@ -87,7 +88,7 @@ class ResNetDeepLabBackbone(nn.Module):
         layer3 (1024, /8), layer4 (2048, /8)], NHWC in the compute dtype."""
         dt = compute_dtype(self.dtype)
         x = images.to(dt).permute(0, 3, 1, 2)
-        x = torch.relu_(bn_eval(_conv(x, self.conv1, dt), self.bn1, dt, 1))
+        x = torch.relu_(batch_norm(_conv(x, self.conv1, dt), self.bn1, dt, 1))
         x = F.max_pool2d(x, 3, 2, 1)
         taps = []
         for name in ("layer1", "layer2", "layer3", "layer4"):

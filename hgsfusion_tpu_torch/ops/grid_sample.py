@@ -1,10 +1,10 @@
 """Bilinear grid sampling (align_corners=True, zeros padding), NHWC layout.
 
 Counterpart of ``hgsfusion_tpu/ops/grid_sample.py``: the quad-packed
-single-gather sampler and its shared index/weight computation. This is the
-plain PyTorch version of the ``quad_sample_fwd`` CUDA kernel
-(``ops/quad_sample.py``); the CPU path and the tests use it, and it is the
-reference the kernel is held against on the card.
+single-gather sampler and its shared index/weight computation. These are the
+plain PyTorch versions of the ``quad_sample_fwd`` and ``quad_sample_bwd`` CUDA
+kernels (``ops/quad_sample.py``); the CPU path and the tests use them, and
+they are the references the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -81,3 +81,38 @@ def grid_sample_2d_quad(features, coords):
         + rows[..., 3 * c:4 * c] * w11[..., None]
     )
     return out.reshape(out_shape)
+
+
+def quad_sample_fwd_plain(fp, idx, w4):
+    """Plain version of the ``quad_sample_fwd`` kernel's reads.
+
+    fp (B, H+2, W+2, C) zero-padded map, idx (N,) flat top-left pixel of each
+    query in it, w4 (N, 4) tap weights (feature-dtype values carried in a
+    wider type) -> (N, C): the four taps combined in the feature dtype, in
+    the order and rounding of ``grid_sample_2d_quad``.
+    """
+    wp2, c = fp.shape[2], fp.shape[3]
+    flat = fp.reshape(-1, c)
+    i = idx.long()
+    w = w4.to(fp.dtype)
+    return (flat[i] * w[:, 0:1] + flat[i + 1] * w[:, 1:2]
+            + flat[i + wp2] * w[:, 2:3] + flat[i + wp2 + 1] * w[:, 3:4])
+
+
+def quad_sample_bwd_plain(grad_out, idx, w4, padded_shape):
+    """Plain version of the ``quad_sample_bwd`` kernel.
+
+    grad_out (N, C) cotangent of the sampled rows, idx (N,) flat top-left
+    pixel of each query in the padded map, w4 (N, 4) tap weights,
+    padded_shape (B, H+2, W+2, C). Adds w4[j, tap] * grad_out[j] at the four
+    tap pixels with ``index_add_`` in f32 (f64 for f64 input), then crops the
+    ring and casts once to grad_out's dtype -> (B, H, W, C).
+    """
+    b, hp2, wp2, c = padded_shape
+    acc_dtype = torch.promote_types(grad_out.dtype, torch.float32)
+    acc = torch.zeros((b * hp2 * wp2, c), dtype=acc_dtype, device=grad_out.device)
+    g = grad_out.reshape(-1, c).to(acc_dtype)
+    i = idx.long()
+    for tap, off in enumerate((0, 1, wp2, wp2 + 1)):
+        acc.index_add_(0, i + off, g * w4[:, tap:tap + 1].to(acc_dtype))
+    return acc.view(b, hp2, wp2, c)[:, 1:-1, 1:-1].to(grad_out.dtype)

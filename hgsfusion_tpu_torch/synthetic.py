@@ -9,9 +9,22 @@ LIDAR_TO_CAM = [[0, -1, 0, 0.1], [0, 0, -1, -0.2], [1, 0, 0, 0.3], [0, 0, 0, 1]]
 CAM_TO_IMG = [[700.0, 0, 960, 45.0], [0, 700, 250, -0.3], [0, 0, 1, 0.005]]
 
 
+# (class id, count) of the gt boxes of a synthetic frame, padded to MAX_BOXES
+# rows, and each class's anchor size (dx, dy, dz) and bottom height in the
+# VoD config
+GT_PER_CLASS = ((1, 3), (2, 2), (3, 2))
+MAX_BOXES = 8
+_CLASS_BOX = {1: ((3.9, 1.6, 1.56), -1.78), 2: ((0.8, 0.6, 1.73), -0.6),
+              3: ((1.76, 0.6, 1.73), -0.6)}
+
+
 def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0):
     """Radar points inside the range, a uniform-noise image of
-    ``cfg.image_size`` and the calibration above, as numpy arrays."""
+    ``cfg.image_size``, the calibration above and ``gt_boxes`` (B,
+    MAX_BOXES, 8) [x, y, z, dx, dy, dz, heading, class id] with the boxes of
+    ``GT_PER_CLASS`` (near their class anchor's size, inside the range) and
+    zero padding rows, as numpy arrays. The boxes are drawn after everything
+    else, so the served inputs do not depend on them."""
     rng = np.random.RandomState(seed)
     nf, pr = cfg.num_point_features, cfg.pc_range
     h, w = cfg.image_size
@@ -22,11 +35,25 @@ def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0):
     pts[..., 3:nf - 2] = rng.randn(b, max_points, nf - 5)
     pts[..., nf - 2] = (rng.rand(b, max_points) > 0.5).astype(np.float32)
     pts[..., nf - 1] = 1.0
+    images = rng.rand(b, h, w, 3).astype(np.float32)
+    classes = [c for c, n in GT_PER_CLASS for _ in range(n)]
+    gt = np.zeros((b, MAX_BOXES, 8), np.float32)
+    for i in range(b):
+        for j, cls in enumerate(classes):
+            size, bottom = _CLASS_BOX[cls]
+            dims = np.asarray(size) * rng.uniform(0.9, 1.1, 3)
+            gt[i, j, 0] = rng.uniform(pr[0] + 5.0, pr[3] - 5.0)
+            gt[i, j, 1] = rng.uniform(pr[1] + 5.0, pr[4] - 5.0)
+            gt[i, j, 2] = bottom + dims[2] / 2
+            gt[i, j, 3:6] = dims
+            gt[i, j, 6] = rng.uniform(-np.pi, np.pi)
+            gt[i, j, 7] = cls
     return {
         "points": pts,
         "points_valid": np.ones((b, max_points), bool),
-        "images": rng.rand(b, h, w, 3).astype(np.float32),
+        "images": images,
         "trans_lidar_to_cam": np.tile(np.array(LIDAR_TO_CAM, np.float32), (b, 1, 1)),
         "trans_cam_to_img": np.tile(np.array(CAM_TO_IMG, np.float32), (b, 1, 1)),
         "lidar_aug_matrix": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "gt_boxes": gt,
     }

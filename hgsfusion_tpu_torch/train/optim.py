@@ -1,0 +1,133 @@
+"""AdamW with the OneCycle LR / momentum schedules.
+
+Counterpart of ``hgsfusion_tpu/train/optim.py`` (annealing_cos,
+onecycle_lr_schedule, onecycle_mom_schedule, default_frozen_predicate and the
+``adam_onecycle`` branch of build_optimizer). The JAX package builds it from
+optax: clip_by_global_norm(GRAD_NORM_CLIP) -> adamw(b1 = the momentum
+schedule, b2 0.99, eps 1e-8, decoupled weight decay) under
+inject_hyperparams, masked so that the frozen DDN backbone gets no update,
+no decay and no state. ``AdamOneCycle`` writes that chain out on tensors:
+the schedules are read at a device-side step counter, so a step reads
+nothing back to the host.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+# the frozen DDN image backbone, in the port's (reference) module names
+FROZEN_PREFIX = "fusion_vfe.image_vfe.ffn.ddn.model.backbone."
+
+
+def annealing_cos(start: float, end: float, pct):
+    """Cosine anneal start -> end as pct goes 0 -> 1."""
+    cos_out = torch.cos(math.pi * pct) + 1.0
+    return end + (start - end) / 2.0 * cos_out
+
+
+def onecycle_lr_schedule(total_steps: int, lr_max: float, div_factor: float,
+                         pct_start: float):
+    """lr_max / div_factor -> lr_max over pct_start, then -> that / 1e4."""
+    low = lr_max / div_factor
+    a1 = int(total_steps * pct_start)
+
+    def schedule(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        up = annealing_cos(low, lr_max, torch.clamp(step / max(a1, 1), 0.0, 1.0))
+        down = annealing_cos(lr_max, low / 1e4,
+                             torch.clamp((step - a1) / max(total_steps - a1, 1), 0.0, 1.0))
+        return torch.where(step < a1, up, down)
+
+    return schedule
+
+
+def onecycle_mom_schedule(total_steps: int, moms, pct_start: float):
+    """beta1: moms[0] -> moms[1] over pct_start, then back."""
+    a1 = int(total_steps * pct_start)
+
+    def schedule(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        up = annealing_cos(moms[0], moms[1], torch.clamp(step / max(a1, 1), 0.0, 1.0))
+        down = annealing_cos(moms[1], moms[0],
+                             torch.clamp((step - a1) / max(total_steps - a1, 1), 0.0, 1.0))
+        return torch.where(step < a1, up, down)
+
+    return schedule
+
+
+def default_frozen_predicate(name: str) -> bool:
+    """True for parameters of the frozen DDN image backbone."""
+    return name.startswith(FROZEN_PREFIX)
+
+
+class AdamOneCycle:
+    """clip_by_global_norm -> AdamW under the OneCycle schedules, on the
+    trainable tensors ``params`` (a list), updated in place by ``step``.
+
+    As optax computes it: the clip scales by max_norm / ||g|| only when
+    ||g|| >= max_norm (no epsilon), over the trainable gradients alone; the
+    moments use the current beta1, and so does the bias correction; the
+    update is -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p). ``count`` is the
+    step counter the schedules read (schedule(0) at the first step).
+    """
+
+    b2, eps = 0.99, 1e-8  # the adam_onecycle recipe's
+
+    def __init__(self, params, lr_schedule, mom_schedule, weight_decay: float,
+                 grad_norm_clip: float):
+        self.params = list(params)
+        self.lr_schedule, self.mom_schedule = lr_schedule, mom_schedule
+        self.weight_decay, self.grad_norm_clip = weight_decay, grad_norm_clip
+        device = self.params[0].device
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+
+    @torch.no_grad()
+    def step(self, grads):
+        """Apply one update from ``grads`` (one per param; None reads as 0)."""
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < self.grad_norm_clip
+        grads = [torch.where(keep, g, g / g_norm * self.grad_norm_clip) for g in grads]
+        step_f = self.count.to(torch.float32)
+        lr, b1 = self.lr_schedule(step_f), self.mom_schedule(step_f)
+        count_inc = self.count + 1
+        bc1 = 1 - b1 ** count_inc.to(torch.float32)
+        bc2 = 1 - self.b2 ** count_inc.to(torch.float32)
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            upd = upd + self.weight_decay * p
+            p.add_((-lr) * upd)
+        self.count.copy_(count_inc)
+
+
+def build_optimizer(optim_cfg, total_steps: int, model):
+    """The ``adam_onecycle`` recipe of ``optim_cfg`` (OPTIMIZATION keys) over
+    ``model``'s parameters. Frozen parameters get ``requires_grad_(False)``
+    and no optimizer state. Returns (optimizer, lr_schedule)."""
+    name = optim_cfg.get("OPTIMIZER", "adam_onecycle")
+    if name in ("adam", "sgd"):
+        raise NotImplementedError(
+            f"OPTIMIZER: {name} is not ported (ROADMAP queue 1, off-default variants); "
+            "the port trains with adam_onecycle")
+    if name != "adam_onecycle":
+        raise NotImplementedError(name)
+    lr_schedule = onecycle_lr_schedule(total_steps, float(optim_cfg["LR"]),
+                                       float(optim_cfg["DIV_FACTOR"]),
+                                       float(optim_cfg["PCT_START"]))
+    mom_schedule = onecycle_mom_schedule(total_steps, [float(m) for m in optim_cfg["MOMS"]],
+                                         float(optim_cfg["PCT_START"]))
+    trainable = []
+    for pname, p in model.named_parameters():
+        frozen = default_frozen_predicate(pname)
+        p.requires_grad_(not frozen)
+        if not frozen:
+            trainable.append(p)
+    opt = AdamOneCycle(trainable, lr_schedule, mom_schedule,
+                       float(optim_cfg.get("WEIGHT_DECAY", 0.0)),
+                       float(optim_cfg.get("GRAD_NORM_CLIP", 10.0)))
+    return opt, lr_schedule

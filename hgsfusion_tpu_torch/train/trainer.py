@@ -1,0 +1,63 @@
+"""The training step (counterpart of ``hgsfusion_tpu/train/trainer.py``:
+model_inputs, _grad_step, make_train_step).
+
+One step is the forward pass in train mode, target assignment, the RPN and
+occupancy losses, the backward pass and the AdamW / OneCycle update. PyTorch
+runs it eagerly; nothing in it reads a tensor back to the host.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..models.anchor_head import anchor_head_loss
+from ..models.anchors import TargetAssigner
+from ..models.detector import BATCH_KEYS
+from ..models.occupancy import occupancy_loss
+
+
+def model_inputs(batch: Dict) -> Dict:
+    """The batch keys the model and its losses read."""
+    return {k: batch[k] for k in BATCH_KEYS if k in batch}
+
+
+def _grad_step(loss_fn, optimizer) -> Callable:
+    """loss_fn(batch) -> (loss, tb), then its gradients with respect to the
+    optimizer's parameters, then one update. The step returns (loss, tb),
+    detached."""
+
+    def step(batch):
+        loss, tb = loss_fn(batch)
+        grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
+        optimizer.step(grads)
+        return loss.detach(), {k: v.detach() for k, v in tb.items()}
+
+    return step
+
+
+# the occupancy target's footprint bound (voxels per axis) that the JAX
+# package's make_train_step passes (occupancy_loss defaults to 32)
+OCC_MAX_HALF_EXTENT = 48
+
+
+def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
+                    cfg) -> Callable:
+    """One training step: loss = rpn (cls + loc + dir) + occupancy focal.
+    ``batch`` holds tensors on the model's device, ``gt_boxes`` (B, M, 8)
+    among them; tb keys rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss,
+    loss_occ, loss. Puts ``model`` in train mode."""
+    anchors = assigner.flat_anchors
+
+    def loss_fn(batch):
+        model.train()
+        preds = model(model_inputs(batch))
+        targets = assigner(batch["gt_boxes"])
+        total, tb = anchor_head_loss(preds, targets, anchors, cfg.num_class, loss_weights,
+                                     dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins)
+        occ = occupancy_loss(preds["occupancy"], batch["gt_boxes"], cfg.grid_size,
+                             cfg.pc_range, cfg.voxel_size, OCC_MAX_HALF_EXTENT)
+        total = total + occ
+        return total, {**tb, "loss_occ": occ, "loss": total}
+
+    return _grad_step(loss_fn, optimizer)

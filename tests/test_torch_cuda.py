@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skips without a CUDA
+"""The port's CUDA kernels on the card (marked ``cuda``; skips without a CUDA
 device). Imports neither JAX nor the JAX package, so on a machine without
 JAX it runs on its own:
 
@@ -7,9 +7,10 @@ JAX it runs on its own:
 import pytest
 import torch
 
+from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.ops import quad_sample
-from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad
-from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel
+from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
+from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
 
 # bf16: the kernel sums in f32 and rounds once, the plain version rounds
 # every product and sum (the JAX package's bf16 bound, 0.04); f32: order of
@@ -39,10 +40,10 @@ def _inputs(seed, shape, dtype, device):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain(cuda, shape, dtype):
     f, c = _inputs(0, shape, dtype, cuda)
-    before = quad_sample.launches
+    before = quad_sample.launches[quad_sample.KERNEL]
     got = grid_sample_2d_quad_kernel(f, c)
     torch.cuda.synchronize()
-    assert quad_sample.launches == before + 1
+    assert quad_sample.launches[quad_sample.KERNEL] == before + 1
     assert got.shape == c.shape[:-1] + (shape[-1],) and got.dtype == dtype
     ref = grid_sample_2d_quad(f.cpu(), c.cpu())
     torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=0, atol=TOLS[dtype])
@@ -61,9 +62,104 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         quad_sample.quad_sample_fwd(fp.float(), idx, w4[:2])
 
 
+def _bwd_inputs(case, dtype, device):
+    """(grad_out, idx, w4, padded shape) of a ragged map with out-of-bounds
+    coords, or of a contention case: every query on one 2x2 patch with
+    weights 1/4 and small-integer cotangents, whose f32 sums are exact."""
+    g = torch.Generator().manual_seed(3)
+    if case == "ragged":
+        shape = (2, 11, 17, 40)
+        coords = torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3
+    else:
+        shape = (1, 9, 9, 64)
+        coords = torch.full((1, 64, 64, 2), -0.375)  # pixel 2.5: the patch's center
+    feats = torch.zeros(shape, dtype=dtype)
+    idx, w4 = quad_indices(feats, coords)
+    n = idx.numel()
+    if case == "ragged":
+        ct = torch.randn((n, shape[-1]), generator=g)
+    else:
+        ct = torch.randint(-4, 5, (n, shape[-1]), generator=g).float()
+    b, h, w, c = shape
+    return (ct.to(dtype).to(device), idx.to(device), w4.to(device), (b, h + 2, w + 2, c))
+
+
 @pytest.mark.cuda
-def test_kernel_backward_is_the_training_slice(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "contention"])
+def test_backward_kernel_matches_plain(cuda, case, dtype):
+    """Both sum in f32 in another order and round once: f32 atol 1e-5 x
+    (1 + max|ref|); bf16 one rounding, rtol 2^-7; contention exact."""
+    ct, idx, w4, padded = _bwd_inputs(case, dtype, cuda)
+    before = quad_sample.launches[quad_sample.BWD_KERNEL]
+    got = quad_sample.quad_sample_bwd(ct, idx, w4, padded)
+    torch.cuda.synchronize()
+    assert quad_sample.launches[quad_sample.BWD_KERNEL] == before + 1
+    ref = quad_sample_bwd_plain(ct.cpu(), idx.cpu(), w4.cpu(), padded)
+    assert got.shape == ref.shape and got.dtype == dtype
+    if case == "contention":
+        assert torch.equal(got.cpu(), ref)
+    elif dtype == torch.float32:
+        atol = 1e-5 * (1 + float(ref.abs().max()))
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=atol)
+    else:
+        torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_autograd_reaches_the_backward_kernel(cuda):
+    """A CUDA gradient launches quad_sample_bwd once and equals the plain
+    backward's; the coordinates get none."""
     f, c = _inputs(1, SHAPES[0], torch.float32, cuda)
-    out = grid_sample_2d_quad_kernel(f.requires_grad_(), c)
-    with pytest.raises(NotImplementedError, match="_scatter_outer"):
-        out.sum().backward()
+    f.requires_grad_()
+    c.requires_grad_()
+    before = dict(quad_sample.launches)
+    out = grid_sample_2d_quad_kernel(f, c)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    (out * cot).sum().backward()
+    assert quad_sample.launches[quad_sample.BWD_KERNEL] == before[quad_sample.BWD_KERNEL] + 1
+    assert c.grad is None
+    fc = f.detach().cpu().requires_grad_()
+    (grid_sample_2d_quad_kernel(fc, c.detach().cpu()) * cot.cpu()).sum().backward()
+    torch.testing.assert_close(f.grad.cpu(), fc.grad, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("k", [64, 192])
+def test_matmul_f32_keeps_each_product_unrounded(cuda, k, dtype):
+    """The f2v reduce's product on the card: half-precision operands, one
+    f32-accumulating product. Forward: the f64 product of the same operands
+    within f32 rounding of a (K + 1)-term sum; gradients: the f64 products
+    of the f32 cotangent, rounded once to the operands' dtype."""
+    g = torch.Generator().manual_seed(5)
+    a = torch.randn((517, k), generator=g).to(dtype).to(cuda).requires_grad_()
+    b = (0.25 * torch.randn((k, 128), generator=g)).to(dtype).to(cuda).requires_grad_()
+    cot = torch.randn((517, 128), generator=g).to(cuda)
+    out = matmul_f32(a, b)
+    assert out.dtype == torch.float32 and type(out.grad_fn).__name__ == "_MatmulF32Backward"
+    (out * cot).sum().backward()
+    assert a.grad.dtype == dtype and b.grad.dtype == dtype
+    u, half_u = 2.0 ** -24, {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}[dtype]
+    a64, b64, c64 = a.detach().double(), b.detach().double(), cot.double()
+    checks = (
+        (out, a64 @ b64, a64.abs() @ b64.abs(), k, 0.0),
+        (a.grad, c64 @ b64.t(), c64.abs() @ b64.abs().t(), 128, half_u),
+        (b.grad, a64.t() @ c64, a64.abs().t() @ c64.abs(), 517, half_u),
+    )
+    for got, ref, mag, n, rnd in checks:
+        tol = rnd * ref.abs() + (1 + rnd) * (n + 1) * u * mag
+        assert bool(((got.double() - ref).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_backward_kernel_rejects_what_it_does_not_take(cuda):
+    ct = torch.zeros((3, 8), device=cuda, dtype=torch.float64)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    w4 = torch.zeros((3, 4), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        quad_sample.quad_sample_bwd(ct, idx, w4, (1, 4, 5, 8))
+    with pytest.raises(ValueError, match="shapes"):
+        quad_sample.quad_sample_bwd(ct.float(), idx, w4, (1, 4, 5, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        quad_sample.quad_sample_bwd(ct.float().cpu(), idx.cpu(), w4.cpu(), (1, 4, 5, 8))

@@ -53,9 +53,21 @@ def test_vod_pallas_preset_equals_yaml():
     ref = dataclasses.replace(jax_model_config(jax_load_config(YAML)),
                               compute_dtype="bfloat16")
     assert port_yaml == port_config(ref, **{
-        f: getattr(port_yaml, f) for f in ("anchor_generator", "score_thresh",
+        f: getattr(port_yaml, f) for f in ("anchor_generator", "loss_weights", "score_thresh",
                                            "nms_thresh", "nms_pre_max_size",
-                                           "nms_post_max_size")})
+                                           "nms_post_max_size", "optimization")})
+    # the fields the JAX package reads from the YAML beside its model config:
+    # the assigner's thresholds, the loss weights and the OPTIMIZATION block
+    yaml = jax_load_config(YAML)
+    for got, want in zip(port_yaml.anchor_generator,
+                         yaml.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG):
+        assert (got["matched_threshold"], got["unmatched_threshold"]) == (
+            want["matched_threshold"], want["unmatched_threshold"])
+    frozen = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}  # noqa: E731
+    assert port_yaml.loss_weights == frozen(yaml.MODEL.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS)
+    assert port_yaml.optimization == frozen(yaml.OPTIMIZATION)
+    assert port_yaml.optimization["OPTIMIZER"] == "adam_onecycle"
+    assert port_yaml.optimization["BATCH_SIZE_PER_DEVICE"] == 1
     # the anchor generator config, through the flagship's flat anchors
     jax_anchor_cfg = jax_load_config(YAML).MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
     np.testing.assert_array_equal(
