@@ -13,11 +13,15 @@ Phases, each of which must pass or the script exits non-zero:
    small ragged shape with out-of-bounds coords, in bf16 (atol 0.04) and f32
    (atol 1e-5), with the kernel's time beside its memory bound, the plain
    version's time and ``F.grid_sample``'s (a yardstick the port never calls);
-4. kernel vs plain, backward: ``quad_sample_bwd`` against its plain version at
-   the same flagship shapes, the ragged shape and a contention shape (every
-   query on one 2x2 patch, exact arithmetic, compared bit for bit), in bf16
-   and f32 (tolerances at ``bwd_case``), with its time beside its bound, the
-   plain version's and ``aten.grid_sampler_2d_backward``'s (a yardstick);
+4. kernel vs plain, backward: ``quad_sample_bwd`` (with its bins,
+   ``quad_bins``) against its plain version at the same flagship shapes, the
+   ragged shape, a contention shape (every query on one 2x2 patch) and a hot
+   tile (most of 1M queries on three pixels of a map of B's size), the last
+   two in exact arithmetic and compared bit for bit, in bf16 and f32
+   (tolerances at ``bwd_case``); at the flagship shapes two calls compared
+   bit for bit, the bins' and the kernel's times and their sum beside the
+   bound, the contention statistics, the plain version's time and
+   ``aten.grid_sampler_2d_backward``'s (a yardstick);
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -29,14 +33,15 @@ Phases, each of which must pass or the script exits non-zero:
 7. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
    516x1936, 320x320x31 voxels, 8192 radar points) with random weights from a
    seed, one warm-up frame, then 3 frames in bf16 with the launch counters at
-   0 before and 2 forward launches per frame after; per-stage times, frames/s
-   and peak device memory;
+   0 before and 2 forward launches per frame after (no backward launch and
+   no bins built); per-stage times, frames/s and peak device memory;
 8. train: the same config and batch with its ``gt_boxes``, one warm-up
    training step, then 3 steps with the counters at 0 before and 2 forward
-   and 2 backward launches per step after; finite losses, a positive anchor,
-   the frozen backbone bit-identical, every other trainable tensor moved,
-   the backbone's BN statistics moved; step times, peak memory, loss terms
-   and the device time by kernel of one profiled step.
+   and 2 backward launches per step after (and 2 bins built); finite
+   losses, a positive anchor, the frozen backbone bit-identical, every other
+   trainable tensor moved, the backbone's BN statistics moved; step times,
+   peak memory, loss terms and the device time by kernel of one profiled
+   step.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -198,6 +203,16 @@ def phase_kernel_vs_plain(dev):
     return rows
 
 
+def contention(idx, w4, padded):
+    """Tap adds with a nonzero weight, the pixels that receive any, and the
+    most adds one pixel receives."""
+    b, hp2, wp2, _ = padded
+    taps = torch.cat([idx.long() + o for o in (0, 1, wp2, wp2 + 1)])
+    adds = torch.bincount(taps[w4.t().reshape(-1) != 0], minlength=b * hp2 * wp2)
+    return {"tap_adds": int(adds.sum()), "pixels_receiving": int((adds > 0).sum()),
+            "max_adds_per_pixel": int(adds.max())}
+
+
 def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
     """``quad_sample_bwd`` vs its plain version on one input.
 
@@ -206,7 +221,11 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
     element, where S is the pixel's sum of |w g| over its n contributions
     (the order bound of an f32 sum, u = 2^-24). ``exact``: small-integer
     cotangents and weights of 1/4, whose sums are exact in f32 whatever the
-    order: compared bit for bit.
+    order (weights that are multiples of 1/16 keep them exact too): compared
+    bit for bit. Every case times the bins and the kernel; ``timed`` also
+    compares two calls bit for bit (the kernel uses no atomics) and times
+    both together (``ms``, what a training step pays), the plain version and
+    the library call, beside the bound and the contention statistics.
     """
     dev = coords.device
     b, h, w, c = shape
@@ -217,32 +236,44 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
         g = torch.randint(-4, 5, (n, c), generator=gen).to(dtype).to(dev)
     else:
         g = torch.randn((n, c), generator=gen).to(dtype).to(dev)
-    got = quad_sample.quad_sample_bwd(g, idx, w4, padded)
+    bins = quad_sample.quad_bins(idx, w4, padded)
+    got = quad_sample.quad_sample_bwd(g, idx, w4, padded, bins)
     torch.cuda.synchronize()
     ref = quad_sample_bwd_plain(g, idx, w4, padded)
     diff = (got.float() - ref.float()).abs()
+    stats = contention(idx, w4, padded)
     if exact:
         tol = torch.zeros_like(diff)
     elif dtype == torch.float32:
         tol = torch.full_like(diff, F32_TOL * (1 + float(ref.abs().max())))
     else:
         s_abs = quad_sample_bwd_plain(g.float().abs(), idx, w4.abs(), padded)
-        taps = torch.cat([idx.long() + o for o in (0, 1, w + 2, w + 3)])
-        n_max = int(torch.bincount(taps[w4.t().reshape(-1) != 0]).max())
-        tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + n_max * F32_U * s_abs
+        tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + stats["max_adds_per_pixel"] * F32_U * s_abs
     row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
            "queries": n, "max_abs_err": float(diff.max()),
-           "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max()) if not exact else 0.0}
+           "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max()) if not exact else 0.0,
+           "bin_ms": cuda_ms(lambda: quad_sample.quad_bins(idx, w4, padded)),
+           "kernel_ms": cuda_ms(lambda: quad_sample.quad_sample_bwd(g, idx, w4, padded, bins))}
     if timed:
+        again = quad_sample.quad_sample_bwd(g, idx, w4, padded,
+                                            quad_sample.quad_bins(idx, w4, padded))
+        row["bit_equal_rerun"] = bool(torch.equal(got, again))
+        if not row["bit_equal_rerun"]:
+            raise AssertionError(f"{name} {row['dtype']}: two calls differ")
+        row.update(stats)
         isz = g.element_size()
-        nbytes = n * c * isz + n * 4 + n * 16 + b * (h + 2) * (w + 2) * c * 4
-        ops = 2.0 * 4 * n * c  # an f32 multiply-add per tap and channel
+        valid = int(bins[1][-1])  # queries with a nonzero weight
+        # idx and w4 of every query, the cotangent rows with a nonzero
+        # weight, the output once
+        nbytes = n * (4 + 16) + valid * c * isz + b * h * w * c * isz
+        ops = 2.0 * stats["tap_adds"] * c  # an f32 multiply-add per nonzero tap and channel
+        row["valid_queries"] = valid
         row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
         row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S \
             else "operations"
         row["bytes"] = nbytes
-        # the wrapper: zero the f32 map, the kernel, crop and cast
-        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_bwd(g, idx, w4, padded))
+        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_bwd(
+            g, idx, w4, padded, quad_sample.quad_bins(idx, w4, padded)))
         row["plain_ms"] = cuda_ms(lambda: quad_sample_bwd_plain(g, idx, w4, padded),
                                   iters=3, warmup=1)
         # the same input gradient from one PyTorch call, on the NCHW map
@@ -258,6 +289,25 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
     return row
 
 
+# hot tile: a map of B's size with H - 1 and W - 1 powers of 2, so that
+# quarter-pixel coords normalize exactly and every weight is a multiple of 1/16
+HOT_SHAPE = (1, 65, 257, 192)
+
+
+def hot_coords(dev, gen, n: int = 1 << 20):
+    """(1, n, 2) coords on the quarter-pixel grid of HOT_SHAPE: 90% within
+    a quarter pixel of three points, the rest spread over the map and beyond
+    it."""
+    _, h, w, _ = HOT_SHAPE
+    lo, hi = torch.tensor([-2.0, -2.0]), torch.tensor([w + 1.0, h + 1.0])
+    px = lo + torch.floor(torch.rand((n, 2), generator=gen) * (hi - lo) * 4) / 4
+    points = torch.tensor([[120.5, 30.25], [121.0, 31.0], [7.75, 60.5]])
+    k = n * 9 // 10
+    px[:k] = (points[torch.randint(0, 3, (k,), generator=gen)]
+              + torch.randint(-1, 2, (k, 2), generator=gen) / 4)
+    return (px / torch.tensor([w - 1.0, h - 1.0]) * 2 - 1).reshape(1, n, 2).to(dev)
+
+
 def phase_kernel_vs_plain_bwd(dev):
     uv = flagship_uv(dev)
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -267,12 +317,16 @@ def phase_kernel_vs_plain_bwd(dev):
         rows.append(bwd_case(name, shape, uv, torch.float32, gen, timed=False))
     coords = (torch.rand((2, 37, 3, 2), generator=gen) * 2.6 - 1.3).to(dev)
     # contention: 65,536 queries at the center of one 2x2 patch of a 9x9
-    # map (normalized -0.375 is pixel 2.5 exactly), all weights 1/4
+    # map (normalized -0.375 is pixel 2.5 exactly), all weights 1/4; hot
+    # tile: most queries on a few pixels, weights multiples of 1/16; both
+    # exact in f32 whatever the order
     centre = torch.full((1, 256, 256, 2), -0.375, device=dev)
+    hot = hot_coords(dev, gen)
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(bwd_case("ragged", (2, 11, 17, 40), coords, dtype, gen, timed=False))
         rows.append(bwd_case("contention", (1, 9, 9, 64), centre, dtype, gen, timed=False,
                              exact=True))
+        rows.append(bwd_case("hot_tile", HOT_SHAPE, hot, dtype, gen, timed=False, exact=True))
     return rows
 
 
@@ -373,7 +427,7 @@ def phase_train(dev):
         terms.append({k: float(v) for k, v in tb.items()})
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 6}
+    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 6, quad_sample.BINS: 6}
     if launches != want:
         raise AssertionError(f"launches in 3 steps {launches}, want {want}")
     for t in terms:
@@ -446,7 +500,7 @@ def phase_serve(dev):
         wall.append(time.perf_counter() - t0)
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 0}
+    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
     if launches != want:
         raise AssertionError(f"launches in 3 frames {launches}, want {want}")
     n_valid = int(dets["valid"].sum())

@@ -98,7 +98,7 @@ class TargetAssigner:
     each anchor config's ``matched_threshold`` / ``unmatched_threshold``."""
 
     def __init__(self, anchor_configs, grid_size, pc_range, class_names,
-                 use_multihead: bool = False, device="cpu"):
+                 use_multihead: bool = False, device="cuda"):
         if use_multihead:
             raise NotImplementedError("the multi-head anchor order is not ported "
                                       "(ROADMAP queue 1, the inherited zoo)")

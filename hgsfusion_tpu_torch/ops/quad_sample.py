@@ -9,9 +9,11 @@ layout) compute one function and become the one CUDA kernel
 glue computes the top-left tap index and the four tap weights of every query
 in PyTorch, as ``_indices`` does outside the TPU kernels: the weights in the
 feature dtype, then carried in f32. The forward reads the four taps straight
-from the zero-padded map, sums them in f32 and rounds once; the backward adds
-the weighted cotangent onto an f32 padded map with atomics, and the glue crops
-the ring and rounds once.
+from the zero-padded map, sums them in f32 and rounds once. When the map
+needs a gradient, the forward also bins the queries by their top-left pixel
+(``quad_bins``, PyTorch's sort and search on the card); the backward kernel
+sums each output tile from those bins in shared memory, rounds once and
+writes the cropped gradient.
 
 A CPU tensor takes the plain versions (``ops/grid_sample.py``); a CUDA tensor
 launches the kernels or raises. The coordinates get no gradient: the grid is
@@ -30,18 +32,30 @@ from .grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain, quad_taps
 
 KERNEL = "quad_sample_fwd"
 BWD_KERNEL = "quad_sample_bwd"
-# launches of each kernel in this process; callers may reset them to 0
-launches = {KERNEL: 0, BWD_KERNEL: 0}
+BINS = "quad_bins"
+# launches of each kernel in this process, and the bins built on the card
+# for the backward kernel (PyTorch calls, no kernel of this package);
+# callers may reset them to 0
+launches = {KERNEL: 0, BWD_KERNEL: 0, BINS: 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each kernel's source in csrc/ and C arguments
+_ENTRIES = {
+    # fp, idx, w4, out, n, c, row_pixels, dtype, stream
+    KERNEL: ("quad_sample", [_P, _P, _P, _P, _I64, _I, _I64, _I, _P]),
+    # ct, order, start, w4, out, b, h, w, c, dtype, stream
+    BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+
 @functools.cache
-def _entry(source: str, name: str):
+def _entry(name: str):
+    source, argtypes = _ENTRIES[name]
     fn = getattr(native.load(source), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,7 +101,7 @@ def quad_sample_fwd(fp, idx, w4):
         raise ValueError(f"{KERNEL}: bad shapes fp {tuple(fp.shape)}")
     n, c = idx.shape[0], fp.shape[-1]
     out = torch.empty((n, c), dtype=fp.dtype, device=fp.device)
-    err = _entry("quad_sample", KERNEL)(
+    err = _entry(KERNEL)(
         fp.data_ptr(), idx.data_ptr(), w4.data_ptr(), out.data_ptr(), n, c,
         fp.shape[2], _DTYPE_CODES[fp.dtype], torch.cuda.current_stream(fp.device).cuda_stream)
     if err != 0:
@@ -96,25 +110,66 @@ def quad_sample_fwd(fp, idx, w4):
     return out
 
 
-def quad_sample_bwd(grad_out, idx, w4, padded_shape):
+def quad_bins(idx, w4, padded_shape):
+    """The backward kernel's bins: the queries with any nonzero weight,
+    grouped by their top-left pixel.
+
+    Returns ``order`` (N,) int32, the queries sorted by ``idx``, stable in
+    query order, those whose four weights are all 0 last (under the key
+    B*(H+2)*(W+2), past every pixel); and ``start`` (B*(H+2)*(W+2) + 1,)
+    int32, each pixel's run in ``order`` (``start[-1]`` counts the queries
+    with a nonzero weight). No step reads back to the host.
+    """
+    b, hp2, wp2, _ = padded_shape
+    pixels = b * hp2 * wp2
+    # any of a query's four weights nonzero: its four flags read as one int32
+    valid = (w4 != 0).view(torch.int32).squeeze(1) != 0
+    key = torch.where(valid, idx, pixels)
+    lo = 0
+    if pixels < 2**16:  # 16-bit keys, shifted to keep their order: half the radix passes
+        lo = -2**15
+        key = (key + lo).to(torch.int16)
+    keys, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(
+        keys, torch.arange(lo, lo + pixels + 1, dtype=keys.dtype, device=keys.device),
+        out_int32=True)
+    if idx.is_cuda:
+        launches[BINS] += 1
+    return order.to(torch.int32), start
+
+
+def quad_sample_bwd(grad_out, idx, w4, padded_shape, bins):
     """Launch the backward kernel: ``grad_out`` (N, C) cotangent of the
     sampled rows, ``idx`` (N,) int32, ``w4`` (N, 4) f32, ``padded_shape``
-    (B, H+2, W+2, C) -> the map's gradient (B, H, W, C) in grad_out's dtype.
-    Same contract as ``quad_sample_bwd_plain``."""
+    (B, H+2, W+2, C), ``bins`` = ``quad_bins(idx, w4, padded_shape)`` -> the
+    map's gradient (B, H, W, C) in grad_out's dtype. Same contract as
+    ``quad_sample_bwd_plain``."""
     _check(BWD_KERNEL, grad_out, idx, w4)
     b, hp2, wp2, c = padded_shape
-    if grad_out.shape != (idx.shape[0], c):
+    n = idx.shape[0]
+    if grad_out.shape != (n, c):
         raise ValueError(f"{BWD_KERNEL}: bad shapes grad_out {tuple(grad_out.shape)} "
                          f"for the padded map {tuple(padded_shape)}")
-    acc = torch.zeros((b, hp2, wp2, c), dtype=torch.float32, device=grad_out.device)
-    err = _entry("quad_sample_bwd", BWD_KERNEL)(
-        grad_out.data_ptr(), idx.data_ptr(), w4.data_ptr(), acc.data_ptr(), idx.shape[0], c,
-        wp2, _DTYPE_CODES[grad_out.dtype],
+    if 4 * n >= 2**31:
+        raise ValueError(f"{BWD_KERNEL}: {n} queries exceed int32 tile lists")
+    order, start = bins
+    for arg, t, length in (("order", order, n), ("start", start, b * hp2 * wp2 + 1)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{BWD_KERNEL}: bins {arg} must be int32, got {t.dtype}")
+        if t.device != grad_out.device or not t.is_contiguous():
+            raise ValueError(f"{BWD_KERNEL}: bins {arg} must be contiguous on {grad_out.device}")
+        if t.shape != (length,):
+            raise ValueError(f"{BWD_KERNEL}: bad shapes bins {arg} {tuple(t.shape)}, "
+                             f"want ({length},)")
+    out = torch.empty((b, hp2 - 2, wp2 - 2, c), dtype=grad_out.dtype, device=grad_out.device)
+    err = _entry(BWD_KERNEL)(
+        grad_out.data_ptr(), order.data_ptr(), start.data_ptr(), w4.data_ptr(), out.data_ptr(),
+        b, hp2 - 2, wp2 - 2, c, _DTYPE_CODES[grad_out.dtype],
         torch.cuda.current_stream(grad_out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
     launches[BWD_KERNEL] += 1
-    return acc[:, 1:-1, 1:-1].to(grad_out.dtype)
+    return out
 
 
 class _QuadSample(torch.autograd.Function):
@@ -130,15 +185,16 @@ class _QuadSample(torch.autograd.Function):
         fwd = quad_sample_fwd if features.is_cuda else quad_sample_fwd_plain
         out = fwd(fp, idx, w4).reshape(coords.shape[:-1] + (c,))
         if ctx.needs_input_grad[0]:
-            ctx.save_for_backward(idx, w4)
+            bins = quad_bins(idx, w4, ctx.padded_shape) if features.is_cuda else ()
+            ctx.save_for_backward(idx, w4, *bins)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        idx, w4 = ctx.saved_tensors
+        idx, w4, *bins = ctx.saved_tensors
         g = grad_out.to(ctx.dtype).reshape(idx.shape[0], -1)
         if g.is_cuda:
-            return quad_sample_bwd(g.contiguous(), idx, w4, ctx.padded_shape), None
+            return quad_sample_bwd(g.contiguous(), idx, w4, ctx.padded_shape, bins), None
         return quad_sample_bwd_plain(g, idx, w4, ctx.padded_shape), None
 
 

@@ -62,40 +62,57 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         quad_sample.quad_sample_fwd(fp.float(), idx, w4[:2])
 
 
-def _bwd_inputs(case, dtype, device):
-    """(grad_out, idx, w4, padded shape) of a ragged map with out-of-bounds
-    coords, or of a contention case: every query on one 2x2 patch with
-    weights 1/4 and small-integer cotangents, whose f32 sums are exact."""
+BWD_CASES = ["ragged", "contention", "hot"]
+BWD_CHANNELS = [40, 64, 192, 3]
+
+
+def _bwd_inputs(case, c, dtype, device):
+    """(grad_out, idx, w4, padded shape, bins) of a ragged map with
+    out-of-bounds coords; a contention case, every query on one 2x2 patch
+    with weights 1/4 and small-integer cotangents, whose f32 sums are exact;
+    or a hot case, 80% of the queries within 0.2 px of two pixels and the
+    rest spread over the map and beyond it."""
     g = torch.Generator().manual_seed(3)
     if case == "ragged":
-        shape = (2, 11, 17, 40)
+        shape = (2, 11, 17, c)
         coords = torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3
-    else:
-        shape = (1, 9, 9, 64)
+    elif case == "contention":
+        shape = (1, 9, 9, c)
         coords = torch.full((1, 64, 64, 2), -0.375)  # pixel 2.5: the patch's center
+    else:
+        shape = (1, 20, 37, c)
+        coords = torch.rand((1, 2000, 2), generator=g) * 2.6 - 1.3
+        hot = torch.tensor([[-0.2, 0.1], [0.55, -0.6]])[torch.randint(0, 2, (1600,), generator=g)]
+        coords[0, :1600] = hot + (torch.rand((1600, 2), generator=g) - 0.5) * 0.02
     feats = torch.zeros(shape, dtype=dtype)
     idx, w4 = quad_indices(feats, coords)
     n = idx.numel()
-    if case == "ragged":
-        ct = torch.randn((n, shape[-1]), generator=g)
+    if case == "contention":
+        ct = torch.randint(-4, 5, (n, c), generator=g).float()
     else:
-        ct = torch.randint(-4, 5, (n, shape[-1]), generator=g).float()
-    b, h, w, c = shape
-    return (ct.to(dtype).to(device), idx.to(device), w4.to(device), (b, h + 2, w + 2, c))
+        ct = torch.randn((n, c), generator=g)
+    b, h, w, _ = shape
+    padded = (b, h + 2, w + 2, c)
+    idx, w4 = idx.to(device), w4.to(device)
+    return ct.to(dtype).to(device), idx, w4, padded, quad_sample.quad_bins(idx, w4, padded)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["ragged", "contention"])
-def test_backward_kernel_matches_plain(cuda, case, dtype):
+@pytest.mark.parametrize("c", BWD_CHANNELS)
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, case, c, dtype):
     """Both sum in f32 in another order and round once: f32 atol 1e-5 x
-    (1 + max|ref|); bf16 one rounding, rtol 2^-7; contention exact."""
-    ct, idx, w4, padded = _bwd_inputs(case, dtype, cuda)
+    (1 + max|ref|); bf16 one rounding, rtol 2^-7, plus the order bound of an
+    f32 sum, n u S (n the pixel's contributions, S the sum of their
+    magnitudes, u = 2^-24); contention exact."""
+    ct, idx, w4, padded, bins = _bwd_inputs(case, c, dtype, cuda)
     before = quad_sample.launches[quad_sample.BWD_KERNEL]
-    got = quad_sample.quad_sample_bwd(ct, idx, w4, padded)
+    got = quad_sample.quad_sample_bwd(ct, idx, w4, padded, bins)
     torch.cuda.synchronize()
     assert quad_sample.launches[quad_sample.BWD_KERNEL] == before + 1
-    ref = quad_sample_bwd_plain(ct.cpu(), idx.cpu(), w4.cpu(), padded)
+    ct, idx, w4 = ct.cpu(), idx.cpu(), w4.cpu()
+    ref = quad_sample_bwd_plain(ct, idx, w4, padded)
     assert got.shape == ref.shape and got.dtype == dtype
     if case == "contention":
         assert torch.equal(got.cpu(), ref)
@@ -103,18 +120,37 @@ def test_backward_kernel_matches_plain(cuda, case, dtype):
         atol = 1e-5 * (1 + float(ref.abs().max()))
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=atol)
     else:
-        torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=2.0 ** -7, atol=1e-6)
+        s_abs = quad_sample_bwd_plain(ct.float().abs(), idx, w4.abs(), padded)
+        n_max = int(quad_sample_bwd_plain(torch.ones((idx.numel(), 1)), idx,
+                                          (w4 != 0).float(), padded[:3] + (1,)).max())
+        tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + n_max * 2.0 ** -24 * s_abs
+        assert bool(((got.cpu().float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "hot"])
+def test_backward_kernel_is_deterministic(cuda, case):
+    """No atomics: two calls on the same input agree bit for bit."""
+    ct, idx, w4, padded, bins = _bwd_inputs(case, 192, torch.bfloat16, cuda)
+    first = quad_sample.quad_sample_bwd(ct, idx, w4, padded, bins)
+    again = quad_sample.quad_sample_bwd(ct, idx, w4, padded, quad_sample.quad_bins(idx, w4, padded))
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda
 def test_autograd_reaches_the_backward_kernel(cuda):
-    """A CUDA gradient launches quad_sample_bwd once and equals the plain
-    backward's; the coordinates get none."""
+    """A CUDA gradient builds the bins in the forward, launches
+    quad_sample_bwd once and equals the plain backward's; the coordinates get
+    none. A forward under inference_mode builds no bins."""
     f, c = _inputs(1, SHAPES[0], torch.float32, cuda)
+    before = dict(quad_sample.launches)
+    with torch.inference_mode():
+        grid_sample_2d_quad_kernel(f, c)
+    assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS]
     f.requires_grad_()
     c.requires_grad_()
-    before = dict(quad_sample.launches)
     out = grid_sample_2d_quad_kernel(f, c)
+    assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS] + 1
     cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
     (out * cot).sum().backward()
     assert quad_sample.launches[quad_sample.BWD_KERNEL] == before[quad_sample.BWD_KERNEL] + 1
@@ -157,9 +193,19 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
     ct = torch.zeros((3, 8), device=cuda, dtype=torch.float64)
     idx = torch.zeros(3, dtype=torch.int32, device=cuda)
     w4 = torch.zeros((3, 4), device=cuda)
+    padded = (1, 4, 5, 8)
+    order, start = quad_sample.quad_bins(idx, w4, padded)
     with pytest.raises(TypeError, match="dtype"):
-        quad_sample.quad_sample_bwd(ct, idx, w4, (1, 4, 5, 8))
+        quad_sample.quad_sample_bwd(ct, idx, w4, padded, (order, start))
     with pytest.raises(ValueError, match="shapes"):
-        quad_sample.quad_sample_bwd(ct.float(), idx, w4, (1, 4, 5, 6))
+        quad_sample.quad_sample_bwd(ct.float(), idx, w4, (1, 4, 5, 6), (order, start))
     with pytest.raises(ValueError, match="CUDA"):
-        quad_sample.quad_sample_bwd(ct.float().cpu(), idx.cpu(), w4.cpu(), (1, 4, 5, 8))
+        quad_sample.quad_sample_bwd(ct.float().cpu(), idx.cpu(), w4.cpu(), padded,
+                                    (order.cpu(), start.cpu()))
+    # bad bins: wrong dtype, wrong length, on the CPU
+    with pytest.raises(TypeError, match="int32"):
+        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order.long(), start))
+    with pytest.raises(ValueError, match="shapes"):
+        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start[:-1]))
+    with pytest.raises(ValueError, match="contiguous on"):
+        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start.cpu()))

@@ -79,7 +79,8 @@ def assigned():
     gt[1, 2] = [40.0, 30.0, -0.5, 3.9, 1.6, 1.56, 0.2, 1]
     ref = JaxAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range,
                       class_names=TINY.class_names)(jnp.asarray(gt))
-    got = TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names)(t(gt))
+    got = TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names,
+                         device="cpu")(t(gt))
     return gt, {k: np.asarray(v) for k, v in ref.items()}, got
 
 
@@ -95,7 +96,7 @@ def test_target_assigner_matches_jax(assigned):
     assert_close(got["box_reg_targets"], ref["box_reg_targets"], atol=1e-5)
     with pytest.raises(NotImplementedError, match="multi-head"):
         TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names,
-                       use_multihead=True)
+                       use_multihead=True, device="cpu")
 
 
 def test_anchor_head_loss_matches_jax(assigned):

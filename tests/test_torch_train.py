@@ -117,7 +117,7 @@ def _port_step(state, batch, perturb_seed=None):
     opt.count.fill_(int(adam.count))
     cap = GradCapture(opt)
     step = make_train_step(model, TargetAssigner(cfg.anchor_generator, cfg.grid_size,
-                                                 cfg.pc_range, cfg.class_names),
+                                                 cfg.pc_range, cfg.class_names, device="cpu"),
                            cap, LOSS_WEIGHTS, cfg)
     pbatch = model.batch_to_device({k: np.asarray(v) for k, v in batch.items()})
     if perturb_seed is not None:
