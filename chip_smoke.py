@@ -39,9 +39,23 @@ Phases, each of which must pass or the script exits non-zero:
    training step, then 3 steps with the counters at 0 before and 2 forward
    and 2 backward launches per step after (and 2 bins built); finite
    losses, a positive anchor, the frozen backbone bit-identical, every other
-   trainable tensor moved, the backbone's BN statistics moved; step times,
-   peak memory, loss terms and the device time by kernel of one profiled
-   step.
+   trainable tensor moved, the backbone's BN statistics moved, no host sync
+   in a step; step times, peak memory, loss terms and the device time by
+   kernel of one profiled step;
+9. kernel vs plain, polar: both kernels (the backward with its bins) against
+   their plain versions at the polar view's three maps, 128 channels (the
+   two reduced maps sampled by the near-field grid, the polar table sampled
+   by pass 3's clamped coordinates, from the flagship geometry), bf16 and
+   f32 at the tolerances above, each call's time beside its bound;
+10. small reference, polar: the TINY model with ``F2V.VIEW: polar`` on the
+    card against the CPU, as 5, then one training step as 6;
+11. polar vs gather: full width, f32, TF32 off, one set of weights: the
+    polar image BEV's first ``POLAR_NEAR_COLUMNS`` columns (the exact near
+    field) against the gather path's within 2e-3 of its largest value; the
+    far field's correlation and relative L2 printed, not gated;
+12. serve polar: ``configs/hgsfusion_vod_polar.yaml`` as 7, with 3 forward
+    launches per frame (two near-field maps, pass 3);
+13. train polar: as 8, with 3 forward, 3 backward and 3 bins per step.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -50,6 +64,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -63,10 +78,11 @@ import torch
 import torch.nn.functional as F
 
 from hgsfusion_tpu_torch import native
-from hgsfusion_tpu_torch.config import HGSFusionConfig, vod_pallas_config
+from hgsfusion_tpu_torch.config import HGSFusionConfig, vod_pallas_config, vod_polar_config
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
+from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample
 from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
@@ -119,6 +135,14 @@ def tiny_batch(b: int = 1, n: int = 128):
 TINY = HGSFusionConfig(pc_range=(0.0, -8.0, -3.0, 16.0, 8.0, 2.0), voxel_size=(0.5, 0.5, 0.5),
                        image_size=(64, 96), disc_num_bins=16, disc_depth_max=16.0,
                        image_backbone="ResNet50", f2v_sampler_kernel="pallas")
+TINY_POLAR = dataclasses.replace(TINY, f2v_view="polar", f2v_sampler_kernel="xla")
+# the polar view's three sampled maps at full width: the two reduced maps
+# (128 channels) of the near field, and the polar table q (J = 128 zeta
+# nodes, K = 484 + 6 u-nodes) of pass 3
+POLAR_SHAPES = {"near_A": (1, 129, 484, 128), "near_B": (1, 65, 242, 128),
+                "q": (1, 128, 490, 128)}
+# the near field against the gather path: tests/test_polar_f2v.py's bound
+NEAR_TOL = 2e-3
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -330,10 +354,75 @@ def phase_kernel_vs_plain_bwd(dev):
     return rows
 
 
-def phase_small_reference(dev):
+def polar_coords(dev):
+    """The flagship frame's polar sample coordinates, by map of
+    POLAR_SHAPES: the near-field grid (1, 320, 20, 31, 2) for both reduced
+    maps, pass 3's clamped coordinates (1, 320, 300, 2) for q."""
+    cfg = vod_polar_config()
+    batch = flagship_batch(cfg)
+    l2c, c2i, bda = (torch.from_numpy(batch[k]).to(dev) for k in
+                     ("trans_lidar_to_cam", "trans_cam_to_img", "lidar_aug_matrix"))
+    geo = polar_geometry(l2c, c2i, cfg.image_size, bda, grid_size=cfg.grid_size,
+                         pc_range=cfg.pc_range, w_fine=POLAR_SHAPES["near_A"][2],
+                         zeta_bins=cfg.f2v_polar_zeta_bins,
+                         near_columns=cfg.f2v_polar_near_columns, bev_aug=cfg.bev_aug)
+    near = geo.near_uv.contiguous()
+    return {"near_A": near, "near_B": near, "q": geo.far_coords.contiguous()}
+
+
+def phase_kernel_vs_plain_polar(dev):
+    """Both kernels against their plain versions at the polar view's maps."""
+    coords = polar_coords(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rows = {"fwd": [], "bwd": []}
+    for name, shape in POLAR_SHAPES.items():
+        feats = torch.randn(shape, generator=g).to(dev)
+        rows["fwd"].append(sampler_case(name, feats, coords[name], torch.bfloat16, BF16_TOL,
+                                        timed=True))
+        rows["fwd"].append(sampler_case(name, feats, coords[name], torch.float32, F32_TOL,
+                                        timed=False))
+        rows["bwd"].append(bwd_case(name, shape, coords[name], torch.bfloat16, g, timed=True))
+        rows["bwd"].append(bwd_case(name, shape, coords[name], torch.float32, g, timed=False))
+    return rows
+
+
+def phase_polar_vs_gather(dev):
+    """Full width, f32, one set of weights: the polar image BEV's near
+    columns against the gather path's; the far field's agreement printed."""
+    f32 = dict(compute_dtype="float32")
+    gather = HGSFusionModel(dataclasses.replace(vod_pallas_config(), **f32), device=dev, seed=0)
+    cfg = dataclasses.replace(vod_polar_config(), **f32)
+    polar = HGSFusionModel(cfg, device=dev, seed=0)
+    polar.load_state_dict(gather.state_dict(), strict=True)
+    with torch.inference_mode():
+        b = gather.batch_to_device(flagship_batch(cfg))
+        feats = gather.image_features(b)
+        ref = gather.view_transform(feats, b).double()
+        got = polar.view_transform(feats, b).double()
+    n = cfg.f2v_polar_near_columns
+    scale = float(ref.abs().max())
+    near_err = float((got[:, :, :n] - ref[:, :, :n]).abs().max())
+    far_g, far_p = ref[:, :, n:].flatten(), got[:, :, n:].flatten()
+    result = {
+        "shape": list(got.shape), "max_abs_gather": scale,
+        "near_columns": n, "near_max_abs_err": near_err,
+        "near_err_over_max": near_err / scale, "near_tol": NEAR_TOL,
+        "far_corr": float(torch.corrcoef(torch.stack([far_g, far_p]))[0, 1]),
+        "far_rel_l2": float((far_p - far_g).norm() / far_g.norm()),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    print("  " + json.dumps(result))
+    if not result["finite"]:
+        raise AssertionError("non-finite polar image BEV")
+    if not near_err <= NEAR_TOL * scale:
+        raise AssertionError(f"near field off the gather path: {near_err} > {NEAR_TOL} x {scale}")
+    return result
+
+
+def phase_small_reference(dev, cfg=TINY):
     """TINY model: card (kernel path) vs CPU (plain sampler), same weights."""
-    cpu_model = HGSFusionModel(TINY, device="cpu", seed=5)
-    gpu_model = HGSFusionModel(TINY, device=dev, seed=5)
+    cpu_model = HGSFusionModel(cfg, device="cpu", seed=5)
+    gpu_model = HGSFusionModel(cfg, device=dev, seed=5)
     batch = tiny_batch()
     with torch.inference_mode():
         ref = cpu_model(cpu_model.batch_to_device(batch))
@@ -347,9 +436,9 @@ def phase_small_reference(dev):
         cls = ref["cls_preds"]
         ref = {**ref, "cls_preds": cls + torch.linspace(0, 0.1, cls.numel()).view(cls.shape)}
         kw = dict(score_thresh=0.0, nms_thresh=0.01, pre_max_size=512, post_max_size=100)
-        d_ref = post_process(ref, cpu_model.anchors, cpu_model.box_coder, TINY, **kw)
+        d_ref = post_process(ref, cpu_model.anchors, cpu_model.box_coder, cfg, **kw)
         d_got = post_process({k: v.to(dev) for k, v in ref.items()}, gpu_model.anchors,
-                             gpu_model.box_coder, TINY, **kw)
+                             gpu_model.box_coder, cfg, **kw)
         assert torch.equal(d_got["valid"].cpu(), d_ref["valid"])
         v = d_ref["valid"]
         torch.testing.assert_close(d_got["boxes"].cpu()[v], d_ref["boxes"][v],
@@ -376,13 +465,13 @@ def run_train_step(cfg, device, batch, seed: int, perturb_seed=None):
     return step_record(model, cap, tb), float(lr_schedule(0))
 
 
-def phase_small_reference_train(dev):
+def phase_small_reference_train(dev, cfg=TINY):
     """TINY training step: card (kernels) vs CPU (plain versions)."""
     batch = tiny_batch()
-    ref, lr = run_train_step(TINY, "cpu", batch, seed=TRAIN_REF_SEED)
-    probes = [run_train_step(TINY, "cpu", batch, seed=TRAIN_REF_SEED, perturb_seed=s)[0]["grads"]
+    ref, lr = run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED)
+    probes = [run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED, perturb_seed=s)[0]["grads"]
               for s in (1, 2)]
-    got, _ = run_train_step(TINY, dev, batch, seed=TRAIN_REF_SEED)
+    got, _ = run_train_step(cfg, dev, batch, seed=TRAIN_REF_SEED)
     report = compare_steps(ref, got, sensitivity(ref["grads"], probes), lr)
     report["loss_terms_cpu"] = {k: float(v) for k, v in ref["tb"].items()}
     report["loss_terms_card"] = {k: float(v) for k, v in got["tb"].items()}
@@ -390,8 +479,15 @@ def phase_small_reference_train(dev):
     return report
 
 
-def phase_train(dev):
-    cfg = vod_pallas_config()
+def phase_small_reference_polar(dev):
+    """The TINY polar model, card vs CPU: serving, then one training step."""
+    return {"serve": phase_small_reference(dev, TINY_POLAR),
+            "train": phase_small_reference_train(dev, TINY_POLAR)}
+
+
+def phase_train(dev, cfg, per_step: int):
+    """3 full-width training steps of ``cfg`` after a warm-up, each launching
+    ``per_step`` forward and backward kernels and building as many bins."""
     model = HGSFusionModel(cfg, device=dev, seed=0)
     batch = model.batch_to_device(flagship_batch(cfg))
     assigner = TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range,
@@ -427,7 +523,8 @@ def phase_train(dev):
         terms.append({k: float(v) for k, v in tb.items()})
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 6, quad_sample.BINS: 6}
+    want = {quad_sample.KERNEL: 3 * per_step, quad_sample.BWD_KERNEL: 3 * per_step,
+            quad_sample.BINS: 3 * per_step}
     if launches != want:
         raise AssertionError(f"launches in 3 steps {launches}, want {want}")
     for t in terms:
@@ -478,8 +575,9 @@ def phase_train(dev):
     return result
 
 
-def phase_serve(dev):
-    cfg = vod_pallas_config()
+def phase_serve(dev, cfg, per_frame: int):
+    """3 full-width frames of ``cfg`` through ``serve()`` after a warm-up,
+    each launching ``per_frame`` forward kernels, then one staged frame."""
     t0 = time.perf_counter()
     model = HGSFusionModel(cfg, device=dev, seed=0)
     build_s = time.perf_counter() - t0
@@ -500,7 +598,7 @@ def phase_serve(dev):
         wall.append(time.perf_counter() - t0)
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 6, quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
+    want = {quad_sample.KERNEL: 3 * per_frame, quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
     if launches != want:
         raise AssertionError(f"launches in 3 frames {launches}, want {want}")
     n_valid = int(dets["valid"].sum())
@@ -583,35 +681,52 @@ def main(argv=None) -> int:
     phase("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev)
     phase("small_reference", phase_small_reference, dev)
     phase("small_reference_train", phase_small_reference_train, dev)
-    phase("serve", phase_serve, dev)
+    phase("serve", phase_serve, dev, vod_pallas_config(), 2)
     torch.cuda.empty_cache()
-    phase("train", phase_train, dev)
+    phase("train", phase_train, dev, vod_pallas_config(), 2)
+    torch.cuda.empty_cache()
+    phase("kernel_vs_plain_polar", phase_kernel_vs_plain_polar, dev)
+    phase("small_reference_polar", phase_small_reference_polar, dev)
+    phase("polar_vs_gather", phase_polar_vs_gather, dev)
+    torch.cuda.empty_cache()
+    phase("serve_polar", phase_serve, dev, vod_polar_config(), 3)
+    torch.cuda.empty_cache()
+    phase("train_polar", phase_train, dev, vod_polar_config(), 3)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
-    def kernel_row(name, source, replaces, rows, path):
-        # per frame or step: the two bf16 calls (A, B) of the path, summed
+    def summed(rows, key):
+        return sum(r[key] for r in rows if "ms" in r)
+
+    def kernel_row(name, source, replaces, rows, polar_rows):
+        # per frame or step: the bf16 calls of the gather path (A, B) summed,
+        # and of the polar path (its three maps) beside them
         timed = [r for r in rows if "ms" in r]
+        by_path = {path: report[path]["launches"][name]
+                   for path in ("serve", "train", "serve_polar", "train_polar")}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": report[path]["launches"][name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in timed),
-            "plain_ms": sum(r["plain_ms"] for r in timed),
-            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "ms": summed(rows, "ms"), "plain_ms": summed(rows, "plain_ms"),
+            "bound_ms": summed(rows, "bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
             else "operations",
-            "library_ms": sum(r["library_ms"] for r in timed),
+            "library_ms": summed(rows, "library_ms"),
+            "polar": {"max_abs_err": max(r["max_abs_err"] for r in polar_rows),
+                      **{k: summed(polar_rows, k)
+                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
         }
 
+    polar = report["kernel_vs_plain_polar"]
     kernels = [
         kernel_row(quad_sample.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:108",
-                   [r for r in report["kernel_vs_plain"] if "ms" in r], "serve"),
+                   [r for r in report["kernel_vs_plain"] if "ms" in r], polar["fwd"]),
         kernel_row(quad_sample.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:226",
-                   [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], "train"),
+                   [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], polar["bwd"]),
     ]
     if args.out:
         with open(args.out, "w") as f:

@@ -7,9 +7,10 @@ reads from the YAML beside it: the anchor generator with the target
 assigner's thresholds, the loss weights, the post-processing values and the
 OPTIMIZATION block. ``load_config`` and
 ``model_config_from_yaml`` read the repo's reference-schema YAMLs as the JAX
-package's ``config.py`` does; ``vod_pallas_config`` is the flagship preset
-(``configs/hgsfusion_vod_pallas.yaml``, bf16) in plain Python, so serving
-needs no YAML parser.
+package's ``config.py`` does; ``vod_pallas_config`` and ``vod_polar_config``
+are the flagship presets (``configs/hgsfusion_vod_pallas.yaml`` and
+``configs/hgsfusion_vod_polar.yaml``, bf16) in plain Python, so serving needs
+no YAML parser.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ class HGSFusionConfig:
     f2v_quant: str = "none"
     f2v_sampler_kernel: str = "xla"
     f2v_view: str = "gather"
+    f2v_polar_zeta_bins: int = 128
+    f2v_polar_near_columns: int = 20
     disc_mode: str = "LID"
     disc_num_bins: int = 80
     disc_depth_min: float = 1.0
@@ -135,6 +138,26 @@ def vod_pallas_config() -> HGSFusionConfig:
         voxel_size=(0.16, 0.16, 0.16),
         image_backbone="ResNet101",
         f2v_sampler_kernel="pallas",
+        bev_aug=True,
+        image_size=(516, 1936),
+        num_point_features=17,
+        reader_num_input=29,
+        use_aspp=True,
+        aspp_dilation=6,
+        compute_dtype="bfloat16",
+    )
+
+
+def vod_polar_config() -> HGSFusionConfig:
+    """``configs/hgsfusion_vod_polar.yaml`` (bf16 by its base config): the
+    JAX package's serving default, the polar view transform."""
+    return HGSFusionConfig(
+        pc_range=(0.0, -25.6, -3.0, 51.2, 25.6, 2.0),
+        voxel_size=(0.16, 0.16, 0.16),
+        image_backbone="ResNet101",
+        f2v_view="polar",
+        f2v_polar_zeta_bins=128,
+        f2v_polar_near_columns=20,
         bev_aug=True,
         image_size=(516, 1936),
         num_point_features=17,
@@ -222,6 +245,8 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         f2v_quant=f2v.get("QUANT", "none"),
         f2v_sampler_kernel=f2v.get("SAMPLER_KERNEL", "xla"),
         f2v_view=f2v.get("VIEW", "gather"),
+        f2v_polar_zeta_bins=f2v.get("POLAR_ZETA_BINS", 128),
+        f2v_polar_near_columns=f2v.get("POLAR_NEAR_COLUMNS", 20),
         disc_mode=disc["mode"],
         disc_num_bins=disc["num_bins"],
         disc_depth_min=disc["depth_min"],

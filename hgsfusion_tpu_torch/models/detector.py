@@ -2,10 +2,13 @@
 post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
-``f2v_view="gather"`` and ``f2v_sampler_kernel="pallas"``, post_process):
+``f2v_view="gather"`` and ``f2v_sampler_kernel="pallas"``, or
+``f2v_view="polar"``; post_process):
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
-    --collapse--> image BEV
+    --collapse--> image BEV   (gather view)
+                           --> polar resample + collapse + one sample per
+    BEV cell --> image BEV    (polar view, ``polar_f2v.py``)
   points --pillar encode--> masked ResNet-18 BEV encoder --FPN--> radar BEV
   image BEV x occupancy(radar BEV) -> concat+SE -> anchor head -> NMS
 
@@ -37,6 +40,7 @@ from .fusion_bev import FusionAfterBEVSE
 from .layers import ConvBNReLU
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
+from .polar_f2v import PolarF2V, polar_image_bev
 from .resnet import ResNetDeepLabBackbone, preprocess_images
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "post_process", "resolve_device"]
@@ -86,24 +90,34 @@ class HGSFusionModel(nn.Module):
     def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        if cfg.f2v_view != "gather":
+        if cfg.f2v_view not in ("gather", "polar"):
             raise NotImplementedError(f"F2V.VIEW: {cfg.f2v_view} is not ported")
+        if cfg.f2v_view == "polar" and (cfg.use_depth or cfg.f2v_quant != "none"
+                                        or cfg.f2v_sampler_kernel != "xla"):
+            raise ValueError(
+                "F2V.VIEW: polar covers the USE_DEPTH: False CONCAT path with the "
+                "default XLA sampler only (QUANT and SAMPLER_KERNEL are gather-path "
+                "options)")
         if cfg.ddn_quant != "none":
             raise NotImplementedError(f"DDN.QUANT: {cfg.ddn_quant} is not ported")
         self.cfg = cfg
         dt = cfg.dtype
         stage_sizes = (3, 4, 23, 3) if cfg.image_backbone == "ResNet101" else (3, 4, 6, 3)
         nz = cfg.grid_size[2]
+        if cfg.f2v_view == "polar":
+            f2v = PolarF2V(4 * cfg.channel_reduce_out, cfg.f2v_out_channels)
+        else:
+            f2v = FrustumToVoxelMultiScale(
+                [cfg.channel_reduce_out] * 4, cfg.f2v_out_channels, dtype=dt,
+                quant=cfg.f2v_quant, sampler_kernel=cfg.f2v_sampler_kernel,
+                use_depth=cfg.use_depth)
         image_vfe = _Scope(
             ffn=_Scope(
                 ddn=_Scope(model=_Scope(backbone=ResNetDeepLabBackbone(stage_sizes, dt))),
                 channel_reduce=nn.ModuleList(
                     ConvBNReLU(cin, cfg.channel_reduce_out, (1, 1), use_bias=False, dtype=dt)
                     for cin in (256, 512, 1024, 2048))),
-            f2v=FrustumToVoxelMultiScale(
-                [cfg.channel_reduce_out] * 4, cfg.f2v_out_channels, dtype=dt,
-                quant=cfg.f2v_quant, sampler_kernel=cfg.f2v_sampler_kernel,
-                use_depth=cfg.use_depth))
+            f2v=f2v)
         reader = PillarFeatureNet(cfg.reader_num_input, (32,), cfg.voxel_size[0],
                                   cfg.pc_range, dtype=dt)
         self.fusion_vfe = _Scope(
@@ -157,7 +171,17 @@ class HGSFusionModel(nn.Module):
         return [reduce(t) for reduce, t in zip(ffn.channel_reduce, taps)]
 
     def view_transform(self, feats, batch):
-        """Frustum grid -> quad-sample kernel -> voxel -> collapsed image BEV."""
+        """Frustum grid -> quad-sample kernel -> voxel -> collapsed image BEV;
+        in the polar view, ``polar_f2v.polar_image_bev``."""
+        cfg = self.cfg
+        if cfg.f2v_view == "polar":
+            return polar_image_bev(
+                self.fusion_vfe.image_vfe.f2v, self.fusion_vfe.radar_occupancy.map_to_bev,
+                feats, batch["trans_lidar_to_cam"], batch["trans_cam_to_img"],
+                cfg.image_size, batch.get("lidar_aug_matrix"), grid_size=cfg.grid_size,
+                pc_range=cfg.pc_range, zeta_bins=cfg.f2v_polar_zeta_bins,
+                near_columns=cfg.f2v_polar_near_columns, bev_aug=cfg.bev_aug,
+                dtype=cfg.dtype)
         grid = self.grid_gen(batch["trans_lidar_to_cam"], batch["trans_cam_to_img"],
                              self.cfg.image_size, bda=batch.get("lidar_aug_matrix"))
         voxel = self.fusion_vfe.image_vfe.f2v(feats, grid)

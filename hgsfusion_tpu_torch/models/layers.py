@@ -43,48 +43,72 @@ def batch_norm(x, bn, dtype=None, dim: int = -1):
     (flax's fast variance), and that *biased* variance both normalizes and
     enters the running average, with flax momentum 1 - ``bn.momentum``.
     """
+    return batch_norm_joint((x,), bn, dtype, dim)[0]
+
+
+def batch_norm_joint(xs, bn, dtype=None, dim: int = -1):
+    """``batch_norm`` of the tensors ``xs`` as one call on them joined along
+    every axis but ``dim``, without building the join: in train mode one set
+    of batch statistics over all of them (each tensor's means weighted by
+    its share of the rows) and one running-average update. Returns one output
+    per input, in its shape."""
     if not bn.training:
-        return bn_eval(x, bn, dtype, dim)
-    dtype = x.dtype if dtype is None else dtype
-    dim = dim % x.dim()
-    axes = [d for d in range(x.dim()) if d != dim]
-    xf = x.to(torch.float32)
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        return [bn_eval(x, bn, dtype, dim) for x in xs]
+    xfs, means, ex2s = [], [], []
+    for x in xs:
+        axes = [d for d in range(x.dim()) if d != dim % x.dim()]
+        xf = x.to(torch.float32)
+        xfs.append(xf)
+        means.append(xf.mean(axes))
+        ex2s.append((xf * xf).mean(axes))
+    if len(xs) == 1:
+        mean, ex2 = means[0], ex2s[0]
+    else:
+        rows = [x.numel() // x.shape[dim] for x in xs]
+        shares = [n / sum(rows) for n in rows]
+        mean = sum(m * s for m, s in zip(means, shares))
+        ex2 = sum(e * s for e, s in zip(ex2s, shares))
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
     with torch.no_grad():
         m = 1.0 - bn.momentum
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
         bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
         bn.num_batches_tracked += 1
-    shape = [1] * x.dim()
-    shape[dim] = -1
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(dtype)
+    out = []
+    for x, xf in zip(xs, xfs):
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        out.append(((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape))
+                   .to(x.dtype if dtype is None else dtype))
+    return out
 
 
 class _MatmulF32(torch.autograd.Function):
-    """a @ b of two half-precision CUDA matrices, accumulated and returned in
-    f32 by one ``torch.mm(..., out_dtype=float32)``; its gradients are f32
-    products rounded once to the operands' dtypes."""
+    """a @ b of two half-precision CUDA matrices (or batches of them),
+    accumulated and returned in f32 by one ``torch.mm`` / ``torch.bmm`` with
+    ``out_dtype=float32``; its gradients are f32 products rounded once to
+    the operands' dtypes."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        ga = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
-        gb = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        ga = (g @ b.float().mT).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = (a.float().mT @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
         return ga, gb
 
 
 def matmul_f32(a, b):
-    """(N, K) @ (K, O) -> f32, never rounded to a narrower type: the
-    ``einsum(..., preferred_element_type=float32)`` of the JAX package. A
-    bf16/f16 pair on CUDA takes one mixed-precision product; elsewhere the
-    operands are upcast (the CPU has no such product)."""
+    """(N, K) @ (K, O), or (B, N, K) @ (B, K, O), -> f32, never rounded to a
+    narrower type: the ``einsum(..., preferred_element_type=float32)`` of
+    the JAX package. A bf16/f16 pair on CUDA takes one mixed-precision
+    product; elsewhere the operands are upcast (the CPU has no such
+    product)."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
         return _MatmulF32.apply(a, b)
     return a.to(torch.float32) @ b.to(torch.float32)

@@ -1,8 +1,10 @@
-"""Where one full-width ``vod_pallas`` frame spends its device time.
+"""Where one full-width flagship frame spends its device time.
 
-    python -m hgsfusion_tpu_torch.profile_serve [--frames 3] [--out profile.json]
+    python -m hgsfusion_tpu_torch.profile_serve [--view {gather,polar}] [--frames 3]
+        [--out profile.json]
 
-Serves the flagship frame (``configs/hgsfusion_vod_pallas.yaml`` in bf16,
+Serves the flagship frame (``configs/hgsfusion_vod_pallas.yaml``, the gather
+view, or with ``--view polar`` ``configs/hgsfusion_vod_polar.yaml``, in bf16,
 random weights from seed 0, the synthetic flagship batch) under
 ``torch.profiler`` on the card and prints, per frame: device time by serve
 stage, the kernels with the most device time, and the device's busy share
@@ -20,7 +22,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from .config import vod_pallas_config
+from .config import vod_pallas_config, vod_polar_config
 from .models.detector import HGSFusionModel
 from .synthetic import flagship_batch
 
@@ -78,15 +80,18 @@ def profile_frames(model, batch, frames: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--view", choices=("gather", "polar"), default="gather",
+                    help="the view transform: vod_pallas (gather) or vod_polar")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", help="also write the result to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    cfg = vod_pallas_config()
+    cfg = vod_polar_config() if args.view == "polar" else vod_pallas_config()
     model = HGSFusionModel(cfg, device="cuda", seed=0)
     result = profile_frames(model, flagship_batch(cfg), args.frames)
+    result["view"] = args.view
     result["card"] = torch.cuda.get_device_name(0)
     print(json.dumps({k: v for k, v in result.items() if k != "top_ops"}))
     print("kernels by device time per frame:")

@@ -107,6 +107,13 @@ def test_backward_kernel_matches_plain(cuda, case, c, dtype):
     f32 sum, n u S (n the pixel's contributions, S the sum of their
     magnitudes, u = 2^-24); contention exact."""
     ct, idx, w4, padded, bins = _bwd_inputs(case, c, dtype, cuda)
+    _check_bwd(ct, idx, w4, padded, bins, exact=case == "contention")
+
+
+def _check_bwd(ct, idx, w4, padded, bins, exact=False):
+    """One launch of the backward kernel against its plain version: bit for
+    bit when ``exact``, else at the tolerances above."""
+    dtype = ct.dtype
     before = quad_sample.launches[quad_sample.BWD_KERNEL]
     got = quad_sample.quad_sample_bwd(ct, idx, w4, padded, bins)
     torch.cuda.synchronize()
@@ -114,7 +121,7 @@ def test_backward_kernel_matches_plain(cuda, case, c, dtype):
     ct, idx, w4 = ct.cpu(), idx.cpu(), w4.cpu()
     ref = quad_sample_bwd_plain(ct, idx, w4, padded)
     assert got.shape == ref.shape and got.dtype == dtype
-    if case == "contention":
+    if exact:
         assert torch.equal(got.cpu(), ref)
     elif dtype == torch.float32:
         atol = 1e-5 * (1 + float(ref.abs().max()))
@@ -125,6 +132,51 @@ def test_backward_kernel_matches_plain(cuda, case, c, dtype):
                                           (w4 != 0).float(), padded[:3] + (1,)).max())
         tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + n_max * 2.0 ** -24 * s_abs
         assert bool(((got.cpu().float() - ref.float()).abs() <= tol).all())
+
+
+# the polar view's sampled maps at 128 channels (the two reduced maps of the
+# near field, the polar table of pass 3), a ragged polar-like map, and a
+# map of 65,535 padded pixels (255 x 257), the last whose bins take 16-bit
+# keys
+POLAR_SHAPES = [(1, 129, 484, 128), (1, 65, 242, 128), (1, 128, 490, 128), (2, 13, 29, 128)]
+LAST16_SHAPE = (1, 253, 255, 64)
+
+
+def _polar_inputs(shape, dtype, device, n=6000):
+    """Features, coords (most on the map, some beyond it, a fifth of them on
+    a few hot pixels) and a cotangent."""
+    g = torch.Generator().manual_seed(7)
+    b, c = shape[0], shape[-1]
+    coords = torch.rand((b, n, 2), generator=g) * 2.2 - 1.1
+    coords[:, : n // 5] = (torch.rand((4, 2), generator=g) * 2 - 1)[
+        torch.randint(0, 4, (n // 5,), generator=g)] + 0.003 * torch.rand((n // 5, 2), generator=g)
+    feats = torch.randn(shape, generator=g).to(dtype)
+    ct = torch.randn((b * n, c), generator=g).to(dtype)
+    return feats.to(device), coords.to(device), ct.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", POLAR_SHAPES + [LAST16_SHAPE])
+def test_kernels_match_plain_at_polar_shapes(cuda, shape, dtype):
+    """Forward and backward (with its bins) against their plain versions."""
+    f, coords, ct = _polar_inputs(shape, dtype, cuda)
+    got = grid_sample_2d_quad_kernel(f, coords)
+    torch.testing.assert_close(got.cpu().float(), grid_sample_2d_quad(f.cpu(), coords.cpu()).float(),
+                               rtol=0, atol=TOLS[dtype])
+    idx, w4 = quad_indices(f, coords)
+    b, h, w, c = shape
+    padded = (b, h + 2, w + 2, c)
+    bins = quad_sample.quad_bins(idx, w4, padded)
+    if shape == LAST16_SHAPE:  # the sentinel key is the largest int16
+        assert b * (h + 2) * (w + 2) == 2**16 - 1
+        order, start = (x.cpu().long() for x in bins)
+        valid = (w4 != 0).any(dim=1).cpu()
+        nv = int(start[-1])
+        assert nv == int(valid.sum()) < idx.numel()
+        assert torch.equal(torch.sort(idx.cpu().long()[order[:nv]]).values,
+                           idx.cpu().long()[order[:nv]])
+    _check_bwd(ct, idx, w4, padded, bins)
 
 
 @pytest.mark.cuda

@@ -40,4 +40,5 @@ def test_port_imports_no_jax():
     mods = proc.stdout.split()
     assert len(mods) >= 22  # every submodule was imported
     assert {"hgsfusion_tpu_torch.train.optim", "hgsfusion_tpu_torch.train.trainer",
-            "hgsfusion_tpu_torch.train.step_compare"} <= set(mods)
+            "hgsfusion_tpu_torch.train.step_compare",
+            "hgsfusion_tpu_torch.models.polar_f2v"} <= set(mods)

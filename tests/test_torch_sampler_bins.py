@@ -86,13 +86,18 @@ def _case(name, dtype):
     1/8 on maps with H - 1 and W - 1 powers of 2, so the normalization is
     exact): a ragged map of odd width with out-of-bounds coords, a contention
     case (every query on one 2x2 patch), a hot case (most queries on three
-    pixels, the rest spread over the map and beyond it), and a wide map of
-    at least 2^16 padded pixels, whose bins take 32-bit sort keys."""
-    rng = np.random.RandomState({"ragged": 0, "contention": 1, "hot": 2, "wide": 3}[name])
+    pixels, the rest spread over the map and beyond it), a wide map of at
+    least 2^16 padded pixels, whose bins take 32-bit sort keys, and a map of
+    65,535 padded pixels (255 x 257), the last that takes 16-bit keys: its
+    sentinel key is the largest int16 (not dyadic: only its bins are
+    checked)."""
+    rng = np.random.RandomState({"ragged": 0, "contention": 1, "hot": 2, "wide": 3,
+                                 "last16": 4}[name])
     shape = {"ragged": (2, 9, 17, 5), "contention": (1, 9, 9, 3), "hot": (2, 9, 17, 4),
-             "wide": (1, 257, 257, 2)}[name]
+             "wide": (1, 257, 257, 2), "last16": (1, 253, 255, 2)}[name]
     b, h, w, c = shape
-    n = {"ragged": (12, 11), "contention": (40, 40), "hot": (24, 25), "wide": (30, 40)}[name]
+    n = {"ragged": (12, 11), "contention": (40, 40), "hot": (24, 25), "wide": (30, 40),
+         "last16": (30, 40)}[name]
     if name == "contention":
         px = np.full((b, *n, 2), 2.5)
     else:
@@ -116,7 +121,7 @@ def _bins_inputs(name, dtype):
     return cot.reshape(-1, c), idx, w4, padded, quad_bins(idx, w4, padded)
 
 
-@pytest.mark.parametrize("name", ["ragged", "contention", "hot", "wide"])
+@pytest.mark.parametrize("name", ["ragged", "contention", "hot", "wide", "last16"])
 def test_quad_bins_sort_the_nonzero_queries_by_pixel(name):
     _, idx, w4, padded, (order, start) = _bins_inputs(name, torch.float64)
     n, pixels = idx.numel(), int(np.prod(padded[:3]))
