@@ -55,7 +55,28 @@ Phases, each of which must pass or the script exits non-zero:
     far field's correlation and relative L2 printed, not gated;
 12. serve polar: ``configs/hgsfusion_vod_polar.yaml`` as 7, with 3 forward
     launches per frame (two near-field maps, pass 3);
-13. train polar: as 8, with 3 forward, 3 backward and 3 bins per step.
+13. train polar: as 8, with 3 forward, 3 backward and 3 bins per step;
+14. small reference, eval loop: the TINY model through
+    ``hgsfusion_tpu_torch.tools.test.run_eval`` over a 4-frame synthetic
+    VoD tree, on the card (kernel) against the CPU (plain sampler), f32 with
+    TF32 off, at a score threshold no two passing scores of a frame sit
+    near: the same frame ids, boxes within 1e-4, the result dict within 1e-6;
+15. eval: ``configs/hgsfusion_vod_pallas.yaml`` (read with ``load_config``:
+    the card's machine has PyYAML, and Pillow for the JPEG images) over a
+    16-frame synthetic VoD tree at 516x1936 written in a temporary directory
+    (``structured=True``, 2048 radar and 4096 virtual points under the
+    config's ``VIRTUAL_POINT_PREFIX``), its infos from the port's
+    ``create_infos``, then ``run_eval`` at B=1 with random weights from seed
+    0 (``SCORE_THRESH`` lowered so that about 12 candidates of a frame pass:
+    random weights score every anchor under 0.1) after one warm-up frame:
+    some boxes kept, the counters at 0 before and 2 forward
+    launches per frame after (no backward launch, no bins), every frame's
+    annotations bit-equal to those of ``serve`` on the same collated batch,
+    finite recall counts and result dict, every AP in [0, 100]; printed: the
+    pipelined and the ``serve``-only ms per frame, the host ms per frame of
+    each stage, the evaluation's seconds and peak device memory;
+16. eval polar: ``configs/hgsfusion_vod_polar.yaml`` as 15, with 3 forward
+    launches per frame.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -69,16 +90,21 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from hgsfusion_tpu_torch import native
-from hgsfusion_tpu_torch.config import HGSFusionConfig, vod_pallas_config, vod_polar_config
+from hgsfusion_tpu_torch.config import (HGSFusionConfig, load_config, model_config_from_yaml,
+                                        vod_dataset_config, vod_pallas_config, vod_polar_config)
+from hgsfusion_tpu_torch.datasets import build_dataset
+from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
@@ -86,11 +112,14 @@ from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample
 from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.tools.create_infos import create_infos
+from hgsfusion_tpu_torch.tools.test import run_eval
 from hgsfusion_tpu_torch.train.optim import FROZEN_PREFIX, build_optimizer
 from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps, perturb_inputs,
                                                     sensitivity, step_record,
                                                     zero_residual_scales)
-from hgsfusion_tpu_torch.train.trainer import make_train_step
+from hgsfusion_tpu_torch.train.trainer import detections_to_pred_dicts, make_train_step
+from hgsfusion_tpu_torch.utils.common import create_logger
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -649,6 +678,196 @@ def phase_serve(dev, cfg, per_frame: int):
     return result
 
 
+EVAL_FRAMES = 16
+TINY_EVAL_FRAMES = 4
+EVAL_BOX_TOL, EVAL_RESULT_TOL = 1e-4, 1e-6
+
+
+def tiny_eval_config(root) -> dict:
+    """``configs/hgsfusion_vod.yaml``'s data and post-processing blocks
+    (``vod_dataset_config``) cut to TINY's range, voxels, image and point
+    budget, over the tree at ``root``."""
+    cfg = vod_dataset_config(root)
+    data = cfg["DATA_CONFIG"]
+    data.update(POINT_CLOUD_RANGE=list(TINY.pc_range), IMAGE_SIZE=list(TINY.image_size),
+                MAX_POINTS=1024, MAX_GT_BOXES=16, VIRTUAL_POINT_PREFIX="virtual_points")
+    data["DATA_PROCESSOR"][1]["VOXEL_SIZE"] = list(TINY.voxel_size)
+    return cfg
+
+
+def tie_free_threshold(scores, min_gap: float, per_frame: int) -> float:
+    """A score threshold about ``per_frame`` candidates of each frame pass,
+    such that no two passing scores of a frame, and no score and the
+    threshold, are within ``min_gap``: exact ties would be ordered
+    differently by the two devices' top-k."""
+    pooled = np.sort(np.concatenate(scores))[::-1]
+    k = per_frame * len(scores)
+    thr = float(pooled[k - 1] + pooled[k]) / 2
+    for s in scores:
+        kept = np.sort(s[s >= thr])
+        if kept.size == 0:
+            raise AssertionError("a frame has no candidate above the threshold")
+        if kept.size > 1 and np.diff(kept).min() <= min_gap:
+            raise AssertionError(f"two passing scores within {min_gap}")
+        if np.abs(s - thr).min() <= min_gap:
+            raise AssertionError(f"a score within {min_gap} of the threshold")
+    return thr
+
+
+def phase_small_reference_eval(dev):
+    """The TINY model through ``run_eval``: card (kernel) vs CPU (plain
+    sampler), same weights and frames."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        make_synthetic_kitti(root, num_frames=TINY_EVAL_FRAMES, num_points=256,
+                             num_virtual=64, image_hw=TINY.image_size, structured=True)
+        cfg = tiny_eval_config(root)
+        create_infos(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"])
+        logger = create_logger()
+        models = {"cpu": HGSFusionModel(TINY, device="cpu", seed=5),
+                  "card": HGSFusionModel(TINY, device=dev, seed=5)}
+        ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False, logger=logger)
+        scores = {}
+        with torch.inference_mode():
+            for name, m in models.items():
+                scores[name] = [torch.sigmoid(m(m.batch_to_device(ds.collate_batch([ds[i]])))[
+                    "cls_preds"].float().reshape(-1, TINY.num_class)).max(-1).values.cpu().numpy()
+                    for i in range(len(ds))]
+        score_diff = max(float(np.abs(a - b).max()) for a, b in zip(scores["cpu"], scores["card"]))
+        min_gap = 10 * score_diff
+        thr = tie_free_threshold(scores["cpu"], min_gap, per_frame=8)
+        out = {}
+        for name, m in models.items():
+            m.cfg = dataclasses.replace(TINY, score_thresh=thr, nms_pre_max_size=512,
+                                        nms_post_max_size=100)
+            ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
+                               logger=logger)
+            out[name] = run_eval(cfg, m, ds, logger)
+    (ref, ref_res, _), (got, got_res, stats) = out["cpu"], out["card"]
+    if [a["frame_id"] for a in got] != [a["frame_id"] for a in ref]:
+        raise AssertionError("the card's frames differ from the CPU's")
+    box_err = 0.0
+    for g, r in zip(got, ref):
+        if list(g["name"]) != list(r["name"]):
+            raise AssertionError(f"frame {g['frame_id']}: other boxes kept on the card")
+        if len(r["name"]):
+            box_err = max(box_err, float(np.abs(g["boxes_lidar"] - r["boxes_lidar"]).max()))
+    res_err = max(abs(got_res[k] - ref_res[k]) for k in ref_res)
+    result = {"frames": len(got), "boxes": sum(len(a["name"]) for a in got),
+              "score_thresh": thr, "score_max_abs_err": score_diff, "min_gap": min_gap,
+              "box_max_abs_err": box_err, "result_max_abs_err": res_err,
+              "launches_per_batch": stats["launches_per_batch"]}
+    print("  " + json.dumps(result))
+    if result["boxes"] == 0:
+        raise AssertionError("no box passed the threshold")
+    if not box_err <= EVAL_BOX_TOL or not res_err <= EVAL_RESULT_TOL:
+        raise AssertionError(f"card vs CPU: boxes {box_err}, result dict {res_err}")
+    return result
+
+
+def annos_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k] for k in a)
+
+
+def phase_eval(dev, yaml_path, per_frame: int):
+    """``run_eval`` over a 16-frame synthetic VoD tree at full width, then
+    the same frames through ``serve`` one by one."""
+    cfg = load_config(yaml_path)
+    model_cfg = model_config_from_yaml(cfg)
+    preset = vod_pallas_config() if model_cfg.f2v_view == "gather" else vod_polar_config()
+    if model_cfg != preset:
+        raise AssertionError(f"{yaml_path} differs from its preset")
+    data = cfg["DATA_CONFIG"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        data["DATA_PATH"] = str(root)
+        t0 = time.perf_counter()
+        make_synthetic_kitti(root, num_frames=EVAL_FRAMES, num_points=2048, num_virtual=4096,
+                             image_hw=tuple(data["IMAGE_SIZE"]), structured=True,
+                             virtual_prefix=data["VIRTUAL_POINT_PREFIX"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_infos(data, cfg["CLASS_NAMES"])
+        infos_s = time.perf_counter() - t0
+        logger = create_logger()
+        ds = build_dataset(data, cfg["CLASS_NAMES"], training=False, logger=logger)
+        model = HGSFusionModel(model_cfg, device=dev, seed=0)
+        # random weights score every anchor near 0.0125, under the config's
+        # SCORE_THRESH of 0.1, and would keep no box: the threshold goes to
+        # the middle of the first frame's 12th and 13th best scores, so the
+        # NMS, the annotations, the recall and the AP have boxes to work on
+        with torch.inference_mode():
+            preds = model(model.batch_to_device(ds.collate_batch([ds[0]])))
+        scores = torch.sigmoid(preds["cls_preds"].float().reshape(-1, model_cfg.num_class))
+        top = torch.topk(scores.max(-1).values, 13).values.cpu().numpy()
+        thr = float(top[11] + top[12]) / 2
+        model.cfg = dataclasses.replace(model_cfg, score_thresh=thr)
+        model.serve(ds.collate_batch([ds[0]]))  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: the evaluation loop over every frame
+        for k in quad_sample.launches:
+            quad_sample.launches[k] = 0
+        t0 = time.perf_counter()
+        annos, result_dict, stats = run_eval(cfg, model, ds, logger, batch_size=1,
+                                             infer_time=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(quad_sample.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {quad_sample.KERNEL: EVAL_FRAMES * per_frame, quad_sample.BWD_KERNEL: 0,
+                quad_sample.BINS: 0}
+        if launches != want:
+            raise AssertionError(f"launches in {EVAL_FRAMES} frames {launches}, want {want}")
+        per_batch = {quad_sample.KERNEL: per_frame, quad_sample.BWD_KERNEL: 0,
+                     quad_sample.BINS: 0}
+        if any(b != per_batch for b in stats["launches_per_batch"]):
+            raise AssertionError(f"launches per frame {stats['launches_per_batch']}")
+
+        # the same frames through serve, one by one: the same annotations,
+        # and serve's own time on a batch already on the card
+        serve_ms = []
+        for i in range(len(ds)):
+            batch = ds.collate_batch([ds[i]])
+            on_card = model.batch_to_device(batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = model.serve(on_card)
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t1) * 1e3)
+            ref = ds.generate_prediction_dicts(batch, detections_to_pred_dicts(out),
+                                               ds.class_names)[0]
+            if not annos_equal(annos[i], ref):
+                raise AssertionError(f"frame {i}: run_eval's annotations differ from serve's")
+        points = int(ds[0]["points_valid"].sum())
+    if not any(len(a["name"]) for a in annos):
+        raise AssertionError("no frame kept a box")
+    values = list(result_dict.values())
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in values):
+        raise AssertionError(f"an AP outside [0, 100]: {result_dict}")
+    if not all(0 <= c <= stats["total_gt"] for c in stats["recall"].values()):
+        raise AssertionError(f"recall counts {stats['recall']} of {stats['total_gt']}")
+    steady = serve_ms[2:]
+    result = {
+        "frames": len(annos), "launches": launches,
+        "points_per_frame": points,
+        "score_thresh": thr, "boxes": sum(len(a["name"]) for a in annos),
+        "pipelined_ms_per_frame": stats["ms_per_frame"],
+        "pipelined_frames_per_s": 1e3 / stats["ms_per_frame"],
+        "serve_ms_per_frame": float(np.mean(steady)),
+        "serve_frames_per_s": 1e3 / float(np.mean(steady)),
+        "host_ms_per_frame": stats["host_ms_per_frame"],
+        "h2d_device_ms_per_frame": stats["h2d_device_ms_per_frame"],
+        "eval_s": stats["eval_s"], "run_eval_wall_s": wall_s,
+        "tree_write_s": write_s, "create_infos_s": infos_s,
+        "recall": {str(k): v for k, v in stats["recall"].items()}, "total_gt": stats["total_gt"],
+        "peak_memory_bytes": peak, "mAP_3d_entire_area": result_dict["entire_area/mAP_3d"],
+    }
+    print("  " + json.dumps(result))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -692,6 +911,11 @@ def main(argv=None) -> int:
     phase("serve_polar", phase_serve, dev, vod_polar_config(), 3)
     torch.cuda.empty_cache()
     phase("train_polar", phase_train, dev, vod_polar_config(), 3)
+    torch.cuda.empty_cache()
+    phase("small_reference_eval", phase_small_reference_eval, dev)
+    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", 2)
+    torch.cuda.empty_cache()
+    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", 3)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -704,7 +928,8 @@ def main(argv=None) -> int:
         # and of the polar path (its three maps) beside them
         timed = [r for r in rows if "ms" in r]
         by_path = {path: report[path]["launches"][name]
-                   for path in ("serve", "train", "serve_polar", "train_polar")}
+                   for path in ("serve", "train", "serve_polar", "train_polar", "eval",
+                                "eval_polar")}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -10,10 +10,13 @@ OPTIMIZATION block. ``load_config`` and
 package's ``config.py`` does; ``vod_pallas_config`` and ``vod_polar_config``
 are the flagship presets (``configs/hgsfusion_vod_pallas.yaml`` and
 ``configs/hgsfusion_vod_polar.yaml``, bf16) in plain Python, so serving needs
-no YAML parser.
+no YAML parser; ``vod_dataset_config`` is their data, class and
+post-processing blocks, for the evaluation loop. ``cfg_from_list`` applies
+the CLIs' ``--set`` overrides.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 from pathlib import Path
 from typing import Any, Dict, Tuple
@@ -168,6 +171,62 @@ def vod_polar_config() -> HGSFusionConfig:
     )
 
 
+_VOD_FEATURES = (["x", "y", "z", "rcs", "v_r", "v_r_comp", "time"]
+                 + [f"label{i}" for i in range(1, 9)] + ["idf1", "idf2"])
+
+
+def vod_dataset_config(data_path) -> dict:
+    """``CLASS_NAMES``, ``DATA_CONFIG`` and ``MODEL.POST_PROCESSING`` of
+    ``configs/hgsfusion_vod.yaml`` (its ``dataset_configs/vod_fusion.yaml``
+    base merged with its overrides) in plain Python, as ``load_config``
+    returns them, with ``DATA_PATH`` set to ``data_path``: the evaluation
+    loop's configuration without a YAML parser."""
+    return {
+        "CLASS_NAMES": ["Car", "Pedestrian", "Cyclist"],
+        "DATA_CONFIG": {
+            "DATASET": "VODDataset",
+            "DATA_PATH": str(data_path),
+            "POINT_CLOUD_RANGE": [0, -25.6, -3, 51.2, 25.6, 2],
+            "DATA_SPLIT": {"train": "train", "test": "val"},
+            "INFO_PATH": {"train": ["kitti_infos_train.pkl"],
+                          "test": ["kitti_infos_val.pkl"]},
+            "GET_ITEM_LIST": ["points", "images", "calib_matricies", "gt_boxes2d"],
+            "FOV_POINTS_ONLY": True,
+            "MAX_POINTS": 16384,
+            "MAX_GT_BOXES": 64,
+            "IMAGE_SIZE": [516, 1936],
+            "POINT_FEATURE_ENCODING": {"encoding_type": "absolute_coordinates_encoding",
+                                       "used_feature_list": list(_VOD_FEATURES),
+                                       "src_feature_list": list(_VOD_FEATURES)},
+            "DATA_PROCESSOR": [
+                {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+                {"NAME": "calculate_grid_size", "VOXEL_SIZE": [0.16, 0.16, 0.16]},
+                {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}},
+            ],
+            "DATA_AUGMENTOR": {
+                "DISABLE_AUG_LIST": ["gt_sampling"],
+                "AUG_CONFIG_LIST": [
+                    {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x"]},
+                    {"NAME": "random_image_flip_fusion", "ALONG_AXIS_LIST": ["horizontal"]},
+                    {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.3926, 0.3926]},
+                    {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]},
+                ],
+            },
+            "USE_VIRTUAL_POINTS": True,
+            "VIRTUAL_POINT_PREFIX": "mask_maskformer_with_label_k_1_gauss_k_4_uniform",
+        },
+        "MODEL": {"POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
+            "SCORE_THRESH": 0.1,
+            "OUTPUT_RAW_SCORE": False,
+            "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                           "NMS_THRESH": 0.01, "NMS_PRE_MAXSIZE": 4096,
+                           "NMS_POST_MAXSIZE": 500},
+        }},
+    }
+
+
 def _merge(base: dict, new: dict) -> dict:
     out = dict(base)
     for k, v in new.items():
@@ -205,6 +264,28 @@ def load_config(path, root_dir=None) -> dict:
     out = resolve(cfg, path.parent)
     out["TAG"] = path.stem
     return out
+
+
+def cfg_from_list(cfg: dict, kv_list) -> dict:
+    """Apply ``KEY.SUBKEY value`` overrides (the CLIs' ``--set``) in place,
+    each value read as a Python literal where it parses as one and cast to
+    the type of the scalar it replaces."""
+    if len(kv_list) % 2:
+        raise ValueError("--set takes key/value pairs")
+    for key, value in zip(kv_list[0::2], kv_list[1::2]):
+        try:
+            value = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            pass
+        *parents, leaf = key.split(".")
+        node = cfg
+        for p in parents:
+            node = node.setdefault(p, {})
+        old = node.get(leaf)
+        if old is not None and not isinstance(old, (dict, list)) and not isinstance(value, type(old)):
+            value = type(old)(value)
+        node[leaf] = value
+    return cfg
 
 
 def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:

@@ -1,8 +1,10 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written CUDA kernels and host code.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/lib<name>-<hash>.so``, at its first
-use, and loaded with ``ctypes``. The file name carries a hash of the source, so
+use, and loaded with ``ctypes``. Each ``csrc/<name>.cc`` (host code: the
+evaluators' rotated overlap) is compiled the same way by the host C++
+compiler (``load_host``). The file name carries a hash of the source, so
 an edited source is rebuilt and a stale library is never loaded. A failed
 build raises.
 """
@@ -14,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -22,8 +25,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's flags for the same source (hgsfusion_tpu/native)
+HOST_CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -82,4 +88,34 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+    return lib
+
+
+def host_library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cc").read_bytes()
+    digest = hashlib.sha1(src + " ".join(HOST_CXX_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library of ``csrc/<name>.cc``, built by ``g++`` (or ``$CXX``)
+    first if needed; thread-safe."""
+    with _host_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            out = host_library_path(name)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                cxx = os.environ.get("CXX", "g++")
+                proc = subprocess.run([cxx, *HOST_CXX_FLAGS, str(CSRC_DIR / f"{name}.cc"),
+                                       "-o", tmp], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"{cxx} failed for csrc/{name}.cc:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(str(out))
+            _loaded[name] = lib
     return lib

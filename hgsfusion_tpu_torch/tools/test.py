@@ -1,0 +1,330 @@
+"""Evaluation CLI: a model over the val split, KITTI-format annotations,
+recall and the official AP (counterpart of the JAX package's
+``tools/test.py``).
+
+    python -m hgsfusion_tpu_torch.tools.test --cfg_file configs/hgsfusion_vod_pallas.yaml \\
+        [--ckpt model.pth] [--device cuda] [--batch_size 1] [--max_frames N] \\
+        [--save_to_file] [--infer_time] [--set DATA_CONFIG.DATA_PATH <root> ...]
+
+``run_eval`` pipelines three threads: a producer builds and collates the
+next batches and copies them to the device, the main thread dispatches
+``HGSFusionModel.serve``, and a finisher reads the detections back and runs
+the host post-processing (recall, then the KITTI annotations). The
+per-frame results are those of serving the batches one by one; the
+pipeline only overlaps the work.
+"""
+from __future__ import annotations
+
+import argparse
+import pickle
+import queue
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import cfg_from_list, load_config, model_config_from_yaml
+from ..datasets import build_dataset
+from ..eval.rotated_iou_np import rotate_iou_eval
+from ..models.detector import HGSFusionModel, resolve_device
+from ..ops import quad_sample
+from ..train.trainer import detections_to_pred_dicts
+from ..utils.common import create_logger
+
+# a reference pcdet checkpoint's CamelCase FusionVFE names -> this package's
+# (the JAX package's train/torch_convert.py::_KEY_ALIASES)
+KEY_ALIASES = (
+    ("fusion_vfe.ImageVFE.", "fusion_vfe.image_vfe."),
+    ("fusion_vfe.RadarVFE.", "fusion_vfe.radar_backbone."),
+    ("fusion_vfe.RadarOccupancy.", "fusion_vfe.radar_occupancy."),
+)
+
+
+def load_checkpoint(model, path):
+    """Load a ``.pth`` file strictly into ``model``: either this package's
+    ``state_dict`` or a reference pcdet checkpoint ``{"model_state": ...}``,
+    whose keys are normalized by KEY_ALIASES (a module registered under two
+    names keeps its first). A missing or unexpected key raises."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state" in state:
+        normalized = {}
+        for k, v in state["model_state"].items():
+            for src, dst in KEY_ALIASES:
+                if k.startswith(src):
+                    k = dst + k[len(src):]
+                    break
+            normalized.setdefault(k, v)
+        state = normalized
+    model.load_state_dict(state, strict=True)
+
+
+def recall_iou3d(gt_lidar, pred_lidar):
+    """(N, 7) x (M, 7) lidar boxes -> (N, M) rotated 3D IoU, f64: the BEV
+    overlap (x, y, dx, dy, heading) times the z slab."""
+    inter_bev = rotate_iou_eval(gt_lidar[:, [0, 1, 3, 4, 6]], pred_lidar[:, [0, 1, 3, 4, 6]], 2)
+    top = np.minimum(gt_lidar[:, None, 2] + gt_lidar[:, None, 5] / 2,
+                     pred_lidar[None, :, 2] + pred_lidar[None, :, 5] / 2)
+    bot = np.maximum(gt_lidar[:, None, 2] - gt_lidar[:, None, 5] / 2,
+                     pred_lidar[None, :, 2] - pred_lidar[None, :, 5] / 2)
+    inter = inter_bev * np.clip(top - bot, 0, None)
+    vol_a = np.prod(gt_lidar[:, 3:6], axis=1)[:, None]
+    vol_b = np.prod(pred_lidar[:, 3:6], axis=1)[None, :]
+    return inter / np.clip(vol_a + vol_b - inter, 1e-6, None)
+
+
+def batch_to_device(model, batch, stream):
+    """The model's keys of a collated batch on its device, and the (start,
+    end) events that bracket the copies (None on the CPU). On CUDA the
+    copies run on ``stream``, the uint8 image from pinned memory without
+    blocking the host; the caller orders its stream after ``end``."""
+    if model.device.type != "cuda":
+        return model.batch_to_device(batch), None
+    host = dict(batch)
+    if "images" in host:
+        host["images"] = torch.from_numpy(host["images"]).pin_memory()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        start.record(stream)
+        if "images" in host:
+            host["images"] = host["images"].to(model.device, non_blocking=True)
+        dev = model.batch_to_device(host)
+        end.record(stream)
+    return dev, (start, end)
+
+
+def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
+             max_frames=None, result_dir=None):
+    """Serve ``dataset``'s frames through ``model`` and evaluate them.
+
+    ``cfg`` holds ``MODEL.POST_PROCESSING`` (RECALL_THRESH_LIST, EVAL_METRIC).
+    Returns (det_annos, result_dict, stats). ``stats``: frames, the
+    pipelined ms per frame (the mean gap between completions, first two
+    batches dropped), the host ms per frame of each stage (getitem, collate,
+    h2d, finish), the copies' device ms per frame (h2d_device), the kernel
+    launch counts of each batch, the recall counts and the evaluation's
+    seconds.
+    """
+    post = cfg["MODEL"]["POST_PROCESSING"]
+    recall_thresh = list(post["RECALL_THRESH_LIST"])
+    recall = {t: 0 for t in recall_thresh}
+    total_gt = 0
+    n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
+    frame_idxs = list(range(n))
+    det_annos = []
+    host_s = {"getitem": 0.0, "collate": 0.0, "h2d": 0.0, "finish": 0.0}
+    copy_events = []
+    launches_per_batch = []
+    copy_stream = torch.cuda.Stream(model.device) if model.device.type == "cuda" else None
+
+    def host_post(out, batch):
+        nonlocal total_gt
+        pred_dicts = detections_to_pred_dicts(out)
+        gt = batch["gt_boxes"]
+        for bi, pd in enumerate(pred_dicts):
+            gt_i = gt[bi][gt[bi][:, -1] > 0]
+            total_gt += len(gt_i)
+            if len(gt_i) and len(pd["pred_boxes"]):
+                iou = recall_iou3d(np.asarray(gt_i[:, :7], np.float64),
+                                   np.asarray(pd["pred_boxes"][:, :7], np.float64))
+                best = iou.max(axis=1)
+                for t in recall_thresh:
+                    recall[t] += int((best > t).sum())
+        return dataset.generate_prediction_dicts(batch, pred_dicts, dataset.class_names,
+                                                 output_path=result_dir)
+
+    batch_q: queue.Queue = queue.Queue(maxsize=3)
+    finish_q: queue.Queue = queue.Queue(maxsize=3)
+    finish_err: list = []
+    # set on every exit of the dispatch loop, so the producer never stays
+    # blocked on a full queue
+    stop_evt = threading.Event()
+
+    def put(item) -> bool:
+        while not stop_evt.is_set():
+            try:
+                batch_q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for i0 in range(0, len(frame_idxs), batch_size):
+                if stop_evt.is_set():
+                    return
+                idxs = frame_idxs[i0:i0 + batch_size]
+                t0 = time.perf_counter()
+                samples = [dataset[j] for j in idxs]
+                t1 = time.perf_counter()
+                batch = dataset.collate_batch(samples)
+                t2 = time.perf_counter()
+                dev, copy = batch_to_device(model, batch, copy_stream)
+                if copy is not None:
+                    copy_events.append(copy)
+                t3 = time.perf_counter()
+                host_s["getitem"] += t1 - t0
+                host_s["collate"] += t2 - t1
+                host_s["h2d"] += t3 - t2
+                if not put((len(idxs), batch, dev, copy)):
+                    return
+            put(None)
+        except BaseException as exc:  # re-raised on the main thread
+            put(exc)
+
+    # pipelined time: the gaps between completions tile the wall clock
+    times = []
+    last_done = None
+
+    def finisher():
+        nonlocal last_done
+        while True:
+            item = finish_q.get()
+            if item is None:
+                return
+            if finish_err:
+                continue  # drain without work after a failure
+            try:
+                out, batch, n_frames = item
+                t0 = time.perf_counter()
+                det_annos.extend(host_post(out, batch))
+                now = time.perf_counter()
+                host_s["finish"] += now - t0
+                if last_done is not None:
+                    times.append((now - last_done) / n_frames)
+                last_done = now
+            except BaseException as exc:  # re-raised on the main thread
+                finish_err.append(exc)
+
+    prod_thread = threading.Thread(target=producer, daemon=True)
+    fin_thread = threading.Thread(target=finisher, daemon=True)
+    prod_thread.start()
+    fin_thread.start()
+    done = 0
+    producer_exc = None
+    try:
+        while True:
+            item = batch_q.get()
+            if isinstance(item, BaseException):
+                producer_exc = item
+                break
+            if item is None or finish_err:
+                break
+            n_frames, batch, dev, copy = item
+            if copy is not None:
+                stream = torch.cuda.current_stream(model.device)
+                stream.wait_event(copy[1])
+                for v in dev.values():  # allocated on the copy stream
+                    v.record_stream(stream)
+            before = dict(quad_sample.launches)
+            out = model.serve(dev)
+            launches_per_batch.append({k: quad_sample.launches[k] - before[k] for k in before})
+            finish_q.put((out, batch, n_frames))
+            done += 1
+            if done % 50 == 1:
+                logger.info(f"eval {done * batch_size}/{len(frame_idxs)}")
+    finally:
+        stop_evt.set()
+        while prod_thread.is_alive():
+            try:
+                batch_q.get_nowait()
+            except queue.Empty:
+                prod_thread.join(timeout=0.1)
+        finish_q.put(None)
+        fin_thread.join()
+    if producer_exc is not None:
+        raise producer_exc
+    if finish_err:
+        raise finish_err[0]
+
+    steady = times[2:] or times
+    ms_per_frame = float(np.mean(steady)) * 1e3 if steady else float("nan")
+    if infer_time and steady:
+        logger.info(f"inference (pipelined): {ms_per_frame:.1f} ms/frame "
+                    f"({1e3 / ms_per_frame:.2f} FPS)")
+    for t in recall_thresh:
+        logger.info(f"recall@{t}: {recall[t] / max(total_gt, 1):.4f} ({recall[t]}/{total_gt})")
+    # --max_frames shortens the loop; the evaluator compares the detections
+    # with the dataset's info list, so trim it to match
+    if len(dataset.infos) > len(det_annos):
+        dataset.infos = dataset.infos[: len(det_annos)]
+
+    eval_kwargs = {}
+    if post.get("EVAL_METRIC"):
+        eval_kwargs["eval_metric"] = post["EVAL_METRIC"]
+    if result_dir:
+        eval_kwargs["output_path"] = result_dir
+    t0 = time.perf_counter()
+    result_str, result_dict = dataset.evaluation(det_annos, dataset.class_names, **eval_kwargs)
+    eval_s = time.perf_counter() - t0
+    logger.info("\n" + result_str)
+    if copy_events:
+        torch.cuda.synchronize(model.device)
+    stats = {
+        "frames": len(det_annos), "ms_per_frame": ms_per_frame,
+        "host_ms_per_frame": {k: v * 1e3 / max(n, 1) for k, v in host_s.items()},
+        "h2d_device_ms_per_frame": (sum(s.elapsed_time(e) for s, e in copy_events) / max(n, 1)
+                                    if copy_events else None),
+        "launches_per_batch": launches_per_batch,
+        "recall": recall, "total_gt": total_gt, "eval_s": eval_s,
+    }
+    return det_annos, result_dict, stats
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cfg_file", required=True)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--ckpt", default=None,
+                   help="a .pth file: this package's state_dict or a pcdet {'model_state': ...}")
+    p.add_argument("--ckpt_dir", default=None, help="an Orbax checkpoint directory (not ported)")
+    p.add_argument("--eval_all", action="store_true", help="not ported")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0, help="the random weights' seed without --ckpt")
+    p.add_argument("--extra_tag", default="default")
+    p.add_argument("--output_dir", default="output")
+    p.add_argument("--infer_time", action="store_true")
+    p.add_argument("--save_to_file", action="store_true")
+    p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.ckpt_dir or args.eval_all:
+        raise NotImplementedError(
+            "--ckpt_dir and --eval_all read Orbax checkpoints, which wait for the port of "
+            "train/checkpoint.py (ROADMAP.md queue 1 item 4); use --ckpt with a .pth file")
+    device = resolve_device(args.device)
+    cfg = load_config(args.cfg_file)
+    if args.set_cfgs:
+        cfg_from_list(cfg, args.set_cfgs)
+    model_cfg = model_config_from_yaml(cfg)
+
+    out_dir = Path(args.output_dir) / cfg["TAG"] / args.extra_tag / "eval"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(out_dir / "eval.log")
+    dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
+                            logger=logger)
+    model = HGSFusionModel(model_cfg, device=device, seed=args.seed)
+    if args.ckpt:
+        load_checkpoint(model, args.ckpt)
+        logger.info(f"loaded {args.ckpt}")
+    else:
+        logger.warning(f"no --ckpt: evaluating random weights from seed {args.seed}")
+    result_dir = out_dir / "final_result" if args.save_to_file else None
+    if result_dir:
+        result_dir.mkdir(parents=True, exist_ok=True)
+    det_annos, _, _ = run_eval(cfg, model, dataset, logger, batch_size=args.batch_size,
+                               infer_time=args.infer_time, max_frames=args.max_frames,
+                               result_dir=result_dir)
+    with open(out_dir / "result.pkl", "wb") as f:
+        pickle.dump(det_annos, f)
+    logger.info(f"results saved to {out_dir}")
+
+
+if __name__ == "__main__":
+    main()

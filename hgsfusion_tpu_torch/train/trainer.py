@@ -1,5 +1,6 @@
 """The training step (counterpart of ``hgsfusion_tpu/train/trainer.py``:
-model_inputs, _grad_step, make_train_step).
+model_inputs, _grad_step, make_train_step), and the detections of ``serve``
+as per-frame numpy dicts (detections_to_pred_dicts).
 
 One step is the forward pass in train mode, target assignment, the RPN and
 occupancy losses, the backward pass and the AdamW / OneCycle update. PyTorch
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from ..models.anchor_head import anchor_head_loss
@@ -61,3 +63,13 @@ def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Di
         return total, {**tb, "loss_occ": occ, "loss": total}
 
     return _grad_step(loss_fn, optimizer)
+
+
+def detections_to_pred_dicts(out: Dict) -> list:
+    """``serve``'s fixed-shape detections -> one dict of numpy arrays per
+    frame, its valid rows only: pred_boxes (N, 7), pred_scores (N,),
+    pred_labels (N,) int64. Reads the batch back to the host once."""
+    host = {k: out[k].cpu().numpy() for k in ("boxes", "scores", "labels", "valid")}
+    return [{"pred_boxes": host["boxes"][i][m], "pred_scores": host["scores"][i][m],
+             "pred_labels": host["labels"][i][m].astype(np.int64)}
+            for i, m in enumerate(host["valid"])]

@@ -1,8 +1,11 @@
-"""Shared geometry helpers (counterpart of ``hgsfusion_tpu/utils/common.py``)."""
+"""Shared geometry helpers and the logger (counterpart of
+``hgsfusion_tpu/utils/common.py``)."""
 from __future__ import annotations
 
 import functools
+import logging
 import math
+import sys
 
 import torch
 
@@ -24,3 +27,21 @@ def limit_period(val, offset: float = 0.5, period: float = math.pi):
     """Wrap angles into [-offset*period, (1-offset)*period):
     val - floor(val / period + offset) * period."""
     return val - torch.floor(val / period + offset) * period
+
+
+def create_logger(log_file=None, rank: int = 0, level=logging.INFO):
+    """Console (and, given ``log_file``, file) logger; a process of rank > 0
+    logs warnings only."""
+    logger = logging.getLogger("hgsfusion_tpu_torch")
+    logger.setLevel(level if rank == 0 else logging.WARNING)
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
+    console = logging.StreamHandler(sys.stdout)
+    console.setFormatter(fmt)
+    logger.addHandler(console)
+    if log_file is not None and rank == 0:
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    logger.propagate = False
+    return logger

@@ -6,9 +6,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 _GUARD = r"""
+EXTRA = tuple(__import__("sys").argv[1:])
 import importlib, importlib.abc, pkgutil, sys
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "hgsfusion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "hgsfusion_tpu") + EXTRA
 
 def forbidden(name):
     return name.split(".")[0] in FORBIDDEN
@@ -33,12 +34,35 @@ print(" ".join(mods))
 """
 
 
-def test_port_imports_no_jax():
-    proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
+NEW_SUBMODULES = {
+    "hgsfusion_tpu_torch.datasets", "hgsfusion_tpu_torch.datasets.dataset",
+    "hgsfusion_tpu_torch.datasets.image_io", "hgsfusion_tpu_torch.datasets.kitti_base",
+    "hgsfusion_tpu_torch.datasets.processor", "hgsfusion_tpu_torch.datasets.synthetic",
+    "hgsfusion_tpu_torch.datasets.vod", "hgsfusion_tpu_torch.eval",
+    "hgsfusion_tpu_torch.eval.kitti_ap", "hgsfusion_tpu_torch.eval.rotated_iou_np",
+    "hgsfusion_tpu_torch.eval.vod_eval", "hgsfusion_tpu_torch.ops.points_in_boxes",
+    "hgsfusion_tpu_torch.tools", "hgsfusion_tpu_torch.tools.create_infos",
+    "hgsfusion_tpu_torch.tools.test", "hgsfusion_tpu_torch.utils.calibration",
+}
+
+
+def _walk(*blocked):
+    proc = subprocess.run([sys.executable, "-c", _GUARD, *blocked], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    mods = proc.stdout.split()
-    assert len(mods) >= 22  # every submodule was imported
+    return set(proc.stdout.split())
+
+
+def test_port_imports_no_jax():
+    mods = _walk()
+    assert len(mods) >= 38  # every submodule was imported
     assert {"hgsfusion_tpu_torch.train.optim", "hgsfusion_tpu_torch.train.trainer",
             "hgsfusion_tpu_torch.train.step_compare",
-            "hgsfusion_tpu_torch.models.polar_f2v"} <= set(mods)
+            "hgsfusion_tpu_torch.models.polar_f2v"} <= mods
+    assert NEW_SUBMODULES <= mods
+
+
+def test_port_imports_without_pillow_and_yaml():
+    """Pillow and PyYAML are imported only where a JPEG is read or a YAML
+    loaded."""
+    assert NEW_SUBMODULES <= _walk("PIL", "yaml")
