@@ -76,11 +76,31 @@ Phases, each of which must pass or the script exits non-zero:
     pipelined and the ``serve``-only ms per frame, the host ms per frame of
     each stage, the evaluation's seconds and peak device memory;
 16. eval polar: ``configs/hgsfusion_vod_polar.yaml`` as 15, with 3 forward
-    launches per frame.
+    launches per frame;
+17. small reference, XLA sampler: the TINY model with
+    ``f2v_sampler_kernel="xla"`` on the card against the CPU, as 5 and 6,
+    with the kernels launched on the card (2 forward in the served frame, 2
+    forward, 2 backward and 2 bins in the step);
+18. train CLI: ``configs/hgsfusion_vod.yaml`` (``SAMPLER_KERNEL: xla``, read
+    with ``load_config``) at full width through
+    ``hgsfusion_tpu_torch.tools.train.main`` over a 16-frame synthetic tree
+    (as 15), ``--fix_random_seed --epochs 2 --max_steps 20 --workers 4``:
+    the counters at 0 before and 2 forward, 2 backward and 2 bins per step
+    after, finite losses, some frame flipped and some frame with a
+    ``lidar_aug_matrix`` other than the identity among those fed,
+    checkpoints at steps 16 and 20 only; then a resume with ``--max_steps
+    4`` from step 20 whose model and optimizer state equal the file bit for
+    bit before its first step, ending at step 24 (one step profiled); then
+    ``tools.test.main --ckpt_dir ... --max_frames 8`` on step 24, 2 forward
+    launches per frame. Printed: steps/s after the first two steps, the
+    loader wait per step, the profiled step's device time, each save's and
+    the resume's seconds, the checkpoint's bytes and peak device memory.
 
-The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+The ``kernels`` line counts each kernel's launches over the main paths
+(7, 8, 12, 13, 15, 16 and 18's three runs). The last lines are the
+``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -112,8 +132,11 @@ from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample
 from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.tools import test as test_cli
+from hgsfusion_tpu_torch.tools import train as train_cli
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
 from hgsfusion_tpu_torch.tools.test import run_eval
+from hgsfusion_tpu_torch.train.checkpoint import CheckpointManager
 from hgsfusion_tpu_torch.train.optim import FROZEN_PREFIX, build_optimizer
 from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps, perturb_inputs,
                                                     sensitivity, step_record,
@@ -165,6 +188,7 @@ TINY = HGSFusionConfig(pc_range=(0.0, -8.0, -3.0, 16.0, 8.0, 2.0), voxel_size=(0
                        image_size=(64, 96), disc_num_bins=16, disc_depth_max=16.0,
                        image_backbone="ResNet50", f2v_sampler_kernel="pallas")
 TINY_POLAR = dataclasses.replace(TINY, f2v_view="polar", f2v_sampler_kernel="xla")
+TINY_XLA = dataclasses.replace(TINY, f2v_sampler_kernel="xla")
 # the polar view's three sampled maps at full width: the two reduced maps
 # (128 channels) of the near field, and the polar table q (J = 128 zeta
 # nodes, K = 484 + 6 u-nodes) of pass 3
@@ -172,6 +196,11 @@ POLAR_SHAPES = {"near_A": (1, 129, 484, 128), "near_B": (1, 65, 242, 128),
                 "q": (1, 128, 490, 128)}
 # the near field against the gather path: tests/test_polar_f2v.py's bound
 NEAR_TOL = 2e-3
+
+
+def zero_launches():
+    for k in quad_sample.launches:
+        quad_sample.launches[k] = 0
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -514,6 +543,20 @@ def phase_small_reference_polar(dev):
             "train": phase_small_reference_train(dev, TINY_POLAR)}
 
 
+def phase_small_reference_xla(dev):
+    """The TINY model under ``SAMPLER_KERNEL: xla``, card vs CPU: serving,
+    then one training step, with the card's launches counted."""
+    zero_launches()
+    out = {"serve": phase_small_reference(dev, TINY_XLA),
+           "train": phase_small_reference_train(dev, TINY_XLA)}
+    out["launches"] = dict(quad_sample.launches)
+    want = {quad_sample.KERNEL: 4, quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}
+    print(f"  launches on the card: {out['launches']}")
+    if out["launches"] != want:
+        raise AssertionError(f"launches {out['launches']}, want {want}")
+    return out
+
+
 def phase_train(dev, cfg, per_step: int):
     """3 full-width training steps of ``cfg`` after a warm-up, each launching
     ``per_step`` forward and backward kernels and building as many bins."""
@@ -541,8 +584,7 @@ def phase_train(dev, cfg, per_step: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     # the main path: 3 training steps
-    for k in quad_sample.launches:
-        quad_sample.launches[k] = 0
+    zero_launches()
     wall, terms = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -617,8 +659,7 @@ def phase_serve(dev, cfg, per_frame: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     # the main path: 3 frames through the serving entry point
-    for k in quad_sample.launches:
-        quad_sample.launches[k] = 0
+    zero_launches()
     wall = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -807,8 +848,7 @@ def phase_eval(dev, yaml_path, per_frame: int):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         # the main path: the evaluation loop over every frame
-        for k in quad_sample.launches:
-            quad_sample.launches[k] = 0
+        zero_launches()
         t0 = time.perf_counter()
         annos, result_dict, stats = run_eval(cfg, model, ds, logger, batch_size=1,
                                              infer_time=True)
@@ -868,6 +908,131 @@ def phase_eval(dev, yaml_path, per_frame: int):
     return result
 
 
+VOD_YAML = "configs/hgsfusion_vod.yaml"
+TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, RESUME_STEPS, TRAIN_CLI_EVAL_FRAMES = 16, 20, 4, 8
+
+
+def phase_train_cli(dev, yaml_path=VOD_YAML):
+    """``tools/train.py`` and ``tools/test.py --ckpt_dir`` on the paper's
+    own config at full width: train across an epoch boundary, resume,
+    evaluate the newest checkpoint."""
+    cfg = load_config(yaml_path)
+    model_cfg = model_config_from_yaml(cfg)
+    if model_cfg.f2v_sampler_kernel != "xla" or dataclasses.replace(
+            model_cfg, f2v_sampler_kernel="pallas") != vod_pallas_config():
+        raise AssertionError(f"{yaml_path} is not the pallas preset with SAMPLER_KERNEL: xla")
+    data = cfg["DATA_CONFIG"]
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        data["DATA_PATH"] = str(root)
+        t0 = time.perf_counter()
+        make_synthetic_kitti(root, num_frames=TRAIN_CLI_FRAMES, num_points=2048,
+                             num_virtual=4096, image_hw=tuple(data["IMAGE_SIZE"]),
+                             structured=True, virtual_prefix=data["VIRTUAL_POINT_PREFIX"])
+        create_infos(data, cfg["CLASS_NAMES"])
+        tree_s = time.perf_counter() - t0
+        common = ["--cfg_file", yaml_path, "--fix_random_seed", "--epochs", "2", "--workers", "4",
+                  "--output_dir", str(out)]
+        data_set = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+
+        # the main path: the first training run
+        zero_launches()
+        first = train_cli.main(common + ["--max_steps", str(TRAIN_CLI_STEPS)] + data_set)
+        first["launches"] = dict(quad_sample.launches)
+        ckpt = CheckpointManager(Path(first["out_dir"]) / "ckpt")
+        first_steps = ckpt.all_steps()
+
+        # the resume: its restored state against the newest file
+        run = train_cli.prepare(train_cli.parse_args(
+            common + ["--max_steps", str(RESUME_STEPS), "--profile_steps",
+                      f"{TRAIN_CLI_STEPS + 1}:{TRAIN_CLI_STEPS + 1}"] + data_set))
+        saved = torch.load(ckpt.path(TRAIN_CLI_STEPS), map_location="cpu", weights_only=True)
+        model_equal = all(torch.equal(v.cpu(), saved["model_state"][k])
+                          for k, v in run.model.state_dict().items())
+        opt = run.optimizer.state_dict()
+        opt_equal = (torch.equal(opt["count"].cpu(), saved["optimizer_state"]["count"])
+                     and all(torch.equal(a.cpu(), b) for key in ("mu", "nu")
+                             for a, b in zip(opt[key], saved["optimizer_state"][key])))
+        log = (Path(first["out_dir"]) / "train.log").read_text()
+        zero_launches()
+        second = train_cli.fit(run)
+        second["launches"] = dict(quad_sample.launches)
+
+        # the evaluation of the newest checkpoint
+        zero_launches()
+        t0 = time.perf_counter()
+        evaluated = test_cli.main(["--cfg_file", yaml_path, "--ckpt_dir", str(ckpt.ckpt_dir),
+                                   "--max_frames", str(TRAIN_CLI_EVAL_FRAMES), "--output_dir",
+                                   str(out / "eval")] + data_set)
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(quad_sample.launches)
+        final_steps = ckpt.all_steps()
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    for name, r, steps in (("first", first, TRAIN_CLI_STEPS), ("resume", second, RESUME_STEPS)):
+        want = {quad_sample.KERNEL: 2 * steps, quad_sample.BWD_KERNEL: 2 * steps,
+                quad_sample.BINS: 2 * steps}
+        check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        check(r["steps"] == steps and all(math.isfinite(v) for v in r["losses"]),
+              f"{name}: {r['steps']} steps, losses {r['losses']}")
+    check(first["augmentation"]["flipped"] > 0, "no flipped frame was fed")
+    check(first["augmentation"]["aug_matrix"] > 0, "every lidar_aug_matrix was the identity")
+    check(first_steps == [TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS],
+          f"checkpoints after the first run: {first_steps}")
+    check(run.resumed_from == run.start_step == TRAIN_CLI_STEPS
+          and f"auto-resumed from step {TRAIN_CLI_STEPS}" in log,
+          f"resumed from {run.resumed_from} at step {run.start_step}")
+    check(model_equal and opt_equal, f"restored state differs from the file: model "
+          f"{model_equal}, optimizer {opt_equal}")
+    check(second["end_step"] == TRAIN_CLI_STEPS + RESUME_STEPS, f"resume ended at "
+          f"{second['end_step']}")
+    check(second["profile_device_ms"] is not None and second["profile_device_ms"] > 0,
+          f"profiled step device ms {second['profile_device_ms']}")
+    check(final_steps == [TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, TRAIN_CLI_STEPS + RESUME_STEPS],
+          f"checkpoints at the end: {final_steps}")
+    eval_step = TRAIN_CLI_STEPS + RESUME_STEPS
+    want = {quad_sample.KERNEL: 2 * TRAIN_CLI_EVAL_FRAMES, quad_sample.BWD_KERNEL: 0,
+            quad_sample.BINS: 0}
+    check(sorted(evaluated) == [eval_step], f"evaluated steps {sorted(evaluated)}")
+    check(eval_launches == want, f"eval launches {eval_launches}, want {want}")
+    result_dict, stats = evaluated.get(eval_step, ({}, {}))
+    check(stats.get("frames") == TRAIN_CLI_EVAL_FRAMES
+          and all(math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()),
+          f"evaluation: {stats.get('frames')} frames, {result_dict}")
+
+    waits = first["loader_wait_s"]
+    result = {
+        "config": yaml_path, "frames": TRAIN_CLI_FRAMES, "tree_and_infos_s": tree_s,
+        "launches": {k: first["launches"][k] + second["launches"][k] + eval_launches[k]
+                     for k in eval_launches},
+        "launches_by_run": {"train": first["launches"], "resume": second["launches"],
+                            "eval": eval_launches},
+        "steps_per_s": first["steps_per_s"],
+        "steps_per_s_excl_saves": first["steps_per_s_excl_saves"],
+        "loader_wait_ms": {"mean": 1e3 * float(np.mean(waits[2:])),
+                           "max": 1e3 * float(np.max(waits[2:])),
+                           "first_two": [1e3 * w for w in waits[:2]]},
+        "augmentation": first["augmentation"],
+        "losses": first["losses"] + second["losses"],
+        "profiled_step_device_ms": second["profile_device_ms"],
+        "saves": first["saves"] + second["saves"], "resume_s": run.resume_s,
+        "checkpoint_bytes": first["saves"][-1]["bytes"] if first["saves"] else None,
+        "peak_memory_bytes": first["peak_memory_bytes"],
+        "resume_steps_per_s": second["steps_per_s"],
+        "checkpoints": final_steps, "restored_bit_equal": model_equal and opt_equal,
+        "eval_s": eval_s, "eval_ms_per_frame": stats.get("ms_per_frame"),
+        "eval_result": result_dict,
+    }
+    print("  " + json.dumps(result))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -916,6 +1081,9 @@ def main(argv=None) -> int:
     phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", 2)
     torch.cuda.empty_cache()
     phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", 3)
+    torch.cuda.empty_cache()
+    phase("small_reference_xla", phase_small_reference_xla, dev)
+    phase("train_cli", phase_train_cli, dev)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -929,7 +1097,7 @@ def main(argv=None) -> int:
         timed = [r for r in rows if "ms" in r]
         by_path = {path: report[path]["launches"][name]
                    for path in ("serve", "train", "serve_polar", "train_polar", "eval",
-                                "eval_polar")}
+                                "eval_polar", "train_cli")}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

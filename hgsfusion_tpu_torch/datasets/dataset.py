@@ -4,7 +4,9 @@ collation (counterpart of ``hgsfusion_tpu/datasets/dataset.py``), numpy.
 Every batch has static shapes: points padded to MAX_POINTS with a validity
 mask, gt boxes padded to MAX_GT_BOXES, images padded to IMAGE_SIZE. The
 dataset config is a plain dict, as ``config.load_config`` returns it.
-Evaluation only: the augmentor is not ported, so ``training=True`` raises.
+With ``training=True`` every frame first goes through the data augmentor
+(``augmentor.py``), records its flip/rotation/scale as ``lidar_aug_matrix``,
+and a frame left with no gt box is replaced by a random other one.
 """
 from __future__ import annotations
 
@@ -12,18 +14,13 @@ from pathlib import Path
 
 import numpy as np
 
+from .augmentor import DataAugmentor
 from .processor import DataProcessor, PointFeatureEncoder
-
-TRAINING_NOT_PORTED = (
-    "training=True needs the data augmentor, which is not ported yet (ROADMAP.md "
-    "queue 1 item 4, its training half)")
 
 
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
                  root_path=None, logger=None):
-        if training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
         self.dataset_cfg = dataset_cfg
         self.training = training
         self.class_names = class_names
@@ -40,6 +37,8 @@ class DatasetTemplate:
 
         self.point_feature_encoder = PointFeatureEncoder(
             dataset_cfg["POINT_FEATURE_ENCODING"], point_cloud_range=self.point_cloud_range)
+        self.data_augmentor = (DataAugmentor(self.root_path, dataset_cfg["DATA_AUGMENTOR"],
+                                             class_names, logger) if training else None)
         self.data_processor = DataProcessor(
             dataset_cfg["DATA_PROCESSOR"], point_cloud_range=self.point_cloud_range,
             training=training,
@@ -107,7 +106,16 @@ class DatasetTemplate:
         return data_dict
 
     def prepare_data(self, data_dict):
-        """aug-matrix -> class filter -> encode -> process."""
+        """augment (training) -> aug-matrix -> class filter -> encode ->
+        process. A training frame left with no gt box returns None, and the
+        caller draws another."""
+        if self.training:
+            gt_boxes_mask = np.array([n in self.class_names for n in data_dict["gt_names"]],
+                                     dtype=bool)
+            calib = data_dict.get("calib")
+            data_dict = self.data_augmentor.forward({**data_dict, "gt_boxes_mask": gt_boxes_mask})
+            if calib is not None:
+                data_dict["calib"] = calib
         data_dict.pop("road_plane", None)
         data_dict = self.set_lidar_aug_matrix(data_dict)
 
@@ -128,6 +136,8 @@ class DatasetTemplate:
         if data_dict.get("points", None) is not None:
             data_dict = self.point_feature_encoder.forward(data_dict)
         data_dict = self.data_processor.forward(data_dict)
+        if self.training and len(data_dict.get("gt_boxes", [])) == 0:
+            return None
         data_dict.pop("gt_names", None)
         return data_dict
 

@@ -2,7 +2,7 @@
 post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
-``f2v_view="gather"`` and ``f2v_sampler_kernel="pallas"``, or
+``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; post_process):
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
@@ -157,9 +157,10 @@ class HGSFusionModel(nn.Module):
         return self.anchors.device
 
     def batch_to_device(self, batch):
-        """The batch keys the model reads, as tensors on the model's device."""
+        """The batch keys the model reads, as tensors on the model's device;
+        a tensor in pinned memory is copied without making the host wait."""
         return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
-                    else torch.from_numpy(np.array(batch[k]))).to(self.device)
+                    else torch.from_numpy(np.array(batch[k]))).to(self.device, non_blocking=True)
                 for k in BATCH_KEYS if k in batch}
 
     # -- stages (separate so a caller can time each) -------------------------

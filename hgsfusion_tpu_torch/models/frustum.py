@@ -1,10 +1,11 @@
 """Image -> voxel frustum view transform (multi-scale grid sampling).
 
 Counterpart of ``hgsfusion_tpu/models/frustum.py`` for the path the
-``vod_pallas`` config runs: FUSE_MODE CONCAT, USE_DEPTH False, same-
-resolution taps grouped into one gather, each group sampled by the
-``quad_sample_fwd`` kernel and reduced by a matmul into an f32 accumulator
-(the 1x1x1 Conv3d of the reference), then BN and ReLU.
+HGSFusion VoD configs run under either ``F2V.SAMPLER_KERNEL`` (``xla``, the
+default, or ``pallas``): FUSE_MODE CONCAT, USE_DEPTH False, same-resolution
+taps grouped into one gather, each group sampled by the ``quad_sample_fwd``
+kernel and reduced by a matmul into an f32 accumulator (the 1x1x1 Conv3d of
+the reference), then BN and ReLU.
 
 With USE_DEPTH False the reference samples a D=1 volume where
 align_corners=True collapses any depth coordinate onto plane 0, so the
@@ -100,21 +101,20 @@ class FrustumToVoxelMultiScale(nn.Module):
                  fuse_mode: str = "CONCAT", dtype=None, quant: str = "none",
                  sampler_kernel: str = "pallas", use_depth: bool = False):
         super().__init__()
-        # refuse loudly what the port does not run: the int8 payload, the
-        # USE_DEPTH / ADD paths and the XLA sampler are later slices
+        # refuse loudly what the port does not run: the int8 payload and the
+        # USE_DEPTH / ADD paths are later slices. The JAX package's two
+        # samplers (XLA and Pallas) have the same numerics, so both run the
+        # quad_sample_fwd kernel here
         if quant != "none":
             raise ValueError(
-                "F2V.SAMPLER_KERNEL: pallas is mutually exclusive with "
-                f"QUANT: {quant} (the kernel path is bf16-payload)")
+                f"F2V.QUANT: {quant} is not ported: the quad_sample_fwd kernel "
+                "path is bf16-payload (int8 is ROADMAP queue 1 item 6)")
         if use_depth or fuse_mode != "CONCAT":
             raise NotImplementedError(
-                "F2V.SAMPLER_KERNEL: pallas covers the CONCAT grouped-quad "
+                "the port's view transform covers the CONCAT grouped-quad "
                 "path only (not USE_DEPTH / FUSE_MODE ADD)")
-        if sampler_kernel != "pallas":
-            raise NotImplementedError(
-                f"F2V.SAMPLER_KERNEL: {sampler_kernel} is not ported; the "
-                "port's view transform runs the quad_sample_fwd kernel "
-                "(SAMPLER_KERNEL: pallas)")
+        if sampler_kernel not in ("xla", "pallas"):
+            raise NotImplementedError(f"F2V.SAMPLER_KERNEL: {sampler_kernel}")
         self.in_channels = tuple(int(c) for c in in_channels)
         self.dtype = dtype
         self.channel_reduce = nn.Sequential(

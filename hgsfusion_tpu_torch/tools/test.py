@@ -2,9 +2,15 @@
 recall and the official AP (counterpart of the JAX package's
 ``tools/test.py``).
 
-    python -m hgsfusion_tpu_torch.tools.test --cfg_file configs/hgsfusion_vod_pallas.yaml \\
-        [--ckpt model.pth] [--device cuda] [--batch_size 1] [--max_frames N] \\
-        [--save_to_file] [--infer_time] [--set DATA_CONFIG.DATA_PATH <root> ...]
+    python -m hgsfusion_tpu_torch.tools.test --cfg_file configs/hgsfusion_vod.yaml \\
+        [--ckpt model.pth | --ckpt_dir <out>/ckpt [--ckpt_step N | --eval_all]] \\
+        [--device cuda] [--batch_size 1] [--max_frames N] [--save_to_file] \\
+        [--infer_time] [--set DATA_CONFIG.DATA_PATH <root> ...]
+
+``--ckpt_dir`` reads the checkpoints of ``tools/train.py``: the newest step,
+or ``--ckpt_step``; ``--eval_all`` evaluates every step not yet evaluated
+and polls the directory for new ones until ``--max_waiting_mins`` pass
+without one.
 
 ``run_eval`` pipelines three threads: a producer builds and collates the
 next batches and copies them to the device, the main thread dispatches
@@ -30,34 +36,9 @@ from ..datasets import build_dataset
 from ..eval.rotated_iou_np import rotate_iou_eval
 from ..models.detector import HGSFusionModel, resolve_device
 from ..ops import quad_sample
+from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.trainer import detections_to_pred_dicts
 from ..utils.common import create_logger
-
-# a reference pcdet checkpoint's CamelCase FusionVFE names -> this package's
-# (the JAX package's train/torch_convert.py::_KEY_ALIASES)
-KEY_ALIASES = (
-    ("fusion_vfe.ImageVFE.", "fusion_vfe.image_vfe."),
-    ("fusion_vfe.RadarVFE.", "fusion_vfe.radar_backbone."),
-    ("fusion_vfe.RadarOccupancy.", "fusion_vfe.radar_occupancy."),
-)
-
-
-def load_checkpoint(model, path):
-    """Load a ``.pth`` file strictly into ``model``: either this package's
-    ``state_dict`` or a reference pcdet checkpoint ``{"model_state": ...}``,
-    whose keys are normalized by KEY_ALIASES (a module registered under two
-    names keeps its first). A missing or unexpected key raises."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_state" in state:
-        normalized = {}
-        for k, v in state["model_state"].items():
-            for src, dst in KEY_ALIASES:
-                if k.startswith(src):
-                    k = dst + k[len(src):]
-                    break
-            normalized.setdefault(k, v)
-        state = normalized
-    model.load_state_dict(state, strict=True)
 
 
 def recall_iou3d(gt_lidar, pred_lidar):
@@ -279,8 +260,12 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--ckpt", default=None,
                    help="a .pth file: this package's state_dict or a pcdet {'model_state': ...}")
-    p.add_argument("--ckpt_dir", default=None, help="an Orbax checkpoint directory (not ported)")
-    p.add_argument("--eval_all", action="store_true", help="not ported")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="a checkpoint directory of tools/train.py (its newest step)")
+    p.add_argument("--ckpt_step", type=int, default=None, help="the step to read from --ckpt_dir")
+    p.add_argument("--eval_all", action="store_true",
+                   help="evaluate every step in --ckpt_dir, polling for new ones")
+    p.add_argument("--max_waiting_mins", type=float, default=30.0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0, help="the random weights' seed without --ckpt")
     p.add_argument("--extra_tag", default="default")
@@ -294,10 +279,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.ckpt_dir or args.eval_all:
-        raise NotImplementedError(
-            "--ckpt_dir and --eval_all read Orbax checkpoints, which wait for the port of "
-            "train/checkpoint.py (ROADMAP.md queue 1 item 4); use --ckpt with a .pth file")
+    if args.eval_all and not args.ckpt_dir:
+        raise SystemExit("--eval_all requires --ckpt_dir (otherwise only the randomly "
+                         "initialized model would be evaluated)")
     device = resolve_device(args.device)
     cfg = load_config(args.cfg_file)
     if args.set_cfgs:
@@ -310,20 +294,59 @@ def main(argv=None):
     dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
                             logger=logger)
     model = HGSFusionModel(model_cfg, device=device, seed=args.seed)
-    if args.ckpt:
-        load_checkpoint(model, args.ckpt)
-        logger.info(f"loaded {args.ckpt}")
+
+    def eval_once(tag=""):
+        result_dir = out_dir / f"final_result{tag}" if args.save_to_file else None
+        if result_dir:
+            result_dir.mkdir(parents=True, exist_ok=True)
+        det_annos, result_dict, stats = run_eval(
+            cfg, model, dataset, logger, batch_size=args.batch_size,
+            infer_time=args.infer_time, max_frames=args.max_frames, result_dir=result_dir)
+        with open(out_dir / f"result{tag}.pkl", "wb") as f:
+            pickle.dump(det_annos, f)
+        logger.info(f"results saved to {out_dir}")
+        return result_dict, stats
+
+    results = {}
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, log=logger)
+
+        def eval_step(step, tag=""):
+            load_checkpoint(model, ckpt.path(step), logger)
+            logger.info(f"loaded checkpoint step {step}")
+            results[step] = eval_once(tag)
+
+        if args.eval_all:
+            # the first sweep always runs (0 minutes: evaluate what is there);
+            # then poll until no new step appears for max_waiting_mins
+            budget = args.max_waiting_mins * 60
+            poll_s = max(min(30.0, budget), 0.5)
+            waited = 0.0
+            while True:
+                steps = [s for s in ckpt.all_steps() if s not in results]
+                if not steps:
+                    if waited >= budget:
+                        break
+                    time.sleep(poll_s)
+                    waited += poll_s
+                    continue
+                waited = 0.0
+                for step in steps:
+                    eval_step(step, tag=f"_step{step}")
+            logger.info(f"evaluated checkpoints: {sorted(results)}")
+        else:
+            step = args.ckpt_step if args.ckpt_step is not None else ckpt.latest_step()
+            if step is None:
+                raise SystemExit(f"no checkpoint in {args.ckpt_dir}")
+            eval_step(step)
     else:
-        logger.warning(f"no --ckpt: evaluating random weights from seed {args.seed}")
-    result_dir = out_dir / "final_result" if args.save_to_file else None
-    if result_dir:
-        result_dir.mkdir(parents=True, exist_ok=True)
-    det_annos, _, _ = run_eval(cfg, model, dataset, logger, batch_size=args.batch_size,
-                               infer_time=args.infer_time, max_frames=args.max_frames,
-                               result_dir=result_dir)
-    with open(out_dir / "result.pkl", "wb") as f:
-        pickle.dump(det_annos, f)
-    logger.info(f"results saved to {out_dir}")
+        if args.ckpt:
+            load_checkpoint(model, args.ckpt, logger)
+            logger.info(f"loaded {args.ckpt}")
+        else:
+            logger.warning(f"no --ckpt: evaluating random weights from seed {args.seed}")
+        results[None] = eval_once()
+    return results
 
 
 if __name__ == "__main__":

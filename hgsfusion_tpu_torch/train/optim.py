@@ -8,7 +8,8 @@ schedule, b2 0.99, eps 1e-8, decoupled weight decay) under
 inject_hyperparams, masked so that the frozen DDN backbone gets no update,
 no decay and no state. ``AdamOneCycle`` writes that chain out on tensors:
 the schedules are read at a device-side step counter, so a step reads
-nothing back to the host.
+nothing back to the host. ``state_dict`` / ``load_state_dict`` carry the
+moments and that counter through a checkpoint.
 """
 from __future__ import annotations
 
@@ -103,6 +104,27 @@ class AdamOneCycle:
             upd = upd + self.weight_decay * p
             p.add_((-lr) * upd)
         self.count.copy_(count_inc)
+
+    def state_dict(self) -> dict:
+        """The moments (one per trainable tensor, in ``params`` order) and
+        the step counter, as tensors on the optimizer's device."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Copy a ``state_dict()`` in place: the OneCycle schedules go on
+        from its ``count``. Its moments must match ``params`` in number and
+        shape."""
+        for key in ("mu", "nu"):
+            if len(state[key]) != len(self.params):
+                raise ValueError(f"optimizer state has {len(state[key])} {key} tensors, "
+                                 f"the optimizer {len(self.params)}")
+            for mine, saved in zip(getattr(self, key), state[key]):
+                if mine.shape != saved.shape:
+                    raise ValueError(f"optimizer state {key}: shape {tuple(saved.shape)}, "
+                                     f"want {tuple(mine.shape)}")
+                mine.copy_(saved)
+        self.count.copy_(torch.as_tensor(state["count"]))
 
 
 def build_optimizer(optim_cfg, total_steps: int, model):

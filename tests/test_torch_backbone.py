@@ -71,8 +71,13 @@ def test_frustum_to_voxel_pallas():
         got = f2v([t(f) for f in feats], t(grid))
     assert got.shape == (1, 6, 7, 5, 24)
     assert_close(got, ref, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="SAMPLER_KERNEL: xla"):
-        FrustumToVoxelMultiScale([16] * 4, 24, sampler_kernel="xla")
+    # SAMPLER_KERNEL: xla runs the same sampler as pallas
+    xla = load(FrustumToVoxelMultiScale([16] * 4, 24, sampler_kernel="xla"),
+               weights.frustum_to_voxel(v["params"], v["batch_stats"]))
+    with torch.no_grad():
+        assert torch.equal(xla([t(f) for f in feats], t(grid)), got)
+    with pytest.raises(NotImplementedError, match="SAMPLER_KERNEL: mosaic"):
+        FrustumToVoxelMultiScale([16] * 4, 24, sampler_kernel="mosaic")
     with pytest.raises(ValueError, match="int8"):
         FrustumToVoxelMultiScale([16] * 4, 24, quant="int8")
     with pytest.raises(NotImplementedError, match="CONCAT"):

@@ -296,14 +296,17 @@ def test_vod_dataset_config_equals_yaml():
 
 def test_training_and_unported_datasets_raise(tree):
     data_cfg, names = _full_cfg(tree)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build_dataset(data_cfg, names, training=True)
+    aug = {"DISABLE_AUG_LIST": ["gt_sampling"],
+           "AUG_CONFIG_LIST": [{"NAME": "gt_sampling"}, {"NAME": "random_world_translation"}]}
+    with pytest.raises(NotImplementedError, match="random_world_translation is not ported"):
+        build_dataset({**data_cfg, "DATA_AUGMENTOR": aug}, names, training=True)
+    assert len(build_dataset(data_cfg, names, training=True)) == 3
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         build_dataset({**data_cfg, "DATASET": "TJ4DDataset"}, names)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         build_dataset({**data_cfg, "DATASET": "NuScenesDataset"}, names)
-    with pytest.raises(NotImplementedError):
-        DatasetTemplate(data_cfg, names, training=True)
+    with pytest.raises(NotImplementedError, match="random_world_translation"):
+        DatasetTemplate({**data_cfg, "DATA_AUGMENTOR": aug}, names, training=True)
 
 
 def test_jpeg_without_pillow_names_it(tmp_path, monkeypatch):

@@ -34,6 +34,7 @@ from hgsfusion_tpu_torch.models.detector import HGSFusionModel
 from hgsfusion_tpu_torch.tools import test as port_test
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
 from hgsfusion_tpu_torch.tools.create_infos import main as create_infos_main
+from hgsfusion_tpu_torch.train.checkpoint import KEY_ALIASES, load_checkpoint
 from hgsfusion_tpu_torch.utils.common import create_logger
 from hgsfusion_tpu_torch.weights import from_jax_variables
 from test_model import TINY
@@ -300,29 +301,35 @@ def test_load_checkpoint_formats(tiny_eval, tmp_path):
     model = tiny_eval["model"]
     state = model.state_dict()
     torch.save(state, tmp_path / "port.pth")
-    # a pcdet checkpoint: CamelCase FusionVFE names, RadarOccupancy twice
+    # a pcdet checkpoint: CamelCase FusionVFE names, RadarOccupancy twice,
+    # and the DeepLab classifier that USE_DEPTH False leaves unused
     ref = {}
     for k, v in state.items():
-        for dst, src in port_test.KEY_ALIASES:
+        for dst, src in KEY_ALIASES:
             if k.startswith(src):
                 k = dst + k[len(src):]
                 if dst == "fusion_vfe.RadarOccupancy.":
                     ref["fusion_vfe.radar_occupancy." + k[len(dst):]] = v
                 break
         ref[k] = v
-    torch.save({"model_state": ref, "epoch": 3}, tmp_path / "pcdet.pth")
+    classifier = {f"fusion_vfe.ImageVFE.ffn.ddn.model.classifier.{i}.weight": torch.ones(2)
+                  for i in (0, 4)}
+    torch.save({"model_state": {**ref, **classifier}, "epoch": 3}, tmp_path / "pcdet.pth")
     for name in ("port.pth", "pcdet.pth"):
         fresh = HGSFusionModel(model.cfg, device="cpu", seed=9)
-        port_test.load_checkpoint(fresh, tmp_path / name)
+        unmatched = load_checkpoint(fresh, tmp_path / name)
+        assert unmatched == ([] if name == "port.pth" else sorted(
+            k.replace("ImageVFE", "image_vfe") for k in classifier))
         for k, v in fresh.state_dict().items():
             assert torch.equal(v, state[k]), (name, k)
     missing = dict(state)
     missing.pop("dense_head.conv_cls.bias")
     torch.save(missing, tmp_path / "missing.pth")
+    torch.save({"model_state": missing}, tmp_path / "pcdet_missing.pth")
     torch.save({**state, "extra.weight": torch.zeros(1)}, tmp_path / "extra.pth")
-    for name in ("missing.pth", "extra.pth"):
+    for name in ("missing.pth", "pcdet_missing.pth", "extra.pth"):
         with pytest.raises(RuntimeError):
-            port_test.load_checkpoint(HGSFusionModel(model.cfg, device="cpu"), tmp_path / name)
+            load_checkpoint(HGSFusionModel(model.cfg, device="cpu"), tmp_path / name)
 
 
 def test_cli_create_infos_then_eval(tiny_eval, tiny_yaml, tmp_path):
@@ -343,7 +350,7 @@ def test_cli_create_infos_then_eval(tiny_eval, tiny_yaml, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tiny_yaml):
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(SystemExit, match="--eval_all requires --ckpt_dir"):
         port_test.main(["--cfg_file", str(tiny_yaml), "--device", "cpu", "--eval_all"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -43,6 +43,8 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.eval.vod_eval", "hgsfusion_tpu_torch.ops.points_in_boxes",
     "hgsfusion_tpu_torch.tools", "hgsfusion_tpu_torch.tools.create_infos",
     "hgsfusion_tpu_torch.tools.test", "hgsfusion_tpu_torch.utils.calibration",
+    "hgsfusion_tpu_torch.datasets.augmentor", "hgsfusion_tpu_torch.datasets.loader",
+    "hgsfusion_tpu_torch.train.checkpoint", "hgsfusion_tpu_torch.tools.train",
 }
 
 
@@ -55,7 +57,7 @@ def _walk(*blocked):
 
 def test_port_imports_no_jax():
     mods = _walk()
-    assert len(mods) >= 38  # every submodule was imported
+    assert len(mods) >= 51  # every submodule was imported
     assert {"hgsfusion_tpu_torch.train.optim", "hgsfusion_tpu_torch.train.trainer",
             "hgsfusion_tpu_torch.train.step_compare",
             "hgsfusion_tpu_torch.models.polar_f2v"} <= mods
