@@ -22,6 +22,16 @@ Phases, each of which must pass or the script exits non-zero:
    bit for bit, the bins' and the kernel's times and their sum beside the
    bound, the contention statistics, the plain version's time and
    ``aten.grid_sampler_2d_backward``'s (a yardstick);
+4b. kernel vs plain, fused reduce: ``quad_sample_reduce_fwd`` (both gather
+   groups, their taps and the reduce product in one launch) against its
+   plain version at the flagship groups (both maps, the flagship grid, the
+   (256, 128) reduce kernel, a random bias) in bf16 and f32 and a ragged
+   case (three groups, odd channels and outputs, 222 queries); tolerances
+   at ``reduce_case``; in bf16 also against the sampling route a training
+   step takes (``quad_sample_fwd`` + ``matmul_f32``); the kernel's time
+   beside its bound, that route's, the glue's, the plain version's and the
+   library pair's (``F.grid_sample`` + ``torch.matmul``); then one timed
+   ``index_add_`` at the shapes of the unported P5;
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -33,8 +43,8 @@ Phases, each of which must pass or the script exits non-zero:
 7. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
    516x1936, 320x320x31 voxels, 8192 radar points) with random weights from a
    seed, one warm-up frame, then 3 frames in bf16 with the launch counters at
-   0 before and 2 forward launches per frame after (no backward launch and
-   no bins built); per-stage times, frames/s and peak device memory;
+   0 before and 1 fused launch per frame after (no other launch, no bins
+   built); per-stage times, frames/s and peak device memory;
 8. train: the same config and batch with its ``gt_boxes``, one warm-up
    training step, then 3 steps with the counters at 0 before and 2 forward
    and 2 backward launches per step after (and 2 bins built); finite
@@ -54,7 +64,7 @@ Phases, each of which must pass or the script exits non-zero:
     field) against the gather path's within 2e-3 of its largest value; the
     far field's correlation and relative L2 printed, not gated;
 12. serve polar: ``configs/hgsfusion_vod_polar.yaml`` as 7, with 3 forward
-    launches per frame (two near-field maps, pass 3);
+    launches per frame (two near-field maps, pass 3) and no fused one;
 13. train polar: as 8, with 3 forward, 3 backward and 3 bins per step;
 14. small reference, eval loop: the TINY model through
     ``hgsfusion_tpu_torch.tools.test.run_eval`` over a 4-frame synthetic
@@ -69,8 +79,8 @@ Phases, each of which must pass or the script exits non-zero:
     ``create_infos``, then ``run_eval`` at B=1 with random weights from seed
     0 (``SCORE_THRESH`` lowered so that about 12 candidates of a frame pass:
     random weights score every anchor under 0.1) after one warm-up frame:
-    some boxes kept, the counters at 0 before and 2 forward
-    launches per frame after (no backward launch, no bins), every frame's
+    some boxes kept, the counters at 0 before and 1 fused launch per frame
+    after (no other launch, no bins), every frame's
     annotations bit-equal to those of ``serve`` on the same collated batch,
     finite recall counts and result dict, every AP in [0, 100]; printed: the
     pipelined and the ``serve``-only ms per frame, the host ms per frame of
@@ -79,7 +89,7 @@ Phases, each of which must pass or the script exits non-zero:
     launches per frame;
 17. small reference, XLA sampler: the TINY model with
     ``f2v_sampler_kernel="xla"`` on the card against the CPU, as 5 and 6,
-    with the kernels launched on the card (2 forward in the served frame, 2
+    with the kernels launched on the card (1 fused in the served frame, 2
     forward, 2 backward and 2 bins in the step);
 18. train CLI: ``configs/hgsfusion_vod.yaml`` (``SAMPLER_KERNEL: xla``, read
     with ``load_config``) at full width through
@@ -91,13 +101,14 @@ Phases, each of which must pass or the script exits non-zero:
     checkpoints at steps 16 and 20 only; then a resume with ``--max_steps
     4`` from step 20 whose model and optimizer state equal the file bit for
     bit before its first step, ending at step 24 (one step profiled); then
-    ``tools.test.main --ckpt_dir ... --max_frames 8`` on step 24, 2 forward
-    launches per frame. Printed: steps/s after the first two steps, the
+    ``tools.test.main --ckpt_dir ... --max_frames 8`` on step 24, 1 fused
+    launch per frame. Printed: steps/s after the first two steps, the
     loader wait per step, the profiled step's device time, each save's and
     the resume's seconds, the checkpoint's bytes and peak device memory.
 
 The ``kernels`` line counts each kernel's launches over the main paths
-(7, 8, 12, 13, 15, 16 and 18's three runs). The last lines are the
+(7, 8, 12, 13, 15, 16 and 18's three runs), each path's count taken with
+the counters at 0 just before it. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -128,9 +139,11 @@ from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
+from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample
-from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
+from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
+                                                 quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
 from hgsfusion_tpu_torch.tools import test as test_cli
 from hgsfusion_tpu_torch.tools import train as train_cli
@@ -147,11 +160,20 @@ from hgsfusion_tpu_torch.utils.common import create_logger
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd"]
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
+KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
 FLAGSHIP_SHAPES = {"A": (1, 129, 484, 64), "B": (1, 65, 242, 192)}
+FLAGSHIP_QUERIES = 320 * 320 * 31
+# the view transform's reduce: sum of the groups' channels (256) to 128
+# outputs; the fused kernel against its plain version: f32 order bounds (see
+# reduce_case)
+REDUCE_O = 128
+REDUCE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# _bench_scatter_pallas.py's tables (rows, channels) for P5's library call
+P5_SHAPES = {"g8": (16048, 768), "g4": (63056, 256)}
 # the optimizer's schedule length in the training phases (a short OneCycle)
 TRAIN_TOTAL_STEPS = 100
 # the weights of the small training reference: a seed whose step the CPU's
@@ -412,6 +434,154 @@ def phase_kernel_vs_plain_bwd(dev):
     return rows
 
 
+def reduce_groups(maps, coords):
+    """The fused kernel's (fp, idx, w4, k_off) of each map, as
+    ``FrustumToVoxelMultiScale.accumulate`` builds them."""
+    groups, off = [], 0
+    for f in maps:
+        idx, w4 = quad_sample.quad_indices(f, coords)
+        groups.append((F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous(), idx, w4, off))
+        off += f.shape[-1]
+    return groups
+
+
+def sampling_route(groups, kmat, bias):
+    """The same function by the route a training step takes:
+    ``quad_sample_fwd`` per group, ``matmul_f32``, ``add_`` onto the bias."""
+    out = bias.expand(groups[0][1].shape[0], kmat.shape[1]).clone()
+    for fp, idx, w4, k_off in groups:
+        out.add_(matmul_f32(quad_sample.quad_sample_fwd(fp, idx, w4),
+                            kmat[k_off:k_off + fp.shape[-1]]))
+    return out
+
+
+def library_pair(maps, coords, kmat, bias):
+    """The same function from library calls, ``F.grid_sample`` and
+    ``torch.matmul`` per group (no single PyTorch call computes it)."""
+    b = coords.shape[0]
+    grid = coords.reshape(b, -1, coords.shape[-2], 2).to(kmat.dtype)
+    out, k_off = bias, 0
+    for f in maps:
+        c = f.shape[-1]
+        s = F.grid_sample(f.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+        out = out + torch.matmul(s.flatten(2).transpose(1, 2),
+                                 kmat[k_off:k_off + c]).reshape(-1, kmat.shape[1])
+        k_off += c
+    return out
+
+
+def reduce_case(name, maps, coords, o, dtype, gen, timed: bool):
+    """``quad_sample_reduce_fwd`` vs its plain version on one input.
+
+    Both sum the products in f32 in another order: f32 within REDUCE_RTOL x
+    (1 + max|ref|), the order bound of a sum of sum(c) + 1 terms with room.
+    bf16: the plain version combines the taps in bf16 (a rounding after each
+    of 4 products and 3 sums, ``quad_sample_fwd_plain``), the kernel in f32
+    with one rounding, so it also allows 8 roundings of 2^-8 of the taps'
+    magnitude S = sum |w t| through |K|: 2^-5 (S @ |K|); and the route with
+    the kernel's own rounding (``quad_sample_fwd`` + ``matmul_f32``) is held
+    at REDUCE_RTOL x (1 + max|ref|). ``timed``: the kernel, that route, the
+    glue, the plain version and the library pair, beside the bound."""
+    dev = coords.device
+    maps = [m.to(dtype) for m in maps]
+    groups = reduce_groups(maps, coords)
+    csum = sum(m.shape[-1] for m in maps)
+    kmat = (torch.randn((csum, o), generator=gen) * csum ** -0.5).to(dtype).to(dev)
+    bias = torch.randn(o, generator=gen).to(dev)
+    n = groups[0][1].numel()
+    got = quad_sample.quad_sample_reduce_fwd(groups, kmat, bias)
+    torch.cuda.synchronize()
+    ref = quad_sample.quad_sample_reduce_plain(groups, kmat, bias)
+    rtol = REDUCE_RTOL[dtype]
+    tol = rtol * (1 + float(ref.abs().max()))
+    row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+           "maps": [list(m.shape) for m in maps], "o": o, "queries": n}
+    diff = (got - ref).abs()
+    if dtype == torch.float32:
+        ratio = float(diff.max()) / tol
+    else:
+        mag = torch.zeros_like(ref)
+        for fp, idx, w4, k_off in groups:
+            s_abs = quad_sample_fwd_plain(fp.float().abs(), idx, w4.abs())
+            mag.add_(s_abs @ kmat[k_off:k_off + fp.shape[-1]].float().abs())
+            del s_abs
+        ratio = float((diff / (tol + 2.0 ** -5 * mag)).max())
+        del mag
+        same = float((got - sampling_route(groups, kmat, bias)).abs().max())
+        row["max_abs_err_same_rounding"] = same
+        row["same_rounding_over_tol"] = same / tol
+    row.update(max_abs_err=float(diff.max()), max_err_over_tol=ratio,
+               finite=bool(torch.isfinite(got).all()))
+    del diff, ref
+    if timed:
+        nbytes = (sum(fp.numel() * fp.element_size() + n * (4 + 16) for fp, _, _, _ in groups)
+                  + kmat.numel() * kmat.element_size() + o * 4 + n * o * 4)
+        ops = 2.0 * n * csum * o
+        peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+        row["bytes"], row["ops"] = nbytes, ops
+        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_fwd(groups, kmat, bias))
+        row["sampling_route_ms"] = cuda_ms(lambda: sampling_route(groups, kmat, bias))
+        row["glue_ms"] = cuda_ms(lambda: reduce_groups(maps, coords))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_plain(groups, kmat, bias),
+                                  iters=3, warmup=1)
+        row["library"] = "F.grid_sample + torch.matmul per group"
+        row["library_ms"] = cuda_ms(lambda: library_pair(maps, coords, kmat, bias))
+    print("  " + json.dumps(row))
+    if not row["finite"] or not ratio <= 1.0 or not row.get("same_rounding_over_tol", 0) <= 1.0:
+        raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} over its "
+                             f"tolerance")
+    return row
+
+
+def p5_index_add(dev):
+    """``index_add_``, the library call for P5 (a plain row scatter-add, not
+    ported), at its benchmark's shapes: 3,174,400 bf16 rows, each tile of
+    2048 within a window of 2048 table rows, into a zeroed table; the bound
+    reads the rows and indices once and the table once each way."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, tile = FLAGSHIP_QUERIES, 2048
+    tiles = -(-n // tile)
+    rows = []
+    for name, (p, cq) in P5_SHAPES.items():
+        base = torch.randint(0, p - tile + 1, (tiles, 1), generator=gen, device=dev)
+        idx = (base + torch.randint(0, tile, (tiles, tile), generator=gen, device=dev))
+        idx = idx.reshape(-1)[:n].to(torch.int32)
+        upd = torch.randn((n, cq), generator=gen, device=dev, dtype=torch.bfloat16)
+        nbytes = n * cq * 2 + n * 4 + 2 * p * cq * 2
+        rows.append({
+            "case": name, "table": [p, cq], "rows": n, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_ms(lambda: torch.zeros((p, cq), dtype=torch.bfloat16,
+                                                      device=dev).index_add_(0, idx, upd))})
+        del upd
+        print("  " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_kernel_vs_plain_reduce(dev):
+    """The fused kernel at the flagship gather groups (both maps, the
+    flagship frame's grid, the reduce kernel's (256, 128) shape, a random
+    bias) in bf16 (timed) and f32, and a ragged case; then P5's library
+    call."""
+    uv = flagship_uv(dev)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    maps = [torch.randn(shape, generator=g).to(dev) for shape in FLAGSHIP_SHAPES.values()]
+    rows = [reduce_case("flagship", maps, uv, REDUCE_O, torch.bfloat16, g, timed=True),
+            reduce_case("flagship", maps, uv, REDUCE_O, torch.float32, g, timed=False)]
+    del maps
+    torch.cuda.empty_cache()
+    # odd channels and outputs, three groups of two frames, 222 queries
+    maps = [torch.randn(shape, generator=g).to(dev)
+            for shape in ((2, 11, 17, 13), (2, 6, 9, 37), (2, 3, 4, 5))]
+    coords = (torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(reduce_case("ragged", maps, coords, 45, dtype, g, timed=False))
+    return {"rows": rows, "p5_index_add": p5_index_add(dev)}
+
+
 def polar_coords(dev):
     """The flagship frame's polar sample coordinates, by map of
     POLAR_SHAPES: the near-field grid (1, 320, 20, 31, 2) for both reduced
@@ -550,7 +720,9 @@ def phase_small_reference_xla(dev):
     out = {"serve": phase_small_reference(dev, TINY_XLA),
            "train": phase_small_reference_train(dev, TINY_XLA)}
     out["launches"] = dict(quad_sample.launches)
-    want = {quad_sample.KERNEL: 4, quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}
+    # the served frame: one fused launch; the step: 2 forward, 2 backward, 2 bins
+    want = {quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 2,
+            quad_sample.BINS: 2}
     print(f"  launches on the card: {out['launches']}")
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -594,8 +766,8 @@ def phase_train(dev, cfg, per_step: int):
         terms.append({k: float(v) for k, v in tb.items()})
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 3 * per_step, quad_sample.BWD_KERNEL: 3 * per_step,
-            quad_sample.BINS: 3 * per_step}
+    want = per_frames({quad_sample.KERNEL: per_step, quad_sample.BWD_KERNEL: per_step,
+                       quad_sample.BINS: per_step}, 3)
     if launches != want:
         raise AssertionError(f"launches in 3 steps {launches}, want {want}")
     for t in terms:
@@ -646,9 +818,21 @@ def phase_train(dev, cfg, per_step: int):
     return result
 
 
-def phase_serve(dev, cfg, per_frame: int):
+def per_frames(per_frame: dict, frames: int) -> dict:
+    """Every counter of ``quad_sample.launches`` after ``frames`` frames that
+    each launch ``per_frame`` (the counters it does not name: 0)."""
+    return {k: frames * per_frame.get(k, 0) for k in quad_sample.launches}
+
+
+# launches per served or evaluated frame: the gather view's two groups in
+# one fused launch, the polar view's three samples
+GATHER_FRAME = {quad_sample.REDUCE_KERNEL: 1}
+POLAR_FRAME = {quad_sample.KERNEL: 3}
+
+
+def phase_serve(dev, cfg, per_frame: dict):
     """3 full-width frames of ``cfg`` through ``serve()`` after a warm-up,
-    each launching ``per_frame`` forward kernels, then one staged frame."""
+    each launching the kernels ``per_frame`` counts, then one staged frame."""
     t0 = time.perf_counter()
     model = HGSFusionModel(cfg, device=dev, seed=0)
     build_s = time.perf_counter() - t0
@@ -668,7 +852,7 @@ def phase_serve(dev, cfg, per_frame: int):
         wall.append(time.perf_counter() - t0)
     launches = dict(quad_sample.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {quad_sample.KERNEL: 3 * per_frame, quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
+    want = per_frames(per_frame, 3)
     if launches != want:
         raise AssertionError(f"launches in 3 frames {launches}, want {want}")
     n_valid = int(dets["valid"].sum())
@@ -811,7 +995,7 @@ def annos_equal(a, b) -> bool:
         np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k] for k in a)
 
 
-def phase_eval(dev, yaml_path, per_frame: int):
+def phase_eval(dev, yaml_path, per_frame: dict):
     """``run_eval`` over a 16-frame synthetic VoD tree at full width, then
     the same frames through ``serve`` one by one."""
     cfg = load_config(yaml_path)
@@ -856,12 +1040,10 @@ def phase_eval(dev, yaml_path, per_frame: int):
         wall_s = time.perf_counter() - t0
         launches = dict(quad_sample.launches)
         peak = torch.cuda.max_memory_allocated(dev)
-        want = {quad_sample.KERNEL: EVAL_FRAMES * per_frame, quad_sample.BWD_KERNEL: 0,
-                quad_sample.BINS: 0}
+        want = per_frames(per_frame, EVAL_FRAMES)
         if launches != want:
             raise AssertionError(f"launches in {EVAL_FRAMES} frames {launches}, want {want}")
-        per_batch = {quad_sample.KERNEL: per_frame, quad_sample.BWD_KERNEL: 0,
-                     quad_sample.BINS: 0}
+        per_batch = per_frames(per_frame, 1)
         if any(b != per_batch for b in stats["launches_per_batch"]):
             raise AssertionError(f"launches per frame {stats['launches_per_batch']}")
 
@@ -974,8 +1156,8 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
             failures.append(what)
 
     for name, r, steps in (("first", first, TRAIN_CLI_STEPS), ("resume", second, RESUME_STEPS)):
-        want = {quad_sample.KERNEL: 2 * steps, quad_sample.BWD_KERNEL: 2 * steps,
-                quad_sample.BINS: 2 * steps}
+        want = per_frames({quad_sample.KERNEL: 2, quad_sample.BWD_KERNEL: 2,
+                           quad_sample.BINS: 2}, steps)
         check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
         check(r["steps"] == steps and all(math.isfinite(v) for v in r["losses"]),
               f"{name}: {r['steps']} steps, losses {r['losses']}")
@@ -995,8 +1177,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
     check(final_steps == [TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, TRAIN_CLI_STEPS + RESUME_STEPS],
           f"checkpoints at the end: {final_steps}")
     eval_step = TRAIN_CLI_STEPS + RESUME_STEPS
-    want = {quad_sample.KERNEL: 2 * TRAIN_CLI_EVAL_FRAMES, quad_sample.BWD_KERNEL: 0,
-            quad_sample.BINS: 0}
+    want = per_frames(GATHER_FRAME, TRAIN_CLI_EVAL_FRAMES)
     check(sorted(evaluated) == [eval_step], f"evaluated steps {sorted(evaluated)}")
     check(eval_launches == want, f"eval launches {eval_launches}, want {want}")
     result_dict, stats = evaluated.get(eval_step, ({}, {}))
@@ -1063,9 +1244,11 @@ def main(argv=None) -> int:
         print(f"  {name}: {r['seconds']:.1f} s\n" + r["ptxas"].strip())
     phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
     phase("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev)
+    phase("kernel_vs_plain_reduce", phase_kernel_vs_plain_reduce, dev)
+    torch.cuda.empty_cache()
     phase("small_reference", phase_small_reference, dev)
     phase("small_reference_train", phase_small_reference_train, dev)
-    phase("serve", phase_serve, dev, vod_pallas_config(), 2)
+    phase("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME)
     torch.cuda.empty_cache()
     phase("train", phase_train, dev, vod_pallas_config(), 2)
     torch.cuda.empty_cache()
@@ -1073,14 +1256,14 @@ def main(argv=None) -> int:
     phase("small_reference_polar", phase_small_reference_polar, dev)
     phase("polar_vs_gather", phase_polar_vs_gather, dev)
     torch.cuda.empty_cache()
-    phase("serve_polar", phase_serve, dev, vod_polar_config(), 3)
+    phase("serve_polar", phase_serve, dev, vod_polar_config(), POLAR_FRAME)
     torch.cuda.empty_cache()
     phase("train_polar", phase_train, dev, vod_polar_config(), 3)
     torch.cuda.empty_cache()
     phase("small_reference_eval", phase_small_reference_eval, dev)
-    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", 2)
+    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME)
     torch.cuda.empty_cache()
-    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", 3)
+    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", POLAR_FRAME)
     torch.cuda.empty_cache()
     phase("small_reference_xla", phase_small_reference_xla, dev)
     phase("train_cli", phase_train_cli, dev)
@@ -1091,10 +1274,13 @@ def main(argv=None) -> int:
     def summed(rows, key):
         return sum(r[key] for r in rows if "ms" in r)
 
-    def kernel_row(name, source, replaces, rows, polar_rows):
+    def kernel_row(name, source, replaces, rows, polar_rows=None):
         # per frame or step: the bf16 calls of the gather path (A, B) summed,
         # and of the polar path (its three maps) beside them
         timed = [r for r in rows if "ms" in r]
+        polar_block = {} if polar_rows is None else {"polar": {
+            "max_abs_err": max(r["max_abs_err"] for r in polar_rows),
+            **{k: summed(polar_rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}}
         by_path = {path: report[path]["launches"][name]
                    for path in ("serve", "train", "serve_polar", "train_polar", "eval",
                                 "eval_polar", "train_cli")}
@@ -1107,9 +1293,8 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
             else "operations",
             "library_ms": summed(rows, "library_ms"),
-            "polar": {"max_abs_err": max(r["max_abs_err"] for r in polar_rows),
-                      **{k: summed(polar_rows, k)
-                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
+            **{k: timed[0][k] for k in ("library", "sampling_route_ms") if k in timed[0]},
+            **polar_block,
         }
 
     polar = report["kernel_vs_plain_polar"]
@@ -1120,6 +1305,9 @@ def main(argv=None) -> int:
         kernel_row(quad_sample.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:226",
                    [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], polar["bwd"]),
+        kernel_row(quad_sample.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
+                   "_bench_gather_pallas.py:162",
+                   [r for r in report["kernel_vs_plain_reduce"]["rows"] if "ms" in r]),
     ]
     if args.out:
         with open(args.out, "w") as f:

@@ -5,6 +5,7 @@ serves and trains View-of-Delft frames through
 ``configs/hgsfusion_vod_pallas.yaml`` and ``configs/hgsfusion_vod_polar.yaml``
 and evaluates them with the official VoD AP (``tools/test.py``); the TPU's
 Pallas sampler kernels are replaced by the hand-written CUDA kernels in
-``csrc/quad_sample.cu`` and ``csrc/quad_sample_bwd.cu``. It imports neither
-JAX nor the JAX package.
+``csrc/quad_sample.cu`` and ``csrc/quad_sample_bwd.cu``, and the Pallas
+prototype of the gather view's fused sample + reduce by
+``csrc/quad_sample_reduce.cu``. It imports neither JAX nor the JAX package.
 """

@@ -1,5 +1,5 @@
 """The quad bilinear sampler kernels (``csrc/quad_sample.cu``,
-``csrc/quad_sample_bwd.cu``) and their glue.
+``csrc/quad_sample_bwd.cu``, ``csrc/quad_sample_reduce.cu``) and their glue.
 
 Counterpart of ``hgsfusion_tpu/ops/pallas_sample.py``. Its forward kernels
 ``_gather_combine`` (rows layout) and ``_gather_combine_planes`` (planes
@@ -15,6 +15,12 @@ needs a gradient, the forward also bins the queries by their top-left pixel
 sums each output tile from those bins in shared memory, rounds once and
 writes the cropped gradient.
 
+Where no gradient is taken, the gather view fuses the sampler with its
+reduce product: ``quad_sample_reduce_fwd`` gathers and combines the taps of
+every gather group and multiplies them by the group's rows of the reduce
+kernel in one launch, into one f32 output (the function of the TPU
+prototype ``_bench_gather_pallas.py::pallas_gather_combine_matmul``).
+
 A CPU tensor takes the plain versions (``ops/grid_sample.py``); a CUDA tensor
 launches the kernels or raises. The coordinates get no gradient: the grid is
 calibration geometry, as in the JAX package's ``_bwd``.
@@ -28,24 +34,33 @@ import torch
 import torch.nn.functional as F
 
 from .. import native
+from ..models.layers import matmul_f32
 from .grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain, quad_taps
 
 KERNEL = "quad_sample_fwd"
+REDUCE_KERNEL = "quad_sample_reduce_fwd"
 BWD_KERNEL = "quad_sample_bwd"
 BINS = "quad_bins"
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernel (PyTorch calls, no kernel of this package);
 # callers may reset them to 0
-launches = {KERNEL: 0, BWD_KERNEL: 0, BINS: 0}
+launches = {KERNEL: 0, REDUCE_KERNEL: 0, BWD_KERNEL: 0, BINS: 0}
+# gather groups one launch of the fused kernel takes
+MAX_REDUCE_GROUPS = 4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_PP, _PI, _PI64 = (ctypes.POINTER(t) for t in (_P, _I, _I64))
 # each kernel's source in csrc/ and C arguments
 _ENTRIES = {
     # fp, idx, w4, out, n, c, row_pixels, dtype, stream
     KERNEL: ("quad_sample", [_P, _P, _P, _P, _I64, _I, _I64, _I, _P]),
+    # fps, idxs, w4s, row_pixels, cs, k_offs (one entry per group), groups,
+    # kmat, bias, out, n, o, dtype, stream
+    REDUCE_KERNEL: ("quad_sample_reduce",
+                    [_PP, _PP, _PP, _PI64, _PI, _PI, _I, _P, _P, _P, _I64, _I, _I, _P]),
     # ct, order, start, w4, out, b, h, w, c, dtype, stream
     BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
@@ -107,6 +122,70 @@ def quad_sample_fwd(fp, idx, w4):
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
     launches[KERNEL] += 1
+    return out
+
+
+def _check_reduce(groups, kmat, bias):
+    """The fused kernel's launch contract beyond ``_check``'s; returns (n, o)."""
+    name = REDUCE_KERNEL
+    if not 1 <= len(groups) <= MAX_REDUCE_GROUPS:
+        raise ValueError(f"{name}: {len(groups)} groups, takes 1 to {MAX_REDUCE_GROUPS}")
+    if kmat.dim() != 2 or bias.shape != (kmat.shape[1],):
+        raise ValueError(f"{name}: bad shapes kmat {tuple(kmat.shape)} bias {tuple(bias.shape)}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
+    n = groups[0][1].shape[0]
+    for fp, idx, w4, k_off in groups:
+        _check(name, fp, idx, w4)
+        if fp.dtype != kmat.dtype:
+            raise TypeError(f"{name}: map {fp.dtype} and kmat {kmat.dtype} differ")
+        if fp.dim() != 4 or idx.shape[0] != n or not 0 <= k_off <= kmat.shape[0] - fp.shape[-1]:
+            raise ValueError(f"{name}: bad shapes fp {tuple(fp.shape)} idx {tuple(idx.shape)} "
+                             f"at kmat rows {k_off} of {tuple(kmat.shape)}")
+    for arg, t in (("kmat", kmat), ("bias", bias)):
+        if t.device != groups[0][0].device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned on "
+                             f"{groups[0][0].device}")
+    return n, kmat.shape[1]
+
+
+def quad_sample_reduce_fwd(groups, kmat, bias):
+    """Launch the fused kernel: for each of the ``groups`` (fp, idx, w4,
+    k_off), its zero-padded map ``fp`` (B, H+2, W+2, c) in the compute
+    dtype, ``idx`` (N,) int32 and ``w4`` (N, 4) f32 as ``quad_indices``
+    builds them, and its first row ``k_off`` of ``kmat`` (sum c, O) in the
+    compute dtype; ``bias`` (O,) f32 -> (N, O) f32, the bias plus each
+    group's sampled rows (four taps summed in f32, rounded once to the
+    compute dtype) times its rows of ``kmat``, every product summed in f32.
+    Same function as ``quad_sample_reduce_plain`` up to the taps' rounding
+    and the order of the f32 sums."""
+    n, o = _check_reduce(groups, kmat, bias)
+    out = torch.empty((n, o), dtype=torch.float32, device=kmat.device)
+    g = len(groups)
+    fps = (_P * g)(*(fp.data_ptr() for fp, _, _, _ in groups))
+    idxs = (_P * g)(*(idx.data_ptr() for _, idx, _, _ in groups))
+    w4s = (_P * g)(*(w4.data_ptr() for _, _, w4, _ in groups))
+    rows = (_I64 * g)(*(fp.shape[2] for fp, _, _, _ in groups))
+    cs = (_I * g)(*(fp.shape[3] for fp, _, _, _ in groups))
+    offs = (_I * g)(*(k_off for _, _, _, k_off in groups))
+    err = _entry(REDUCE_KERNEL)(
+        fps, idxs, w4s, rows, cs, offs, g, kmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        n, o, _DTYPE_CODES[kmat.dtype], torch.cuda.current_stream(kmat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{REDUCE_KERNEL} launch failed: cudaError {err}")
+    launches[REDUCE_KERNEL] += 1
+    return out
+
+
+def quad_sample_reduce_plain(groups, kmat, bias):
+    """Plain version of ``quad_sample_reduce_fwd``, same arguments: each
+    group sampled by ``quad_sample_fwd_plain`` (the taps combined in the
+    compute dtype), multiplied by its rows of ``kmat`` with ``matmul_f32``
+    and added onto the bias in f32 -> (N, O) f32."""
+    out = bias.to(torch.float32).expand(groups[0][1].shape[0], kmat.shape[1]).clone()
+    for fp, idx, w4, k_off in groups:
+        c = fp.shape[-1]
+        out.add_(matmul_f32(quad_sample_fwd_plain(fp, idx, w4), kmat[k_off:k_off + c]))
     return out
 
 

@@ -6,10 +6,13 @@ JAX it runs on its own:
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
+from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.ops import quad_sample
-from hgsfusion_tpu_torch.ops.grid_sample import grid_sample_2d_quad, quad_sample_bwd_plain
+from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
+                                                 quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
 
 # bf16: the kernel sums in f32 and rounds once, the plain version rounds
@@ -261,3 +264,111 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
         quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start[:-1]))
     with pytest.raises(ValueError, match="contiguous on"):
         quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start.cpu()))
+
+
+# the fused sampler + reduce: (maps of the gather groups, outputs); the
+# flagship's two groups at small maps, a ragged case (odd channels and
+# outputs, three groups), and one wider than a block's 128 outputs
+REDUCE_CASES = {
+    "two_groups": ([(1, 9, 13, 64), (1, 5, 7, 192)], 128),
+    "ragged": ([(2, 11, 17, 13), (2, 6, 9, 37), (2, 3, 4, 5)], 45),
+    "wide": ([(1, 7, 9, 24), (1, 4, 5, 40)], 200),
+}
+HALF_U = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def _reduce_inputs(maps, o, dtype, device):
+    """(groups, kmat, bias) as FrustumToVoxelMultiScale.accumulate builds
+    them, 130 queries per frame (not a multiple of a block's 64)."""
+    g = torch.Generator().manual_seed(8)
+    coords = torch.rand((maps[0][0], 10, 13, 2), generator=g) * 2.6 - 1.3
+    groups, off = [], 0
+    for shape in maps:
+        feats = torch.randn(shape, generator=g).to(dtype)
+        idx, w4 = quad_indices(feats, coords)
+        groups.append((F.pad(feats, (0, 0, 1, 1, 1, 1)).contiguous().to(device), idx.to(device),
+                       w4.to(device), off))
+        off += shape[-1]
+    kmat = (torch.randn((off, o), generator=g) * off ** -0.5).to(dtype).to(device)
+    return groups, kmat, torch.randn(o, generator=g).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(REDUCE_CASES))
+def test_reduce_kernel_matches_plain(cuda, case, dtype):
+    """One launch against the plain version. Both sum the products in f32
+    in another order: 1e-5 x (1 + max|ref|) in f32. In half precision the
+    plain version rounds after each of the taps' 4 products and 3 sums, the
+    kernel once, so 8 roundings of the taps' magnitude S through |K| are
+    allowed, 8 u (S @ |K|); the sampling route with the kernel's rounding
+    (quad_sample_fwd + matmul_f32) is held at 1e-4 x (1 + max|ref|)."""
+    groups, kmat, bias = _reduce_inputs(*REDUCE_CASES[case], dtype, cuda)
+    before = dict(quad_sample.launches)
+    got = quad_sample.quad_sample_reduce_fwd(groups, kmat, bias)
+    torch.cuda.synchronize()
+    assert quad_sample.launches[quad_sample.REDUCE_KERNEL] == before[quad_sample.REDUCE_KERNEL] + 1
+    assert quad_sample.launches[quad_sample.KERNEL] == before[quad_sample.KERNEL]
+    cpu = [tuple(x.cpu() if torch.is_tensor(x) else x for x in gr) for gr in groups]
+    ref = quad_sample.quad_sample_reduce_plain(cpu, kmat.cpu(), bias.cpu())
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    scale = 1 + float(ref.abs().max())
+    err = (got.cpu() - ref).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+        return
+    mag = sum(quad_sample_fwd_plain(fp.float().abs(), idx, w4.abs())
+              @ kmat.cpu()[k:k + fp.shape[-1]].float().abs() for fp, idx, w4, k in cpu)
+    assert bool((err <= 1e-4 * scale + 8 * HALF_U[dtype] * mag).all())
+    same = bias.expand(got.shape).clone()
+    for fp, idx, w4, k in groups:
+        same.add_(matmul_f32(quad_sample.quad_sample_fwd(fp, idx, w4), kmat[k:k + fp.shape[-1]]))
+    assert float((got - same).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_reduce_kernel_rejects_what_it_does_not_take(cuda):
+    groups, kmat, bias = _reduce_inputs(*REDUCE_CASES["two_groups"], torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="groups"):
+        quad_sample.quad_sample_reduce_fwd(groups * 3, kmat, bias)
+    with pytest.raises(TypeError, match="differ"):
+        quad_sample.quad_sample_reduce_fwd(groups, kmat.float(), bias)
+    with pytest.raises(TypeError, match="float32"):
+        quad_sample.quad_sample_reduce_fwd(groups, kmat, bias.double())
+    with pytest.raises(ValueError, match="shapes"):
+        quad_sample.quad_sample_reduce_fwd(groups, kmat[:100], bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        quad_sample.quad_sample_reduce_fwd(groups, kmat.t().contiguous().t(), bias)
+    with pytest.raises(ValueError, match="CUDA"):
+        quad_sample.quad_sample_reduce_fwd(
+            [tuple(x.cpu() if torch.is_tensor(x) else x for x in gr) for gr in groups],
+            kmat.cpu(), bias.cpu())
+
+
+@pytest.mark.cuda
+def test_view_transform_routes(cuda):
+    """FrustumToVoxelMultiScale on the card: under inference_mode one fused
+    launch for the two groups and no sampler launch; with gradients one
+    sampler launch per group, its bins, and no fused launch; the two agree
+    within 1e-4 of the largest output in bf16."""
+    g = torch.Generator().manual_seed(9)
+    feats = [torch.randn((1, 9, 13, 16), generator=g)] + [
+        torch.randn((1, 5, 7, 16), generator=g) for _ in range(3)]
+    feats = [f.to(cuda).requires_grad_() for f in feats]
+    grid = (torch.rand((1, 6, 7, 5, 3), generator=g) * 2.4 - 1.2).to(cuda)
+    f2v = FrustumToVoxelMultiScale([16] * 4, 24, dtype=torch.bfloat16).to(cuda).eval()
+    before = dict(quad_sample.launches)
+    with torch.inference_mode():
+        fused = f2v.accumulate(feats, grid)
+    torch.cuda.synchronize()
+    mid = dict(quad_sample.launches)
+    assert {k: mid[k] - before[k] for k in mid} == {
+        quad_sample.KERNEL: 0, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 0,
+        quad_sample.BINS: 0}
+    sampled = f2v.accumulate(feats, grid)
+    after = dict(quad_sample.launches)
+    assert {k: after[k] - mid[k] for k in mid} == {
+        quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 0, quad_sample.BWD_KERNEL: 0,
+        quad_sample.BINS: 2}
+    scale = float(sampled.abs().max())
+    assert float((fused - sampled.detach()).abs().max()) <= 1e-4 * scale
