@@ -6,8 +6,8 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` of every CUDA kernel of the served and trained paths (one
-   process per source, all started together);
+2. build: ``nvcc`` of every CUDA kernel (one process per source, all
+   started together);
 3. kernel vs plain: ``quad_sample_fwd`` against its plain PyTorch version at
    both flagship shapes (computed from the flagship frustum geometry) and a
    small ragged shape with out-of-bounds coords, in bf16 (atol 0.04) and f32
@@ -30,8 +30,7 @@ Phases, each of which must pass or the script exits non-zero:
    at ``reduce_case``; in bf16 also against the sampling route a training
    step takes (``quad_sample_fwd`` + ``matmul_f32``); the kernel's time
    beside its bound, that route's, the glue's, the plain version's and the
-   library pair's (``F.grid_sample`` + ``torch.matmul``); then one timed
-   ``index_add_`` at the shapes of the unported P5;
+   library pair's (``F.grid_sample`` + ``torch.matmul``);
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -104,11 +103,40 @@ Phases, each of which must pass or the script exits non-zero:
     ``tools.test.main --ckpt_dir ... --max_frames 8`` on step 24, 1 fused
     launch per frame. Printed: steps/s after the first two steps, the
     loader wait per step, the profiled step's device time, each save's and
-    the resume's seconds, the checkpoint's bytes and peak device memory.
+    the resume's seconds, the checkpoint's bytes and peak device memory;
+19. kernel vs plain, scatter: ``row_scatter_add`` (with its binning)
+    against ``row_scatter_add_plain`` at the four tables of
+    ``_bench_scatter_pallas.py`` (3,174,400 bf16 rows, each tile of 2048
+    inside a window of 2048 table rows): random rows (timed: the kernel
+    with its binning, the binning, the kernel alone, the plain version and
+    ``index_add_``, beside the bound) and integer-valued rows compared bit
+    for bit; then a ragged case (37 channels, negative and out-of-range
+    indices, one row receiving every update); tolerances at
+    ``scatter_case``; every case two calls bit for bit;
+20. bench scatter: P5's entry point, ``hgsfusion_tpu_torch.bench_scatter``,
+    on BENCH_SCATTER_CASES: the kernel launched 12 times a case;
+21. small reference, TJ4D: the TINY TJ4D model (``tiny_tj4d_cut`` of
+    ``configs/hgsfusion_tj4d_pallas.yaml``: 4 classes, 8 anchors, 18 point
+    features, a 32 x 40 x 6 grid) over a 4-frame synthetic TJ4D tree, card
+    vs CPU: two frames served (as 5), one B=2 training step on two
+    augmented frames (as 6), the eval loop (as 14);
+22. serve TJ4D: ``configs/hgsfusion_tj4d_pallas.yaml`` at full width
+    (810x1280, 216 x 248 x 19 voxels) as 7 on ``tj4d_serve_batch``, 1
+    fused launch per frame;
+23. serve TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 22, 3
+    forward launches per frame;
+24. train CLI, TJ4D: ``configs/hgsfusion_tj4d.yaml`` (``SAMPLER_KERNEL:
+    xla``, ``BATCH_SIZE_PER_DEVICE: 2``) through ``tools.train.main`` over a
+    16-frame synthetic TJ4D tree, 10 steps across an epoch boundary: 2
+    forward, 2 backward and 2 bins per step, checkpoints at steps 8 and 10,
+    step 1 profiled; then ``tools.test.main --ckpt_dir`` over 8 frames, 1
+    fused launch per frame, TJ4D's result dict with every AP in [0, 100];
+25. eval TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 15 over a
+    16-frame synthetic TJ4D tree, 3 forward launches per frame.
 
 The ``kernels`` line counts each kernel's launches over the main paths
-(7, 8, 12, 13, 15, 16 and 18's three runs), each path's count taken with
-the counters at 0 just before it. The last lines are the
+(``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20 and 22-25),
+each path's count taken with the counters at 0 just before it. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -131,17 +159,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hgsfusion_tpu_torch import native
+from hgsfusion_tpu_torch import bench_scatter, native
 from hgsfusion_tpu_torch.config import (HGSFusionConfig, load_config, model_config_from_yaml,
                                         vod_dataset_config, vod_pallas_config, vod_polar_config)
 from hgsfusion_tpu_torch.datasets import build_dataset
-from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
+from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_kitti,
+                                                    make_synthetic_tj4d)
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
-from hgsfusion_tpu_torch.ops import quad_sample
+from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
@@ -161,7 +190,7 @@ from hgsfusion_tpu_torch.utils.common import create_logger
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
-KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce"]
+KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
@@ -172,8 +201,6 @@ FLAGSHIP_QUERIES = 320 * 320 * 31
 # reduce_case)
 REDUCE_O = 128
 REDUCE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
-# _bench_scatter_pallas.py's tables (rows, channels) for P5's library call
-P5_SHAPES = {"g8": (16048, 768), "g4": (63056, 256)}
 # the optimizer's schedule length in the training phases (a short OneCycle)
 TRAIN_TOTAL_STEPS = 100
 # the weights of the small training reference: a seed whose step the CPU's
@@ -221,8 +248,9 @@ NEAR_TOL = 2e-3
 
 
 def zero_launches():
-    for k in quad_sample.launches:
-        quad_sample.launches[k] = 0
+    for counters in (quad_sample.launches, row_scatter.launches):
+        for k in counters:
+            counters[k] = 0
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -536,36 +564,137 @@ def reduce_case(name, maps, coords, o, dtype, gen, timed: bool):
     return row
 
 
-def p5_index_add(dev):
-    """``index_add_``, the library call for P5 (a plain row scatter-add, not
-    ported), at its benchmark's shapes: 3,174,400 bf16 rows, each tile of
-    2048 within a window of 2048 table rows, into a zeroed table; the bound
-    reads the rows and indices once and the table once each way."""
+def scatter_inputs(p: int, c: int, n: int, gen, integer: bool, window: int = 2048):
+    """P5's inputs on the card: ``n`` update indices, each tile of ``window``
+    within a window of ``window`` table rows (``_bench_scatter_pallas.py::
+    make_inputs``' generator, drawn here by the card's generator), and bf16
+    rows, random or small integers."""
+    dev = gen.device
+    win = min(window, p)
+    tiles = -(-n // window)
+    base = torch.randint(0, p - win + 1, (tiles, 1), generator=gen, device=dev)
+    idx = (base + torch.randint(0, win, (tiles, window), generator=gen, device=dev))
+    idx = idx.reshape(-1)[:n].to(torch.int32)
+    if integer:
+        rows = torch.randint(-2, 3, (n, c), generator=gen, device=dev).to(torch.bfloat16)
+    else:
+        rows = torch.randn((n, c), generator=gen, device=dev, dtype=torch.bfloat16)
+    return idx, rows
+
+
+def scatter_case(name, idx, rows, p: int, timed: bool, exact: bool):
+    """``row_scatter_add`` vs ``row_scatter_add_plain`` on one input.
+
+    ``exact``: integer-valued rows, whose f32 sums are exact in any order,
+    compared bit for bit. Otherwise both sum in f32 in another order and
+    round once to the rows' dtype, so a result may sit one rounding apart:
+    |kernel - plain| <= 1e-6 + 2 u |plain| (one unit in the last place of
+    the dtype, whose unit round-off is u: 2^-7 |plain| in bf16) + k u_f32 S
+    (the f32 order bound: k the most updates one row receives, S the row's
+    sum of |rows|). Every case checks two calls
+    bit for bit; ``timed`` also times the kernel with its binning (``ms``),
+    the binning and the kernel alone, the plain version and ``index_add_``
+    into a zeroed bf16 table, beside the bound."""
+    dev = rows.device
+    got = row_scatter.row_scatter_add(idx, rows, p)
+    again = row_scatter.row_scatter_add(idx, rows, p)
+    torch.cuda.synchronize()
+    ref = row_scatter.row_scatter_add_plain(idx, rows, p)
+    bins = row_scatter.row_scatter_bins(idx, p)
+    counts = bins[1].diff()
+    diff = (got.float() - ref.float()).abs()
+    if exact:
+        tol = torch.zeros_like(diff)
+    else:
+        s_abs = row_scatter.row_scatter_add_plain(idx, rows.float().abs(), p)
+        u = {torch.bfloat16: 2.0 ** -8, torch.float32: F32_U}[rows.dtype]
+        tol = 1e-6 + 2 * u * ref.float().abs() + int(counts.max()) * F32_U * s_abs
+        del s_abs
+    n, c = rows.shape
+    row = {"case": name, "dtype": str(rows.dtype).replace("torch.", ""), "table": [p, c],
+           "rows": n, "in_table": int(bins[1][-1]), "max_updates_per_row": int(counts.max()),
+           "mean_updates_per_row": float(counts.float().mean()), "exact": exact,
+           "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max()) if not exact else 0.0,
+           "bit_equal_rerun": bool(torch.equal(got, again))}
+    ok = bool((diff <= tol).all()) and row["bit_equal_rerun"]
+    del diff, tol, ref, again
+    if timed:
+        isz = rows.element_size()
+        # every update row and index read once, every table row written once
+        nbytes = n * c * isz + n * idx.element_size() + p * c * isz
+        ops = float(n * c)  # one f32 add per update element
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S \
+            else "operations"
+        row["bytes"] = nbytes
+        row["ms"] = cuda_ms(lambda: row_scatter.row_scatter_add(idx, rows, p))
+        row["binning_ms"] = cuda_ms(lambda: row_scatter.row_scatter_bins(idx, p))
+        row["kernel_only_ms"] = cuda_ms(lambda: row_scatter.row_scatter_add_kernel(rows, bins, p))
+        row["plain_ms"] = cuda_ms(lambda: row_scatter.row_scatter_add_plain(idx, rows, p),
+                                  iters=3, warmup=1)
+        row["library"] = "index_add_ into a zeroed bf16 table"
+        row["library_ms"] = cuda_ms(lambda: torch.zeros((p, c), dtype=rows.dtype,
+                                                        device=dev).index_add_(0, idx, rows))
+    print("  " + json.dumps(row))
+    if not ok:
+        raise AssertionError(f"{name}: max error {row['max_abs_err']} over its tolerance or "
+                             f"two calls differ")
+    return row
+
+
+def phase_kernel_vs_plain_scatter(dev):
+    """``row_scatter_add`` against its plain version at P5's four cases
+    (3,174,400 rows into each table of ``_bench_scatter_pallas.py``'s
+    CASES), random bf16 rows (timed) and integer-valued ones; then a ragged
+    case: odd channels, negative and out-of-range indices, and one row
+    receiving every update."""
     gen = torch.Generator(device=dev).manual_seed(9)
-    n, tile = FLAGSHIP_QUERIES, 2048
-    tiles = -(-n // tile)
     rows = []
-    for name, (p, cq) in P5_SHAPES.items():
-        base = torch.randint(0, p - tile + 1, (tiles, 1), generator=gen, device=dev)
-        idx = (base + torch.randint(0, tile, (tiles, tile), generator=gen, device=dev))
-        idx = idx.reshape(-1)[:n].to(torch.int32)
-        upd = torch.randn((n, cq), generator=gen, device=dev, dtype=torch.bfloat16)
-        nbytes = n * cq * 2 + n * 4 + 2 * p * cq * 2
-        rows.append({
-            "case": name, "table": [p, cq], "rows": n, "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": cuda_ms(lambda: torch.zeros((p, cq), dtype=torch.bfloat16,
-                                                      device=dev).index_add_(0, idx, upd))})
-        del upd
-        print("  " + json.dumps(rows[-1]))
+    for name, p, cq in bench_scatter.CASES:
+        for integer in (False, True):
+            idx, upd = scatter_inputs(p, cq, FLAGSHIP_QUERIES, gen, integer)
+            rows.append(scatter_case(name, idx, upd, p, timed=not integer, exact=integer))
+            del idx, upd
+            torch.cuda.empty_cache()
+    p, n = 301, 40_000
+    idx = torch.randint(-p - 50, p + 50, (n,), generator=gen, device=dev).to(torch.int32)
+    idx[: n // 2] = 7  # one row receives half the updates, and another all of them below
+    for integer in (False, True):
+        upd = (torch.randint(-2, 3, (n, 37), generator=gen, device=dev).to(torch.bfloat16)
+               if integer else torch.randn((n, 37), generator=gen, device=dev,
+                                           dtype=torch.bfloat16))
+        rows.append(scatter_case("ragged", idx, upd, p, timed=False, exact=integer))
+        rows.append(scatter_case("one_row", torch.full_like(idx, -3), upd.float(), p,
+                                 timed=False, exact=integer))
     return rows
+
+
+# the case of P5's entry point that chip_smoke runs (numpy draws its inputs:
+# about 25 s for each of the four at N = 3,174,400); kernel_vs_plain_scatter
+# holds the kernel at all four
+BENCH_SCATTER_CASES = ("g4",)
+
+
+def phase_bench_scatter(dev):
+    """P5's entry point, ``python -m hgsfusion_tpu_torch.bench_scatter``, on
+    BENCH_SCATTER_CASES at 3 timed calls each: the kernel launched."""
+    zero_launches()
+    results = bench_scatter.main(["--cases", *BENCH_SCATTER_CASES, "--iters", "3",
+                                  "--device", str(dev)])
+    launches = dict(row_scatter.launches)
+    # per case: the kernel, the kernel alone on prebuilt bins and the
+    # outer-product route, each a warm-up and 3 calls
+    want = {row_scatter.KERNEL: 3 * 4 * len(BENCH_SCATTER_CASES)}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    return {"launches": launches, "cases": results}
 
 
 def phase_kernel_vs_plain_reduce(dev):
     """The fused kernel at the flagship gather groups (both maps, the
     flagship frame's grid, the reduce kernel's (256, 128) shape, a random
-    bias) in bf16 (timed) and f32, and a ragged case; then P5's library
-    call."""
+    bias) in bf16 (timed) and f32, and a ragged case."""
     uv = flagship_uv(dev)
     g = torch.Generator(device="cpu").manual_seed(4)
     maps = [torch.randn(shape, generator=g).to(dev) for shape in FLAGSHIP_SHAPES.values()]
@@ -579,7 +708,7 @@ def phase_kernel_vs_plain_reduce(dev):
     coords = (torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(reduce_case("ragged", maps, coords, 45, dtype, g, timed=False))
-    return {"rows": rows, "p5_index_add": p5_index_add(dev)}
+    return {"rows": rows}
 
 
 def polar_coords(dev):
@@ -647,11 +776,12 @@ def phase_polar_vs_gather(dev):
     return result
 
 
-def phase_small_reference(dev, cfg=TINY):
-    """TINY model: card (kernel path) vs CPU (plain sampler), same weights."""
+def phase_small_reference(dev, cfg=TINY, batch=None):
+    """TINY model: card (kernel path) vs CPU (plain sampler), same weights,
+    on ``batch`` (default ``tiny_batch()``)."""
     cpu_model = HGSFusionModel(cfg, device="cpu", seed=5)
     gpu_model = HGSFusionModel(cfg, device=dev, seed=5)
-    batch = tiny_batch()
+    batch = tiny_batch() if batch is None else batch
     with torch.inference_mode():
         ref = cpu_model(cpu_model.batch_to_device(batch))
         got = gpu_model(gpu_model.batch_to_device(batch))
@@ -693,9 +823,10 @@ def run_train_step(cfg, device, batch, seed: int, perturb_seed=None):
     return step_record(model, cap, tb), float(lr_schedule(0))
 
 
-def phase_small_reference_train(dev, cfg=TINY):
-    """TINY training step: card (kernels) vs CPU (plain versions)."""
-    batch = tiny_batch()
+def phase_small_reference_train(dev, cfg=TINY, batch=None):
+    """TINY training step: card (kernels) vs CPU (plain versions), on
+    ``batch`` (default ``tiny_batch()``)."""
+    batch = tiny_batch() if batch is None else batch
     ref, lr = run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED)
     probes = [run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED, perturb_seed=s)[0]["grads"]
               for s in (1, 2)]
@@ -818,6 +949,13 @@ def phase_train(dev, cfg, per_step: int):
     return result
 
 
+# the paths whose launches the kernels line counts, each taken with the
+# counters at 0 just before it
+MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_polar", "train_cli",
+              "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
+              "eval_tj4d_polar")
+
+
 def per_frames(per_frame: dict, frames: int) -> dict:
     """Every counter of ``quad_sample.launches`` after ``frames`` frames that
     each launch ``per_frame`` (the counters it does not name: 0)."""
@@ -830,13 +968,14 @@ GATHER_FRAME = {quad_sample.REDUCE_KERNEL: 1}
 POLAR_FRAME = {quad_sample.KERNEL: 3}
 
 
-def phase_serve(dev, cfg, per_frame: dict):
+def phase_serve(dev, cfg, per_frame: dict, batch=None):
     """3 full-width frames of ``cfg`` through ``serve()`` after a warm-up,
-    each launching the kernels ``per_frame`` counts, then one staged frame."""
+    each launching the kernels ``per_frame`` counts, then one staged frame;
+    ``batch`` defaults to ``flagship_batch(cfg)``."""
     t0 = time.perf_counter()
     model = HGSFusionModel(cfg, device=dev, seed=0)
     build_s = time.perf_counter() - t0
-    batch = flagship_batch(cfg)
+    batch = flagship_batch(cfg) if batch is None else batch
     stages = ("backbone", "view_transform", "radar_branch", "fusion_head", "post_process")
 
     model.serve(batch)  # warm-up: cuDNN plans, allocator
@@ -948,26 +1087,34 @@ def phase_small_reference_eval(dev):
                              num_virtual=64, image_hw=TINY.image_size, structured=True)
         cfg = tiny_eval_config(root)
         create_infos(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"])
-        logger = create_logger()
-        models = {"cpu": HGSFusionModel(TINY, device="cpu", seed=5),
-                  "card": HGSFusionModel(TINY, device=dev, seed=5)}
-        ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False, logger=logger)
-        scores = {}
-        with torch.inference_mode():
-            for name, m in models.items():
-                scores[name] = [torch.sigmoid(m(m.batch_to_device(ds.collate_batch([ds[i]])))[
-                    "cls_preds"].float().reshape(-1, TINY.num_class)).max(-1).values.cpu().numpy()
-                    for i in range(len(ds))]
-        score_diff = max(float(np.abs(a - b).max()) for a, b in zip(scores["cpu"], scores["card"]))
-        min_gap = 10 * score_diff
-        thr = tie_free_threshold(scores["cpu"], min_gap, per_frame=8)
-        out = {}
+        return compare_run_eval(dev, cfg, TINY, per_frame=8)
+
+
+def compare_run_eval(dev, cfg, model_cfg, per_frame: int):
+    """``run_eval`` of the ``model_cfg`` model (weights seed 5) over the
+    dataset of ``cfg`` (its tree and infos written): card (kernel) vs CPU
+    (plain sampler), at a tie-free score threshold of about ``per_frame``
+    candidates a frame."""
+    logger = create_logger()
+    models = {"cpu": HGSFusionModel(model_cfg, device="cpu", seed=5),
+              "card": HGSFusionModel(model_cfg, device=dev, seed=5)}
+    ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False, logger=logger)
+    scores = {}
+    with torch.inference_mode():
         for name, m in models.items():
-            m.cfg = dataclasses.replace(TINY, score_thresh=thr, nms_pre_max_size=512,
-                                        nms_post_max_size=100)
-            ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
-                               logger=logger)
-            out[name] = run_eval(cfg, m, ds, logger)
+            scores[name] = [torch.sigmoid(m(m.batch_to_device(ds.collate_batch([ds[i]])))[
+                "cls_preds"].float().reshape(-1, model_cfg.num_class)).max(-1).values.cpu().numpy()
+                for i in range(len(ds))]
+    score_diff = max(float(np.abs(a - b).max()) for a, b in zip(scores["cpu"], scores["card"]))
+    min_gap = 10 * score_diff
+    thr = tie_free_threshold(scores["cpu"], min_gap, per_frame=per_frame)
+    out = {}
+    for name, m in models.items():
+        m.cfg = dataclasses.replace(model_cfg, score_thresh=thr, nms_pre_max_size=512,
+                                    nms_post_max_size=100)
+        ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
+                           logger=logger)
+        out[name] = run_eval(cfg, m, ds, logger)
     (ref, ref_res, _), (got, got_res, stats) = out["cpu"], out["card"]
     if [a["frame_id"] for a in got] != [a["frame_id"] for a in ref]:
         raise AssertionError("the card's frames differ from the CPU's")
@@ -995,22 +1142,35 @@ def annos_equal(a, b) -> bool:
         np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k] for k in a)
 
 
-def phase_eval(dev, yaml_path, per_frame: dict):
-    """``run_eval`` over a 16-frame synthetic VoD tree at full width, then
-    the same frames through ``serve`` one by one."""
+def write_tree(root, data, frames: int):
+    """A structured synthetic tree of ``frames`` full-width frames (2048
+    radar and 4096 virtual points, ``data``'s image size and virtual-point
+    prefix) in the format of ``data``'s dataset, VoD or TJ4D."""
+    kw = dict(num_frames=frames, num_points=2048, num_virtual=4096,
+              image_hw=tuple(data["IMAGE_SIZE"]), virtual_prefix=data["VIRTUAL_POINT_PREFIX"])
+    if data["DATASET"] == "TJ4DDataset":
+        return make_synthetic_tj4d(root, **kw)
+    return make_synthetic_kitti(root, structured=True, **kw)
+
+
+# each dataset's headline number in the result dict
+HEADLINE = {"VODDataset": "entire_area/mAP_3d", "TJ4DDataset": "KITTI/Overall_3D_moderate"}
+
+
+def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
+    """``run_eval`` over a 16-frame synthetic tree of the config's dataset at
+    full width, then the same frames through ``serve`` one by one; the
+    config must equal ``preset`` where one is given."""
     cfg = load_config(yaml_path)
     model_cfg = model_config_from_yaml(cfg)
-    preset = vod_pallas_config() if model_cfg.f2v_view == "gather" else vod_polar_config()
-    if model_cfg != preset:
+    if preset is not None and model_cfg != preset:
         raise AssertionError(f"{yaml_path} differs from its preset")
     data = cfg["DATA_CONFIG"]
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
         data["DATA_PATH"] = str(root)
         t0 = time.perf_counter()
-        make_synthetic_kitti(root, num_frames=EVAL_FRAMES, num_points=2048, num_virtual=4096,
-                             image_hw=tuple(data["IMAGE_SIZE"]), structured=True,
-                             virtual_prefix=data["VIRTUAL_POINT_PREFIX"])
+        write_tree(root, data, EVAL_FRAMES)
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         create_infos(data, cfg["CLASS_NAMES"])
@@ -1084,7 +1244,8 @@ def phase_eval(dev, yaml_path, per_frame: dict):
         "eval_s": stats["eval_s"], "run_eval_wall_s": wall_s,
         "tree_write_s": write_s, "create_infos_s": infos_s,
         "recall": {str(k): v for k, v in stats["recall"].items()}, "total_gt": stats["total_gt"],
-        "peak_memory_bytes": peak, "mAP_3d_entire_area": result_dict["entire_area/mAP_3d"],
+        "peak_memory_bytes": peak, "headline": HEADLINE[data["DATASET"]],
+        "headline_value": result_dict[HEADLINE[data["DATASET"]]],
     }
     print("  " + json.dumps(result))
     return result
@@ -1109,9 +1270,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
         root, out = Path(tmp) / "data", Path(tmp) / "out"
         data["DATA_PATH"] = str(root)
         t0 = time.perf_counter()
-        make_synthetic_kitti(root, num_frames=TRAIN_CLI_FRAMES, num_points=2048,
-                             num_virtual=4096, image_hw=tuple(data["IMAGE_SIZE"]),
-                             structured=True, virtual_prefix=data["VIRTUAL_POINT_PREFIX"])
+        write_tree(root, data, TRAIN_CLI_FRAMES)
         create_infos(data, cfg["CLASS_NAMES"])
         tree_s = time.perf_counter() - t0
         common = ["--cfg_file", yaml_path, "--fix_random_seed", "--epochs", "2", "--workers", "4",
@@ -1214,6 +1373,182 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
     return result
 
 
+TJ4D_YAMLS = {"xla": "configs/hgsfusion_tj4d.yaml", "pallas": "configs/hgsfusion_tj4d_pallas.yaml",
+              "polar": "configs/hgsfusion_tj4d_polar.yaml"}
+# the TINY TJ4D model: 1 m voxels, nx 32, ny 40, nz 6, and a 50x80 image
+TINY_TJ4D_RANGE = [0, -20, -4, 32, 20, 2]
+TINY_TJ4D_FRAMES = 4
+# the augmentation seed of the TINY TJ4D step's two frames: one whose step
+# (weights TRAIN_REF_SEED) the CPU's own probes find well conditioned
+# (step_compare.SENS_CAP: seed 1 at 2.8e-5 of the cap's 1e-3; seeds 3, 5
+# and 6 over it)
+TINY_TJ4D_TRAIN_SEED = 1
+TJ4D_CLI_FRAMES, TJ4D_CLI_STEPS, TJ4D_CLI_EVAL_FRAMES = 16, 10, 8
+
+
+def tiny_tj4d_cut(cfg, root):
+    """A loaded ``hgsfusion_tj4d*.yaml`` cut to the TINY TJ4D model over the
+    tree at ``root``: TINY_TJ4D_RANGE at 1 m, a 50x80 image, ResNet-50, 16
+    depth bins to 32 m, f32; TJ4D's 4 classes, 8 anchors, 18 point
+    features, ASPP dilation and BEV_AUG as they are."""
+    data = cfg["DATA_CONFIG"]
+    data.update(DATA_PATH=str(root), POINT_CLOUD_RANGE=list(TINY_TJ4D_RANGE),
+                IMAGE_SIZE=[50, 80], MAX_POINTS=1024, MAX_GT_BOXES=16,
+                VIRTUAL_POINT_PREFIX="virtual_points")
+    data["DATA_PROCESSOR"][1]["VOXEL_SIZE"] = [1.0, 1.0, 1.0]
+    model = cfg["MODEL"]
+    model["COMPUTE_DTYPE"] = "float32"
+    ffn = model["FusionVFE"]["ImageVFE"]["FFN"]
+    ffn["DDN"]["BACKBONE_NAME"] = "ResNet50"
+    ffn["DISCRETIZE"].update(num_bins=16, depth_max=32.0)
+    model["FusionVFE"]["RadarBackbone"]["READER"]["PC_RANGE"] = list(TINY_TJ4D_RANGE)
+    model["POST_PROCESSING"]["NMS_CONFIG"].update(NMS_PRE_MAXSIZE=512, NMS_POST_MAXSIZE=100)
+    return cfg
+
+
+def write_tiny_tj4d_tree(root):
+    """TINY_TJ4D_FRAMES frames at 50x80 whose Car, Pedestrian, Cyclist and
+    Truck (3 m to about 28 m) lie in TINY_TJ4D_RANGE."""
+    return make_synthetic_tj4d(root, num_frames=TINY_TJ4D_FRAMES, num_points=256,
+                               num_virtual=64, image_hw=(50, 80), num_boxes=4, box_x0=3.0,
+                               box_spread=28.0)
+
+
+def tj4d_config(view: str):
+    """``configs/hgsfusion_tj4d{,_pallas,_polar}.yaml``'s model config."""
+    return model_config_from_yaml(load_config(TJ4D_YAMLS[view]))
+
+
+def tj4d_serve_batch(cfg):
+    """``flagship_batch`` at TJ4D's image size, with the synthetic trees'
+    intrinsics for that size (``make_calib``: the camera at the image's
+    center)."""
+    return flagship_batch(cfg, cam_to_img=make_calib(cfg.image_size)["P2"])
+
+
+def phase_small_reference_tj4d(dev):
+    """The TINY TJ4D model (``tiny_tj4d_cut`` of hgsfusion_tj4d_pallas.yaml),
+    card vs CPU over a synthetic TJ4D tree: serving two frames (as
+    ``phase_small_reference``), one training step at B=2 on two augmented
+    frames with a Truck among their boxes (as ``phase_small_reference_train``;
+    1 fused launch, then 2 forward, 2 backward and 2 bins on the card), then
+    ``run_eval`` over the tree (as ``phase_small_reference_eval``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        write_tiny_tj4d_tree(root)
+        cfg = tiny_tj4d_cut(load_config(TJ4D_YAMLS["pallas"]), root)
+        create_infos(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"])
+        model_cfg = model_config_from_yaml(cfg)
+        if (model_cfg.grid_size, model_cfg.num_anchors_per_location) != ((32, 40, 6), 8):
+            raise AssertionError(f"TINY TJ4D grid {model_cfg.grid_size}, "
+                                 f"{model_cfg.num_anchors_per_location} anchors")
+        ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False)
+        train_ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=True)
+        np.random.seed(TINY_TJ4D_TRAIN_SEED)
+        train_batch = train_ds.collate_batch([train_ds[i] for i in range(2)])
+        if not (train_batch["gt_boxes"][..., -1] == 4).any():
+            raise AssertionError("no Truck among the training frames' boxes")
+        zero_launches()
+        out = {"serve": phase_small_reference(dev, model_cfg,
+                                              ds.collate_batch([ds[i] for i in range(2)])),
+               "train": phase_small_reference_train(dev, model_cfg, train_batch)}
+        out["launches"] = dict(quad_sample.launches)
+        want = {quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 2,
+                quad_sample.BINS: 2}
+        print(f"  launches on the card: {out['launches']}")
+        if out["launches"] != want:
+            raise AssertionError(f"launches {out['launches']}, want {want}")
+        out["eval"] = compare_run_eval(dev, cfg, model_cfg, per_frame=7)
+    return out
+
+
+def phase_train_cli_tj4d(dev):
+    """``tools/train.py`` on ``configs/hgsfusion_tj4d.yaml`` (SAMPLER_KERNEL:
+    xla, BATCH_SIZE_PER_DEVICE: 2) at full width over a 16-frame synthetic
+    TJ4D tree, across an epoch boundary (8 steps), its second step profiled
+    (before the window of ``steps_per_s``, which starts at the third); then
+    ``tools/test.py --ckpt_dir`` over 8 frames."""
+    yaml_path = TJ4D_YAMLS["xla"]
+    cfg = load_config(yaml_path)
+    model_cfg = model_config_from_yaml(cfg)
+    batch = cfg["OPTIMIZATION"]["BATCH_SIZE_PER_DEVICE"]
+    if model_cfg.f2v_sampler_kernel != "xla" or batch != 2:
+        raise AssertionError(f"{yaml_path}: sampler {model_cfg.f2v_sampler_kernel}, B={batch}")
+    data = cfg["DATA_CONFIG"]
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        data["DATA_PATH"] = str(root)
+        t0 = time.perf_counter()
+        write_tree(root, data, TJ4D_CLI_FRAMES)
+        create_infos(data, cfg["CLASS_NAMES"])
+        tree_s = time.perf_counter() - t0
+        data_set = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+        # the main path: a training run
+        zero_launches()
+        run = train_cli.main(["--cfg_file", yaml_path, "--fix_random_seed", "--epochs", "2",
+                              "--workers", "4", "--output_dir", str(out), "--max_steps",
+                              str(TJ4D_CLI_STEPS), "--profile_steps", "1:1"]
+                             + data_set)
+        run["launches"] = dict(quad_sample.launches)
+        ckpt = CheckpointManager(Path(run["out_dir"]) / "ckpt")
+        steps = ckpt.all_steps()
+        # the evaluation of the newest checkpoint
+        zero_launches()
+        t0 = time.perf_counter()
+        evaluated = test_cli.main(["--cfg_file", yaml_path, "--ckpt_dir", str(ckpt.ckpt_dir),
+                                   "--max_frames", str(TJ4D_CLI_EVAL_FRAMES), "--output_dir",
+                                   str(out / "eval")] + data_set)
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(quad_sample.launches)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    want = per_frames({quad_sample.KERNEL: 2, quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2},
+                      TJ4D_CLI_STEPS)
+    check(run["launches"] == want, f"launches {run['launches']}, want {want}")
+    check(run["steps"] == TJ4D_CLI_STEPS and all(math.isfinite(v) for v in run["losses"]),
+          f"{run['steps']} steps, losses {run['losses']}")
+    check(run["augmentation"]["frames"] == 2 * TJ4D_CLI_STEPS, f"frames fed "
+          f"{run['augmentation']['frames']}")
+    check(run["augmentation"]["flipped"] > 0, "no flipped frame was fed")
+    check(run["augmentation"]["aug_matrix"] > 0, "every lidar_aug_matrix was the identity")
+    epoch = TJ4D_CLI_FRAMES // batch
+    check(steps == [epoch, TJ4D_CLI_STEPS], f"checkpoints {steps}")
+    check(run["profile_device_ms"] is not None and run["profile_device_ms"] > 0,
+          f"profiled step device ms {run['profile_device_ms']}")
+    want = per_frames(GATHER_FRAME, TJ4D_CLI_EVAL_FRAMES)
+    check(sorted(evaluated) == [TJ4D_CLI_STEPS], f"evaluated steps {sorted(evaluated)}")
+    check(eval_launches == want, f"eval launches {eval_launches}, want {want}")
+    result_dict, stats = evaluated.get(TJ4D_CLI_STEPS, ({}, {}))
+    check(stats.get("frames") == TJ4D_CLI_EVAL_FRAMES and HEADLINE["TJ4DDataset"] in result_dict
+          and all(math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()),
+          f"evaluation: {stats.get('frames')} frames, {result_dict}")
+    waits = run["loader_wait_s"]
+    result = {
+        "config": yaml_path, "frames": TJ4D_CLI_FRAMES, "batch_size": batch,
+        "tree_and_infos_s": tree_s,
+        "launches": {k: run["launches"][k] + eval_launches[k] for k in eval_launches},
+        "launches_by_run": {"train": run["launches"], "eval": eval_launches},
+        "steps": run["steps"], "steps_per_s": run["steps_per_s"],
+        "steps_per_s_excl_saves": run["steps_per_s_excl_saves"],
+        "loader_wait_ms": {"mean": 1e3 * float(np.mean(waits[2:])),
+                           "max": 1e3 * float(np.max(waits[2:])),
+                           "first_two": [1e3 * w for w in waits[:2]]},
+        "augmentation": run["augmentation"], "losses": run["losses"],
+        "profiled_step_device_ms": run["profile_device_ms"], "saves": run["saves"],
+        "peak_memory_bytes": run["peak_memory_bytes"], "checkpoints": steps,
+        "eval_s": eval_s, "eval_ms_per_frame": stats.get("ms_per_frame"),
+        "eval_result": result_dict,
+    }
+    print("  " + json.dumps(result))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1261,12 +1596,28 @@ def main(argv=None) -> int:
     phase("train_polar", phase_train, dev, vod_polar_config(), 3)
     torch.cuda.empty_cache()
     phase("small_reference_eval", phase_small_reference_eval, dev)
-    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME)
+    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME,
+          vod_pallas_config())
     torch.cuda.empty_cache()
-    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", POLAR_FRAME)
+    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", POLAR_FRAME,
+          vod_polar_config())
     torch.cuda.empty_cache()
     phase("small_reference_xla", phase_small_reference_xla, dev)
     phase("train_cli", phase_train_cli, dev)
+    torch.cuda.empty_cache()
+    phase("kernel_vs_plain_scatter", phase_kernel_vs_plain_scatter, dev)
+    torch.cuda.empty_cache()
+    phase("bench_scatter", phase_bench_scatter, dev)
+    torch.cuda.empty_cache()
+    phase("small_reference_tj4d", phase_small_reference_tj4d, dev)
+    for view, path, per_frame in (("pallas", "serve_tj4d", GATHER_FRAME),
+                                  ("polar", "serve_tj4d_polar", POLAR_FRAME)):
+        cfg = tj4d_config(view)
+        phase(path, phase_serve, dev, cfg, per_frame, tj4d_serve_batch(cfg))
+        torch.cuda.empty_cache()
+    phase("train_cli_tj4d", phase_train_cli_tj4d, dev)
+    torch.cuda.empty_cache()
+    phase("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -1281,9 +1632,7 @@ def main(argv=None) -> int:
         polar_block = {} if polar_rows is None else {"polar": {
             "max_abs_err": max(r["max_abs_err"] for r in polar_rows),
             **{k: summed(polar_rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}}
-        by_path = {path: report[path]["launches"][name]
-                   for path in ("serve", "train", "serve_polar", "train_polar", "eval",
-                                "eval_polar", "train_cli")}
+        by_path = {path: report[path]["launches"].get(name, 0) for path in MAIN_PATHS}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1308,7 +1657,13 @@ def main(argv=None) -> int:
         kernel_row(quad_sample.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
                    "_bench_gather_pallas.py:162",
                    [r for r in report["kernel_vs_plain_reduce"]["rows"] if "ms" in r]),
+        kernel_row(row_scatter.KERNEL, "hgsfusion_tpu_torch/csrc/row_scatter_add.cu",
+                   "_bench_scatter_pallas.py:69",
+                   [r for r in report["kernel_vs_plain_scatter"] if "ms" in r]),
     ]
+    kernels[-1]["cases"] = {r["case"]: {k: r[k] for k in (
+        "ms", "binning_ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")}
+        for r in report["kernel_vs_plain_scatter"] if "ms" in r}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

@@ -113,8 +113,15 @@ def make_synthetic_kitti(root, num_frames: int = 4, num_points: int = 256,
                          virtual_prefix: str = "virtual_points",
                          seed: int = 0, structured: bool = False,
                          classes=("Car", "Pedestrian", "Cyclist"),
-                         support_range=None):
+                         support_range=None, frame_ids=None,
+                         box_x0: float = 8.0, box_spread: float = 26.0):
     """Build the tree and return the root path.
+
+    frame_ids: the frames' ids (default ``00000``, ``00001``, ...).
+    box_x0, box_spread (structured mode): box b of ``num_boxes`` has its
+    center's x drawn from [lo, lo + 4] m, lo = box_x0 + box_spread *
+    b / num_boxes. The defaults, and any call that leaves out these three
+    port-only arguments, write the JAX package's tree.
 
     structured=True makes the scenes LEARNABLE instead of white noise:
     radar/virtual points cluster inside the gt boxes with class-dependent
@@ -146,7 +153,10 @@ def make_synthetic_kitti(root, num_frames: int = 4, num_points: int = 256,
         (training / sub).mkdir(parents=True, exist_ok=True)
     (root / "ImageSets").mkdir(parents=True, exist_ok=True)
 
-    ids = [f"{i:05d}" for i in range(num_frames)]
+    ids = ([f"{i:05d}" for i in range(num_frames)] if frame_ids is None
+           else [str(i) for i in frame_ids])
+    if len(ids) != num_frames:
+        raise ValueError(f"{len(ids)} frame ids for {num_frames} frames")
     (root / "ImageSets" / "train.txt").write_text("\n".join(ids) + "\n")
     (root / "ImageSets" / "val.txt").write_text("\n".join(ids) + "\n")
 
@@ -172,7 +182,7 @@ def make_synthetic_kitti(root, num_frames: int = 4, num_points: int = 256,
             for b in range(num_boxes):
                 cls_i = b % len(classes)
                 # spread centers along range so boxes never overlap
-                lo = 8 + (30 - 4) * b / max(num_boxes, 1)
+                lo = box_x0 + box_spread * b / max(num_boxes, 1)
                 cx = rng.uniform(lo, lo + 4)
                 cy = rng.uniform(-0.5, 0.5) * half_tan * cx
                 cz = rng.uniform(-1.2, -0.4)
@@ -313,3 +323,27 @@ def make_synthetic_kitti(root, num_frames: int = 4, num_points: int = 256,
             allow_pickle=True,
         )
     return root
+
+
+# TJ4DRadSet sequences (datasets/tj4d.py's WEATHER_FILTER groups: dark,
+# standard, shiny) and one in none of them
+TJ4D_SEQUENCES = (0, 5, 30, 77, 1, 10, 31, 20, 34, 23, 37, 41)
+
+
+def make_synthetic_tj4d(root, num_frames: int = 4, num_points: int = 256,
+                        num_virtual: int = 64, image_hw=(810, 1280), seed: int = 0,
+                        virtual_prefix: str = "virtual_points", num_boxes: int = 6,
+                        box_x0: float = 10.0, box_spread: float = 70.0):
+    """A structured TJ4DRadSet-format tree: 8 radar channels, PNG images,
+    six-digit frame ids whose first two digits cycle through
+    ``TJ4D_SEQUENCES`` (so every weather group holds frames, and one
+    sequence lies in none), and ``num_boxes`` boxes a frame, Car,
+    Pedestrian, Cyclist, Truck in turn, by default six from 10 m out to past
+    70 m, so every range difficulty holds boxes."""
+    ids = [f"{TJ4D_SEQUENCES[i % len(TJ4D_SEQUENCES)]:02d}{i:04d}" for i in range(num_frames)]
+    return make_synthetic_kitti(
+        root, num_frames=num_frames, num_points=num_points, num_boxes=num_boxes,
+        num_virtual=num_virtual, image_hw=image_hw, radar_channels=8, image_ext=".png",
+        virtual_prefix=virtual_prefix, seed=seed, structured=True,
+        classes=("Car", "Pedestrian", "Cyclist", "Truck"), frame_ids=ids,
+        box_x0=box_x0, box_spread=box_spread)

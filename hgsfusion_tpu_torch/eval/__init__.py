@@ -1,3 +1,3 @@
 """Offline evaluation (counterpart of ``hgsfusion_tpu/eval``): the KITTI AP
-core and the official View-of-Delft protocol, in numpy, with the rotated
-overlap in C++ (``csrc/rotate_iou.cc``)."""
+core and the official View-of-Delft and TJ4DRadSet protocols, in numpy,
+with the rotated overlap in C++ (``csrc/rotate_iou.cc``)."""

@@ -203,17 +203,25 @@ def quad_bins(idx, w4, padded_shape):
     pixels = b * hp2 * wp2
     # any of a query's four weights nonzero: its four flags read as one int32
     valid = (w4 != 0).view(torch.int32).squeeze(1) != 0
-    key = torch.where(valid, idx, pixels)
+    bins = csr_bins(torch.where(valid, idx, pixels), pixels)
+    if idx.is_cuda:
+        launches[BINS] += 1
+    return bins
+
+
+def csr_bins(key, n: int):
+    """``order`` (N,) int32, the positions of ``key`` (N,) sorted by key,
+    stable; ``start`` (n + 1,) int32, the run of each key 0 .. n - 1 in
+    ``order``, so a key of ``n`` (past every bin) sorts last and
+    ``start[n]`` counts the others. No step reads back to the host."""
     lo = 0
-    if pixels < 2**16:  # 16-bit keys, shifted to keep their order: half the radix passes
+    if n < 2**16:  # 16-bit keys, shifted to keep their order: half the radix passes
         lo = -2**15
         key = (key + lo).to(torch.int16)
     keys, order = torch.sort(key, stable=True)
     start = torch.searchsorted(
-        keys, torch.arange(lo, lo + pixels + 1, dtype=keys.dtype, device=keys.device),
+        keys, torch.arange(lo, lo + n + 1, dtype=keys.dtype, device=keys.device),
         out_int32=True)
-    if idx.is_cuda:
-        launches[BINS] += 1
     return order.to(torch.int32), start
 
 

@@ -1,11 +1,14 @@
 """Where one full-width flagship frame spends its device time.
 
-    python -m hgsfusion_tpu_torch.profile_serve [--view {gather,polar}] [--frames 3]
-        [--out profile.json]
+    python -m hgsfusion_tpu_torch.profile_serve [--view {gather,polar} | --cfg_file <yaml>]
+        [--frames 3] [--out profile.json]
 
 Serves the flagship frame (``configs/hgsfusion_vod_pallas.yaml``, the gather
 view, or with ``--view polar`` ``configs/hgsfusion_vod_polar.yaml``, in bf16,
-random weights from seed 0, the synthetic flagship batch) under
+random weights from seed 0, the synthetic flagship batch; with
+``--cfg_file`` that config, e.g. ``configs/hgsfusion_tj4d_pallas.yaml``, on
+the flagship batch at its image size with the synthetic trees' intrinsics,
+``datasets/synthetic.py::make_calib``) under
 ``torch.profiler`` on the card and prints, per frame: device time by serve
 stage, the kernels with the most device time, and the device's busy share
 of the profiled wall time. The profiler slows the host side, so the busy
@@ -22,7 +25,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from .config import vod_pallas_config, vod_polar_config
+from .config import load_config, model_config_from_yaml, vod_pallas_config, vod_polar_config
+from .datasets.synthetic import make_calib
 from .models.detector import HGSFusionModel
 from .synthetic import flagship_batch
 
@@ -82,16 +86,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", choices=("gather", "polar"), default="gather",
                     help="the view transform: vod_pallas (gather) or vod_polar")
+    ap.add_argument("--cfg_file", help="serve this config instead (overrides --view)")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", help="also write the result to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    cfg = vod_polar_config() if args.view == "polar" else vod_pallas_config()
+    if args.cfg_file:
+        cfg = model_config_from_yaml(load_config(args.cfg_file))
+        batch = flagship_batch(cfg, cam_to_img=make_calib(cfg.image_size)["P2"])
+    else:
+        cfg = vod_polar_config() if args.view == "polar" else vod_pallas_config()
+        batch = flagship_batch(cfg)
     model = HGSFusionModel(cfg, device="cuda", seed=0)
-    result = profile_frames(model, flagship_batch(cfg), args.frames)
-    result["view"] = args.view
+    result = profile_frames(model, batch, args.frames)
+    result["view"] = cfg.f2v_view
+    result["config"] = args.cfg_file
     result["card"] = torch.cuda.get_device_name(0)
     print(json.dumps({k: v for k, v in result.items() if k != "top_ops"}))
     print("kernels by device time per frame:")

@@ -18,9 +18,11 @@ _CLASS_BOX = {1: ((3.9, 1.6, 1.56), -1.78), 2: ((0.8, 0.6, 1.73), -0.6),
               3: ((1.76, 0.6, 1.73), -0.6)}
 
 
-def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0):
+def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0,
+                   cam_to_img=CAM_TO_IMG):
     """Radar points inside the range, a uniform-noise image of
-    ``cfg.image_size``, the calibration above and ``gt_boxes`` (B,
+    ``cfg.image_size``, the calibration above (or the intrinsics
+    ``cam_to_img``, (3, 4)) and ``gt_boxes`` (B,
     MAX_BOXES, 8) [x, y, z, dx, dy, dz, heading, class id] with the boxes of
     ``GT_PER_CLASS`` (near their class anchor's size, inside the range) and
     zero padding rows, as numpy arrays. The boxes are drawn after everything
@@ -53,7 +55,7 @@ def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0):
         "points_valid": np.ones((b, max_points), bool),
         "images": images,
         "trans_lidar_to_cam": np.tile(np.array(LIDAR_TO_CAM, np.float32), (b, 1, 1)),
-        "trans_cam_to_img": np.tile(np.array(CAM_TO_IMG, np.float32), (b, 1, 1)),
+        "trans_cam_to_img": np.tile(np.array(cam_to_img, np.float32), (b, 1, 1)),
         "lidar_aug_matrix": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
         "gt_boxes": gt,
     }

@@ -4,8 +4,8 @@ the JAX package's ``tools/create_infos.py``).
     python -m hgsfusion_tpu_torch.tools.create_infos --cfg_file configs/hgsfusion_vod.yaml \\
         [--splits train val] [--set DATA_CONFIG.DATA_PATH <root> ...]
 
-Only the View-of-Delft dataset is ported; ``build_dataset`` raises for the
-others.
+The View-of-Delft and TJ4DRadSet datasets are ported; ``build_dataset``
+raises for the others.
 """
 from __future__ import annotations
 

@@ -77,12 +77,17 @@ def zero_residual_scales(model):
 
 
 def perturb_inputs(batch, seed: int, rel: float = PERTURB):
-    """``batch`` with its images and points scaled by 1 + rel N(0, 1)."""
+    """``batch`` with its images and points scaled by 1 + rel N(0, 1); uint8
+    images (a dataset's) first become the f32 images the model reads them
+    as, x / 255."""
     g = torch.Generator().manual_seed(seed)
     out = dict(batch)
     for k in ("images", "points"):
-        noise = torch.randn(batch[k].shape, generator=g).to(batch[k].device)
-        out[k] = batch[k] * (1 + rel * noise)
+        x = batch[k]
+        if x.dtype == torch.uint8:
+            x = x.to(torch.float32) / 255.0
+        noise = torch.randn(x.shape, generator=g).to(x.device)
+        out[k] = x * (1 + rel * noise)
     return out
 
 

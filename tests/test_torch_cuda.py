@@ -10,7 +10,7 @@ import torch.nn.functional as F
 
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.models.layers import matmul_f32
-from hgsfusion_tpu_torch.ops import quad_sample
+from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
@@ -372,3 +372,67 @@ def test_view_transform_routes(cuda):
         quad_sample.BINS: 2}
     scale = float(sampled.abs().max())
     assert float((fused - sampled.detach()).abs().max()) <= 1e-4 * scale
+
+
+# row_scatter_add: (updates, table rows, channels, index mode)
+SCATTER_CASES = {"windowed": (4096, 300, 256, "window"), "odd_c": (3000, 257, 37, "ragged"),
+                 "one_row": (20000, 64, 24, "one_row"), "f32_wide": (5000, 100, 129, "ragged")}
+
+
+def _scatter_inputs(case, dtype, device, integer):
+    """(idx, rows, num_rows): windowed indices as the benchmark draws them;
+    a ragged mix with negative and out-of-range indices; or every update on
+    one row. Integer-valued rows sum exactly in f32 in any order."""
+    n, p, c, mode = SCATTER_CASES[case]
+    g = torch.Generator().manual_seed(11)
+    if mode == "window":
+        base = torch.randint(0, p - 64 + 1, (n // 64, 1), generator=g)
+        idx = (base + torch.randint(0, 64, (n // 64, 64), generator=g)).reshape(-1)
+    elif mode == "ragged":
+        idx = torch.randint(-p - 20, p + 20, (n,), generator=g)
+    else:
+        idx = torch.full((n,), 5)
+    rows = (torch.randint(-3, 4, (n, c), generator=g).float() if integer
+            else torch.randn((n, c), generator=g))
+    return idx.to(torch.int32).to(device), rows.to(dtype).to(device), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_row_scatter_kernel_matches_plain(cuda, case, dtype, integer):
+    """Integer-valued rows: bit for bit. Random rows: both sum in f32 in
+    another order and round once, so one rounding of the dtype (2 u |ref|)
+    plus the f32 order bound (k u_f32 S, k the most updates of a row, S the
+    row's sum of |rows|)."""
+    idx, rows, p = _scatter_inputs(case, dtype, cuda, integer)
+    before = row_scatter.launches[row_scatter.KERNEL]
+    got = row_scatter.row_scatter_add(idx, rows, p)
+    torch.cuda.synchronize()
+    assert row_scatter.launches[row_scatter.KERNEL] == before + 1
+    assert got.shape == (p, rows.shape[1]) and got.dtype == dtype
+    ref = row_scatter.row_scatter_add_plain(idx.cpu(), rows.cpu(), p)
+    assert torch.equal(row_scatter.row_scatter_add(idx, rows, p), got)  # deterministic
+    if integer:
+        assert torch.equal(got.cpu(), ref)
+        return
+    u = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}[dtype]
+    s_abs = row_scatter.row_scatter_add_plain(idx.cpu(), rows.cpu().float().abs(), p)
+    k = int(row_scatter.row_scatter_bins(idx.cpu(), p)[1].diff().max())
+    tol = 1e-6 + 2 * u * ref.float().abs() + k * 2.0 ** -24 * s_abs
+    assert bool(((got.cpu().float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_row_scatter_kernel_rejects_what_it_does_not_take(cuda):
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    rows = torch.zeros((3, 8), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        row_scatter.row_scatter_add(idx, rows.double(), 4)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        row_scatter.row_scatter_add(idx.float(), rows, 4)
+    with pytest.raises(ValueError, match="shapes"):
+        row_scatter.row_scatter_add(idx[:2], rows, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        row_scatter.row_scatter_add_kernel(rows.cpu(), row_scatter.row_scatter_bins(idx, 4), 4)

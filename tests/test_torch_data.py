@@ -301,8 +301,8 @@ def test_training_and_unported_datasets_raise(tree):
     with pytest.raises(NotImplementedError, match="random_world_translation is not ported"):
         build_dataset({**data_cfg, "DATA_AUGMENTOR": aug}, names, training=True)
     assert len(build_dataset(data_cfg, names, training=True)) == 3
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        build_dataset({**data_cfg, "DATASET": "TJ4DDataset"}, names)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        build_dataset({**data_cfg, "DATASET": "KittiDataset"}, names)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         build_dataset({**data_cfg, "DATASET": "NuScenesDataset"}, names)
     with pytest.raises(NotImplementedError, match="random_world_translation"):
