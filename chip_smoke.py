@@ -22,15 +22,22 @@ Phases, each of which must pass or the script exits non-zero:
    bit for bit, the bins' and the kernel's times and their sum beside the
    bound, the contention statistics, the plain version's time and
    ``aten.grid_sampler_2d_backward``'s (a yardstick);
-4b. kernel vs plain, fused reduce: ``quad_sample_reduce_fwd`` (both gather
-   groups, their taps and the reduce product in one launch) against its
-   plain version at the flagship groups (both maps, the flagship grid, the
-   (256, 128) reduce kernel, a random bias) in bf16 and f32 and a ragged
-   case (three groups, odd channels and outputs, 222 queries); tolerances
-   at ``reduce_case``; in bf16 also against the sampling route a training
-   step takes (``quad_sample_fwd`` + ``matmul_f32``); the kernel's time
-   beside its bound, that route's, the glue's, the plain version's and the
-   library pair's (``F.grid_sample`` + ``torch.matmul``);
+4a. taps: the fused kernel's own tap computation (``quad_sample_taps``)
+   against ``quad_indices`` bit for bit, bf16 and f32, at the flagship grid
+   read in place (both maps), ragged coordinates and coordinates on, beside
+   and just beyond every edge;
+4b. kernel vs plain, fused reduce: ``quad_sample_reduce_fwd`` (the taps
+   computed from the grid's (u, v) read in place, both gather groups'
+   unpadded maps and the reduce product in one launch, output in the
+   compute dtype) against its plain version at the flagship groups (both
+   maps, the flagship grid, the (256, 128) reduce kernel, a random bias) in
+   bf16 and f32 and a ragged case (three groups, odd channels and outputs,
+   222 queries); tolerances at ``reduce_case``; in bf16 also against the
+   sampling route a training step takes (``quad_sample_fwd`` +
+   ``matmul_f32``) cast to bf16; the kernel's time beside its bound and
+   the taps' L2 traffic, that route's (with its glue), the plain version's
+   and the library pair's (``F.grid_sample`` + ``torch.matmul``: no single
+   PyTorch call computes the function, so ``library_ms`` is null);
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -309,15 +316,21 @@ def sampler_case(name, features, coords, dtype, tol, timed: bool):
     return row
 
 
-def flagship_uv(dev):
-    """The flagship frame's (u, v) sampling grid (1, 320, 320, 31, 2)."""
+def flagship_grid(dev):
+    """The flagship frame's sampling grid (1, 320, 320, 31, 3): (u, v, depth
+    bin) as the view transform reads it."""
     cfg = vod_pallas_config()
     batch = flagship_batch(cfg)
     gen = FrustumGridGenerator(cfg.grid_size, cfg.pc_range, cfg.disc_cfg, cfg.bev_aug)
-    grid = gen(*(torch.from_numpy(batch[k]).to(dev) for k in
+    return gen(*(torch.from_numpy(batch[k]).to(dev) for k in
                  ("trans_lidar_to_cam", "trans_cam_to_img")), cfg.image_size,
                bda=torch.from_numpy(batch["lidar_aug_matrix"]).to(dev))
-    return grid[..., 0:2].contiguous()
+
+
+def flagship_uv(dev):
+    """The flagship frame's (u, v) sampling grid (1, 320, 320, 31, 2),
+    contiguous."""
+    return flagship_grid(dev)[..., 0:2].contiguous()
 
 
 def phase_kernel_vs_plain(dev):
@@ -462,30 +475,33 @@ def phase_kernel_vs_plain_bwd(dev):
     return rows
 
 
-def reduce_groups(maps, coords):
-    """The fused kernel's (fp, idx, w4, k_off) of each map, as
+def reduce_groups(maps):
+    """The fused kernel's (map, k_off) of each map, as
     ``FrustumToVoxelMultiScale.accumulate`` builds them."""
     groups, off = [], 0
     for f in maps:
-        idx, w4 = quad_sample.quad_indices(f, coords)
-        groups.append((F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous(), idx, w4, off))
+        groups.append((f, off))
         off += f.shape[-1]
     return groups
 
 
-def sampling_route(groups, kmat, bias):
-    """The same function by the route a training step takes:
-    ``quad_sample_fwd`` per group, ``matmul_f32``, ``add_`` onto the bias."""
-    out = bias.expand(groups[0][1].shape[0], kmat.shape[1]).clone()
-    for fp, idx, w4, k_off in groups:
+def sampling_route(uv, groups, kmat, bias):
+    """The same function by the route a training step takes, its glue
+    included: ``quad_indices`` and the padded map, ``quad_sample_fwd`` per
+    group, ``matmul_f32``, ``add_`` onto the bias; f32, unrounded."""
+    out = bias.expand(uv.numel() // 2, kmat.shape[1]).clone()
+    for f, k_off in groups:
+        idx, w4 = quad_sample.quad_indices(f, uv)
+        fp = F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous()
         out.add_(matmul_f32(quad_sample.quad_sample_fwd(fp, idx, w4),
-                            kmat[k_off:k_off + fp.shape[-1]]))
+                            kmat[k_off:k_off + f.shape[-1]]))
     return out
 
 
 def library_pair(maps, coords, kmat, bias):
     """The same function from library calls, ``F.grid_sample`` and
-    ``torch.matmul`` per group (no single PyTorch call computes it)."""
+    ``torch.matmul`` per group, then the cast (no single PyTorch call
+    computes it)."""
     b = coords.shape[0]
     grid = coords.reshape(b, -1, coords.shape[-2], 2).to(kmat.dtype)
     out, k_off = bias, 0
@@ -496,72 +512,144 @@ def library_pair(maps, coords, kmat, bias):
         out = out + torch.matmul(s.flatten(2).transpose(1, 2),
                                  kmat[k_off:k_off + c]).reshape(-1, kmat.shape[1])
         k_off += c
-    return out
+    return out.to(kmat.dtype)
 
 
-def reduce_case(name, maps, coords, o, dtype, gen, timed: bool):
-    """``quad_sample_reduce_fwd`` vs its plain version on one input.
+def reduce_case(name, maps, uv, o, dtype, gen, timed: bool):
+    """``quad_sample_reduce_fwd`` vs its plain version on one input, both
+    in ``dtype``; ``uv`` is read in place.
 
     Both sum the products in f32 in another order: f32 within REDUCE_RTOL x
     (1 + max|ref|), the order bound of a sum of sum(c) + 1 terms with room.
     bf16: the plain version combines the taps in bf16 (a rounding after each
     of 4 products and 3 sums, ``quad_sample_fwd_plain``), the kernel in f32
     with one rounding, so it also allows 8 roundings of 2^-8 of the taps'
-    magnitude S = sum |w t| through |K|: 2^-5 (S @ |K|); and the route with
-    the kernel's own rounding (``quad_sample_fwd`` + ``matmul_f32``) is held
-    at REDUCE_RTOL x (1 + max|ref|). ``timed``: the kernel, that route, the
-    glue, the plain version and the library pair, beside the bound."""
-    dev = coords.device
+    magnitude S = sum |w t| through |K|: 2^-5 (S @ |K|); and both round their
+    f32 sums once to bf16, which may put them one unit in the last place
+    apart: 2^-7 |ref|. The sampling route with the kernel's own rounding of
+    the taps (``quad_sample_fwd`` + ``matmul_f32``), cast to bf16, is held
+    at REDUCE_RTOL x (1 + max|ref|) + 2^-7 |ref|. ``timed``: the kernel,
+    that route with its glue, the plain version and the library pair,
+    beside the bound (the kernel's glue is gone: the taps are its own)."""
+    dev = uv.device
     maps = [m.to(dtype) for m in maps]
-    groups = reduce_groups(maps, coords)
+    groups = reduce_groups(maps)
     csum = sum(m.shape[-1] for m in maps)
     kmat = (torch.randn((csum, o), generator=gen) * csum ** -0.5).to(dtype).to(dev)
     bias = torch.randn(o, generator=gen).to(dev)
-    n = groups[0][1].numel()
-    got = quad_sample.quad_sample_reduce_fwd(groups, kmat, bias)
+    n = uv.numel() // 2
+    got = quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias)
     torch.cuda.synchronize()
-    ref = quad_sample.quad_sample_reduce_plain(groups, kmat, bias)
+    ref = quad_sample.quad_sample_reduce_plain(uv, groups, kmat, bias)
     rtol = REDUCE_RTOL[dtype]
-    tol = rtol * (1 + float(ref.abs().max()))
+    tol = rtol * (1 + float(ref.float().abs().max()))
     row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
-           "maps": [list(m.shape) for m in maps], "o": o, "queries": n}
-    diff = (got - ref).abs()
+           "maps": [list(m.shape) for m in maps], "o": o, "queries": n,
+           "out_dtype": str(got.dtype).replace("torch.", "")}
+    if got.dtype != dtype or got.shape != (n, o):
+        raise AssertionError(f"{name}: output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - ref.float()).abs()
     if dtype == torch.float32:
         ratio = float(diff.max()) / tol
     else:
-        mag = torch.zeros_like(ref)
-        for fp, idx, w4, k_off in groups:
+        mag = torch.zeros_like(diff)
+        for f, k_off in groups:
+            idx, w4 = quad_sample.quad_indices(f, uv)
+            fp = F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous()
             s_abs = quad_sample_fwd_plain(fp.float().abs(), idx, w4.abs())
-            mag.add_(s_abs @ kmat[k_off:k_off + fp.shape[-1]].float().abs())
-            del s_abs
-        ratio = float((diff / (tol + 2.0 ** -5 * mag)).max())
-        del mag
-        same = float((got - sampling_route(groups, kmat, bias)).abs().max())
-        row["max_abs_err_same_rounding"] = same
-        row["same_rounding_over_tol"] = same / tol
+            mag.add_(s_abs @ kmat[k_off:k_off + f.shape[-1]].float().abs())
+            del s_abs, fp
+        ulp = 2.0 ** -7 * ref.float().abs()
+        ratio = float((diff / (tol + 2.0 ** -5 * mag + ulp)).max())
+        del mag, ulp
+        route = sampling_route(uv, groups, kmat, bias)
+        same = (got.float() - route.to(dtype).float()).abs()
+        row["max_abs_err_same_rounding"] = float(same.max())
+        row["same_rounding_over_tol"] = float((same / (tol + 2.0 ** -7 * route.abs())).max())
+        del route, same
     row.update(max_abs_err=float(diff.max()), max_err_over_tol=ratio,
                finite=bool(torch.isfinite(got).all()))
     del diff, ref
     if timed:
-        nbytes = (sum(fp.numel() * fp.element_size() + n * (4 + 16) for fp, _, _, _ in groups)
-                  + kmat.numel() * kmat.element_size() + o * 4 + n * o * 4)
+        isz = kmat.element_size()
+        # uv (x, y) read once, each map and K once, the output written once
+        nbytes = (n * 8 + sum(m.numel() * isz for m in maps) + kmat.numel() * isz + o * 4
+                  + n * o * isz)
         ops = 2.0 * n * csum * o
         peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
         row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
         row["bytes"], row["ops"] = nbytes, ops
-        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_fwd(groups, kmat, bias))
-        row["sampling_route_ms"] = cuda_ms(lambda: sampling_route(groups, kmat, bias))
-        row["glue_ms"] = cuda_ms(lambda: reduce_groups(maps, coords))
-        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_plain(groups, kmat, bias),
-                                  iters=3, warmup=1)
-        row["library"] = "F.grid_sample + torch.matmul per group"
-        row["library_ms"] = cuda_ms(lambda: library_pair(maps, coords, kmat, bias))
+        # computed, not measured: the four tap rows of every query and group
+        # that pass through L2, beside the bound
+        row["computed_l2_tap_bytes"] = 4 * csum * isz * n
+        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias))
+        row["sampling_route_ms"] = cuda_ms(lambda: sampling_route(uv, groups, kmat, bias))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_plain(
+            uv, groups, kmat, bias), iters=3, warmup=1)
+        # no single PyTorch call computes this function: library_ms stays null,
+        # the pair of calls that does is timed beside it
+        row["library_ms"] = None
+        row["library_pair"] = "F.grid_sample + torch.matmul per group, cast"
+        row["library_pair_ms"] = cuda_ms(lambda: library_pair(maps, uv, kmat, bias))
     print("  " + json.dumps(row))
     if not row["finite"] or not ratio <= 1.0 or not row.get("same_rounding_over_tol", 0) <= 1.0:
         raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} over its "
                              f"tolerance")
     return row
+
+
+def edge_coords(dev, sizes, n: int = 4096, seed: int = 11):
+    """(1, M, 2) coordinates on and around every edge of maps of ``sizes``
+    pixels: exactly -1 and 1, one f32 step either side, one and half a
+    pixel in and out, far beyond, crossed in x and y; then ``n`` random
+    ones."""
+    one = torch.tensor(1.0)
+    special = [torch.tensor([-1.0, 1.0, 0.0, -1.5, 1.5, -3.0, 3.0, 1e6, -1e6])]
+    special += [torch.nextafter(v, 2 * v)[None] for v in (-one, one)]
+    special += [torch.nextafter(v, -2 * v)[None] for v in (-one, one)]
+    for size in sizes:
+        step = 2.0 / max(size - 1, 1)
+        special.append(torch.tensor([-1 + step, 1 - step, -1 - step, 1 + step,
+                                     -1 + step / 2, 1 - step / 2]))
+    special = torch.cat(special)
+    xs, ys = torch.meshgrid(special, special, indexing="ij")
+    g = torch.Generator().manual_seed(seed)
+    rand = torch.rand((n, 2), generator=g) * 2.6 - 1.3
+    return torch.cat([torch.stack([xs.reshape(-1), ys.reshape(-1)], -1), rand])[None].to(dev)
+
+
+def phase_taps(dev):
+    """The fused kernel's own tap computation (``quad_sample_taps``)
+    against ``quad_indices`` bit for bit, in bf16 and f32: at the flagship
+    grid read in place (both maps), at ragged coordinates (two frames,
+    beyond the maps), and at coordinates on, beside and just beyond every
+    edge."""
+    grid = flagship_grid(dev)
+    g = torch.Generator().manual_seed(12)
+    ragged = (torch.rand((2, 37, 3, 3), generator=g) * 2.6 - 1.3).to(dev)[..., 0:2]
+    cases = [("flagship", shape, grid[..., 0:2]) for shape in FLAGSHIP_SHAPES.values()]
+    cases += [("ragged", (2, 11, 17, 8), ragged), ("ragged", (2, 3, 4, 8), ragged)]
+    cases += [("edges", shape, edge_coords(dev, shape[1:3])) for shape in
+              ((1, 5, 7, 8), (1, 1, 1, 8), FLAGSHIP_SHAPES["B"])]
+    rows = []
+    for name, shape, uv in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            f = torch.empty((shape[0], shape[1], shape[2], 1), dtype=dtype, device=dev)
+            idx, w4 = quad_sample.quad_sample_taps(f, uv)
+            torch.cuda.synchronize()
+            ref_idx, ref_w4 = quad_sample.quad_indices(f, uv)
+            row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+                   "map": list(shape[:3]), "queries": int(idx.numel()),
+                   "idx_equal": bool(torch.equal(idx, ref_idx)),
+                   "w4_equal": bool(torch.equal(w4, ref_w4)),
+                   "w4_max_abs_diff": float((w4 - ref_w4).abs().max()),
+                   "taps_outside": int((w4 == 0).sum())}
+            print("  " + json.dumps(row))
+            rows.append(row)
+            if not (row["idx_equal"] and row["w4_equal"]):
+                raise AssertionError(f"taps {name} {row['dtype']} {shape}: not bit-equal")
+    return rows
 
 
 def scatter_inputs(p: int, c: int, n: int, gen, integer: bool, window: int = 2048):
@@ -693,9 +781,10 @@ def phase_bench_scatter(dev):
 
 def phase_kernel_vs_plain_reduce(dev):
     """The fused kernel at the flagship gather groups (both maps, the
-    flagship frame's grid, the reduce kernel's (256, 128) shape, a random
-    bias) in bf16 (timed) and f32, and a ragged case."""
-    uv = flagship_uv(dev)
+    flagship frame's grid read in place as the module reads it, the reduce
+    kernel's (256, 128) shape, a random bias) in bf16 (timed) and f32, and a
+    ragged case."""
+    uv = flagship_grid(dev)[..., 0:2]
     g = torch.Generator(device="cpu").manual_seed(4)
     maps = [torch.randn(shape, generator=g).to(dev) for shape in FLAGSHIP_SHAPES.values()]
     rows = [reduce_case("flagship", maps, uv, REDUCE_O, torch.bfloat16, g, timed=True),
@@ -705,7 +794,7 @@ def phase_kernel_vs_plain_reduce(dev):
     # odd channels and outputs, three groups of two frames, 222 queries
     maps = [torch.randn(shape, generator=g).to(dev)
             for shape in ((2, 11, 17, 13), (2, 6, 9, 37), (2, 3, 4, 5))]
-    coords = (torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3).to(dev)
+    coords = (torch.rand((2, 37, 3, 3), generator=g) * 2.6 - 1.3).to(dev)[..., 0:2]
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(reduce_case("ragged", maps, coords, 45, dtype, g, timed=False))
     return {"rows": rows}
@@ -852,8 +941,8 @@ def phase_small_reference_xla(dev):
            "train": phase_small_reference_train(dev, TINY_XLA)}
     out["launches"] = dict(quad_sample.launches)
     # the served frame: one fused launch; the step: 2 forward, 2 backward, 2 bins
-    want = {quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 2,
-            quad_sample.BINS: 2}
+    want = per_frames({quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1,
+                       quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}, 1)
     print(f"  launches on the card: {out['launches']}")
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -1453,8 +1542,8 @@ def phase_small_reference_tj4d(dev):
                                               ds.collate_batch([ds[i] for i in range(2)])),
                "train": phase_small_reference_train(dev, model_cfg, train_batch)}
         out["launches"] = dict(quad_sample.launches)
-        want = {quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 2,
-                quad_sample.BINS: 2}
+        want = per_frames({quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1,
+                           quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}, 1)
         print(f"  launches on the card: {out['launches']}")
         if out["launches"] != want:
             raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -1579,6 +1668,7 @@ def main(argv=None) -> int:
         print(f"  {name}: {r['seconds']:.1f} s\n" + r["ptxas"].strip())
     phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
     phase("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev)
+    phase("taps", phase_taps, dev)
     phase("kernel_vs_plain_reduce", phase_kernel_vs_plain_reduce, dev)
     torch.cuda.empty_cache()
     phase("small_reference", phase_small_reference, dev)
@@ -1623,7 +1713,8 @@ def main(argv=None) -> int:
         return 1
 
     def summed(rows, key):
-        return sum(r[key] for r in rows if "ms" in r)
+        vals = [r[key] for r in rows if "ms" in r]
+        return None if None in vals else sum(vals)
 
     def kernel_row(name, source, replaces, rows, polar_rows=None):
         # per frame or step: the bf16 calls of the gather path (A, B) summed,
@@ -1642,7 +1733,8 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
             else "operations",
             "library_ms": summed(rows, "library_ms"),
-            **{k: timed[0][k] for k in ("library", "sampling_route_ms") if k in timed[0]},
+            **{k: timed[0][k] for k in ("library", "library_pair", "library_pair_ms",
+                                        "sampling_route_ms") if k in timed[0]},
             **polar_block,
         }
 

@@ -5,8 +5,9 @@ HGSFusion VoD configs run under either ``F2V.SAMPLER_KERNEL`` (``xla``, the
 default, or ``pallas``): FUSE_MODE CONCAT, USE_DEPTH False, same-resolution
 taps grouped into one gather, each group sampled by the ``quad_sample_fwd``
 kernel and reduced by a matmul into an f32 accumulator (the 1x1x1 Conv3d of
-the reference), then BN and ReLU. Where no gradient is taken, the samples
-and the reduce are one ``quad_sample_reduce_fwd`` launch.
+the reference), cast to the compute dtype, then BN and ReLU. Where no
+gradient is taken, the taps, the samples, the reduce and the cast are one
+``quad_sample_reduce_fwd`` launch on the unpadded maps.
 
 With USE_DEPTH False the reference samples a D=1 volume where
 align_corners=True collapses any depth coordinate onto plane 0, so the
@@ -18,10 +19,9 @@ import math
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..ops.quad_sample import (grid_sample_2d_quad_kernel, quad_indices,
-                               quad_sample_reduce_fwd, quad_sample_reduce_plain)
+from ..ops.quad_sample import (grid_sample_2d_quad_kernel, quad_sample_reduce_fwd,
+                               quad_sample_reduce_plain)
 from ..utils.common import device_constant
 from .layers import batch_norm, compute_dtype, matmul_f32
 
@@ -132,15 +132,18 @@ class FrustumToVoxelMultiScale(nn.Module):
         return torch.relu_(batch_norm(vox.to(cdt), self.channel_reduce[1], cdt))
 
     def accumulate(self, features, grid):
-        """The f32 accumulator before the BN: the Conv3d bias plus, for each
+        """The accumulator before the BN: the Conv3d bias plus, for each
         gather group, its sampled features (compute dtype) times its kernel
-        rows (compute dtype), each product reaching the sum unrounded.
+        rows (compute dtype), each product reaching the f32 sum unrounded.
 
         Where no gradient is taken (serving, evaluation) all groups go
         through one ``quad_sample_reduce_fwd`` launch (its plain version on
-        CPU tensors), and the sampled features never reach memory; otherwise
-        each group is sampled by ``grid_sample_2d_quad_kernel``, which keeps
-        what its backward needs, and reduced by ``matmul_f32``."""
+        CPU tensors), which reads the grid's (u, v) in place and the unpadded
+        maps, and returns the sum rounded once to the compute dtype: no
+        padded map, no tap indices and no sampled features reach memory.
+        Otherwise each group is sampled by ``grid_sample_2d_quad_kernel``,
+        which keeps what its backward needs, and reduced by ``matmul_f32``
+        into an f32 accumulator."""
         cdt = compute_dtype(self.dtype)
         conv = self.channel_reduce[0]
         kernel = conv.weight.reshape(conv.weight.shape[0], -1).t()  # (sum C, O)
@@ -160,10 +163,9 @@ class FrustumToVoxelMultiScale(nn.Module):
         needs_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (*features, conv.weight, conv.bias))
         if not needs_grad:
-            fused = [(F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous(), *quad_indices(f, uv), k_off)
-                     for f, k_off in groups]
             reduce = quad_sample_reduce_fwd if uv.is_cuda else quad_sample_reduce_plain
-            return reduce(fused, kernel.to(cdt).contiguous(),
+            return reduce(uv, [(f.contiguous(), k_off) for f, k_off in groups],
+                          kernel.to(cdt).contiguous(),
                           conv.bias.to(torch.float32)).view(out_shape)
         vox = conv.bias.to(torch.float32).expand(out_shape).clone()
         flat = vox.view(-1, kernel.shape[1])

@@ -16,10 +16,13 @@ sums each output tile from those bins in shared memory, rounds once and
 writes the cropped gradient.
 
 Where no gradient is taken, the gather view fuses the sampler with its
-reduce product: ``quad_sample_reduce_fwd`` gathers and combines the taps of
-every gather group and multiplies them by the group's rows of the reduce
-kernel in one launch, into one f32 output (the function of the TPU
-prototype ``_bench_gather_pallas.py::pallas_gather_combine_matmul``).
+reduce product: ``quad_sample_reduce_fwd`` computes every query's taps from
+the sampling coordinates itself, gathers and combines them from each gather
+group's unpadded map and multiplies them by the group's rows of the reduce
+kernel in one launch, into one output in the compute dtype (the function of
+the TPU prototype ``_bench_gather_pallas.py::pallas_gather_combine_matmul``).
+``quad_sample_taps`` runs that kernel's tap computation alone, so it can be
+held against ``quad_indices`` bit for bit.
 
 A CPU tensor takes the plain versions (``ops/grid_sample.py``); a CUDA tensor
 launches the kernels or raises. The coordinates get no gradient: the grid is
@@ -39,28 +42,33 @@ from .grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain, quad_taps
 
 KERNEL = "quad_sample_fwd"
 REDUCE_KERNEL = "quad_sample_reduce_fwd"
+TAPS = "quad_sample_taps"
 BWD_KERNEL = "quad_sample_bwd"
 BINS = "quad_bins"
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernel (PyTorch calls, no kernel of this package);
 # callers may reset them to 0
-launches = {KERNEL: 0, REDUCE_KERNEL: 0, BWD_KERNEL: 0, BINS: 0}
+launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0}
 # gather groups one launch of the fused kernel takes
 MAX_REDUCE_GROUPS = 4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the fused entry's return when K's slice does not fit in shared memory
+_K_SLICE_TOO_LARGE = -1
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_PP, _PI, _PI64 = (ctypes.POINTER(t) for t in (_P, _I, _I64))
+_PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
 # each kernel's source in csrc/ and C arguments
 _ENTRIES = {
     # fp, idx, w4, out, n, c, row_pixels, dtype, stream
     KERNEL: ("quad_sample", [_P, _P, _P, _P, _I64, _I, _I64, _I, _P]),
-    # fps, idxs, w4s, row_pixels, cs, k_offs (one entry per group), groups,
-    # kmat, bias, out, n, o, dtype, stream
+    # uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs (one entry per
+    # group), groups, kmat, bias, out, o, dtype, stream
     REDUCE_KERNEL: ("quad_sample_reduce",
-                    [_PP, _PP, _PP, _PI64, _PI, _PI, _I, _P, _P, _P, _I64, _I, _I, _P]),
+                    [_P, _I64, _I64, _I64, _PP, _PI, _PI, _PI, _PI, _I, _P, _P, _P, _I, _I, _P]),
+    # uv, uv_stride, n, per_frame, h, w, idx, w4, dtype, stream
+    TAPS: ("quad_sample_reduce", [_P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P]),
     # ct, order, start, w4, out, b, h, w, c, dtype, stream
     BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
@@ -125,68 +133,139 @@ def quad_sample_fwd(fp, idx, w4):
     return out
 
 
-def _check_reduce(groups, kmat, bias):
-    """The fused kernel's launch contract beyond ``_check``'s; returns (n, o)."""
+def _uv_rows(name, uv, b):
+    """``uv`` (B, ..., 2) f32 on a CUDA device, read in place: every query's
+    (x, y) a row of one stride (``grid[..., 0:2]`` of a contiguous grid has
+    stride 3). Returns (n, queries per frame, row stride)."""
+    if uv.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got uv on {uv.device}")
+    if uv.dtype != torch.float32:
+        raise TypeError(f"{name}: uv must be float32, got {uv.dtype}")
+    if uv.dim() < 2 or uv.shape[-1] != 2 or uv.shape[0] != b:
+        raise ValueError(f"{name}: bad shapes uv {tuple(uv.shape)} for maps of {b} frames")
+    stride = uv.stride(-2)
+    want = stride
+    for d in range(uv.dim() - 2, -1, -1):
+        if uv.shape[d] != 1 and uv.stride(d) != want:
+            want = None
+            break
+        want *= uv.shape[d]
+    if uv.stride(-1) != 1 or stride < 2 or want is None:
+        raise ValueError(f"{name}: uv must be rows of (x, y) at one stride, got strides "
+                         f"{uv.stride()}")
+    n = uv.numel() // 2
+    return n, n // b, stride
+
+
+def _check_reduce(uv, groups, kmat, bias):
+    """The fused kernel's launch contract; returns (n, queries per frame,
+    uv's row stride)."""
     name = REDUCE_KERNEL
     if not 1 <= len(groups) <= MAX_REDUCE_GROUPS:
         raise ValueError(f"{name}: {len(groups)} groups, takes 1 to {MAX_REDUCE_GROUPS}")
+    if kmat.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got kmat on {kmat.device}")
+    if kmat.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {kmat.dtype}")
     if kmat.dim() != 2 or bias.shape != (kmat.shape[1],):
         raise ValueError(f"{name}: bad shapes kmat {tuple(kmat.shape)} bias {tuple(bias.shape)}")
     if bias.dtype != torch.float32:
         raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
-    n = groups[0][1].shape[0]
-    for fp, idx, w4, k_off in groups:
-        _check(name, fp, idx, w4)
-        if fp.dtype != kmat.dtype:
-            raise TypeError(f"{name}: map {fp.dtype} and kmat {kmat.dtype} differ")
-        if fp.dim() != 4 or idx.shape[0] != n or not 0 <= k_off <= kmat.shape[0] - fp.shape[-1]:
-            raise ValueError(f"{name}: bad shapes fp {tuple(fp.shape)} idx {tuple(idx.shape)} "
-                             f"at kmat rows {k_off} of {tuple(kmat.shape)}")
-    for arg, t in (("kmat", kmat), ("bias", bias)):
-        if t.device != groups[0][0].device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned on "
-                             f"{groups[0][0].device}")
-    return n, kmat.shape[1]
+    b = groups[0][0].shape[0] if groups[0][0].dim() == 4 else -1
+    for f, k_off in groups:
+        if f.dtype != kmat.dtype:
+            raise TypeError(f"{name}: map {f.dtype} and kmat {kmat.dtype} differ")
+        if f.dim() != 4 or f.shape[0] != b or min(f.shape) < 1 \
+                or not 0 <= k_off <= kmat.shape[0] - f.shape[-1]:
+            raise ValueError(f"{name}: bad shapes map {tuple(f.shape)} at kmat rows {k_off} "
+                             f"of {tuple(kmat.shape)}")
+        if f.numel() >= 2**31:
+            raise ValueError(f"{name}: map {tuple(f.shape)} exceeds int32 element indexing")
+    for arg, t in [("kmat", kmat), ("bias", bias)] + [("map", f) for f, _ in groups]:
+        if t.device != kmat.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {kmat.device}")
+    n, per_frame, stride = _uv_rows(name, uv, b)
+    if uv.device != kmat.device:
+        raise ValueError(f"{name}: uv must be on {kmat.device}")
+    return n, per_frame, stride
 
 
-def quad_sample_reduce_fwd(groups, kmat, bias):
-    """Launch the fused kernel: for each of the ``groups`` (fp, idx, w4,
-    k_off), its zero-padded map ``fp`` (B, H+2, W+2, c) in the compute
-    dtype, ``idx`` (N,) int32 and ``w4`` (N, 4) f32 as ``quad_indices``
-    builds them, and its first row ``k_off`` of ``kmat`` (sum c, O) in the
-    compute dtype; ``bias`` (O,) f32 -> (N, O) f32, the bias plus each
-    group's sampled rows (four taps summed in f32, rounded once to the
-    compute dtype) times its rows of ``kmat``, every product summed in f32.
-    Same function as ``quad_sample_reduce_plain`` up to the taps' rounding
-    and the order of the f32 sums."""
-    n, o = _check_reduce(groups, kmat, bias)
-    out = torch.empty((n, o), dtype=torch.float32, device=kmat.device)
+def quad_sample_reduce_fwd(uv, groups, kmat, bias):
+    """Launch the fused kernel.
+
+    ``uv`` (B, ..., 2) f32 sampling coordinates (x, y), normalized, read in
+    place (``grid[..., 0:2]``); ``groups``: 1 to 4 pairs (map, k_off), each an
+    unpadded contiguous map (B, H, W, c) in the compute dtype and its first
+    row of ``kmat`` (sum c, O), contiguous in the compute dtype; ``bias``
+    (O,) f32 -> (N, O) in the compute dtype: the bias plus each group's
+    bilinear samples (taps computed from uv as ``quad_indices`` computes
+    them, summed in f32 and rounded once to the compute dtype) times its
+    rows of ``kmat``, every product summed in f32, rounded once. Same
+    function as ``quad_sample_reduce_plain`` up to the taps' rounding and
+    the order of the f32 sums.
+    """
+    n, per_frame, stride = _check_reduce(uv, groups, kmat, bias)
+    o = kmat.shape[1]
+    out = torch.empty((n, o), dtype=kmat.dtype, device=kmat.device)
     g = len(groups)
-    fps = (_P * g)(*(fp.data_ptr() for fp, _, _, _ in groups))
-    idxs = (_P * g)(*(idx.data_ptr() for _, idx, _, _ in groups))
-    w4s = (_P * g)(*(w4.data_ptr() for _, _, w4, _ in groups))
-    rows = (_I64 * g)(*(fp.shape[2] for fp, _, _, _ in groups))
-    cs = (_I * g)(*(fp.shape[3] for fp, _, _, _ in groups))
-    offs = (_I * g)(*(k_off for _, _, _, k_off in groups))
+    maps = (_P * g)(*(f.data_ptr() for f, _ in groups))
+    hs = (_I * g)(*(f.shape[1] for f, _ in groups))
+    ws = (_I * g)(*(f.shape[2] for f, _ in groups))
+    cs = (_I * g)(*(f.shape[3] for f, _ in groups))
+    offs = (_I * g)(*(int(k_off) for _, k_off in groups))
     err = _entry(REDUCE_KERNEL)(
-        fps, idxs, w4s, rows, cs, offs, g, kmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, o, _DTYPE_CODES[kmat.dtype], torch.cuda.current_stream(kmat.device).cuda_stream)
+        uv.data_ptr(), stride, n, per_frame, maps, hs, ws, cs, offs, g, kmat.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), o, _DTYPE_CODES[kmat.dtype],
+        torch.cuda.current_stream(kmat.device).cuda_stream)
+    if err == _K_SLICE_TOO_LARGE:
+        raise ValueError(f"{REDUCE_KERNEL}: the groups' rows of kmat {tuple(kmat.shape)} exceed "
+                         f"the slice a block's shared memory holds")
     if err != 0:
         raise RuntimeError(f"{REDUCE_KERNEL} launch failed: cudaError {err}")
     launches[REDUCE_KERNEL] += 1
     return out
 
 
-def quad_sample_reduce_plain(groups, kmat, bias):
+def quad_sample_reduce_plain(uv, groups, kmat, bias):
     """Plain version of ``quad_sample_reduce_fwd``, same arguments: each
-    group sampled by ``quad_sample_fwd_plain`` (the taps combined in the
-    compute dtype), multiplied by its rows of ``kmat`` with ``matmul_f32``
-    and added onto the bias in f32 -> (N, O) f32."""
-    out = bias.to(torch.float32).expand(groups[0][1].shape[0], kmat.shape[1]).clone()
-    for fp, idx, w4, k_off in groups:
-        c = fp.shape[-1]
-        out.add_(matmul_f32(quad_sample_fwd_plain(fp, idx, w4), kmat[k_off:k_off + c]))
-    return out
+    group's taps by ``quad_indices`` on its zero-padded map, sampled by
+    ``quad_sample_fwd_plain`` (the taps combined in the compute dtype),
+    multiplied by its rows of ``kmat`` with ``matmul_f32`` and added onto the
+    bias in f32, rounded once -> (N, O) in the compute dtype."""
+    n = uv.numel() // 2
+    out = bias.to(torch.float32).expand(n, kmat.shape[1]).clone()
+    for f, k_off in groups:
+        idx, w4 = quad_indices(f, uv)
+        fp = F.pad(f, (0, 0, 1, 1, 1, 1))
+        out.add_(matmul_f32(quad_sample_fwd_plain(fp, idx, w4),
+                            kmat[k_off:k_off + f.shape[-1]]))
+    return out.to(kmat.dtype)
+
+
+def quad_sample_taps(features, coords):
+    """The fused kernel's tap computation alone: ``quad_indices``' result
+    (idx (N,) int32 into the zero-padded map, w4 (N, 4) f32) for a map of
+    ``features``' shape and dtype (its values are not read) and ``coords``
+    (B, ..., 2) f32 on the card, read in place."""
+    if features.device.type != "cuda" or features.dtype not in _DTYPE_CODES \
+            or features.dim() != 4:
+        raise ValueError(f"{TAPS}: features must be a (B, H, W, C) CUDA tensor of "
+                         f"{list(_DTYPE_CODES)}, got {features.dtype} on {features.device}")
+    b, h, w, _ = features.shape
+    if b * (h + 2) * (w + 2) >= 2**31:
+        raise ValueError(f"{TAPS}: padded map exceeds int32 pixel indexing")
+    n, per_frame, stride = _uv_rows(TAPS, coords, b)
+    if coords.device != features.device:
+        raise ValueError(f"{TAPS}: coords must be on {features.device}")
+    idx = torch.empty(n, dtype=torch.int32, device=coords.device)
+    w4 = torch.empty((n, 4), dtype=torch.float32, device=coords.device)
+    err = _entry(TAPS)(coords.data_ptr(), stride, n, per_frame, h, w, idx.data_ptr(),
+                       w4.data_ptr(), _DTYPE_CODES[features.dtype],
+                       torch.cuda.current_stream(coords.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{TAPS} launch failed: cudaError {err}")
+    launches[TAPS] += 1
+    return idx, w4
 
 
 def quad_bins(idx, w4, padded_shape):

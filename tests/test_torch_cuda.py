@@ -8,6 +8,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from chip_smoke import edge_coords, sampling_route
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
@@ -268,89 +269,131 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
 
 # the fused sampler + reduce: (maps of the gather groups, outputs); the
 # flagship's two groups at small maps, a ragged case (odd channels and
-# outputs, three groups), and one wider than a block's 128 outputs
+# outputs, three groups of two frames), one wider than a block's 128
+# outputs, and two groups of one size (one tap computation)
 REDUCE_CASES = {
     "two_groups": ([(1, 9, 13, 64), (1, 5, 7, 192)], 128),
     "ragged": ([(2, 11, 17, 13), (2, 6, 9, 37), (2, 3, 4, 5)], 45),
     "wide": ([(1, 7, 9, 24), (1, 4, 5, 40)], 200),
+    "same_size": ([(1, 5, 7, 64), (1, 5, 7, 40), (1, 9, 13, 8)], 64),
 }
 HALF_U = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
 def _reduce_inputs(maps, o, dtype, device):
-    """(groups, kmat, bias) as FrustumToVoxelMultiScale.accumulate builds
-    them, 130 queries per frame (not a multiple of a block's 64)."""
+    """(uv, groups, kmat, bias) as FrustumToVoxelMultiScale.accumulate
+    builds them: uv a (B, 10, 13, 2) view of a grid whose rows hold 3
+    floats, 130 queries per frame (not a multiple of a tile)."""
     g = torch.Generator().manual_seed(8)
-    coords = torch.rand((maps[0][0], 10, 13, 2), generator=g) * 2.6 - 1.3
+    grid = torch.rand((maps[0][0], 10, 13, 3), generator=g) * 2.6 - 1.3
     groups, off = [], 0
     for shape in maps:
-        feats = torch.randn(shape, generator=g).to(dtype)
-        idx, w4 = quad_indices(feats, coords)
-        groups.append((F.pad(feats, (0, 0, 1, 1, 1, 1)).contiguous().to(device), idx.to(device),
-                       w4.to(device), off))
+        groups.append((torch.randn(shape, generator=g).to(dtype).to(device), off))
         off += shape[-1]
     kmat = (torch.randn((off, o), generator=g) * off ** -0.5).to(dtype).to(device)
-    return groups, kmat, torch.randn(o, generator=g).to(device)
+    return grid.to(device)[..., 0:2], groups, kmat, torch.randn(o, generator=g).to(device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", list(REDUCE_CASES))
 def test_reduce_kernel_matches_plain(cuda, case, dtype):
-    """One launch against the plain version. Both sum the products in f32
-    in another order: 1e-5 x (1 + max|ref|) in f32. In half precision the
-    plain version rounds after each of the taps' 4 products and 3 sums, the
-    kernel once, so 8 roundings of the taps' magnitude S through |K| are
-    allowed, 8 u (S @ |K|); the sampling route with the kernel's rounding
-    (quad_sample_fwd + matmul_f32) is held at 1e-4 x (1 + max|ref|)."""
-    groups, kmat, bias = _reduce_inputs(*REDUCE_CASES[case], dtype, cuda)
+    """One launch against the plain version, output in the compute dtype.
+    Both sum the products in f32 in another order: 1e-5 x (1 + max|ref|) in
+    f32. In half precision the plain version rounds after each of the taps'
+    4 products and 3 sums, the kernel once, so 8 roundings of the taps'
+    magnitude S through |K| are allowed, 8 u (S @ |K|), and each rounds its
+    output once, 2 u |ref|; the sampling route with the kernel's rounding
+    (chip_smoke.sampling_route: quad_sample_fwd + matmul_f32), rounded
+    once, is held at 1e-4 x (1 + max|ref|) + 2 u |ref|."""
+    uv, groups, kmat, bias = _reduce_inputs(*REDUCE_CASES[case], dtype, cuda)
     before = dict(quad_sample.launches)
-    got = quad_sample.quad_sample_reduce_fwd(groups, kmat, bias)
+    got = quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias)
     torch.cuda.synchronize()
     assert quad_sample.launches[quad_sample.REDUCE_KERNEL] == before[quad_sample.REDUCE_KERNEL] + 1
     assert quad_sample.launches[quad_sample.KERNEL] == before[quad_sample.KERNEL]
-    cpu = [tuple(x.cpu() if torch.is_tensor(x) else x for x in gr) for gr in groups]
-    ref = quad_sample.quad_sample_reduce_plain(cpu, kmat.cpu(), bias.cpu())
-    assert got.shape == ref.shape and got.dtype == torch.float32
+    cpu = [(f.cpu(), k) for f, k in groups]
+    ref = quad_sample.quad_sample_reduce_plain(uv.cpu(), cpu, kmat.cpu(), bias.cpu())
+    assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
+    ref = ref.float()
     scale = 1 + float(ref.abs().max())
-    err = (got.cpu() - ref).abs()
+    err = (got.cpu().float() - ref).abs()
     if dtype == torch.float32:
         assert float(err.max()) <= 1e-5 * scale
         return
-    mag = sum(quad_sample_fwd_plain(fp.float().abs(), idx, w4.abs())
-              @ kmat.cpu()[k:k + fp.shape[-1]].float().abs() for fp, idx, w4, k in cpu)
-    assert bool((err <= 1e-4 * scale + 8 * HALF_U[dtype] * mag).all())
-    same = bias.expand(got.shape).clone()
-    for fp, idx, w4, k in groups:
-        same.add_(matmul_f32(quad_sample.quad_sample_fwd(fp, idx, w4), kmat[k:k + fp.shape[-1]]))
-    assert float((got - same).abs().max()) <= 1e-4 * scale
+    u = HALF_U[dtype]
+    mag = 0
+    for f, k in cpu:
+        idx, w4 = quad_indices(f, uv.cpu())
+        fp = F.pad(f, (0, 0, 1, 1, 1, 1))
+        mag = mag + (quad_sample_fwd_plain(fp.float().abs(), idx, w4.abs())
+                     @ kmat.cpu()[k:k + f.shape[-1]].float().abs())
+    assert bool((err <= 1e-4 * scale + 8 * u * mag + 2 * u * ref.abs()).all())
+    same = sampling_route(uv, groups, kmat, bias)
+    assert bool(((got.float() - same.to(dtype).float()).abs()
+                 <= 1e-4 * scale + 2 * u * same.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1, 5, 7, 8), (2, 9, 13, 8), (1, 1, 1, 8)])
+def test_taps_match_quad_indices(cuda, shape, dtype):
+    """The fused kernel's own tap computation (``quad_sample_taps``) against
+    ``quad_indices`` on the card and on the CPU, bit for bit, at coordinates
+    on, beside and beyond every edge, read in place from a strided grid."""
+    feats = torch.zeros(shape, dtype=dtype, device=cuda)
+    coords = edge_coords(cuda, (5, 7, 9, 13)).expand(shape[0], -1, -1)
+    grid = torch.cat([coords, torch.zeros_like(coords[..., :1])], dim=-1).contiguous()
+    uv = grid[..., 0:2]
+    idx, w4 = quad_sample.quad_sample_taps(feats, uv)
+    torch.cuda.synchronize()
+    want_idx, want_w4 = quad_indices(feats, uv)
+    assert torch.equal(idx, want_idx) and torch.equal(w4, want_w4)
+    cpu_idx, cpu_w4 = quad_indices(feats.cpu(), uv.cpu())
+    assert torch.equal(idx.cpu(), cpu_idx) and torch.equal(w4.cpu(), cpu_w4)
 
 
 @pytest.mark.cuda
 def test_reduce_kernel_rejects_what_it_does_not_take(cuda):
-    groups, kmat, bias = _reduce_inputs(*REDUCE_CASES["two_groups"], torch.bfloat16, cuda)
+    uv, groups, kmat, bias = _reduce_inputs(*REDUCE_CASES["two_groups"], torch.bfloat16, cuda)
+    fwd = quad_sample.quad_sample_reduce_fwd
     with pytest.raises(ValueError, match="groups"):
-        quad_sample.quad_sample_reduce_fwd(groups * 3, kmat, bias)
+        fwd(uv, groups * 3, kmat, bias)
     with pytest.raises(TypeError, match="differ"):
-        quad_sample.quad_sample_reduce_fwd(groups, kmat.float(), bias)
+        fwd(uv, groups, kmat.float(), bias)
     with pytest.raises(TypeError, match="float32"):
-        quad_sample.quad_sample_reduce_fwd(groups, kmat, bias.double())
+        fwd(uv, groups, kmat, bias.double())
+    with pytest.raises(TypeError, match="uv must be float32"):
+        fwd(uv.double(), groups, kmat, bias)
     with pytest.raises(ValueError, match="shapes"):
-        quad_sample.quad_sample_reduce_fwd(groups, kmat[:100], bias)
+        fwd(uv, groups, kmat[:100], bias)
+    with pytest.raises(ValueError, match="shapes uv"):
+        fwd(uv.expand(2, -1, -1, -1), groups, kmat, bias)
+    with pytest.raises(ValueError, match="one stride"):
+        fwd(uv.transpose(1, 2), groups, kmat, bias)
     with pytest.raises(ValueError, match="contiguous"):
-        quad_sample.quad_sample_reduce_fwd(groups, kmat.t().contiguous().t(), bias)
+        fwd(uv, groups, kmat.t().contiguous().t(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(uv, [(f.transpose(1, 2), k) for f, k in groups], kmat, bias)
     with pytest.raises(ValueError, match="CUDA"):
-        quad_sample.quad_sample_reduce_fwd(
-            [tuple(x.cpu() if torch.is_tensor(x) else x for x in gr) for gr in groups],
-            kmat.cpu(), bias.cpu())
+        fwd(uv.cpu(), [(f.cpu(), k) for f, k in groups], kmat.cpu(), bias.cpu())
+    # a K slice wider than a block's shared memory holds
+    big = [(torch.zeros((1, 5, 7, 512), dtype=torch.bfloat16, device=cuda), 0)]
+    with pytest.raises(ValueError, match="shared memory"):
+        fwd(uv, big, torch.zeros((512, 128), dtype=torch.bfloat16, device=cuda), bias)
+    # f32 reads K in chunks: no such limit
+    out = fwd(uv, [(big[0][0].float(), 0)], torch.zeros((512, 128), device=cuda), bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bias.expand_as(out))
 
 
 @pytest.mark.cuda
 def test_view_transform_routes(cuda):
     """FrustumToVoxelMultiScale on the card: under inference_mode one fused
-    launch for the two groups and no sampler launch; with gradients one
-    sampler launch per group, its bins, and no fused launch; the two agree
-    within 1e-4 of the largest output in bf16."""
+    launch for the two groups and no sampler launch, in bf16; with gradients
+    one sampler launch per group, its bins, and no fused launch, in f32; the
+    two agree within 1e-4 of the largest output plus the fused route's one
+    rounding to bf16."""
     g = torch.Generator().manual_seed(9)
     feats = [torch.randn((1, 9, 13, 16), generator=g)] + [
         torch.randn((1, 5, 7, 16), generator=g) for _ in range(3)]
@@ -363,15 +406,18 @@ def test_view_transform_routes(cuda):
     torch.cuda.synchronize()
     mid = dict(quad_sample.launches)
     assert {k: mid[k] - before[k] for k in mid} == {
-        quad_sample.KERNEL: 0, quad_sample.REDUCE_KERNEL: 1, quad_sample.BWD_KERNEL: 0,
-        quad_sample.BINS: 0}
+        quad_sample.KERNEL: 0, quad_sample.REDUCE_KERNEL: 1, quad_sample.TAPS: 0,
+        quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(quad_sample.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
-        quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 0, quad_sample.BWD_KERNEL: 0,
-        quad_sample.BINS: 2}
+        quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 0, quad_sample.TAPS: 0,
+        quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 2}
+    assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
+    sampled = sampled.detach()
     scale = float(sampled.abs().max())
-    assert float((fused - sampled.detach()).abs().max()) <= 1e-4 * scale
+    assert bool(((fused.float() - sampled).abs() <= 1e-4 * scale + 2.0 ** -8 * sampled.abs())
+                .all())
 
 
 # row_scatter_add: (updates, table rows, channels, index mode)

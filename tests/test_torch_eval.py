@@ -2,9 +2,12 @@
 C++ rotated overlap, the KITTI AP core and the official VoD evaluation,
 the prediction writer, and the whole loop (``tools/test.py::run_eval``) on
 the TINY model, with the pipeline's ordering and error semantics."""
+import ctypes
 import dataclasses
 import importlib.util
+import os
 import pickle
+import subprocess
 import threading
 from pathlib import Path
 
@@ -25,6 +28,7 @@ from hgsfusion_tpu.models.registry import build_network
 from hgsfusion_tpu.train.trainer import add_init_anchors, device_batch
 from hgsfusion_tpu.utils.common import create_logger as jax_create_logger
 from chip_smoke import tie_free_threshold
+from hgsfusion_tpu_torch import native
 from hgsfusion_tpu_torch.config import load_config, model_config_from_yaml
 from hgsfusion_tpu_torch.datasets import build_dataset
 from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
@@ -66,16 +70,48 @@ def _random_boxes5(rng, n):
     return b
 
 
+@pytest.fixture(scope="module")
+def jax_rotate_iou_lib(tmp_path_factory):
+    """The JAX package's own C++ source, ``hgsfusion_tpu/native/src/rotate_iou.cc``,
+    built here with the port's flags for it (``native.HOST_CXX_FLAGS``, the
+    JAX package's) into a directory of this test's own, so the bit-for-bit
+    check does not depend on which library a test worker found in the JAX
+    package's shared build directory. No compiler fails the test: the port's
+    ``native.load_host`` needs one too."""
+    src = REPO / "hgsfusion_tpu" / "native" / "src" / "rotate_iou.cc"
+    out = tmp_path_factory.mktemp("jax_rotate_iou") / "librotate_iou.so"
+    cxx = os.environ.get("CXX", "g++")
+    proc = subprocess.run([cxx, *native.HOST_CXX_FLAGS, str(src), "-o", str(out)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, f"{cxx} failed for {src}:\n{proc.stdout}{proc.stderr}"
+    lib = ctypes.CDLL(str(out))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.rotate_iou_eval.argtypes = [dp, ctypes.c_int64, dp, ctypes.c_int64, ctypes.c_int, dp]
+    lib.rotate_iou_eval.restype = None
+
+    def run(a, b, criterion):
+        a = np.ascontiguousarray(a, np.float64)
+        b = np.ascontiguousarray(b, np.float64)
+        out = np.empty((a.shape[0], b.shape[0]), np.float64)
+        lib.rotate_iou_eval(a.ctypes.data_as(dp), a.shape[0], b.ctypes.data_as(dp),
+                            b.shape[0], int(criterion), out.ctypes.data_as(dp))
+        return out
+    return run
+
+
 @pytest.mark.parametrize("criterion", [-1, 0, 1, 2])
-def test_rotate_iou_cpp_matches_numpy(criterion):
+def test_rotate_iou_cpp_matches_numpy(criterion, jax_rotate_iou_lib):
     rng = np.random.RandomState(criterion + 1)
     a, b = _random_boxes5(rng, 40), _random_boxes5(rng, 37)
     b[:10] = a[:10] + rng.normal(0, 0.5, (10, 5))  # overlapping pairs
     got = rotate_iou_eval(a, b, criterion)
     np.testing.assert_allclose(got, rotate_iou_eval_np(a, b, criterion), rtol=0, atol=1e-9)
     assert (got > 0).sum() >= 10
-    # the JAX package builds the same source with the same flags
-    np.testing.assert_array_equal(got, jax_rotate_iou_eval(a, b, criterion))
+    # the JAX package's source built with the same flags: bit for bit
+    np.testing.assert_array_equal(got, jax_rotate_iou_lib(a, b, criterion))
+    # the JAX package's own entry point, which may have run its C++ build or
+    # (a worker that loaded a half-written library) its numpy fallback
+    np.testing.assert_allclose(got, jax_rotate_iou_eval(a, b, criterion), rtol=0, atol=1e-9)
 
 
 def test_rotate_iou_cpp_edge_cases():

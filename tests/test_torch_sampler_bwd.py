@@ -108,7 +108,10 @@ def test_f2v_accumulator_keeps_each_product_unrounded():
     groups of sampled @ kernel rows, computed in f64 from the same bf16
     operands, to within f32 rounding of a sum of K + 2 terms (K = 64 input
     channels), as the JAX package's einsum(..., preferred_element_type=
-    float32) into an f32 accumulator gives it."""
+    float32) into an f32 accumulator gives it: the f32 accumulator of the
+    route that takes gradients, and the no-grad route's, which rounds that
+    sum once to bf16 (as the JAX module's cast before its BN), within one
+    more rounding of 2^-8."""
     rng = np.random.RandomState(4)
     feats = [t(rng.randn(1, 9, 13, 16).astype(np.float32), torch.bfloat16)] + [
         t(rng.randn(1, 5, 7, 16).astype(np.float32), torch.bfloat16) for _ in range(3)]
@@ -117,8 +120,11 @@ def test_f2v_accumulator_keeps_each_product_unrounded():
     with torch.no_grad():
         f2v.channel_reduce[0].weight.normal_(0.0, 0.25)
         f2v.channel_reduce[0].bias.normal_(0.0, 1.0)
-        vox = f2v.accumulate(feats, grid)
-        assert vox.dtype == torch.float32
+    vox = f2v.accumulate(feats, grid).detach()
+    assert vox.dtype == torch.float32
+    with torch.no_grad():
+        fused = f2v.accumulate(feats, grid)
+        assert fused.dtype == torch.bfloat16
         conv = f2v.channel_reduce[0]
         kernel = conv.weight.reshape(24, 64).t().to(torch.bfloat16).double()
         uv = grid[..., 0:2]
@@ -131,3 +137,4 @@ def test_f2v_accumulator_keeps_each_product_unrounded():
             mag += sampled.abs() @ kernel[k0:k1].abs()
     tol = (64 + 2) * 2.0 ** -24 * mag
     assert ((vox.double() - ref).abs() <= tol).all()
+    assert ((fused.double() - ref).abs() <= tol + 2.0 ** -8 * ref.abs()).all()
