@@ -139,10 +139,34 @@ Phases, each of which must pass or the script exits non-zero:
     step 1 profiled; then ``tools.test.main --ckpt_dir`` over 8 frames, 1
     fused launch per frame, TJ4D's result dict with every AP in [0, 100];
 25. eval TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 15 over a
-    16-frame synthetic TJ4D tree, 3 forward launches per frame.
+    16-frame synthetic TJ4D tree, 3 forward launches per frame;
+26. small reference, RHGM: the segmentor's tiny preset with either pixel
+    decoder (weights from one seed) on a 70 x 100 image, on the card against
+    the CPU in f32 with TF32 off: logits and mask logits within
+    ``RHGM_TOL``, then ``instance_inference`` (``compare_instances``: labels,
+    scores and binary masks rank by rank where the ranks are tie-free, a
+    flipped mask pixel only where the CPU's logit lies within ``RHGM_TOL``
+    of 0);
+27. RHGM: the port's ``tools/generate_hybrid_points.py`` (``main``) on a
+    5-frame synthetic VoD tree at 516 x 1936 (2048 radar points a frame):
+    ``--mask_source model --model_preset large --pixel_decoder msdeform
+    --resize_shortest 1024`` (swin-L Mask2Former on 1024 x 3842, random
+    weights from seed 0) with ``--confidence_threshold 0.0``, since random
+    weights score no instance near the default 0.5 and the generator would
+    do nothing; every frame with virtual and real points; then the
+    precomputed source on the first run's masks (``.npz``): the same files
+    byte for byte; the VoD dataset (``configs/hgsfusion_vod.yaml``) reads
+    them under its ``VIRTUAL_POINT_PREFIX``, 15 wide, virtual rows in every
+    frame; then one TJ4D frame (810 x 1280 PNG, 8 radar dims) through the
+    model source at the tool's own size: 16 wide. No kernel counter moves.
+    Printed per frame: the segmentor's ms (to a device synchronize), the
+    masks' copy and the host generator's ms, the masks kept, the virtual and
+    real points; frames/s through the tool after the warm-up frame, peak
+    device memory, and the segmentor's FLOPs (``torch.utils.flop_counter``)
+    over the f32 peak as its bound.
 
 The ``kernels`` line counts each kernel's launches over the main paths
-(``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20 and 22-25),
+(``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25 and 27),
 each path's count taken with the counters at 0 just before it. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
@@ -161,6 +185,7 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -175,12 +200,14 @@ from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_k
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
-from hgsfusion_tpu_torch.models.layers import matmul_f32
+from hgsfusion_tpu_torch.models.layers import matmul_f32, resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
+from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
 from hgsfusion_tpu_torch.tools import test as test_cli
 from hgsfusion_tpu_torch.tools import train as train_cli
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
@@ -1042,7 +1069,7 @@ def phase_train(dev, cfg, per_step: int):
 # counters at 0 just before it
 MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_polar", "train_cli",
               "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
-              "eval_tj4d_polar")
+              "eval_tj4d_polar", "rhgm")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -1638,6 +1665,235 @@ def phase_train_cli_tj4d(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# RHGM: the Mask2Former segmentor and the hybrid-point tool
+# ---------------------------------------------------------------------------
+
+RHGM_IMAGE = (70, 100)  # small_reference_rhgm: not a multiple of any stride
+# card vs CPU in f32 with TF32 off: logits within this; a binary mask pixel
+# may differ only where the CPU's logit lies within it of 0, and two class
+# scores within it of each other may take their top-k ranks in either order
+RHGM_TOL = 1e-4
+RHGM_FRAMES = 4  # after one warm-up frame
+RHGM_RESIZE = 1024  # the reference predictor's MIN_SIZE_TEST: 516 x 1936 -> 1024 x 3842
+
+
+def compare_instances(ref, got, image_hw, tol: float = RHGM_TOL) -> dict:
+    """``instance_inference`` of two forwards of one model (``ref`` on the
+    CPU, ``got`` on the card), compared rank by rank where the ranks are
+    tie-free: the same label, the score within ``tol`` plus what the
+    differing pixels move it, the binary mask equal but at pixels whose
+    reference logit lies within ``tol`` of 0. Ranks whose class score lies
+    within ``tol`` of a neighbour's are compared through the sorted class
+    scores only."""
+    k = ref["pred_logits"].shape[-1] - 1
+    cls_ref = ref["pred_logits"][0].softmax(-1)[:, :-1].reshape(-1)
+    cls_got = got["pred_logits"][0].cpu().softmax(-1)[:, :-1].reshape(-1)
+    sorted_ref = torch.sort(cls_ref, descending=True).values
+    torch.testing.assert_close(torch.sort(cls_got, descending=True).values, sorted_ref,
+                               rtol=0, atol=tol)
+    lab_r, sc_r, bin_r = instance_inference(ref["pred_logits"], ref["pred_masks"], image_hw)
+    lab_g, sc_g, bin_g = (a.cpu() for a in instance_inference(
+        got["pred_logits"], got["pred_masks"], image_hw))
+    t = len(lab_r)
+    near = (sorted_ref[:-1] - sorted_ref[1:]) < tol  # rank i ties rank i + 1
+    tied = near[:t].clone()
+    tied[1:] |= near[:t - 1]
+    qidx = torch.topk(cls_ref, t).indices // k
+    logits = resize_bilinear(ref["pred_masks"][0].permute(1, 2, 0)[None], image_hw)[0]
+    flipped = 0
+    for r in torch.nonzero(~tied)[:, 0].tolist():
+        assert int(lab_g[r]) == int(lab_r[r]), f"rank {r}: label {int(lab_g[r])} vs {int(lab_r[r])}"
+        diff = bin_g[r] != bin_r[r]
+        n = int(diff.sum())
+        if n:
+            worst = float(logits[..., qidx[r]][diff].abs().max())
+            assert worst < tol, f"rank {r}: a mask pixel flipped at logit {worst}"
+            flipped += n
+        denom = max(int(bin_r[r].sum()) - n, 1)
+        assert abs(float(sc_g[r] - sc_r[r])) <= tol + n / denom, f"rank {r}: score"
+    return {"ranks": t, "tied_ranks": int(tied.sum()), "flipped_pixels": flipped}
+
+
+def phase_small_reference_rhgm(dev):
+    """The tiny preset with either pixel decoder, weights from one seed, on
+    the card against the CPU (f32, TF32 off): logits, mask logits, then
+    instance_inference (``compare_instances``)."""
+    img = torch.from_numpy(np.random.RandomState(3).rand(1, *RHGM_IMAGE, 3).astype(np.float32))
+    out = {}
+    for pd in ("msdeform", "fpn"):
+        kw = dict(pixel_decoder=pd, seed=7, **ghp.PRESETS["tiny"])
+        cpu_model = Mask2FormerInstance(device="cpu", **kw)
+        card_model = Mask2FormerInstance(device=dev, **kw)
+        with torch.inference_mode():
+            ref = cpu_model(img)
+            got = card_model(img.to(dev))
+        errs = {k: float((got[k].cpu() - ref[k]).abs().max()) for k in ref}
+        for k in ref:
+            torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0, atol=RHGM_TOL)
+        out[pd] = {"max_abs_err": errs, **compare_instances(ref, got, RHGM_IMAGE)}
+        print(f"  {pd}: " + json.dumps(out[pd]))
+    return out
+
+
+def _launches() -> dict:
+    return {**quad_sample.launches, **row_scatter.launches}
+
+
+def segmentor_flops(source, image) -> dict:
+    """Multiply-add FLOPs (2 per MAC) of one segmentation, counted by
+    ``torch.utils.flop_counter`` from this run's shapes: the whole forward
+    and the backbone."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    source.model.requires_grad_(False)  # the counter's module hooks skip tensors without grad
+    with FlopCounterMode(display=False) as counter:
+        source.segment(image)
+    by_module = counter.get_flop_counts()
+    backbone = sum(n for name, ops in by_module.items()
+                   if name.endswith(".backbone") for n in ops.values())
+    return {"total": counter.get_total_flops(), "backbone": backbone}
+
+
+def run_rhgm_tool(dev, argv, capture: bool):
+    """``generate_hybrid_points.main(argv)`` with the peak device memory;
+    with ``capture``, the model source's masks of each frame and the source
+    itself."""
+    captured = {"masks": [], "source": None}
+    call = ghp.ModelMaskSource.__call__
+
+    def keep(source, image):
+        masks, labels = call(source, image)
+        captured["masks"].append((masks, labels))
+        captured["source"] = source
+        return masks, labels
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    if capture:
+        with mock.patch.object(ghp.ModelMaskSource, "__call__", keep):
+            res = ghp.main(argv)
+    else:
+        res = ghp.main(argv)
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the RHGM path launched a kernel: {launches}")
+    res["launches"] = launches
+    res["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                                else None)
+    return res, captured
+
+
+def phase_rhgm(dev, preset: str = "large", image_hw=(516, 1936), tj4d_hw=(810, 1280),
+               resize=RHGM_RESIZE, frames: int = RHGM_FRAMES):
+    """The port's ``tools/generate_hybrid_points.py`` at full width on a
+    synthetic VoD tree (one warm-up frame, then ``frames``): swin-L
+    Mask2Former with the MSDeformAttn pixel decoder on 1024 x 3842 images,
+    random weights from a seed. Random weights score no instance near the
+    default 0.5, so the generator would do nothing: the threshold is 0 and
+    every one of the 100 instances with a non-empty mask is kept. Then the
+    tool with the precomputed source on the first run's masks: the same
+    files. Then the VoD dataset reads them under the config's prefix, and
+    one TJ4D frame (810 x 1280 PNG, 8 radar dims) goes through the model
+    source at the tool's own size. No CUDA kernel of the port runs."""
+    cfg = load_config(VOD_YAML)
+    data = cfg["DATA_CONFIG"]
+    prefix = data["VIRTUAL_POINT_PREFIX"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "vod"
+        make_synthetic_kitti(root, num_frames=frames + 1, num_points=2048, num_virtual=64,
+                             image_hw=image_hw, structured=True)
+        common = ["--dataset", "vod", "--data_root", str(root), "--num_virtual", "100",
+                  "--seed", "0", "--confidence_threshold", "0.0"]
+        if tuple(image_hw) != ghp._DATASETS["vod"]["image_hw"]:
+            common += ["--image_hw", str(image_hw[0]), str(image_hw[1])]
+        model_args = ["--mask_source", "model", "--model_preset", preset,
+                      "--pixel_decoder", "msdeform", "--device", str(dev)]
+        res, captured = run_rhgm_tool(dev, common + model_args + [
+            "--resize_shortest", str(resize), "--pts_save_path", str(root / "training" / prefix)],
+            capture=True)
+        source = captured["source"]
+        steady = res["frames"][1:]
+        image = ghp.read_rgb01(root / "training/image_2/00000.jpg")
+        flops = segmentor_flops(source, image)
+        seg_ms = float(np.mean([f["segment_ms"] for f in steady]))
+        out["vod"] = {
+            "model_hw": list(source.model_hw), "frames": res["frames"],
+            "segment_ms": seg_ms, "copy_ms": float(np.mean([f["copy_ms"] for f in steady])),
+            "generate_ms": float(np.mean([f["generate_ms"] for f in steady])),
+            "frames_per_s": 1e3 / float(np.mean([f["frame_ms"] for f in steady])),
+            "peak_memory_bytes": res["peak_memory_bytes"], "launches": res["launches"],
+            "flops": flops, "bound_ms": flops["total"] / F32_FLOPS_PER_S * 1e3,
+            "bound_by": "operations"}
+        if tuple(source.model_hw) != (resize, round(image_hw[1] * resize / image_hw[0])):
+            raise AssertionError(f"model input {source.model_hw}")
+        if not all(f["virtual"] > 0 and f["real"] > 0 for f in res["frames"]):
+            raise AssertionError(f"a frame without points: {res['frames']}")
+
+        # the same masks through the precomputed source: the same files
+        masks_dir = Path(tmp) / "masks"
+        masks_dir.mkdir()
+        for idx, (masks, labels) in zip(ghp.frame_ids(root, "train"), captured["masks"]):
+            np.savez(masks_dir / f"{idx}.npz", masks=masks, labels=labels)
+        pre, _ = run_rhgm_tool(dev, common + [
+            "--mask_source", "precomputed", "--masks_dir", str(masks_dir),
+            "--pts_save_path", str(Path(tmp) / "precomputed")], capture=False)
+        for idx in ghp.frame_ids(root, "train"):
+            a = (root / "training" / prefix / f"{idx}.pkl.npy").read_bytes()
+            if a != (Path(tmp) / "precomputed" / f"{idx}.pkl.npy").read_bytes():
+                raise AssertionError(f"frame {idx}: model and precomputed files differ")
+        out["vod"]["precomputed_generate_ms"] = float(np.mean(
+            [f["generate_ms"] for f in pre["frames"]]))
+
+        # the VoD dataset reads them: virtual rows (flags 0, 1) among its points
+        data["DATA_PATH"] = str(root)
+        create_infos(data, cfg["CLASS_NAMES"])
+        ds = build_dataset(data, cfg["CLASS_NAMES"], training=False, logger=create_logger())
+        virtual_rows = []
+        for i in range(len(ds)):
+            item = ds[i]
+            pts = item["points"][item["points_valid"].astype(bool)]
+            width = np.load(root / "training" / prefix / f"{ds.infos[i]['point_cloud']['lidar_idx']}"
+                            ".pkl.npy", allow_pickle=True).item()["virtual_points"].shape[1]
+            if width != 15:
+                raise AssertionError(f"VoD hybrid points {width} wide, want 15")
+            virtual_rows.append(int(((pts[:, -2] == 0) & (pts[:, -1] == 1)).sum()))
+        if not all(virtual_rows):
+            raise AssertionError(f"virtual rows per frame {virtual_rows}")
+        out["vod"]["dataset_virtual_rows"] = virtual_rows
+
+        # one TJ4D frame at the tool's own size
+        troot = Path(tmp) / "tj4d"
+        make_synthetic_tj4d(troot, num_frames=1, num_points=2048, image_hw=tj4d_hw)
+        targs = ["--dataset", "tj4d", "--data_root", str(troot), "--seed", "0",
+                 "--confidence_threshold", "0.0", "--pts_save_path", str(troot / "hybrid")]
+        if tuple(tj4d_hw) != ghp._DATASETS["tj4d"]["image_hw"]:
+            targs += ["--image_hw", str(tj4d_hw[0]), str(tj4d_hw[1])]
+        tres, _ = run_rhgm_tool(dev, targs + model_args, capture=False)
+        f = next((troot / "hybrid").iterdir())
+        d = np.load(f, allow_pickle=True).item()
+        if d["virtual_points"].shape[1] != 16 or not len(d["virtual_points"]):
+            raise AssertionError(f"TJ4D hybrid points {d['virtual_points'].shape}, want (>0, 16)")
+        out["tj4d"] = {"frames": tres["frames"], "peak_memory_bytes": tres["peak_memory_bytes"],
+                       "launches": tres["launches"]}
+    out["launches"] = {k: out["vod"]["launches"][k] + out["tj4d"]["launches"][k]
+                       for k in out["vod"]["launches"]}
+    for name in ("vod", "tj4d"):
+        for f in out[name]["frames"]:
+            print(f"  {name} {f['id']}: segment {f['segment_ms']:.1f} ms, copy "
+                  f"{f['copy_ms']:.1f} ms, generator {f['generate_ms']:.1f} ms, masks "
+                  f"{f['masks']}, virtual {f['virtual']}, real {f['real']}")
+    v = out["vod"]
+    print(f"  vod: {v['frames_per_s']:.3f} frames/s through the tool, segmentor "
+          f"{v['segment_ms']:.1f} ms against its bound {v['bound_ms']:.1f} ms "
+          f"({v['flops']['total'] / 1e12:.2f} TFLOP, backbone "
+          f"{v['flops']['backbone'] / 1e12:.2f}), peak {v['peak_memory_bytes']} B; "
+          f"tj4d peak {out['tj4d']['peak_memory_bytes']} B")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1708,6 +1964,9 @@ def main(argv=None) -> int:
     phase("train_cli_tj4d", phase_train_cli_tj4d, dev)
     torch.cuda.empty_cache()
     phase("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME)
+    torch.cuda.empty_cache()
+    phase("small_reference_rhgm", phase_small_reference_rhgm, dev)
+    phase("rhgm", phase_rhgm, dev)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

@@ -5,7 +5,8 @@ tree of an HGSFusionModel (numpy arrays) into this package's ``state_dict``,
 whose keys are the reference pcdet/torchvision names. It is the inverse of
 the JAX package's ``train/torch_convert.py::convert_hgsfusion_state``. The
 per-module functions convert the sub-tree of one JAX module into the
-``state_dict`` of its counterpart here.
+``state_dict`` of its counterpart here. ``from_jax_mask2former`` does the
+same for the RHGM segmentor, the inverse of ``convert_mask2former_state``.
 
 Layouts: flax conv kernel (kH, kW, I, O) -> torch (O, I, kH, kW); sparse
 conv -> spconv's (O, kH, kW, I); dense (I, O) -> (O, I); flax BatchNorm
@@ -176,3 +177,173 @@ def from_jax_variables(variables):
                        fusion_after_bev(p["fusion_after_bev"], s["fusion_after_bev"])))
     out.update(_prefix("dense_head", anchor_head(p["dense_head"])))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mask2Former (RHGM mask source): the JAX package's Mask2FormerInstance
+# variables -> rhgm.mask2former.Mask2FormerInstance's state_dict, whose names
+# are the published checkpoint's; the inverse of the JAX package's
+# train/torch_convert.py::convert_mask2former_state.
+# ---------------------------------------------------------------------------
+
+def layer_norm(p):
+    """flax LayerNorm / GroupNorm {scale, bias} -> {weight, bias}."""
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def swin_merge_perm(c: int) -> np.ndarray:
+    """PatchMerging's 4C channel order: perm[i_jax] = i_published. The JAX
+    package concatenates channel-major (mmcv unfold, c*4 + kh*2 + kw), the
+    published weights position-major ([x(0::2, 0::2), x(1::2, 0::2),
+    x(0::2, 1::2), x(1::2, 1::2)], pos*C + c)."""
+    pos_rank = {(0, 0): 0, (1, 0): 1, (0, 1): 2, (1, 1): 3}
+    perm = np.empty(4 * c, np.int64)
+    for i in range(4 * c):
+        ch, r = divmod(i, 4)
+        perm[i] = pos_rank[divmod(r, 2)] * c + ch
+    return perm
+
+
+def _published_order(a, perm, axis: int = -1):
+    """``a`` with its ``axis`` moved from the JAX order to the published one."""
+    a = np.asarray(a)
+    out = np.empty_like(a)
+    idx = [slice(None)] * a.ndim
+    idx[axis] = perm
+    out[tuple(idx)] = a
+    return out
+
+
+def window_msa(p):
+    """swin.WindowMSA (the JAX ``attn/w_msa``), with its index buffer."""
+    from .models.swin import _rel_position_index
+
+    table = np.asarray(p["relative_position_bias_table"])
+    ws = (int(round(np.sqrt(table.shape[0]))) + 1) // 2
+    return {"relative_position_bias_table": _t(table),
+            "relative_position_index": torch.from_numpy(_rel_position_index(ws, ws)),
+            **_prefix("qkv", conv(p["qkv"], _linear)), **_prefix("proj", conv(p["proj"], _linear))}
+
+
+def swin_block(p):
+    """swin.SwinBlock: ``norm1``, ``attn``, ``norm2``, ``mlp.{fc1, fc2}``."""
+    return {**_prefix("norm1", layer_norm(p["norm1"])), **_prefix("attn", window_msa(p["attn"]["w_msa"])),
+            **_prefix("norm2", layer_norm(p["norm2"])),
+            **_prefix("mlp.fc1", conv(p["ffn"]["fc1"], _linear)),
+            **_prefix("mlp.fc2", conv(p["ffn"]["fc2"], _linear))}
+
+
+def patch_merging(p):
+    """swin.PatchMerging, its 4C inputs in the published order."""
+    perm = swin_merge_perm(np.asarray(p["norm"]["scale"]).shape[0] // 4)
+    return {"norm.weight": _t(_published_order(p["norm"]["scale"], perm)),
+            "norm.bias": _t(_published_order(p["norm"]["bias"], perm)),
+            "reduction.weight": _t(_published_order(np.asarray(p["reduction"]["kernel"]).T, perm))}
+
+
+def swin_transformer(p):
+    """swin.SwinTransformer: ``patch_embed``, ``layers.{s}.blocks.{b}``,
+    ``layers.{s}.downsample``, ``norm{i}``."""
+    out = {**_prefix("patch_embed.proj", conv(p["patch_embed"]["projection"])),
+           **_prefix("patch_embed.norm", layer_norm(p["patch_embed"]["norm"]))}
+    for name, sub in p.items():
+        if name.startswith("stage"):
+            s, b = name[len("stage"):].split("_block")
+            out.update(_prefix(f"layers.{s}.blocks.{b}", swin_block(sub)))
+        elif name.startswith("downsample"):
+            out.update(_prefix(f"layers.{name[len('downsample'):]}.downsample", patch_merging(sub)))
+        elif name.startswith("norm"):
+            out.update(_prefix(name, layer_norm(sub)))
+    return out
+
+
+def conv_gn(pc, pg):
+    """mask2former._ConvGN (detectron2 Conv2d with a norm): ``weight``,
+    ``norm.{weight, bias}``."""
+    return {**conv(pc), **_prefix("norm", layer_norm(pg))}
+
+
+def ms_deform_attn(p):
+    """mask2former.MSDeformAttn."""
+    return {k: v for sub in ("sampling_offsets", "attention_weights", "value_proj", "output_proj")
+            for k, v in _prefix(sub, conv(p[sub], _linear)).items()}
+
+
+def ms_deform_encoder_layer(p):
+    """mask2former._MSDeformEncoderLayer."""
+    return {**_prefix("self_attn", ms_deform_attn(p["self_attn"])),
+            **_prefix("norm1", layer_norm(p["norm1"])), **_prefix("norm2", layer_norm(p["norm2"])),
+            **_prefix("linear1", conv(p["linear1"], _linear)),
+            **_prefix("linear2", conv(p["linear2"], _linear))}
+
+
+def pixel_decoder_msdeform(p):
+    """mask2former.PixelDecoderMSDeform: ``input_proj.{i}.{0, 1}``,
+    ``transformer.{level_embed, encoder.layers.{i}}``, ``adapter_1``,
+    ``layer_1``, ``mask_features``."""
+    out = {"transformer.level_embed": _t(p["level_embed"])}
+    for name, sub in p.items():
+        if name.startswith("input_proj_") and name.endswith("_conv"):
+            i = name[len("input_proj_"):-len("_conv")]
+            out.update(_prefix(f"input_proj.{i}.0", conv(sub)))
+            out.update(_prefix(f"input_proj.{i}.1", layer_norm(p[f"input_proj_{i}_gn"])))
+        elif name.startswith("encoder_layer_"):
+            out.update(_prefix(f"transformer.encoder.layers.{name[len('encoder_layer_'):]}",
+                               ms_deform_encoder_layer(sub)))
+    return {**out, **_prefix("adapter_1", conv_gn(p["adapter_1"], p["adapter_1_gn"])),
+            **_prefix("layer_1", conv_gn(p["layer_1"], p["layer_1_gn"])),
+            **_prefix("mask_features", conv(p["mask_features"]))}
+
+
+def pixel_decoder_fpn(p):
+    """mask2former.PixelDecoderFPN: the JAX ``output_{i}`` -> ``layer_{i+1}``,
+    ``lateral_{i}`` -> ``adapter_{i+1}`` (detectron2 BasePixelDecoder's
+    names), ``mask_features``."""
+    out = _prefix("mask_features", conv(p["mask_features"]))
+    for name, sub in p.items():
+        for jax_name, port_name in (("output_", "layer_"), ("lateral_", "adapter_")):
+            if name.startswith(jax_name):
+                i = int(name[len(jax_name):])
+                out.update(_prefix(f"{port_name}{i + 1}", conv_gn(sub["conv"], sub["gn"])))
+    return out
+
+
+def mha(p):
+    """mask2former._MHA: flax q/k/v/proj -> torch MultiheadAttention's
+    ``in_proj_weight`` rows [Wq; Wk; Wv], ``in_proj_bias``, ``out_proj``."""
+    return {"in_proj_weight": _t(np.concatenate([np.asarray(p[s]["kernel"]).T for s in "qkv"])),
+            "in_proj_bias": _t(np.concatenate([np.asarray(p[s]["bias"]) for s in "qkv"])),
+            **_prefix("out_proj", conv(p["proj"], _linear))}
+
+
+def masked_transformer_decoder(p):
+    """mask2former.MaskedTransformerDecoder (the published predictor's names)."""
+    out = {f"{name}.weight": _t(p[name]) for name in ("query_feat", "query_embed", "level_embed")}
+    n_layers = sum(1 for k in p if k.endswith("_cross"))
+    for li in range(n_layers):
+        out.update(_prefix(f"transformer_cross_attention_layers.{li}", {
+            **_prefix("multihead_attn", mha(p[f"layer{li}_cross"])),
+            **_prefix("norm", layer_norm(p[f"layer{li}_cross_norm"]))}))
+        out.update(_prefix(f"transformer_self_attention_layers.{li}", {
+            **_prefix("self_attn", mha(p[f"layer{li}_self"])),
+            **_prefix("norm", layer_norm(p[f"layer{li}_self_norm"]))}))
+        out.update(_prefix(f"transformer_ffn_layers.{li}", {
+            **_prefix("linear1", conv(p[f"layer{li}_ffn0"], _linear)),
+            **_prefix("linear2", conv(p[f"layer{li}_ffn1"], _linear)),
+            **_prefix("norm", layer_norm(p[f"layer{li}_ffn_norm"]))}))
+    out.update(_prefix("decoder_norm", layer_norm(p["decoder_norm"])))
+    out.update(_prefix("class_embed", conv(p["class_embed"], _linear)))
+    for i in range(3):
+        out.update(_prefix(f"mask_embed.layers.{i}", conv(p["mask_embed"][f"fc{i}"], _linear)))
+    return out
+
+
+def from_jax_mask2former(variables):
+    """JAX Mask2FormerInstance variables {"params"} (numpy) -> state_dict of
+    rhgm.mask2former.Mask2FormerInstance, either pixel decoder."""
+    p = variables["params"]
+    pd = p["pixel_decoder"]
+    pd_sd = pixel_decoder_msdeform(pd) if "level_embed" in pd else pixel_decoder_fpn(pd)
+    return {**_prefix("backbone", swin_transformer(p["backbone"])),
+            **_prefix("sem_seg_head.pixel_decoder", pd_sd),
+            **_prefix("sem_seg_head.predictor", masked_transformer_decoder(p["transformer_decoder"]))}

@@ -4,17 +4,20 @@ JAX it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import edge_coords, sampling_route
+from chip_smoke import compare_instances, edge_coords, run_rhgm_tool, sampling_route
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
+from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance
+from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
 
 # bf16: the kernel sums in f32 and rounds once, the plain version rounds
 # every product and sum (the JAX package's bf16 bound, 0.04); f32: order of
@@ -482,3 +485,43 @@ def test_row_scatter_kernel_rejects_what_it_does_not_take(cuda):
         row_scatter.row_scatter_add(idx[:2], rows, 4)
     with pytest.raises(ValueError, match="CUDA"):
         row_scatter.row_scatter_add_kernel(rows.cpu(), row_scatter.row_scatter_bins(idx, 4), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel_decoder", ["msdeform", "fpn"])
+def test_segmentor_card_matches_cpu(cuda, pixel_decoder):
+    """The tiny segmentor, weights from one seed, on a 45 x 61 image: logits
+    within 1e-4 of the CPU's in f32, instances by ``compare_instances``."""
+    kw = dict(pixel_decoder=pixel_decoder, seed=2, **ghp.PRESETS["tiny"])
+    img = torch.rand((1, 45, 61, 3), generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        ref = Mask2FormerInstance(device="cpu", **kw)(img)
+        got = Mask2FormerInstance(device=cuda, **kw)(img.to(cuda))
+    for k in ref:
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0, atol=1e-4)
+    compare_instances(ref, got, (45, 61))
+
+
+@pytest.mark.cuda
+def test_rhgm_tool_on_card(cuda, tmp_path):
+    """The tool's model source on the card (tiny preset, a 64 x 96 tree):
+    points in every frame, no kernel launched, and the precomputed source
+    on its masks writes the same files."""
+    from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
+
+    root = make_synthetic_kitti(tmp_path / "vod", num_frames=2, num_points=256,
+                                image_hw=(64, 96), structured=True)
+    common = ["--data_root", str(root), "--image_hw", "64", "96", "--num_virtual", "30",
+              "--confidence_threshold", "0.0"]
+    res, captured = run_rhgm_tool(cuda, common + [
+        "--model_preset", "tiny", "--resize_shortest", "80", "--device", str(cuda),
+        "--pts_save_path", str(tmp_path / "model")], capture=True)
+    assert all(f["virtual"] > 0 for f in res["frames"])
+    (tmp_path / "masks").mkdir()
+    for idx, (masks, labels) in zip(ghp.frame_ids(root, "train"), captured["masks"]):
+        np.savez(tmp_path / "masks" / f"{idx}.npz", masks=masks, labels=labels)
+    run_rhgm_tool(cuda, common + ["--mask_source", "precomputed", "--masks_dir",
+                                  str(tmp_path / "masks"), "--pts_save_path",
+                                  str(tmp_path / "pre")], capture=False)
+    for f in (tmp_path / "model").iterdir():
+        assert f.read_bytes() == (tmp_path / "pre" / f.name).read_bytes(), f.name

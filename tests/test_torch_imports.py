@@ -45,6 +45,9 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.tools.test", "hgsfusion_tpu_torch.utils.calibration",
     "hgsfusion_tpu_torch.datasets.augmentor", "hgsfusion_tpu_torch.datasets.loader",
     "hgsfusion_tpu_torch.train.checkpoint", "hgsfusion_tpu_torch.tools.train",
+    "hgsfusion_tpu_torch.models.swin", "hgsfusion_tpu_torch.rhgm",
+    "hgsfusion_tpu_torch.rhgm.mask2former", "hgsfusion_tpu_torch.rhgm.generator",
+    "hgsfusion_tpu_torch.rhgm.checkpoint", "hgsfusion_tpu_torch.tools.generate_hybrid_points",
 }
 
 
