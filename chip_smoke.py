@@ -8,11 +8,18 @@ Phases, each of which must pass or the script exits non-zero:
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` of every CUDA kernel (one process per source, all
    started together);
-3. kernel vs plain: ``quad_sample_fwd`` against its plain PyTorch version at
-   both flagship shapes (computed from the flagship frustum geometry) and a
-   small ragged shape with out-of-bounds coords, in bf16 (atol 0.04) and f32
-   (atol 1e-5), with the kernel's time beside its memory bound, the plain
-   version's time and ``F.grid_sample``'s (a yardstick the port never calls);
+3. kernel vs plain: ``quad_sample_fwd`` (the taps computed in the kernel
+   from (u, v) read in place, the unpadded map) against its plain PyTorch
+   version at both flagship shapes (the flagship frustum grid's (u, v) read
+   in place), a small ragged shape with out-of-bounds coords, odd channels,
+   a map that is not 16-byte aligned, coordinates on and around every edge
+   and coordinates wholly outside the map (all-zero output), in bf16 (atol
+   0.04) and f32 (atol 1e-5); the idx and w4 it writes for the backward
+   bit for bit against ``quad_indices``, its output without them and
+   through the autograd entry bit for bit; the kernel's time with and
+   without idx/w4 beside its memory bound, the route's (the autograd entry
+   under ``no_grad`` and with the map requiring grad), the plain version's
+   and ``F.grid_sample``'s (a yardstick the port never calls);
 4. kernel vs plain, backward: ``quad_sample_bwd`` (with its bins,
    ``quad_bins``) against its plain version at the same flagship shapes, the
    ragged shape, a contention shape (every query on one 2x2 patch) and a hot
@@ -35,7 +42,7 @@ Phases, each of which must pass or the script exits non-zero:
    222 queries); tolerances at ``reduce_case``; in bf16 also against the
    sampling route a training step takes (``quad_sample_fwd`` +
    ``matmul_f32``) cast to bf16; the kernel's time beside its bound and
-   the taps' L2 traffic, that route's (with its glue), the plain version's
+   the taps' L2 traffic, that route's, the plain version's
    and the library pair's (``F.grid_sample`` + ``torch.matmul``: no single
    PyTorch call computes the function, so ``library_ms`` is null);
 5. small reference: the TINY test model on the card (kernel) against the same
@@ -60,9 +67,10 @@ Phases, each of which must pass or the script exits non-zero:
    kernel of one profiled step;
 9. kernel vs plain, polar: both kernels (the backward with its bins) against
    their plain versions at the polar view's three maps, 128 channels (the
-   two reduced maps sampled by the near-field grid, the polar table sampled
-   by pass 3's clamped coordinates, from the flagship geometry), bf16 and
-   f32 at the tolerances above, each call's time beside its bound;
+   two reduced maps sampled by the near-field grid's (u, v) read in place,
+   the polar table sampled by pass 3's clamped coordinates, from the
+   flagship geometry), bf16 and f32 at the tolerances above, each call's
+   time beside its bound (the forward as in 3);
 10. small reference, polar: the TINY model with ``F2V.VIEW: polar`` on the
     card against the CPU, as 5, then one training step as 6;
 11. polar vs gather: full width, f32, TF32 off, one set of weights: the
@@ -167,7 +175,8 @@ Phases, each of which must pass or the script exits non-zero:
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25 and 27),
-each path's count taken with the counters at 0 just before it. The last lines are the
+each path's count taken with the counters at 0 just before it; the
+forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -203,8 +212,7 @@ from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import matmul_f32, resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
-from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
-                                                 quad_sample_fwd_plain)
+from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
@@ -301,6 +309,34 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured in a CUDA
+    graph, the mean over ``replays`` replays after a warm-up one, so that
+    the host's pace of launching them is out of the timing (``cuda_ms``
+    times calls as the host launches them). ``fn`` allocates from the graph's
+    pool; its host side (a launch counter) runs once, at the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -309,37 +345,68 @@ def card_line() -> str:
 
 
 def sampler_case(name, features, coords, dtype, tol, timed: bool):
-    """Kernel vs plain version on one input; times and bound when ``timed``."""
+    """``quad_sample_fwd`` (``coords`` read in place, the unpadded map)
+    against its plain version on one input, at ``tol``; the idx and w4 it
+    writes for the backward against ``quad_indices``' bit for bit; without
+    them, and through the autograd entry, the same output bit for bit.
+    ``timed``: the kernel's device time with and without idx/w4
+    (``graph_ms``; ``calls_ms``: its calls back to back as the host launches
+    them), the route (the autograd entry under ``no_grad`` and with the map
+    requiring grad), the plain version and ``F.grid_sample``, beside the
+    bound with and without idx/w4."""
     f = features.to(dtype)
     b, h, w, c = f.shape
+    out, idx, w4 = quad_sample.quad_sample_fwd(f, coords, taps=True)
+    bare = quad_sample.quad_sample_fwd(f, coords)[0]
     got = quad_sample.grid_sample_2d_quad_kernel(f, coords)
     torch.cuda.synchronize()
-    ref = grid_sample_2d_quad(f, coords)
-    err = float((got.float() - ref.float()).abs().max())
+    ref, ref_idx, ref_w4 = quad_sample.quad_sample_fwd_uv_plain(f, coords, taps=True)
+    err = float((out.float() - ref.float()).abs().max())
+    n, isz = idx.numel(), f.element_size()
     row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
-           "shape": [b, h, w, c], "queries": int(coords[..., 0].numel()),
-           "max_abs_err": err, "tol": tol}
+           "shape": [b, h, w, c], "queries": n, "uv_stride": coords.stride(-2),
+           "max_abs_err": err, "tol": tol,
+           "idx_equal": bool(torch.equal(idx, ref_idx)),
+           "w4_equal": bool(torch.equal(w4, ref_w4)),
+           "valid_queries": int((w4 != 0).any(dim=1).sum()),
+           "bit_equal_without_taps": bool(torch.equal(out, bare)),
+           "bit_equal_route": bool(torch.equal(got.reshape(n, c), out))}
+    del bare, got, ref, ref_idx, ref_w4
     if timed:
-        idx, w4 = quad_sample.quad_indices(f, coords)
-        fp = F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous()
-        n, isz = idx.numel(), f.element_size()
-        nbytes = fp.numel() * isz + n * 4 + w4.numel() * 4 + n * c * isz
-        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 8.0 * n * c / F32_FLOPS_PER_S) * 1e3
-        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= 8.0 * n * c / F32_FLOPS_PER_S \
+        # each query's (x, y), the map once, the output once; idx and w4 on top
+        nbytes = n * 8 + f.numel() * isz + n * c * isz
+        ops = 8.0 * n * c  # four multiply-adds a channel
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S \
             else "operations"
-        row["bound_us"] = row["bound_ms"] * 1e3
+        row["bound_taps_ms"] = max((nbytes + 20 * n) / HBM_BYTES_PER_S,
+                                   ops / F32_FLOPS_PER_S) * 1e3
         row["bytes"] = nbytes
-        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_fwd(fp, idx, w4))
-        row["wrapper_ms"] = cuda_ms(lambda: quad_sample.grid_sample_2d_quad_kernel(f, coords))
-        row["plain_ms"] = cuda_ms(lambda: grid_sample_2d_quad(f, coords), iters=3, warmup=1)
+        # the kernel's device time (launches replayed from a CUDA graph), and
+        # its calls back to back as the host launches them
+        row["ms"] = graph_ms(lambda: quad_sample.quad_sample_fwd(f, coords))
+        row["taps_ms"] = graph_ms(lambda: quad_sample.quad_sample_fwd(f, coords, taps=True))
+        row["calls_ms"] = cuda_ms(lambda: quad_sample.quad_sample_fwd(f, coords), iters=50)
+        with torch.no_grad():
+            row["route_ms"] = cuda_ms(lambda: quad_sample.grid_sample_2d_quad_kernel(f, coords),
+                                      iters=50)
+        fg = f.detach().requires_grad_()
+        row["route_grad_ms"] = cuda_ms(lambda: quad_sample.grid_sample_2d_quad_kernel(fg, coords),
+                                       iters=50)
+        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_fwd_uv_plain(f, coords),
+                                  iters=3, warmup=1)
         fmap = f.permute(0, 3, 1, 2).contiguous()
         # grid_sample takes the grid in the map's dtype
         g = coords.reshape(b, -1, coords.shape[-2], 2).to(dtype)
         row["library_ms"] = cuda_ms(lambda: F.grid_sample(
-            fmap, g, mode="bilinear", padding_mode="zeros", align_corners=True))
+            fmap, g, mode="bilinear", padding_mode="zeros", align_corners=True), iters=50)
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
     print("  " + json.dumps(row))
     if not err <= tol:
         raise AssertionError(f"{name} {row['dtype']}: max error {err} > {tol}")
+    for key in ("idx_equal", "w4_equal", "bit_equal_without_taps", "bit_equal_route"):
+        if not row[key]:
+            raise AssertionError(f"{name} {row['dtype']}: {key} is false")
     return row
 
 
@@ -360,18 +427,55 @@ def flagship_uv(dev):
     return flagship_grid(dev)[..., 0:2].contiguous()
 
 
+def outside_coords(dev, n: int = 600, seed: int = 13):
+    """(2, n, 2) coordinates wholly outside a map of at least 2 x 2 pixels:
+    x or y beyond 1.5 in magnitude (more than half the map's span past its
+    edge), the other anywhere in -1.3 .. 1.3."""
+    g = torch.Generator().manual_seed(seed)
+    far = (torch.rand((2, n), generator=g) * 2.5 + 1.5) \
+        * torch.where(torch.rand((2, n), generator=g) < 0.5, -1.0, 1.0)
+    near = torch.rand((2, n), generator=g) * 2.6 - 1.3
+    x_out = torch.rand((2, n), generator=g) < 0.5
+    return torch.stack([torch.where(x_out, far, near), torch.where(x_out, near, far)],
+                       -1).to(dev)
+
+
+def unaligned(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
 def phase_kernel_vs_plain(dev):
-    uv = flagship_uv(dev)
+    """K1 at the VoD gather maps (the flagship grid's (u, v) read in place),
+    a ragged case (two frames, 40 channels, coordinates beyond the maps),
+    odd channels, a map that is not 16-byte aligned, coordinates on and
+    around every edge and coordinates wholly outside the map, bf16 and f32;
+    the gather maps and the ragged case timed."""
+    uv = flagship_grid(dev)[..., 0:2]
     g = torch.Generator(device="cpu").manual_seed(1)
+    cases = [(name, torch.randn(shape, generator=g).to(dev), uv)
+             for name, shape in FLAGSHIP_SHAPES.items()]
+    ragged = (torch.rand((2, 37, 3, 3), generator=g) * 2.6 - 1.3).to(dev)[..., 0:2]
+    cases += [("ragged", torch.randn((2, 11, 17, 40), generator=g).to(dev), ragged),
+              ("odd_channels", torch.randn((2, 11, 17, 13), generator=g).to(dev), ragged),
+              ("outside", torch.randn((2, 11, 17, 40), generator=g).to(dev),
+               outside_coords(dev))]
+    cases += [("edges", torch.randn(shape, generator=g).to(dev), edge_coords(dev, shape[1:3]))
+              for shape in ((1, 5, 7, 8), (1, 1, 1, 8), (1, 65, 242, 64))]
     rows = []
-    for name, shape in FLAGSHIP_SHAPES.items():
-        feats = torch.randn(shape, generator=g).to(dev)
-        rows.append(sampler_case(name, feats, uv, torch.bfloat16, BF16_TOL, timed=True))
-        rows.append(sampler_case(name, feats, uv, torch.float32, F32_TOL, timed=False))
-    feats = torch.randn((2, 11, 17, 40), generator=g).to(dev)
-    coords = (torch.rand((2, 37, 3, 2), generator=g) * 2.6 - 1.3).to(dev)
-    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        rows.append(sampler_case("ragged", feats, coords, dtype, tol, timed=False))
+    for name, feats, coords in cases:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            rows.append(sampler_case(name, feats, coords, dtype, tol,
+                                     timed=name in FLAGSHIP_SHAPES or name == "ragged"))
+            if name == "outside" and bool(quad_sample.quad_sample_fwd(
+                    feats.to(dtype), coords)[0].any()):
+                raise AssertionError(f"outside {dtype}: nonzero output")
+        if name == "ragged":
+            for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+                rows.append(sampler_case("unaligned", unaligned(feats.to(dtype)), coords,
+                                         dtype, tol, timed=False))
     return rows
 
 
@@ -513,14 +617,12 @@ def reduce_groups(maps):
 
 
 def sampling_route(uv, groups, kmat, bias):
-    """The same function by the route a training step takes, its glue
-    included: ``quad_indices`` and the padded map, ``quad_sample_fwd`` per
-    group, ``matmul_f32``, ``add_`` onto the bias; f32, unrounded."""
+    """The same function by the route a training step takes: ``quad_sample_fwd``
+    per group (uv read in place, the unpadded map), ``matmul_f32``, ``add_``
+    onto the bias; f32, unrounded."""
     out = bias.expand(uv.numel() // 2, kmat.shape[1]).clone()
     for f, k_off in groups:
-        idx, w4 = quad_sample.quad_indices(f, uv)
-        fp = F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous()
-        out.add_(matmul_f32(quad_sample.quad_sample_fwd(fp, idx, w4),
+        out.add_(matmul_f32(quad_sample.quad_sample_fwd(f, uv)[0],
                             kmat[k_off:k_off + f.shape[-1]]))
     return out
 
@@ -556,8 +658,7 @@ def reduce_case(name, maps, uv, o, dtype, gen, timed: bool):
     apart: 2^-7 |ref|. The sampling route with the kernel's own rounding of
     the taps (``quad_sample_fwd`` + ``matmul_f32``), cast to bf16, is held
     at REDUCE_RTOL x (1 + max|ref|) + 2^-7 |ref|. ``timed``: the kernel,
-    that route with its glue, the plain version and the library pair,
-    beside the bound (the kernel's glue is gone: the taps are its own)."""
+    that route, the plain version and the library pair, beside the bound."""
     dev = uv.device
     maps = [m.to(dtype) for m in maps]
     groups = reduce_groups(maps)
@@ -839,8 +940,8 @@ def polar_coords(dev):
                          pc_range=cfg.pc_range, w_fine=POLAR_SHAPES["near_A"][2],
                          zeta_bins=cfg.f2v_polar_zeta_bins,
                          near_columns=cfg.f2v_polar_near_columns, bev_aug=cfg.bev_aug)
-    near = geo.near_uv.contiguous()
-    return {"near_A": near, "near_B": near, "q": geo.far_coords.contiguous()}
+    # as the module reads them: near_uv is (u, v) of the near grid in place
+    return {"near_A": geo.near_uv, "near_B": geo.near_uv, "q": geo.far_coords}
 
 
 def phase_kernel_vs_plain_polar(dev):
@@ -853,7 +954,7 @@ def phase_kernel_vs_plain_polar(dev):
         rows["fwd"].append(sampler_case(name, feats, coords[name], torch.bfloat16, BF16_TOL,
                                         timed=True))
         rows["fwd"].append(sampler_case(name, feats, coords[name], torch.float32, F32_TOL,
-                                        timed=False))
+                                        timed=True))
         rows["bwd"].append(bwd_case(name, shape, coords[name], torch.bfloat16, g, timed=True))
         rows["bwd"].append(bwd_case(name, shape, coords[name], torch.float32, g, timed=False))
     return rows
@@ -1981,7 +2082,8 @@ def main(argv=None) -> int:
         timed = [r for r in rows if "ms" in r]
         polar_block = {} if polar_rows is None else {"polar": {
             "max_abs_err": max(r["max_abs_err"] for r in polar_rows),
-            **{k: summed(polar_rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}}
+            **{k: summed(polar_rows, k) for k in ("ms", "route_ms", "plain_ms", "bound_ms",
+                                                  "library_ms") if k in polar_rows[0]}}}
         by_path = {path: report[path]["launches"].get(name, 0) for path in MAIN_PATHS}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1992,6 +2094,7 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in timed)
             else "operations",
             "library_ms": summed(rows, "library_ms"),
+            **{k: summed(rows, k) for k in ("route_ms",) if k in timed[0]},
             **{k: timed[0][k] for k in ("library", "library_pair", "library_pair_ms",
                                         "sampling_route_ms") if k in timed[0]},
             **polar_block,
@@ -2001,7 +2104,9 @@ def main(argv=None) -> int:
     kernels = [
         kernel_row(quad_sample.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:108",
-                   [r for r in report["kernel_vs_plain"] if "ms" in r], polar["fwd"]),
+                   [r for r in report["kernel_vs_plain"]
+                    if r["case"] in FLAGSHIP_SHAPES and r["dtype"] == "bfloat16"],
+                   [r for r in polar["fwd"] if r["dtype"] == "bfloat16"]),
         kernel_row(quad_sample.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:226",
                    [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], polar["bwd"]),

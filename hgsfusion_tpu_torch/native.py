@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/lib<name>-<hash>.so``, at its first
-use, and loaded with ``ctypes``. Each ``csrc/<name>.cc`` (host code: the
+use, and loaded with ``ctypes``; a source may include the headers
+(``csrc/*.cuh``) beside it. Each ``csrc/<name>.cc`` (host code: the
 evaluators' rotated overlap) is compiled the same way by the host C++
-compiler (``load_host``). The file name carries a hash of the source, so
-an edited source is rebuilt and a stale library is never loaded. A failed
-build raises.
+compiler (``load_host``). The file name carries a hash of the source (and,
+for a ``.cu``, of the headers), so an edited source or header is rebuilt
+and a stale library is never loaded. A failed build raises.
 """
 from __future__ import annotations
 
@@ -45,9 +46,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header in ``csrc/`` (``*.cuh``: a source may include any of them)
+    and of the flags."""
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, dict]:

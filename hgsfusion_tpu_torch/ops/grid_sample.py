@@ -1,10 +1,11 @@
 """Bilinear grid sampling (align_corners=True, zeros padding), NHWC layout.
 
 Counterpart of ``hgsfusion_tpu/ops/grid_sample.py``: the quad-packed
-single-gather sampler and its shared index/weight computation. These are the
-plain PyTorch versions of the ``quad_sample_fwd`` and ``quad_sample_bwd`` CUDA
-kernels (``ops/quad_sample.py``); the CPU path and the tests use them, and
-they are the references the kernels are held against on the card.
+single-gather sampler and its shared index/weight computation. These make
+the plain PyTorch versions of the ``quad_sample_fwd`` and ``quad_sample_bwd``
+CUDA kernels (``ops/quad_sample.py``: ``quad_sample_fwd_uv_plain``,
+``quad_sample_bwd_plain``); the CPU path and the tests use them, and they are
+the references the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -84,7 +85,8 @@ def grid_sample_2d_quad(features, coords):
 
 
 def quad_sample_fwd_plain(fp, idx, w4):
-    """Plain version of the ``quad_sample_fwd`` kernel's reads.
+    """The reads and combine of ``quad_sample_fwd``'s plain version
+    (``ops/quad_sample.py::quad_sample_fwd_uv_plain``).
 
     fp (B, H+2, W+2, C) zero-padded map, idx (N,) flat top-left pixel of each
     query in it, w4 (N, 4) tap weights (feature-dtype values carried in a

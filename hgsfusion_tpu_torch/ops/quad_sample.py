@@ -5,28 +5,31 @@ Counterpart of ``hgsfusion_tpu/ops/pallas_sample.py``. Its forward kernels
 ``_gather_combine`` (rows layout) and ``_gather_combine_planes`` (planes
 layout) compute one function and become the one CUDA kernel
 ``quad_sample_fwd``; its backward kernels ``_scatter_outer`` and
-``_scatter_outer_planes`` (with ``_unshift``) become ``quad_sample_bwd``. The
-glue computes the top-left tap index and the four tap weights of every query
-in PyTorch, as ``_indices`` does outside the TPU kernels: the weights in the
-feature dtype, then carried in f32. The forward reads the four taps straight
-from the zero-padded map, sums them in f32 and rounds once. When the map
-needs a gradient, the forward also bins the queries by their top-left pixel
+``_scatter_outer_planes`` (with ``_unshift``) become ``quad_sample_bwd``.
+The forward takes the sampling coordinates in place and the unpadded map,
+computes every query's top-left tap and four weights itself, bit for bit as
+``quad_indices`` computes them (as ``_indices`` does outside the TPU
+kernels: the weights in the feature dtype, then carried in f32), reads a tap
+only where its weight is not 0, sums the four in f32 and rounds once. When
+the map needs a gradient, the same launch writes ``quad_indices``' result
+for the backward, and the glue bins the queries by their top-left pixel
 (``quad_bins``, PyTorch's sort and search on the card); the backward kernel
 sums each output tile from those bins in shared memory, rounds once and
 writes the cropped gradient.
 
 Where no gradient is taken, the gather view fuses the sampler with its
-reduce product: ``quad_sample_reduce_fwd`` computes every query's taps from
-the sampling coordinates itself, gathers and combines them from each gather
-group's unpadded map and multiplies them by the group's rows of the reduce
-kernel in one launch, into one output in the compute dtype (the function of
-the TPU prototype ``_bench_gather_pallas.py::pallas_gather_combine_matmul``).
+reduce product: ``quad_sample_reduce_fwd`` computes the taps the same way,
+gathers and combines them from each gather group's unpadded map and
+multiplies them by the group's rows of the reduce kernel in one launch, into
+one output in the compute dtype (the function of the TPU prototype
+``_bench_gather_pallas.py::pallas_gather_combine_matmul``).
 ``quad_sample_taps`` runs that kernel's tap computation alone, so it can be
 held against ``quad_indices`` bit for bit.
 
-A CPU tensor takes the plain versions (``ops/grid_sample.py``); a CUDA tensor
-launches the kernels or raises. The coordinates get no gradient: the grid is
-calibration geometry, as in the JAX package's ``_bwd``.
+A CPU tensor takes the plain versions (``quad_sample_fwd_uv_plain``,
+``ops/grid_sample.py``); a CUDA tensor launches the kernels or raises. The
+coordinates get no gradient: the grid is calibration geometry, as in the JAX
+package's ``_bwd``.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
 # each kernel's source in csrc/ and C arguments
 _ENTRIES = {
-    # fp, idx, w4, out, n, c, row_pixels, dtype, stream
-    KERNEL: ("quad_sample", [_P, _P, _P, _P, _I64, _I, _I64, _I, _P]),
+    # uv, uv_stride, n, per_frame, map, b, h, w, c, out, idx_out, w4_out,
+    # dtype, stream
+    KERNEL: ("quad_sample", [_P, _I64, _I64, _I64, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
     # uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs (one entry per
     # group), groups, kmat, bias, out, o, dtype, stream
     REDUCE_KERNEL: ("quad_sample_reduce",
@@ -99,8 +103,7 @@ def quad_indices(features, coords):
 
 
 def _check(name, data, idx, w4):
-    """The launch contract both kernels share; ``data`` is the tensor whose
-    dtype the kernel reads (the map, or the cotangent)."""
+    """The backward kernel's launch contract; ``data`` is the cotangent."""
     if data.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {data.device}")
     if data.dtype not in _DTYPE_CODES:
@@ -116,23 +119,6 @@ def _check(name, data, idx, w4):
         raise ValueError(f"{name}: {data.dtype} data and w4 must be 16-byte aligned")
 
 
-def quad_sample_fwd(fp, idx, w4):
-    """Launch the forward kernel: ``fp`` (B, H+2, W+2, C) zero-padded map,
-    ``idx`` (N,) int32, ``w4`` (N, 4) f32 -> (N, C) in ``fp``'s dtype."""
-    _check(KERNEL, fp, idx, w4)
-    if fp.dim() != 4:
-        raise ValueError(f"{KERNEL}: bad shapes fp {tuple(fp.shape)}")
-    n, c = idx.shape[0], fp.shape[-1]
-    out = torch.empty((n, c), dtype=fp.dtype, device=fp.device)
-    err = _entry(KERNEL)(
-        fp.data_ptr(), idx.data_ptr(), w4.data_ptr(), out.data_ptr(), n, c,
-        fp.shape[2], _DTYPE_CODES[fp.dtype], torch.cuda.current_stream(fp.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    launches[KERNEL] += 1
-    return out
-
-
 def _uv_rows(name, uv, b):
     """``uv`` (B, ..., 2) f32 on a CUDA device, read in place: every query's
     (x, y) a row of one stride (``grid[..., 0:2]`` of a contiguous grid has
@@ -143,18 +129,70 @@ def _uv_rows(name, uv, b):
         raise TypeError(f"{name}: uv must be float32, got {uv.dtype}")
     if uv.dim() < 2 or uv.shape[-1] != 2 or uv.shape[0] != b:
         raise ValueError(f"{name}: bad shapes uv {tuple(uv.shape)} for maps of {b} frames")
-    stride = uv.stride(-2)
-    want = stride
-    for d in range(uv.dim() - 2, -1, -1):
-        if uv.shape[d] != 1 and uv.stride(d) != want:
+    shape, strides = uv.shape, uv.stride()
+    stride = want = strides[-2]
+    for size, st in zip(reversed(shape[:-1]), reversed(strides[:-1])):
+        if size != 1 and st != want:
             want = None
             break
-        want *= uv.shape[d]
-    if uv.stride(-1) != 1 or stride < 2 or want is None:
+        want *= size
+    if strides[-1] != 1 or stride < 2 or want is None:
         raise ValueError(f"{name}: uv must be rows of (x, y) at one stride, got strides "
                          f"{uv.stride()}")
     n = uv.numel() // 2
     return n, n // b, stride
+
+
+def quad_sample_fwd(features, uv, taps: bool = False):
+    """Launch the forward kernel.
+
+    ``features`` (B, H, W, C) unpadded and contiguous on the card (a map or
+    channels that are not 16-byte aligned take the kernel's element path);
+    ``uv`` (B, ..., 2) f32 sampling coordinates (x, y), normalized, read in
+    place (rows of one stride: ``grid[..., 0:2]``) -> ``(out, idx, w4)``:
+    ``out`` (N, C) in features' dtype, the bilinear samples (zeros padding,
+    ``align_corners=True``) summed in f32 and rounded once; with ``taps``
+    also ``quad_indices``' result, idx (N,) int32 and w4 (N, 4) f32, written
+    by the same launch (else None and None). Same function as
+    ``quad_sample_fwd_uv_plain`` up to the taps' rounding.
+    """
+    if features.device.type != "cuda":
+        raise ValueError(f"{KERNEL} needs CUDA tensors, got {features.device}")
+    if features.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{KERNEL}: unsupported dtype {features.dtype}")
+    if features.dim() != 4 or min(features.shape) < 1:
+        raise ValueError(f"{KERNEL}: bad shapes features {tuple(features.shape)}")
+    if not features.is_contiguous():
+        raise ValueError(f"{KERNEL}: features must be contiguous")
+    b, h, w, c = features.shape
+    if b * (h + 2) * (w + 2) >= 2**31:
+        raise ValueError(f"{KERNEL}: padded map exceeds int32 pixel indexing")
+    n, per_frame, stride = _uv_rows(KERNEL, uv, b)
+    if uv.device != features.device:
+        raise ValueError(f"{KERNEL}: uv must be on {features.device}")
+    dev = features.device
+    out = torch.empty((n, c), dtype=features.dtype, device=dev)
+    idx = w4 = None
+    if taps:
+        idx = torch.empty(n, dtype=torch.int32, device=dev)
+        w4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    err = _entry(KERNEL)(
+        uv.data_ptr(), stride, n, per_frame, features.data_ptr(), b, h, w, c, out.data_ptr(),
+        None if idx is None else idx.data_ptr(), None if w4 is None else w4.data_ptr(),
+        _DTYPE_CODES[features.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    launches[KERNEL] += 1
+    return out, idx, w4
+
+
+def quad_sample_fwd_uv_plain(features, uv, taps: bool = False):
+    """Plain version of ``quad_sample_fwd``, same arguments and result:
+    ``quad_indices``, the zero-padded map and ``quad_sample_fwd_plain`` (the
+    taps combined in the feature dtype)."""
+    idx, w4 = quad_indices(features, uv)
+    out = quad_sample_fwd_plain(F.pad(features, (0, 0, 1, 1, 1, 1)), idx, w4)
+    return (out, idx, w4) if taps else (out, None, None)
 
 
 def _check_reduce(uv, groups, kmat, bias):
@@ -228,16 +266,14 @@ def quad_sample_reduce_fwd(uv, groups, kmat, bias):
 
 def quad_sample_reduce_plain(uv, groups, kmat, bias):
     """Plain version of ``quad_sample_reduce_fwd``, same arguments: each
-    group's taps by ``quad_indices`` on its zero-padded map, sampled by
-    ``quad_sample_fwd_plain`` (the taps combined in the compute dtype),
-    multiplied by its rows of ``kmat`` with ``matmul_f32`` and added onto the
-    bias in f32, rounded once -> (N, O) in the compute dtype."""
+    group sampled by ``quad_sample_fwd_uv_plain`` (the taps combined in the
+    compute dtype), multiplied by its rows of ``kmat`` with ``matmul_f32``
+    and added onto the bias in f32, rounded once -> (N, O) in the compute
+    dtype."""
     n = uv.numel() // 2
     out = bias.to(torch.float32).expand(n, kmat.shape[1]).clone()
     for f, k_off in groups:
-        idx, w4 = quad_indices(f, uv)
-        fp = F.pad(f, (0, 0, 1, 1, 1, 1))
-        out.add_(matmul_f32(quad_sample_fwd_plain(fp, idx, w4),
+        out.add_(matmul_f32(quad_sample_fwd_uv_plain(f, uv)[0],
                             kmat[k_off:k_off + f.shape[-1]]))
     return out.to(kmat.dtype)
 
@@ -346,14 +382,15 @@ class _QuadSample(torch.autograd.Function):
         b, h, w, c = features.shape
         ctx.padded_shape = (b, h + 2, w + 2, c)
         ctx.dtype = features.dtype
-        idx, w4 = quad_indices(features, coords)
-        fp = F.pad(features, (0, 0, 1, 1, 1, 1)).contiguous()
-        fwd = quad_sample_fwd if features.is_cuda else quad_sample_fwd_plain
-        out = fwd(fp, idx, w4).reshape(coords.shape[:-1] + (c,))
-        if ctx.needs_input_grad[0]:
+        grad = ctx.needs_input_grad[0]
+        fwd = quad_sample_fwd if features.is_cuda else quad_sample_fwd_uv_plain
+        # one launch on the card: coords read in place, the map as it is
+        # (the model's maps are contiguous, so .contiguous() copies nothing)
+        out, idx, w4 = fwd(features.contiguous(), coords, taps=grad)
+        if grad:
             bins = quad_bins(idx, w4, ctx.padded_shape) if features.is_cuda else ()
             ctx.save_for_backward(idx, w4, *bins)
-        return out
+        return out.view(coords.shape[:-1] + (c,))
 
     @staticmethod
     def backward(ctx, grad_out):

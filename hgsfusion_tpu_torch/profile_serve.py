@@ -77,6 +77,7 @@ def profile_frames(model, batch, frames: int):
         "wall_ms_per_frame": wall_s * 1e3 / frames,
         "device_busy_ms_per_frame": busy_ms,
         "device_busy_share": busy_ms / (wall_s * 1e3 / frames),
+        "device_ops_per_frame": sum(n for _, _, n in ops),
         "stage_device_ms": {s: stage_ms.get(s, 0.0) for s in STAGES},
         "top_ops": [{"op": k, "device_ms": ms, "calls": n} for k, ms, n in ops[:25]],
     }

@@ -9,7 +9,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import compare_instances, edge_coords, run_rhgm_tool, sampling_route
+from chip_smoke import (compare_instances, edge_coords, outside_coords, run_rhgm_tool,
+                        sampling_route, unaligned)
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.models.layers import matmul_f32
 from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
@@ -23,7 +24,8 @@ from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
 # every product and sum (the JAX package's bf16 bound, 0.04); f32: order of
 # four fused multiply-adds
 TOLS = {torch.float32: 1e-5, torch.bfloat16: 0.04}
-SHAPES = [(1, 9, 13, 64), (2, 7, 5, 192), (1, 6, 7, 5)]
+# 64, 192 and 40 channels take 16-byte vectors, 5 and 13 the element path
+SHAPES = [(1, 9, 13, 64), (2, 7, 5, 192), (1, 6, 7, 5), (2, 11, 17, 40), (2, 11, 17, 13)]
 
 
 @pytest.fixture
@@ -36,37 +38,91 @@ def cuda():
 
 
 def _inputs(seed, shape, dtype, device):
+    """Features and coords (-1.3 .. 1.3): a (B, 10, 13, 2) view of a grid
+    whose rows hold 3 floats, read in place as the view transform reads
+    ``grid[..., 0:2]``."""
     g = torch.Generator().manual_seed(seed)
     feats = torch.randn(shape, generator=g).to(dtype)
-    coords = torch.rand((shape[0], 10, 13, 2), generator=g) * 2.6 - 1.3
-    return feats.to(device), coords.to(device)
+    grid = torch.rand((shape[0], 10, 13, 3), generator=g) * 2.6 - 1.3
+    return feats.to(device), grid.to(device)[..., 0:2]
+
+
+def _check_fwd(f, coords):
+    """One launch with idx/w4 and one without against the plain version:
+    the output at TOLS, the same output both times, idx and w4 bit for bit;
+    then the autograd entry, one more launch and the same output, and on
+    CPU tensors no launch."""
+    c = f.shape[-1]
+    before = quad_sample.launches[quad_sample.KERNEL]
+    out, idx, w4 = quad_sample.quad_sample_fwd(f, coords, taps=True)
+    bare, no_idx, no_w4 = quad_sample.quad_sample_fwd(f, coords)
+    torch.cuda.synchronize()
+    assert quad_sample.launches[quad_sample.KERNEL] == before + 2
+    assert no_idx is None and no_w4 is None
+    ref, ref_idx, ref_w4 = quad_sample.quad_sample_fwd_uv_plain(f.cpu(), coords.cpu(), taps=True)
+    assert out.shape == ref.shape == (coords[..., 0].numel(), c) and out.dtype == f.dtype
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=0, atol=TOLS[f.dtype])
+    assert torch.equal(out, bare)
+    assert torch.equal(idx.cpu(), ref_idx) and torch.equal(w4.cpu(), ref_w4)
+    got = grid_sample_2d_quad_kernel(f, coords)
+    assert quad_sample.launches[quad_sample.KERNEL] == before + 3
+    assert got.shape == coords.shape[:-1] + (c,) and torch.equal(got.reshape(-1, c), out)
+    grid_sample_2d_quad_kernel(f.cpu(), coords.cpu())
+    assert quad_sample.launches[quad_sample.KERNEL] == before + 3
+    return out, w4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_plain(cuda, shape, dtype, aligned):
+    """The forward kernel on strided coords, B = 1 and 2, vector and
+    element paths, and on a map whose data starts one element past a
+    16-byte boundary (the element path)."""
+    f, c = _inputs(0, shape, dtype, cuda)
+    _check_fwd(f if aligned else unaligned(f), c)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_matches_plain(cuda, shape, dtype):
-    f, c = _inputs(0, shape, dtype, cuda)
-    before = quad_sample.launches[quad_sample.KERNEL]
-    got = grid_sample_2d_quad_kernel(f, c)
-    torch.cuda.synchronize()
-    assert quad_sample.launches[quad_sample.KERNEL] == before + 1
-    assert got.shape == c.shape[:-1] + (shape[-1],) and got.dtype == dtype
-    ref = grid_sample_2d_quad(f.cpu(), c.cpu())
-    torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=0, atol=TOLS[dtype])
+def test_kernel_at_edges_and_outside(cuda, dtype):
+    """Coordinates on, beside and beyond every edge, and coordinates wholly
+    outside the map: zero weights, an all-zero output."""
+    g = torch.Generator().manual_seed(6)
+    for shape in ((1, 5, 7, 8), (1, 1, 1, 8), (1, 9, 13, 64)):
+        f = torch.randn(shape, generator=g).to(dtype).to(cuda)
+        _check_fwd(f, edge_coords(cuda, shape[1:3]))
+    f = torch.randn((2, 11, 17, 16), generator=g).to(dtype).to(cuda)
+    out, w4 = _check_fwd(f, outside_coords(cuda))
+    assert not bool(out.any()) and not bool(w4.any())
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    fp = torch.zeros((1, 4, 5, 8), device=cuda, dtype=torch.float64)
-    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
-    w4 = torch.zeros((3, 4), device=cuda)
+    f, uv = _inputs(0, SHAPES[0], torch.float32, cuda)
+    fwd = quad_sample.quad_sample_fwd
     with pytest.raises(TypeError, match="dtype"):
-        quad_sample.quad_sample_fwd(fp, idx, w4)
-    with pytest.raises(TypeError, match="int32"):
-        quad_sample.quad_sample_fwd(fp.float(), idx.long(), w4)
-    with pytest.raises(ValueError, match="shapes"):
-        quad_sample.quad_sample_fwd(fp.float(), idx, w4[:2])
+        fwd(f.double(), uv)
+    with pytest.raises(TypeError, match="uv must be float32"):
+        fwd(f, uv.double())
+    with pytest.raises(ValueError, match="shapes features"):
+        fwd(f[0], uv)
+    with pytest.raises(ValueError, match="shapes uv"):
+        fwd(f, uv.expand(2, -1, -1, -1))
+    with pytest.raises(ValueError, match="one stride"):
+        fwd(f, uv.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(f.transpose(1, 2), uv)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(f.cpu(), uv.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(f, uv.cpu())
+    # 2 x 32770 x 32770 padded pixels: past int32 (torch.empty writes nothing)
+    big = torch.empty((2, 32768, 32768, 1), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        fwd(big, uv.expand(2, -1, -1, -1))
+    del big
 
 
 BWD_CASES = ["ragged", "contention", "hot"]
@@ -197,26 +253,39 @@ def test_backward_kernel_is_deterministic(cuda, case):
 
 
 @pytest.mark.cuda
-def test_autograd_reaches_the_backward_kernel(cuda):
-    """A CUDA gradient builds the bins in the forward, launches
-    quad_sample_bwd once and equals the plain backward's; the coordinates get
-    none. A forward under inference_mode builds no bins."""
-    f, c = _inputs(1, SHAPES[0], torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_reaches_the_backward_kernel(cuda, dtype):
+    """A CUDA gradient: the forward launches the kernel once, which writes
+    idx/w4, and builds the bins from them; the backward launches
+    quad_sample_bwd once, equals it fed ``quad_indices``' idx/w4 bit for bit
+    and the plain backward's within the f32 order (bf16: one unit apart);
+    the coordinates get none. A forward under inference_mode builds no
+    bins."""
+    f, grid_uv = _inputs(1, SHAPES[1], dtype, cuda)
     before = dict(quad_sample.launches)
     with torch.inference_mode():
-        grid_sample_2d_quad_kernel(f, c)
+        grid_sample_2d_quad_kernel(f, grid_uv)
     assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS]
     f.requires_grad_()
-    c.requires_grad_()
+    c = grid_uv.detach().requires_grad_()
     out = grid_sample_2d_quad_kernel(f, c)
+    assert quad_sample.launches[quad_sample.KERNEL] == before[quad_sample.KERNEL] + 2
     assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS] + 1
-    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
-    (out * cot).sum().backward()
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(dtype).to(cuda)
+    (out * cot).float().sum().backward()
     assert quad_sample.launches[quad_sample.BWD_KERNEL] == before[quad_sample.BWD_KERNEL] + 1
     assert c.grad is None
+    b, h, w, ch = f.shape
+    padded = (b, h + 2, w + 2, ch)
+    idx, w4 = quad_indices(f.detach(), grid_uv)
+    want = quad_sample.quad_sample_bwd(cot.reshape(-1, ch).contiguous(), idx, w4, padded,
+                                       quad_sample.quad_bins(idx, w4, padded))
+    assert torch.equal(f.grad, want)
     fc = f.detach().cpu().requires_grad_()
-    (grid_sample_2d_quad_kernel(fc, c.detach().cpu()) * cot.cpu()).sum().backward()
-    torch.testing.assert_close(f.grad.cpu(), fc.grad, rtol=0, atol=1e-5)
+    (grid_sample_2d_quad_kernel(fc, grid_uv.cpu()) * cot.cpu()).float().sum().backward()
+    # both sum in f32 and round once: f32 order; bf16 also one unit apart
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(f.grad.cpu().float(), fc.grad.float(), rtol=rtol, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -28,23 +28,28 @@ from hgsfusion_tpu_torch.ops import quad_sample
 from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain
 
 
-def build(variants: dict) -> dict:
-    """{name: the variant's C entry point}, all compiled at once."""
+def build(variants: dict, source: str = "quad_sample_bwd", entry: str = quad_sample.BWD_KERNEL,
+          tag: str = "bfloat16Li2") -> dict:
+    """{name: the variant's C entry point ``entry``}, each variant of
+    ``csrc/<source>.cu`` compiled at once (the package's headers on the
+    include path); prints the ptxas report of the kernels whose mangled
+    name holds ``tag``."""
     out = native.BUILD_DIR / "tune"
     out.mkdir(parents=True, exist_ok=True)
-    src = (native.CSRC_DIR / "quad_sample_bwd.cu").read_text()
+    src = (native.CSRC_DIR / f"{source}.cu").read_text()
     procs = {}
     for name, knobs in variants.items():
         text = src
         for k, v in knobs.items():
             text, n = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {int(v)};", text)
             if n != 1:
-                raise ValueError(f"no constant {k} in quad_sample_bwd.cu")
-        cu, lib = out / f"{name}.cu", out / f"lib{name}.so"
+                raise ValueError(f"no constant {k} in {source}.cu")
+        cu, lib = out / f"{source}-{name}.cu", out / f"lib{source}-{name}.so"
         cu.write_text(text)
-        procs[name] = (subprocess.Popen([native.nvcc_path(), *native.NVCC_FLAGS, "-o", str(lib),
-                                         str(cu)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), lib)
+        procs[name] = (subprocess.Popen([native.nvcc_path(), *native.NVCC_FLAGS,
+                                         "-I", str(native.CSRC_DIR), "-o", str(lib), str(cu)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
     fns = {}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
@@ -52,11 +57,11 @@ def build(variants: dict) -> dict:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         lines = log.splitlines()
         report = [lines[i + j].strip() for i, line in enumerate(lines)
-                  if "Compiling entry function" in line and "bfloat16Li2" in line
+                  if "Compiling entry function" in line and tag in line
                   for j in (2, 3)]
         print(name, json.dumps(variants[name]), " | ".join(report))
-        fn = ctypes.CDLL(str(lib)).quad_sample_bwd
-        fn.argtypes = quad_sample._ENTRIES[quad_sample.BWD_KERNEL][1]
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes = quad_sample._ENTRIES[entry][1]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
