@@ -45,6 +45,18 @@ Phases, each of which must pass or the script exits non-zero:
    the taps' L2 traffic, that route's, the plain version's
    and the library pair's (``F.grid_sample`` + ``torch.matmul``: no single
    PyTorch call computes the function, so ``library_ms`` is null);
+4c. kernel vs plain, NMS: ``nms_lazy`` (one launch per batch, the op
+   ``hgsfusion::nms_lazy``) against ``greedy_nms_lazy_plain`` at the
+   configs' 4,096 candidates and threshold 0.01: clustered boxes all valid
+   (500 kept), the trained-model regime (64 valid), two frames in one
+   launch, duplicated / touching / nested / zero-area boxes, no valid
+   candidate and a ``max_keep`` cut; every keep decision checked against
+   the greedy rule with the plain IoU given the kernel's own history
+   (``check_nms_frame``: a difference only at an IoU within NMS_TIE of the
+   threshold, counted and printed), the keep sets compared; the kernel
+   (graph replays), the plain version and ``class_agnostic_nms`` with
+   each, timed beside the operations bound of this input's circle tests
+   and IoU evaluations; 8,192 candidates must raise;
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -56,8 +68,10 @@ Phases, each of which must pass or the script exits non-zero:
 7. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
    516x1936, 320x320x31 voxels, 8192 radar points) with random weights from a
    seed, one warm-up frame, then 3 frames in bf16 with the launch counters at
-   0 before and 1 fused launch per frame after (no other launch, no bins
-   built); per-stage times, frames/s and peak device memory;
+   0 before and 1 fused launch and 1 NMS launch per frame after (no other
+   launch, no bins built); per-stage times, frames/s, peak device memory
+   and the post-process with every candidate valid (timed; one call with
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read);
 8. train: the same config and batch with its ``gt_boxes``, one warm-up
    training step, then 3 steps with the counters at 0 before and 2 forward
    and 2 backward launches per step after (and 2 bins built); finite
@@ -148,6 +162,21 @@ Phases, each of which must pass or the script exits non-zero:
     fused launch per frame, TJ4D's result dict with every AP in [0, 100];
 25. eval TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 15 over a
     16-frame synthetic TJ4D tree, 3 forward launches per frame;
+25a. export and serve: ``configs/hgsfusion_vod_pallas.yaml`` and
+    ``configs/hgsfusion_vod_polar.yaml`` at full width exported by
+    ``tools/export.py``'s ``export_model`` (the fused kernel, or the
+    forward three times, and the NMS as ops in the graph) and saved, then
+    served by ``tools/serve.py`` in a subprocess that blocks the model code
+    and JAX (``SERVE_GUARD``) from 9 ``.npz`` files (3 flagship frames,
+    each 3 times): its launches must read the view's per frame, its
+    detections equal ``serve``'s (valid and labels, boxes and scores
+    within 1e-4) at a tie-free score threshold; export and save seconds,
+    the artifact's bytes, ms per frame by completion gaps next to
+    ``serve``'s in the same loop;
+25b. bench: ``python -m hgsfusion_tpu_torch.bench`` (the polar default),
+    ``--vod``, ``--realistic`` and ``--tj4d``, each in its own process:
+    exactly one JSON line each, its metric named as ``bench.py`` names it,
+    a positive value;
 26. small reference, RHGM: the segmentor's tiny preset with either pixel
     decoder (weights from one seed) on a 70 x 100 image, on the card against
     the CPU in f32 with TF32 off: logits and mask logits within
@@ -174,7 +203,8 @@ Phases, each of which must pass or the script exits non-zero:
     over the f32 peak as its bound.
 
 The ``kernels`` line counts each kernel's launches over the main paths
-(``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25 and 27),
+(``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
+serving hosts and 27),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -200,7 +230,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hgsfusion_tpu_torch import bench_scatter, native
+from hgsfusion_tpu_torch import bench, bench_scatter, native
 from hgsfusion_tpu_torch.config import (HGSFusionConfig, load_config, model_config_from_yaml,
                                         vod_dataset_config, vod_pallas_config, vod_polar_config)
 from hgsfusion_tpu_torch.datasets import build_dataset
@@ -209,13 +239,17 @@ from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_k
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
-from hgsfusion_tpu_torch.models.layers import matmul_f32, resize_bilinear
+from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
-from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops import library, nms, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain
+from hgsfusion_tpu_torch.ops.matmul import matmul_f32
+from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.tools import export as export_cli
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
+from hgsfusion_tpu_torch.tools import serve as serve_cli
 from hgsfusion_tpu_torch.tools import test as test_cli
 from hgsfusion_tpu_torch.tools import train as train_cli
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
@@ -232,7 +266,8 @@ from hgsfusion_tpu_torch.utils.common import create_logger
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
-KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add"]
+KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add",
+                  "nms_lazy"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
@@ -290,7 +325,7 @@ NEAR_TOL = 2e-3
 
 
 def zero_launches():
-    for counters in (quad_sample.launches, row_scatter.launches):
+    for counters in (library.launches, row_scatter.launches):
         for k in counters:
             counters[k] = 0
 
@@ -356,8 +391,8 @@ def sampler_case(name, features, coords, dtype, tol, timed: bool):
     bound with and without idx/w4."""
     f = features.to(dtype)
     b, h, w, c = f.shape
-    out, idx, w4 = quad_sample.quad_sample_fwd(f, coords, taps=True)
-    bare = quad_sample.quad_sample_fwd(f, coords)[0]
+    out, idx, w4 = library.quad_sample_fwd(f, coords, taps=True)
+    bare = library.quad_sample_fwd(f, coords)[0]
     got = quad_sample.grid_sample_2d_quad_kernel(f, coords)
     torch.cuda.synchronize()
     ref, ref_idx, ref_w4 = quad_sample.quad_sample_fwd_uv_plain(f, coords, taps=True)
@@ -384,9 +419,9 @@ def sampler_case(name, features, coords, dtype, tol, timed: bool):
         row["bytes"] = nbytes
         # the kernel's device time (launches replayed from a CUDA graph), and
         # its calls back to back as the host launches them
-        row["ms"] = graph_ms(lambda: quad_sample.quad_sample_fwd(f, coords))
-        row["taps_ms"] = graph_ms(lambda: quad_sample.quad_sample_fwd(f, coords, taps=True))
-        row["calls_ms"] = cuda_ms(lambda: quad_sample.quad_sample_fwd(f, coords), iters=50)
+        row["ms"] = graph_ms(lambda: library.quad_sample_fwd(f, coords))
+        row["taps_ms"] = graph_ms(lambda: library.quad_sample_fwd(f, coords, taps=True))
+        row["calls_ms"] = cuda_ms(lambda: library.quad_sample_fwd(f, coords), iters=50)
         with torch.no_grad():
             row["route_ms"] = cuda_ms(lambda: quad_sample.grid_sample_2d_quad_kernel(f, coords),
                                       iters=50)
@@ -469,7 +504,7 @@ def phase_kernel_vs_plain(dev):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             rows.append(sampler_case(name, feats, coords, dtype, tol,
                                      timed=name in FLAGSHIP_SHAPES or name == "ragged"))
-            if name == "outside" and bool(quad_sample.quad_sample_fwd(
+            if name == "outside" and bool(library.quad_sample_fwd(
                     feats.to(dtype), coords)[0].any()):
                 raise AssertionError(f"outside {dtype}: nonzero output")
         if name == "ragged":
@@ -513,7 +548,7 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
     else:
         g = torch.randn((n, c), generator=gen).to(dtype).to(dev)
     bins = quad_sample.quad_bins(idx, w4, padded)
-    got = quad_sample.quad_sample_bwd(g, idx, w4, padded, bins)
+    got = library.quad_sample_bwd(g, idx, w4, padded, bins)
     torch.cuda.synchronize()
     ref = quad_sample_bwd_plain(g, idx, w4, padded)
     diff = (got.float() - ref.float()).abs()
@@ -529,9 +564,9 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
            "queries": n, "max_abs_err": float(diff.max()),
            "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max()) if not exact else 0.0,
            "bin_ms": cuda_ms(lambda: quad_sample.quad_bins(idx, w4, padded)),
-           "kernel_ms": cuda_ms(lambda: quad_sample.quad_sample_bwd(g, idx, w4, padded, bins))}
+           "kernel_ms": cuda_ms(lambda: library.quad_sample_bwd(g, idx, w4, padded, bins))}
     if timed:
-        again = quad_sample.quad_sample_bwd(g, idx, w4, padded,
+        again = library.quad_sample_bwd(g, idx, w4, padded,
                                             quad_sample.quad_bins(idx, w4, padded))
         row["bit_equal_rerun"] = bool(torch.equal(got, again))
         if not row["bit_equal_rerun"]:
@@ -548,7 +583,7 @@ def bwd_case(name, shape, coords, dtype, gen, timed: bool, exact: bool = False):
         row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S \
             else "operations"
         row["bytes"] = nbytes
-        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_bwd(
+        row["ms"] = cuda_ms(lambda: library.quad_sample_bwd(
             g, idx, w4, padded, quad_sample.quad_bins(idx, w4, padded)))
         row["plain_ms"] = cuda_ms(lambda: quad_sample_bwd_plain(g, idx, w4, padded),
                                   iters=3, warmup=1)
@@ -622,7 +657,7 @@ def sampling_route(uv, groups, kmat, bias):
     onto the bias; f32, unrounded."""
     out = bias.expand(uv.numel() // 2, kmat.shape[1]).clone()
     for f, k_off in groups:
-        out.add_(matmul_f32(quad_sample.quad_sample_fwd(f, uv)[0],
+        out.add_(matmul_f32(library.quad_sample_fwd(f, uv)[0],
                             kmat[k_off:k_off + f.shape[-1]]))
     return out
 
@@ -666,7 +701,7 @@ def reduce_case(name, maps, uv, o, dtype, gen, timed: bool):
     kmat = (torch.randn((csum, o), generator=gen) * csum ** -0.5).to(dtype).to(dev)
     bias = torch.randn(o, generator=gen).to(dev)
     n = uv.numel() // 2
-    got = quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias)
+    got = library.quad_sample_reduce_fwd(uv, groups, kmat, bias)
     torch.cuda.synchronize()
     ref = quad_sample.quad_sample_reduce_plain(uv, groups, kmat, bias)
     rtol = REDUCE_RTOL[dtype]
@@ -711,7 +746,7 @@ def reduce_case(name, maps, uv, o, dtype, gen, timed: bool):
         # computed, not measured: the four tap rows of every query and group
         # that pass through L2, beside the bound
         row["computed_l2_tap_bytes"] = 4 * csum * isz * n
-        row["ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias))
+        row["ms"] = cuda_ms(lambda: library.quad_sample_reduce_fwd(uv, groups, kmat, bias))
         row["sampling_route_ms"] = cuda_ms(lambda: sampling_route(uv, groups, kmat, bias))
         row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_plain(
             uv, groups, kmat, bias), iters=3, warmup=1)
@@ -764,7 +799,7 @@ def phase_taps(dev):
     for name, shape, uv in cases:
         for dtype in (torch.bfloat16, torch.float32):
             f = torch.empty((shape[0], shape[1], shape[2], 1), dtype=dtype, device=dev)
-            idx, w4 = quad_sample.quad_sample_taps(f, uv)
+            idx, w4 = library.quad_sample_taps(f, uv)
             torch.cuda.synchronize()
             ref_idx, ref_w4 = quad_sample.quad_indices(f, uv)
             row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
@@ -905,6 +940,189 @@ def phase_bench_scatter(dev):
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     return {"launches": launches, "cases": results}
+
+
+# -- rotated NMS ---------------------------------------------------------------
+# the configs' candidates (NMS_PRE_MAXSIZE) and kept boxes (NMS_POST_MAXSIZE)
+NMS_K, NMS_KEEP, NMS_THRESH = 4096, 500, 0.01
+# a keep decision of the kernel may differ from the plain rule only where an
+# IoU lies within this of the threshold (the small sums' order, see
+# csrc/nms_lazy.cu)
+NMS_TIE = 1e-5
+# f32 operations of one IoU in csrc/nms_lazy.cu, counted from its source
+# (a division as one operation): the centroid 20, the shift 16, each of the
+# two half boundaries 16 edge pairs of 16 operations and a division, and 4
+# edges of 13, plus the union and the quotient; and of the circumcircle
+# test that precedes it (and decides alone for a box clear of the kept one)
+NMS_OPS_PER_IOU, NMS_OPS_PER_TEST = 700, 12
+NMS_DISC_MARGIN = 1e-3  # csrc/nms_lazy.cu DISC_MARGIN
+
+
+def clustered_boxes(k: int, clusters: int, seed: int):
+    """(k, 7) f32 boxes of VoD's classes around ``clusters`` centres in the
+    VoD range, 0.3 m of jitter, random headings, in random order (the order
+    is the score order): about 584 survive NMS at 0.01 for 800 clusters."""
+    rng = np.random.RandomState(seed)
+    cx, cy = rng.uniform(0.0, 51.2, clusters), rng.uniform(-25.6, 25.6, clusters)
+    member = rng.randint(0, clusters, k)
+    sizes = np.array([[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]], np.float32)
+    cls = rng.randint(0, 3, clusters)[member]
+    boxes = np.zeros((k, 7), np.float32)
+    boxes[:, 0] = cx[member] + rng.normal(0, 0.3, k)
+    boxes[:, 1] = cy[member] + rng.normal(0, 0.3, k)
+    boxes[:, 2] = rng.uniform(-2, 0, k)
+    boxes[:, 3:6] = sizes[cls] * rng.uniform(0.9, 1.1, (k, 3))
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, k)
+    return boxes
+
+
+def degenerate_boxes(k: int, seed: int):
+    """Exact duplicates, boxes that share an edge, one box inside another
+    and zero-area boxes, in random order."""
+    rng = np.random.RandomState(seed)
+    base = clustered_boxes(k // 8, k // 16, seed)
+    touching = base.copy()
+    touching[:, 0] += base[:, 3] * np.cos(base[:, 6])  # moved one length along the heading
+    touching[:, 1] += base[:, 3] * np.sin(base[:, 6])
+    inside = base.copy()
+    inside[:, 3:5] *= 0.5
+    flat = base.copy()
+    flat[:, 4] = 0.0
+    boxes = np.concatenate([base, base, base, touching, inside, flat, base, touching])[:k]
+    return boxes[rng.permutation(k)]
+
+
+def plain_nms_batch(boxes, valid, nms_thresh: float, max_keep: int):
+    """The plain version, frame by frame (``greedy_nms_lazy_plain``, one host
+    read a frame)."""
+    return torch.stack([nms.greedy_nms_lazy_plain(b, v, nms_thresh, max_keep)
+                        for b, v in zip(boxes, valid)])
+
+
+def check_nms_frame(boxes, valid, keep, nms_thresh: float, max_keep: int) -> dict:
+    """Every keep decision of ``keep`` against the greedy rule given its own
+    earlier decisions, with the plain IoU (``boxes_iou_bev``): a valid
+    candidate is kept iff fewer than ``max_keep`` were kept before it and
+    no kept one before it overlaps it by more than ``nms_thresh``. A
+    decision that breaks the rule counts as a tie where an earlier kept
+    box's IoU with it lies within NMS_TIE of the threshold; any other
+    raises. Returns the kept count, the tie decisions, and the circle tests
+    and IoU evaluations the kernel's sweep makes (for its bound)."""
+    kept = torch.nonzero(keep).squeeze(1)
+    if bool((keep & ~valid).any()) or kept.numel() > max_keep:
+        raise AssertionError(f"kept {kept.numel()} (max {max_keep}), some invalid")
+    n = keep.shape[0]
+    cols = torch.arange(n, device=keep.device)
+    if kept.numel():
+        iou = torch.cat([boxes_iou_bev(boxes[kept[r:r + 64]], boxes)
+                         for r in range(0, kept.numel(), 64)])
+    else:
+        iou = torch.zeros((0, n), device=keep.device)
+    before = kept[:, None] < cols[None, :]
+    over = (iou > nms_thresh) & before
+    suppressed = over.any(0)
+    tie = (((iou - nms_thresh).abs() <= NMS_TIE) & before).any(0)
+    count_before = torch.searchsorted(kept, cols)  # kept candidates before each
+    decided = valid & (count_before < max_keep)
+    rule = decided & ~suppressed
+    wrong = keep != rule
+    if bool((wrong & ~tie).any()):
+        j = int(torch.nonzero(wrong & ~tie)[0])
+        raise AssertionError(f"candidate {j}: kept {bool(keep[j])}, the rule says {bool(rule[j])}")
+    # the sweep tests candidate j at every kept step i < j up to and
+    # including its first suppressor, while it is live and valid, and
+    # evaluates the IoU where the two circumcircles are not clear
+    first = torch.where(over, kept[:, None], torch.full_like(over, n, dtype=torch.long))
+    first = first.amin(0) if kept.numel() else torch.full_like(cols, n)
+    tested = (kept[:, None] <= first[None, :]) & before & valid[None, :]
+    r = 0.5 * torch.sqrt(boxes[:, 3] ** 2 + boxes[:, 4] ** 2)
+    gap = r[kept][:, None] + r[None, :]
+    gap = gap + NMS_DISC_MARGIN * (1 + gap)
+    dist2 = ((boxes[kept, None, :2] - boxes[None, :, :2]) ** 2).sum(-1)
+    return {"kept": kept.numel(), "tie_decisions": int(wrong.sum()),
+            "circle_tests": int(tested.sum()),
+            "iou_evals": int((tested & (dist2 <= gap * gap)).sum())}
+
+
+def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
+    """``nms_lazy`` (the op) against the plain version on (B, K) candidates:
+    each frame's decisions checked by ``check_nms_frame``, the keep sets
+    compared with the plain version's; timed: the kernel (graph replays),
+    the plain version, and ``class_agnostic_nms`` on scores that order the
+    boxes as given, with the kernel and with the plain version (the route
+    before the kernel)."""
+    got = nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep)
+    want = plain_nms_batch(boxes, valid, NMS_THRESH, max_keep)
+    frames = [check_nms_frame(b, v, g, NMS_THRESH, max_keep)
+              for b, v, g in zip(boxes, valid, got)]
+    row = {"case": name, "shape": list(boxes.shape), "valid": int(valid.sum()),
+           "max_keep": max_keep, "kept": [f["kept"] for f in frames],
+           "tie_decisions": sum(f["tie_decisions"] for f in frames),
+           "equal_to_plain": bool(torch.equal(got, want)),
+           "differs_from_plain": int((got != want).sum()),
+           "circle_tests": sum(f["circle_tests"] for f in frames),
+           "iou_evals": sum(f["iou_evals"] for f in frames)}
+    if timed:
+        k = boxes.shape[1]
+        scores = torch.linspace(1.0, 0.5, k, device=boxes.device).expand(boxes.shape[0], k)
+        scores = torch.where(valid, scores, torch.zeros_like(scores))
+
+        def route():
+            return nms.class_agnostic_nms(scores, boxes, 0.1, NMS_THRESH, k, max_keep)
+
+        row["ms"] = graph_ms(lambda: nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep),
+                             iters=3, replays=2)
+        row["plain_ms"] = cuda_ms(lambda: plain_nms_batch(boxes, valid, NMS_THRESH, max_keep),
+                                  iters=2, warmup=1)
+        row["route_ms"] = cuda_ms(route, iters=5, warmup=1)
+        with mock.patch.object(nms, "nms_lazy_op", plain_nms_batch):
+            row["plain_route_ms"] = cuda_ms(route, iters=2, warmup=1)
+        # operations: the circle tests and IoU evaluations this input needs,
+        # over the f32 peak (boxes, valid and the mask move a few hundred KB)
+        row["bound_ms"] = (row["iou_evals"] * NMS_OPS_PER_IOU + row["circle_tests"]
+                           * NMS_OPS_PER_TEST) / F32_FLOPS_PER_S * 1e3
+        row["bytes_bound_ms"] = boxes.numel() * 6 / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "operations"
+        row["library_ms"] = None  # no PyTorch call computes rotated NMS
+    row["max_abs_err"] = float(row["differs_from_plain"] > 0)  # the keep masks, 0 or 1
+    print("  " + json.dumps(row))
+    return row
+
+
+def phase_kernel_vs_plain_nms(dev):
+    """``nms_lazy`` against ``greedy_nms_lazy_plain`` at the configs' 4,096
+    candidates, 0.01: (a) the worst case, every candidate valid, clustered
+    boxes, 500 kept; (b) the trained-model regime, 64 valid; (c) two frames
+    in one launch; (d) duplicated, touching, nested and zero-area boxes;
+    (e) no valid candidate; (f) a ``max_keep`` cut at 37."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    worst = t(clustered_boxes(NMS_K, 800, 0))[None]
+    all_valid = torch.ones((1, NMS_K), dtype=torch.bool, device=dev)
+    prefix = torch.arange(NMS_K, device=dev)[None] < 64
+    pair = t(np.stack([clustered_boxes(NMS_K, 800, 1), clustered_boxes(NMS_K, 1600, 2)]))
+    rows = [
+        nms_case("worst", worst, all_valid, NMS_KEEP, timed=True),
+        nms_case("realistic", worst, prefix, NMS_KEEP, timed=True),
+        nms_case("batch2", pair, all_valid.expand(2, -1).contiguous(), NMS_KEEP, timed=True),
+        nms_case("degenerate", t(degenerate_boxes(NMS_K, 3))[None], all_valid, NMS_KEEP,
+                 timed=False),
+        nms_case("none_valid", worst, torch.zeros_like(all_valid), NMS_KEEP, timed=False),
+        nms_case("max_keep", worst, all_valid, 37, timed=False),
+    ]
+    if rows[0]["kept"] != [NMS_KEEP] or rows[4]["kept"] != [0] or rows[5]["kept"] != [37]:
+        raise AssertionError(f"kept {[r['kept'] for r in rows]}")
+    print(f"  tie decisions: {sum(r['tie_decisions'] for r in rows)}")
+    # too many candidates for a block's shared memory: raises, no plain fallback
+    big = torch.zeros((1, 8192, 7), device=dev)
+    try:
+        nms.nms_lazy_op(big, torch.ones((1, 8192), dtype=torch.bool, device=dev), 0.1, 10)
+    except ValueError as e:
+        print(f"  8192 candidates: {e}")
+    else:
+        raise AssertionError("8192 candidates did not raise")
+    return rows
 
 
 def phase_kernel_vs_plain_reduce(dev):
@@ -1067,10 +1285,11 @@ def phase_small_reference_xla(dev):
     zero_launches()
     out = {"serve": phase_small_reference(dev, TINY_XLA),
            "train": phase_small_reference_train(dev, TINY_XLA)}
-    out["launches"] = dict(quad_sample.launches)
-    # the served frame: one fused launch; the step: 2 forward, 2 backward, 2 bins
-    want = per_frames({quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1,
-                       quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}, 1)
+    out["launches"] = dict(library.launches)
+    # the served frame: one fused launch and the NMS; the step: 2 forward, 2
+    # backward, 2 bins
+    want = per_frames({library.KERNEL: 2, library.REDUCE_KERNEL: 1, library.NMS: 1,
+                       library.BWD_KERNEL: 2, library.BINS: 2}, 1)
     print(f"  launches on the card: {out['launches']}")
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -1112,10 +1331,10 @@ def phase_train(dev, cfg, per_step: int):
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
         terms.append({k: float(v) for k, v in tb.items()})
-    launches = dict(quad_sample.launches)
+    launches = dict(library.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = per_frames({quad_sample.KERNEL: per_step, quad_sample.BWD_KERNEL: per_step,
-                       quad_sample.BINS: per_step}, 3)
+    want = per_frames({library.KERNEL: per_step, library.BWD_KERNEL: per_step,
+                       library.BINS: per_step}, 3)
     if launches != want:
         raise AssertionError(f"launches in 3 steps {launches}, want {want}")
     for t in terms:
@@ -1170,19 +1389,19 @@ def phase_train(dev, cfg, per_step: int):
 # counters at 0 just before it
 MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_polar", "train_cli",
               "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
-              "eval_tj4d_polar", "rhgm")
+              "eval_tj4d_polar", "export_serve", "export_serve_polar", "rhgm")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
-    """Every counter of ``quad_sample.launches`` after ``frames`` frames that
+    """Every counter of ``library.launches`` after ``frames`` frames that
     each launch ``per_frame`` (the counters it does not name: 0)."""
-    return {k: frames * per_frame.get(k, 0) for k in quad_sample.launches}
+    return {k: frames * per_frame.get(k, 0) for k in library.launches}
 
 
 # launches per served or evaluated frame: the gather view's two groups in
 # one fused launch, the polar view's three samples
-GATHER_FRAME = {quad_sample.REDUCE_KERNEL: 1}
-POLAR_FRAME = {quad_sample.KERNEL: 3}
+GATHER_FRAME = {library.REDUCE_KERNEL: 1, library.NMS: 1}
+POLAR_FRAME = {library.KERNEL: 3, library.NMS: 1}
 
 
 def phase_serve(dev, cfg, per_frame: dict, batch=None):
@@ -1206,7 +1425,7 @@ def phase_serve(dev, cfg, per_frame: dict, batch=None):
         dets = model.serve(batch)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-    launches = dict(quad_sample.launches)
+    launches = dict(library.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     want = per_frames(per_frame, 3)
     if launches != want:
@@ -1238,13 +1457,18 @@ def phase_serve(dev, cfg, per_frame: dict, batch=None):
     if not torch.equal(staged["valid"], dets["valid"]):
         raise AssertionError("the staged frame kept other boxes than serve()")
     # the post-process's worst case: every anchor passes the score threshold,
-    # so 4096 candidates enter the NMS and up to 500 are kept
+    # so 4096 candidates enter the NMS and up to 500 are kept; the last call
+    # with every host-synchronizing call an error (none is left)
     with torch.inference_mode():
         worst_ms = cuda_ms(lambda: post_process(
             preds, model.anchors, model.box_coder, cfg, 0.0, cfg.nms_thresh,
             cfg.nms_pre_max_size, cfg.nms_post_max_size), iters=3, warmup=1)
-        worst = post_process(preds, model.anchors, model.box_coder, cfg, 0.0,
-                             cfg.nms_thresh, cfg.nms_pre_max_size, cfg.nms_post_max_size)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            worst = post_process(preds, model.anchors, model.box_coder, cfg, 0.0,
+                                 cfg.nms_thresh, cfg.nms_pre_max_size, cfg.nms_post_max_size)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     result = {
         "frames": 3, "launches": launches,
         "frame_s": wall, "frames_per_s": 3 / sum(wall),
@@ -1415,7 +1639,7 @@ def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
                                              infer_time=True)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(quad_sample.launches)
+        launches = dict(library.launches)
         peak = torch.cuda.max_memory_allocated(dev)
         want = per_frames(per_frame, EVAL_FRAMES)
         if launches != want:
@@ -1468,6 +1692,204 @@ def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
     return result
 
 
+# -- the serving entry points --------------------------------------------------
+# the serving host's batches: 3 flagship frames (seeds 0-2), each written 3
+# times so that its completion gaps reach the steady state
+EXPORT_FRAMES, EXPORT_REPEATS = 3, 3
+# a serving host that imports no model code (nor JAX): run as
+# ``python -c SERVE_GUARD <serve.py's arguments>``
+SERVE_GUARD = r"""
+import importlib.abc, runpy, sys
+BLOCKED = ("jax", "jaxlib", "hgsfusion_tpu", "hgsfusion_tpu_torch.models")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("the serving host imported " + name)
+sys.meta_path.insert(0, Block())
+sys.argv[0] = "serve"
+runpy.run_module("hgsfusion_tpu_torch.tools.serve", run_name="__main__")
+"""
+REPO = Path(__file__).resolve().parent
+
+
+def run_serving_host(artifact, inputs, out_dir, timeout: int = 600, env=None):
+    """``tools/serve.py`` in a subprocess that blocks the model code and
+    JAX (``env``: its environment, default this one's); returns its JSON
+    summary (its last line) and the detections, by input stem."""
+    proc = subprocess.run([sys.executable, "-c", SERVE_GUARD, "--artifact", str(artifact),
+                           "--inputs", str(inputs), "--out_dir", str(out_dir), "--time"],
+                          capture_output=True, text=True, timeout=timeout, cwd=REPO, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving host failed:\n{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["stdout"] = proc.stdout.strip().splitlines()[:-1]
+    dets = {}
+    for path in sorted(Path(out_dir).glob("*_dets.npz")):
+        with np.load(path) as d:
+            dets[path.name[:-len("_dets.npz")]] = {k: d[k] for k in d.files}
+    return summary, dets
+
+
+# candidates a frame above the export phases' score threshold, and the gap
+# kept around each (the artifact and serve run the same kernels on one card)
+EXPORT_PER_FRAME, EXPORT_MIN_GAP = 12, 1e-6
+
+
+def tie_free_serving_threshold(model, frames) -> float:
+    """``tie_free_threshold`` over the frames' eager scores."""
+    scores = []
+    with torch.inference_mode():
+        for f in frames:
+            cls = model(model.batch_to_device(f))["cls_preds"].float()
+            scores.append(torch.sigmoid(cls.reshape(-1, model.cfg.num_class)).amax(-1)
+                          .cpu().numpy())
+    return tie_free_threshold(scores, EXPORT_MIN_GAP, EXPORT_PER_FRAME)
+
+
+def pipelined_ms(serve_fn, frames) -> list:
+    """``tools/serve.py``'s loop on ``serve_fn``: frame i + 1 dispatched
+    before frame i is fetched; the gaps between completions (ms)."""
+    gaps, last, pending = [], None, None
+
+    def finish(dets):
+        nonlocal last
+        {k: v.cpu() for k, v in dets.items()}
+        now = time.perf_counter()
+        if last is not None:
+            gaps.append((now - last) * 1e3)
+        last = now
+
+    for f in frames:
+        dets = serve_fn(f)
+        if pending is not None:
+            finish(pending)
+        pending = dets
+    finish(pending)
+    return gaps
+
+
+def phase_export_serve(dev, cfg, per_frame: dict):
+    """``cfg`` at full width (random weights, seed 0) exported by
+    ``tools/export.py``'s ``export_model`` on the flagship batch and saved;
+    ``tools/serve.py`` in a subprocess that imports no model code serves 3
+    flagship frames (seeds 0-2), each from 3 ``.npz`` files: its launches
+    (after its warm-up) must read ``per_frame`` for each file, and its
+    detections equal ``serve``'s on the same frames (valid and labels equal,
+    boxes and scores within 1e-4) at a tie-free score threshold baked into
+    both. Beside the export's and the save's seconds and the artifact's
+    bytes: ms per frame by completion gaps through the host (which reads
+    each ``.npz`` and copies it from pageable memory) and through ``serve``
+    on the same numpy frames, and through the artifact loaded in this
+    process and ``serve`` on the frames already on the card."""
+    model = HGSFusionModel(cfg, device=dev, seed=0)
+    frames = [flagship_batch(cfg, seed=s) for s in range(EXPORT_FRAMES)]
+    thr = tie_free_serving_threshold(model, frames)
+    model.cfg = dataclasses.replace(cfg, score_thresh=thr)
+    t0 = time.perf_counter()
+    program, spec = export_cli.export_model(model, frames[0])
+    export_s = time.perf_counter() - t0
+    nodes = sorted({str(n.target) for n in program.graph.nodes
+                    if library.NAMESPACE in str(n.target)})
+    graph_nodes = sum(n.op == "call_function" for n in program.graph.nodes)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        size = export_cli.save_artifact(program, spec, tmp / "model.pt2")
+        save_s = time.perf_counter() - t0
+        del program
+        (tmp / "in").mkdir()
+        for r in range(EXPORT_REPEATS):
+            for i, f in enumerate(frames):
+                np.savez(tmp / "in" / f"r{r}_frame{i}.npz", **{k: f[k] for k in spec["inputs"]})
+        t0 = time.perf_counter()
+        summary, dets = run_serving_host(tmp / "model.pt2", tmp / "in", tmp / "out")
+        host_s = time.perf_counter() - t0
+        # the artifact in this process on batches already on the card: its
+        # graph against serve, without the host's file reads and copies
+        module, _ = serve_cli.load_artifact(tmp / "model.pt2")
+    on_card = [serve_cli.batch_inputs(f, spec) for f in frames] * EXPORT_REPEATS
+
+    def artifact(batch):
+        with torch.inference_mode():
+            return module(batch)
+
+    artifact(on_card[0])  # warm-up
+    artifact_gaps = pipelined_ms(artifact, on_card)
+    del module
+    want = per_frames(per_frame, EXPORT_FRAMES * EXPORT_REPEATS)
+    if summary["launches"] != want:
+        raise AssertionError(f"the artifact's launches {summary['launches']}, want {want}")
+    model.serve(frames[0])  # warm-up
+    serve_gaps = pipelined_ms(model.serve, frames * EXPORT_REPEATS)
+    serve_card_gaps = pipelined_ms(model.serve, on_card)
+    errs = {"boxes": 0.0, "scores": 0.0}
+    kept = []
+    for i, f in enumerate(frames):
+        ref = {k: v.cpu().numpy() for k, v in model.serve(f).items()}
+        for r in range(EXPORT_REPEATS):
+            got = dets[f"r{r}_frame{i}"]
+            for k in ("valid", "labels"):
+                if not np.array_equal(got[k], ref[k]):
+                    raise AssertionError(f"frame {i}: the artifact's {k} differ from serve's")
+            for k in errs:
+                errs[k] = max(errs[k], float(np.abs(got[k] - ref[k]).max()))
+        kept.append(int(ref["valid"].sum()))
+    if max(errs.values()) > 1e-4 or not all(kept):
+        raise AssertionError(f"max abs err {errs}, kept {kept}")
+    result = {"launches": summary["launches"], "graph_ops": nodes, "score_thresh": thr,
+              "kept": kept, "max_abs_err": errs,
+              "export_s": export_s, "save_s": save_s, "artifact_bytes": size,
+              "serving_host_s": host_s, "artifact_ms_per_frame": summary["ms_per_frame"],
+              "artifact_gaps_ms": summary["gaps_ms"],
+              "serve_ms_per_frame": float(np.mean(serve_gaps)),
+              "serve_gaps_ms": serve_gaps,
+              "on_card_artifact_ms_per_frame": float(np.mean(artifact_gaps)),
+              "on_card_serve_ms_per_frame": float(np.mean(serve_card_gaps)),
+              "graph_nodes": graph_nodes, "inputs": spec["inputs"]}
+    print("  " + json.dumps(result))
+    return result
+
+
+# python -m hgsfusion_tpu_torch.bench runs: the polar default, the gather
+# view, the trained-model regime, TJ4DRadSet
+BENCH_RUNS = ((), ("--vod",), ("--realistic",), ("--tj4d",))
+
+
+def phase_bench(dev):
+    """The port's ``bench`` entry point, each of BENCH_RUNS in its own
+    process: exactly one JSON line on stdout, with a positive value, and
+    the timed serve calls' kernel launches (its stderr) those of a gather
+    or polar frame each."""
+    lines = []
+    for args in BENCH_RUNS:
+        proc = subprocess.run([sys.executable, "-m", "hgsfusion_tpu_torch.bench", *args],
+                              capture_output=True, text=True, timeout=600, cwd=REPO)
+        out = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(out) != 1:
+            raise AssertionError(f"bench {args}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        line = json.loads(out[0])
+        cfg_name = args[0][2:] if args and args[0] != "--realistic" else "vod_polar"
+        name = bench.metric_name(cfg_name, 1, "--realistic" in args)
+        if line.get("metric") != name or not line.get("value", 0) > 0 \
+                or line.get("unit") != "frames/sec/chip" or "vs_baseline" not in line:
+            raise AssertionError(f"bench {args}: {line}")
+        line["stderr"] = [s for s in proc.stderr.strip().splitlines() if s.startswith("#")]
+        launched = [json.loads(s[len("# launches "):]) for s in line["stderr"]
+                    if s.startswith("# launches ")]
+        if len(launched) != 1:
+            raise AssertionError(f"bench {args}: no launch counts on stderr")
+        polar = bench.flagship_config(cfg_name).f2v_view == "polar"
+        want = per_frames(POLAR_FRAME if polar else GATHER_FRAME,
+                          launched[0]["serve_calls"])
+        if launched[0]["counts"] != want:
+            raise AssertionError(f"bench {args}: launches {launched[0]}, want {want}")
+        print("  " + json.dumps(line))
+        lines.append(line)
+    return lines
+
+
 VOD_YAML = "configs/hgsfusion_vod.yaml"
 TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, RESUME_STEPS, TRAIN_CLI_EVAL_FRAMES = 16, 20, 4, 8
 
@@ -1497,7 +1919,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
         # the main path: the first training run
         zero_launches()
         first = train_cli.main(common + ["--max_steps", str(TRAIN_CLI_STEPS)] + data_set)
-        first["launches"] = dict(quad_sample.launches)
+        first["launches"] = dict(library.launches)
         ckpt = CheckpointManager(Path(first["out_dir"]) / "ckpt")
         first_steps = ckpt.all_steps()
 
@@ -1515,7 +1937,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
         log = (Path(first["out_dir"]) / "train.log").read_text()
         zero_launches()
         second = train_cli.fit(run)
-        second["launches"] = dict(quad_sample.launches)
+        second["launches"] = dict(library.launches)
 
         # the evaluation of the newest checkpoint
         zero_launches()
@@ -1524,7 +1946,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
                                    "--max_frames", str(TRAIN_CLI_EVAL_FRAMES), "--output_dir",
                                    str(out / "eval")] + data_set)
         eval_s = time.perf_counter() - t0
-        eval_launches = dict(quad_sample.launches)
+        eval_launches = dict(library.launches)
         final_steps = ckpt.all_steps()
 
     def check(ok, what):
@@ -1532,8 +1954,8 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
             failures.append(what)
 
     for name, r, steps in (("first", first, TRAIN_CLI_STEPS), ("resume", second, RESUME_STEPS)):
-        want = per_frames({quad_sample.KERNEL: 2, quad_sample.BWD_KERNEL: 2,
-                           quad_sample.BINS: 2}, steps)
+        want = per_frames({library.KERNEL: 2, library.BWD_KERNEL: 2,
+                           library.BINS: 2}, steps)
         check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
         check(r["steps"] == steps and all(math.isfinite(v) for v in r["losses"]),
               f"{name}: {r['steps']} steps, losses {r['losses']}")
@@ -1669,9 +2091,9 @@ def phase_small_reference_tj4d(dev):
         out = {"serve": phase_small_reference(dev, model_cfg,
                                               ds.collate_batch([ds[i] for i in range(2)])),
                "train": phase_small_reference_train(dev, model_cfg, train_batch)}
-        out["launches"] = dict(quad_sample.launches)
-        want = per_frames({quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 1,
-                           quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2}, 1)
+        out["launches"] = dict(library.launches)
+        want = per_frames({library.KERNEL: 2, library.REDUCE_KERNEL: 1, library.NMS: 1,
+                           library.BWD_KERNEL: 2, library.BINS: 2}, 1)
         print(f"  launches on the card: {out['launches']}")
         if out["launches"] != want:
             raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -1707,7 +2129,7 @@ def phase_train_cli_tj4d(dev):
                               "--workers", "4", "--output_dir", str(out), "--max_steps",
                               str(TJ4D_CLI_STEPS), "--profile_steps", "1:1"]
                              + data_set)
-        run["launches"] = dict(quad_sample.launches)
+        run["launches"] = dict(library.launches)
         ckpt = CheckpointManager(Path(run["out_dir"]) / "ckpt")
         steps = ckpt.all_steps()
         # the evaluation of the newest checkpoint
@@ -1717,13 +2139,13 @@ def phase_train_cli_tj4d(dev):
                                    "--max_frames", str(TJ4D_CLI_EVAL_FRAMES), "--output_dir",
                                    str(out / "eval")] + data_set)
         eval_s = time.perf_counter() - t0
-        eval_launches = dict(quad_sample.launches)
+        eval_launches = dict(library.launches)
 
     def check(ok, what):
         if not ok:
             failures.append(what)
 
-    want = per_frames({quad_sample.KERNEL: 2, quad_sample.BWD_KERNEL: 2, quad_sample.BINS: 2},
+    want = per_frames({library.KERNEL: 2, library.BWD_KERNEL: 2, library.BINS: 2},
                       TJ4D_CLI_STEPS)
     check(run["launches"] == want, f"launches {run['launches']}, want {want}")
     check(run["steps"] == TJ4D_CLI_STEPS and all(math.isfinite(v) for v in run["losses"]),
@@ -1838,7 +2260,7 @@ def phase_small_reference_rhgm(dev):
 
 
 def _launches() -> dict:
-    return {**quad_sample.launches, **row_scatter.launches}
+    return {**library.launches, **row_scatter.launches}
 
 
 def segmentor_flops(source, image) -> dict:
@@ -2028,6 +2450,7 @@ def main(argv=None) -> int:
     phase("taps", phase_taps, dev)
     phase("kernel_vs_plain_reduce", phase_kernel_vs_plain_reduce, dev)
     torch.cuda.empty_cache()
+    phase("kernel_vs_plain_nms", phase_kernel_vs_plain_nms, dev)
     phase("small_reference", phase_small_reference, dev)
     phase("small_reference_train", phase_small_reference_train, dev)
     phase("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME)
@@ -2066,6 +2489,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME)
     torch.cuda.empty_cache()
+    phase("export_serve", phase_export_serve, dev, vod_pallas_config(), GATHER_FRAME)
+    torch.cuda.empty_cache()
+    phase("export_serve_polar", phase_export_serve, dev, vod_polar_config(), POLAR_FRAME)
+    torch.cuda.empty_cache()
+    phase("bench", phase_bench, dev)
     phase("small_reference_rhgm", phase_small_reference_rhgm, dev)
     phase("rhgm", phase_rhgm, dev)
     if failed:
@@ -2102,15 +2530,15 @@ def main(argv=None) -> int:
 
     polar = report["kernel_vs_plain_polar"]
     kernels = [
-        kernel_row(quad_sample.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
+        kernel_row(library.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:108",
                    [r for r in report["kernel_vs_plain"]
                     if r["case"] in FLAGSHIP_SHAPES and r["dtype"] == "bfloat16"],
                    [r for r in polar["fwd"] if r["dtype"] == "bfloat16"]),
-        kernel_row(quad_sample.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
+        kernel_row(library.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
                    "hgsfusion_tpu/ops/pallas_sample.py:226",
                    [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], polar["bwd"]),
-        kernel_row(quad_sample.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
+        kernel_row(library.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
                    "_bench_gather_pallas.py:162",
                    [r for r in report["kernel_vs_plain_reduce"]["rows"] if "ms" in r]),
         kernel_row(row_scatter.KERNEL, "hgsfusion_tpu_torch/csrc/row_scatter_add.cu",
@@ -2120,6 +2548,16 @@ def main(argv=None) -> int:
     kernels[-1]["cases"] = {r["case"]: {k: r[k] for k in (
         "ms", "binning_ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")}
         for r in report["kernel_vs_plain_scatter"] if "ms" in r}
+    # NMS: the worst case (4,096 valid, 500 kept) as the row, every case in it
+    nms_rows = report["kernel_vs_plain_nms"]
+    kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",
+                              "none: hgsfusion_tpu/ops/nms.py:24 (XLA lax.while_loop)",
+                              nms_rows[:1]))
+    kernels[-1]["max_abs_err"] = max(r["max_abs_err"] for r in nms_rows)
+    kernels[-1]["tie_decisions"] = sum(r["tie_decisions"] for r in nms_rows)
+    kernels[-1]["cases"] = {r["case"]: {k: r.get(k) for k in (
+        "kept", "ms", "plain_ms", "route_ms", "plain_route_ms", "bound_ms")}
+        for r in nms_rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

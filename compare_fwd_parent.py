@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 import hgsfusion_tpu_torch
+from hgsfusion_tpu_torch.ops import library
 from hgsfusion_tpu_torch.profile_serve import profile_frames
 
 
@@ -69,7 +70,7 @@ def route_cases(dev):
 def kernel_call(label, qs, f, coords):
     """A call of ``label``'s kernel alone on map ``f`` and ``coords``."""
     if label == "change":
-        return lambda: qs.quad_sample_fwd(f, coords)
+        return lambda: library.quad_sample_fwd(f, coords)
     idx, w4 = qs.quad_indices(f, coords)
     fp = F.pad(f, (0, 0, 1, 1, 1, 1)).contiguous()
     return lambda: qs.quad_sample_fwd(fp, idx, w4)

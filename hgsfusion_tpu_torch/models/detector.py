@@ -221,7 +221,8 @@ def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
                  nms_thresh: float = 0.01, pre_max_size: int = 4096,
                  post_max_size: int = 500):
     """Sigmoid -> per-anchor max class -> top ``pre_max_size`` -> decode ->
-    class-agnostic rotated NMS. Returns {"boxes" (B, post_max, 7), "scores",
+    class-agnostic rotated NMS, the whole batch at once (one NMS launch on
+    the card, no host read). Returns {"boxes" (B, post_max, 7), "scores",
     "labels" (1-based), "valid"}, fixed shapes."""
     bsz = preds["cls_preds"].shape[0]
     a = anchors.shape[0]
@@ -230,22 +231,22 @@ def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
     labels = labels + 1
     raw_box = preds["box_preds"].reshape(bsz, a, -1)
     raw_dir = preds.get("dir_cls_preds")
-    if raw_dir is not None:
-        raw_dir = raw_dir.reshape(bsz, a, cfg.num_dir_bins)
     k = min(pre_max_size, a)
-    out = {"boxes": [], "scores": [], "labels": [], "valid": []}
-    for i in range(bsz):
-        s = cls_scores[i]
-        masked = torch.where(s >= score_thresh, s, torch.full_like(s, NEG_INF))
-        top_s, top_i = torch.topk(masked, k)
-        dec = decode_selected_boxes(
-            raw_box[i][top_i], None if raw_dir is None else raw_dir[i][top_i],
-            anchors[top_i], box_coder, dir_offset=cfg.dir_offset,
-            dir_limit_offset=cfg.dir_limit_offset, num_dir_bins=cfg.num_dir_bins)
-        idx, valid = class_agnostic_nms(top_s, dec, score_thresh, nms_thresh, k,
-                                        post_max_size)
-        out["boxes"].append(dec[idx])
-        out["scores"].append(s[top_i][idx])
-        out["labels"].append(labels[i][top_i][idx])
-        out["valid"].append(valid)
-    return {key: torch.stack(v) for key, v in out.items()}
+    masked = torch.where(cls_scores >= score_thresh, cls_scores,
+                         torch.full_like(cls_scores, NEG_INF))
+    top_s, top_i = torch.topk(masked, k, dim=-1)
+
+    def rows(t):  # (B, A, ...) -> the top candidates' rows (B, k, ...)
+        return torch.take_along_dim(t, top_i.reshape(top_i.shape + (1,) * (t.dim() - 2)), dim=1)
+
+    dec = decode_selected_boxes(
+        rows(raw_box), None if raw_dir is None else rows(raw_dir.reshape(bsz, a, -1)),
+        anchors[top_i], box_coder, dir_offset=cfg.dir_offset,
+        dir_limit_offset=cfg.dir_limit_offset, num_dir_bins=cfg.num_dir_bins)
+    idx, valid = class_agnostic_nms(top_s, dec, score_thresh, nms_thresh, k, post_max_size)
+
+    def kept(t):  # (B, k, ...) -> the kept slots (B, post_max, ...)
+        return torch.take_along_dim(t, idx.reshape(idx.shape + (1,) * (t.dim() - 2)), dim=1)
+
+    return {"boxes": kept(dec), "scores": kept(rows(cls_scores)),
+            "labels": kept(rows(labels)), "valid": valid}

@@ -20,10 +20,10 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.quad_sample import (grid_sample_2d_quad_kernel, quad_sample_reduce_fwd,
-                               quad_sample_reduce_plain)
+from ..ops.matmul import matmul_f32
+from ..ops.quad_sample import grid_sample_2d_quad_kernel, quad_sample_reduce
 from ..utils.common import device_constant
-from .layers import batch_norm, compute_dtype, matmul_f32
+from .layers import batch_norm, compute_dtype
 
 
 def bin_depths(depth, mode: str, depth_min: float, depth_max: float, num_bins: int):
@@ -137,8 +137,9 @@ class FrustumToVoxelMultiScale(nn.Module):
         rows (compute dtype), each product reaching the f32 sum unrounded.
 
         Where no gradient is taken (serving, evaluation) all groups go
-        through one ``quad_sample_reduce_fwd`` launch (its plain version on
-        CPU tensors), which reads the grid's (u, v) in place and the unpadded
+        through one ``quad_sample_reduce_fwd`` launch (the op
+        ``hgsfusion::quad_sample_reduce_fwd``: its plain version on CPU
+        tensors), which reads the grid's (u, v) in place and the unpadded
         maps, and returns the sum rounded once to the compute dtype: no
         padded map, no tap indices and no sampled features reach memory.
         Otherwise each group is sampled by ``grid_sample_2d_quad_kernel``,
@@ -163,10 +164,9 @@ class FrustumToVoxelMultiScale(nn.Module):
         needs_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (*features, conv.weight, conv.bias))
         if not needs_grad:
-            reduce = quad_sample_reduce_fwd if uv.is_cuda else quad_sample_reduce_plain
-            return reduce(uv, [(f.contiguous(), k_off) for f, k_off in groups],
-                          kernel.to(cdt).contiguous(),
-                          conv.bias.to(torch.float32)).view(out_shape)
+            return quad_sample_reduce(uv, [(f.contiguous(), k_off) for f, k_off in groups],
+                                      kernel.to(cdt).contiguous(),
+                                      conv.bias.to(torch.float32)).view(out_shape)
         vox = conv.bias.to(torch.float32).expand(out_shape).clone()
         flat = vox.view(-1, kernel.shape[1])
         for f, k_off in groups:

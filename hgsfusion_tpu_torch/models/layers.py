@@ -84,36 +84,6 @@ def batch_norm_joint(xs, bn, dtype=None, dim: int = -1):
     return out
 
 
-class _MatmulF32(torch.autograd.Function):
-    """a @ b of two half-precision CUDA matrices (or batches of them),
-    accumulated and returned in f32 by one ``torch.mm`` / ``torch.bmm`` with
-    ``out_dtype=float32``; its gradients are f32 products rounded once to
-    the operands' dtypes."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        ga = (g @ b.float().mT).to(a.dtype) if ctx.needs_input_grad[0] else None
-        gb = (a.float().mT @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
-        return ga, gb
-
-
-def matmul_f32(a, b):
-    """(N, K) @ (K, O), or (B, N, K) @ (B, K, O), -> f32, never rounded to a
-    narrower type: the ``einsum(..., preferred_element_type=float32)`` of
-    the JAX package. A bf16/f16 pair on CUDA takes one mixed-precision
-    product; elsewhere the operands are upcast (the CPU has no such
-    product)."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
-        return _MatmulF32.apply(a, b)
-    return a.to(torch.float32) @ b.to(torch.float32)
-
-
 def conv_nhwc(x, conv: nn.Conv2d, dtype):
     """``conv`` applied to a (B, H, W, C) tensor in ``dtype``."""
     bias = None if conv.bias is None else conv.bias.to(dtype)

@@ -39,10 +39,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.matmul import matmul_f32
 from ..ops.quad_sample import grid_sample_2d_quad_kernel
 from ..utils.common import device_constant
 from .frustum import FrustumGridGenerator
-from .layers import batch_norm, batch_norm_joint, compute_dtype, matmul_f32
+from .layers import batch_norm, batch_norm_joint, compute_dtype
 
 # dead u-nodes on each side of the common grid, fully outside every scale's
 # one-source-pixel border fade

@@ -1,0 +1,407 @@
+"""The kernels a served frame launches, as ``torch.library`` ops.
+
+Three ops in the ``hgsfusion`` namespace, each with a CUDA implementation
+(the kernel's launch, which raises on what the kernel does not take), a CPU
+implementation (the kernel's plain version) and a fake one (the exact output
+shape and dtype, all ``torch.export`` needs to trace it):
+
+- ``hgsfusion::quad_sample_fwd(features, uv) -> out``: the sampler forward
+  (``csrc/quad_sample.cu``) without the tap indices a gradient needs;
+- ``hgsfusion::quad_sample_reduce_fwd(uv, maps, k_offs, kmat, bias) -> out``:
+  the fused sampler + reduce of the gather view (``csrc/quad_sample_reduce.cu``);
+- ``hgsfusion::nms_lazy(boxes, valid, nms_thresh, max_keep) -> keep``:
+  rotated greedy NMS of a batch of score-sorted candidates
+  (``csrc/nms_lazy.cu``), one block per frame.
+
+So a frame served through these ops traces into one graph, with NMS inside
+it and nothing read back to the host, which ``torch.export`` writes out
+(``tools/export.py``). A serving host imports this module before
+``torch.export.load`` (``tools/serve.py``): it registers the ops and carries
+the kernel loader (``native.load``) and the launch wrappers, and imports no
+model code. The plain versions live beside the Python entry points that
+call the ops (``ops/quad_sample.py``, ``ops/nms.py``); the CPU
+implementations import them at the call, since those modules import this
+one.
+
+This module also holds the launch wrappers the ops do not wrap: the
+training route's backward kernel (``quad_sample_bwd``) and the fused
+kernel's tap computation alone (``quad_sample_taps``, a check). Every
+wrapper counts its launches in ``launches``, which also counts the bins
+built on the card for the backward kernel (``quad_sample.quad_bins``);
+callers may reset them to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import native
+
+NAMESPACE = "hgsfusion"
+KERNEL = "quad_sample_fwd"
+REDUCE_KERNEL = "quad_sample_reduce_fwd"
+TAPS = "quad_sample_taps"
+BWD_KERNEL = "quad_sample_bwd"
+BINS = "quad_bins"
+NMS = "nms_lazy"
+# launches of each kernel in this process, and the bins built on the card
+# for the backward kernel (PyTorch calls, no kernel of this package)
+launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0}
+# gather groups one launch of the fused kernel takes
+MAX_REDUCE_GROUPS = 4
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the fused entry's return when K's slice does not fit in shared memory, and
+# the NMS entry's when the candidates' corners do not
+_K_SLICE_TOO_LARGE = -1
+_TOO_MANY_CANDIDATES = -1
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
+# each kernel's source in csrc/ and C arguments
+_ENTRIES = {
+    # uv, uv_stride, n, per_frame, map, b, h, w, c, out, idx_out, w4_out,
+    # dtype, stream
+    KERNEL: ("quad_sample", [_P, _I64, _I64, _I64, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
+    # uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs (one entry per
+    # group), groups, kmat, bias, out, o, dtype, stream
+    REDUCE_KERNEL: ("quad_sample_reduce",
+                    [_P, _I64, _I64, _I64, _PP, _PI, _PI, _PI, _PI, _I, _P, _P, _P, _I, _I, _P]),
+    # uv, uv_stride, n, per_frame, h, w, idx, w4, dtype, stream
+    TAPS: ("quad_sample_reduce", [_P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P]),
+    # ct, order, start, w4, out, b, h, w, c, dtype, stream
+    BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # boxes, valid, b, k, nms_thresh, max_keep, keep, stream
+    NMS: ("nms_lazy", [_P, _P, _I, _I, _F, _I, _P, _P]),
+}
+
+
+@functools.cache
+def entry(name: str):
+    """The C entry point of kernel ``name``, its library built first if
+    needed."""
+    source, argtypes = _ENTRIES[name]
+    fn = getattr(native.load(source), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def uv_rows(name, uv, b):
+    """``uv`` (B, ..., 2) f32 on a CUDA device, read in place: every query's
+    (x, y) a row of one stride (``grid[..., 0:2]`` of a contiguous grid has
+    stride 3). Returns (n, queries per frame, row stride)."""
+    if uv.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got uv on {uv.device}")
+    if uv.dtype != torch.float32:
+        raise TypeError(f"{name}: uv must be float32, got {uv.dtype}")
+    if uv.dim() < 2 or uv.shape[-1] != 2 or uv.shape[0] != b:
+        raise ValueError(f"{name}: bad shapes uv {tuple(uv.shape)} for maps of {b} frames")
+    shape, strides = uv.shape, uv.stride()
+    stride = want = strides[-2]
+    for size, st in zip(reversed(shape[:-1]), reversed(strides[:-1])):
+        if size != 1 and st != want:
+            want = None
+            break
+        want *= size
+    if strides[-1] != 1 or stride < 2 or want is None:
+        raise ValueError(f"{name}: uv must be rows of (x, y) at one stride, got strides "
+                         f"{uv.stride()}")
+    n = uv.numel() // 2
+    return n, n // b, stride
+
+
+def quad_sample_fwd(features, uv, taps: bool = False):
+    """Launch the forward kernel.
+
+    ``features`` (B, H, W, C) unpadded and contiguous on the card (a map or
+    channels that are not 16-byte aligned take the kernel's element path);
+    ``uv`` (B, ..., 2) f32 sampling coordinates (x, y), normalized, read in
+    place (rows of one stride: ``grid[..., 0:2]``) -> ``(out, idx, w4)``:
+    ``out`` (N, C) in features' dtype, the bilinear samples (zeros padding,
+    ``align_corners=True``) summed in f32 and rounded once; with ``taps``
+    also ``quad_indices``' result, idx (N,) int32 and w4 (N, 4) f32, written
+    by the same launch (else None and None). Same function as
+    ``quad_sample_fwd_uv_plain`` up to the taps' rounding.
+    """
+    if features.device.type != "cuda":
+        raise ValueError(f"{KERNEL} needs CUDA tensors, got {features.device}")
+    if features.dtype not in DTYPE_CODES:
+        raise TypeError(f"{KERNEL}: unsupported dtype {features.dtype}")
+    if features.dim() != 4 or min(features.shape) < 1:
+        raise ValueError(f"{KERNEL}: bad shapes features {tuple(features.shape)}")
+    if not features.is_contiguous():
+        raise ValueError(f"{KERNEL}: features must be contiguous")
+    b, h, w, c = features.shape
+    if b * (h + 2) * (w + 2) >= 2**31:
+        raise ValueError(f"{KERNEL}: padded map exceeds int32 pixel indexing")
+    n, per_frame, stride = uv_rows(KERNEL, uv, b)
+    if uv.device != features.device:
+        raise ValueError(f"{KERNEL}: uv must be on {features.device}")
+    dev = features.device
+    out = torch.empty((n, c), dtype=features.dtype, device=dev)
+    idx = w4 = None
+    if taps:
+        idx = torch.empty(n, dtype=torch.int32, device=dev)
+        w4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    err = entry(KERNEL)(
+        uv.data_ptr(), stride, n, per_frame, features.data_ptr(), b, h, w, c, out.data_ptr(),
+        None if idx is None else idx.data_ptr(), None if w4 is None else w4.data_ptr(),
+        DTYPE_CODES[features.dtype], stream_of(features))
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    launches[KERNEL] += 1
+    return out, idx, w4
+
+
+def _check_reduce(uv, groups, kmat, bias):
+    """The fused kernel's launch contract; returns (n, queries per frame,
+    uv's row stride)."""
+    name = REDUCE_KERNEL
+    if not 1 <= len(groups) <= MAX_REDUCE_GROUPS:
+        raise ValueError(f"{name}: {len(groups)} groups, takes 1 to {MAX_REDUCE_GROUPS}")
+    if kmat.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got kmat on {kmat.device}")
+    if kmat.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {kmat.dtype}")
+    if kmat.dim() != 2 or bias.shape != (kmat.shape[1],):
+        raise ValueError(f"{name}: bad shapes kmat {tuple(kmat.shape)} bias {tuple(bias.shape)}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
+    b = groups[0][0].shape[0] if groups[0][0].dim() == 4 else -1
+    for f, k_off in groups:
+        if f.dtype != kmat.dtype:
+            raise TypeError(f"{name}: map {f.dtype} and kmat {kmat.dtype} differ")
+        if f.dim() != 4 or f.shape[0] != b or min(f.shape) < 1 \
+                or not 0 <= k_off <= kmat.shape[0] - f.shape[-1]:
+            raise ValueError(f"{name}: bad shapes map {tuple(f.shape)} at kmat rows {k_off} "
+                             f"of {tuple(kmat.shape)}")
+        if f.numel() >= 2**31:
+            raise ValueError(f"{name}: map {tuple(f.shape)} exceeds int32 element indexing")
+    for arg, t in [("kmat", kmat), ("bias", bias)] + [("map", f) for f, _ in groups]:
+        if t.device != kmat.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {kmat.device}")
+    n, per_frame, stride = uv_rows(name, uv, b)
+    if uv.device != kmat.device:
+        raise ValueError(f"{name}: uv must be on {kmat.device}")
+    return n, per_frame, stride
+
+
+def quad_sample_reduce_fwd(uv, groups, kmat, bias):
+    """Launch the fused kernel.
+
+    ``uv`` (B, ..., 2) f32 sampling coordinates (x, y), normalized, read in
+    place (``grid[..., 0:2]``); ``groups``: 1 to 4 pairs (map, k_off), each an
+    unpadded contiguous map (B, H, W, c) in the compute dtype and its first
+    row of ``kmat`` (sum c, O), contiguous in the compute dtype; ``bias``
+    (O,) f32 -> (N, O) in the compute dtype: the bias plus each group's
+    bilinear samples (taps computed from uv as ``quad_indices`` computes
+    them, summed in f32 and rounded once to the compute dtype) times its
+    rows of ``kmat``, every product summed in f32, rounded once. Same
+    function as ``quad_sample_reduce_plain`` up to the taps' rounding and
+    the order of the f32 sums.
+    """
+    n, per_frame, stride = _check_reduce(uv, groups, kmat, bias)
+    o = kmat.shape[1]
+    out = torch.empty((n, o), dtype=kmat.dtype, device=kmat.device)
+    g = len(groups)
+    maps = (_P * g)(*(f.data_ptr() for f, _ in groups))
+    hs = (_I * g)(*(f.shape[1] for f, _ in groups))
+    ws = (_I * g)(*(f.shape[2] for f, _ in groups))
+    cs = (_I * g)(*(f.shape[3] for f, _ in groups))
+    offs = (_I * g)(*(int(k_off) for _, k_off in groups))
+    err = entry(REDUCE_KERNEL)(
+        uv.data_ptr(), stride, n, per_frame, maps, hs, ws, cs, offs, g, kmat.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), o, DTYPE_CODES[kmat.dtype], stream_of(kmat))
+    if err == _K_SLICE_TOO_LARGE:
+        raise ValueError(f"{REDUCE_KERNEL}: the groups' rows of kmat {tuple(kmat.shape)} exceed "
+                         f"the slice a block's shared memory holds")
+    if err != 0:
+        raise RuntimeError(f"{REDUCE_KERNEL} launch failed: cudaError {err}")
+    launches[REDUCE_KERNEL] += 1
+    return out
+
+
+def check_nms(boxes, valid, max_keep: int):
+    """The NMS op's argument contract (every device)."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 7 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"{NMS}: bad shapes boxes {tuple(boxes.shape)} valid "
+                         f"{tuple(valid.shape)}, want (B, K, 7) and (B, K)")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"{NMS}: boxes must be float32 and valid bool, got {boxes.dtype} "
+                        f"and {valid.dtype}")
+    if valid.device != boxes.device:
+        raise ValueError(f"{NMS}: boxes on {boxes.device}, valid on {valid.device}")
+    if max_keep < 0:
+        raise ValueError(f"{NMS}: max_keep {max_keep} < 0")
+
+
+def nms_lazy(boxes, valid, nms_thresh: float, max_keep: int):
+    """Launch the NMS kernel: ``boxes`` (B, K, 7) f32, each frame's
+    candidates sorted by score, and ``valid`` (B, K) bool, contiguous on the
+    card -> keep (B, K) bool: walking each frame's valid candidates in
+    order, the ones kept, each suppressing every later one whose BEV IoU
+    with it exceeds ``nms_thresh``; at most ``max_keep`` a frame. Same keep
+    sets as ``greedy_nms_lazy_plain`` up to IoUs within rounding of
+    ``nms_thresh``. Raises if K candidates exceed a block's shared memory
+    (48 B a candidate: about 4,800 in an H100's 227 KB)."""
+    check_nms(boxes, valid, max_keep)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"{NMS} needs CUDA tensors, got {boxes.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError(f"{NMS}: boxes and valid must be contiguous")
+    b, k = valid.shape
+    if k >= 2**31 // 7:
+        raise ValueError(f"{NMS}: {k} candidates exceed int32 indexing")
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    err = entry(NMS)(boxes.data_ptr(), valid.data_ptr(), b, k, nms_thresh, max_keep,
+                     keep.data_ptr(), stream_of(boxes))
+    if err == _TOO_MANY_CANDIDATES:
+        raise ValueError(f"{NMS}: {k} candidates' corners exceed a block's shared memory")
+    if err != 0:
+        raise RuntimeError(f"{NMS} launch failed: cudaError {err}")
+    launches[NMS] += 1
+    return keep
+
+
+def quad_sample_taps(features, coords):
+    """The fused kernel's tap computation alone: ``quad_indices``' result
+    (idx (N,) int32 into the zero-padded map, w4 (N, 4) f32) for a map of
+    ``features``' shape and dtype (its values are not read) and ``coords``
+    (B, ..., 2) f32 on the card, read in place."""
+    if features.device.type != "cuda" or features.dtype not in DTYPE_CODES \
+            or features.dim() != 4:
+        raise ValueError(f"{TAPS}: features must be a (B, H, W, C) CUDA tensor of "
+                         f"{list(DTYPE_CODES)}, got {features.dtype} on {features.device}")
+    b, h, w, _ = features.shape
+    if b * (h + 2) * (w + 2) >= 2**31:
+        raise ValueError(f"{TAPS}: padded map exceeds int32 pixel indexing")
+    n, per_frame, stride = uv_rows(TAPS, coords, b)
+    if coords.device != features.device:
+        raise ValueError(f"{TAPS}: coords must be on {features.device}")
+    idx = torch.empty(n, dtype=torch.int32, device=coords.device)
+    w4 = torch.empty((n, 4), dtype=torch.float32, device=coords.device)
+    err = entry(TAPS)(coords.data_ptr(), stride, n, per_frame, h, w, idx.data_ptr(),
+                       w4.data_ptr(), DTYPE_CODES[features.dtype],
+                       stream_of(coords))
+    if err != 0:
+        raise RuntimeError(f"{TAPS} launch failed: cudaError {err}")
+    launches[TAPS] += 1
+    return idx, w4
+
+
+def _check_bwd(name, data, idx, w4):
+    """The backward kernel's launch contract; ``data`` is the cotangent."""
+    if data.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {data.device}")
+    if data.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {data.dtype}")
+    if idx.dim() != 1 or w4.shape != (idx.shape[0], 4):
+        raise ValueError(f"{name}: bad shapes idx {tuple(idx.shape)} w4 {tuple(w4.shape)}")
+    if idx.dtype != torch.int32 or w4.dtype != torch.float32:
+        raise TypeError(f"{name}: idx must be int32 and w4 float32")
+    for arg, t in (("data", data), ("idx", idx), ("w4", w4)):
+        if t.device != data.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {data.device}")
+    if data.data_ptr() % 16 or w4.data_ptr() % 16:
+        raise ValueError(f"{name}: {data.dtype} data and w4 must be 16-byte aligned")
+
+
+def quad_sample_bwd(grad_out, idx, w4, padded_shape, bins):
+    """Launch the backward kernel: ``grad_out`` (N, C) cotangent of the
+    sampled rows, ``idx`` (N,) int32, ``w4`` (N, 4) f32, ``padded_shape``
+    (B, H+2, W+2, C), ``bins`` = ``quad_sample.quad_bins(idx, w4, padded_shape)`` -> the
+    map's gradient (B, H, W, C) in grad_out's dtype. Same contract as
+    ``quad_sample_bwd_plain``."""
+    _check_bwd(BWD_KERNEL, grad_out, idx, w4)
+    b, hp2, wp2, c = padded_shape
+    n = idx.shape[0]
+    if grad_out.shape != (n, c):
+        raise ValueError(f"{BWD_KERNEL}: bad shapes grad_out {tuple(grad_out.shape)} "
+                         f"for the padded map {tuple(padded_shape)}")
+    if 4 * n >= 2**31:
+        raise ValueError(f"{BWD_KERNEL}: {n} queries exceed int32 tile lists")
+    order, start = bins
+    for arg, t, length in (("order", order, n), ("start", start, b * hp2 * wp2 + 1)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{BWD_KERNEL}: bins {arg} must be int32, got {t.dtype}")
+        if t.device != grad_out.device or not t.is_contiguous():
+            raise ValueError(f"{BWD_KERNEL}: bins {arg} must be contiguous on {grad_out.device}")
+        if t.shape != (length,):
+            raise ValueError(f"{BWD_KERNEL}: bad shapes bins {arg} {tuple(t.shape)}, "
+                             f"want ({length},)")
+    out = torch.empty((b, hp2 - 2, wp2 - 2, c), dtype=grad_out.dtype, device=grad_out.device)
+    err = entry(BWD_KERNEL)(
+        grad_out.data_ptr(), order.data_ptr(), start.data_ptr(), w4.data_ptr(), out.data_ptr(),
+        b, hp2 - 2, wp2 - 2, c, DTYPE_CODES[grad_out.dtype],
+        stream_of(grad_out))
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
+    launches[BWD_KERNEL] += 1
+    return out
+
+
+# -- the ops -----------------------------------------------------------------
+
+def _sample_cuda(features: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    return quad_sample_fwd(features, uv)[0]
+
+
+def _sample_cpu(features, uv):
+    from . import quad_sample  # its attributes, read at the call
+    return quad_sample.quad_sample_fwd_uv_plain(features, uv)[0]
+
+
+def _sample_fake(features, uv):
+    return features.new_empty((uv.numel() // 2, features.shape[-1]))
+
+
+def _reduce_cuda(uv: torch.Tensor, maps: list[torch.Tensor], k_offs: list[int],
+                 kmat: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return quad_sample_reduce_fwd(uv, list(zip(maps, k_offs)), kmat, bias)
+
+
+def _reduce_cpu(uv, maps, k_offs, kmat, bias):
+    from . import quad_sample
+    return quad_sample.quad_sample_reduce_plain(uv, list(zip(maps, k_offs)), kmat, bias)
+
+
+def _reduce_fake(uv, maps, k_offs, kmat, bias):
+    return kmat.new_empty((uv.numel() // 2, kmat.shape[1]))
+
+
+def _nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, nms_thresh: float,
+              max_keep: int) -> torch.Tensor:
+    return nms_lazy(boxes, valid, nms_thresh, max_keep)
+
+
+def _nms_cpu(boxes, valid, nms_thresh, max_keep):
+    from . import nms
+    check_nms(boxes, valid, max_keep)
+    keep = torch.zeros(valid.shape, dtype=torch.bool)
+    for i in range(valid.shape[0]):
+        keep[i] = nms.greedy_nms_lazy_plain(boxes[i], valid[i], nms_thresh, max_keep)
+    return keep
+
+
+def _nms_fake(boxes, valid, nms_thresh, max_keep):
+    return valid.new_empty(valid.shape)
+
+
+def _register(name, cuda, cpu, fake):
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cuda, mutates_args=(),
+                                 device_types="cuda")
+    op.register_kernel("cpu")(cpu)
+    op.register_fake(fake)
+    return op
+
+
+quad_sample_op = _register(KERNEL, _sample_cuda, _sample_cpu, _sample_fake)
+quad_sample_reduce_op = _register(REDUCE_KERNEL, _reduce_cuda, _reduce_cpu, _reduce_fake)
+nms_lazy_op = _register(NMS, _nms_cuda, _nms_cpu, _nms_fake)

@@ -2,23 +2,29 @@
 
 Counterpart of ``hgsfusion_tpu/ops/nms.py`` (greedy_nms_lazy,
 class_agnostic_nms). The reference NMS sweeps its suppression bitmask on the
-CPU; here the sweep stays on the device and never waits for it inside the
-loop: the only host read is the candidate count, once per call, which
-bounds the loop.
+CPU; here the greedy sweep of a whole batch is one op,
+``hgsfusion::nms_lazy`` (``ops/library.py``): on the card one launch of
+``csrc/nms_lazy.cu``, which reads nothing back to the host, so a served
+frame's post-processing never waits for the device and traces into the
+exported graph. On the CPU the op takes the plain version,
+``greedy_nms_lazy_plain``, whose one host read (the candidate count) bounds
+its loop.
 """
 from __future__ import annotations
 
 import torch
 
+from .library import nms_lazy_op
 from .rotated_iou import boxes_iou_bev
 
 # masked-score sentinel: scores are sigmoid probabilities in [0, 1]
 NEG_INF = -1.0
 
 
-def greedy_nms_lazy(boxes, valid, nms_thresh: float, max_keep: int,
-                    row_block: int = 256):
-    """Greedy rotated NMS over score-sorted candidates.
+def greedy_nms_lazy_plain(boxes, valid, nms_thresh: float, max_keep: int,
+                          row_block: int = 256):
+    """Greedy rotated NMS over score-sorted candidates, the plain version of
+    ``csrc/nms_lazy.cu``: boxes (N, 7), valid (N,) bool.
 
     Same keep set as the JAX ``greedy_nms_lazy``: walk the valid candidates
     in order, keep each one not suppressed (IoU > nms_thresh) by an earlier
@@ -57,22 +63,31 @@ def class_agnostic_nms(box_scores, box_preds, score_thresh: float,
                        nms_thresh: float, pre_max_size: int, post_max_size: int,
                        valid=None):
     """Score threshold -> top ``pre_max_size`` -> rotated NMS -> first
-    ``post_max_size`` kept in score order. Returns (indices (post_max,) into
-    the inputs, valid mask (post_max,)); empty slots hold index 0."""
-    n = box_scores.shape[0]
+    ``post_max_size`` kept in score order, for scores (..., N) and boxes
+    (..., N, 7), a leading batch dimension or none; the batch's NMS is one
+    ``hgsfusion::nms_lazy`` call. Returns (indices (..., post_max) into the
+    inputs, valid mask (..., post_max)); empty slots hold index 0."""
+    batched = box_scores.dim() == 2
+    if not batched:
+        box_scores, box_preds = box_scores[None], box_preds[None]
+        valid = None if valid is None else valid[None]
+    n = box_scores.shape[-1]
     ok = box_scores >= score_thresh
     if valid is not None:
         ok = ok & valid
     masked = torch.where(ok, box_scores, torch.full_like(box_scores, NEG_INF))
     k = min(pre_max_size, n)
-    top_scores, top_idx = torch.topk(masked, k)
-    keep = greedy_nms_lazy(box_preds[top_idx], top_scores > NEG_INF / 2,
-                           nms_thresh, post_max_size)
-    rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    top_scores, top_idx = torch.topk(masked, k, dim=-1)
+    top_boxes = torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
+    keep = nms_lazy_op(top_boxes.float().contiguous(), top_scores > NEG_INF / 2,
+                       float(nms_thresh), int(post_max_size))
+    rank = torch.cumsum(keep.to(torch.int64), -1) - 1
     slot = torch.where(keep & (rank < post_max_size), rank,
                        torch.full_like(rank, post_max_size))
-    out_idx = torch.zeros(post_max_size + 1, dtype=top_idx.dtype, device=top_idx.device)
-    out_idx.scatter_(0, slot, top_idx)
-    out_valid = torch.zeros(post_max_size + 1, dtype=torch.bool, device=top_idx.device)
-    out_valid.scatter_(0, slot, True)
-    return out_idx[:post_max_size], out_valid[:post_max_size]
+    bsz = box_scores.shape[0]
+    out_idx = torch.zeros((bsz, post_max_size + 1), dtype=top_idx.dtype, device=top_idx.device)
+    out_idx.scatter_(1, slot, top_idx)
+    out_valid = torch.zeros((bsz, post_max_size + 1), dtype=torch.bool, device=top_idx.device)
+    out_valid.scatter_(1, slot, True)
+    out_idx, out_valid = out_idx[:, :post_max_size], out_valid[:, :post_max_size]
+    return (out_idx, out_valid) if batched else (out_idx[0], out_valid[0])

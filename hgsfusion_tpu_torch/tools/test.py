@@ -35,7 +35,7 @@ from ..config import cfg_from_list, load_config, model_config_from_yaml
 from ..datasets import build_dataset
 from ..eval.rotated_iou_np import rotate_iou_eval
 from ..models.detector import HGSFusionModel, resolve_device
-from ..ops import quad_sample
+from ..ops import library
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.trainer import detections_to_pred_dicts
 from ..utils.common import create_logger
@@ -199,9 +199,9 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
                 stream.wait_event(copy[1])
                 for v in dev.values():  # allocated on the copy stream
                     v.record_stream(stream)
-            before = dict(quad_sample.launches)
+            before = dict(library.launches)
             out = model.serve(dev)
-            launches_per_batch.append({k: quad_sample.launches[k] - before[k] for k in before})
+            launches_per_batch.append({k: library.launches[k] - before[k] for k in before})
             finish_q.put((out, batch, n_frames))
             done += 1
             if done % 50 == 1:

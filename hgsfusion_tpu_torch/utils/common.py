@@ -19,7 +19,11 @@ def _constant(values, dtype, device):
 def device_constant(values, dtype, device) -> torch.Tensor:
     """A small constant tensor (nested tuples of numbers) on ``device``,
     copied there once per process: a copy from pageable host memory inside a
-    step would make the host wait for the device. Read-only."""
+    step would make the host wait for the device. Read-only. While
+    ``torch.export`` traces, it is made anew and not cached (a tensor made
+    then is the tracer's, not a real one)."""
+    if torch.compiler.is_exporting():
+        return torch.tensor(values, dtype=dtype).to(device)
     return _constant(values, dtype, torch.device(device))
 
 

@@ -9,11 +9,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (compare_instances, edge_coords, outside_coords, run_rhgm_tool,
-                        sampling_route, unaligned)
+from chip_smoke import (TINY, check_nms_frame, clustered_boxes, compare_instances,
+                        degenerate_boxes, edge_coords, outside_coords, plain_nms_batch,
+                        run_rhgm_tool, sampling_route, tiny_batch, unaligned)
+from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
-from hgsfusion_tpu_torch.models.layers import matmul_f32
-from hgsfusion_tpu_torch.ops import quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops import library, quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
@@ -53,11 +55,11 @@ def _check_fwd(f, coords):
     then the autograd entry, one more launch and the same output, and on
     CPU tensors no launch."""
     c = f.shape[-1]
-    before = quad_sample.launches[quad_sample.KERNEL]
-    out, idx, w4 = quad_sample.quad_sample_fwd(f, coords, taps=True)
-    bare, no_idx, no_w4 = quad_sample.quad_sample_fwd(f, coords)
+    before = library.launches[library.KERNEL]
+    out, idx, w4 = library.quad_sample_fwd(f, coords, taps=True)
+    bare, no_idx, no_w4 = library.quad_sample_fwd(f, coords)
     torch.cuda.synchronize()
-    assert quad_sample.launches[quad_sample.KERNEL] == before + 2
+    assert library.launches[library.KERNEL] == before + 2
     assert no_idx is None and no_w4 is None
     ref, ref_idx, ref_w4 = quad_sample.quad_sample_fwd_uv_plain(f.cpu(), coords.cpu(), taps=True)
     assert out.shape == ref.shape == (coords[..., 0].numel(), c) and out.dtype == f.dtype
@@ -65,10 +67,10 @@ def _check_fwd(f, coords):
     assert torch.equal(out, bare)
     assert torch.equal(idx.cpu(), ref_idx) and torch.equal(w4.cpu(), ref_w4)
     got = grid_sample_2d_quad_kernel(f, coords)
-    assert quad_sample.launches[quad_sample.KERNEL] == before + 3
+    assert library.launches[library.KERNEL] == before + 3
     assert got.shape == coords.shape[:-1] + (c,) and torch.equal(got.reshape(-1, c), out)
     grid_sample_2d_quad_kernel(f.cpu(), coords.cpu())
-    assert quad_sample.launches[quad_sample.KERNEL] == before + 3
+    assert library.launches[library.KERNEL] == before + 3
     return out, w4
 
 
@@ -101,7 +103,7 @@ def test_kernel_at_edges_and_outside(cuda, dtype):
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     f, uv = _inputs(0, SHAPES[0], torch.float32, cuda)
-    fwd = quad_sample.quad_sample_fwd
+    fwd = library.quad_sample_fwd
     with pytest.raises(TypeError, match="dtype"):
         fwd(f.double(), uv)
     with pytest.raises(TypeError, match="uv must be float32"):
@@ -177,10 +179,10 @@ def _check_bwd(ct, idx, w4, padded, bins, exact=False):
     """One launch of the backward kernel against its plain version: bit for
     bit when ``exact``, else at the tolerances above."""
     dtype = ct.dtype
-    before = quad_sample.launches[quad_sample.BWD_KERNEL]
-    got = quad_sample.quad_sample_bwd(ct, idx, w4, padded, bins)
+    before = library.launches[library.BWD_KERNEL]
+    got = library.quad_sample_bwd(ct, idx, w4, padded, bins)
     torch.cuda.synchronize()
-    assert quad_sample.launches[quad_sample.BWD_KERNEL] == before + 1
+    assert library.launches[library.BWD_KERNEL] == before + 1
     ct, idx, w4 = ct.cpu(), idx.cpu(), w4.cpu()
     ref = quad_sample_bwd_plain(ct, idx, w4, padded)
     assert got.shape == ref.shape and got.dtype == dtype
@@ -247,8 +249,8 @@ def test_kernels_match_plain_at_polar_shapes(cuda, shape, dtype):
 def test_backward_kernel_is_deterministic(cuda, case):
     """No atomics: two calls on the same input agree bit for bit."""
     ct, idx, w4, padded, bins = _bwd_inputs(case, 192, torch.bfloat16, cuda)
-    first = quad_sample.quad_sample_bwd(ct, idx, w4, padded, bins)
-    again = quad_sample.quad_sample_bwd(ct, idx, w4, padded, quad_sample.quad_bins(idx, w4, padded))
+    first = library.quad_sample_bwd(ct, idx, w4, padded, bins)
+    again = library.quad_sample_bwd(ct, idx, w4, padded, quad_sample.quad_bins(idx, w4, padded))
     assert torch.equal(first, again)
 
 
@@ -262,23 +264,23 @@ def test_autograd_reaches_the_backward_kernel(cuda, dtype):
     the coordinates get none. A forward under inference_mode builds no
     bins."""
     f, grid_uv = _inputs(1, SHAPES[1], dtype, cuda)
-    before = dict(quad_sample.launches)
+    before = dict(library.launches)
     with torch.inference_mode():
         grid_sample_2d_quad_kernel(f, grid_uv)
-    assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS]
+    assert library.launches[library.BINS] == before[library.BINS]
     f.requires_grad_()
     c = grid_uv.detach().requires_grad_()
     out = grid_sample_2d_quad_kernel(f, c)
-    assert quad_sample.launches[quad_sample.KERNEL] == before[quad_sample.KERNEL] + 2
-    assert quad_sample.launches[quad_sample.BINS] == before[quad_sample.BINS] + 1
+    assert library.launches[library.KERNEL] == before[library.KERNEL] + 2
+    assert library.launches[library.BINS] == before[library.BINS] + 1
     cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(dtype).to(cuda)
     (out * cot).float().sum().backward()
-    assert quad_sample.launches[quad_sample.BWD_KERNEL] == before[quad_sample.BWD_KERNEL] + 1
+    assert library.launches[library.BWD_KERNEL] == before[library.BWD_KERNEL] + 1
     assert c.grad is None
     b, h, w, ch = f.shape
     padded = (b, h + 2, w + 2, ch)
     idx, w4 = quad_indices(f.detach(), grid_uv)
-    want = quad_sample.quad_sample_bwd(cot.reshape(-1, ch).contiguous(), idx, w4, padded,
+    want = library.quad_sample_bwd(cot.reshape(-1, ch).contiguous(), idx, w4, padded,
                                        quad_sample.quad_bins(idx, w4, padded))
     assert torch.equal(f.grad, want)
     fc = f.detach().cpu().requires_grad_()
@@ -324,19 +326,19 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
     padded = (1, 4, 5, 8)
     order, start = quad_sample.quad_bins(idx, w4, padded)
     with pytest.raises(TypeError, match="dtype"):
-        quad_sample.quad_sample_bwd(ct, idx, w4, padded, (order, start))
+        library.quad_sample_bwd(ct, idx, w4, padded, (order, start))
     with pytest.raises(ValueError, match="shapes"):
-        quad_sample.quad_sample_bwd(ct.float(), idx, w4, (1, 4, 5, 6), (order, start))
+        library.quad_sample_bwd(ct.float(), idx, w4, (1, 4, 5, 6), (order, start))
     with pytest.raises(ValueError, match="CUDA"):
-        quad_sample.quad_sample_bwd(ct.float().cpu(), idx.cpu(), w4.cpu(), padded,
+        library.quad_sample_bwd(ct.float().cpu(), idx.cpu(), w4.cpu(), padded,
                                     (order.cpu(), start.cpu()))
     # bad bins: wrong dtype, wrong length, on the CPU
     with pytest.raises(TypeError, match="int32"):
-        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order.long(), start))
+        library.quad_sample_bwd(ct.float(), idx, w4, padded, (order.long(), start))
     with pytest.raises(ValueError, match="shapes"):
-        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start[:-1]))
+        library.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start[:-1]))
     with pytest.raises(ValueError, match="contiguous on"):
-        quad_sample.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start.cpu()))
+        library.quad_sample_bwd(ct.float(), idx, w4, padded, (order, start.cpu()))
 
 
 # the fused sampler + reduce: (maps of the gather groups, outputs); the
@@ -379,11 +381,11 @@ def test_reduce_kernel_matches_plain(cuda, case, dtype):
     (chip_smoke.sampling_route: quad_sample_fwd + matmul_f32), rounded
     once, is held at 1e-4 x (1 + max|ref|) + 2 u |ref|."""
     uv, groups, kmat, bias = _reduce_inputs(*REDUCE_CASES[case], dtype, cuda)
-    before = dict(quad_sample.launches)
-    got = quad_sample.quad_sample_reduce_fwd(uv, groups, kmat, bias)
+    before = dict(library.launches)
+    got = library.quad_sample_reduce_fwd(uv, groups, kmat, bias)
     torch.cuda.synchronize()
-    assert quad_sample.launches[quad_sample.REDUCE_KERNEL] == before[quad_sample.REDUCE_KERNEL] + 1
-    assert quad_sample.launches[quad_sample.KERNEL] == before[quad_sample.KERNEL]
+    assert library.launches[library.REDUCE_KERNEL] == before[library.REDUCE_KERNEL] + 1
+    assert library.launches[library.KERNEL] == before[library.KERNEL]
     cpu = [(f.cpu(), k) for f, k in groups]
     ref = quad_sample.quad_sample_reduce_plain(uv.cpu(), cpu, kmat.cpu(), bias.cpu())
     assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
@@ -417,7 +419,7 @@ def test_taps_match_quad_indices(cuda, shape, dtype):
     coords = edge_coords(cuda, (5, 7, 9, 13)).expand(shape[0], -1, -1)
     grid = torch.cat([coords, torch.zeros_like(coords[..., :1])], dim=-1).contiguous()
     uv = grid[..., 0:2]
-    idx, w4 = quad_sample.quad_sample_taps(feats, uv)
+    idx, w4 = library.quad_sample_taps(feats, uv)
     torch.cuda.synchronize()
     want_idx, want_w4 = quad_indices(feats, uv)
     assert torch.equal(idx, want_idx) and torch.equal(w4, want_w4)
@@ -428,7 +430,7 @@ def test_taps_match_quad_indices(cuda, shape, dtype):
 @pytest.mark.cuda
 def test_reduce_kernel_rejects_what_it_does_not_take(cuda):
     uv, groups, kmat, bias = _reduce_inputs(*REDUCE_CASES["two_groups"], torch.bfloat16, cuda)
-    fwd = quad_sample.quad_sample_reduce_fwd
+    fwd = library.quad_sample_reduce_fwd
     with pytest.raises(ValueError, match="groups"):
         fwd(uv, groups * 3, kmat, bias)
     with pytest.raises(TypeError, match="differ"):
@@ -472,19 +474,19 @@ def test_view_transform_routes(cuda):
     feats = [f.to(cuda).requires_grad_() for f in feats]
     grid = (torch.rand((1, 6, 7, 5, 3), generator=g) * 2.4 - 1.2).to(cuda)
     f2v = FrustumToVoxelMultiScale([16] * 4, 24, dtype=torch.bfloat16).to(cuda).eval()
-    before = dict(quad_sample.launches)
+    before = dict(library.launches)
     with torch.inference_mode():
         fused = f2v.accumulate(feats, grid)
     torch.cuda.synchronize()
-    mid = dict(quad_sample.launches)
+    mid = dict(library.launches)
     assert {k: mid[k] - before[k] for k in mid} == {
-        quad_sample.KERNEL: 0, quad_sample.REDUCE_KERNEL: 1, quad_sample.TAPS: 0,
-        quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 0}
+        library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
+        library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0}
     sampled = f2v.accumulate(feats, grid)
-    after = dict(quad_sample.launches)
+    after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
-        quad_sample.KERNEL: 2, quad_sample.REDUCE_KERNEL: 0, quad_sample.TAPS: 0,
-        quad_sample.BWD_KERNEL: 0, quad_sample.BINS: 2}
+        library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
+        library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
     sampled = sampled.detach()
     scale = float(sampled.abs().max())
@@ -594,3 +596,86 @@ def test_rhgm_tool_on_card(cuda, tmp_path):
                                   str(tmp_path / "pre")], capture=False)
     for f in (tmp_path / "model").iterdir():
         assert f.read_bytes() == (tmp_path / "pre" / f.name).read_bytes(), f.name
+
+
+def _nms_case(name):
+    """(boxes (B, K, 7), valid (B, K), max_keep) at the configs' 4,096
+    candidates (37 for "ragged")."""
+    rng = np.random.RandomState(21)
+    k = 37 if name == "ragged" else 4096
+    allv = np.ones((1, k), bool)
+    boxes = clustered_boxes(k, max(k // 5, 1), 0)[None]
+    if name == "realistic":
+        return boxes, np.arange(k)[None] < 64, 500
+    if name == "batch2":
+        return (np.stack([clustered_boxes(k, 800, 1), clustered_boxes(k, 1600, 2)]),
+                np.stack([rng.rand(k) < 0.5, np.ones(k, bool)]), 500)
+    if name == "degenerate":
+        return degenerate_boxes(k, 3)[None], allv, 500
+    if name == "none_valid":
+        return boxes, ~allv, 500
+    if name == "max_keep":
+        return boxes, allv, 37
+    return boxes, allv, 500  # "worst", "ragged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["worst", "realistic", "batch2", "degenerate", "none_valid",
+                                  "max_keep", "ragged"])
+def test_nms_kernel_matches_plain(cuda, case):
+    """One launch for the batch; every keep decision follows the greedy rule
+    with the plain IoU given the kernel's own earlier decisions (a
+    difference only at an IoU within 1e-5 of the threshold), so the keep
+    sets equal the plain version's unless such a tie occurs."""
+    boxes, valid, max_keep = _nms_case(case)
+    b = torch.from_numpy(np.ascontiguousarray(boxes)).to(cuda)
+    v = torch.from_numpy(np.ascontiguousarray(valid)).to(cuda)
+    before = library.launches[library.NMS]
+    got = library.nms_lazy_op(b, v, 0.01, max_keep)
+    assert library.launches[library.NMS] == before + 1
+    assert got.dtype == torch.bool and got.shape == v.shape
+    ties = sum(check_nms_frame(b[i], v[i], got[i], 0.01, max_keep)["tie_decisions"]
+               for i in range(b.shape[0]))
+    want = plain_nms_batch(b, v, 0.01, max_keep)
+    assert torch.equal(got, want) or ties > 0
+    assert torch.equal(library.nms_lazy_op(b, v, 0.01, max_keep), got)  # deterministic
+
+
+@pytest.mark.cuda
+def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    boxes, valid, _ = _nms_case("ragged")
+    b = torch.from_numpy(boxes).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        library.nms_lazy(b.cpu(), v.cpu(), 0.01, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        library.nms_lazy(b[:, ::2], v[:, ::2].contiguous(), 0.01, 5)
+    with pytest.raises(ValueError, match="on"):
+        library.nms_lazy(b, v.cpu(), 0.01, 5)
+    big = torch.zeros((1, 8192, 7), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        library.nms_lazy_op(big, torch.ones((1, 8192), dtype=torch.bool, device=cuda), 0.1, 5)
+
+
+@pytest.mark.cuda
+def test_post_process_makes_no_host_read(cuda):
+    """The TINY model's post-process with every candidate valid runs with
+    each host-synchronizing call an error, and equals the CPU's on
+    tie-broken scores."""
+    model = HGSFusionModel(TINY, device=cuda, seed=5)
+    with torch.inference_mode():
+        preds = model(model.batch_to_device(tiny_batch()))
+        cls = preds["cls_preds"]
+        preds["cls_preds"] = cls + torch.linspace(0, 0.1, cls.numel(), device=cuda).view(cls.shape)
+        kw = dict(score_thresh=0.0, nms_thresh=0.01, pre_max_size=512, post_max_size=100)
+        post_process(preds, model.anchors, model.box_coder, TINY, **kw)  # warm-up
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = post_process(preds, model.anchors, model.box_coder, TINY, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cpu = {k: v.cpu() for k, v in preds.items()}
+        want = post_process(cpu, model.anchors.cpu(), model.box_coder, TINY, **kw)
+    assert torch.equal(got["valid"].cpu(), want["valid"]) and bool(want["valid"].any())
+    v = want["valid"]
+    torch.testing.assert_close(got["boxes"].cpu()[v], want["boxes"][v], rtol=1e-5, atol=1e-5)

@@ -48,6 +48,9 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.models.swin", "hgsfusion_tpu_torch.rhgm",
     "hgsfusion_tpu_torch.rhgm.mask2former", "hgsfusion_tpu_torch.rhgm.generator",
     "hgsfusion_tpu_torch.rhgm.checkpoint", "hgsfusion_tpu_torch.tools.generate_hybrid_points",
+    "hgsfusion_tpu_torch.ops.library", "hgsfusion_tpu_torch.ops.matmul",
+    "hgsfusion_tpu_torch.tools.export", "hgsfusion_tpu_torch.tools.serve",
+    "hgsfusion_tpu_torch.bench",
 }
 
 
@@ -71,3 +74,46 @@ def test_port_imports_without_pillow_and_yaml():
     """Pillow and PyYAML are imported only where a JPEG is read or a YAML
     loaded."""
     assert NEW_SUBMODULES <= _walk("PIL", "yaml")
+
+
+# the serving host's import contract: torch, the ops and their loader, no
+# model code; the ops' CPU implementations (the plain versions) included
+_SERVING_HOST = r"""
+import importlib.abc, sys
+BLOCKED = ("jax", "hgsfusion_tpu", "hgsfusion_tpu_torch.models", "hgsfusion_tpu_torch.config",
+           "hgsfusion_tpu_torch.datasets", "hgsfusion_tpu_torch.train", "yaml", "PIL")
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError("the serving host imported " + name)
+sys.meta_path.insert(0, Block())
+import torch
+from hgsfusion_tpu_torch.tools import serve
+from hgsfusion_tpu_torch.ops import library
+feats, uv = torch.rand(1, 4, 5, 8), torch.rand(1, 3, 2) * 2 - 1
+assert library.quad_sample_op(feats, uv).shape == (3, 8)
+kmat, bias = torch.rand(8, 4), torch.rand(4)
+assert library.quad_sample_reduce_op(uv, [feats], [0], kmat, bias).shape == (3, 4)
+boxes = torch.tensor([[[0, 0, 0, 2, 1, 1, 0], [0.1, 0, 0, 2, 1, 1, 0.1], [5, 5, 0, 1, 1, 1, 0]]])
+keep = library.nms_lazy_op(boxes, torch.ones(1, 3, dtype=torch.bool), 0.1, 10)
+assert keep.tolist() == [[True, False, True]], keep
+print(" ".join(sorted(k for k in sys.modules if k.startswith("hgsfusion_tpu_torch"))))
+"""
+
+
+def test_serving_host_imports_no_model_code():
+    """``tools/serve.py`` and ``ops/library.py`` (and the plain versions the
+    ops take on the CPU) import no model code, config, dataset, training,
+    YAML or image module."""
+    proc = subprocess.run([sys.executable, "-c", _SERVING_HOST], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    mods = set(proc.stdout.split())
+    assert {"hgsfusion_tpu_torch.ops.library", "hgsfusion_tpu_torch.tools.serve",
+            "hgsfusion_tpu_torch.native", "hgsfusion_tpu_torch.ops.nms",
+            "hgsfusion_tpu_torch.ops.quad_sample"} <= mods
+    assert not any(m.startswith("hgsfusion_tpu_torch.models") for m in mods)

@@ -144,8 +144,9 @@ def test_grad_mode_picks_the_route(monkeypatch, mode):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(frustum, "quad_sample_reduce_plain",
-                        spy("fused", frustum.quad_sample_reduce_plain))
+    # the CPU implementation of the op hgsfusion::quad_sample_reduce_fwd
+    monkeypatch.setattr(quad_sample, "quad_sample_reduce_plain",
+                        spy("fused", quad_sample.quad_sample_reduce_plain))
     monkeypatch.setattr(frustum, "grid_sample_2d_quad_kernel",
                         spy("sampled", frustum.grid_sample_2d_quad_kernel))
     feats, grid = _f2v_inputs(6, torch.float32)
@@ -185,7 +186,7 @@ def test_fused_route_takes_uv_and_unpadded_maps(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(frustum, "quad_sample_reduce_plain", plain)
+    monkeypatch.setattr(quad_sample, "quad_sample_reduce_plain", plain)  # the op's CPU route
     monkeypatch.setattr(F, "pad", count("pad", F.pad))
     monkeypatch.setattr(quad_sample, "quad_indices",
                         count("quad_indices", quad_sample.quad_indices))

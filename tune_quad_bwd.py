@@ -24,11 +24,11 @@ import torch
 
 import chip_smoke as cs
 from hgsfusion_tpu_torch import native
-from hgsfusion_tpu_torch.ops import quad_sample
+from hgsfusion_tpu_torch.ops import library, quad_sample
 from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain
 
 
-def build(variants: dict, source: str = "quad_sample_bwd", entry: str = quad_sample.BWD_KERNEL,
+def build(variants: dict, source: str = "quad_sample_bwd", entry: str = library.BWD_KERNEL,
           tag: str = "bfloat16Li2") -> dict:
     """{name: the variant's C entry point ``entry``}, each variant of
     ``csrc/<source>.cu`` compiled at once (the package's headers on the
@@ -61,7 +61,7 @@ def build(variants: dict, source: str = "quad_sample_bwd", entry: str = quad_sam
                   for j in (2, 3)]
         print(name, json.dumps(variants[name]), " | ".join(report))
         fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = quad_sample._ENTRIES[entry][1]
+        fn.argtypes = library._ENTRIES[entry][1]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

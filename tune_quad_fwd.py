@@ -24,7 +24,7 @@ import sys
 import torch
 
 import chip_smoke as cs
-from hgsfusion_tpu_torch.ops import quad_sample
+from hgsfusion_tpu_torch.ops import library
 from tune_quad_bwd import build
 
 
@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("tune_quad_fwd: no CUDA device", file=sys.stderr)
         return 2
-    fns = build(json.loads(argv[0]), "quad_sample", quad_sample.KERNEL, "bfloat16Li8")
+    fns = build(json.loads(argv[0]), "quad_sample", library.KERNEL, "bfloat16Li8")
     dev = torch.device("cuda", 0)
     print(cs.card_line())
     polar = cs.polar_coords(dev)
@@ -44,8 +44,8 @@ def main(argv=None) -> int:
     for case, (shape, coords) in cases.items():
         f = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
         b, h, w, c = shape
-        n, per_frame, stride = quad_sample._uv_rows(quad_sample.KERNEL, coords, b)
-        ref = quad_sample.quad_sample_fwd(f, coords, taps=True)
+        n, per_frame, stride = library.uv_rows(library.KERNEL, coords, b)
+        ref = library.quad_sample_fwd(f, coords, taps=True)
 
         def call(fn, taps):
             out = torch.empty((n, c), dtype=f.dtype, device=dev)
@@ -61,7 +61,7 @@ def main(argv=None) -> int:
 
         row = {name: {"bit_equal": all(torch.equal(a, r) for a, r in zip(call(fn, True), ref))}
                for name, fn in fns.items()}
-        timed = [("repo", lambda taps: quad_sample.quad_sample_fwd(f, coords, taps=taps))]
+        timed = [("repo", lambda taps: library.quad_sample_fwd(f, coords, taps=taps))]
         timed += [(name, lambda taps, fn=fn: call(fn, taps)) for name, fn in fns.items()]
         for order in (timed, timed[::-1]):
             for name, fn in order:
