@@ -200,11 +200,36 @@ Phases, each of which must pass or the script exits non-zero:
     masks' copy and the host generator's ms, the masks kept, the virtual and
     real points; frames/s through the tool after the warm-up frame, peak
     device memory, and the segmentor's FLOPs (``torch.utils.flop_counter``)
-    over the f32 peak as its bound.
+    over the f32 peak as its bound;
+28. ddp: ``configs/hgsfusion_vod.yaml`` at full width through the
+    data-parallel step (``parallel/mesh.py``: DDP, the synchronized
+    BatchNorms): (a) world size 1 over NCCL in this process, two steps, bit
+    for bit the plain step (cuDNN deterministic; held to the plain step's
+    own run-to-run spread if that is not 0), 2 forward, 2 backward and 2
+    bins a step; (b) two ranks on the card over gloo (``spawn_ranks``) at
+    B=1 each against one process at B=2 on the same two flagship frames,
+    in f32 with TF32 off, and the TINY model likewise, each under the whole
+    ``train/step_compare.py`` comparison (loss terms, gradients, updated
+    parameters, BN statistics), the tensors that its 8 probes find over
+    ``SENS_CAP`` named and exempted (every weight seed leaves some tensor
+    ill-conditioned at full width: ``ddp_conditioning``, ``ddp_noise``);
+    the ranks bit-equal, each rank's step 2 + 2 + 2 launches;
+29. eval multiproc: ``tools.test.main`` over a 5-frame full-width VoD tree
+    in this process and in two gloo ranks (the second shard padded with
+    frame 0), gather and polar views: the merged ``result.pkl`` and every
+    rank's result dict equal one process's, each rank serving 3 frames;
+30. tta: ``tools/test_tta.py`` with ``--tta_num 4`` over a 2-frame
+    full-width VoD tree, both views: 1 fused + 1 NMS or 3 forward + 1 NMS
+    launches a variant, every variant's annotations equal ``serve`` on it;
+31. study small: ``study_gpu.sh``'s plumbing: ``tools/make_study_data.py``
+    (VoD, 516 x 1936, 4 train / 2 val frames), 4 steps of
+    ``tools/train.py`` under ``torchrun --nproc_per_node 1`` (NCCL; its
+    launches read from the log), ``tools/test.py`` on the checkpoint
+    through each view, ``tools/study_polar_match.py`` on the two results.
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts and 27),
+serving hosts, 27 and 28-31, the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -217,6 +242,9 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -245,19 +273,24 @@ from hgsfusion_tpu_torch.ops import library, nms, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
+from hgsfusion_tpu_torch.parallel import mesh, spawn
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
 from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
 from hgsfusion_tpu_torch.tools import export as export_cli
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
+from hgsfusion_tpu_torch.tools import make_study_data
 from hgsfusion_tpu_torch.tools import serve as serve_cli
+from hgsfusion_tpu_torch.tools import study_polar_match as study_match
 from hgsfusion_tpu_torch.tools import test as test_cli
+from hgsfusion_tpu_torch.tools import test_tta as test_tta_cli
 from hgsfusion_tpu_torch.tools import train as train_cli
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
 from hgsfusion_tpu_torch.tools.test import run_eval
 from hgsfusion_tpu_torch.train.checkpoint import CheckpointManager
 from hgsfusion_tpu_torch.train.optim import FROZEN_PREFIX, build_optimizer
-from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps, perturb_inputs,
-                                                    sensitivity, step_record,
+from hgsfusion_tpu_torch.train.step_compare import (GRAD_RTOL, SENS, SENS_CAP, ZERO_FLOOR,
+                                                    GradCapture, compare_steps, over_cap,
+                                                    perturb_inputs, sensitivity, step_record,
                                                     zero_residual_scales)
 from hgsfusion_tpu_torch.train.trainer import detections_to_pred_dicts, make_train_step
 from hgsfusion_tpu_torch.utils.common import create_logger
@@ -1389,7 +1422,8 @@ def phase_train(dev, cfg, per_step: int):
 # counters at 0 just before it
 MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_polar", "train_cli",
               "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
-              "eval_tj4d_polar", "export_serve", "export_serve_polar", "rhgm")
+              "eval_tj4d_polar", "export_serve", "export_serve_polar", "rhgm", "ddp",
+              "eval_multiproc", "tta", "study_small")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -2417,6 +2451,524 @@ def phase_rhgm(dev, preset: str = "large", image_hw=(516, 1936), tj4d_hw=(810, 1
     return out
 
 
+# -- data-parallel training, multi-process evaluation, TTA, the study -----------
+# the processes of a phase's process group on the one card talk over gloo,
+# which takes CUDA tensors (NCCL refuses two ranks on one card)
+RANKS = 2
+# the weights of the ddp phase's B=2 comparisons, from ``ddp_conditioning``
+# on the card. Full width: the seed whose one-process f32 step has the
+# fewest tensors over step_compare.SENS_CAP (seeds 0-7: 3 tensors over at
+# seed 6, 7-51 at the others). TINY: the best-conditioned seed (seeds 0-11:
+# 0, 2, 7 and 8 under the cap, 7 at 3.1e-4 of a tensor's largest gradient;
+# seed 1, the CPU test's, over it at 1.2e-3 on the card)
+DDP_SEED, DDP_TINY_SEED = 6, 7
+# the probes of their sensitivity: two put the full-width step's
+# pred_occupancy.1.bias at 0.96 of SENS_CAP, eight at 1.32 (``ddp_noise``)
+DDP_PROBES = 8
+GATHER_STEP = {library.KERNEL: 2, library.BWD_KERNEL: 2, library.BINS: 2}
+
+
+def _torchrun_env(port: int) -> dict:
+    return {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def train_steps(ctx, cfg, batch, steps: int, seed: int, perturb_seed=None, deterministic=False):
+    """``steps`` training steps of the model of ``cfg`` from ``seed`` (its
+    backbone's residual scales at 0) on the card, on ``batch`` or, under a
+    process group (``ctx`` active), this rank's slice of it through DDP.
+    Returns each step's ``step_record``, the first step's learning rate,
+    the steps' kernel launches and each step's ms. TF32 off; with
+    ``deterministic`` cuDNN's deterministic algorithms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic
+    dev = ctx.device if ctx is not None and ctx.active else torch.device("cuda", 0)
+    model = zero_residual_scales(HGSFusionModel(cfg, device=dev, seed=seed))
+    assigner = TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range,
+                              cfg.class_names, device=dev)
+    opt, lr_schedule = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    ddp = None
+    if ctx is not None and ctx.active:
+        ddp = mesh.wrap_model(model, ctx)
+        batch = mesh.rank_slice(batch, ctx.rank, ctx.world_size)
+    step = make_train_step(model, assigner, cap, cfg.loss_weights, cfg, ddp=ddp)
+    b = model.batch_to_device(batch)
+    if perturb_seed is not None:
+        b = perturb_inputs(b, perturb_seed)
+    records, ms = [], []
+    zero_launches()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, tb = step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        records.append(step_record(model, cap, tb))
+    launches = dict(library.launches)
+    torch.backends.cudnn.deterministic = False
+    return records, float(lr_schedule(0)), launches, ms
+
+
+def _record_diff(a, b) -> float:
+    """The largest |a - b| over every tensor of two step records."""
+    return max(float((v.float() - b[part][k].float()).abs().max())
+               for part in ("tb", "grads", "params", "stats") for k, v in a[part].items())
+
+
+def phase_ddp(dev):
+    """``configs/hgsfusion_vod.yaml`` at full width through the port's
+    data-parallel training step (``parallel/mesh.py``, the synchronized
+    BatchNorms, DDP): (a) world size 1 over NCCL, two steps, against the
+    plain step, bit for bit (cuDNN deterministic; the plain step run twice
+    gives its own spread, which the wrapped step is held to if it is not 0);
+    (b) two ranks on the card over gloo at B=1 each, against one process at
+    B=2 on the same two frames (``two_ranks_vs_one``), in f32 (TF32 off:
+    ``train/step_compare.py``'s tolerances are f32's), the ranks equal to
+    each other, at full width and on the TINY model, under the whole
+    ``step_compare`` comparison. No weight seed gives a full-width step
+    that the probes find well conditioned in every tensor
+    (``ddp_conditioning``: 3 to 51 tensors over ``SENS_CAP`` at seeds 0-7),
+    so the few over the cap are named and held to their measured
+    tolerance."""
+    cfg = model_config_from_yaml(load_config(VOD_YAML))
+    batch = flagship_batch(cfg)
+    seed = TRAIN_REF_SEED
+    # (a) world size 1 over NCCL
+    plain = [train_steps(None, cfg, batch, 2, seed, deterministic=True) for _ in range(2)]
+    os.environ.update(_torchrun_env(spawn.free_port()))
+    try:
+        ctx = mesh.init_distributed("cuda", "nccl")
+        try:
+            wrapped = train_steps(ctx, cfg, batch, 2, seed, deterministic=True)
+        finally:
+            mesh.shutdown(ctx)
+    finally:
+        for k in _torchrun_env(0):
+            os.environ.pop(k, None)
+    spread = max(_record_diff(a, b) for a, b in zip(plain[0][0], plain[1][0]))
+    diff = max(_record_diff(a, b) for a, b in zip(plain[0][0], wrapped[0]))
+    if spread == 0.0 and diff != 0.0:
+        raise AssertionError(f"world size 1: the wrapped step differs from the plain step by "
+                             f"{diff}, the plain step is bit-reproducible")
+    if diff > spread:
+        raise AssertionError(f"world size 1: {diff} off, over the plain step's spread {spread}")
+    want = per_frames(GATHER_STEP, 2)
+    if wrapped[2] != want:
+        raise AssertionError(f"world size 1: launches {wrapped[2]}, want {want}")
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks at B=1 against one process at B=2, at full width
+    # (DDP_SEED) and TINY (DDP_TINY_SEED)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gloo = {"full": two_ranks_vs_one(cfg32, flagship_batch(cfg32, b=RANKS), DDP_SEED),
+            "tiny": two_ranks_vs_one(TINY, tiny_batch(RANKS), DDP_TINY_SEED)}
+    result = {
+        "world1": {"bit_equal": diff == 0.0, "max_abs_diff": diff, "plain_spread": spread,
+                   "steps": 2, "plain_ms": plain[0][3], "wrapped_ms": wrapped[3],
+                   "loss": [float(r["tb"]["loss"]) for r in wrapped[0]]},
+        "gloo2": gloo,
+        "launches": {k: wrapped[2][k] + gloo["full"]["launches"][k] for k in library.launches},
+    }
+    print("  " + json.dumps(result))
+    return result
+
+
+def two_ranks_vs_one(cfg, batch, seed: int) -> dict:
+    """One training step of ``cfg`` (weights ``seed``) in two gloo ranks on
+    the card at B=1 each against one process at B=2 on ``batch``'s two
+    frames, under the whole ``step_compare`` comparison (loss terms,
+    gradients, updated parameters, BN statistics), the tensors whose
+    sensitivity (``DDP_PROBES`` probes) passes ``SENS_CAP`` named and
+    exempted, their errors reported. The ranks bit-equal, each rank's
+    launches those of a gather step."""
+    (ref,), lr, _, ref_ms = train_steps(None, cfg, batch, 1, seed)
+    probes = [train_steps(None, cfg, batch, 1, seed, perturb_seed=s)[0][0]["grads"]
+              for s in range(1, DDP_PROBES + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = spawn.spawn_ranks(train_steps, RANKS, cfg, batch, 1, seed, device="cuda:0",
+                              backend="gloo")
+    got = ranks[0][0][0]
+    if _record_diff(got, ranks[1][0][0]) != 0.0:
+        raise AssertionError("the two ranks' steps differ")
+    for r, (_, _, launches, _) in enumerate(ranks):
+        if launches != per_frames(GATHER_STEP, 1):
+            raise AssertionError(f"rank {r}: launches {launches}, want "
+                                 f"{per_frames(GATHER_STEP, 1)}")
+    sens = sensitivity(ref["grads"], probes)
+    exempt = over_cap(ref["grads"], sens)
+    report = compare_steps(ref, got, sens, lr, exempt=exempt)
+    exempt_err = {k: float((got["grads"][k] - ref["grads"][k]).abs().max())
+                  / float(ref["grads"][k].abs().max()) for k in exempt}
+    return {**report, "exempt_err_over_max": exempt_err, "tensors": len(ref["grads"]),
+            "single_b2_ms": ref_ms, "rank_ms": [r[3] for r in ranks],
+            "loss_single": float(ref["tb"]["loss"]), "loss_ranks": float(got["tb"]["loss"]),
+            "launches": {k: sum(r[2][k] for r in ranks) for k in library.launches}}
+
+
+def ddp_conditioning(dev, seeds=range(8), tiny: bool = False):
+    """The conditioning of ``phase_ddp``'s one-process B=2 step (f32, full
+    width; with ``tiny``, the TINY model's) for each weight seed: per seed,
+    the largest sensitivity over a tensor's largest gradient
+    (``step_compare.sensitivity``, two probes), the tensors over
+    ``step_compare.SENS_CAP`` and the five worst, printed as one JSON line.
+    ``DDP_SEED`` and ``DDP_TINY_SEED`` come from it.
+
+        python3 -c "import torch, chip_smoke as c; c.ddp_conditioning(torch.device('cuda', 0))"
+    """
+    if tiny:
+        cfg, batch = TINY, tiny_batch(RANKS)
+    else:
+        cfg = dataclasses.replace(model_config_from_yaml(load_config(VOD_YAML)),
+                                  compute_dtype="float32")
+        batch = flagship_batch(cfg, b=RANKS)
+    out = {}
+    for seed in seeds:
+        (ref,), _, _, _ = train_steps(None, cfg, batch, 1, seed)
+        probes = [train_steps(None, cfg, batch, 1, seed, perturb_seed=s)[0][0]["grads"]
+                  for s in (1, 2)]
+        sens = sensitivity(ref["grads"], probes)
+        big = max(float(g.abs().max()) for g in ref["grads"].values())
+        rows = sorted(((sens[k] / float(g.abs().max()), k) for k, g in ref["grads"].items()
+                       if float(g.abs().max()) > ZERO_FLOOR * big), reverse=True)
+        out[seed] = {"worst": rows[0][0], "over_cap": sum(r > SENS_CAP for r, _ in rows),
+                     "top": rows[:5], "loss": float(ref["tb"]["loss"])}
+        print(json.dumps({"seed": seed, **out[seed]}), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_noise(dev, probes=8, reruns=3, out=None):
+    """What separates ``phase_ddp``'s full-width two ranks from one process
+    at B=2 (f32, ``DDP_SEED``), tensor by tensor, as a fraction of each
+    tensor's largest gradient: the ranks' error; the one-process step's own
+    run-to-run change (``reruns`` runs, cuDNN as the phase runs it); its
+    sensitivity from probes 1-2 (the phase's) and from 1-``probes``. For
+    the tensors the ranks miss by most, how many of their elements are off
+    by over ``GRAD_RTOL`` of the largest, for the ranks and for each probe.
+    Prints one JSON line (and writes it to ``out``).
+
+        python3 -c "import torch, chip_smoke as c; c.ddp_noise(torch.device('cuda', 0))"
+    """
+    cfg = dataclasses.replace(model_config_from_yaml(load_config(VOD_YAML)),
+                              compute_dtype="float32")
+    batch = flagship_batch(cfg, b=RANKS)
+    runs = [train_steps(None, cfg, batch, 1, DDP_SEED)[0][0] for _ in range(reruns)]
+    ref = runs[0]
+    probe = [train_steps(None, cfg, batch, 1, DDP_SEED, perturb_seed=s)[0][0]["grads"]
+             for s in range(1, probes + 1)]
+    torch.cuda.empty_cache()
+    got = spawn.spawn_ranks(train_steps, RANKS, cfg, batch, 1, DDP_SEED, device="cuda:0",
+                            backend="gloo")[0][0][0]
+    big = max(float(g.abs().max()) for g in ref["grads"].values())
+    rows = {}
+    for k, g in ref["grads"].items():
+        top = float(g.abs().max())
+        if top <= ZERO_FLOOR * big:
+            continue
+        d = [float((p[k] - g).abs().max()) / top for p in probe]
+        rows[k] = {"err": float((got["grads"][k] - g).abs().max()) / top,
+                   "rerun": max(float((r["grads"][k] - g).abs().max()) for r in runs[1:]) / top,
+                   "sens2": max(d[:2]), "sens_all": max(d), "probes": d}
+        rows[k]["over_tol2"] = rows[k]["err"] / (GRAD_RTOL + SENS * rows[k]["sens2"])
+        rows[k]["over_tol_all"] = rows[k]["err"] / (GRAD_RTOL + SENS * rows[k]["sens_all"])
+    worst = sorted(rows, key=lambda k: -rows[k]["over_tol2"])[:6]
+    for k in worst:
+        g = ref["grads"][k]
+        lim = GRAD_RTOL * float(g.abs().max())
+        rows[k]["elements"] = g.numel()
+        rows[k]["elements_off_ranks"] = int(((got["grads"][k] - g).abs() > lim).sum())
+        rows[k]["elements_off_probes"] = [int(((p[k] - g).abs() > lim).sum()) for p in probe]
+    result = {
+        "seed": DDP_SEED, "probes": probes, "reruns": reruns, "tensors": len(rows),
+        "loss_rel": abs(float(got["tb"]["loss"]) / float(ref["tb"]["loss"]) - 1),
+        "over_cap2": sorted(k for k, r in rows.items() if r["sens2"] > SENS_CAP),
+        "over_cap_all": sorted(k for k, r in rows.items() if r["sens_all"] > SENS_CAP),
+        "over_tol2": sorted(k for k, r in rows.items() if r["over_tol2"] > 1),
+        "over_tol_all": sorted(k for k, r in rows.items() if r["over_tol_all"] > 1),
+        "rerun_max": max(r["rerun"] for r in rows.values()),
+        "worst": {k: rows[k] for k in worst}}
+    line = json.dumps(result)
+    print(line, flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
+    return result
+
+
+class _NoUpdate:
+    """An optimizer that takes the gradients and changes nothing."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def step(self, grads):
+        pass
+
+
+def first_step_terms(dev, weights=None, seeds=(0, 1, 2), frames=6, out=None):
+    """The first training step's loss terms of ``configs/hgsfusion_vod.yaml``
+    (bf16, as ``tools/train.py`` trains it) on the study's learnable VoD
+    tree (``make_study_data``, flagship size, ``frames`` train frames, the
+    training augmentation from ``np.random.seed(666)``), one frame a step,
+    for the port's init at each of ``seeds`` and for the state_dict file
+    ``weights`` (``tests/torch_jax_init.py``: the JAX package's init): per
+    init, the terms of each frame and their mean. Prints one JSON line.
+
+        python3 -c "import torch, chip_smoke as c; c.first_step_terms(torch.device('cuda', 0), 'output/jax_vod_init.pt')"
+    """
+    cfg = load_config(VOD_YAML)
+    model_cfg = model_config_from_yaml(cfg)
+    inits = {f"port_seed{s}": s for s in seeds}
+    if weights:
+        inits["jax"] = weights
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = make_study_data.main(["--root", tmp, "--datasets", "vod", "--num_frames",
+                                     str(frames + 2), "--val_frames", "2"])["vod"]
+        cfg["DATA_CONFIG"]["DATA_PATH"] = str(tree)
+        ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=True,
+                           logger=create_logger())
+        assigner = TargetAssigner(model_cfg.anchor_generator, model_cfg.grid_size,
+                                  model_cfg.pc_range, model_cfg.class_names, device=dev)
+        for name, w in inits.items():
+            model = HGSFusionModel(model_cfg, device=dev, seed=w if isinstance(w, int) else 0)
+            if not isinstance(w, int):
+                sd = torch.load(w, map_location="cpu")
+                model.load_state_dict({k: v.float() if torch.is_floating_point(v) else v
+                                       for k, v in sd.items()})
+            _, _ = build_optimizer(model_cfg.optimization, TRAIN_TOTAL_STEPS, model)
+            params = [p for p in model.parameters() if p.requires_grad]
+            step = make_train_step(model, assigner, _NoUpdate(params), model_cfg.loss_weights,
+                                   model_cfg)
+            np.random.seed(666)
+            per = []
+            for i in range(frames):
+                b = model.batch_to_device(ds.collate_batch([ds[i]]))
+                _, tb = step(b)
+                per.append({k: float(v) for k, v in tb.items()})
+            result[name] = {"mean": {k: float(np.mean([f[k] for f in per])) for k in per[0]},
+                            "frames": per}
+            del model, step
+            torch.cuda.empty_cache()
+    line = json.dumps(result)
+    print(line, flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
+    return result
+
+
+def _thr_from_first_frame(model, ds, per_frame: int = 12) -> float:
+    """A score threshold that keeps about ``per_frame`` candidates of the
+    first frame (random weights score every anchor under 0.1)."""
+    with torch.inference_mode():
+        preds = model(model.batch_to_device(ds.collate_batch([ds[0]])))
+    scores = torch.sigmoid(preds["cls_preds"].float().reshape(-1, model.cfg.num_class))
+    top = torch.topk(scores.max(-1).values, per_frame + 1).values.cpu().numpy()
+    return float(top[per_frame - 1] + top[per_frame]) / 2
+
+
+def _small_tree(tmp, yaml_path, frames: int):
+    """A ``frames``-frame full-width tree of the config's dataset with its
+    infos; returns (cfg, model config, dataset, the --set of its path)."""
+    cfg = load_config(yaml_path)
+    data = cfg["DATA_CONFIG"]
+    root = Path(tmp) / "data"
+    data["DATA_PATH"] = str(root)
+    write_tree(root, data, frames)
+    create_infos(data, cfg["CLASS_NAMES"])
+    ds = build_dataset(data, cfg["CLASS_NAMES"], training=False, logger=create_logger())
+    return cfg, model_config_from_yaml(cfg), ds, ["DATA_CONFIG.DATA_PATH", str(root)]
+
+
+def eval_rank(ctx, argv):
+    """A rank of ``tools.test.main(argv)``: its result dict, stats and the
+    kernel launches it made; TF32 off, as in this script's own process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero_launches()
+    (result_dict, stats), = test_cli.main(argv).values()
+    return {"result": result_dict, "frames": stats["frames"],
+            "frames_served": stats["frames_served"], "launches": dict(library.launches)}
+
+
+EVAL_MULTIPROC_FRAMES = 5  # odd: the second rank's shard ends with frame 0 again
+EVAL_VIEWS = {"gather": (VOD_YAML, GATHER_FRAME),
+              "polar": ("configs/hgsfusion_vod_polar.yaml", POLAR_FRAME)}
+
+
+def phase_eval_multiproc(dev):
+    """``tools.test.main`` over a 5-frame full-width VoD tree, once in this
+    process and once in two gloo ranks on the card (rank 0 writes the merged
+    ``result.pkl``), through each view: the merged annotations equal one
+    process's bit for bit, and so do the result dicts. The threshold keeps
+    about 12 candidates of a frame; both runs compute the same bits on the
+    same card, so no score tie falls differently."""
+    out = {"launches": {k: 0 for k in library.launches}}
+    for view, (yaml_path, per_frame) in EVAL_VIEWS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, model_cfg, ds, data_set = _small_tree(tmp, yaml_path, EVAL_MULTIPROC_FRAMES)
+            thr = _thr_from_first_frame(HGSFusionModel(model_cfg, device=dev, seed=0), ds)
+            argv = ["--cfg_file", yaml_path, "--set", *data_set,
+                    "MODEL.POST_PROCESSING.SCORE_THRESH", str(thr)]
+            t0 = time.perf_counter()
+            one = eval_rank(None, ["--output_dir", f"{tmp}/one"] + argv)
+            one_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ranks = spawn.spawn_ranks(
+                eval_rank, RANKS, ["--output_dir", f"{tmp}/two", "--device", "cuda:0"] + argv,
+                device="cuda:0", backend="gloo")
+            ranks_s = time.perf_counter() - t0
+            pkls = {}
+            for name in ("one", "two"):
+                with open(next(Path(tmp, name).rglob("result.pkl")), "rb") as f:
+                    pkls[name] = pickle.load(f)
+        differ = [a["frame_id"] for a, b in zip(pkls["two"], pkls["one"])
+                  if not annos_equal(a, b)]
+        if len(pkls["two"]) != EVAL_MULTIPROC_FRAMES or differ:
+            raise AssertionError(f"{view}: the merged result.pkl differs from one process's "
+                                 f"in frames {differ} of {[a['frame_id'] for a in pkls['two']]}")
+        if not any(len(a["name"]) for a in pkls["one"]):
+            raise AssertionError(f"{view}: no frame kept a box")
+        for r, got in enumerate(ranks):
+            if got["result"] != one["result"]:
+                raise AssertionError(f"{view}: rank {r}'s result dict differs")
+            want = per_frames(per_frame, 3)
+            if got["frames_served"] != 3 or got["launches"] != want:
+                raise AssertionError(f"{view}: rank {r} served {got['frames_served']} frames "
+                                     f"with launches {got['launches']}, want 3 and {want}")
+        for k in out["launches"]:
+            out["launches"][k] += sum(r["launches"][k] for r in ranks)
+        out[view] = {"frames": EVAL_MULTIPROC_FRAMES, "score_thresh": thr,
+                     "boxes": sum(len(a["name"]) for a in pkls["one"]),
+                     "headline": one["result"][HEADLINE["VODDataset"]],
+                     "one_process_s": one_s, "two_ranks_s": ranks_s,
+                     "rank_launches": [r["launches"] for r in ranks]}
+    print("  " + json.dumps(out))
+    return out
+
+
+TTA_NUM, TTA_FRAMES = 4, 2
+
+
+def phase_tta(dev):
+    """``tools/test_tta.py`` (``main``) over a 2-frame full-width VoD tree with
+    ``--tta_num 4``, through each view: the kernels launched per variant
+    (the fused kernel and the NMS, or three forward launches and the NMS),
+    every variant's annotations equal to ``serve`` on that variant, one
+    annotation and one augmented gt per variant, the VoD result dict."""
+    out = {"launches": {k: 0 for k in library.launches}}
+    for view, (yaml_path, per_frame) in EVAL_VIEWS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, model_cfg, ds, data_set = _small_tree(tmp, yaml_path, TTA_FRAMES)
+            model = HGSFusionModel(model_cfg, device=dev, seed=0)
+            thr = _thr_from_first_frame(model, ds)
+            model.cfg = dataclasses.replace(model_cfg, score_thresh=thr)
+            zero_launches()
+            t0 = time.perf_counter()
+            det, gt, result, per_variant = test_tta_cli.main(
+                ["--cfg_file", yaml_path, "--tta_num", str(TTA_NUM), "--output_dir", tmp,
+                 "--set", *data_set, "MODEL.POST_PROCESSING.SCORE_THRESH", str(thr)])
+            tool_s = time.perf_counter() - t0
+            launches = dict(library.launches)
+            want = per_frames(per_frame, TTA_NUM * TTA_FRAMES)
+            if launches != want or any(v != per_frames(per_frame, 1) for v in per_variant):
+                raise AssertionError(f"{view}: launches {launches}, want {want}")
+            if not len(det) == len(gt) == TTA_NUM * TTA_FRAMES:
+                raise AssertionError(f"{view}: {len(det)} annotations, {len(gt)} gts")
+            for i in range(TTA_FRAMES):
+                variants, _ = test_tta_cli.frame_variants(ds, i, TTA_NUM)
+                for v, variant in enumerate(variants):
+                    batch = ds.collate_batch([variant])
+                    ref = ds.generate_prediction_dicts(
+                        batch, detections_to_pred_dicts(model.serve(batch)), ds.class_names)[0]
+                    if not annos_equal(det[i * TTA_NUM + v], ref):
+                        raise AssertionError(f"{view}: frame {i} variant {v} differs from serve")
+        if not any(len(a["name"]) for a in det):
+            raise AssertionError(f"{view}: no variant kept a box")
+        for k in out["launches"]:
+            out["launches"][k] += launches[k]
+        out[view] = {"variants": len(det), "score_thresh": thr,
+                     "boxes": sum(len(a["name"]) for a in det), "tool_s": tool_s,
+                     "headline": result[HEADLINE["VODDataset"]], "launches": launches}
+    print("  " + json.dumps(out))
+    return out
+
+
+STUDY_FRAMES, STUDY_VAL, STUDY_STEPS = 6, 2, 4
+
+
+def _logged_launches(log_text: str) -> dict:
+    """The last ``kernel launches: {...}`` a CLI logged."""
+    lines = [ln for ln in log_text.splitlines() if "kernel launches: " in ln]
+    if not lines:
+        raise AssertionError("the log names no kernel launches")
+    return json.loads(lines[-1].split("kernel launches: ", 1)[1])
+
+
+def phase_study_small(dev):
+    """``study_gpu.sh``'s plumbing at a few frames: ``make_study_data`` (VoD,
+    flagship size, 4 train / 2 val frames), 4 training steps of
+    ``configs/hgsfusion_vod.yaml`` through ``tools/train.py`` under
+    ``torchrun --nproc_per_node 1`` (NCCL, DDP at world size 1), the
+    checkpoint evaluated by ``tools/test.py`` through each view, and
+    ``study_polar_match`` on the two results."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        trees = make_study_data.main(["--root", tmp, "--datasets", "vod", "--num_frames",
+                                      str(STUDY_FRAMES), "--val_frames", str(STUDY_VAL)])
+        tree_s = time.perf_counter() - t0
+        tree = trees["vod"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "hgsfusion_tpu_torch.tools.train", "--cfg_file", VOD_YAML, "--epochs",
+             "1", "--max_steps", str(STUDY_STEPS), "--workers", "2", "--fix_random_seed",
+             "--extra_tag", "study_g", "--output_dir", f"{tmp}/out", "--set",
+             "DATA_CONFIG.DATA_PATH", str(tree)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        train_s = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise AssertionError(f"torchrun training exited {proc.returncode}")
+        log = next(Path(tmp, "out").rglob("train.log")).read_text()
+        train_launches = _logged_launches(log)
+        if train_launches != per_frames(GATHER_STEP, STUDY_STEPS):
+            raise AssertionError(f"training launches {train_launches}")
+        if "rank 0 of 1 (nccl)" not in log:
+            raise AssertionError("the training did not run under a process group")
+        ckpt = next(Path(tmp, "out").rglob("ckpt"))
+        results, launches = {}, {k: 0 for k in library.launches}
+        for view, (yaml_path, per_frame) in EVAL_VIEWS.items():
+            zero_launches()
+            (result_dict, stats), = test_cli.main(
+                ["--cfg_file", yaml_path, "--ckpt_dir", str(ckpt), "--extra_tag", view,
+                 "--output_dir", f"{tmp}/eval", "--set", "DATA_CONFIG.DATA_PATH",
+                 str(tree)]).values()
+            if dict(library.launches) != per_frames(per_frame, STUDY_VAL):
+                raise AssertionError(f"{view}: launches {dict(library.launches)}")
+            for k in launches:
+                launches[k] += library.launches[k]
+            results[view] = (result_dict, next(Path(tmp, "eval").rglob(f"{view}/eval/result.pkl")))
+        match = study_match.main(["--a", str(results["gather"][1]), "--b",
+                                  str(results["polar"][1]), "--infos",
+                                  str(tree / "kitti_infos_val.pkl"), "--json", f"{tmp}/m.json"])
+        if set(json.loads(Path(tmp, "m.json").read_text())) != {
+                "match", "ap_a", "ap_b", "dap", "max_abs_dap"}:
+            raise AssertionError("the match report's keys")
+    losses = [float(m) for m in re.findall(r"step \d+/\d+ loss ([0-9.]+)", log)]
+    out = {"tree_s": tree_s, "train_s": train_s, "losses_logged": losses,
+           "train_launches": train_launches,
+           "launches": {k: launches[k] + train_launches.get(k, 0) for k in launches},
+           "headline": {v: r[0][HEADLINE["VODDataset"]] for v, r in results.items()},
+           "max_abs_dap": match["max_abs_dap"]}
+    print("  " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2496,6 +3048,14 @@ def main(argv=None) -> int:
     phase("bench", phase_bench, dev)
     phase("small_reference_rhgm", phase_small_reference_rhgm, dev)
     phase("rhgm", phase_rhgm, dev)
+    torch.cuda.empty_cache()
+    phase("ddp", phase_ddp, dev)
+    torch.cuda.empty_cache()
+    phase("eval_multiproc", phase_eval_multiproc, dev)
+    torch.cuda.empty_cache()
+    phase("tta", phase_tta, dev)
+    torch.cuda.empty_cache()
+    phase("study_small", phase_study_small, dev)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

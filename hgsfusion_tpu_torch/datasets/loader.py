@@ -9,6 +9,11 @@ draws from the global ``np.random`` stream interleave across threads, as in a
 multi-worker DataLoader. With ``pin_keys`` the named arrays of each batch are
 copied into pinned host memory by the worker, so the consumer can copy them
 to the card with ``non_blocking=True``.
+
+Under data parallelism every rank builds the same schedule of global batches
+(``world_size`` x ``batch_size`` frames, from one ``seed``) and takes the
+``rank``-th contiguous slice of each, so W ranks see the frames that one
+process sees at a batch of W x ``batch_size``.
 """
 from __future__ import annotations
 
@@ -39,43 +44,58 @@ class PrefetchLoader:
       num_workers: sample-building threads (0: built synchronously).
       prefetch: batches buffered ahead of the consumer.
       pin_keys: batch keys whose arrays are returned as pinned torch tensors.
+      rank, world_size: this rank's slice of each global batch of
+        ``world_size * batch_size`` frames.
+      seed: the schedule's seed (default: drawn from ``np.random``); under
+        data parallelism every rank must pass the same.
 
     Closing the generator of ``batches()`` stops its workers and waits for
     them.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 num_workers: int = 4, prefetch: int = 2, pin_keys=()):
+                 num_workers: int = 4, prefetch: int = 2, pin_keys=(), rank: int = 0,
+                 world_size: int = 1, seed=None):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of a world of {world_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.prefetch = max(prefetch, 1)
         self.pin_keys = tuple(pin_keys)
+        self.rank, self.world_size = rank, world_size
         # the loader's own generator: the schedule depends on the caller's
         # seed only, not on what other threads draw from np.random
-        self._rng = np.random.default_rng(np.random.randint(0, 2**31))
+        self._rng = np.random.default_rng(np.random.randint(0, 2**31) if seed is None else seed)
+
+    @property
+    def global_batch_size(self) -> int:
+        return self.batch_size * self.world_size
 
     def _epoch_order(self):
-        n = len(self.dataset)
+        n, g = len(self.dataset), self.global_batch_size
         order = self._rng.permutation(n) if self.shuffle else np.arange(n)
-        if self.batch_size > n:
+        if g > n:
             # a batch larger than the dataset: top up with replacement so
             # that each epoch yields one batch
-            order = np.concatenate([order, self._rng.integers(0, n, self.batch_size - n)])
+            order = np.concatenate([order, self._rng.integers(0, n, g - n)])
         return order
 
     def __len__(self):
-        return max(len(self.dataset), self.batch_size) // self.batch_size
+        g = self.global_batch_size
+        return max(len(self.dataset), g) // g
 
     def _schedule(self):
-        """Endless index batches, epochs concatenated, the tail dropped."""
+        """Endless index batches of this rank, epochs concatenated, the tail
+        dropped."""
+        g, lo = self.global_batch_size, self.rank * self.batch_size
         while True:
             order = self._epoch_order()
-            for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
-                yield order[i:i + self.batch_size]
+            for i in range(0, len(order) - g + 1, g):
+                yield order[i + lo:i + lo + self.batch_size]
 
     def _finish(self, samples):
         batch = self.dataset.collate_batch(samples)

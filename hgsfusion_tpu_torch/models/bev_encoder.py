@@ -126,6 +126,10 @@ class PillarResNet18BEV(nn.Module):
         self.conv3 = _DownStage(64, 128, dtype)
         self.conv4 = _DownStage(128, 256, dtype)
 
+    def stages_without_grad(self):
+        """The names of the stages that train mode runs without autograd."""
+        return [f"conv{i + 2}" for i in range(3) if i >= max(self.out_indices)]
+
     def forward(self, x, mask):
         """x (B, H, W, C), mask (B, H, W, 1) float -> list of NHWC maps."""
         x = x.to(compute_dtype(self.dtype))

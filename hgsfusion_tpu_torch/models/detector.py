@@ -163,6 +163,17 @@ class HGSFusionModel(nn.Module):
                     else torch.from_numpy(np.array(batch[k]))).to(self.device, non_blocking=True)
                 for k in BATCH_KEYS if k in batch}
 
+    def parameters_without_grad(self):
+        """The names of the trainable parameters that a training step never
+        differentiates: the radar backbone's stages past its last output,
+        which train mode runs only for their BN statistics. Their gradient
+        reads 0 in the update (weight decay alone moves them, as in JAX),
+        and ``DistributedDataParallel`` must not wait for them."""
+        backbone = self.fusion_vfe.radar_backbone.backbone
+        prefix = "fusion_vfe.radar_backbone.backbone."
+        return [f"{prefix}{stage}.{name}" for stage in backbone.stages_without_grad()
+                for name, _ in getattr(backbone, stage).named_parameters()]
+
     # -- stages (separate so a caller can time each) -------------------------
     def image_features(self, batch):
         """Backbone + per-scale channel reduce: 4 NHWC maps."""

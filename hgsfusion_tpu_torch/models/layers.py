@@ -10,12 +10,20 @@ mode.
 
 A ``dtype`` of None computes in float32, as a flax module with no dtype
 promotes bf16 activations against its f32 parameters.
+
+Under a process group of more than one rank (``parallel/mesh.py``) every
+train-mode BatchNorm takes its statistics over the global batch, as the JAX
+package's do over its data mesh: the sums go through one differentiable
+all-reduce, so each rank's loss reaches every rank's input. Without such a
+group the arithmetic is the single-process one, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.mesh import all_reduce_sum, sync_group_size
 
 
 def compute_dtype(dtype):
@@ -54,20 +62,20 @@ def batch_norm_joint(xs, bn, dtype=None, dim: int = -1):
     per input, in its shape."""
     if not bn.training:
         return [bn_eval(x, bn, dtype, dim) for x in xs]
-    xfs, means, ex2s = [], [], []
-    for x in xs:
-        axes = [d for d in range(x.dim()) if d != dim % x.dim()]
-        xf = x.to(torch.float32)
-        xfs.append(xf)
-        means.append(xf.mean(axes))
-        ex2s.append((xf * xf).mean(axes))
-    if len(xs) == 1:
-        mean, ex2 = means[0], ex2s[0]
+    xfs = [x.to(torch.float32) for x in xs]
+    axes = [[d for d in range(x.dim()) if d != dim % x.dim()] for x in xs]
+    if sync_group_size() > 1:
+        mean, ex2 = _global_moments(xfs, axes)
     else:
-        rows = [x.numel() // x.shape[dim] for x in xs]
-        shares = [n / sum(rows) for n in rows]
-        mean = sum(m * s for m, s in zip(means, shares))
-        ex2 = sum(e * s for e, s in zip(ex2s, shares))
+        means = [xf.mean(a) for xf, a in zip(xfs, axes)]
+        ex2s = [(xf * xf).mean(a) for xf, a in zip(xfs, axes)]
+        if len(xs) == 1:
+            mean, ex2 = means[0], ex2s[0]
+        else:
+            rows = [x.numel() // x.shape[dim] for x in xs]
+            shares = [n / sum(rows) for n in rows]
+            mean = sum(m * s for m, s in zip(means, shares))
+            ex2 = sum(e * s for e, s in zip(ex2s, shares))
     var = torch.clamp(ex2 - mean * mean, min=0.0)
     with torch.no_grad():
         m = 1.0 - bn.momentum
@@ -82,6 +90,19 @@ def batch_norm_joint(xs, bn, dtype=None, dim: int = -1):
         out.append(((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape))
                    .to(x.dtype if dtype is None else dtype))
     return out
+
+
+def _global_moments(xfs, axes):
+    """(E[x], E[x^2]) over every rank's rows of the f32 tensors ``xfs``
+    (reduced over ``axes``): (sum x, sum x^2, rows) summed over the group in
+    one all-reduce, in f64 so that the row count stays exact."""
+    s1 = sum(xf.sum(a) for xf, a in zip(xfs, axes))
+    s2 = sum((xf * xf).sum(a) for xf, a in zip(xfs, axes))
+    c = s1.numel()
+    rows = sum(xf.numel() for xf in xfs) // c
+    n = torch.full((1,), float(rows), dtype=torch.float64, device=s1.device)
+    tot = all_reduce_sum(torch.cat([s1.double(), s2.double(), n]))
+    return (tot[:c] / tot[-1]).float(), (tot[c:2 * c] / tot[-1]).float()
 
 
 def conv_nhwc(x, conv: nn.Conv2d, dtype):
@@ -121,9 +142,19 @@ class MaskedBatchNorm(nn.Module):
             m = mask.to(torch.float32)
             xf = x.to(torch.float32)
             dims = tuple(range(x.dim() - 1))
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dims) / count
-            var = ((xf - mean) ** 2 * m).sum(dims) / count
+            if sync_group_size() > 1:
+                # two passes over the global sites, as JAX over the global
+                # array: (sum x, count), then sum (x - mean)^2
+                c = xf.shape[-1]
+                tot = all_reduce_sum(torch.cat([(xf * m).sum(dims).double(),
+                                                m.sum().double().reshape(1)]))
+                count = torch.clamp(tot[-1], min=1.0).float()
+                mean = tot[:c].float() / count
+                var = all_reduce_sum(((xf - mean) ** 2 * m).sum(dims)) / count
+            else:
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (xf * m).sum(dims) / count
+                var = ((xf - mean) ** 2 * m).sum(dims) / count
             with torch.no_grad():
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)

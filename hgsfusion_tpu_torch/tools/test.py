@@ -6,6 +6,7 @@ recall and the official AP (counterpart of the JAX package's
         [--ckpt model.pth | --ckpt_dir <out>/ckpt [--ckpt_step N | --eval_all]] \\
         [--device cuda] [--batch_size 1] [--max_frames N] [--save_to_file] \\
         [--infer_time] [--set DATA_CONFIG.DATA_PATH <root> ...]
+    torchrun --nproc_per_node N -m hgsfusion_tpu_torch.tools.test ...
 
 ``--ckpt_dir`` reads the checkpoints of ``tools/train.py``: the newest step,
 or ``--ckpt_step``; ``--eval_all`` evaluates every step not yet evaluated
@@ -17,11 +18,16 @@ next batches and copies them to the device, the main thread dispatches
 ``HGSFusionModel.serve``, and a finisher reads the detections back and runs
 the host post-processing (recall, then the KITTI annotations). The
 per-frame results are those of serving the batches one by one; the
-pipeline only overlaps the work.
+pipeline only overlaps the work. Under ``torchrun`` each process serves a
+strided shard of the frames on its own card and its own threads
+(``parallel/multihost.py``); the annotations are merged back into frame
+order and the recall counts summed before the official evaluation, which
+every rank computes; rank 0 logs and writes ``result.pkl``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import pickle
 import queue
 import threading
@@ -36,6 +42,10 @@ from ..datasets import build_dataset
 from ..eval.rotated_iou_np import rotate_iou_eval
 from ..models.detector import HGSFusionModel, resolve_device
 from ..ops import library
+from ..parallel.mesh import init_distributed, shutdown
+from ..parallel.multihost import (allreduce_host_scalars, is_padding,
+                                  merge_anno_lists_across_hosts, process_group,
+                                  shard_indices_for_host)
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.trainer import detections_to_pred_dicts
 from ..utils.common import create_logger
@@ -85,25 +95,32 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
     batches dropped), the host ms per frame of each stage (getitem, collate,
     h2d, finish), the copies' device ms per frame (h2d_device), the kernel
     launch counts of each batch, the recall counts and the evaluation's
-    seconds.
+    seconds. In a process group of more than one rank, this rank serves
+    its shard (``shard_indices_for_host``) and every rank returns the
+    merged annotations and recall counts of all frames (a wrap-padding
+    duplicate of the last shards counts once); the timings and launches are
+    this rank's.
     """
     post = cfg["MODEL"]["POST_PROCESSING"]
     recall_thresh = list(post["RECALL_THRESH_LIST"])
     recall = {t: 0 for t in recall_thresh}
     total_gt = 0
     n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
-    frame_idxs = list(range(n))
+    frame_idxs = shard_indices_for_host(n)
+    padding = is_padding(n, *process_group())
     det_annos = []
     host_s = {"getitem": 0.0, "collate": 0.0, "h2d": 0.0, "finish": 0.0}
     copy_events = []
     launches_per_batch = []
     copy_stream = torch.cuda.Stream(model.device) if model.device.type == "cuda" else None
 
-    def host_post(out, batch):
+    def host_post(out, batch, pad):
         nonlocal total_gt
         pred_dicts = detections_to_pred_dicts(out)
         gt = batch["gt_boxes"]
         for bi, pd in enumerate(pred_dicts):
+            if pad[bi]:
+                continue
             gt_i = gt[bi][gt[bi][:, -1] > 0]
             total_gt += len(gt_i)
             if len(gt_i) and len(pd["pred_boxes"]):
@@ -149,7 +166,7 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
                 host_s["getitem"] += t1 - t0
                 host_s["collate"] += t2 - t1
                 host_s["h2d"] += t3 - t2
-                if not put((len(idxs), batch, dev, copy)):
+                if not put((padding[i0:i0 + batch_size], batch, dev, copy)):
                     return
             put(None)
         except BaseException as exc:  # re-raised on the main thread
@@ -168,9 +185,10 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
             if finish_err:
                 continue  # drain without work after a failure
             try:
-                out, batch, n_frames = item
+                out, batch, pad = item
+                n_frames = len(pad)
                 t0 = time.perf_counter()
-                det_annos.extend(host_post(out, batch))
+                det_annos.extend(host_post(out, batch, pad))
                 now = time.perf_counter()
                 host_s["finish"] += now - t0
                 if last_done is not None:
@@ -193,7 +211,7 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
                 break
             if item is None or finish_err:
                 break
-            n_frames, batch, dev, copy = item
+            pad, batch, dev, copy = item
             if copy is not None:
                 stream = torch.cuda.current_stream(model.device)
                 stream.wait_event(copy[1])
@@ -202,7 +220,7 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
             before = dict(library.launches)
             out = model.serve(dev)
             launches_per_batch.append({k: library.launches[k] - before[k] for k in before})
-            finish_q.put((out, batch, n_frames))
+            finish_q.put((out, batch, pad))
             done += 1
             if done % 50 == 1:
                 logger.info(f"eval {done * batch_size}/{len(frame_idxs)}")
@@ -220,6 +238,15 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
     if finish_err:
         raise finish_err[0]
 
+    served = len(det_annos)
+    det_annos = merge_anno_lists_across_hosts(det_annos, n)
+    summed = allreduce_host_scalars({**{f"recall@{t}": recall[t] for t in recall_thresh},
+                                     "total_gt": total_gt})
+    total_gt = int(summed["total_gt"])
+    recall = {t: int(summed[f"recall@{t}"]) for t in recall_thresh}
+
+    logger.info("kernel launches: " + json.dumps(
+        {k: sum(b[k] for b in launches_per_batch) for k in library.launches}))
     steady = times[2:] or times
     ms_per_frame = float(np.mean(steady)) * 1e3 if steady else float("nan")
     if infer_time and steady:
@@ -244,7 +271,7 @@ def run_eval(cfg, model, dataset, logger, batch_size=1, infer_time=False,
     if copy_events:
         torch.cuda.synchronize(model.device)
     stats = {
-        "frames": len(det_annos), "ms_per_frame": ms_per_frame,
+        "frames": len(det_annos), "frames_served": served, "ms_per_frame": ms_per_frame,
         "host_ms_per_frame": {k: v * 1e3 / max(n, 1) for k, v in host_s.items()},
         "h2d_device_ms_per_frame": (sum(s.elapsed_time(e) for s, e in copy_events) / max(n, 1)
                                     if copy_events else None),
@@ -282,7 +309,24 @@ def main(argv=None):
     if args.eval_all and not args.ckpt_dir:
         raise SystemExit("--eval_all requires --ckpt_dir (otherwise only the randomly "
                          "initialized model would be evaluated)")
-    device = resolve_device(args.device)
+    ctx = init_distributed(args.device)
+    try:
+        return _evaluate(args, ctx)
+    finally:
+        shutdown(ctx)
+
+
+def _rank0(ctx, value):
+    """Rank 0's ``value`` on every rank (the value itself for one process)."""
+    if ctx.world_size == 1:
+        return value
+    box = [value]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _evaluate(args, ctx):
+    device = ctx.device if ctx.active else resolve_device(args.device)
     cfg = load_config(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(cfg, args.set_cfgs)
@@ -290,7 +334,7 @@ def main(argv=None):
 
     out_dir = Path(args.output_dir) / cfg["TAG"] / args.extra_tag / "eval"
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_dir / "eval.log")
+    logger = create_logger(out_dir / "eval.log", rank=ctx.rank)
     dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
                             logger=logger)
     model = HGSFusionModel(model_cfg, device=device, seed=args.seed)
@@ -302,9 +346,10 @@ def main(argv=None):
         det_annos, result_dict, stats = run_eval(
             cfg, model, dataset, logger, batch_size=args.batch_size,
             infer_time=args.infer_time, max_frames=args.max_frames, result_dir=result_dir)
-        with open(out_dir / f"result{tag}.pkl", "wb") as f:
-            pickle.dump(det_annos, f)
-        logger.info(f"results saved to {out_dir}")
+        if ctx.is_main:
+            with open(out_dir / f"result{tag}.pkl", "wb") as f:
+                pickle.dump(det_annos, f)
+            logger.info(f"results saved to {out_dir}")
         return result_dict, stats
 
     results = {}
@@ -323,7 +368,8 @@ def main(argv=None):
             poll_s = max(min(30.0, budget), 0.5)
             waited = 0.0
             while True:
-                steps = [s for s in ckpt.all_steps() if s not in results]
+                # rank 0's listing, so that every rank evaluates the same steps
+                steps = _rank0(ctx, [s for s in ckpt.all_steps() if s not in results])
                 if not steps:
                     if waited >= budget:
                         break
@@ -335,7 +381,8 @@ def main(argv=None):
                     eval_step(step, tag=f"_step{step}")
             logger.info(f"evaluated checkpoints: {sorted(results)}")
         else:
-            step = args.ckpt_step if args.ckpt_step is not None else ckpt.latest_step()
+            step = _rank0(ctx, args.ckpt_step if args.ckpt_step is not None
+                          else ckpt.latest_step())
             if step is None:
                 raise SystemExit(f"no checkpoint in {args.ckpt_dir}")
             eval_step(step)

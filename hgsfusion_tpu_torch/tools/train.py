@@ -5,22 +5,31 @@ HGSFusion branch).
         [--set DATA_CONFIG.DATA_PATH <root> ...] [--device cuda] [--epochs N] \\
         [--max_steps N] [--workers 4] [--ckpt <file.pth> | --ckpt <step>] \\
         [--profile_steps START:END] [--fix_random_seed]
+    torchrun --nproc_per_node N -m hgsfusion_tpu_torch.tools.train --cfg_file ...
 
 Augmented training frames come from a threaded loader (``datasets/loader.py``)
-and go through one training step each (``train/trainer.py``) on one device;
-weights are drawn from a seed. The loss is read back to the host every 50
+and go through one training step each (``train/trainer.py``); weights are
+drawn from a seed. Under ``torchrun`` each process trains on its own card
+(``cuda:LOCAL_RANK``) under ``DistributedDataParallel``
+(``parallel/mesh.py``), as the JAX CLI trains over its data mesh: the batch
+is ``BATCH_SIZE_PER_DEVICE`` (or ``--batch_size``) per process, the global
+batch that times the world size, and the steps per epoch and the OneCycle
+length come from the global batch; the BatchNorms take their statistics
+over the global batch. Every rank builds the same index schedule and takes
+its slice of each global batch. The loss is read back to the host every 50
 steps and at the last step. A checkpoint (``train/checkpoint.py``) is
-written to ``<output_dir>/<TAG>/<extra_tag>/ckpt`` at each epoch boundary,
-every ``--ckpt_save_interval_s`` and at the end, and a new run resumes from
-the newest one that loads. ``--ckpt <file>`` starts from a file's weights
-with a fresh optimizer; ``--ckpt <step>`` resumes from that step. Data
-parallel training is ROADMAP.md queue 1 item 7, the other model families'
-training steps item 9.
+written by rank 0 to ``<output_dir>/<TAG>/<extra_tag>/ckpt`` at each epoch
+boundary, every ``--ckpt_save_interval_s`` and at the end, and a new run
+resumes from the newest one that loads (every rank from the same file).
+``--ckpt <file>`` starts from a file's weights with a fresh optimizer;
+``--ckpt <step>`` resumes from that step. Rank 0 logs. The other model
+families' training steps are ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import time
 from pathlib import Path
@@ -34,6 +43,8 @@ from ..datasets import build_dataset
 from ..datasets.loader import PrefetchLoader
 from ..models.anchors import TargetAssigner
 from ..models.detector import BATCH_KEYS, HGSFusionModel, resolve_device
+from ..ops import library
+from ..parallel.mesh import DistContext, init_distributed, shutdown, wrap_model
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.optim import build_optimizer
 from ..train.trainer import make_train_step
@@ -93,6 +104,7 @@ class Run:
     resumed_from: Optional[int]
     resume_s: float
     tb: Any
+    dist: DistContext
 
 
 def prepare(args) -> Run:
@@ -106,24 +118,30 @@ def prepare(args) -> Run:
         raise NotImplementedError(
             f"MODEL.NAME: {name}: the port trains HGSFusion only; the other families' "
             "training steps are ROADMAP.md queue 1 item 9")
-    device = resolve_device(args.device)
+    ctx = init_distributed(args.device)
+    device = ctx.device if ctx.active else resolve_device(args.device)
     model_cfg = model_config_from_yaml(cfg)
     out_dir = Path(args.output_dir) / cfg["TAG"] / args.extra_tag
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_dir / "train.log")
+    logger = create_logger(out_dir / "train.log", rank=ctx.rank)
     logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        tb = None
-    else:
-        tb = SummaryWriter(str(out_dir / "tensorboard"))
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + (f", rank {ctx.rank} of {ctx.world_size} ({ctx.backend})" if ctx.active
+                   else ""))
+    tb = None
+    if ctx.is_main:
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            pass
+        else:
+            tb = SummaryWriter(str(out_dir / "tensorboard"))
     if args.fix_random_seed:
         np.random.seed(666)
 
     opt_cfg = cfg["OPTIMIZATION"]
-    batch_size = args.batch_size or int(opt_cfg.get("BATCH_SIZE_PER_DEVICE", 1))
+    per_rank = args.batch_size or int(opt_cfg.get("BATCH_SIZE_PER_DEVICE", 1))
+    batch_size = per_rank * ctx.world_size
     epochs = args.epochs or int(opt_cfg["NUM_EPOCHS"])
     dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=True,
                             logger=logger)
@@ -137,15 +155,27 @@ def prepare(args) -> Run:
             f"hgsfusion_tpu_torch.tools.create_infos --cfg_file {args.cfg_file}")
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     total_steps = steps_per_epoch * epochs
-    logger.info(f"dataset {len(dataset)} frames, batch {batch_size}, "
-                f"{steps_per_epoch} steps/epoch, {total_steps} total")
+    logger.info(f"dataset {len(dataset)} frames, batch {batch_size}"
+                + (f" ({per_rank} per rank)" if ctx.world_size > 1 else "")
+                + f", {steps_per_epoch} steps/epoch, {total_steps} total")
 
     model = HGSFusionModel(model_cfg, device=device, seed=WEIGHT_SEED)
     assigner = TargetAssigner(model_cfg.anchor_generator, model_cfg.grid_size,
                               model_cfg.pc_range, model_cfg.class_names, device=device)
     optimizer, lr_schedule = build_optimizer(model_cfg.optimization, total_steps, model)
-    loader = PrefetchLoader(dataset, batch_size, shuffle=True, num_workers=args.workers,
-                            prefetch=2, pin_keys=BATCH_KEYS if device.type == "cuda" else ())
+    schedule_seed = None  # the loader draws its own from np.random
+    if ctx.active:
+        # the draw the loader would make, rank 0's on every rank; under
+        # --fix_random_seed the other ranks then take augmentation streams
+        # of their own
+        seeds = [int(np.random.randint(0, 2**31))]
+        torch.distributed.broadcast_object_list(seeds, src=0)
+        schedule_seed = seeds[0]
+        if args.fix_random_seed and ctx.rank:
+            np.random.seed(666 + ctx.rank)
+    loader = PrefetchLoader(dataset, per_rank, shuffle=True, num_workers=args.workers,
+                            prefetch=2, pin_keys=BATCH_KEYS if device.type == "cuda" else (),
+                            rank=ctx.rank, world_size=ctx.world_size, seed=schedule_seed)
 
     ckpt = CheckpointManager(out_dir / "ckpt", max_to_keep=args.max_ckpt_save_num, log=logger)
     resume_step = None
@@ -164,10 +194,11 @@ def prepare(args) -> Run:
         start_step = int(state["step"])
         logger.info(f"auto-resumed from step {resumed_from}")
     resume_s = time.perf_counter() - t0
-    train_step = make_train_step(model, assigner, optimizer, model_cfg.loss_weights, model_cfg)
+    train_step = make_train_step(model, assigner, optimizer, model_cfg.loss_weights, model_cfg,
+                                 ddp=wrap_model(model, ctx))
     return Run(args, cfg, logger, out_dir, device, dataset, loader, model, optimizer,
                lr_schedule, train_step, ckpt, steps_per_epoch, epochs, total_steps,
-               start_step, resumed_from, resume_s, tb)
+               start_step, resumed_from, resume_s, tb, ctx)
 
 
 def _profile_device_ms(prof) -> float:
@@ -201,10 +232,18 @@ def fit(run: Run) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
 
-    def checkpoint(step):
-        return run.ckpt.save(step, {"model_state": run.model.state_dict(),
-                                    "optimizer_state": run.optimizer.state_dict()})
+    def checkpoint(step, wait: bool):
+        """Rank 0 writes; with ``wait`` (a save every rank reaches at the
+        same step) the others wait until the file is there."""
+        saved = None
+        if run.dist.is_main:
+            saved = run.ckpt.save(step, {"model_state": run.model.state_dict(),
+                                         "optimizer_state": run.optimizer.state_dict()})
+        if wait and run.dist.world_size > 1:
+            torch.distributed.barrier()
+        return saved
 
+    launches0 = dict(library.launches)
     losses, starts, waits, saves, augs = [], [], [], [], []
     in_loop_save_s = 0.0  # the saves inside the loop after its first two steps
     prof, profile_ms = None, None
@@ -221,7 +260,7 @@ def fit(run: Run) -> dict:
                 aug.queue = [(fn, c) for fn, c in aug.queue if c["NAME"] not in disable]
                 log.info(f"augmentations {sorted(disable)} disabled for the final epochs")
                 aug_disabled = True
-            if prof_range and step == prof_range[0]:
+            if prof_range and step == prof_range[0] and run.dist.is_main:
                 activities = [torch.profiler.ProfilerActivity.CPU] + (
                     [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
                 prof = torch.profiler.profile(activities=activities)
@@ -254,8 +293,9 @@ def fit(run: Run) -> dict:
                         run.tb.add_scalar(f"train/{k}", v, step)
                     run.tb.add_scalar("meta/learning_rate", lr, step)
             boundary = (step + 1) % run.steps_per_epoch == 0
-            if boundary or time.time() - t_last_save > args.ckpt_save_interval_s:
-                saved = checkpoint(step + 1)
+            if boundary or (run.dist.is_main
+                            and time.time() - t_last_save > args.ckpt_save_interval_s):
+                saved = checkpoint(step + 1, wait=boundary)
                 if saved is not None and len(starts) > 2:
                     in_loop_save_s += saved["seconds"]
                 saves.append(saved)
@@ -268,12 +308,17 @@ def fit(run: Run) -> dict:
     if cuda:
         torch.cuda.synchronize(dev)
     loop_end = time.perf_counter()
-    saves.append(checkpoint(max(end, run.start_step)))
+    saves.append(checkpoint(max(end, run.start_step), wait=True))
     if run.tb is not None:
         run.tb.close()
-    log.info("training done")
     loss_values = torch.stack(losses).tolist() if losses else []
     steady = starts[2:]
+    launches = {k: library.launches[k] - launches0[k] for k in launches0}
+    log.info(f"kernel launches: {json.dumps(launches)}")
+    if steady:
+        log.info(f"{len(steady)} steps at {len(steady) / (loop_end - steady[0]):.3f} steps/s "
+                 "after the first two (host clock, saves included)")
+    log.info("training done")
     return {
         "start_step": run.start_step, "end_step": max(end, run.start_step),
         "resumed_from": run.resumed_from, "resume_s": run.resume_s,
@@ -287,11 +332,18 @@ def fit(run: Run) -> dict:
         "profile_device_ms": profile_ms,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
         "out_dir": str(run.out_dir),
+        "launches": launches,
+        "rank": run.dist.rank, "world_size": run.dist.world_size,
+        "global_batch": run.loader.global_batch_size,
     }
 
 
 def main(argv=None) -> dict:
-    return fit(prepare(parse_args(argv)))
+    run = prepare(parse_args(argv))
+    try:
+        return fit(run)
+    finally:
+        shutdown(run.dist)
 
 
 if __name__ == "__main__":

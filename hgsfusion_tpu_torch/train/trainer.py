@@ -5,6 +5,14 @@ as per-frame numpy dicts (detections_to_pred_dicts).
 One step is the forward pass in train mode, target assignment, the RPN and
 occupancy losses, the backward pass and the AdamW / OneCycle update. PyTorch
 runs it eagerly; nothing in it reads a tensor back to the host.
+
+Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
+through the wrapper, whose hooks average the gradients of ``backward`` over
+the ranks. The losses are per-frame means (the anchor head
+normalizes each frame and divides by the batch, the occupancy loss is a
+mean over equal-sized frames), so with equal per-rank batches the average
+is the global batch's gradient, and the step reports the loss terms
+averaged over the ranks: the global batch's.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from ..models.anchor_head import anchor_head_loss
 from ..models.anchors import TargetAssigner
 from ..models.detector import BATCH_KEYS
 from ..models.occupancy import occupancy_loss
+from ..parallel.mesh import all_reduce_mean_
 
 
 def model_inputs(batch: Dict) -> Dict:
@@ -25,15 +34,22 @@ def model_inputs(batch: Dict) -> Dict:
 
 
 def _grad_step(loss_fn, optimizer) -> Callable:
-    """loss_fn(batch) -> (loss, tb), then its gradients with respect to the
-    optimizer's parameters, then one update. The step returns (loss, tb),
-    detached."""
+    """loss_fn(batch) -> (loss, tb), then ``backward`` (under DDP its hooks
+    average the gradients over the ranks as they become ready), then one
+    update from the parameters' gradients (None reads as 0). The step
+    returns (loss, tb), detached, the terms averaged over the ranks in one
+    all-reduce (no collective without a group)."""
 
     def step(batch):
         loss, tb = loss_fn(batch)
-        grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
-        optimizer.step(grads)
-        return loss.detach(), {k: v.detach() for k, v in tb.items()}
+        loss.backward()
+        optimizer.step([p.grad for p in optimizer.params])
+        for p in optimizer.params:
+            p.grad = None
+        keys = sorted(tb)
+        flat = all_reduce_mean_(torch.stack([tb[k].detach().float() for k in keys]))
+        tb = dict(zip(keys, flat.unbind()))
+        return tb["loss"], tb
 
     return step
 
@@ -44,16 +60,19 @@ OCC_MAX_HALF_EXTENT = 48
 
 
 def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
-                    cfg) -> Callable:
+                    cfg, ddp=None) -> Callable:
     """One training step: loss = rpn (cls + loc + dir) + occupancy focal.
     ``batch`` holds tensors on the model's device, ``gt_boxes`` (B, M, 8)
     among them; tb keys rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss,
-    loss_occ, loss. Puts ``model`` in train mode."""
+    loss_occ, loss. Puts ``model`` in train mode. ``ddp``: ``model`` under
+    ``DistributedDataParallel`` (``parallel.mesh.wrap_model``), which then
+    runs the forward pass."""
     anchors = assigner.flat_anchors
+    net = model if ddp is None else ddp
 
     def loss_fn(batch):
-        model.train()
-        preds = model(model_inputs(batch))
+        net.train()
+        preds = net(model_inputs(batch))
         targets = assigner(batch["gt_boxes"])
         total, tb = anchor_head_loss(preds, targets, anchors, cfg.num_class, loss_weights,
                                      dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins)

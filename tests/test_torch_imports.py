@@ -50,7 +50,11 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.rhgm.checkpoint", "hgsfusion_tpu_torch.tools.generate_hybrid_points",
     "hgsfusion_tpu_torch.ops.library", "hgsfusion_tpu_torch.ops.matmul",
     "hgsfusion_tpu_torch.tools.export", "hgsfusion_tpu_torch.tools.serve",
-    "hgsfusion_tpu_torch.bench",
+    "hgsfusion_tpu_torch.bench", "hgsfusion_tpu_torch.parallel",
+    "hgsfusion_tpu_torch.parallel.mesh", "hgsfusion_tpu_torch.parallel.multihost",
+    "hgsfusion_tpu_torch.parallel.spawn",
+    "hgsfusion_tpu_torch.eval.tta", "hgsfusion_tpu_torch.tools.test_tta",
+    "hgsfusion_tpu_torch.tools.make_study_data", "hgsfusion_tpu_torch.tools.study_polar_match",
 }
 
 

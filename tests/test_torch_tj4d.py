@@ -310,7 +310,20 @@ def _port_step(pcfg, variables, batch, perturb_seed=None):
 def test_tiny_train_step_b2_matches_jax(tiny):
     """One step at B=2 on two augmented training frames (a Truck among their
     boxes): loss terms, gradients, updated parameters and BN statistics,
-    the masked ones over both frames' sites, under ``step_compare``."""
+    the masked ones over both frames' sites, under ``step_compare``.
+
+    ``TRAIN_SEED`` 5 is an augmentation draw whose step is well conditioned.
+    JAX's own step, probed as ``step_compare.sensitivity`` probes the port's
+    (inputs moved by 1e-7 relative; 2 probes, 8 for seeds 5 and 6), is not on
+    most other draws: its largest sensitivity over a tensor's largest
+    gradient reads 0.016 (seed 1), 0.0016 (2), 0.28 (4), 0.10 (7) and 0.14
+    (8) against the 1e-3 cap, where the port's reads 0.016, 0.0056, 0.035,
+    0.10 and 0.012; seed 5 reads 1.5e-4 (JAX) and 7.4e-4 (the port). Seed 6
+    is the exception: JAX 6.3e-4, the port 9.7e-3, both on
+    ``pred_occupancy.1.bias``. There the port's first probe flips one ReLU
+    after that BatchNorm, whose input sits 2.9e-6 of its channel's std from
+    0, and nothing else (tests/torch_relu_flip.py): a conditioning case, as
+    JAX's other draws are, not a fault (ROADMAP.md queue 3)."""
     t = tiny
     jcfg, jm = t["jcfg"], t["jm"]
     pcfg = model_config_from_yaml(t["pcfg"])
