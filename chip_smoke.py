@@ -73,8 +73,8 @@ Phases, each of which must pass or the script exits non-zero:
    and the post-process with every candidate valid (timed; one call with
    ``torch.cuda.set_sync_debug_mode("error")``: no host read);
 8. train: the same config and batch with its ``gt_boxes``, one warm-up
-   training step, then 3 steps with the counters at 0 before and 2 forward
-   and 2 backward launches per step after (and 2 bins built); finite
+   training step, then 3 steps with the counters at 0 before and
+   ``GATHER_STEP`` after (REMAT on: 4 forward, 2 backward, 4 bins); finite
    losses, a positive anchor, the frozen backbone bit-identical, every other
    trainable tensor moved, the backbone's BN statistics moved, no host sync
    in a step; step times, peak memory, loss terms and the device time by
@@ -117,13 +117,13 @@ Phases, each of which must pass or the script exits non-zero:
     launches per frame;
 17. small reference, XLA sampler: the TINY model with
     ``f2v_sampler_kernel="xla"`` on the card against the CPU, as 5 and 6,
-    with the kernels launched on the card (1 fused in the served frame, 2
-    forward, 2 backward and 2 bins in the step);
+    with the kernels launched on the card (1 fused in the served frame, 4
+    forward, 2 backward and 4 bins in the step, REMAT on);
 18. train CLI: ``configs/hgsfusion_vod.yaml`` (``SAMPLER_KERNEL: xla``, read
     with ``load_config``) at full width through
     ``hgsfusion_tpu_torch.tools.train.main`` over a 16-frame synthetic tree
     (as 15), ``--fix_random_seed --epochs 2 --max_steps 20 --workers 4``:
-    the counters at 0 before and 2 forward, 2 backward and 2 bins per step
+    the counters at 0 before and 4 forward, 2 backward and 4 bins per step
     after, finite losses, some frame flipped and some frame with a
     ``lidar_aug_matrix`` other than the identity among those fed,
     checkpoints at steps 16 and 20 only; then a resume with ``--max_steps
@@ -156,8 +156,8 @@ Phases, each of which must pass or the script exits non-zero:
     forward launches per frame;
 24. train CLI, TJ4D: ``configs/hgsfusion_tj4d.yaml`` (``SAMPLER_KERNEL:
     xla``, ``BATCH_SIZE_PER_DEVICE: 2``) through ``tools.train.main`` over a
-    16-frame synthetic TJ4D tree, 10 steps across an epoch boundary: 2
-    forward, 2 backward and 2 bins per step, checkpoints at steps 8 and 10,
+    16-frame synthetic TJ4D tree, 10 steps across an epoch boundary: 4
+    forward, 2 backward and 4 bins per step, checkpoints at steps 8 and 10,
     step 1 profiled; then ``tools.test.main --ckpt_dir`` over 8 frames, 1
     fused launch per frame, TJ4D's result dict with every AP in [0, 100];
 25. eval TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 15 over a
@@ -205,7 +205,7 @@ Phases, each of which must pass or the script exits non-zero:
     data-parallel step (``parallel/mesh.py``: DDP, the synchronized
     BatchNorms): (a) world size 1 over NCCL in this process, two steps, bit
     for bit the plain step (cuDNN deterministic; held to the plain step's
-    own run-to-run spread if that is not 0), 2 forward, 2 backward and 2
+    own run-to-run spread if that is not 0), 4 forward, 2 backward and 4
     bins a step; (b) two ranks on the card over gloo (``spawn_ranks``) at
     B=1 each against one process at B=2 on the same two flagship frames,
     in f32 with TF32 off, and the TINY model likewise, each under the whole
@@ -213,7 +213,7 @@ Phases, each of which must pass or the script exits non-zero:
     parameters, BN statistics), the tensors that its 8 probes find over
     ``SENS_CAP`` named and exempted (every weight seed leaves some tensor
     ill-conditioned at full width: ``ddp_conditioning``, ``ddp_noise``);
-    the ranks bit-equal, each rank's step 2 + 2 + 2 launches;
+    the ranks bit-equal, each rank's step 4 + 2 + 4 launches;
 29. eval multiproc: ``tools.test.main`` over a 5-frame full-width VoD tree
     in this process and in two gloo ranks (the second shard padded with
     frame 0), gather and polar views: the merged ``result.pkl`` and every
@@ -225,11 +225,34 @@ Phases, each of which must pass or the script exits non-zero:
     (VoD, 516 x 1936, 4 train / 2 val frames), 4 steps of
     ``tools/train.py`` under ``torchrun --nproc_per_node 1`` (NCCL; its
     launches read from the log), ``tools/test.py`` on the checkpoint
-    through each view, ``tools/study_polar_match.py`` on the two results.
+    through each view, ``tools/study_polar_match.py`` on the two results;
+32. depth kernels: ``quad_sample_depth_fwd`` and ``quad_sample_depth_bwd``
+    (USE_DEPTH's depth-weighted frustum sample and the gradient of its
+    distribution) against their plain versions at the VoD gather maps (80
+    bins, the flagship grid read in place) in bf16 and f32 and a ragged
+    case (``depth_case`` states the tolerances; the keys bit for bit, two
+    backward calls bit for bit), each timed beside its bound, its plain
+    version and the library (``F.grid_sample`` 5-D on the built volume;
+    ``aten.grid_sampler_3d_backward`` plus the contraction over C);
+33. serve depth: the TINY depth model card vs CPU (serving, the depth
+    logits included), then
+    ``hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml`` at full width
+    as 7: 2 depth-weighted forward launches and 1 NMS a frame;
+34. train depth: that config as 8 with the DDN term (``depth_targets``),
+    REMAT on (4 depth forward, 2 backward, 4 bins, 2 depth backward a step)
+    and off (2, 2, 2, 2) from the same weights: the first step's loss terms
+    bit for bit and its gradients within ``GRAD_RTOL``, the next three's
+    loss terms within ``LOSS_AFTER_UPDATE_RTOL``; step times and peak memory
+    of each; the frozen backbone leaves only its taps allocated;
+35. train CLI depth: ``tools.train.main`` on that config over a 4-frame
+    full-width tree with each of ``adam_onecycle``, ``adam`` and ``sgd``: 2
+    steps, a resume bit for bit, one more step; ``tools.test.main
+    --ckpt_dir`` on the last run (2 depth forward + 1 NMS a frame);
+36. export and serve depth: as 25a on that config.
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27 and 28-31, the ranks' launches summed),
+serving hosts, 27, 28-31 and 33-36, the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -269,7 +292,8 @@ from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
-from hgsfusion_tpu_torch.ops import library, nms, quad_sample, row_scatter
+from hgsfusion_tpu_torch.models.resnet import preprocess_images
+from hgsfusion_tpu_torch.ops import depth_sample, library, nms, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
@@ -300,7 +324,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add",
-                  "nms_lazy"]
+                  "nms_lazy", "quad_sample_depth"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
@@ -1221,7 +1245,7 @@ def phase_polar_vs_gather(dev):
     polar.load_state_dict(gather.state_dict(), strict=True)
     with torch.inference_mode():
         b = gather.batch_to_device(flagship_batch(cfg))
-        feats = gather.image_features(b)
+        feats, _ = gather.image_features(b)
         ref = gather.view_transform(feats, b).double()
         got = polar.view_transform(feats, b).double()
     n = cfg.f2v_polar_near_columns
@@ -1291,14 +1315,14 @@ def run_train_step(cfg, device, batch, seed: int, perturb_seed=None):
     return step_record(model, cap, tb), float(lr_schedule(0))
 
 
-def phase_small_reference_train(dev, cfg=TINY, batch=None):
+def phase_small_reference_train(dev, cfg=TINY, batch=None, seed: int = TRAIN_REF_SEED):
     """TINY training step: card (kernels) vs CPU (plain versions), on
-    ``batch`` (default ``tiny_batch()``)."""
+    ``batch`` (default ``tiny_batch()``), weights from ``seed``."""
     batch = tiny_batch() if batch is None else batch
-    ref, lr = run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED)
-    probes = [run_train_step(cfg, "cpu", batch, seed=TRAIN_REF_SEED, perturb_seed=s)[0]["grads"]
+    ref, lr = run_train_step(cfg, "cpu", batch, seed=seed)
+    probes = [run_train_step(cfg, "cpu", batch, seed=seed, perturb_seed=s)[0]["grads"]
               for s in (1, 2)]
-    got, _ = run_train_step(cfg, dev, batch, seed=TRAIN_REF_SEED)
+    got, _ = run_train_step(cfg, dev, batch, seed=seed)
     report = compare_steps(ref, got, sensitivity(ref["grads"], probes), lr)
     report["loss_terms_cpu"] = {k: float(v) for k, v in ref["tb"].items()}
     report["loss_terms_card"] = {k: float(v) for k, v in got["tb"].items()}
@@ -1319,21 +1343,21 @@ def phase_small_reference_xla(dev):
     out = {"serve": phase_small_reference(dev, TINY_XLA),
            "train": phase_small_reference_train(dev, TINY_XLA)}
     out["launches"] = dict(library.launches)
-    # the served frame: one fused launch and the NMS; the step: 2 forward, 2
-    # backward, 2 bins
-    want = per_frames({library.KERNEL: 2, library.REDUCE_KERNEL: 1, library.NMS: 1,
-                       library.BWD_KERNEL: 2, library.BINS: 2}, 1)
+    # the served frame: one fused launch and the NMS; the step: GATHER_STEP
+    want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, library.NMS: 1}, 1)
     print(f"  launches on the card: {out['launches']}")
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, want {want}")
     return out
 
 
-def phase_train(dev, cfg, per_step: int):
+def phase_train(dev, cfg, per_step: dict, batch=None, keep_grads: bool = False):
     """3 full-width training steps of ``cfg`` after a warm-up, each launching
-    ``per_step`` forward and backward kernels and building as many bins."""
+    the kernels ``per_step`` counts; ``batch`` defaults to
+    ``flagship_batch(cfg)``. ``keep_grads``: the warm-up step's gradients,
+    on the host, under the result's ``warmup_grads``."""
     model = HGSFusionModel(cfg, device=dev, seed=0)
-    batch = model.batch_to_device(flagship_batch(cfg))
+    batch = model.batch_to_device(flagship_batch(cfg) if batch is None else batch)
     assigner = TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range,
                               cfg.class_names, device=dev)
     positives = int((assigner(batch["gt_boxes"])["box_cls_labels"] > 0).sum())
@@ -1349,9 +1373,11 @@ def phase_train(dev, cfg, per_step: int):
     stats = {k: v.clone() for k, v in model.state_dict().items()
              if k.startswith(FROZEN_PREFIX) and k.endswith(("running_mean", "running_var"))}
 
-    step(batch)  # warm-up: cuDNN plans, allocator
+    _, warm = step(batch)  # warm-up: cuDNN plans, allocator
     moving = {k for k, g in zip(trainable, cap.grads)
               if bool(before[k].any()) or (g is not None and bool(g.any()))}
+    warm_grads = {k: (torch.zeros_like(params[k]) if g is None else g).float().cpu()
+                  for k, g in zip(trainable, cap.grads)} if keep_grads else None
     cap.grads = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1366,8 +1392,7 @@ def phase_train(dev, cfg, per_step: int):
         terms.append({k: float(v) for k, v in tb.items()})
     launches = dict(library.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = per_frames({library.KERNEL: per_step, library.BWD_KERNEL: per_step,
-                       library.BINS: per_step}, 3)
+    want = per_frames(per_step, 3)
     if launches != want:
         raise AssertionError(f"launches in 3 steps {launches}, want {want}")
     for t in terms:
@@ -1409,12 +1434,14 @@ def phase_train(dev, cfg, per_step: int):
     result = {
         "steps": 3, "launches": launches, "step_s": wall, "steps_per_s": 3 / sum(wall),
         "peak_memory_bytes": peak, "positive_anchors": positives, "loss_terms": terms,
+        "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
+        **({"warmup_grads": warm_grads} if keep_grads else {}),
         "trainable_tensors": len(before), "moved": len(moving), "frozen_tensors": len(frozen),
         "profiled_step_device_ms": sum(ms for _, ms, _ in ops),
         "profiled_step_top": [{"op": k[:90], "device_ms": ms, "calls": n}
                               for k, ms, n in ops[:15]],
     }
-    print("  " + json.dumps(result))
+    print("  " + json.dumps({k: v for k, v in result.items() if k != "warmup_grads"}))
     return result
 
 
@@ -1423,7 +1450,8 @@ def phase_train(dev, cfg, per_step: int):
 MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_polar", "train_cli",
               "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
               "eval_tj4d_polar", "export_serve", "export_serve_polar", "rhgm", "ddp",
-              "eval_multiproc", "tta", "study_small")
+              "eval_multiproc", "tta", "study_small", "serve_depth", "train_depth",
+              "train_cli_depth", "export_serve_depth")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -1433,9 +1461,20 @@ def per_frames(per_frame: dict, frames: int) -> dict:
 
 
 # launches per served or evaluated frame: the gather view's two groups in
-# one fused launch, the polar view's three samples
+# one fused launch, the polar view's three samples; under USE_DEPTH two
+# depth-weighted samples (no fused kernel)
 GATHER_FRAME = {library.REDUCE_KERNEL: 1, library.NMS: 1}
 POLAR_FRAME = {library.KERNEL: 3, library.NMS: 1}
+DEPTH_FRAME = {library.DEPTH_KERNEL: 2, library.NMS: 1}
+# launches per training step with REMAT on (the configs' default): the
+# gather view's two samples and their bins once more in the backward pass;
+# the polar view recomputes pass 2, which launches no kernel
+GATHER_STEP = {library.KERNEL: 4, library.BWD_KERNEL: 2, library.BINS: 4}
+POLAR_STEP = {library.KERNEL: 3, library.BWD_KERNEL: 3, library.BINS: 3}
+DEPTH_STEP = {library.DEPTH_KERNEL: 4, library.BWD_KERNEL: 2, library.BINS: 4,
+              library.DEPTH_BWD_KERNEL: 2}
+DEPTH_STEP_NO_REMAT = {library.DEPTH_KERNEL: 2, library.BWD_KERNEL: 2, library.BINS: 2,
+                       library.DEPTH_BWD_KERNEL: 2}
 
 
 def phase_serve(dev, cfg, per_frame: dict, batch=None):
@@ -1474,9 +1513,9 @@ def phase_serve(dev, cfg, per_frame: dict, batch=None):
     with torch.inference_mode():
         b = model.batch_to_device(batch)
         ev[0].record()
-        feats = model.image_features(b)
+        feats, depth = model.image_features(b)
         ev[1].record()
-        image_bev = model.view_transform(feats, b)
+        image_bev = model.view_transform(feats, b, depth)
         ev[2].record()
         radar_bev = model.radar_branch(b)
         ev[3].record()
@@ -1988,8 +2027,7 @@ def phase_train_cli(dev, yaml_path=VOD_YAML):
             failures.append(what)
 
     for name, r, steps in (("first", first, TRAIN_CLI_STEPS), ("resume", second, RESUME_STEPS)):
-        want = per_frames({library.KERNEL: 2, library.BWD_KERNEL: 2,
-                           library.BINS: 2}, steps)
+        want = per_frames(GATHER_STEP, steps)
         check(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
         check(r["steps"] == steps and all(math.isfinite(v) for v in r["losses"]),
               f"{name}: {r['steps']} steps, losses {r['losses']}")
@@ -2104,7 +2142,7 @@ def phase_small_reference_tj4d(dev):
     card vs CPU over a synthetic TJ4D tree: serving two frames (as
     ``phase_small_reference``), one training step at B=2 on two augmented
     frames with a Truck among their boxes (as ``phase_small_reference_train``;
-    1 fused launch, then 2 forward, 2 backward and 2 bins on the card), then
+    1 fused launch, then 4 forward, 2 backward and 4 bins on the card), then
     ``run_eval`` over the tree (as ``phase_small_reference_eval``)."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
@@ -2126,8 +2164,7 @@ def phase_small_reference_tj4d(dev):
                                               ds.collate_batch([ds[i] for i in range(2)])),
                "train": phase_small_reference_train(dev, model_cfg, train_batch)}
         out["launches"] = dict(library.launches)
-        want = per_frames({library.KERNEL: 2, library.REDUCE_KERNEL: 1, library.NMS: 1,
-                           library.BWD_KERNEL: 2, library.BINS: 2}, 1)
+        want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, library.NMS: 1}, 1)
         print(f"  launches on the card: {out['launches']}")
         if out["launches"] != want:
             raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -2179,7 +2216,7 @@ def phase_train_cli_tj4d(dev):
         if not ok:
             failures.append(what)
 
-    want = per_frames({library.KERNEL: 2, library.BWD_KERNEL: 2, library.BINS: 2},
+    want = per_frames(GATHER_STEP,
                       TJ4D_CLI_STEPS)
     check(run["launches"] == want, f"launches {run['launches']}, want {want}")
     check(run["steps"] == TJ4D_CLI_STEPS and all(math.isfinite(v) for v in run["losses"]),
@@ -2465,7 +2502,6 @@ DDP_SEED, DDP_TINY_SEED = 6, 7
 # the probes of their sensitivity: two put the full-width step's
 # pred_occupancy.1.bias at 0.96 of SENS_CAP, eight at 1.32 (``ddp_noise``)
 DDP_PROBES = 8
-GATHER_STEP = {library.KERNEL: 2, library.BWD_KERNEL: 2, library.BINS: 2}
 
 
 def _torchrun_env(port: int) -> dict:
@@ -2969,6 +3005,368 @@ def phase_study_small(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# USE_DEPTH: the depth-weighted sampler's kernels and the gather view with the
+# DDN depth distribution (hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml)
+# ---------------------------------------------------------------------------
+
+DEPTH_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml"
+DEPTH_BINS = 80
+TINY_DEPTH = dataclasses.replace(TINY_XLA, use_depth=True)
+# train_cli_depth: each optimizer's run over a small full-width tree, its
+# resume by one step and the evaluation of the last run's newest checkpoint
+DEPTH_OPTIMIZERS = ("adam_onecycle", "adam", "sgd")
+DEPTH_CLI_FRAMES, DEPTH_CLI_STEPS, DEPTH_CLI_EVAL_FRAMES = 4, 2, 2
+# the warm-up step's gradients with REMAT on against off: step_compare's
+# GRAD_RTOL of a tensor's largest, ZERO_FLOOR of the largest of all where a
+# tensor's true gradient is 0; the loss terms of the three steps after it:
+# LOSS_AFTER_UPDATE_RTOL, since Adam's per-element normalisation turns
+# rounding-level differences of near-zero gradient elements (cuDNN's
+# backward sums in no fixed order) into steps of the full learning rate
+LOSS_AFTER_UPDATE_RTOL = 1e-2
+
+
+def depth_config():
+    """The depth YAML's model config (bf16, REMAT on)."""
+    return model_config_from_yaml(load_config(DEPTH_YAML))
+
+
+def depth_targets(batch, seed: int = 0):
+    """``batch`` with the DDN loss's targets: depth maps at 1/4 of the image
+    (1-50 m, their first rows at 0 and last rows at 60 m: out of range) and
+    three 2-D boxes in image pixels, padded to 8 rows."""
+    rng = np.random.RandomState(seed + 100)
+    b, h, w = batch["images"].shape[:3]
+    depth = rng.uniform(1.0, 50.0, (b, h // 4, w // 4)).astype(np.float32)
+    depth[:, :2], depth[:, -2:] = 0.0, 60.0
+    boxes = np.zeros((b, 8, 4), np.float32)
+    for i in range(b):
+        for j in range(3):
+            u1, v1 = rng.uniform(0, 0.7 * w), rng.uniform(0, 0.7 * h)
+            boxes[i, j] = [u1, v1, u1 + rng.uniform(0.05, 0.3) * w,
+                           v1 + rng.uniform(0.05, 0.3) * h]
+    return {**batch, "depth_maps": depth, "gt_boxes2d": boxes}
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time for ``nbytes`` of memory traffic and ``ops`` f32
+    operations on the card, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+
+
+def depth_case(name, shape, grid, d, dtype, gen, timed: bool):
+    """``quad_sample_depth_fwd`` and ``quad_sample_depth_bwd`` against their
+    plain versions on one map (random values), its distribution over ``d``
+    bins (a softmax without the overflow bin, in the map's dtype) and
+    ``grid`` read in place. Forward: the output at BF16_TOL / F32_TOL, the
+    keys bit for bit, the effective weights to 1e-6 of their largest, the
+    output without keys and weights bit for bit. Backward: both sum in f32
+    in another order, held to F32_TOL (1 + max|ref|) plus the order bound
+    n u S (n: an element's terms, S: their magnitudes' sum); two calls bit
+    for bit. ``timed``: both kernels' device times (graph replays), the
+    plain versions', the bins' and the library's (``F.grid_sample`` 5-D on
+    the materialised (B, C, D, H, W) volume, built outside the timing; for
+    the backward ``aten.grid_sampler_3d_backward`` plus the contraction over
+    C), beside the bounds."""
+    b, h, w, c = shape
+    dev = grid.device
+    f = torch.randn(shape, generator=gen).to(dtype).to(dev)
+    probs = torch.softmax(2 * torch.randn(shape[:3] + (d + 1,), generator=gen), -1)[..., :d]
+    probs = probs.to(dtype).contiguous().to(dev)
+    n = grid[..., 0].numel()
+    padded = (b, h + 2, w + 2, c)
+    out, key, we = library.quad_sample_depth_fwd(f, probs, grid, taps=True)
+    bare = library.quad_sample_depth_fwd(f, probs, grid)[0]
+    torch.cuda.synchronize()
+    ref, ref_key, ref_we = depth_sample.quad_sample_depth_fwd_plain(f, probs, grid, taps=True)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    dt = str(dtype).replace("torch.", "")
+    fwd = {"case": name, "dtype": dt, "shape": list(shape), "depth_bins": d, "queries": n,
+           "max_abs_err": float((out.float() - ref.float()).abs().max()), "tol": tol,
+           "key_equal": bool(torch.equal(key, ref_key)),
+           "we_err_over_max": float((we - ref_we).abs().max())
+           / (1 + float(ref_we.abs().max())),
+           "bit_equal_without_taps": bool(torch.equal(out, bare))}
+    del out, bare, ref, ref_key, ref_we
+    ct = torch.randn((n, c), generator=gen).to(dtype).to(dev)
+    bins = depth_sample.depth_bins(key, padded)
+    got = library.quad_sample_depth_bwd(ct, f, grid, d, bins)
+    again = library.quad_sample_depth_bwd(ct, f, grid, d, bins)
+    torch.cuda.synchronize()
+    want = depth_sample.quad_sample_depth_bwd_plain(ct, f, grid, d)
+    s_abs = depth_sample.quad_sample_depth_bwd_plain(ct.float().abs(), f.float().abs(), grid, d)
+    counts = (bins[1][1:] - bins[1][:-1]).view(b, h + 2, w + 2)
+    per_pixel = (counts[:, 1:-1, 1:-1] + counts[:, 1:-1, :-2] + counts[:, :-2, 1:-1]
+                 + counts[:, :-2, :-2])
+    n_max = int(per_pixel.max())
+    btol = F32_TOL * (1 + float(want.abs().max())) + (n_max + c) * F32_U * s_abs
+    diff = (got - want).abs()
+    valid = int(bins[1][-1])
+    bwd = {"case": name, "dtype": dt, "shape": list(shape), "depth_bins": d, "queries": n,
+           "valid_queries": valid, "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / btol).max()), "max_adds_per_pixel": n_max,
+           "bit_equal_rerun": bool(torch.equal(got, again))}
+    del got, again, want, s_abs, diff, btol
+    if timed:
+        isz = f.element_size()
+        # the grid rows, the map and the distribution once, the output once
+        fwd.update(bound(n * 12 + (f.numel() + probs.numel() + n * c) * isz,
+                         n * (8.0 * c + 24)))
+        fwd["ms"] = graph_ms(lambda: library.quad_sample_depth_fwd(f, probs, grid))
+        fwd["taps_ms"] = graph_ms(lambda: library.quad_sample_depth_fwd(f, probs, grid,
+                                                                         taps=True))
+        fwd["plain_ms"] = cuda_ms(lambda: depth_sample.quad_sample_depth_fwd_plain(
+            f, probs, grid), iters=3, warmup=1)
+        vol = (f.permute(0, 3, 1, 2)[:, :, None] * probs.permute(0, 3, 1, 2)[:, None]).contiguous()
+        g5 = grid.to(dtype)
+        fwd["volume_bytes"] = vol.numel() * isz
+        fwd["library_ms"] = cuda_ms(lambda: F.grid_sample(
+            vol, g5, mode="bilinear", padding_mode="zeros", align_corners=True), iters=5)
+        fwd["bound_fraction"] = fwd["bound_ms"] / fwd["ms"]
+        # the grid rows, the cotangent, the map, the bins once, the f32
+        # gradient once; four dot products of c multiply-adds a valid query
+        bwd.update(bound(n * 12 + (n * c + f.numel()) * isz + 4 * (n + b * (h + 2) * (w + 2) + 1)
+                         + 4 * b * h * w * d, valid * (8.0 * c + 16)))
+        bwd["ms"] = graph_ms(lambda: library.quad_sample_depth_bwd(ct, f, grid, d, bins))
+        bwd["bins_ms"] = cuda_ms(lambda: depth_sample.depth_bins(key, padded))
+        bwd["plain_ms"] = cuda_ms(lambda: depth_sample.quad_sample_depth_bwd_plain(
+            ct, f, grid, d), iters=3, warmup=1)
+        g5out = ct.view(grid.shape[:-1] + (c,)).permute(0, 4, 1, 2, 3).contiguous()
+        f5 = f.permute(0, 3, 1, 2)[:, :, None]
+
+        def library_bwd():
+            gvol = torch.ops.aten.grid_sampler_3d_backward(g5out, vol, g5, 0, 0, True,
+                                                           [True, False])[0]
+            return (gvol * f5).sum(1)
+
+        bwd["library_ms"] = cuda_ms(library_bwd, iters=3, warmup=1)
+        bwd["bound_fraction"] = bwd["bound_ms"] / bwd["ms"]
+        del vol, g5out
+    print("  fwd " + json.dumps(fwd))
+    print("  bwd " + json.dumps(bwd))
+    if not fwd["max_abs_err"] <= tol:
+        raise AssertionError(f"{name} {dt}: forward max error {fwd['max_abs_err']} > {tol}")
+    if not bwd["max_err_over_tol"] <= 1.0:
+        raise AssertionError(f"{name} {dt}: backward error {bwd['max_err_over_tol']} x its "
+                             f"tolerance")
+    for row, k in ((fwd, "key_equal"), (fwd, "bit_equal_without_taps"),
+                   (bwd, "bit_equal_rerun")):
+        if not row[k]:
+            raise AssertionError(f"{name} {dt}: {k} is false")
+    if not fwd["we_err_over_max"] <= 1e-6:
+        raise AssertionError(f"{name} {dt}: effective weights off by {fwd['we_err_over_max']}")
+    return fwd, bwd
+
+
+def phase_depth_kernels(dev):
+    """Both depth kernels at the VoD gather maps (A: 129x484x64, B:
+    65x242x192, 80 bins) on the flagship grid read in place, bf16 (timed)
+    and f32, and a ragged case (two frames, 37 channels, 80 bins, (u, v)
+    and depth beyond the map and the bins)."""
+    grid = flagship_grid(dev)
+    gen = torch.Generator().manual_seed(21)
+    fwd, bwd = [], []
+    for name, shape in FLAGSHIP_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            f_row, b_row = depth_case(name, shape, grid, DEPTH_BINS, dtype, gen,
+                                      timed=dtype == torch.bfloat16)
+            fwd.append(f_row)
+            bwd.append(b_row)
+            torch.cuda.empty_cache()
+    ragged = (torch.rand((2, 7, 11, 3, 3), generator=gen) * 2.6 - 1.3).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        f_row, b_row = depth_case("ragged", (2, 9, 13, 37), ragged, DEPTH_BINS, dtype, gen,
+                                  timed=False)
+        fwd.append(f_row)
+        bwd.append(b_row)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def phase_serve_depth(dev):
+    """The TINY depth model on the card against the CPU (1e-4, the depth
+    logits included), then the depth YAML at full width through
+    ``serve()``: 2 depth-weighted forward launches and 1 NMS a frame."""
+    small = phase_small_reference(dev, TINY_DEPTH, depth_targets(tiny_batch()))
+    return {**phase_serve(dev, depth_config(), DEPTH_FRAME), "small_reference": small}
+
+
+def backbone_retained(model, batch) -> dict:
+    """The device memory the backbone leaves allocated when it runs with
+    autograd on, against its four taps' own bytes: frozen as training
+    freezes it (``build_optimizer``: its parameters do not require grad, nor
+    does its input), autograd keeps nothing inside it and REMAT has nothing
+    there to recompute; with its parameters trainable, what it would keep."""
+    backbone = model.fusion_vfe.image_vfe.ffn.ddn.model.backbone
+    x = preprocess_images(model.batch_to_device(batch)["images"])
+    out = {}
+    for frozen in (True, False):
+        backbone.requires_grad_(not frozen)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            taps = backbone(x)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        out["frozen" if frozen else "trainable"] = {
+            "held_bytes": held, "taps_bytes": sum(t.untyped_storage().nbytes() for t in taps),
+            "taps_require_grad": any(t.requires_grad for t in taps)}
+        del taps
+    return out
+
+
+def phase_train_depth(dev):
+    """The depth YAML at full width, B=1, the DDN term in the loss (targets
+    from ``depth_targets``): ``phase_train`` with REMAT on (DEPTH_STEP) and
+    off (DEPTH_STEP_NO_REMAT) from the same weights and batch. The warm-up
+    step's loss terms equal bit for bit (the same forward) and its
+    gradients within GRAD_RTOL; the three timed steps' loss terms within
+    LOSS_AFTER_UPDATE_RTOL; each run's step times and peak memory; the
+    backbone's retained memory."""
+    cfg = depth_config()
+    batch = depth_targets(flagship_batch(cfg))
+    runs = {}
+    for remat in (True, False):
+        runs["remat_on" if remat else "remat_off"] = phase_train(
+            dev, dataclasses.replace(cfg, remat=remat),
+            DEPTH_STEP if remat else DEPTH_STEP_NO_REMAT, batch, keep_grads=True)
+        torch.cuda.empty_cache()
+    on, off = runs["remat_on"], runs["remat_off"]
+    g_on, g_off = on.pop("warmup_grads"), off.pop("warmup_grads")
+    big = max(float(g.abs().max()) for g in g_off.values())
+    grad_over = 0.0
+    for k, g in g_off.items():
+        top = float(g.abs().max())
+        if top <= ZERO_FLOOR * big:
+            grad_over = max(grad_over, float(g_on[k].abs().max()) / (ZERO_FLOOR * big))
+        else:
+            grad_over = max(grad_over, float((g_on[k] - g).abs().max()) / (GRAD_RTOL * top))
+    del g_on, g_off
+    model = HGSFusionModel(cfg, device=dev, seed=0).train()
+    retained = backbone_retained(model, batch)
+    del model
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+              for a, b in zip(on["loss_terms"], off["loss_terms"]) for k in b)
+    result = {**runs, "launches": {k: on["launches"][k] + off["launches"][k]
+                                   for k in on["launches"]},
+              "warmup_loss_bit_equal": on["warmup_loss_terms"] == off["warmup_loss_terms"],
+              "warmup_grad_err_over_tol": grad_over, "loss_max_rel_diff": rel,
+              "peak_memory_bytes": {"remat_on": on["peak_memory_bytes"],
+                                    "remat_off": off["peak_memory_bytes"]},
+              "step_ms": {"remat_on": [1e3 * t for t in on["step_s"]],
+                          "remat_off": [1e3 * t for t in off["step_s"]]},
+              "backbone": retained}
+    print("  " + json.dumps({k: result[k] for k in (
+        "warmup_loss_bit_equal", "warmup_grad_err_over_tol", "loss_max_rel_diff",
+        "peak_memory_bytes", "step_ms", "backbone")}))
+    if not result["warmup_loss_bit_equal"]:
+        raise AssertionError(f"REMAT changed the first step's loss: {on['warmup_loss_terms']} "
+                             f"vs {off['warmup_loss_terms']}")
+    if not grad_over <= 1.0:
+        raise AssertionError(f"REMAT on and off: first-step gradients {grad_over} x apart")
+    if not rel <= LOSS_AFTER_UPDATE_RTOL:
+        raise AssertionError(f"REMAT on and off: loss terms {rel} apart")
+    if not {"ddn_loss", "fg_loss", "bg_loss"} <= set(on["loss_terms"][0]):
+        raise AssertionError(f"no DDN term in the loss: {sorted(on['loss_terms'][0])}")
+    frozen = retained["frozen"]
+    if frozen["taps_require_grad"] or frozen["held_bytes"] > frozen["taps_bytes"] + 2**20:
+        raise AssertionError(f"the frozen backbone retained memory: {retained}")
+    return result
+
+
+def _state_equal(a, b) -> bool:
+    """Two optimizer ``state_dict``s (tensors or lists of them) bit for bit."""
+    if set(a) != set(b):
+        return False
+    return all(torch.equal(x.cpu(), y.cpu())
+               for k in a for x, y in zip(a[k] if isinstance(a[k], list) else [a[k]],
+                                          b[k] if isinstance(b[k], list) else [b[k]]))
+
+
+def phase_train_cli_depth(dev):
+    """The port's ``tools/train.py`` on the depth YAML at full width over a
+    4-frame synthetic tree (depth_2 maps read and downsampled by 4), for each
+    optimizer: DEPTH_CLI_STEPS steps (DEPTH_STEP launches each, finite
+    losses with the DDN term), a resume whose model and optimizer state
+    equal the checkpoint bit for bit before it takes one more step; then
+    ``tools/test.py --ckpt_dir`` on the last run's newest checkpoint (2
+    depth-weighted forward launches and 1 NMS a frame)."""
+    cfg = load_config(DEPTH_YAML)
+    data = cfg["DATA_CONFIG"]
+    failures, runs = [], {}
+    launches = {k: 0 for k in library.launches}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        data["DATA_PATH"] = str(root)
+        write_tree(root, data, DEPTH_CLI_FRAMES)
+        create_infos(data, cfg["CLASS_NAMES"])
+        for name in DEPTH_OPTIMIZERS:
+            common = ["--cfg_file", DEPTH_YAML, "--fix_random_seed", "--epochs", "1",
+                      "--workers", "2", "--output_dir", str(out), "--extra_tag", name]
+            settings = ["--set", "DATA_CONFIG.DATA_PATH", str(root),
+                        "OPTIMIZATION.OPTIMIZER", name]
+            zero_launches()
+            first = train_cli.main(common + ["--max_steps", str(DEPTH_CLI_STEPS)] + settings)
+            first_launches = dict(library.launches)
+            ckpt = CheckpointManager(Path(first["out_dir"]) / "ckpt")
+            run = train_cli.prepare(train_cli.parse_args(common + ["--max_steps", "1"]
+                                                         + settings))
+            saved = torch.load(ckpt.path(DEPTH_CLI_STEPS), map_location="cpu",
+                               weights_only=True)
+            restored = (all(torch.equal(v.cpu(), saved["model_state"][k])
+                            for k, v in run.model.state_dict().items())
+                        and _state_equal(run.optimizer.state_dict(), saved["optimizer_state"]))
+            zero_launches()
+            second = train_cli.fit(run)
+            second_launches = dict(library.launches)
+            for k in launches:
+                launches[k] += first_launches[k] + second_launches[k]
+            check(first_launches == per_frames(DEPTH_STEP, DEPTH_CLI_STEPS),
+                  f"{name}: launches {first_launches}")
+            check(second_launches == per_frames(DEPTH_STEP, 1),
+                  f"{name} resume: launches {second_launches}")
+            losses = first["losses"] + second["losses"]
+            check(len(losses) == DEPTH_CLI_STEPS + 1 and all(math.isfinite(v) for v in losses),
+                  f"{name}: losses {losses}")
+            check(restored, f"{name}: the resumed state differs from the checkpoint")
+            check(type(run.optimizer).__name__ == ("SGD" if name == "sgd" else "AdamOneCycle"),
+                  f"{name}: optimizer {type(run.optimizer).__name__}")
+            check(ckpt.all_steps() == [DEPTH_CLI_STEPS, DEPTH_CLI_STEPS + 1],
+                  f"{name}: checkpoints {ckpt.all_steps()}")
+            runs[name] = {"losses": losses, "restored_bit_equal": restored,
+                          "steps_per_s": first["steps_per_s"],
+                          "peak_memory_bytes": first["peak_memory_bytes"],
+                          "optimizer_state": sorted(saved["optimizer_state"])}
+        zero_launches()
+        evaluated = test_cli.main(["--cfg_file", DEPTH_YAML, "--ckpt_dir", str(ckpt.ckpt_dir),
+                                   "--max_frames", str(DEPTH_CLI_EVAL_FRAMES), "--output_dir",
+                                   str(out / "eval"), "--set", "DATA_CONFIG.DATA_PATH",
+                                   str(root)])
+        eval_launches = dict(library.launches)
+    for k in launches:
+        launches[k] += eval_launches[k]
+    step = DEPTH_CLI_STEPS + 1
+    check(sorted(evaluated) == [step], f"evaluated steps {sorted(evaluated)}")
+    check(eval_launches == per_frames(DEPTH_FRAME, DEPTH_CLI_EVAL_FRAMES),
+          f"eval launches {eval_launches}")
+    result_dict, stats = evaluated.get(step, ({}, {}))
+    check(stats.get("frames") == DEPTH_CLI_EVAL_FRAMES
+          and all(math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()),
+          f"evaluation: {stats.get('frames')} frames, {result_dict}")
+    result = {"runs": runs, "launches": launches, "eval_launches": eval_launches,
+              "eval_ms_per_frame": stats.get("ms_per_frame")}
+    print("  " + json.dumps(result))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3007,7 +3405,7 @@ def main(argv=None) -> int:
     phase("small_reference_train", phase_small_reference_train, dev)
     phase("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME)
     torch.cuda.empty_cache()
-    phase("train", phase_train, dev, vod_pallas_config(), 2)
+    phase("train", phase_train, dev, vod_pallas_config(), GATHER_STEP)
     torch.cuda.empty_cache()
     phase("kernel_vs_plain_polar", phase_kernel_vs_plain_polar, dev)
     phase("small_reference_polar", phase_small_reference_polar, dev)
@@ -3015,7 +3413,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase("serve_polar", phase_serve, dev, vod_polar_config(), POLAR_FRAME)
     torch.cuda.empty_cache()
-    phase("train_polar", phase_train, dev, vod_polar_config(), 3)
+    phase("train_polar", phase_train, dev, vod_polar_config(), POLAR_STEP)
     torch.cuda.empty_cache()
     phase("small_reference_eval", phase_small_reference_eval, dev)
     phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME,
@@ -3056,6 +3454,16 @@ def main(argv=None) -> int:
     phase("tta", phase_tta, dev)
     torch.cuda.empty_cache()
     phase("study_small", phase_study_small, dev)
+    torch.cuda.empty_cache()
+    phase("depth_kernels", phase_depth_kernels, dev)
+    torch.cuda.empty_cache()
+    phase("serve_depth", phase_serve_depth, dev)
+    torch.cuda.empty_cache()
+    phase("train_depth", phase_train_depth, dev)
+    torch.cuda.empty_cache()
+    phase("train_cli_depth", phase_train_cli_depth, dev)
+    torch.cuda.empty_cache()
+    phase("export_serve_depth", phase_export_serve, dev, depth_config(), DEPTH_FRAME)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3108,6 +3516,13 @@ def main(argv=None) -> int:
     kernels[-1]["cases"] = {r["case"]: {k: r[k] for k in (
         "ms", "binning_ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")}
         for r in report["kernel_vs_plain_scatter"] if "ms" in r}
+    # the depth-weighted sampler: no TPU kernel (XLA), held like the others
+    depth = report["depth_kernels"]
+    for name, rows in ((library.DEPTH_KERNEL, depth["fwd"]),
+                       (library.DEPTH_BWD_KERNEL, depth["bwd"])):
+        kernels.append(kernel_row(name, "hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
+                                  "none: XLA _sample_with_depth, "
+                                  "hgsfusion_tpu/models/frustum.py:221", rows))
     # NMS: the worst case (4,096 valid, 500 kept) as the row, every case in it
     nms_rows = report["kernel_vs_plain_nms"]
     kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",

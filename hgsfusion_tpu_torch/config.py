@@ -101,6 +101,9 @@ class HGSFusionConfig:
     dir_limit_offset: float = 0.0
     code_size: int = 7
     compute_dtype: str = "float32"
+    # recompute the gather f2v's sample + reduce product and the polar view's
+    # pass 2 in the backward pass instead of keeping what they save
+    remat: bool = True
     # port-only: DENSE_HEAD.ANCHOR_GENERATOR_CONFIG (with the target
     # assigner's thresholds), LOSS_WEIGHTS, POST_PROCESSING and OPTIMIZATION
     anchor_generator: Tuple[Dict[str, Any], ...] = _VOD_ANCHORS
@@ -355,6 +358,7 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         dir_offset=head.get("DIR_OFFSET", 0.78539),
         dir_limit_offset=head.get("DIR_LIMIT_OFFSET", 0.0),
         compute_dtype=model.get("COMPUTE_DTYPE", "float32"),
+        remat=model.get("REMAT", True),
         anchor_generator=anchors,
         loss_weights=_frozen(head["LOSS_CONFIG"]["LOSS_WEIGHTS"]),
         optimization=_frozen(cfg["OPTIMIZATION"]),

@@ -33,7 +33,9 @@
 // the near field's queries carry a weight.
 //
 // Design. A warp owns a tile of 32 consecutive queries. Each lane computes
-// the taps of one query of the tile and the warp hands them out by shuffles;
+// the taps of one query of the tile and the warp hands them out by shuffles
+// (the walk, combine_tile, is in quad_taps.cuh, shared with the depth
+// forward);
 // the tile's 32 x (c / V) (query, 16-byte vector) pairs are then walked 32 at
 // a time, neighbouring lanes on neighbouring vectors of one query's rows, so
 // every access is a full 16-byte vector and the lanes of a query read whole
@@ -64,7 +66,6 @@ namespace {
 constexpr int THREADS = 128;  // threads a block
 constexpr int UNROLL = 2;     // pairs a lane reads before it stores
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = THREADS / 32;
 
 struct Params {
@@ -80,40 +81,6 @@ struct Params {
   int lanes;      // c / V: the pairs of one query
   int64_t tiles;  // tiles of 32 queries, one a warp
 };
-
-// V consecutive channels of one pixel, moved as one access.
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-// the V channels at p where pred, zeros elsewhere; a 16-byte pack is one
-// predicated load through the read-only path, so no branch splits a batch
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> load_if(const T* p, bool pred) {
-  Pack<T, V> r;
-  if constexpr (sizeof(Pack<T, V>) == 16) {
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %5, 0;\n\t"
-        "@p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
-        : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w)
-        : "l"(p), "r"(static_cast<int>(pred)));
-    r = *reinterpret_cast<const Pack<T, V>*>(&u);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) r.v[k] = pred ? p[k] : from_f32<T>(0.0f);
-  }
-  return r;
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_streaming(Pack<T, V>* dst, const Pack<T, V>& val) {
-  if constexpr (sizeof(Pack<T, V>) == 16) {
-    __stcs(reinterpret_cast<uint4*>(dst), *reinterpret_cast<const uint4*>(&val));
-  } else {
-    *dst = val;
-  }
-}
 
 // query q's taps: the flat unpadded pixel of its top-left tap (frame
 // included; outside the map where that tap's weight is 0) and the four
@@ -135,66 +102,16 @@ __device__ __forceinline__ void query_taps(const Params& prm, int64_t q, int& pi
 
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS) quad_sample_fwd_kernel(const Params prm) {
-  using P = Pack<T, V>;
   const int lane = threadIdx.x & 31;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (tile >= prm.tiles) return;
   const int64_t q0 = tile * 32;
-  const T* __restrict__ map = static_cast<const T*>(prm.map);
-  T* __restrict__ out = static_cast<T*>(prm.out);
-  const int L = prm.lanes, c = prm.c;
-  const int64_t row = static_cast<int64_t>(prm.w) * c;
-
   // this lane's query of the tile
   int my_pix = 0;
   float my_w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (q0 + lane < prm.n) query_taps<T>(prm, q0 + lane, my_pix, my_w);
-
-  // steps 0 .. L - 1; pair s * 32 + lane is vector v of the tile's query ql
-  int ql = lane / L, v = lane - ql * L;
-  const int dq = 32 / L, dv = 32 - dq * L;
-
-#pragma unroll 1
-  for (int s = 0; s < L; s += UNROLL) {
-    P t[UNROLL][4];
-    float wt[UNROLL][4];
-    int64_t dst[UNROLL];
-    bool ok[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t q = q0 + ql;
-      ok[u] = s + u < L && q < prm.n;
-      const int pix = __shfl_sync(kFull, my_pix, ql);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wt[u][k] = __shfl_sync(kFull, my_w[k], ql);
-      const int64_t at = static_cast<int64_t>(pix) * c + static_cast<int64_t>(v) * V;
-      t[u][0] = load_if<T, V>(map + at, ok[u] && wt[u][0] != 0.0f);
-      t[u][1] = load_if<T, V>(map + at + c, ok[u] && wt[u][1] != 0.0f);
-      t[u][2] = load_if<T, V>(map + at + row, ok[u] && wt[u][2] != 0.0f);
-      t[u][3] = load_if<T, V>(map + at + row + c, ok[u] && wt[u][3] != 0.0f);
-      dst[u] = q * c + static_cast<int64_t>(v) * V;
-      ql += dq;
-      v += dv;
-      if (v >= L) {
-        v -= L;
-        ++ql;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
-      P r;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        float acc = wt[u][0] * to_f32(t[u][0].v[k]);
-        acc = fmaf(wt[u][1], to_f32(t[u][1].v[k]), acc);
-        acc = fmaf(wt[u][2], to_f32(t[u][2].v[k]), acc);
-        acc = fmaf(wt[u][3], to_f32(t[u][3].v[k]), acc);
-        r.v[k] = from_f32<T>(acc);
-      }
-      store_streaming(reinterpret_cast<P*>(out + dst[u]), r);
-    }
-  }
+  combine_tile<T, V, UNROLL>(static_cast<const T*>(prm.map), static_cast<T*>(prm.out), prm.n,
+                             q0, lane, prm.lanes, prm.w, my_pix, my_w);
 }
 
 template <typename T, int V>

@@ -19,7 +19,15 @@ default, and ``serve``) every BatchNorm uses its running statistics; in train
 mode every BatchNorm, the frozen backbone's included, normalizes with batch
 statistics and updates its running ones, as the JAX model under
 ``train=True``. The backbone runs without autograd: nothing upstream of the
-trainable channel reduces trains.
+trainable channel reduces and the depth classifier trains, so autograd keeps
+nothing inside it, and ``REMAT`` (``jax.checkpoint`` of the backbone in the
+JAX package) has nothing to recompute there.
+
+With ``USE_DEPTH`` (gather view only) a DeepLabV3 head
+(``ffn.ddn.model.classifier``, trainable) classifies depth on layer4; its
+logits, resized to layer1's resolution, are ``preds["depth_logits"]``, and
+their softmax over the D + 1 bins, without the overflow bin, at each
+distinct map size weights the frustum sample (``frustum.py``).
 """
 from __future__ import annotations
 
@@ -37,16 +45,18 @@ from .anchors import flatten_anchors, generate_anchors
 from .bev_encoder import PillarNetRadar, SparseConv2d
 from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
-from .layers import ConvBNReLU
+from .layers import ConvBNReLU, resize_bilinear
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
-from .resnet import ResNetDeepLabBackbone, preprocess_images
+from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "post_process", "resolve_device"]
 
+# the batch keys the model and its losses read; TARGET_KEYS only the losses
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
-              "trans_cam_to_img", "lidar_aug_matrix", "gt_boxes")
+              "trans_cam_to_img", "lidar_aug_matrix", "gt_boxes", "gt_boxes2d", "depth_maps")
+TARGET_KEYS = ("gt_boxes", "gt_boxes2d", "depth_maps")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -109,11 +119,13 @@ class HGSFusionModel(nn.Module):
         else:
             f2v = FrustumToVoxelMultiScale(
                 [cfg.channel_reduce_out] * 4, cfg.f2v_out_channels, dtype=dt,
-                quant=cfg.f2v_quant, sampler_kernel=cfg.f2v_sampler_kernel,
-                use_depth=cfg.use_depth)
+                quant=cfg.f2v_quant, sampler_kernel=cfg.f2v_sampler_kernel, remat=cfg.remat)
+        ddn = _Scope(backbone=ResNetDeepLabBackbone(stage_sizes, dt))
+        if cfg.use_depth:
+            ddn.classifier = DeepLabClassifier(2048, cfg.disc_num_bins + 1, dt)
         image_vfe = _Scope(
             ffn=_Scope(
-                ddn=_Scope(model=_Scope(backbone=ResNetDeepLabBackbone(stage_sizes, dt))),
+                ddn=_Scope(model=ddn),
                 channel_reduce=nn.ModuleList(
                     ConvBNReLU(cin, cfg.channel_reduce_out, (1, 1), use_bias=False, dtype=dt)
                     for cin in (256, 512, 1024, 2048))),
@@ -176,15 +188,30 @@ class HGSFusionModel(nn.Module):
 
     # -- stages (separate so a caller can time each) -------------------------
     def image_features(self, batch):
-        """Backbone + per-scale channel reduce: 4 NHWC maps."""
+        """Backbone + per-scale channel reduce -> (4 NHWC maps, depth): depth
+        is None, or with USE_DEPTH {"logits": the classifier's logits on
+        layer4 resized to layer1's resolution, (B, H1, W1, D + 1) f32,
+        "probs": one (B, Hi, Wi, D) f32 distribution per map, the softmax
+        computed once per distinct map size (layers 2-4 share theirs)}."""
         ffn = self.fusion_vfe.image_vfe.ffn
         with torch.no_grad():  # frozen: its BN statistics still update in train mode
             taps = ffn.ddn.model.backbone(preprocess_images(batch["images"]))
-        return [reduce(t) for reduce, t in zip(ffn.channel_reduce, taps)]
+        feats = [reduce(t) for reduce, t in zip(ffn.channel_reduce, taps)]
+        if not self.cfg.use_depth:
+            return feats, None
+        logits = resize_bilinear(ffn.ddn.model.classifier(taps[-1]), feats[0].shape[1:3])
+        probs = {}
+        for f in feats:
+            hw = tuple(f.shape[1:3])
+            if hw not in probs:
+                lg = logits if hw == tuple(logits.shape[1:3]) else resize_bilinear(logits, hw)
+                probs[hw] = torch.softmax(lg, dim=-1)[..., :self.cfg.disc_num_bins]
+        return feats, {"logits": logits, "probs": [probs[tuple(f.shape[1:3])] for f in feats]}
 
-    def view_transform(self, feats, batch):
-        """Frustum grid -> quad-sample kernel -> voxel -> collapsed image BEV;
-        in the polar view, ``polar_f2v.polar_image_bev``."""
+    def view_transform(self, feats, batch, depth=None):
+        """Frustum grid -> quad-sample kernel (with ``depth``, the
+        depth-weighted one) -> voxel -> collapsed image BEV; in the polar
+        view, ``polar_f2v.polar_image_bev``."""
         cfg = self.cfg
         if cfg.f2v_view == "polar":
             return polar_image_bev(
@@ -193,10 +220,11 @@ class HGSFusionModel(nn.Module):
                 cfg.image_size, batch.get("lidar_aug_matrix"), grid_size=cfg.grid_size,
                 pc_range=cfg.pc_range, zeta_bins=cfg.f2v_polar_zeta_bins,
                 near_columns=cfg.f2v_polar_near_columns, bev_aug=cfg.bev_aug,
-                dtype=cfg.dtype)
+                remat=cfg.remat, dtype=cfg.dtype)
         grid = self.grid_gen(batch["trans_lidar_to_cam"], batch["trans_cam_to_img"],
                              self.cfg.image_size, bda=batch.get("lidar_aug_matrix"))
-        voxel = self.fusion_vfe.image_vfe.f2v(feats, grid)
+        voxel = self.fusion_vfe.image_vfe.f2v(feats, grid,
+                                              None if depth is None else depth["probs"])
         return self.fusion_vfe.radar_occupancy.map_to_bev(voxel)
 
     def radar_branch(self, batch):
@@ -211,8 +239,12 @@ class HGSFusionModel(nn.Module):
         return preds
 
     def forward(self, batch):
-        image_bev = self.view_transform(self.image_features(batch), batch)
-        return self.fusion_and_head(image_bev, self.radar_branch(batch))
+        feats, depth = self.image_features(batch)
+        image_bev = self.view_transform(feats, batch, depth)
+        preds = self.fusion_and_head(image_bev, self.radar_branch(batch))
+        if depth is not None:
+            preds["depth_logits"] = depth["logits"]
+        return preds
 
     def post_process(self, preds):
         cfg = self.cfg

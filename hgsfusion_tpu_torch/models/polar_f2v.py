@@ -28,8 +28,10 @@ PyTorch, as JAX leaves them to XLA. Nothing reads back to the host.
 
 The parameters are the gather path's: ``PolarF2V`` holds the f2v reduce and
 BN under ``channel_reduce.{0,1}``, the detector's ``Conv2DCollapse`` the
-collapse kernel and BN, so one ``state_dict`` serves both views. Not ported:
-``REMAT`` (``jax.checkpoint`` of pass 2), which changes memory, not results.
+collapse kernel and BN, so one ``state_dict`` serves both views. ``REMAT``
+recomputes each scale's pass 2 (the resample, the shear and the hat
+weights) in the backward pass instead of keeping its slab-sized
+intermediates, as the JAX package's ``jax.checkpoint`` of ``_pass2``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.matmul import matmul_f32
 from ..ops.quad_sample import grid_sample_2d_quad_kernel
@@ -275,14 +278,15 @@ class _CollapseF32(torch.autograd.Function):
 
 def polar_image_bev(f2v: PolarF2V, collapse, features, l2c, c2i, image_size, bda, *,
                     grid_size, pc_range, zeta_bins: int = 128, near_columns: int = 20,
-                    bev_aug: bool = False, dtype=None):
+                    bev_aug: bool = False, remat: bool = False, dtype=None):
     """Fused polar f2v + Z-collapse producing the image BEV directly.
 
     ``f2v`` holds the reduce and its BN, ``collapse`` (an
     ``occupancy.Conv2DCollapse``) the collapse kernel and its BN; their mode
     (train or eval) is the BNs'. features: list of (B, Hs, Ws, Cs) maps,
     finest first (the channel-reduce outputs); l2c (B, 4, 4); c2i (B, 3, 4);
-    image_size (H, W); bda (B, 4, 4) or None. Returns (B, Y, X, O), what
+    image_size (H, W); bda (B, 4, 4) or None; ``remat``: recompute each
+    scale's pass 2 in the backward pass. Returns (B, Y, X, O), what
     ``Conv2DCollapse`` gives on the gather path's voxel volume.
     """
     cdt = compute_dtype(dtype)
@@ -316,17 +320,25 @@ def polar_image_bev(f2v: PolarF2V, collapse, features, l2c, c2i, image_size, bda
     # pass 2 per scale onto the common polar grid: (B, J, Z, K, C), summed
     slab = None
     kps = torch.arange(geo.kp, dtype=torch.float32, device=l2c.device)
-    for f_red in reduced:
+
+    def pass2(f_red, lam, v0):
         b, hs, ws, c = f_red.shape
         ratio = geo.s_fine / ((w_img - 1) / (ws - 1))
         row_scale = (hs - 1) / (h_img - 1)
         src = _resample_cols(F.pad(f_red, (0, 0, 1, 1)), PAD_U, geo.kp, ratio)
-        shift = geo.lam[:, None] * (kps[None, :] - geo.k_ref) * geo.s_fine * row_scale
+        shift = lam[:, None] * (kps[None, :] - geo.k_ref) * geo.s_fine * row_scale
         sheared = _shear_rows(src, shift)  # (B, Hs, K, C)
-        wv = _hat_weights(geo.v0 * row_scale, hs).to(cdt)  # (B, J, Z, Hs)
+        wv = _hat_weights(v0 * row_scale, hs).to(cdt)  # (B, J, Z, Hs)
         jb, zb = wv.shape[1:3]
         part = matmul_f32(wv.reshape(b, jb * zb, hs), sheared.reshape(b, hs, geo.kp * c))
-        part = part.to(cdt).view(b, jb, zb, geo.kp, c)
+        return part.to(cdt).view(b, jb, zb, geo.kp, c)
+
+    for f_red in reduced:
+        if remat and torch.is_grad_enabled():
+            part = checkpoint(pass2, f_red, geo.lam, geo.v0, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            part = pass2(f_red, geo.lam, geo.v0)
         slab = part if slab is None else slab + part
     slab = slab + bias
 

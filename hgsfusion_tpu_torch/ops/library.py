@@ -9,6 +9,9 @@ shape and dtype, all ``torch.export`` needs to trace it):
   (``csrc/quad_sample.cu``) without the tap indices a gradient needs;
 - ``hgsfusion::quad_sample_reduce_fwd(uv, maps, k_offs, kmat, bias) -> out``:
   the fused sampler + reduce of the gather view (``csrc/quad_sample_reduce.cu``);
+- ``hgsfusion::quad_sample_depth_fwd(features, probs, grid) -> out``: the
+  depth-weighted frustum sample of the gather view under USE_DEPTH
+  (``csrc/quad_sample_depth.cu``) without what its backward needs;
 - ``hgsfusion::nms_lazy(boxes, valid, nms_thresh, max_keep) -> keep``:
   rotated greedy NMS of a batch of score-sorted candidates
   (``csrc/nms_lazy.cu``), one block per frame.
@@ -24,11 +27,12 @@ implementations import them at the call, since those modules import this
 one.
 
 This module also holds the launch wrappers the ops do not wrap: the
-training route's backward kernel (``quad_sample_bwd``) and the fused
-kernel's tap computation alone (``quad_sample_taps``, a check). Every
-wrapper counts its launches in ``launches``, which also counts the bins
-built on the card for the backward kernel (``quad_sample.quad_bins``);
-callers may reset them to 0.
+training routes' backward kernels (``quad_sample_bwd``,
+``quad_sample_depth_bwd``) and the fused kernel's tap computation alone
+(``quad_sample_taps``, a check). Every wrapper counts its launches in
+``launches``, which also counts the bins built on the card for the backward
+kernels (``quad_sample.quad_bins``, ``depth_sample.depth_bins``); callers
+may reset them to 0.
 """
 from __future__ import annotations
 
@@ -46,9 +50,14 @@ TAPS = "quad_sample_taps"
 BWD_KERNEL = "quad_sample_bwd"
 BINS = "quad_bins"
 NMS = "nms_lazy"
+DEPTH_KERNEL = "quad_sample_depth_fwd"
+DEPTH_BWD_KERNEL = "quad_sample_depth_bwd"
 # launches of each kernel in this process, and the bins built on the card
-# for the backward kernel (PyTorch calls, no kernel of this package)
-launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0}
+# for the backward kernels (PyTorch calls, no kernel of this package)
+launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0,
+            DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0}
+# depth bins the depth backward's phase 2 keeps in registers
+MAX_DEPTH_BINS = 128
 # gather groups one launch of the fused kernel takes
 MAX_REDUCE_GROUPS = 4
 
@@ -75,6 +84,15 @@ _ENTRIES = {
     BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # boxes, valid, b, k, nms_thresh, max_keep, keep, stream
     NMS: ("nms_lazy", [_P, _P, _I, _I, _F, _I, _P, _P]),
+    # grid, grid_stride, n, per_frame, map, probs, b, h, w, c, d, out, key_out,
+    # w4_out, dtype, stream
+    DEPTH_KERNEL: ("quad_sample_depth",
+                   [_P, _I64, _I64, _I64, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
+    # grid, grid_stride, n, per_frame, map, ct, order, start, rec, b, h, w, c, d,
+    # out, dtype, stream
+    DEPTH_BWD_KERNEL: ("quad_sample_depth",
+                       [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                        _P]),
 }
 
 
@@ -347,6 +365,104 @@ def quad_sample_bwd(grad_out, idx, w4, padded_shape, bins):
     return out
 
 
+def _check_depth(name, features, depth_bins: int, grid, probs=None):
+    """The depth kernels' launch contract on the map, its depth distribution
+    (``probs``, or only its bin count) and the grid; returns (n, queries per
+    frame, the grid's row stride)."""
+    if features.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {features.device}")
+    if features.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {features.dtype}")
+    if features.dim() != 4 or min(features.shape) < 1 or not 1 <= depth_bins <= MAX_DEPTH_BINS \
+            or (probs is not None and probs.shape != features.shape[:3] + (depth_bins,)):
+        raise ValueError(f"{name}: bad shapes features {tuple(features.shape)}, "
+                         f"{depth_bins} depth bins (1 to {MAX_DEPTH_BINS})"
+                         + ("" if probs is None else f", probs {tuple(probs.shape)}"))
+    if probs is not None and probs.dtype != features.dtype:
+        raise TypeError(f"{name}: probs {probs.dtype} and features {features.dtype} differ")
+    for arg, t in (("features", features), ("probs", probs)):
+        if t is not None and (t.device != features.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be contiguous on {features.device}")
+    b, h, w, _ = features.shape
+    if b * (h + 2) * (w + 2) >= 2**31:
+        raise ValueError(f"{name}: padded map exceeds int32 pixel indexing")
+    if grid.shape[-1:] != (3,):
+        raise ValueError(f"{name}: bad shapes grid {tuple(grid.shape)}, want (B, ..., 3)")
+    n, per_frame, stride = uv_rows(name, grid[..., 0:2], b)
+    if grid.device != features.device:
+        raise ValueError(f"{name}: grid must be on {features.device}")
+    return n, per_frame, stride
+
+
+def quad_sample_depth_fwd(features, probs, grid, taps: bool = False):
+    """Launch the depth-weighted sampler forward.
+
+    ``features`` (B, H, W, C) and ``probs`` (B, H, W, D), D <= 128, contiguous
+    on the card in one dtype (the compute dtype, as JAX casts the
+    probabilities); ``grid`` (B, ..., 3) f32 normalized (u, v, z), read in
+    place (rows of one stride) -> ``(out, key, w4)``: ``out`` (N, C) in
+    features' dtype, each query's bilinear taps weighted by the depth lerp
+    of its two bins at each tap, summed in f32 and rounded once; with
+    ``taps`` also the bins' keys (N,) int32 and the effective tap weights
+    (N, 4) f32 that the backward takes (else None and None). Same function
+    as ``depth_sample.quad_sample_depth_fwd_plain`` up to the order of f32
+    operations.
+    """
+    name = DEPTH_KERNEL
+    if probs.dim() != 4:
+        raise ValueError(f"{name}: bad shapes probs {tuple(probs.shape)}")
+    n, per_frame, stride = _check_depth(name, features, probs.shape[3], grid, probs)
+    b, h, w, c = features.shape
+    dev = features.device
+    out = torch.empty((n, c), dtype=features.dtype, device=dev)
+    key = w4 = None
+    if taps:
+        key = torch.empty(n, dtype=torch.int32, device=dev)
+        w4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    err = entry(name)(
+        grid.data_ptr(), stride, n, per_frame, features.data_ptr(), probs.data_ptr(), b, h, w, c,
+        probs.shape[3], out.data_ptr(), None if key is None else key.data_ptr(),
+        None if w4 is None else w4.data_ptr(), DTYPE_CODES[features.dtype], stream_of(features))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return out, key, w4
+
+
+def quad_sample_depth_bwd(grad_out, features, grid, depth_bins: int, bins):
+    """Launch the depth distribution's gradient: ``grad_out`` (N, C)
+    cotangent of ``quad_sample_depth_fwd``'s output, ``features`` and
+    ``grid`` as given to it, ``depth_bins`` D, ``bins`` = ``csr_bins`` of its
+    keys -> the gradient of probs, (B, H, W, D) f32, every element summed in
+    one fixed order. Same function as
+    ``depth_sample.quad_sample_depth_bwd_plain`` up to that order."""
+    name = DEPTH_BWD_KERNEL
+    n, per_frame, stride = _check_depth(name, features, depth_bins, grid)
+    b, h, w, c = features.shape
+    if grad_out.dtype != features.dtype or grad_out.shape != (n, c) \
+            or grad_out.device != features.device or not grad_out.is_contiguous():
+        raise ValueError(f"{name}: grad_out must be a contiguous ({n}, {c}) {features.dtype} "
+                         f"tensor on {features.device}, got {tuple(grad_out.shape)} "
+                         f"{grad_out.dtype}")
+    order, start = bins
+    for arg, t, length in (("order", order, n), ("start", start, b * (h + 2) * (w + 2) + 1)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: bins {arg} must be int32, got {t.dtype}")
+        if t.device != features.device or not t.is_contiguous() or t.shape != (length,):
+            raise ValueError(f"{name}: bins {arg} must be a contiguous ({length},) tensor on "
+                             f"{features.device}, got {tuple(t.shape)}")
+    rec = torch.empty((n, 8), dtype=torch.float32, device=features.device)
+    out = torch.empty((b, h, w, depth_bins), dtype=torch.float32, device=features.device)
+    err = entry(name)(
+        grid.data_ptr(), stride, n, per_frame, features.data_ptr(), grad_out.data_ptr(),
+        order.data_ptr(), start.data_ptr(), rec.data_ptr(), b, h, w, c, depth_bins,
+        out.data_ptr(), DTYPE_CODES[features.dtype], stream_of(features))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return out
+
+
 # -- the ops -----------------------------------------------------------------
 
 def _sample_cuda(features: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -374,6 +490,20 @@ def _reduce_cpu(uv, maps, k_offs, kmat, bias):
 
 def _reduce_fake(uv, maps, k_offs, kmat, bias):
     return kmat.new_empty((uv.numel() // 2, kmat.shape[1]))
+
+
+def _depth_cuda(features: torch.Tensor, probs: torch.Tensor,
+                grid: torch.Tensor) -> torch.Tensor:
+    return quad_sample_depth_fwd(features, probs, grid)[0]
+
+
+def _depth_cpu(features, probs, grid):
+    from . import depth_sample
+    return depth_sample.quad_sample_depth_fwd_plain(features, probs, grid)[0]
+
+
+def _depth_fake(features, probs, grid):
+    return features.new_empty((grid.numel() // 3, features.shape[-1]))
 
 
 def _nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, nms_thresh: float,
@@ -405,3 +535,4 @@ def _register(name, cuda, cpu, fake):
 quad_sample_op = _register(KERNEL, _sample_cuda, _sample_cpu, _sample_fake)
 quad_sample_reduce_op = _register(REDUCE_KERNEL, _reduce_cuda, _reduce_cpu, _reduce_fake)
 nms_lazy_op = _register(NMS, _nms_cuda, _nms_cpu, _nms_fake)
+quad_sample_depth_op = _register(DEPTH_KERNEL, _depth_cuda, _depth_cpu, _depth_fake)

@@ -44,9 +44,9 @@ def profile_frames(model, batch, frames: int):
         with torch.inference_mode():
             b = model.batch_to_device(batch)
             with record_function("backbone"):
-                feats = model.image_features(b)
+                feats, depth = model.image_features(b)
             with record_function("view_transform"):
-                image_bev = model.view_transform(feats, b)
+                image_bev = model.view_transform(feats, b, depth)
             with record_function("radar_branch"):
                 radar_bev = model.radar_branch(b)
             with record_function("fusion_head"):

@@ -27,12 +27,12 @@ import torch.nn as nn
 
 from ..config import cfg_from_list, load_config, model_config_from_yaml
 from ..datasets import build_dataset
-from ..models.detector import BATCH_KEYS, HGSFusionModel, resolve_device
+from ..models.detector import BATCH_KEYS, TARGET_KEYS, HGSFusionModel, resolve_device
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..utils.common import create_logger
 
 # the batch keys the served graph reads (the rest are labels)
-INPUT_KEYS = tuple(k for k in BATCH_KEYS if k != "gt_boxes")
+INPUT_KEYS = tuple(k for k in BATCH_KEYS if k not in TARGET_KEYS)
 # the artifact's record of its inputs, beside the graph
 SPEC_FILE = "inputs.json"
 

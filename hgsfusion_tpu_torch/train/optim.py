@@ -1,15 +1,24 @@
-"""AdamW with the OneCycle LR / momentum schedules.
+"""The optimizers of the OPTIMIZATION block: ``adam_onecycle``, ``adam``
+and ``sgd``.
 
 Counterpart of ``hgsfusion_tpu/train/optim.py`` (annealing_cos,
-onecycle_lr_schedule, onecycle_mom_schedule, default_frozen_predicate and the
-``adam_onecycle`` branch of build_optimizer). The JAX package builds it from
-optax: clip_by_global_norm(GRAD_NORM_CLIP) -> adamw(b1 = the momentum
-schedule, b2 0.99, eps 1e-8, decoupled weight decay) under
-inject_hyperparams, masked so that the frozen DDN backbone gets no update,
-no decay and no state. ``AdamOneCycle`` writes that chain out on tensors:
-the schedules are read at a device-side step counter, so a step reads
-nothing back to the host. ``state_dict`` / ``load_state_dict`` carry the
-moments and that counter through a checkpoint.
+onecycle_lr_schedule, onecycle_mom_schedule, default_frozen_predicate and
+build_optimizer). The JAX package builds each from optax, after
+clip_by_global_norm(GRAD_NORM_CLIP) and masked so that the frozen DDN
+backbone gets no update, no decay and no state:
+
+- ``adam_onecycle``: adamw(b1 = the momentum schedule, b2 0.99, eps 1e-8,
+  decoupled weight decay) under inject_hyperparams with the OneCycle LR;
+- ``adam``: adamw(LR, weight_decay) with optax's defaults (b1 0.9, b2 0.999,
+  eps 1e-8) at a constant LR;
+- ``sgd``: add_decayed_weights(WEIGHT_DECAY), then sgd(LR, momentum =
+  MOMENTUM or 0.9): a heavy-ball trace, no Nesterov.
+
+``AdamOneCycle`` writes the two AdamW chains out on tensors (the schedules
+read at a device-side step counter, so a step reads nothing back to the
+host; ``adam``'s constants are Python floats, as optax's), ``SGD`` the
+third. ``state_dict`` / ``load_state_dict`` carry the state through a
+checkpoint.
 """
 from __future__ import annotations
 
@@ -64,7 +73,8 @@ def default_frozen_predicate(name: str) -> bool:
 
 class AdamOneCycle:
     """clip_by_global_norm -> AdamW under the OneCycle schedules, on the
-    trainable tensors ``params`` (a list), updated in place by ``step``.
+    trainable tensors ``params`` (a list), updated in place by ``step``;
+    with constant schedules and ``b2`` 0.999, the ``adam`` recipe.
 
     As optax computes it: the clip scales by max_norm / ||g|| only when
     ||g|| >= max_norm (no epsilon), over the trainable gradients alone; the
@@ -73,11 +83,12 @@ class AdamOneCycle:
     step counter the schedules read (schedule(0) at the first step).
     """
 
-    b2, eps = 0.99, 1e-8  # the adam_onecycle recipe's
+    eps = 1e-8
 
     def __init__(self, params, lr_schedule, mom_schedule, weight_decay: float,
-                 grad_norm_clip: float):
+                 grad_norm_clip: float, b2: float = 0.99):
         self.params = list(params)
+        self.b2 = b2  # the adam_onecycle recipe's 0.99; optax's default 0.999 for adam
         self.lr_schedule, self.mom_schedule = lr_schedule, mom_schedule
         self.weight_decay, self.grad_norm_clip = weight_decay, grad_norm_clip
         device = self.params[0].device
@@ -88,10 +99,7 @@ class AdamOneCycle:
     @torch.no_grad()
     def step(self, grads):
         """Apply one update from ``grads`` (one per param; None reads as 0)."""
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.grad_norm_clip
-        grads = [torch.where(keep, g, g / g_norm * self.grad_norm_clip) for g in grads]
+        grads = clip_by_global_norm(self.params, grads, self.grad_norm_clip)
         step_f = self.count.to(torch.float32)
         lr, b1 = self.lr_schedule(step_f), self.mom_schedule(step_f)
         count_inc = self.count + 1
@@ -115,41 +123,89 @@ class AdamOneCycle:
         """Copy a ``state_dict()`` in place: the OneCycle schedules go on
         from its ``count``. Its moments must match ``params`` in number and
         shape."""
-        for key in ("mu", "nu"):
-            if len(state[key]) != len(self.params):
-                raise ValueError(f"optimizer state has {len(state[key])} {key} tensors, "
-                                 f"the optimizer {len(self.params)}")
-            for mine, saved in zip(getattr(self, key), state[key]):
-                if mine.shape != saved.shape:
-                    raise ValueError(f"optimizer state {key}: shape {tuple(saved.shape)}, "
-                                     f"want {tuple(mine.shape)}")
-                mine.copy_(saved)
+        _copy_state(self, state, ("mu", "nu"))
         self.count.copy_(torch.as_tensor(state["count"]))
 
 
+class SGD:
+    """clip_by_global_norm -> add_decayed_weights -> SGD with momentum, on
+    the trainable tensors ``params``, updated in place by ``step``: as optax
+    computes it, u = g + wd p, trace = u + momentum trace (0 at the start),
+    p -= lr trace."""
+
+    def __init__(self, params, lr: float, momentum: float, weight_decay: float,
+                 grad_norm_clip: float):
+        self.params = list(params)
+        self.lr, self.momentum = lr, momentum
+        self.weight_decay, self.grad_norm_clip = weight_decay, grad_norm_clip
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads):
+        """Apply one update from ``grads`` (one per param; None reads as 0)."""
+        grads = clip_by_global_norm(self.params, grads, self.grad_norm_clip)
+        for p, g, tr in zip(self.params, grads, self.trace):
+            tr.copy_((g + self.weight_decay * p) + self.momentum * tr)
+            p.add_(-self.lr * tr)
+
+    def state_dict(self) -> dict:
+        """The momentum traces, one per trainable tensor in ``params`` order."""
+        return {"trace": list(self.trace)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Copy a ``state_dict()`` in place; its traces must match ``params``
+        in number and shape."""
+        _copy_state(self, state, ("trace",))
+
+
+def clip_by_global_norm(params, grads, max_norm: float):
+    """optax.clip_by_global_norm over the trainable gradients (None reads as
+    0): scaled by max_norm / ||g|| only when ||g|| >= max_norm, no epsilon."""
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
+
+
+def _copy_state(opt, state: dict, keys):
+    for key in keys:
+        if len(state[key]) != len(opt.params):
+            raise ValueError(f"optimizer state has {len(state[key])} {key} tensors, "
+                             f"the optimizer {len(opt.params)}")
+        for mine, saved in zip(getattr(opt, key), state[key]):
+            if mine.shape != saved.shape:
+                raise ValueError(f"optimizer state {key}: shape {tuple(saved.shape)}, "
+                                 f"want {tuple(mine.shape)}")
+            mine.copy_(saved)
+
+
 def build_optimizer(optim_cfg, total_steps: int, model):
-    """The ``adam_onecycle`` recipe of ``optim_cfg`` (OPTIMIZATION keys) over
-    ``model``'s parameters. Frozen parameters get ``requires_grad_(False)``
-    and no optimizer state. Returns (optimizer, lr_schedule)."""
+    """The ``OPTIMIZER`` recipe of ``optim_cfg`` (OPTIMIZATION keys) over
+    ``model``'s parameters: ``adam_onecycle``, ``adam`` or ``sgd``. Frozen
+    parameters get ``requires_grad_(False)`` and no optimizer state. Returns
+    (optimizer, lr_schedule)."""
     name = optim_cfg.get("OPTIMIZER", "adam_onecycle")
-    if name in ("adam", "sgd"):
-        raise NotImplementedError(
-            f"OPTIMIZER: {name} is not ported (ROADMAP queue 1, off-default variants); "
-            "the port trains with adam_onecycle")
-    if name != "adam_onecycle":
+    if name not in ("adam_onecycle", "adam", "sgd"):
         raise NotImplementedError(name)
-    lr_schedule = onecycle_lr_schedule(total_steps, float(optim_cfg["LR"]),
-                                       float(optim_cfg["DIV_FACTOR"]),
-                                       float(optim_cfg["PCT_START"]))
-    mom_schedule = onecycle_mom_schedule(total_steps, [float(m) for m in optim_cfg["MOMS"]],
-                                         float(optim_cfg["PCT_START"]))
+    lr = float(optim_cfg["LR"])
+    wd = float(optim_cfg.get("WEIGHT_DECAY", 0.0))
+    clip = float(optim_cfg.get("GRAD_NORM_CLIP", 10.0))
     trainable = []
     for pname, p in model.named_parameters():
         frozen = default_frozen_predicate(pname)
         p.requires_grad_(not frozen)
         if not frozen:
             trainable.append(p)
-    opt = AdamOneCycle(trainable, lr_schedule, mom_schedule,
-                       float(optim_cfg.get("WEIGHT_DECAY", 0.0)),
-                       float(optim_cfg.get("GRAD_NORM_CLIP", 10.0)))
-    return opt, lr_schedule
+    if name == "sgd":
+        return SGD(trainable, lr, float(optim_cfg.get("MOMENTUM", 0.9)), wd, clip), \
+            lambda step: lr
+    if name == "adam":
+        # optax.adamw(lr, weight_decay=wd): b1 0.9, b2 0.999, a constant LR
+        return AdamOneCycle(trainable, lambda step: lr, lambda step: 0.9, wd, clip,
+                            b2=0.999), lambda step: lr
+    lr_schedule = onecycle_lr_schedule(total_steps, lr, float(optim_cfg["DIV_FACTOR"]),
+                                       float(optim_cfg["PCT_START"]))
+    mom_schedule = onecycle_mom_schedule(total_steps, [float(m) for m in optim_cfg["MOMS"]],
+                                         float(optim_cfg["PCT_START"]))
+    return AdamOneCycle(trainable, lr_schedule, mom_schedule, wd, clip), lr_schedule

@@ -3,8 +3,9 @@ model_inputs, _grad_step, make_train_step), and the detections of ``serve``
 as per-frame numpy dicts (detections_to_pred_dicts).
 
 One step is the forward pass in train mode, target assignment, the RPN and
-occupancy losses, the backward pass and the AdamW / OneCycle update. PyTorch
-runs it eagerly; nothing in it reads a tensor back to the host.
+occupancy losses (and, under USE_DEPTH with depth maps in the batch, the DDN
+depth loss), the backward pass and the optimizer's update. PyTorch runs it
+eagerly; nothing in it reads a tensor back to the host.
 
 Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
 through the wrapper, whose hooks average the gradients of ``backward`` over
@@ -23,6 +24,7 @@ import torch
 
 from ..models.anchor_head import anchor_head_loss
 from ..models.anchors import TargetAssigner
+from ..models.ddn_loss import ddn_loss
 from ..models.detector import BATCH_KEYS
 from ..models.occupancy import occupancy_loss
 from ..parallel.mesh import all_reduce_mean_
@@ -61,10 +63,12 @@ OCC_MAX_HALF_EXTENT = 48
 
 def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
                     cfg, ddp=None) -> Callable:
-    """One training step: loss = rpn (cls + loc + dir) + occupancy focal.
-    ``batch`` holds tensors on the model's device, ``gt_boxes`` (B, M, 8)
-    among them; tb keys rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss,
-    loss_occ, loss. Puts ``model`` in train mode. ``ddp``: ``model`` under
+    """One training step: loss = rpn (cls + loc + dir) + occupancy focal
+    (+ the DDN loss where the model gives depth logits and the batch has
+    ``depth_maps``). ``batch`` holds tensors on the model's device,
+    ``gt_boxes`` (B, M, 8) among them; tb keys rpn_loss_cls, rpn_loss_loc,
+    rpn_loss_dir, rpn_loss, loss_occ, loss (and ddn_loss, fg_loss, bg_loss).
+    Puts ``model`` in train mode. ``ddp``: ``model`` under
     ``DistributedDataParallel`` (``parallel.mesh.wrap_model``), which then
     runs the forward pass."""
     anchors = assigner.flat_anchors
@@ -79,7 +83,19 @@ def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Di
         occ = occupancy_loss(preds["occupancy"], batch["gt_boxes"], cfg.grid_size,
                              cfg.pc_range, cfg.voxel_size, OCC_MAX_HALF_EXTENT)
         total = total + occ
-        return total, {**tb, "loss_occ": occ, "loss": total}
+        tb = {**tb, "loss_occ": occ}
+        if "depth_logits" in preds and "depth_maps" in batch:
+            # as the JAX package calls it: 2-D boxes (B, N, 4), zeros when the
+            # batch has none, and downsample_factor 1 although the boxes are
+            # in image pixels and the logits at 1/4 of them (ROADMAP queue 3)
+            boxes2d = batch.get("gt_boxes2d")
+            if boxes2d is None:
+                boxes2d = preds["depth_logits"].new_zeros((batch["gt_boxes"].shape[0], 1, 4))
+            dloss, dtb = ddn_loss(preds["depth_logits"], batch["depth_maps"], boxes2d,
+                                  cfg.disc_cfg)
+            tb = {**tb, **dtb}
+            total = total + dloss
+        return total, {**tb, "loss": total}
 
     return _grad_step(loss_fn, optimizer)
 

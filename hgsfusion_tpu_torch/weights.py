@@ -76,6 +76,24 @@ def resnet_backbone(p, s):
     return out
 
 
+def deeplab_classifier(p, s):
+    """resnet.DeepLabClassifier (torchvision ``DeepLabHead`` names): the JAX
+    ``aspp/b{0..3}`` -> ``0.convs.{0..3}``, ``pool`` -> ``0.convs.4``,
+    ``project`` -> ``0.project``, ``conv``/``bn`` -> ``1``/``2``, ``logits``
+    -> ``4``."""
+    ap, as_ = p["aspp"], s["aspp"]
+    out = {}
+    for i in range(4):
+        out.update(_prefix(f"0.convs.{i}.0", conv(ap[f"b{i}_conv"])))
+        out.update(_prefix(f"0.convs.{i}.1", batch_norm(ap[f"b{i}_bn"], as_[f"b{i}_bn"])))
+    out.update(_prefix("0.convs.4.1", conv(ap["pool_conv"])))
+    out.update(_prefix("0.convs.4.2", batch_norm(ap["pool_bn"], as_["pool_bn"])))
+    out.update(_prefix("0.project.0", conv(ap["project_conv"])))
+    out.update(_prefix("0.project.1", batch_norm(ap["project_bn"], as_["project_bn"])))
+    return {**out, **_prefix("1", conv(p["conv"])), **_prefix("2", batch_norm(p["bn"], s["bn"])),
+            **_prefix("4", conv(p["logits"]))}
+
+
 def frustum_to_voxel(p, s):
     """frustum.FrustumToVoxelMultiScale: ``channel_reduce.{0: Conv3d, 1: BN3d}``."""
     k = np.asarray(p["reduce_kernel"])  # (sum C, O)
@@ -161,6 +179,9 @@ def from_jax_variables(variables):
     image = "fusion_vfe.image_vfe"
     out = _prefix(f"{image}.ffn.ddn.model.backbone",
                   resnet_backbone(p["ddn_backbone"], s["ddn_backbone"]))
+    if "ddn_classifier" in p:  # USE_DEPTH
+        out.update(_prefix(f"{image}.ffn.ddn.model.classifier",
+                           deeplab_classifier(p["ddn_classifier"], s["ddn_classifier"])))
     for i in range(4):
         name = f"channel_reduce_{i}"
         out.update(_prefix(f"{image}.ffn.channel_reduce.{i}", conv_bn_relu(p[name], s[name])))

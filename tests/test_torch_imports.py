@@ -55,6 +55,7 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.parallel.spawn",
     "hgsfusion_tpu_torch.eval.tta", "hgsfusion_tpu_torch.tools.test_tta",
     "hgsfusion_tpu_torch.tools.make_study_data", "hgsfusion_tpu_torch.tools.study_polar_match",
+    "hgsfusion_tpu_torch.ops.depth_sample", "hgsfusion_tpu_torch.models.ddn_loss",
 }
 
 
@@ -103,6 +104,8 @@ assert library.quad_sample_op(feats, uv).shape == (3, 8)
 kmat, bias = torch.rand(8, 4), torch.rand(4)
 assert library.quad_sample_reduce_op(uv, [feats], [0], kmat, bias).shape == (3, 4)
 boxes = torch.tensor([[[0, 0, 0, 2, 1, 1, 0], [0.1, 0, 0, 2, 1, 1, 0.1], [5, 5, 0, 1, 1, 1, 0]]])
+probs, grid = torch.rand(1, 4, 5, 6), torch.rand(1, 3, 3) * 2 - 1
+assert library.quad_sample_depth_op(feats, probs, grid).shape == (3, 8)
 keep = library.nms_lazy_op(boxes, torch.ones(1, 3, dtype=torch.bool), 0.1, 10)
 assert keep.tolist() == [[True, False, True]], keep
 print(" ".join(sorted(k for k in sys.modules if k.startswith("hgsfusion_tpu_torch"))))
@@ -119,5 +122,5 @@ def test_serving_host_imports_no_model_code():
     mods = set(proc.stdout.split())
     assert {"hgsfusion_tpu_torch.ops.library", "hgsfusion_tpu_torch.tools.serve",
             "hgsfusion_tpu_torch.native", "hgsfusion_tpu_torch.ops.nms",
-            "hgsfusion_tpu_torch.ops.quad_sample"} <= mods
+            "hgsfusion_tpu_torch.ops.quad_sample", "hgsfusion_tpu_torch.ops.depth_sample"} <= mods
     assert not any(m.startswith("hgsfusion_tpu_torch.models") for m in mods)

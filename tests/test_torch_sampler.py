@@ -180,10 +180,12 @@ def test_model_feeds_the_sampler_in_place(cfg, monkeypatch):
     monkeypatch.setattr(quad_sample._QuadSample, "forward", staticmethod(spy))
     model = HGSFusionModel(cfg, device="cpu", seed=5).train()
     batch = model.batch_to_device(tiny_batch())
-    model.view_transform(model.image_features(batch), batch).float().sum().backward()
-    # gather: two groups on the frustum grid; polar: two near-field maps on
-    # the near grid, then pass 3's coordinates (their own tensor)
-    want = {"gather": [(True, False, 3)] * 2,
+    feats, depth = model.image_features(batch)
+    model.view_transform(feats, batch, depth).float().sum().backward()
+    # gather: two groups on the frustum grid, sampled again in the backward
+    # pass (REMAT, the config's default); polar: two near-field maps on the
+    # near grid, then pass 3's coordinates (their own tensor)
+    want = {"gather": [(True, False, 3)] * (4 if cfg.remat else 2),
             "polar": [(True, False, 3)] * 2 + [(True, True, 2)]}[cfg.f2v_view]
     assert seen == want
 
