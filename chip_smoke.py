@@ -248,11 +248,38 @@ Phases, each of which must pass or the script exits non-zero:
     full-width tree with each of ``adam_onecycle``, ``adam`` and ``sgd``: 2
     steps, a resume bit for bit, one more step; ``tools.test.main
     --ckpt_dir`` on the last run (2 depth forward + 1 NMS a frame);
-36. export and serve depth: as 25a on that config.
+36. export and serve depth: as 25a on that config;
+37. kernel vs plain, q8: F2V QUANT int8's K1 on the int8 map
+    (``quad_sample_q8_fwd``) against ``quad_sample_q8_plain`` at both VoD
+    gather maps (per-channel int8 of random maps, the flagship grid read in
+    place) in bf16 and f32 and a ragged case (``q8_sample_case`` states the
+    tolerances: one bf16 ulp and 1e-5 of the taps' magnitude; idx/w4 bit for
+    bit); its P3 (``quad_sample_reduce_q8_fwd``) against
+    ``quad_sample_reduce_q8_plain`` at both groups in one launch and a ragged
+    case, at ``reduce_case``'s tolerances; each timed beside its bound, the
+    plain version and (K1-q8) ``F.grid_sample``;
+38. kernel vs plain, w8a8: ``conv2d_w8a8`` against its float64 plain
+    version, exactly equal in f32 and bf16, at each of the 23 distinct
+    convolutions of the VoD ResNet-101 (``backbone_conv_shapes``, 104 in
+    all) on random int8 values, and a ragged case; each timed beside its
+    bound (int8 operations or bytes), the plain version, cuDNN's bf16
+    ``F.conv2d`` and ``torch._int_mm`` on im2col columns (yardsticks), and
+    the sums over the backbone;
+39. serve q8: ``hgsfusion_tpu_torch/configs/hgsfusion_vod_q8.yaml`` as 7:
+    one P3-q8 and one NMS launch a frame;
+40. train q8: that config as 8 (REMAT on): 4 K1-q8, 2 K2 and 4 bins a step;
+41. eval q8: that YAML as 15 over 8 frames, 1 P3-q8 a frame;
+42. export and serve q8: as 25a on that config;
+43. serve w8a8: ``hgsfusion_vod_w8a8.yaml`` as 7 in the gather view (104
+    int8 convolutions, 1 P3-q8, 1 NMS a frame) and in the polar view (F2V
+    QUANT none: 104, 3 forward, 1 NMS);
+44. occupancy v2: the TINY parallel-ASPP model (DCN branch, SE gate) card
+    vs CPU as 5, then ``hgsfusion_vod_occ_v2.yaml`` served as 7 (1 fused, 1
+    NMS a frame) and trained as 8 (4, 2, 4 a step).
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27, 28-31 and 33-36, the ranks' launches summed),
+serving hosts, 27, 28-31, 33-36 and 39-44, the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -292,9 +319,11 @@ from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
-from hgsfusion_tpu_torch.models.resnet import preprocess_images
-from hgsfusion_tpu_torch.ops import depth_sample, library, nms, quad_sample, row_scatter
-from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain, quad_sample_fwd_plain
+from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_images
+from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, quad_sample,
+                                 row_scatter)
+from hgsfusion_tpu_torch.ops.grid_sample import (quad_sample_bwd_plain, quad_sample_fwd_plain,
+                                                quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.parallel import mesh, spawn
@@ -324,7 +353,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add",
-                  "nms_lazy", "quad_sample_depth"]
+                  "nms_lazy", "quad_sample_depth", "conv_int8"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
@@ -1451,7 +1480,9 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "bench_scatter", "serve_tj4d", "serve_tj4d_polar", "train_cli_tj4d",
               "eval_tj4d_polar", "export_serve", "export_serve_polar", "rhgm", "ddp",
               "eval_multiproc", "tta", "study_small", "serve_depth", "train_depth",
-              "train_cli_depth", "export_serve_depth")
+              "train_cli_depth", "export_serve_depth", "serve_q8", "train_q8", "eval_q8",
+              "export_serve_q8", "serve_w8a8", "serve_w8a8_polar", "serve_occ_v2",
+              "train_occ_v2")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -1671,10 +1702,10 @@ def write_tree(root, data, frames: int):
 HEADLINE = {"VODDataset": "entire_area/mAP_3d", "TJ4DDataset": "KITTI/Overall_3D_moderate"}
 
 
-def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
-    """``run_eval`` over a 16-frame synthetic tree of the config's dataset at
-    full width, then the same frames through ``serve`` one by one; the
-    config must equal ``preset`` where one is given."""
+def phase_eval(dev, yaml_path, per_frame: dict, preset=None, frames: int = EVAL_FRAMES):
+    """``run_eval`` over a ``frames``-frame synthetic tree of the config's
+    dataset at full width, then the same frames through ``serve`` one by
+    one; the config must equal ``preset`` where one is given."""
     cfg = load_config(yaml_path)
     model_cfg = model_config_from_yaml(cfg)
     if preset is not None and model_cfg != preset:
@@ -1684,7 +1715,7 @@ def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
         root = Path(tmp) / "data"
         data["DATA_PATH"] = str(root)
         t0 = time.perf_counter()
-        write_tree(root, data, EVAL_FRAMES)
+        write_tree(root, data, frames)
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         create_infos(data, cfg["CLASS_NAMES"])
@@ -1714,9 +1745,9 @@ def phase_eval(dev, yaml_path, per_frame: dict, preset=None):
         wall_s = time.perf_counter() - t0
         launches = dict(library.launches)
         peak = torch.cuda.max_memory_allocated(dev)
-        want = per_frames(per_frame, EVAL_FRAMES)
+        want = per_frames(per_frame, frames)
         if launches != want:
-            raise AssertionError(f"launches in {EVAL_FRAMES} frames {launches}, want {want}")
+            raise AssertionError(f"launches in {frames} frames {launches}, want {want}")
         per_batch = per_frames(per_frame, 1)
         if any(b != per_batch for b in stats["launches_per_batch"]):
             raise AssertionError(f"launches per frame {stats['launches_per_batch']}")
@@ -3367,6 +3398,317 @@ def phase_train_cli_depth(dev):
     return result
 
 
+# -- F2V QUANT int8, DDN QUANT w8a8, the occupancy-head variants ---------------
+Q8_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_q8.yaml"
+W8A8_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_w8a8.yaml"
+OCC_V2_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_occ_v2.yaml"
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores, H100 SXM
+BACKBONE_CONVS = 104  # ResNet-101: the stem, 33 x 3 bottleneck convs, 4 downsamples
+Q8_FRAME = {library.REDUCE_Q8_KERNEL: 1, library.NMS: 1}
+Q8_STEP = {library.Q8_KERNEL: 4, library.BWD_KERNEL: 2, library.BINS: 4}
+W8A8_FRAME = {**Q8_FRAME, library.CONV_W8A8: BACKBONE_CONVS}
+W8A8_POLAR_FRAME = {**POLAR_FRAME, library.CONV_W8A8: BACKBONE_CONVS}
+Q8_EVAL_FRAMES = 8
+TINY_OCC_V2 = dataclasses.replace(TINY_XLA, aspp_dilations=(1, 6, 12, 18),
+                                  use_dcn=(False, True, False, False), occ_fuse_mode="SE")
+
+
+def yaml_config(path, **overrides):
+    """A YAML's model config (bf16, REMAT on), with ``overrides``."""
+    return dataclasses.replace(model_config_from_yaml(load_config(path)), **overrides)
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each |x| (0 for 0)."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m), torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def q8_sample_case(name, features, uv, dtype, timed: bool):
+    """``quad_sample_fwd`` on the int8 map (K1-q8, ``quad_sample_q8_fwd``) against
+    ``quad_sample_q8_plain`` on ``quantize_per_channel_int8(features)``: both
+    sum exact products in f32 in another order and round once, so f32 within
+    1e-5 of the taps' magnitude S = sum |w q| (the outputs are unscaled, up to
+    127), bf16 within that and one bf16 ulp of each output; idx and w4 bit
+    for bit, and without them the same output.
+    ``timed``: the kernel (graph replays) beside its bound, the plain version
+    and ``F.grid_sample`` on the int8 values in ``dtype``."""
+    q, _ = quantize_per_channel_int8(features)
+    b, h, w, c = q.shape
+    out, idx, w4 = library.quad_sample_fwd(q, uv, taps=True, dtype=dtype)
+    bare = library.quad_sample_fwd(q, uv, dtype=dtype)[0]
+    torch.cuda.synchronize()
+    ref, ref_idx, ref_w4 = quad_sample.quad_sample_q8_plain(q, uv, dtype, taps=True)
+    diff = (out.float() - ref.float()).abs()
+    # the f32 sums' order: 1e-5 of the taps' magnitude S = sum |w q|
+    mag = quad_sample_fwd_plain(F.pad(q.float().abs(), (0, 0, 1, 1, 1, 1)), ref_idx, ref_w4.abs())
+    tol = 1e-5 * mag + 1e-30
+    if dtype != torch.float32:
+        tol += torch.maximum(bf16_ulp(ref), bf16_ulp(out))
+    del mag
+    n = idx.numel()
+    row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": [b, h, w, c],
+           "queries": n, "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / tol).max()),
+           "out_dtype": str(out.dtype).replace("torch.", ""),
+           "idx_equal": bool(torch.equal(idx, ref_idx)),
+           "w4_equal": bool(torch.equal(w4, ref_w4)),
+           "bit_equal_without_taps": bool(torch.equal(out, bare))}
+    del bare, ref, ref_idx, ref_w4, diff, tol
+    if timed:
+        isz = out.element_size()
+        # each query's (x, y), the int8 map once, the output once
+        row.update(bound(n * 8 + q.numel() + n * c * isz, 8.0 * n * c))
+        row["bound_taps_ms"] = (row["bytes"] + 20 * n) / HBM_BYTES_PER_S * 1e3
+        row["ms"] = graph_ms(lambda: library.quad_sample_fwd(q, uv, dtype=dtype))
+        row["taps_ms"] = graph_ms(lambda: library.quad_sample_fwd(q, uv, taps=True, dtype=dtype))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_q8_plain(q, uv, dtype),
+                                  iters=3, warmup=1)
+        fmap = q.to(dtype).permute(0, 3, 1, 2).contiguous()
+        g = uv.reshape(b, -1, uv.shape[-2], 2).to(dtype)
+        row["library"] = "F.grid_sample on the int8 values in the compute dtype"
+        row["library_ms"] = cuda_ms(lambda: F.grid_sample(
+            fmap, g, mode="bilinear", padding_mode="zeros", align_corners=True), iters=50)
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
+    print("  " + json.dumps(row))
+    if row["out_dtype"] != row["dtype"] or not row["max_err_over_tol"] <= 1.0:
+        raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} over "
+                             f"its tolerance")
+    for key in ("idx_equal", "w4_equal", "bit_equal_without_taps"):
+        if not row[key]:
+            raise AssertionError(f"{name} {row['dtype']}: {key} is false")
+    return row
+
+
+def reduce_q8_case(name, maps, uv, o, dtype, gen, timed: bool):
+    """``quad_sample_reduce_q8_fwd`` vs ``quad_sample_reduce_q8_plain`` on
+    the int8 quantization of ``maps`` with the scales folded into a random
+    reduce kernel, at ``reduce_case``'s tolerances (f32 REDUCE_RTOL x (1 +
+    max|ref|); bf16 that plus 2^-5 (S @ |K|) and one bf16 ulp, S the taps'
+    magnitude). ``timed``: the kernel beside its bound and the taps' L2
+    bytes, the plain version; no single PyTorch call computes the function,
+    so ``library_ms`` is null."""
+    dev = uv.device
+    qs = [quantize_per_channel_int8(m) for m in maps]
+    groups = reduce_groups([q for q, _ in qs])
+    csum = sum(q.shape[-1] for q, _ in qs)
+    kernel = (torch.randn((csum, o), generator=gen) * csum ** -0.5).to(dev)
+    kmat = (kernel * torch.cat([s for _, s in qs])[:, None]).to(dtype).contiguous()
+    bias = torch.randn(o, generator=gen).to(dev)
+    n = uv.numel() // 2
+    got = library.quad_sample_reduce_q8_fwd(uv, groups, kmat, bias)
+    torch.cuda.synchronize()
+    ref = quad_sample.quad_sample_reduce_q8_plain(uv, groups, kmat, bias)
+    tol = REDUCE_RTOL[dtype] * (1 + float(ref.float().abs().max()))
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        ratio = float(diff.max()) / tol
+    else:
+        mag = torch.zeros_like(diff)
+        for q, k_off in groups:
+            idx, w4 = quad_sample.quad_indices(q, uv, dtype)
+            qp = F.pad(q.float().abs(), (0, 0, 1, 1, 1, 1)).contiguous()
+            mag.add_(quad_sample_fwd_plain(qp, idx, w4.abs())
+                     @ kmat[k_off:k_off + q.shape[-1]].float().abs())
+            del qp
+        ratio = float((diff / (tol + 2.0 ** -5 * mag + 2.0 ** -7 * ref.float().abs())).max())
+        del mag
+    row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+           "maps": [list(q.shape) for q, _ in qs], "o": o, "queries": n,
+           "max_abs_err": float(diff.max()), "max_err_over_tol": ratio,
+           "finite": bool(torch.isfinite(got).all()),
+           "out_dtype": str(got.dtype).replace("torch.", "")}
+    del diff, ref
+    if timed:
+        isz = kmat.element_size()
+        # uv read once, the int8 maps and K once, the output written once
+        nbytes = (n * 8 + sum(q.numel() for q, _ in qs) + kmat.numel() * isz + o * 4
+                  + n * o * isz)
+        ops = 2.0 * n * csum * o
+        peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+        row["bytes"], row["ops"] = nbytes, ops
+        row["computed_l2_tap_bytes"] = 4 * csum * n  # one byte a channel and tap
+        row["ms"] = cuda_ms(lambda: library.quad_sample_reduce_q8_fwd(uv, groups, kmat, bias))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample.quad_sample_reduce_q8_plain(
+            uv, groups, kmat, bias), iters=3, warmup=1)
+        row["library_ms"] = None
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
+    print("  " + json.dumps(row))
+    if row["out_dtype"] != row["dtype"] or not row["finite"] or not ratio <= 1.0:
+        raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} over its "
+                             f"tolerance")
+    return row
+
+
+def phase_kernel_vs_plain_q8(dev):
+    """F2V QUANT int8's two kernels against their plain versions: K1 on the
+    int8 map (``quad_sample_q8_fwd``) at both VoD gather maps on the
+    flagship grid's (u, v) read in place, bf16 (timed) and f32, and a ragged
+    case (two frames, 37 channels: the element path; coordinates beyond the
+    map); P3 on int8 maps (``quad_sample_reduce_q8_fwd``) at both groups in
+    one launch, bf16 (timed) and f32, and a ragged case (three groups, odd
+    channels and outputs)."""
+    gen = torch.Generator().manual_seed(5)
+    grid = flagship_grid(dev)
+    uv = grid[..., 0:2]
+    maps = {k: torch.randn(shape, generator=gen).to(dev) for k, shape in FLAGSHIP_SHAPES.items()}
+    fwd = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for k, f in maps.items():
+            fwd.append(q8_sample_case(k, f, uv, dtype, timed=dtype == torch.bfloat16))
+    ragged = torch.randn((2, 33, 47, 37), generator=gen).to(dev)
+    coords = (torch.rand((2, 450, 2), generator=gen) * 2.6 - 1.3).to(dev)
+    fwd.append(q8_sample_case("ragged", ragged, coords, torch.bfloat16, timed=False))
+    red = []
+    for dtype in (torch.bfloat16, torch.float32):
+        red.append(reduce_q8_case("flagship", list(maps.values()), uv, REDUCE_O, dtype, gen,
+                                  timed=dtype == torch.bfloat16))
+    small = [torch.randn((2, 21, 30, c), generator=gen).to(dev) for c in (40, 24, 56)]
+    coords = (torch.rand((2, 111, 2), generator=gen) * 2.4 - 1.2).to(dev)
+    red.append(reduce_q8_case("ragged", small, coords, 72, torch.bfloat16, gen, timed=False))
+    return {"fwd": fwd, "reduce": red}
+
+
+def backbone_conv_shapes(cfg):
+    """Every convolution of ``cfg``'s image backbone at its image size, as
+    {(cin, h, w, cout, k, stride, padding, dilation): count}."""
+    with torch.device("meta"):
+        bb = ResNetDeepLabBackbone((3, 4, 23, 3) if cfg.image_backbone == "ResNet101"
+                                   else (3, 4, 6, 3))
+    shapes = {}
+
+    def conv(c, h, w):
+        key = (c.in_channels, h, w, c.out_channels, c.kernel_size[0], c.stride[0],
+               c.padding[0], c.dilation[0])
+        shapes[key] = shapes.get(key, 0) + 1
+        k, s, p, d = key[4:]
+        return (h + 2 * p - d * (k - 1) - 1) // s + 1, (w + 2 * p - d * (k - 1) - 1) // s + 1
+
+    h, w = conv(bb.conv1, *cfg.image_size)
+    h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1  # max pool 3/2, padding 1
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        for blk in getattr(bb, name):
+            conv(blk.conv1, h, w)
+            h2, w2 = conv(blk.conv2, h, w)
+            conv(blk.conv3, h2, w2)
+            if blk.downsample is not None:
+                conv(blk.downsample[0], h, w)
+            h, w = h2, w2
+    return shapes
+
+
+def w8a8_case(key, count, dev, gen, timed: bool):
+    """``conv2d_w8a8`` against its float64 plain version at one conv shape
+    of the backbone on random int8 values over the whole range: the f32 and
+    the bf16 outputs exactly equal. ``timed``: the kernel (graph replays)
+    beside its bound (2 M N K int8 operations, or the bytes of x, the
+    weights and the bf16 output), the plain version, cuDNN's bf16
+    ``F.conv2d`` (channels-last) and ``torch._int_mm`` on im2col columns
+    built outside the timing, the last two yardsticks only."""
+    cin, h, w, cout, k, s, p, d = key
+    x = torch.randint(-127, 128, (1, h, w, cin), generator=gen, dtype=torch.int8).to(dev)
+    qw = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8).to(dev)
+    wt = conv_int8.pack_weight(qw)
+    ax = (torch.rand(1, generator=gen) * 0.1 + 1e-3).to(dev)
+    wk = (torch.rand(cout, generator=gen) * 0.01 + 1e-4).to(dev)
+    args = ((k, k), (s, s), (p, p), (d, d))
+    row = {"shape": list(key), "count": count}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = library.conv2d_w8a8(x, wt, ax, wk, *args, dtype)
+        ref = conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args, dtype)
+        name = str(dtype).replace("torch.", "")
+        row[f"equal_{name}"] = bool(torch.equal(got, ref))
+        row[f"max_abs_err_{name}"] = float((got.float() - ref.float()).abs().max())
+    ho, wo = got.shape[1:3]
+    m, kk = ho * wo, k * k * cin
+    row["max_abs_err"] = max(row["max_abs_err_float32"], row["max_abs_err_bfloat16"])
+    if timed:
+        t_ops = 2.0 * m * cout * kk / INT8_OPS_PER_S
+        nbytes = x.numel() + wt.numel() + 4 * (cout + 1) + 2 * m * cout
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   ops=2.0 * m * cout * kk, bytes=nbytes)
+        row["ms"] = graph_ms(lambda: library.conv2d_w8a8(x, wt, ax, wk, *args, torch.bfloat16),
+                             iters=10, replays=2)
+        row["plain_ms"] = cuda_ms(lambda: conv_int8.conv2d_w8a8_plain(
+            x, wt, ax, wk, *args, torch.bfloat16), iters=2, warmup=1)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view of channels-last memory
+        wb = qw.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        row["library"] = "cuDNN F.conv2d in bf16, channels-last"
+        row["library_ms"] = cuda_ms(lambda: F.conv2d(xb, wb, None, s, p, d), iters=10)
+        cols = F.unfold(x.permute(0, 3, 1, 2).to(torch.float16), k, dilation=d, padding=p,
+                        stride=s)[0].t().to(torch.int8)
+        pad = -cols.shape[1] % 8
+        cols = F.pad(cols, (0, pad)).contiguous()
+        w_cols = F.pad(qw.reshape(cout, -1), (0, pad)).contiguous()
+        try:  # a yardstick: cuBLAS's int8 product may refuse a shape
+            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, w_cols.t()), iters=10)
+        except RuntimeError as e:
+            row["int_mm_ms"], row["int_mm_error"] = None, str(e)[:200]
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
+        del xb, wb, cols, w_cols
+    print("  " + json.dumps(row))
+    if not (row["equal_float32"] and row["equal_bfloat16"]):
+        raise AssertionError(f"conv2d_w8a8 {key}: differs from its plain version")
+    return row
+
+
+def phase_kernel_vs_plain_w8a8(dev):
+    """``conv2d_w8a8`` exactly equal to its plain version at every distinct
+    convolution of the VoD backbone (516 x 1936), each timed, and the sums
+    over the backbone's 104 convolutions; then a ragged case: two frames,
+    48 channels and 20 (the byte path), a 3 x 3 kernel at stride 2 and
+    dilation 2, 37 outputs."""
+    cfg = vod_pallas_config()
+    shapes = backbone_conv_shapes(cfg)
+    if sum(shapes.values()) != BACKBONE_CONVS:
+        raise AssertionError(f"{sum(shapes.values())} convolutions, want {BACKBONE_CONVS}")
+    gen = torch.Generator().manual_seed(9)
+    rows = [w8a8_case(key, count, dev, gen, timed=True) for key, count in shapes.items()]
+    # a ragged input: two frames, channels a multiple of 16 but not of 32, and
+    # 20 channels (the byte path), an odd output width
+    x2 = torch.randint(-127, 128, (2, 19, 23, 48), generator=gen, dtype=torch.int8).to(dev)
+    for cin, x in ((48, x2), (20, x2[..., :20].contiguous())):
+        qw = torch.randint(-127, 128, (37, cin, 3, 3), generator=gen, dtype=torch.int8).to(dev)
+        wt = conv_int8.pack_weight(qw)
+        ax = torch.rand(1, generator=gen).to(dev)
+        wk = torch.rand(37, generator=gen).to(dev)
+        args = ((3, 3), (2, 2), (2, 2), (2, 2))
+        got = library.conv2d_w8a8(x, wt, ax, wk, *args, torch.float32)
+        ref = conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args, torch.float32)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"conv2d_w8a8 ragged ({cin} channels) differs from plain")
+    total = {k: None if any(r[k] is None for r in rows) else sum(r[k] * r["count"] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "int_mm_ms", "bound_ms", "ops")}
+    total["bound_by"] = ("operations" if sum(r["count"] * r["bound_ms"] for r in rows
+                                             if r["bound_by"] == "operations")
+                         >= total["bound_ms"] / 2 else "bytes")
+    print("  " + json.dumps({"backbone": total}))
+    return {"rows": rows, "backbone": total}
+
+
+def phase_serve_w8a8(dev, view: str):
+    """``hgsfusion_vod_w8a8.yaml`` at full width through ``serve()``: in the
+    gather view the 104 int8 convolutions, one P3-q8 and one NMS a frame; in
+    the polar view (F2V QUANT none, as JAX's polar view refuses it) the 104
+    convolutions, 3 forward and one NMS."""
+    if view == "polar":
+        return phase_serve(dev, yaml_config(W8A8_YAML, f2v_view="polar", f2v_quant="none"),
+                           W8A8_POLAR_FRAME)
+    return phase_serve(dev, yaml_config(W8A8_YAML), W8A8_FRAME)
+
+
+def phase_serve_occ_v2(dev):
+    """The TINY parallel-ASPP model (DCN branch, SE gate) on the card against
+    the CPU, then ``hgsfusion_vod_occ_v2.yaml`` at full width through
+    ``serve()`` (1 fused, 1 NMS a frame)."""
+    small = phase_small_reference(dev, TINY_OCC_V2)
+    return {**phase_serve(dev, yaml_config(OCC_V2_YAML), GATHER_FRAME), "small_reference": small}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3464,6 +3806,26 @@ def main(argv=None) -> int:
     phase("train_cli_depth", phase_train_cli_depth, dev)
     torch.cuda.empty_cache()
     phase("export_serve_depth", phase_export_serve, dev, depth_config(), DEPTH_FRAME)
+    torch.cuda.empty_cache()
+    phase("kernel_vs_plain_q8", phase_kernel_vs_plain_q8, dev)
+    torch.cuda.empty_cache()
+    phase("kernel_vs_plain_w8a8", phase_kernel_vs_plain_w8a8, dev)
+    torch.cuda.empty_cache()
+    phase("serve_q8", lambda: phase_serve(dev, yaml_config(Q8_YAML), Q8_FRAME))
+    torch.cuda.empty_cache()
+    phase("train_q8", lambda: phase_train(dev, yaml_config(Q8_YAML), Q8_STEP))
+    torch.cuda.empty_cache()
+    phase("eval_q8", phase_eval, dev, Q8_YAML, Q8_FRAME, None, Q8_EVAL_FRAMES)
+    torch.cuda.empty_cache()
+    phase("export_serve_q8", lambda: phase_export_serve(dev, yaml_config(Q8_YAML), Q8_FRAME))
+    torch.cuda.empty_cache()
+    phase("serve_w8a8", phase_serve_w8a8, dev, "gather")
+    torch.cuda.empty_cache()
+    phase("serve_w8a8_polar", phase_serve_w8a8, dev, "polar")
+    torch.cuda.empty_cache()
+    phase("serve_occ_v2", phase_serve_occ_v2, dev)
+    torch.cuda.empty_cache()
+    phase("train_occ_v2", lambda: phase_train(dev, yaml_config(OCC_V2_YAML), GATHER_STEP))
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3523,6 +3885,31 @@ def main(argv=None) -> int:
         kernels.append(kernel_row(name, "hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
                                   "none: XLA _sample_with_depth, "
                                   "hgsfusion_tpu/models/frustum.py:221", rows))
+    # F2V QUANT int8's two kernels and DDN QUANT w8a8's convolution: no TPU
+    # kernel (XLA), held like the others
+    q8 = report["kernel_vs_plain_q8"]
+    kernels.append(kernel_row(library.Q8_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
+                              "none: XLA _q8_sample_impl, hgsfusion_tpu/ops/grid_sample.py:210",
+                              [r for r in q8["fwd"] if "ms" in r]))
+    kernels.append(kernel_row(library.REDUCE_Q8_KERNEL,
+                              "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
+                              "none: XLA, hgsfusion_tpu/models/frustum.py:364",
+                              [r for r in q8["reduce"] if "ms" in r]))
+    w8 = report["kernel_vs_plain_w8a8"]
+    by_path = {path: report[path]["launches"].get(library.CONV_W8A8, 0) for path in MAIN_PATHS}
+    kernels.append({
+        "name": library.CONV_W8A8, "route": "cuda",
+        "source": "hgsfusion_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "none: XLA lax.conv_general_dilated on int8, "
+                    "hgsfusion_tpu/models/resnet.py:75",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in w8["rows"]),
+        **{k: w8["backbone"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "int_mm_ms")},
+        "library": "cuDNN F.conv2d in bf16 over the backbone's 104 convolutions",
+        "shapes": [{k: r.get(k) for k in ("shape", "count", "ms", "bound_ms", "bound_by",
+                                          "library_ms", "int_mm_ms")} for r in w8["rows"]],
+    })
     # NMS: the worst case (4,096 valid, 500 kept) as the row, every case in it
     nms_rows = report["kernel_vs_plain_nms"]
     kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",

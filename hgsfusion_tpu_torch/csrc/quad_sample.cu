@@ -45,6 +45,15 @@
 // from L2. Channels that are not a multiple of 16 bytes, or a map or output
 // that is not 16-byte aligned, take the same walk with one element a pair.
 //
+// quad_sample_q8_fwd is the same kernel on an int8 map (F2V QUANT int8): the
+// unscaled bilinear samples of the map's int8 values, weights rounded to the
+// compute type T as before, summed in f32 and rounded once to T; the caller
+// folds the per-channel scales into the reduce kernel. It replaces no TPU
+// kernel: the JAX package runs this sample in XLA
+// (hgsfusion_tpu/ops/grid_sample.py::_q8_sample_impl). A lane reads V = 16 /
+// sizeof(T) int8 channels a tap (8 bytes in bf16) and writes 16 bytes of T;
+// its bound is the output again, the map's bytes halved against bf16.
+//
 // Measured on an H100 (tune_quad_fwd.py, bf16; PERF.md): one pair in
 // flight a lane (UNROLL = 1) took 1.01-1.11x as long, four 1.05-1.16x; 256
 // threads a block 1.02-1.06x at the gather maps. Two designs were tried and
@@ -100,7 +109,8 @@ __device__ __forceinline__ void query_taps(const Params& prm, int64_t q, int& pi
   }
 }
 
-template <typename T, int V>
+// M the map's type: T, or int8 for the unscaled int8 payload
+template <typename T, int V, typename M = T>
 __global__ void __launch_bounds__(THREADS) quad_sample_fwd_kernel(const Params prm) {
   const int lane = threadIdx.x & 31;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -110,26 +120,54 @@ __global__ void __launch_bounds__(THREADS) quad_sample_fwd_kernel(const Params p
   int my_pix = 0;
   float my_w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (q0 + lane < prm.n) query_taps<T>(prm, q0 + lane, my_pix, my_w);
-  combine_tile<T, V, UNROLL>(static_cast<const T*>(prm.map), static_cast<T*>(prm.out), prm.n,
-                             q0, lane, prm.lanes, prm.w, my_pix, my_w);
+  combine_tile<T, V, UNROLL, M>(static_cast<const M*>(prm.map), static_cast<T*>(prm.out),
+                                prm.n, q0, lane, prm.lanes, prm.w, my_pix, my_w);
 }
 
-template <typename T, int V>
+template <typename T, int V, typename M = T>
 cudaError_t launch(Params& prm, cudaStream_t stream) {
   prm.lanes = prm.c / V;
   prm.tiles = (prm.n + 31) / 32;
   const int64_t blocks = (prm.tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  quad_sample_fwd_kernel<T, V><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(prm);
+  quad_sample_fwd_kernel<T, V, M><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(prm);
   return cudaGetLastError();
 }
 
-template <typename T>
+// M the map's type; a lane's V channels are 16 bytes of the output
+template <typename T, typename M = T>
 cudaError_t dispatch(Params& prm, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const bool vec = prm.c % kVec == 0 && reinterpret_cast<uintptr_t>(prm.map) % 16 == 0 &&
+  const bool vec = prm.c % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(prm.map) % (kVec * sizeof(M)) == 0 &&
                    reinterpret_cast<uintptr_t>(prm.out) % 16 == 0;
-  return vec ? launch<T, kVec>(prm, stream) : launch<T, 1>(prm, stream);
+  return vec ? launch<T, kVec, M>(prm, stream) : launch<T, 1, M>(prm, stream);
+}
+
+bool bad_args(int64_t uv_stride, int64_t n, int64_t per_frame, int b, int h,
+              int w, int c, void* idx_out, void* w4_out) {
+  return n < 0 || per_frame < 1 || b < 1 || h < 1 || w < 1 || c < 1 || uv_stride < 2 ||
+         n > b * per_frame || (idx_out == nullptr) != (w4_out == nullptr) ||
+         reinterpret_cast<uintptr_t>(w4_out) % 16 != 0 ||
+         static_cast<int64_t>(b) * (h + 2) * (w + 2) >= (int64_t{1} << 31);
+}
+
+Params make_params(const void* uv, int64_t uv_stride, int64_t n, int64_t per_frame,
+                   const void* map, int h, int w, int c, void* out, void* idx_out,
+                   void* w4_out) {
+  Params prm{};
+  prm.uv = static_cast<const float*>(uv);
+  prm.uv_stride = uv_stride;
+  prm.n = n;
+  prm.per_frame = per_frame;
+  prm.map = map;
+  prm.h = h;
+  prm.w = w;
+  prm.c = c;
+  prm.out = out;
+  prm.idx = static_cast<int32_t*>(idx_out);
+  prm.w4 = static_cast<float4*>(w4_out);
+  return prm;
 }
 
 }  // namespace
@@ -143,29 +181,36 @@ cudaError_t dispatch(Params& prm, cudaStream_t stream) {
 extern "C" int quad_sample_fwd(const void* uv, int64_t uv_stride, int64_t n, int64_t per_frame,
                                const void* map, int b, int h, int w, int c, void* out,
                                void* idx_out, void* w4_out, int dtype, void* stream) {
-  if (n < 0 || per_frame < 1 || b < 1 || h < 1 || w < 1 || c < 1 || uv_stride < 2 ||
-      n > b * per_frame || (idx_out == nullptr) != (w4_out == nullptr) ||
-      reinterpret_cast<uintptr_t>(w4_out) % 16 != 0 ||
-      static_cast<int64_t>(b) * (h + 2) * (w + 2) >= (int64_t{1} << 31))
+  if (bad_args(uv_stride, n, per_frame, b, h, w, c, idx_out, w4_out))
     return cudaErrorInvalidValue;
   if (n == 0) return 0;
-  Params prm{};
-  prm.uv = static_cast<const float*>(uv);
-  prm.uv_stride = uv_stride;
-  prm.n = n;
-  prm.per_frame = per_frame;
-  prm.map = map;
-  prm.h = h;
-  prm.w = w;
-  prm.c = c;
-  prm.out = out;
-  prm.idx = static_cast<int32_t*>(idx_out);
-  prm.w4 = static_cast<float4*>(w4_out);
+  Params prm = make_params(uv, uv_stride, n, per_frame, map, h, w, c, out, idx_out, w4_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch<float>(prm, s);
     case 1: return dispatch<__nv_bfloat16>(prm, s);
     case 2: return dispatch<__half>(prm, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// quad_sample_fwd on an int8 map (b, h, w, c), unpadded and contiguous: out
+// (n, c) in the compute type `dtype` (0 float32, 1 bfloat16, 2 float16) holds
+// the unscaled samples of the int8 values, the weights rounded to that type;
+// the other arguments as quad_sample_fwd's.
+extern "C" int quad_sample_q8_fwd(const void* uv, int64_t uv_stride, int64_t n,
+                                  int64_t per_frame, const void* map, int b, int h, int w,
+                                  int c, void* out, void* idx_out, void* w4_out, int dtype,
+                                  void* stream) {
+  if (bad_args(uv_stride, n, per_frame, b, h, w, c, idx_out, w4_out))
+    return cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Params prm = make_params(uv, uv_stride, n, per_frame, map, h, w, c, out, idx_out, w4_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch<float, int8_t>(prm, s);
+    case 1: return dispatch<__nv_bfloat16, int8_t>(prm, s);
+    case 2: return dispatch<__half, int8_t>(prm, s);
     default: return cudaErrorInvalidValue;
   }
 }

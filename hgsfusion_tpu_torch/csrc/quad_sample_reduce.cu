@@ -56,6 +56,20 @@
 // combined into a shared tile, K's chunk beside it, an FMA loop in f32
 // (tensor cores would mean TF32).
 //
+// quad_sample_reduce_q8_fwd is the same kernel on int8 maps (F2V QUANT int8;
+// it replaces no TPU kernel: the JAX package runs the int8 sample and its
+// reduce in XLA, hgsfusion_tpu/models/frustum.py:364-385). The caller gives K
+// with each group's per-channel scales already folded into its rows; the
+// kernel samples the unscaled int8 values. A chunk is then KC = 64 channels,
+// so a tap row's chunk is 64 bytes as in bf16 and the ring's stages, the
+// gather and its zero-fill are the same. The combine reads each lane's
+// 16-byte piece of its two rows of each tap (one 16-byte load a row and
+// tap), converts the int8 values to f32, applies the four weights and
+// rounds once to T; for that the chunk's 64 channels enter the product in a
+// permuted order (q8_channel: lane ql's piece holds the 16 channels of its A
+// fragments for the chunk's four k16 steps) and K's rows are stored in the
+// same order. Its bound is bytes as P3's, with the taps' L2 traffic halved.
+//
 // quad_sample_taps runs quad_tap alone and writes what quad_indices builds
 // (the flat top-left pixel in the zero-padded map, the four weights), so the
 // taps can be held against it bit for bit.
@@ -255,6 +269,7 @@ __device__ __forceinline__ void fence_acc(float (&acc)[BN / 8][4]) {
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
 __device__ __forceinline__ uint32_t bits(__half x) { return __half_as_ushort(x); }
+__device__ __forceinline__ uint32_t bits(int8_t x) { return static_cast<uint8_t>(x); }
 template <typename T> __device__ __forceinline__ T from_bits(uint32_t b);
 template <> __device__ __forceinline__ __nv_bfloat16 from_bits<__nv_bfloat16>(uint32_t b) {
   return __ushort_as_bfloat16(static_cast<unsigned short>(b & 0xffffu));
@@ -276,19 +291,19 @@ struct TapRows {
   uint32_t live;
 };
 
-// A warp's gather of one chunk into a stage (`stage`, its shared address).
-// Lanes 0-15 hold the weights of the tile's queries (tw); lane l copies
-// 16-byte piece l % 4 of rows l / 4 and l / 4 + 8 for each tap, so that each
-// copy instruction reads 8 whole 64-byte row chunks; zero-filled outside the
-// map and past c.
-template <typename T>
+// A warp's gather of one chunk into a stage (`stage`, its shared address)
+// from a map of type M (T, or int8). Lanes 0-15 hold the weights of the
+// tile's queries (tw); lane l copies 16-byte piece l % 4 of rows l / 4 and
+// l / 4 + 8 for each tap, so that each copy instruction reads 8 whole
+// 64-byte row chunks; zero-filled outside the map and past c.
+template <typename M>
 __device__ __forceinline__ void gather_chunk(const Group& gr, int kc, const TapRows& tr,
                                              const float (&tw)[4], uint32_t stage,
                                              unsigned char* stage_ptr, float4* meta, int lane) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(M);
   if (lane < RM) meta[lane] = make_float4(tw[0], tw[1], tw[2], tw[3]);
   const int piece = lane & 3, ch = kc + piece * V;
-  const T* base = static_cast<const T*>(gr.map);
+  const M* base = static_cast<const M*>(gr.map);
   if (gr.vec) {
     const bool in = ch < gr.c;
 #pragma unroll
@@ -307,15 +322,12 @@ __device__ __forceinline__ void gather_chunk(const Group& gr, int kc, const TapR
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const bool live = (tr.live >> (4 * h + t)) & 1;
-        const T* src = base + tr.off[h][t];
-        uint32_t v[4];
+        const M* src = base + tr.off[h][t];
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int e = 0; e < V; e += 2) {
-          uint32_t lo = 0, hi = 0;
-          if (live && ch + e < gr.c) lo = bits(src[ch + e]);
-          if (live && ch + e + 1 < gr.c) hi = bits(src[ch + e + 1]);
-          v[e / 2] = lo | (hi << 16);
-        }
+        for (int e = 0; e < V; ++e)
+          if (live && ch + e < gr.c)
+            v[e * sizeof(M) / 4] |= bits(src[ch + e]) << (8 * ((e * sizeof(M)) % 4));
         *reinterpret_cast<uint4*>(stage_ptr + t * kTapBytes + off) =
             make_uint4(v[0], v[1], v[2], v[3]);
       }
@@ -323,8 +335,27 @@ __device__ __forceinline__ void gather_chunk(const Group& gr, int kc, const TapR
   }
 }
 
-template <typename T>
+// the int8 chunk's channel (0-63) that enters its product as column L: lane
+// ql's A fragments of the four k16 steps kk take columns kk 16 + h 8 + 2 ql
+// + e (h, e in {0, 1}), which sit in its 16-byte piece ql at kk 4 + h 2 + e
+__device__ __forceinline__ int q8_channel(int L) {
+  return ((L >> 1) & 3) * 16 + (L >> 4) * 4 + ((L >> 3) & 1) * 2 + (L & 1);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// byte `b` of x as a signed int8 value, in f32
+__device__ __forceinline__ float s8(uint32_t x, int b) {
+  return static_cast<float>(static_cast<int8_t>(x >> (8 * b)));
+}
+
+// T the compute type, M the maps' type (T, or int8: KC = 64 channels a chunk)
+template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __grid_constant__ Params prm) {
+  constexpr bool kQ8 = std::is_same_v<M, int8_t>;
+  constexpr int KCM = 64 / sizeof(M);  // channels a chunk: 64 bytes of a tap row
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned char* ring = smem + warp * kWarpBytes;
@@ -335,17 +366,19 @@ __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __gr
   const int o0 = blockIdx.y * BN;
 
   // K's slice, K-major and swizzled (kslice_index): each group's rows
-  // padded to a multiple of KC with zeros, and zeros past O
+  // padded to a multiple of KCM with zeros, and zeros past O; an int8
+  // chunk's rows in the order of q8_channel
   {
     const T* k = static_cast<const T*>(prm.k);
     int krow = 0;
     for (int g = 0; g < prm.groups; ++g) {
-      const int c = prm.g[g].c, rows = (c + KC - 1) / KC * KC;
+      const int c = prm.g[g].c, rows = (c + KCM - 1) / KCM * KCM;
       for (int e = threadIdx.x; e < rows * BN; e += kThreads) {
         const int r = e / BN, col = e % BN, kr = krow + r;
+        const int pr = kQ8 ? (r & ~63) | q8_channel(r & 63) : r;
         ks[kslice_index(col, kr)] =
-            r < c && o0 + col < prm.o ? k[static_cast<int64_t>(prm.g[g].k_off + r) * prm.o + o0 + col]
-                                      : from_f32<T>(0.0f);
+            pr < c && o0 + col < prm.o ? k[static_cast<int64_t>(prm.g[g].k_off + pr) * prm.o + o0 + col]
+                                       : from_f32<T>(0.0f);
       }
       krow += rows;
     }
@@ -413,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __gr
             tr.live |= my_pix[h][t] >= 0 ? 1u << (4 * h + t) : 0u;
           }
       }
-      gather_chunk<T>(gr, ch.kc, tr, tw, ring_addr + i_st * kStageBytes, ring + i_st * kStageBytes,
+      gather_chunk<M>(gr, ch.kc, tr, tw, ring_addr + i_st * kStageBytes, ring + i_st * kStageBytes,
                       reinterpret_cast<float4*>(ring + kStages * kStageBytes + i_st * kMetaBytes),
                       lane);
       if (++i_j == cpt) {
@@ -455,36 +488,73 @@ __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __gr
     const float4* meta = reinterpret_cast<const float4*>(ring + kStages * kStageBytes + st * kMetaBytes);
     const float4 wlo = meta[quad], whi = meta[quad + 8];
     const int krow = prm.chunk[j].krow;
-    uint32_t a[KC / 16][4];
+    uint32_t a[KCM / 16][4];
+    if constexpr (kQ8) {
+      // this lane's piece ql of rows quad and quad + 8 of each tap: the int8
+      // values of its A fragments (q8_channel), combined in f32, rounded once
+      uint4 lo_rows[4], hi_rows[4];
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      // the four taps' 16 x 16 A fragments, combined in f32, rounded once
-      uint32_t tap[4][4];
+      for (int t = 0; t < 4; ++t) {
+        lo_rows[t] = *reinterpret_cast<const uint4*>(stage + t * kTapBytes + tap_offset(quad, ql));
+        hi_rows[t] = *reinterpret_cast<const uint4*>(stage + t * kTapBytes + tap_offset(quad + 8, ql));
+      }
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        ldmatrix_x4(tap[t], smem_addr(stage + t * kTapBytes +
-                                      tap_offset(lane & 15, kk * 2 + (lane >> 4))));
+      for (int kk = 0; kk < KCM / 16; ++kk) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 w = (i & 1) ? whi : wlo;  // a1, a3: rows 8-15
-        const float2 t0 = unpack2<T>(tap[0][i]), t1 = unpack2<T>(tap[1][i]);
-        const float2 t2 = unpack2<T>(tap[2][i]), t3 = unpack2<T>(tap[3][i]);
-        float lo = w.x * t0.x, hi = w.x * t0.y;
-        lo = fmaf(w.y, t1.x, lo);
-        hi = fmaf(w.y, t1.y, hi);
-        lo = fmaf(w.z, t2.x, lo);
-        hi = fmaf(w.z, t2.y, hi);
-        lo = fmaf(w.w, t3.x, lo);
-        hi = fmaf(w.w, t3.y, hi);
-        a[kk][i] = pack2<T>(lo, hi);
+        for (int i = 0; i < 4; ++i) {
+          const float4 w = (i & 1) ? whi : wlo;  // a1, a3: rows 8-15
+          const uint4* rows = (i & 1) ? hi_rows : lo_rows;
+          const int b = (i >> 1) * 2;  // a2, a3: columns 8-15 of the k16 step
+          const uint32_t t0 = word_of(rows[0], kk), t1 = word_of(rows[1], kk);
+          const uint32_t t2 = word_of(rows[2], kk), t3 = word_of(rows[3], kk);
+          float lo = w.x * s8(t0, b), hi = w.x * s8(t0, b + 1);
+          lo = fmaf(w.y, s8(t1, b), lo);
+          hi = fmaf(w.y, s8(t1, b + 1), hi);
+          lo = fmaf(w.z, s8(t2, b), lo);
+          hi = fmaf(w.z, s8(t2, b + 1), hi);
+          lo = fmaf(w.w, s8(t3, b), lo);
+          hi = fmaf(w.w, s8(t3, b + 1), hi);
+          a[kk][i] = pack2<T>(lo, hi);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        // the four taps' 16 x 16 A fragments, combined in f32, rounded once
+        uint32_t tap[4][4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          ldmatrix_x4(tap[t], smem_addr(stage + t * kTapBytes +
+                                        tap_offset(lane & 15, kk * 2 + (lane >> 4))));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 w = (i & 1) ? whi : wlo;  // a1, a3: rows 8-15
+          const float2 t0 = unpack2<T>(tap[0][i]), t1 = unpack2<T>(tap[1][i]);
+          const float2 t2 = unpack2<T>(tap[2][i]), t3 = unpack2<T>(tap[3][i]);
+          float lo = w.x * t0.x, hi = w.x * t0.y;
+          lo = fmaf(w.y, t1.x, lo);
+          hi = fmaf(w.y, t1.y, hi);
+          lo = fmaf(w.z, t2.x, lo);
+          hi = fmaf(w.z, t2.y, hi);
+          lo = fmaf(w.w, t3.x, lo);
+          hi = fmaf(w.w, t3.y, hi);
+          a[kk][i] = pack2<T>(lo, hi);
+        }
       }
     }
-    // the warpgroup's 64 x 128 product of this chunk on the tensor cores
+    // the warpgroup's 64 x 128 product of this chunk on the tensor cores,
+    // two k16 steps an asm statement
     fence_acc(acc);
     wgmma_fence();
-    static_assert(KC == 32, "two k16 products a chunk");
-    wgmma_chunk<T>(acc, a, kmajor_sw128_desc(ks_addr + (krow >> 6) * (BN * 128) + (krow & 63) * 2),
-                  kmajor_sw128_desc(ks_addr + (krow >> 6) * (BN * 128) + ((krow + 16) & 63) * 2));
+    static_assert(KC == 32 && KCM % 32 == 0, "whole pairs of k16 products a chunk");
+#pragma unroll
+    for (int s2 = 0; s2 < KCM / 16; s2 += 2) {
+      const uint32_t ap[2][4] = {{a[s2][0], a[s2][1], a[s2][2], a[s2][3]},
+                                 {a[s2 + 1][0], a[s2 + 1][1], a[s2 + 1][2], a[s2 + 1][3]}};
+      const int k0 = krow + 16 * s2, k1 = k0 + 16;
+      wgmma_chunk<T>(acc, ap, kmajor_sw128_desc(ks_addr + (k0 >> 6) * (BN * 128) + (k0 & 63) * 2),
+                    kmajor_sw128_desc(ks_addr + (k1 >> 6) * (BN * 128) + (k1 & 63) * 2));
+    }
     wgmma_commit();
     // the product reads A from registers: done before the next chunk's
     // combine rewrites them, and before the epilogue reads the accumulator
@@ -547,6 +617,7 @@ constexpr int FKC = 32;  // channels per chunk
 constexpr int kFWarps = 8;
 constexpr int kFThreads = kFWarps * 32;
 
+template <typename M>
 __global__ void __launch_bounds__(kFThreads) quad_sample_reduce_f32(const __grid_constant__ Params prm) {
   __shared__ float as[FM][FKC + 1];
   __shared__ float bs[FKC][BN];
@@ -566,7 +637,7 @@ __global__ void __launch_bounds__(kFThreads) quad_sample_reduce_f32(const __grid
   }
   for (int g = 0; g < prm.groups; ++g) {
     const Group& gr = prm.g[g];
-    const float* map = static_cast<const float*>(gr.map);
+    const M* map = static_cast<const M*>(gr.map);
     const int64_t c = gr.c;
     __syncthreads();
     if (tid < FM) {
@@ -595,7 +666,8 @@ __global__ void __launch_bounds__(kFThreads) quad_sample_reduce_f32(const __grid
         float v = 0.0f;
         if (ch < gr.c) {
           float t[4];
-          for (int u = 0; u < 4; ++u) t[u] = s_pix[q][u] >= 0 ? map[s_pix[q][u] * c + ch] : 0.0f;
+          for (int u = 0; u < 4; ++u)
+            t[u] = s_pix[q][u] >= 0 ? to_f32(map[s_pix[q][u] * c + ch]) : 0.0f;
           v = s_w[q][0] * t[0];
           v = fmaf(s_w[q][1], t[1], v);
           v = fmaf(s_w[q][2], t[2], v);
@@ -648,9 +720,10 @@ __global__ void quad_sample_taps_kernel(const float* uv, int64_t uv_stride, int6
 }
 
 // a cudaError_t, or kKSliceTooLarge
-template <typename T>
+template <typename T, typename M = T>
 int launch_mma(Params& prm, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(M);
+  constexpr int KCM = 64 / sizeof(M);
   int k_rows = 0, chunks = 0;
   for (int g = 0; g < prm.groups; ++g) {
     Group& gr = prm.g[g];
@@ -659,25 +732,25 @@ int launch_mma(Params& prm, cudaStream_t stream) {
       return cudaErrorInvalidValue;
     gr.vec = gr.c % V == 0 && reinterpret_cast<uintptr_t>(gr.map) % 16 == 0;
     const bool same = g > 0 && prm.g[g - 1].h == gr.h && prm.g[g - 1].w == gr.w;
-    for (int kc = 0; kc < gr.c; kc += KC) {
+    for (int kc = 0; kc < gr.c; kc += KCM) {
       if (chunks == kMaxChunks) return kKSliceTooLarge;
       prm.chunk[chunks++] = Chunk{g, kc, k_rows + kc, kc == 0 && !same};
     }
-    k_rows += (gr.c + KC - 1) / KC * KC;
+    k_rows += (gr.c + KCM - 1) / KCM * KCM;
   }
   if ((k_rows + 63) / 64 * 64 > kMaxKRows) return kKSliceTooLarge;
   prm.chunks = chunks;
   prm.k_rows = k_rows;
   prm.out_vec = prm.o % 8 == 0 && reinterpret_cast<uintptr_t>(prm.out) % 16 == 0;
   const int smem = kRingBytes + 1024 + (k_rows + 63) / 64 * 64 * BN * 2;
-  cudaError_t err = cudaFuncSetAttribute(quad_sample_reduce_mma<T>,
+  cudaError_t err = cudaFuncSetAttribute(quad_sample_reduce_mma<T, M>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quad_sample_reduce_mma<T>,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quad_sample_reduce_mma<T, M>,
                                                            kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -688,33 +761,25 @@ int launch_mma(Params& prm, cudaStream_t stream) {
   const int64_t needed = (n_tiles + kWarps / 4 - 1) / (kWarps / 4);
   if (blocks > needed) blocks = needed;
   dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(o_tiles));
-  quad_sample_reduce_mma<T><<<grid, kThreads, smem, stream>>>(prm);
+  quad_sample_reduce_mma<T, M><<<grid, kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
+template <typename M = float>
 cudaError_t launch_f32(Params& prm, cudaStream_t stream) {
   const int64_t blocks = (prm.n + FM - 1) / FM;
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
   dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((prm.o + BN - 1) / BN));
-  quad_sample_reduce_f32<<<grid, kFThreads, 0, stream>>>(prm);
+  quad_sample_reduce_f32<M><<<grid, kFThreads, 0, stream>>>(prm);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// uv: query j's (x, y) at uv[j * uv_stride] and uv[j * uv_stride + 1], f32;
-// n queries, per_frame of them a frame (n a multiple). For each of the
-// `groups` groups (1 to 4): maps[g] its unpadded map (B, hs[g], ws[g],
-// cs[g]) in the compute type, contiguous; k_offs[g] its first row of kmat.
-// kmat: (sum of cs, o) in the compute type, contiguous. bias: (o,) f32.
-// out: (n, o) in the compute type. dtype: 0 float32, 1 bfloat16, 2 float16.
-// Returns the launch's cudaError_t, or -1 (nothing launched) when bf16 / f16
-// K's rows do not fit in a block's shared memory.
-extern "C" int quad_sample_reduce_fwd(const void* uv, int64_t uv_stride, int64_t n,
-                                      int64_t per_frame, const void* const* maps, const int* hs,
-                                      const int* ws, const int* cs, const int* k_offs,
-                                      int groups, const void* kmat, const void* bias, void* out,
-                                      int o, int dtype, void* stream) {
+// the entry points' common part: M the maps' type (the compute type, or int8)
+template <bool kQ8>
+int reduce_entry(const void* uv, int64_t uv_stride, int64_t n, int64_t per_frame,
+                 const void* const* maps, const int* hs, const int* ws, const int* cs,
+                 const int* k_offs, int groups, const void* kmat, const void* bias, void* out,
+                 int o, int dtype, void* stream) {
   if (groups < 1 || groups > kMaxGroups || o < 1 || n < 0 || per_frame < 1)
     return cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -733,12 +798,53 @@ extern "C" int quad_sample_reduce_fwd(const void* uv, int64_t uv_stride, int64_t
   prm.out = out;
   prm.o = o;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_f32(prm, s);
-    case 1: return launch_mma<__nv_bfloat16>(prm, s);
-    case 2: return launch_mma<__half>(prm, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (kQ8) {
+    switch (dtype) {
+      case 0: return launch_f32<int8_t>(prm, s);
+      case 1: return launch_mma<__nv_bfloat16, int8_t>(prm, s);
+      case 2: return launch_mma<__half, int8_t>(prm, s);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (dtype) {
+      case 0: return launch_f32(prm, s);
+      case 1: return launch_mma<__nv_bfloat16>(prm, s);
+      case 2: return launch_mma<__half>(prm, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+}
+
+}  // namespace
+
+// uv: query j's (x, y) at uv[j * uv_stride] and uv[j * uv_stride + 1], f32;
+// n queries, per_frame of them a frame (n a multiple). For each of the
+// `groups` groups (1 to 4): maps[g] its unpadded map (B, hs[g], ws[g],
+// cs[g]) in the compute type, contiguous; k_offs[g] its first row of kmat.
+// kmat: (sum of cs, o) in the compute type, contiguous. bias: (o,) f32.
+// out: (n, o) in the compute type. dtype: 0 float32, 1 bfloat16, 2 float16.
+// Returns the launch's cudaError_t, or -1 (nothing launched) when bf16 / f16
+// K's rows do not fit in a block's shared memory.
+extern "C" int quad_sample_reduce_fwd(const void* uv, int64_t uv_stride, int64_t n,
+                                      int64_t per_frame, const void* const* maps, const int* hs,
+                                      const int* ws, const int* cs, const int* k_offs,
+                                      int groups, const void* kmat, const void* bias, void* out,
+                                      int o, int dtype, void* stream) {
+  return reduce_entry<false>(uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs, groups, kmat,
+                             bias, out, o, dtype, stream);
+}
+
+// quad_sample_reduce_fwd on int8 maps (the unscaled payload of F2V QUANT
+// int8), the same arguments otherwise: kmat in the compute type with each
+// group's per-channel scales folded into its rows.
+extern "C" int quad_sample_reduce_q8_fwd(const void* uv, int64_t uv_stride, int64_t n,
+                                         int64_t per_frame, const void* const* maps,
+                                         const int* hs, const int* ws, const int* cs,
+                                         const int* k_offs, int groups, const void* kmat,
+                                         const void* bias, void* out, int o, int dtype,
+                                         void* stream) {
+  return reduce_entry<true>(uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs, groups, kmat,
+                            bias, out, o, dtype, stream);
 }
 
 // The fused kernel's taps alone, for one map of h x w pixels: idx (n,) int32

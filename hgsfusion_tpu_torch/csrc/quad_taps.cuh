@@ -4,12 +4,15 @@
 // weights computed from its sampling coordinates bit for bit as
 // ops/grid_sample.py::quad_taps and ops/quad_sample.py::quad_indices compute
 // them; and the tile walk that K1 and the depth forward share
-// (combine_tile), which gathers and combines a warp's 32 queries' taps.
+// (combine_tile), which gathers and combines a warp's 32 queries' taps,
+// from a map in the data type or, for F2V QUANT int8, in int8.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -19,6 +22,7 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
   return __bfloat162float(x);
 }
 template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -26,6 +30,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+// (only ever given 0: the zero an int8 map reads outside its taps)
+template <> __device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  return static_cast<int8_t>(x);
+}
 
 // x rounded to T (to nearest, ties to even) and back
 template <typename T> __device__ __forceinline__ float round_t(float x) {
@@ -68,8 +76,9 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-// the V channels at p where pred, zeros elsewhere; a 16-byte pack is one
-// predicated load through the read-only path, so no branch splits a batch
+// the V channels at p where pred, zeros elsewhere; a 16-byte pack (and an
+// int8 pack of 8 or 4 bytes) is one predicated load through the read-only
+// path, so no branch splits a batch
 template <typename T, int V>
 __device__ __forceinline__ Pack<T, V> load_if(const T* p, bool pred) {
   Pack<T, V> r;
@@ -78,6 +87,20 @@ __device__ __forceinline__ Pack<T, V> load_if(const T* p, bool pred) {
     asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %5, 0;\n\t"
         "@p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
         : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w)
+        : "l"(p), "r"(static_cast<int>(pred)));
+    r = *reinterpret_cast<const Pack<T, V>*>(&u);
+  } else if constexpr (std::is_same_v<T, int8_t> && sizeof(Pack<T, V>) == 8) {
+    uint2 u = make_uint2(0u, 0u);
+    asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %3, 0;\n\t"
+        "@p ld.global.nc.v2.u32 {%0, %1}, [%2];\n\t}"
+        : "+r"(u.x), "+r"(u.y)
+        : "l"(p), "r"(static_cast<int>(pred)));
+    r = *reinterpret_cast<const Pack<T, V>*>(&u);
+  } else if constexpr (std::is_same_v<T, int8_t> && sizeof(Pack<T, V>) == 4) {
+    uint32_t u = 0u;
+    asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %2, 0;\n\t"
+        "@p ld.global.nc.u32 %0, [%1];\n\t}"
+        : "+r"(u)
         : "l"(p), "r"(static_cast<int>(pred)));
     r = *reinterpret_cast<const Pack<T, V>*>(&u);
   } else {
@@ -99,17 +122,19 @@ __device__ __forceinline__ void store_streaming(Pack<T, V>* dst, const Pack<T, V
 // One warp's tile of 32 consecutive queries from q0 (n in all), each lane
 // holding one query's flat unpadded top-left pixel and four weights (a tap
 // with weight 0 is not read): out[q, :] = sum_t w_t map[tap_t(q), :] over
-// an (h, w, c) map (c = L V), summed in f32 in the order w00 t00, w01 t01,
-// w10 t10, w11 t11 with fused multiply-adds and rounded once. The warp hands
+// an (h, w, c) map (c = L V) of type M (T, or int8 for an unscaled int8
+// payload), summed in f32 in the order w00 t00, w01 t01, w10 t10, w11 t11
+// with fused multiply-adds and rounded once to T. The warp hands
 // the taps out by shuffles and walks the tile's 32 x L (query, vector)
 // pairs 32 at a time, neighbouring lanes on neighbouring vectors, each lane
 // reading UNROLL pairs' taps before it combines and stores them (streaming
 // stores, so the output does not evict the map from L2).
-template <typename T, int V, int UNROLL>
-__device__ __forceinline__ void combine_tile(const T* __restrict__ map, T* __restrict__ out,
+template <typename T, int V, int UNROLL, typename M = T>
+__device__ __forceinline__ void combine_tile(const M* __restrict__ map, T* __restrict__ out,
                                              int64_t n, int64_t q0, int lane, int L, int w,
                                              int my_pix, const float (&my_w)[4]) {
   using P = Pack<T, V>;
+  using PM = Pack<M, V>;
   constexpr unsigned kAll = 0xffffffffu;
   const int c = L * V;
   const int64_t row = static_cast<int64_t>(w) * c;
@@ -119,7 +144,7 @@ __device__ __forceinline__ void combine_tile(const T* __restrict__ map, T* __res
 
 #pragma unroll 1
   for (int s = 0; s < L; s += UNROLL) {
-    P t[UNROLL][4];
+    PM t[UNROLL][4];
     float wt[UNROLL][4];
     int64_t dst[UNROLL];
     bool ok[UNROLL];
@@ -131,10 +156,10 @@ __device__ __forceinline__ void combine_tile(const T* __restrict__ map, T* __res
 #pragma unroll
       for (int k = 0; k < 4; ++k) wt[u][k] = __shfl_sync(kAll, my_w[k], ql);
       const int64_t at = static_cast<int64_t>(pix) * c + static_cast<int64_t>(v) * V;
-      t[u][0] = load_if<T, V>(map + at, ok[u] && wt[u][0] != 0.0f);
-      t[u][1] = load_if<T, V>(map + at + c, ok[u] && wt[u][1] != 0.0f);
-      t[u][2] = load_if<T, V>(map + at + row, ok[u] && wt[u][2] != 0.0f);
-      t[u][3] = load_if<T, V>(map + at + row + c, ok[u] && wt[u][3] != 0.0f);
+      t[u][0] = load_if<M, V>(map + at, ok[u] && wt[u][0] != 0.0f);
+      t[u][1] = load_if<M, V>(map + at + c, ok[u] && wt[u][1] != 0.0f);
+      t[u][2] = load_if<M, V>(map + at + row, ok[u] && wt[u][2] != 0.0f);
+      t[u][3] = load_if<M, V>(map + at + row + c, ok[u] && wt[u][3] != 0.0f);
       dst[u] = q * c + static_cast<int64_t>(v) * V;
       ql += dq;
       v += dv;

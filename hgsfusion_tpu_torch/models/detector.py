@@ -23,6 +23,11 @@ trainable channel reduces and the depth classifier trains, so autograd keeps
 nothing inside it, and ``REMAT`` (``jax.checkpoint`` of the backbone in the
 JAX package) has nothing to recompute there.
 
+``DDN.QUANT: w8a8`` runs every convolution of the frozen backbone as int8
+(``resnet.py``, ``ops/conv_int8.py``) in eval mode and raises in train
+mode, as the JAX model does; ``F2V.QUANT: int8`` quantizes the gather
+view's sampled maps (``frustum.py``). The polar view refuses the latter only.
+
 With ``USE_DEPTH`` (gather view only) a DeepLabV3 head
 (``ffn.ddn.model.classifier``, trainable) classifies depth on layer4; its
 logits, resized to layer1's resolution, are ``preds["depth_logits"]``, and
@@ -38,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ..config import HGSFusionConfig
+from ..ops.deform_conv import ModulatedDeformConv2d
 from ..ops.nms import NEG_INF, class_agnostic_nms
 from ..utils.box_coder import ResidualCoder
 from .anchor_head import AnchorHeadSingle, decode_selected_boxes
@@ -80,14 +86,20 @@ class _Scope(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator):
     """LeCun-normal kernels and zero biases from ``generator`` (BatchNorms
-    keep their identity initialization)."""
+    keep their identity initialization; a deformable convolution's
+    ``conv_offset`` stays zero, as JAX's and mmcv's)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, SparseConv2d)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, SparseConv2d,
+                              ModulatedDeformConv2d)):
                 fan_in = m.weight.numel() // m.weight.shape[0]
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, ModulatedDeformConv2d):
+                m.conv_offset.weight.zero_()
+                m.conv_offset.bias.zero_()
 
 
 class HGSFusionModel(nn.Module):
@@ -108,8 +120,6 @@ class HGSFusionModel(nn.Module):
                 "F2V.VIEW: polar covers the USE_DEPTH: False CONCAT path with the "
                 "default XLA sampler only (QUANT and SAMPLER_KERNEL are gather-path "
                 "options)")
-        if cfg.ddn_quant != "none":
-            raise NotImplementedError(f"DDN.QUANT: {cfg.ddn_quant} is not ported")
         self.cfg = cfg
         dt = cfg.dtype
         stage_sizes = (3, 4, 23, 3) if cfg.image_backbone == "ResNet101" else (3, 4, 6, 3)
@@ -120,7 +130,7 @@ class HGSFusionModel(nn.Module):
             f2v = FrustumToVoxelMultiScale(
                 [cfg.channel_reduce_out] * 4, cfg.f2v_out_channels, dtype=dt,
                 quant=cfg.f2v_quant, sampler_kernel=cfg.f2v_sampler_kernel, remat=cfg.remat)
-        ddn = _Scope(backbone=ResNetDeepLabBackbone(stage_sizes, dt))
+        ddn = _Scope(backbone=ResNetDeepLabBackbone(stage_sizes, dt, cfg.ddn_quant))
         if cfg.use_depth:
             ddn.classifier = DeepLabClassifier(2048, cfg.disc_num_bins + 1, dt)
         image_vfe = _Scope(
@@ -194,6 +204,10 @@ class HGSFusionModel(nn.Module):
         "probs": one (B, Hi, Wi, D) f32 distribution per map, the softmax
         computed once per distinct map size (layers 2-4 share theirs)}."""
         ffn = self.fusion_vfe.image_vfe.ffn
+        if self.cfg.ddn_quant != "none" and self.training:
+            raise NotImplementedError(
+                "DDN.QUANT is an eval-only serving knob (the backbone "
+                "is frozen; training still runs it in bf16/f32)")
         with torch.no_grad():  # frozen: its BN statistics still update in train mode
             taps = ffn.ddn.model.backbone(preprocess_images(batch["images"]))
         feats = [reduce(t) for reduce, t in zip(ffn.channel_reduce, taps)]

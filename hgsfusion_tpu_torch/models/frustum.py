@@ -17,10 +17,23 @@ depth-weighted frustum volume by ``quad_sample_depth_fwd``
 192 channels are one sample, exact per channel, and only the order of the
 f32 sums of the reduce product differs from JAX's per-scale einsum.
 
+``QUANT: int8`` samples each group's per-channel int8 quantization and
+folds the scales into the group's reduce rows (f32, then the compute
+dtype), as the JAX package's ``grid_sample_2d_quad_q8``: where no gradient
+is taken one ``quad_sample_reduce_q8_fwd`` launch, otherwise
+``quad_sample_fwd`` on each group's int8 map with a straight-through
+backward (K2 on the cotangent divided by the scales). ``USE_DEPTH``
+ignores it, as in JAX.
+
+``merge_nested_gather`` (module level; no config sets it, in the JAX
+package either) packs a fine map and a 2x-coarser nested one into one
+canvas (``merge_nested_groups``) that one gather serves exactly; at VoD's
+shapes the grids do not nest and the two groups stay as they are.
+
 ``REMAT`` recomputes the sample + reduce product in the backward pass
 (``torch.utils.checkpoint``) instead of keeping the tap indices, weights,
-bins and sampled features; the BatchNorm stays outside, so its running
-statistics update once a step.
+bins and sampled features (under QUANT int8 the quantization too); the
+BatchNorm stays outside, so its running statistics update once a step.
 """
 from __future__ import annotations
 
@@ -28,11 +41,14 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.depth_sample import grid_sample_depth_kernel
+from ..ops.grid_sample import div_exact, quantize_per_channel_int8
 from ..ops.matmul import matmul_f32
-from ..ops.quad_sample import grid_sample_2d_quad_kernel, quad_sample_reduce
+from ..ops.quad_sample import (grid_sample_2d_quad_kernel, grid_sample_2d_quad_q8_kernel,
+                               quad_sample_reduce, quad_sample_reduce_q8)
 from ..utils.common import device_constant
 from .layers import batch_norm, compute_dtype
 
@@ -102,6 +118,50 @@ class FrustumGridGenerator:
         return torch.where(torch.isfinite(grid), grid, torch.full_like(grid, -2.0))
 
 
+def _nested_refine_2x(x):
+    """(B, h, w, C) -> (B, 2h-1, 2w-1, C): the align_corners midpoint
+    refinement, whose bilinear interpolation reproduces the input's
+    bilinear surface exactly."""
+    b, h, w, c = x.shape
+    mid_h = 0.5 * (x[:, :-1] + x[:, 1:])
+    rows = torch.stack([x[:, :-1], mid_h], dim=2).reshape(b, 2 * (h - 1), w, c)
+    rows = torch.cat([rows, x[:, -1:]], dim=1)  # (B, 2h-1, w, C)
+    mid_w = 0.5 * (rows[:, :, :-1] + rows[:, :, 1:])
+    out = torch.stack([rows[:, :, :-1], mid_w], dim=3).reshape(b, 2 * h - 1, 2 * (w - 1), c)
+    return torch.cat([out, rows[:, :, -1:]], dim=2)
+
+
+def nests(fine_hw, coarse_hw) -> bool:
+    """The coarse grid's align_corners knots lie on the fine grid's."""
+    return all(f - 1 == 2 * (c - 1) for f, c in zip(fine_hw, coarse_hw))
+
+
+def merge_nested_groups(f_fine, f_coarse):
+    """A fine map and a 2x-coarser nested map packed into one canvas that a
+    single bilinear gather serves exactly, the zeros-padding fade of each
+    included (the JAX package's ``merge_nested_groups``): the coarse map is
+    ringed with one coarse pixel of zeros and refined, the fine map padded
+    with two fine pixels, the two concatenated along the channels.
+
+    Returns (canvas (B, hf+4, wf+4, Cf+Cc), remap), remap taking the fine
+    map's normalized (u, v) to the canvas's.
+    """
+    b, hf, wf, _ = f_fine.shape
+    if not nests((hf, wf), f_coarse.shape[1:3]):
+        raise ValueError(f"maps {tuple(f_fine.shape)} and {tuple(f_coarse.shape)} do not nest")
+    up = _nested_refine_2x(F.pad(f_coarse, (0, 0, 1, 1, 1, 1)))  # (B, hf+4, wf+4, Cc)
+    canvas = torch.cat([F.pad(f_fine, (0, 0, 2, 2, 2, 2)), up], dim=-1)
+
+    def remap(uv):
+        # fine pixel p = (u+1)/2 (n-1); canvas u' = 2 (p+2)/(n+3) - 1
+        pf_x = (uv[..., 0] + 1.0) * 0.5 * (wf - 1)
+        pf_y = (uv[..., 1] + 1.0) * 0.5 * (hf - 1)
+        return torch.stack([div_exact(2.0 * (pf_x + 2.0), wf + 3) - 1.0,
+                            div_exact(2.0 * (pf_y + 2.0), hf + 3) - 1.0], dim=-1)
+
+    return canvas, remap
+
+
 class FrustumToVoxelMultiScale(nn.Module):
     """Sample per-scale image features into the voxel grid and reduce.
 
@@ -115,15 +175,17 @@ class FrustumToVoxelMultiScale(nn.Module):
 
     def __init__(self, in_channels, out_channels: int = 128,
                  fuse_mode: str = "CONCAT", dtype=None, quant: str = "none",
-                 sampler_kernel: str = "pallas", remat: bool = False):
+                 sampler_kernel: str = "pallas", remat: bool = False,
+                 merge_nested_gather: bool = False):
         super().__init__()
         # refuse loudly what the port does not run. The JAX package's two
         # samplers (XLA and Pallas) have the same numerics, so both run the
-        # same kernels here
-        if quant != "none":
-            raise ValueError(
-                f"F2V.QUANT: {quant} is not ported: the quad_sample_fwd kernel "
-                "path is bf16-payload (int8 is ROADMAP queue 1 item 6)")
+        # same kernels here; like JAX's, the Pallas one refuses QUANT int8
+        if quant not in ("none", "int8"):
+            raise NotImplementedError(f"F2V.QUANT: {quant}")
+        if quant == "int8" and sampler_kernel == "pallas":
+            raise ValueError("F2V.SAMPLER_KERNEL: pallas is mutually exclusive with "
+                             "QUANT: int8 (the pallas path is bf16-payload)")
         if fuse_mode not in ("CONCAT", "ADD"):
             raise NotImplementedError(f"F2V.FUSE_MODE: {fuse_mode}")
         if sampler_kernel not in ("xla", "pallas"):
@@ -131,7 +193,9 @@ class FrustumToVoxelMultiScale(nn.Module):
         self.in_channels = tuple(int(c) for c in in_channels)
         self.dtype = dtype
         self.fuse_mode = fuse_mode
+        self.quant = quant
         self.remat = remat
+        self.merge_nested_gather = merge_nested_gather
         if fuse_mode == "CONCAT":
             self.channel_reduce = nn.Sequential(
                 nn.Conv3d(sum(self.in_channels), out_channels, 1, bias=True),
@@ -165,15 +229,19 @@ class FrustumToVoxelMultiScale(nn.Module):
         ``hgsfusion::quad_sample_reduce_fwd``: its plain version on CPU
         tensors), which reads the grid's (u, v) in place and the unpadded
         maps, and returns the sum rounded once to the compute dtype: no
-        padded map, no tap indices and no sampled features reach memory.
-        Otherwise each group is sampled by ``grid_sample_2d_quad_kernel``, or
-        with depth by ``grid_sample_depth_kernel`` on its distribution in
-        the compute dtype (as JAX casts it), which keep what their backward
-        needs, and reduced by ``matmul_f32`` into an f32 accumulator."""
+        padded map, no tap indices and no sampled features reach memory;
+        under QUANT int8 ``quad_sample_reduce_q8_fwd`` on the groups' int8
+        maps with the scaled rows. Otherwise each group is sampled by
+        ``grid_sample_2d_quad_kernel`` (int8: ``grid_sample_2d_quad_q8_kernel``,
+        its scales folded into the rows), or with depth by
+        ``grid_sample_depth_kernel`` on its distribution in the compute dtype
+        (as JAX casts it), which keep what their backward needs, and reduced
+        by ``matmul_f32`` into an f32 accumulator."""
         cdt = compute_dtype(self.dtype)
         conv = self.channel_reduce[0]
         kernel = conv.weight.reshape(conv.weight.shape[0], -1).t()  # (sum C, O)
         uv = grid[..., 0:2]
+        q8 = self.quant == "int8" and depth_probs is None
         # same-resolution maps (layers 2-4 all live at /8) that share a
         # depth distribution share one gather
         probs = [None] * len(features) if depth_probs is None else list(depth_probs)
@@ -185,25 +253,45 @@ class FrustumToVoxelMultiScale(nn.Module):
             else:
                 groups.append(([f], p, off))
             off += f.shape[-1]
-        groups = [(torch.cat([t.to(cdt) for t in fs], dim=-1) if len(fs) > 1 else fs[0].to(cdt),
-                   None if p is None else p.to(cdt), k_off) for fs, p, k_off in groups]
+        # the maps as given (int8 quantizes them, as JAX's), else in the
+        # compute dtype
+        groups = [(torch.cat(fs, dim=-1) if len(fs) > 1 else fs[0], p, k_off)
+                  for fs, p, k_off in groups]
+        if (self.merge_nested_gather and depth_probs is None and len(groups) == 2
+                and groups[0][2] == 0 and nests(groups[0][0].shape[1:3], groups[1][0].shape[1:3])):
+            canvas, remap = merge_nested_groups(groups[0][0], groups[1][0])
+            groups, uv = [(canvas, None, 0)], remap(uv)
+        if not q8:
+            groups = [(f.to(cdt), None if p is None else p.to(cdt), k_off)
+                      for f, p, k_off in groups]
         out_shape = uv.shape[:-1] + (kernel.shape[1],)
         needs_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (*features, *(p for p in probs if p is not None),
                                       conv.weight, conv.bias))
+        bias = conv.bias.to(torch.float32)
         if depth_probs is None and not needs_grad:
+            if q8:
+                qs = [quantize_per_channel_int8(f) for f, _, _ in groups]
+                kmat = torch.cat([kernel[k_off:k_off + q.shape[-1]] * scale[:, None]
+                                  for (q, scale), (_, _, k_off) in zip(qs, groups)])
+                return quad_sample_reduce_q8(
+                    uv, [(q, k_off) for (q, _), (_, _, k_off) in zip(qs, groups)],
+                    kmat.to(cdt).contiguous(), bias).view(out_shape)
             return quad_sample_reduce(uv, [(f.contiguous(), k_off) for f, _, k_off in groups],
-                                      kernel.to(cdt).contiguous(),
-                                      conv.bias.to(torch.float32)).view(out_shape)
-        vox = conv.bias.to(torch.float32).expand(out_shape).clone()
+                                      kernel.to(cdt).contiguous(), bias).view(out_shape)
+        vox = bias.expand(out_shape).clone()
         flat = vox.view(-1, kernel.shape[1])
         for f, p, k_off in groups:
             cg = f.shape[-1]
-            if p is None:
-                sampled = grid_sample_2d_quad_kernel(f, uv)  # (B, Y, X, Z, cg)
-            else:
+            k_rows = kernel[k_off:k_off + cg]
+            if p is not None:
                 sampled = grid_sample_depth_kernel(f, p, grid)
-            flat.add_(matmul_f32(sampled.reshape(-1, cg), kernel[k_off:k_off + cg].to(cdt)))
+            elif q8:  # unscaled; the per-channel scales fold into the rows
+                sampled, scale = grid_sample_2d_quad_q8_kernel(f, uv, cdt)
+                k_rows = k_rows * scale[:, None]
+            else:
+                sampled = grid_sample_2d_quad_kernel(f, uv)  # (B, Y, X, Z, cg)
+            flat.add_(matmul_f32(sampled.reshape(-1, cg), k_rows.to(cdt)))
         return vox
 
 

@@ -2,10 +2,15 @@
 and the occupancy loss.
 
 Counterpart of ``hgsfusion_tpu/models/occupancy.py`` (Conv2DCollapse,
-RadarOccupancy2D with serial ASPP and the MUL gate, rasterize_gt_boxes_bev,
-binary_focal_loss, occupancy_loss). Parameter names follow
-the reference RadarOccupancy2DV2: ``map_to_bev.block.{conv, bn}`` and
-``pred_occupancy.{0,1,3,4,6,7,9}``.
+RadarOccupancy2D with its serial or parallel ASPP or none, the MUL or SE
+gate or the USE_MASK blend, rasterize_gt_boxes_bev, binary_focal_loss,
+occupancy_loss). Parameter names follow the reference RadarOccupancy2DV2:
+``map_to_bev.block.{conv, bn}`` and ``pred_occupancy.{0,1,3,4,6,7,9}``
+(0-4 the serial ASPP). The parallel ASPP's and the SE gate's parameters take
+the JAX package's names (``aspp_branch{i}``, ``aspp_dcn{i}`` with mmcv's
+``conv_offset``, ``aspp_branch_bn{i}``, ``aspp_fuse``, ``aspp_fuse_bn``,
+``se``, ``se_squeeze_conv``, ``se_squeeze_bn``): the reference's names for
+them are not in this repository.
 """
 from __future__ import annotations
 
@@ -14,8 +19,15 @@ import math
 import torch
 import torch.nn as nn
 
+from ..ops.deform_conv import ModulatedDeformConv2d
+from ..ops.grid_sample import div_exact
 from ..utils.common import device_constant
-from .layers import batch_norm, compute_dtype, conv_nhwc, resize_bilinear
+from .layers import SEBlock, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
+from .resnet import dilated_conv3x3
+
+
+# USE_MASK's radial Gaussian, in BEV cells (the JAX package's mask_sigma)
+MASK_SIGMA = 240.0
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -47,12 +59,22 @@ class Conv2DCollapse(nn.Module):
 
 
 class RadarOccupancy2D(nn.Module):
-    """Occupancy head over the radar BEV + multiplicative image-BEV gating.
+    """Occupancy head over the radar BEV + gating of the image BEV.
 
-    Serial ASPP: 1x1 conv -> BN -> ReLU -> 3x3 dilated conv -> BN -> ReLU ->
-    3x3 conv (C/2, bias) -> BN -> ReLU -> 3x3 conv (1, bias) -> sigmoid.
-    ``map_to_bev`` (the Conv2DCollapse) is held here for the reference's
-    parameter names; the detector calls it.
+    The head: an ASPP, then 3x3 conv (C/2, bias) -> BN -> ReLU -> 3x3 conv
+    (1, bias) -> sigmoid. The ASPP is serial (1x1 conv -> BN -> ReLU -> 3x3
+    conv dilated ``aspp_dilation`` -> BN -> ReLU, the shipped head), or with
+    ``aspp_dilations`` parallel (one branch a dilation: 1 a 1x1 conv, others
+    a dilated 3x3 conv (``resnet.dilated_conv3x3``), or where ``use_dcn``
+    says so a modulated deformable conv; each -> BN -> ReLU, concatenated,
+    1x1 ``aspp_fuse`` -> BN -> ReLU), or with ``use_aspp`` False none.
+    The gate: FUSE_MODE MUL multiplies the image BEV by the occupancy; SE
+    squeezes the concat of the gated and the ungated image BEV (``se``,
+    1x1 ``se_squeeze_conv`` -> BN -> ReLU); USE_MASK blends the occupancy
+    with 1 by a radial Gaussian over the BEV grid (sigma 240 cells) and
+    ignores FUSE_MODE, as the JAX package does. ``map_to_bev`` (the
+    Conv2DCollapse) is held here for the reference's parameter names; the
+    detector calls it.
     """
 
     def __init__(self, radar_input_channels: int = 128, use_aspp: bool = True,
@@ -60,19 +82,58 @@ class RadarOccupancy2D(nn.Module):
                  use_mask: bool = False, fuse_mode: str = "MUL",
                  map_to_bev=None, dtype=None):
         super().__init__()
-        if not use_aspp or aspp_dilations is not None or use_dcn is not None:
-            raise NotImplementedError("only the serial ASPP head is ported")
-        if use_mask or fuse_mode != "MUL":
-            raise NotImplementedError("only FUSE_MODE MUL without USE_MASK is ported")
+        if fuse_mode not in ("MUL", "SE"):
+            raise NotImplementedError(fuse_mode)
         c, d = radar_input_channels, aspp_dilation
         self.dtype = dtype
+        self.use_mask, self.fuse_mode = use_mask, fuse_mode
         if map_to_bev is not None:
             self.map_to_bev = map_to_bev
+        self.serial = use_aspp and aspp_dilations is None
+        self.branches = ()
+        if use_aspp and aspp_dilations is not None:
+            dcn = tuple(use_dcn) if use_dcn else (False,) * len(aspp_dilations)
+            if len(dcn) != len(aspp_dilations):
+                raise ValueError(f"USE_DCN has {len(dcn)} entries for {len(aspp_dilations)} "
+                                 "ASPP_DIAL branches (the reference asserts equal lengths)")
+            self.branches = tuple((int(dial), bool(dc)) for dial, dc in zip(aspp_dilations, dcn))
+            for i, (dial, dc) in enumerate(self.branches):
+                if dc:
+                    setattr(self, f"aspp_dcn{i}", ModulatedDeformConv2d(
+                        c, c, 1 if dial == 1 else 3, dilation=dial, dtype=dtype))
+                elif dial == 1:
+                    setattr(self, f"aspp_branch{i}", nn.Conv2d(c, c, 1, bias=False))
+                else:
+                    setattr(self, f"aspp_branch{i}",
+                            nn.Conv2d(c, c, 3, padding=dial, dilation=dial, bias=False))
+                setattr(self, f"aspp_branch_bn{i}", nn.BatchNorm2d(c))
+            self.aspp_fuse = nn.Conv2d(len(self.branches) * c, c, 1, bias=False)
+            self.aspp_fuse_bn = nn.BatchNorm2d(c)
+        serial = ([nn.Conv2d(c, c, 1, bias=False), nn.BatchNorm2d(c), nn.ReLU(),
+                   nn.Conv2d(c, c, 3, padding=d, dilation=d, bias=False), nn.BatchNorm2d(c),
+                   nn.ReLU()] if self.serial else [nn.Identity() for _ in range(6)])
         self.pred_occupancy = nn.Sequential(
-            nn.Conv2d(c, c, 1, bias=False), nn.BatchNorm2d(c), nn.ReLU(),
-            nn.Conv2d(c, c, 3, padding=d, dilation=d, bias=False), nn.BatchNorm2d(c), nn.ReLU(),
+            *serial,
             nn.Conv2d(c, c // 2, 3, padding=1, bias=True), nn.BatchNorm2d(c // 2), nn.ReLU(),
             nn.Conv2d(c // 2, 1, 3, padding=1, bias=True))
+        if fuse_mode == "SE" and not use_mask:
+            self.se = SEBlock(2 * c)
+            self.se_squeeze_conv = nn.Conv2d(2 * c, c, 1, bias=True)
+            self.se_squeeze_bn = nn.BatchNorm2d(c)
+
+    def aspp(self, h, dt):
+        """The parallel ASPP of (B, Y, X, C) in ``dt``."""
+        out = []
+        for i, (dial, dc) in enumerate(self.branches):
+            if dc:
+                hb = getattr(self, f"aspp_dcn{i}")(h)
+            elif dial == 1:
+                hb = conv_nhwc(h, getattr(self, f"aspp_branch{i}"), dt)
+            else:
+                hb = dilated_conv3x3(h, getattr(self, f"aspp_branch{i}").weight, dial, dt)
+            out.append(torch.relu(batch_norm(hb, getattr(self, f"aspp_branch_bn{i}"), dt)))
+        return torch.relu(batch_norm(conv_nhwc(torch.cat(out, dim=-1), self.aspp_fuse, dt),
+                                     self.aspp_fuse_bn, dt))
 
     def forward(self, image_bev, radar_bev):
         """image_bev (B, Yi, Xi, C), radar_bev (B, Y, X, C) -> (gated image
@@ -82,11 +143,25 @@ class RadarOccupancy2D(nn.Module):
         dt = compute_dtype(self.dtype)
         p = self.pred_occupancy
         h = radar_bev
-        for i in (0, 3, 6):
+        if self.branches:
+            h = self.aspp(h, dt)
+        for i in (0, 3, 6) if self.serial else (6,):
             h = torch.relu(batch_norm(conv_nhwc(h, p[i], dt), p[i + 1], dt))
         h = conv_nhwc(h, p[9], torch.float32)
         occupancy = torch.sigmoid(h)
-        return image_bev * occupancy, occupancy
+        if self.use_mask:
+            ny, nx = radar_bev.shape[1:3]
+            dev = radar_bev.device
+            ys = (torch.arange(ny, dtype=torch.float32, device=dev) - ny // 2)[:, None]
+            xs = torch.arange(nx, dtype=torch.float32, device=dev)[None, :]
+            ratio = torch.exp(div_exact(-(xs * xs + ys * ys), 2.0 * MASK_SIGMA ** 2))
+            ratio = ratio[None, :, :, None]
+            return image_bev * (occupancy * ratio + (1.0 - ratio)), occupancy
+        if self.fuse_mode == "MUL":
+            return image_bev * occupancy, occupancy
+        fused = self.se(torch.cat([image_bev * occupancy, image_bev.to(torch.float32)], dim=-1))
+        fused = conv_nhwc(fused, self.se_squeeze_conv, torch.float32)
+        return torch.relu(batch_norm(fused, self.se_squeeze_bn, dt)), occupancy
 
 
 def _rotated_bev_footprint(gt_boxes, nx: int, ny: int, pc_range, voxel_size,

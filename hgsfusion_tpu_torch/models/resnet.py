@@ -5,7 +5,11 @@ Counterpart of ``hgsfusion_tpu/models/resnet.py``: layer3/layer4 keep
 stride 8 with dilations 2/4, the first block of a dilated stage using the
 previous stage's dilation (torchvision ``_make_layer``). Returns the four
 taps layer1..layer4 (strides 4, 8, 8, 8) as NHWC tensors. Internally the
-backbone runs on NCHW views of channels-last memory. ``DeepLabClassifier``
+backbone runs on NCHW views of channels-last memory. With ``quant="w8a8"``
+(DDN QUANT, an eval-only serving knob) every convolution of the backbone is
+the JAX package's ``QConv8``: ``ops/conv_int8.py::qconv2d``, the int8 kernel
+``hgsfusion::conv2d_w8a8``; the parameters are the same ``nn.Conv2d``
+weights, so a checkpoint loads unchanged. ``DeepLabClassifier``
 is torchvision's ``DeepLabHead`` (ASPP, 3x3 conv-BN-ReLU, 1x1 logits).
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.conv_int8 import qconv2d
 from ..ops.matmul import matmul_f32
 from ..utils.common import device_constant
 from .layers import batch_norm, compute_dtype, conv_nhwc
@@ -35,16 +40,31 @@ def preprocess_images(images):
                        (images - mean) / std)
 
 
-def _conv(x, conv, dtype):
+QUANT_MODES = ("none", "w8a8")
+
+
+def _conv(x, conv, dtype, quant: str = "none"):
+    """``conv`` on the NCHW view ``x`` in ``dtype``; under w8a8 the int8
+    convolution of the NHWC memory beneath it."""
+    if quant == "w8a8":
+        return qconv2d(x.permute(0, 2, 3, 1), conv, dtype).permute(0, 3, 1, 2)
     return F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding,
                     conv.dilation)
 
 
+def _check_quant(quant: str):
+    if quant not in QUANT_MODES:
+        raise NotImplementedError(f"DDN QUANT={quant!r} (supported: none, w8a8)")
+
+
 class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False, dtype=None):
+                 dilation: int = 1, downsample: bool = False, dtype=None,
+                 quant: str = "none"):
         super().__init__()
+        _check_quant(quant)
         self.dtype = dtype
+        self.quant = quant
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, dilation, dilation, bias=False)
@@ -59,30 +79,32 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         """x: NCHW in the compute dtype."""
-        dt = compute_dtype(self.dtype)
-        out = torch.relu_(batch_norm(_conv(x, self.conv1, dt), self.bn1, dt, 1))
-        out = torch.relu_(batch_norm(_conv(out, self.conv2, dt), self.bn2, dt, 1))
-        out = batch_norm(_conv(out, self.conv3, dt), self.bn3, dt, 1)
+        dt, q = compute_dtype(self.dtype), self.quant
+        out = torch.relu_(batch_norm(_conv(x, self.conv1, dt, q), self.bn1, dt, 1))
+        out = torch.relu_(batch_norm(_conv(out, self.conv2, dt, q), self.bn2, dt, 1))
+        out = batch_norm(_conv(out, self.conv3, dt, q), self.bn3, dt, 1)
         identity = x
         if self.downsample is not None:
-            identity = batch_norm(_conv(x, self.downsample[0], dt), self.downsample[1], dt, 1)
+            identity = batch_norm(_conv(x, self.downsample[0], dt, q), self.downsample[1], dt, 1)
         return torch.relu_(out + identity)
 
 
 class ResNetDeepLabBackbone(nn.Module):
     """ResNet with (3,4,23,3) (101) or (3,4,6,3) (50) bottleneck stages."""
 
-    def __init__(self, stage_sizes=(3, 4, 23, 3), dtype=None):
+    def __init__(self, stage_sizes=(3, 4, 23, 3), dtype=None, quant: str = "none"):
         super().__init__()
+        _check_quant(quant)
         self.dtype = dtype
+        self.quant = quant
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         stage_cfg = [(64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)]
         inplanes, prev_dilation = 64, 1
         for si, ((planes, stride, dilation), blocks) in enumerate(zip(stage_cfg, stage_sizes)):
-            layer = [Bottleneck(inplanes, planes, stride, prev_dilation, True, dtype)]
+            layer = [Bottleneck(inplanes, planes, stride, prev_dilation, True, dtype, quant)]
             inplanes = planes * 4
-            layer += [Bottleneck(inplanes, planes, 1, dilation, False, dtype)
+            layer += [Bottleneck(inplanes, planes, 1, dilation, False, dtype, quant)
                       for _ in range(1, blocks)]
             self.add_module(f"layer{si + 1}", nn.Sequential(*layer))
             prev_dilation = dilation
@@ -92,7 +114,7 @@ class ResNetDeepLabBackbone(nn.Module):
         layer3 (1024, /8), layer4 (2048, /8)], NHWC in the compute dtype."""
         dt = compute_dtype(self.dtype)
         x = images.to(dt).permute(0, 3, 1, 2)
-        x = torch.relu_(batch_norm(_conv(x, self.conv1, dt), self.bn1, dt, 1))
+        x = torch.relu_(batch_norm(_conv(x, self.conv1, dt, self.quant), self.bn1, dt, 1))
         x = F.max_pool2d(x, 3, 2, 1)
         taps = []
         for name in ("layer1", "layer2", "layer3", "layer4"):

@@ -1,7 +1,8 @@
 """Bilinear grid sampling (align_corners=True, zeros padding), NHWC layout.
 
 Counterpart of ``hgsfusion_tpu/ops/grid_sample.py``: the quad-packed
-single-gather sampler and its shared index/weight computation. These make
+single-gather sampler, its shared index/weight computation and the int8
+payload's per-channel quantization (F2V QUANT int8). These make
 the plain PyTorch versions of the ``quad_sample_fwd`` and ``quad_sample_bwd``
 CUDA kernels (``ops/quad_sample.py``: ``quad_sample_fwd_uv_plain``,
 ``quad_sample_bwd_plain``); the CPU path and the tests use them, and they are
@@ -48,6 +49,25 @@ def quad_taps(coords, h: int, w: int, dtype):
         tx * ty * mx1 * my1,
     )
     return yp, xp, w4
+
+
+def div_exact(a, divisor: float):
+    """``a / divisor``, correctly rounded on any device: a Python number as
+    divisor makes PyTorch's CUDA division multiply by its reciprocal, which
+    can miss the quotient by one ulp."""
+    return a / torch.full((), divisor, dtype=a.dtype, device=a.device)
+
+
+def quantize_per_channel_int8(features):
+    """Symmetric per-channel int8 quantization of a (B, H, W, C) map, bit
+    for bit the JAX package's: (q int8 (B, H, W, C), scale f32 (C,)) with
+    scale = max(max|f|, 1e-12) / 127 over (B, H, W) and q = round(f / scale)
+    (half to even) clipped to [-127, 127], all in f32."""
+    f32 = features.to(torch.float32)
+    amax = f32.abs().amax(dim=(0, 1, 2))
+    scale = div_exact(torch.clamp(amax, min=1e-12), 127.0)
+    q = torch.clamp(torch.round(f32 / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _quad_idx_weights(coords, h: int, w: int, dtype):

@@ -14,7 +14,14 @@ shape and dtype, all ``torch.export`` needs to trace it):
   (``csrc/quad_sample_depth.cu``) without what its backward needs;
 - ``hgsfusion::nms_lazy(boxes, valid, nms_thresh, max_keep) -> keep``:
   rotated greedy NMS of a batch of score-sorted candidates
-  (``csrc/nms_lazy.cu``), one block per frame.
+  (``csrc/nms_lazy.cu``), one block per frame;
+- ``hgsfusion::quad_sample_reduce_q8_fwd(uv, maps, k_offs, kmat, bias) ->
+  out``: the fused sampler + reduce on int8 maps (F2V QUANT int8), the
+  per-channel scales folded into ``kmat`` by the caller
+  (``csrc/quad_sample_reduce.cu``);
+- ``hgsfusion::conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding,
+  dilation, dtype) -> out``: the int8 implicit-GEMM convolution of DDN
+  QUANT w8a8 (``csrc/conv_int8.cu``).
 
 So a frame served through these ops traces into one graph, with NMS inside
 it and nothing read back to the host, which ``torch.export`` writes out
@@ -52,10 +59,14 @@ BINS = "quad_bins"
 NMS = "nms_lazy"
 DEPTH_KERNEL = "quad_sample_depth_fwd"
 DEPTH_BWD_KERNEL = "quad_sample_depth_bwd"
+Q8_KERNEL = "quad_sample_q8_fwd"
+REDUCE_Q8_KERNEL = "quad_sample_reduce_q8_fwd"
+CONV_W8A8 = "conv2d_w8a8"
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernels (PyTorch calls, no kernel of this package)
 launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0,
-            DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0}
+            DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0, Q8_KERNEL: 0, REDUCE_Q8_KERNEL: 0,
+            CONV_W8A8: 0}
 # depth bins the depth backward's phase 2 keeps in registers
 MAX_DEPTH_BINS = 128
 # gather groups one launch of the fused kernel takes
@@ -72,12 +83,19 @@ _PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
 # each kernel's source in csrc/ and C arguments
 _ENTRIES = {
     # uv, uv_stride, n, per_frame, map, b, h, w, c, out, idx_out, w4_out,
-    # dtype, stream
+    # dtype, stream (Q8_KERNEL: an int8 map, dtype the output's)
     KERNEL: ("quad_sample", [_P, _I64, _I64, _I64, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
+    Q8_KERNEL: ("quad_sample", [_P, _I64, _I64, _I64, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
     # uv, uv_stride, n, per_frame, maps, hs, ws, cs, k_offs (one entry per
     # group), groups, kmat, bias, out, o, dtype, stream
     REDUCE_KERNEL: ("quad_sample_reduce",
                     [_P, _I64, _I64, _I64, _PP, _PI, _PI, _PI, _PI, _I, _P, _P, _P, _I, _I, _P]),
+    REDUCE_Q8_KERNEL: ("quad_sample_reduce",
+                       [_P, _I64, _I64, _I64, _PP, _PI, _PI, _PI, _PI, _I, _P, _P, _P, _I, _I,
+                        _P]),
+    # x, wt, ax, wk, out, b, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, ho,
+    # wo, kp, dtype, stream
+    CONV_W8A8: ("conv_int8", [_P] * 5 + [_I] * 17 + [_P]),
     # uv, uv_stride, n, per_frame, h, w, idx, w4, dtype, stream
     TAPS: ("quad_sample_reduce", [_P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P]),
     # ct, order, start, w4, out, b, h, w, c, dtype, stream
@@ -135,7 +153,7 @@ def uv_rows(name, uv, b):
     return n, n // b, stride
 
 
-def quad_sample_fwd(features, uv, taps: bool = False):
+def quad_sample_fwd(features, uv, taps: bool = False, dtype=None):
     """Launch the forward kernel.
 
     ``features`` (B, H, W, C) unpadded and contiguous on the card (a map or
@@ -147,41 +165,49 @@ def quad_sample_fwd(features, uv, taps: bool = False):
     also ``quad_indices``' result, idx (N,) int32 and w4 (N, 4) f32, written
     by the same launch (else None and None). Same function as
     ``quad_sample_fwd_uv_plain`` up to the taps' rounding.
+
+    An int8 map (F2V QUANT int8) takes the kernel's int8 instantiation
+    (``quad_sample_q8_fwd``, counted apart): ``out`` in ``dtype`` holds the
+    unscaled samples of its values, the weights rounded to ``dtype``, as
+    ``quad_sample.quad_sample_q8_plain``.
     """
+    q8 = features.dtype == torch.int8
+    name = Q8_KERNEL if q8 else KERNEL
     if features.device.type != "cuda":
-        raise ValueError(f"{KERNEL} needs CUDA tensors, got {features.device}")
-    if features.dtype not in DTYPE_CODES:
-        raise TypeError(f"{KERNEL}: unsupported dtype {features.dtype}")
+        raise ValueError(f"{name} needs CUDA tensors, got {features.device}")
+    out_dtype = dtype if q8 else features.dtype
+    if out_dtype not in DTYPE_CODES or (not q8 and dtype not in (None, features.dtype)):
+        raise TypeError(f"{name}: unsupported dtypes {features.dtype} -> {dtype}")
     if features.dim() != 4 or min(features.shape) < 1:
-        raise ValueError(f"{KERNEL}: bad shapes features {tuple(features.shape)}")
+        raise ValueError(f"{name}: bad shapes features {tuple(features.shape)}")
     if not features.is_contiguous():
-        raise ValueError(f"{KERNEL}: features must be contiguous")
+        raise ValueError(f"{name}: features must be contiguous")
     b, h, w, c = features.shape
     if b * (h + 2) * (w + 2) >= 2**31:
-        raise ValueError(f"{KERNEL}: padded map exceeds int32 pixel indexing")
-    n, per_frame, stride = uv_rows(KERNEL, uv, b)
+        raise ValueError(f"{name}: padded map exceeds int32 pixel indexing")
+    n, per_frame, stride = uv_rows(name, uv, b)
     if uv.device != features.device:
-        raise ValueError(f"{KERNEL}: uv must be on {features.device}")
+        raise ValueError(f"{name}: uv must be on {features.device}")
     dev = features.device
-    out = torch.empty((n, c), dtype=features.dtype, device=dev)
+    out = torch.empty((n, c), dtype=out_dtype, device=dev)
     idx = w4 = None
     if taps:
         idx = torch.empty(n, dtype=torch.int32, device=dev)
         w4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    err = entry(KERNEL)(
+    err = entry(name)(
         uv.data_ptr(), stride, n, per_frame, features.data_ptr(), b, h, w, c, out.data_ptr(),
         None if idx is None else idx.data_ptr(), None if w4 is None else w4.data_ptr(),
-        DTYPE_CODES[features.dtype], stream_of(features))
+        DTYPE_CODES[out_dtype], stream_of(features))
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    launches[KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
     return out, idx, w4
 
 
-def _check_reduce(uv, groups, kmat, bias):
-    """The fused kernel's launch contract; returns (n, queries per frame,
-    uv's row stride)."""
-    name = REDUCE_KERNEL
+def _check_reduce(uv, groups, kmat, bias, name=REDUCE_KERNEL):
+    """The fused kernel's launch contract (``name``'s: the int8 variant
+    takes int8 maps); returns (n, queries per frame, uv's row stride)."""
+    map_dtype = torch.int8 if name == REDUCE_Q8_KERNEL else kmat.dtype
     if not 1 <= len(groups) <= MAX_REDUCE_GROUPS:
         raise ValueError(f"{name}: {len(groups)} groups, takes 1 to {MAX_REDUCE_GROUPS}")
     if kmat.device.type != "cuda":
@@ -194,8 +220,9 @@ def _check_reduce(uv, groups, kmat, bias):
         raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
     b = groups[0][0].shape[0] if groups[0][0].dim() == 4 else -1
     for f, k_off in groups:
-        if f.dtype != kmat.dtype:
-            raise TypeError(f"{name}: map {f.dtype} and kmat {kmat.dtype} differ")
+        if f.dtype != map_dtype:
+            raise TypeError(f"{name}: map {f.dtype} and kmat {kmat.dtype} differ (the maps "
+                            f"must be {map_dtype})")
         if f.dim() != 4 or f.shape[0] != b or min(f.shape) < 1 \
                 or not 0 <= k_off <= kmat.shape[0] - f.shape[-1]:
             raise ValueError(f"{name}: bad shapes map {tuple(f.shape)} at kmat rows {k_off} "
@@ -209,6 +236,28 @@ def _check_reduce(uv, groups, kmat, bias):
     if uv.device != kmat.device:
         raise ValueError(f"{name}: uv must be on {kmat.device}")
     return n, per_frame, stride
+
+
+def _launch_reduce(name, uv, groups, kmat, bias):
+    n, per_frame, stride = _check_reduce(uv, groups, kmat, bias, name)
+    o = kmat.shape[1]
+    out = torch.empty((n, o), dtype=kmat.dtype, device=kmat.device)
+    g = len(groups)
+    maps = (_P * g)(*(f.data_ptr() for f, _ in groups))
+    hs = (_I * g)(*(f.shape[1] for f, _ in groups))
+    ws = (_I * g)(*(f.shape[2] for f, _ in groups))
+    cs = (_I * g)(*(f.shape[3] for f, _ in groups))
+    offs = (_I * g)(*(int(k_off) for _, k_off in groups))
+    err = entry(name)(
+        uv.data_ptr(), stride, n, per_frame, maps, hs, ws, cs, offs, g, kmat.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), o, DTYPE_CODES[kmat.dtype], stream_of(kmat))
+    if err == _K_SLICE_TOO_LARGE:
+        raise ValueError(f"{name}: the groups' rows of kmat {tuple(kmat.shape)} exceed "
+                         f"the slice a block's shared memory holds")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return out
 
 
 def quad_sample_reduce_fwd(uv, groups, kmat, bias):
@@ -225,25 +274,79 @@ def quad_sample_reduce_fwd(uv, groups, kmat, bias):
     function as ``quad_sample_reduce_plain`` up to the taps' rounding and
     the order of the f32 sums.
     """
-    n, per_frame, stride = _check_reduce(uv, groups, kmat, bias)
-    o = kmat.shape[1]
-    out = torch.empty((n, o), dtype=kmat.dtype, device=kmat.device)
-    g = len(groups)
-    maps = (_P * g)(*(f.data_ptr() for f, _ in groups))
-    hs = (_I * g)(*(f.shape[1] for f, _ in groups))
-    ws = (_I * g)(*(f.shape[2] for f, _ in groups))
-    cs = (_I * g)(*(f.shape[3] for f, _ in groups))
-    offs = (_I * g)(*(int(k_off) for _, k_off in groups))
-    err = entry(REDUCE_KERNEL)(
-        uv.data_ptr(), stride, n, per_frame, maps, hs, ws, cs, offs, g, kmat.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), o, DTYPE_CODES[kmat.dtype], stream_of(kmat))
-    if err == _K_SLICE_TOO_LARGE:
-        raise ValueError(f"{REDUCE_KERNEL}: the groups' rows of kmat {tuple(kmat.shape)} exceed "
-                         f"the slice a block's shared memory holds")
+    return _launch_reduce(REDUCE_KERNEL, uv, groups, kmat, bias)
+
+
+def quad_sample_reduce_q8_fwd(uv, groups, kmat, bias):
+    """Launch the fused kernel on int8 maps (F2V QUANT int8): as
+    ``quad_sample_reduce_fwd``, each group's map (B, H, W, c) int8 (the
+    unscaled payload) and ``kmat`` in the compute dtype with each group's
+    per-channel scales already folded into its rows. The taps' weights are
+    rounded to the compute dtype, each group's samples summed in f32 and
+    rounded once to it, then reduced as before. Same function as
+    ``quad_sample.quad_sample_reduce_q8_plain`` up to the order of the f32
+    sums."""
+    return _launch_reduce(REDUCE_Q8_KERNEL, uv, groups, kmat, bias)
+
+
+def conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
+    """Launch the int8 convolution: ``x`` (B, H, W, C) int8 contiguous,
+    ``wt`` (O, Kp) int8 contiguous (``conv_int8.pack_weight``: row o the
+    kernel's values in (ky, kx, c) order, zeros up to Kp, a multiple of 32),
+    ``ax`` (1,) f32 the activation's scale, ``wk`` (O,) f32 the weights',
+    all on one card; ``kernel_size``, ``stride``, ``padding``, ``dilation``
+    pairs -> (B, Ho, Wo, O) in ``dtype``: the int32 sum of products
+    converted to f32, times ``ax * wk``, rounded once. Same function as
+    ``conv_int8.conv2d_w8a8_plain``, bit for bit."""
+    name = CONV_W8A8
+    b, h, w, c, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    for arg, t in (("x", x), ("wt", wt), ("ax", ax), ("wk", wk)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on {x.device}")
+    if wt.data_ptr() % 16:
+        raise ValueError(f"{name}: wt must be 16-byte aligned")
+    out = torch.empty((b, ho, wo, o), dtype=dtype, device=x.device)
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
+    err = entry(name)(x.data_ptr(), wt.data_ptr(), ax.data_ptr(), wk.data_ptr(),
+                      out.data_ptr(), b, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo,
+                      wt.shape[1], DTYPE_CODES[dtype], stream_of(x))
     if err != 0:
-        raise RuntimeError(f"{REDUCE_KERNEL} launch failed: cudaError {err}")
-    launches[REDUCE_KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
     return out
+
+
+def check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation):
+    """The int8 convolution's argument contract (every device); returns (b,
+    h, w, c, o, ho, wo)."""
+    name = CONV_W8A8
+    if x.dtype != torch.int8 or wt.dtype != torch.int8:
+        raise TypeError(f"{name}: x and wt must be int8, got {x.dtype} and {wt.dtype}")
+    if ax.dtype != torch.float32 or wk.dtype != torch.float32:
+        raise TypeError(f"{name}: ax and wk must be float32, got {ax.dtype} and {wk.dtype}")
+    if not all(len(p) == 2 for p in (kernel_size, stride, padding, dilation)):
+        raise ValueError(f"{name}: kernel_size, stride, padding and dilation are pairs")
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
+    if x.dim() != 4 or min(x.shape) < 1 or wt.dim() != 2:
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} wt {tuple(wt.shape)}")
+    b, h, w, c = x.shape
+    o, kp = wt.shape
+    k = kh * kw * c
+    if min(kh, kw, sh, sw, dh, dw) < 1 or min(ph, pw) < 0 or kp % 32 or not k <= kp < k + 32 \
+            or k > 133_144 or ax.shape != (1,) or wk.shape != (o,):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} wt {tuple(wt.shape)} ax "
+                         f"{tuple(ax.shape)} wk {tuple(wk.shape)} for a {kh}x{kw} kernel "
+                         f"(wt's rows: the kernel's {k} values padded to a multiple of 32; "
+                         f"at most 133,144, so that the int32 sum cannot overflow)")
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{name}: no output for x {tuple(x.shape)} and a {kh}x{kw} kernel")
+    return b, h, w, c, o, ho, wo
 
 
 def check_nms(boxes, valid, max_keep: int):
@@ -492,6 +595,33 @@ def _reduce_fake(uv, maps, k_offs, kmat, bias):
     return kmat.new_empty((uv.numel() // 2, kmat.shape[1]))
 
 
+def _reduce_q8_cuda(uv: torch.Tensor, maps: list[torch.Tensor], k_offs: list[int],
+                    kmat: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return quad_sample_reduce_q8_fwd(uv, list(zip(maps, k_offs)), kmat, bias)
+
+
+def _reduce_q8_cpu(uv, maps, k_offs, kmat, bias):
+    from . import quad_sample
+    return quad_sample.quad_sample_reduce_q8_plain(uv, list(zip(maps, k_offs)), kmat, bias)
+
+
+def _conv_cuda(x: torch.Tensor, wt: torch.Tensor, ax: torch.Tensor, wk: torch.Tensor,
+               kernel_size: list[int], stride: list[int], padding: list[int],
+               dilation: list[int], dtype: torch.dtype) -> torch.Tensor:
+    return conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype)
+
+
+def _conv_cpu(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
+    from . import conv_int8
+    return conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, kernel_size, stride, padding,
+                                       dilation, dtype)
+
+
+def _conv_fake(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
+    b, _, _, _, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation)
+    return x.new_empty((b, ho, wo, o), dtype=dtype)
+
+
 def _depth_cuda(features: torch.Tensor, probs: torch.Tensor,
                 grid: torch.Tensor) -> torch.Tensor:
     return quad_sample_depth_fwd(features, probs, grid)[0]
@@ -536,3 +666,6 @@ quad_sample_op = _register(KERNEL, _sample_cuda, _sample_cpu, _sample_fake)
 quad_sample_reduce_op = _register(REDUCE_KERNEL, _reduce_cuda, _reduce_cpu, _reduce_fake)
 nms_lazy_op = _register(NMS, _nms_cuda, _nms_cpu, _nms_fake)
 quad_sample_depth_op = _register(DEPTH_KERNEL, _depth_cuda, _depth_cpu, _depth_fake)
+quad_sample_reduce_q8_op = _register(REDUCE_Q8_KERNEL, _reduce_q8_cuda, _reduce_q8_cpu,
+                                     _reduce_fake)
+conv2d_w8a8_op = _register(CONV_W8A8, _conv_cuda, _conv_cpu, _conv_fake)

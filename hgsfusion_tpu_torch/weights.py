@@ -148,15 +148,39 @@ def conv2d_collapse(p, s):
     return out
 
 
+def deform_conv(p):
+    """ops/deform_conv.ModulatedDeformConv2d: ``weight`` from the JAX kernel
+    (k^2, C, O), ``conv_offset``."""
+    k = np.asarray(p["kernel"])
+    side = int(round(k.shape[0] ** 0.5))
+    out = {"weight": _conv(k.reshape(side, side, *k.shape[1:])),
+           **_prefix("conv_offset", conv(p["conv_offset"]))}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
 def radar_occupancy(p, s):
-    """occupancy.RadarOccupancy2D (serial ASPP): ``pred_occupancy.*``."""
+    """occupancy.RadarOccupancy2D: ``pred_occupancy.*`` (the serial ASPP at
+    0-4, the tail at 6-9); the parallel ASPP and the SE gate under the JAX
+    package's names."""
     out = {}
-    for ci, bi, cname, bname in ((0, 1, "aspp_conv1", "aspp_bn1"),
-                                 (3, 4, "aspp_conv2", "aspp_bn2"),
-                                 (6, 7, "occ_conv1", "occ_bn1")):
+    layers = [(6, 7, "occ_conv1", "occ_bn1")]
+    if "aspp_conv1" in p:
+        layers = [(0, 1, "aspp_conv1", "aspp_bn1"), (3, 4, "aspp_conv2", "aspp_bn2")] + layers
+    for ci, bi, cname, bname in layers:
         out.update(_prefix(f"pred_occupancy.{ci}", conv(p[cname])))
         out.update(_prefix(f"pred_occupancy.{bi}", batch_norm(p[bname], s[bname])))
     out.update(_prefix("pred_occupancy.9", conv(p["occ_conv2"])))
+    for name in p:
+        if name.startswith("aspp_dcn"):
+            out.update(_prefix(name, deform_conv(p[name])))
+        elif name.startswith("aspp_branch_bn") or name in ("aspp_fuse_bn", "se_squeeze_bn"):
+            out.update(_prefix(name, batch_norm(p[name], s[name])))
+        elif name.startswith("aspp_branch") or name in ("aspp_fuse", "se_squeeze_conv"):
+            out.update(_prefix(name, conv(p[name])))
+        elif name == "se":
+            out.update(_prefix("se.att.1", conv(p["se"]["att_conv"])))
     return out
 
 

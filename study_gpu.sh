@@ -18,12 +18,18 @@
 #   5. TJ4D: the same with hgsfusion_tj4d.yaml / hgsfusion_tj4d_polar.yaml at
 #      --batch_size 1;
 #   6. the box-level matches (tools/study_polar_match.py) and summary.json.
+# The VoD gather checkpoint's hard-val evaluation also runs under the int8
+# serving configs (hgsfusion_tpu_torch/configs/hgsfusion_vod_q8.yaml: F2V
+# QUANT int8; hgsfusion_vod_w8a8.yaml: that and DDN QUANT w8a8), each
+# matched against the bf16 gather evaluation. PARTS=vod_quant runs only the
+# trees, the VoD gather training and those three evaluations and matches.
 set -u
 cd "$(dirname "$0")"
 W=${1:-_study}
 O=${2:-$W/report}
 NPROC=${NPROC:-1}
 EPOCHS=${EPOCHS:-10}
+PARTS=${PARTS:-all}
 mkdir -p "$W" "$O"
 log() { echo "[study $(date +%H:%M:%S)] $*" | tee -a "$O/study.log"; }
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader > "$O/card.txt" 2>&1
@@ -61,17 +67,23 @@ match() {  # a_tag_dir a_tag b_tag_dir b_tag out tree dataset
 }
 
 GV=hgsfusion_vod; PV=hgsfusion_vod_polar; GT=hgsfusion_tj4d; PT=hgsfusion_tj4d_polar
+QV=hgsfusion_vod_q8; WV=hgsfusion_vod_w8a8; QDIR=hgsfusion_tpu_torch/configs
 CKG=$W/out/$GV/study_g/ckpt; CKP=$W/out/$PV/study_p/ckpt
 CKGT=$W/out/$GT/study_g/ckpt; CKPT=$W/out/$PT/study_p/ckpt
 
 # ---- VoD
 train vod_g configs/hgsfusion_vod.yaml study_g "$W/vod"
+eval_run configs/hgsfusion_vod.yaml       hv_vod_g_gather "$CKG" "$W/vod_hardval"
+eval_run $QDIR/$QV.yaml                    hv_vod_g_q8     "$CKG" "$W/vod_hardval"
+eval_run $QDIR/$WV.yaml                    hv_vod_g_w8a8   "$CKG" "$W/vod_hardval"
+match $GV hv_vod_g_gather $QV hv_vod_g_q8 hv_vod_g_q8 vod_hardval vod
+match $GV hv_vod_g_gather $WV hv_vod_g_w8a8 hv_vod_g_w8a8 vod_hardval vod
+if [ "$PARTS" = all ]; then
 train vod_p configs/hgsfusion_vod_polar.yaml study_p "$W/vod"
 eval_run configs/hgsfusion_vod.yaml       vod_g_gather "$CKG" "$W/vod"
 eval_run configs/hgsfusion_vod_polar.yaml vod_g_polar  "$CKG" "$W/vod"
 eval_run configs/hgsfusion_vod.yaml       vod_p_gather "$CKP" "$W/vod"
 eval_run configs/hgsfusion_vod_polar.yaml vod_p_polar  "$CKP" "$W/vod"
-eval_run configs/hgsfusion_vod.yaml       hv_vod_g_gather "$CKG" "$W/vod_hardval"
 eval_run configs/hgsfusion_vod_polar.yaml hv_vod_g_polar  "$CKG" "$W/vod_hardval"
 eval_run configs/hgsfusion_vod.yaml       hv_vod_p_gather "$CKP" "$W/vod_hardval"
 eval_run configs/hgsfusion_vod_polar.yaml hv_vod_p_polar  "$CKP" "$W/vod_hardval"
@@ -96,6 +108,7 @@ match $GV hv_vod_p_gather $PV hv_vod_p_polar hv_vod_p vod_hardval vod
 match $GT tj4d_g_gather $PT tj4d_g_polar tj4d_g tj4d tj4d
 match $GT tj4d_p_gather $PT tj4d_p_polar tj4d_p tj4d tj4d
 match $GT hv_tj4d_g_gather $PT hv_tj4d_g_polar hv_tj4d_g tj4d_hardval tj4d
+fi
 
 # ---- the result files, and the summary
 for d in "$W"/eval/*/*/eval; do

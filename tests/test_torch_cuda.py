@@ -14,10 +14,10 @@ from chip_smoke import (TINY, check_nms_frame, clustered_boxes, compare_instance
                         run_rhgm_tool, sampling_route, tiny_batch, unaligned)
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
-from hgsfusion_tpu_torch.ops import depth_sample, library, quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
-                                                 quad_sample_fwd_plain)
+                                                 quad_sample_fwd_plain, quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
@@ -482,13 +482,15 @@ def test_view_transform_routes(cuda):
     assert {k: mid[k] - before[k] for k in mid} == {
         library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0,
-        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0}
+        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
         library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0,
-        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0}
+        library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
     sampled = sampled.detach()
     scale = float(sampled.abs().max())
@@ -815,3 +817,147 @@ def test_depth_kernels_reject_what_they_do_not_take(cuda):
         library.quad_sample_depth_bwd(out.float(), f, grid, 16, bins)
     with pytest.raises(TypeError, match="int32"):
         library.quad_sample_depth_bwd(out, f, grid, 16, (bins[0].long(), bins[1]))
+
+
+# -- F2V QUANT int8 and DDN QUANT w8a8 ----------------------------------------
+
+def _q8_tol(q, idx, w4, ref, out, dtype):
+    """1e-5 of the taps' magnitude S = sum |w q| (the f32 sums' order), and in
+    half precision one ulp of each output more (both round once)."""
+    mag = quad_sample_fwd_plain(F.pad(q.float().abs(), (0, 0, 1, 1, 1, 1)), idx, w4.abs())
+    tol = 1e-5 * mag
+    if dtype != torch.float32:
+        m, e = torch.frexp(torch.maximum(ref.float().abs(), out.float().abs()))
+        tol = tol + torch.where(m == 0, torch.zeros_like(m),
+                                torch.ldexp(torch.ones_like(m), e - (8 if dtype == torch.bfloat16
+                                                                     else 11)))
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_q8_kernel_matches_plain(cuda, shape, dtype):
+    """``quad_sample_fwd`` on an int8 map (K1-q8) against
+    ``quad_sample_q8_plain``: the output at ``_q8_tol``, idx and w4 bit for
+    bit, one launch counted; the autograd entry's gradient equals K2 on the
+    cotangent over the scales (straight-through)."""
+    feats, coords = _inputs(11, shape, torch.float32, cuda)
+    q, scale = quantize_per_channel_int8(feats)
+    before = library.launches[library.Q8_KERNEL]
+    out, idx, w4 = library.quad_sample_fwd(q, coords, taps=True, dtype=dtype)
+    torch.cuda.synchronize()
+    assert library.launches[library.Q8_KERNEL] == before + 1
+    ref, ref_idx, ref_w4 = quad_sample.quad_sample_q8_plain(q.cpu(), coords.cpu(), dtype,
+                                                             taps=True)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(idx.cpu(), ref_idx) and torch.equal(w4.cpu(), ref_w4)
+    err = (out.cpu().float() - ref.float()).abs()
+    assert bool((err <= _q8_tol(q.cpu(), ref_idx, ref_w4, ref, out.cpu(), dtype)).all())
+    x = feats.detach().requires_grad_()
+    got, s = quad_sample.grid_sample_2d_quad_q8_kernel(x, coords, dtype)
+    ct = torch.randn(got.shape, device=cuda).to(dtype)
+    got.backward(ct)
+    bins = quad_sample.quad_bins(idx, w4, (shape[0], shape[1] + 2, shape[2] + 2, shape[3]))
+    want = library.quad_sample_bwd((ct / s.to(dtype)).reshape(-1, shape[3]).contiguous(), idx,
+                                   w4, (shape[0], shape[1] + 2, shape[2] + 2, shape[3]), bins)
+    assert torch.equal(x.grad, want.float())
+
+
+REDUCE_Q8_CASES = {"two_groups": ([(1, 9, 13, 64), (1, 5, 7, 192)], 128),
+                   "ragged": ([(2, 7, 9, 40), (2, 7, 9, 24), (2, 4, 5, 16)], 72),
+                   "element_path": ([(1, 6, 7, 20)], 130)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(REDUCE_Q8_CASES))
+def test_reduce_q8_kernel_matches_plain(cuda, case, dtype):
+    """``quad_sample_reduce_q8_fwd`` against ``quad_sample_reduce_q8_plain``
+    on int8 maps with the scales folded into K: f32 within 1e-5 x (1 +
+    max|ref|); half precision within that, 1e-5 (S @ |K|) for the samples'
+    f32 order and one unit of their rounding (u (S @ |K|)), and 2 u |ref|
+    for the output's rounding."""
+    maps, o = REDUCE_Q8_CASES[case]
+    uv, groups, kmat, bias = _reduce_inputs(maps, o, torch.float32, cuda)
+    qs = [quantize_per_channel_int8(f) for f, _ in groups]
+    kq = (kmat * torch.cat([sc for _, sc in qs])[:, None]).to(dtype).contiguous()
+    qgroups = [(q, k) for (q, _), (_, k) in zip(qs, groups)]
+    before = dict(library.launches)
+    got = library.quad_sample_reduce_q8_fwd(uv, qgroups, kq, bias)
+    torch.cuda.synchronize()
+    assert library.launches[library.REDUCE_Q8_KERNEL] == before[library.REDUCE_Q8_KERNEL] + 1
+    cpu = [(q.cpu(), k) for q, k in qgroups]
+    ref = quad_sample.quad_sample_reduce_q8_plain(uv.cpu(), cpu, kq.cpu(), bias.cpu())
+    assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
+    ref = ref.float()
+    scale = 1 + float(ref.abs().max())
+    err = (got.cpu().float() - ref).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+        return
+    u = HALF_U[dtype]
+    mag = 0
+    for q, k in cpu:
+        idx, w4 = quad_indices(q, uv.cpu(), dtype)
+        mag = mag + (quad_sample_fwd_plain(F.pad(q.float().abs(), (0, 0, 1, 1, 1, 1)), idx,
+                                           w4.abs()) @ kq.cpu()[k:k + q.shape[-1]].float().abs())
+    assert bool((err <= 1e-5 * scale + (1e-5 + u) * mag + 2 * u * ref.abs()).all())
+
+
+CONV_CASES = [((1, 21, 33, 3), 64, 7, 2, 3, 1), ((2, 9, 11, 64), 96, 1, 1, 0, 1),
+              ((1, 13, 15, 64), 64, 3, 2, 1, 1), ((1, 10, 12, 128), 136, 3, 1, 2, 2),
+              ((1, 10, 12, 256), 256, 3, 1, 4, 4), ((2, 7, 9, 48), 37, 3, 2, 2, 2),
+              ((1, 6, 5, 20), 24, 3, 1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,o,k,s,p,d", CONV_CASES)
+def test_conv_w8a8_kernel_is_exact(cuda, shape, o, k, s, p, d, dtype):
+    """``conv2d_w8a8`` equal to its float64 plain version (the int32 sum is
+    exact) at the backbone's kinds of convolution and ragged ones (odd
+    outputs, 20 channels: the byte path), one launch counted; and the op
+    ``hgsfusion::conv2d_w8a8`` through ``qconv2d`` equal on the card and the
+    CPU."""
+    g = torch.Generator().manual_seed(12)
+    x = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (o, shape[-1], k, k), generator=g, dtype=torch.int8)
+    wt = conv_int8.pack_weight(qw)
+    ax, wk = torch.rand(1, generator=g), torch.rand(o, generator=g)
+    args = ((k, k), (s, s), (p, p), (d, d), dtype)
+    before = library.launches[library.CONV_W8A8]
+    got = library.conv2d_w8a8(x.to(cuda), wt.to(cuda), ax.to(cuda), wk.to(cuda), *args)
+    torch.cuda.synchronize()
+    assert library.launches[library.CONV_W8A8] == before + 1
+    assert torch.equal(got.cpu(), conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args))
+    conv = torch.nn.Conv2d(shape[-1], o, k, s, p, d, bias=False)
+    xf = torch.randn(shape, generator=g)
+    assert torch.equal(conv_int8.qconv2d(xf.to(cuda), conv.to(cuda), dtype).cpu(),
+                       conv_int8.qconv2d(xf, conv.cpu(), dtype))
+
+
+@pytest.mark.cuda
+def test_deform_conv_card_matches_cpu(cuda):
+    """The parallel ASPP's deformable branch with random offsets (taps
+    between pixels and outside the map): output and the gradients of the
+    input, the weights and ``conv_offset`` on the card against the CPU."""
+    from hgsfusion_tpu_torch.ops.deform_conv import ModulatedDeformConv2d
+    torch.manual_seed(3)
+    cpu = ModulatedDeformConv2d(16, 12, 3, dilation=6)
+    with torch.no_grad():
+        cpu.conv_offset.weight.normal_(0.0, 0.05)
+        cpu.conv_offset.bias.normal_(0.0, 0.5)
+    card = ModulatedDeformConv2d(16, 12, 3, dilation=6).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 19, 23, 16)
+    xs = [x.clone().requires_grad_(), x.to(cuda).requires_grad_()]
+    outs = [m(v) for m, v in zip((cpu, card), xs)]
+    ct = torch.randn(outs[0].shape)
+    for o, c in zip(outs, (ct, ct.to(cuda))):
+        (o * c).sum().backward()
+    scale = float(outs[0].abs().max())
+    assert float((outs[1].cpu() - outs[0]).abs().max()) <= 1e-5 * scale
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert float((q.grad.cpu() - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max()), name
+    assert float((xs[1].grad.cpu() - xs[0].grad).abs().max()) <= 1e-4 * float(xs[0].grad.abs().max())

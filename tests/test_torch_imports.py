@@ -56,6 +56,7 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.eval.tta", "hgsfusion_tpu_torch.tools.test_tta",
     "hgsfusion_tpu_torch.tools.make_study_data", "hgsfusion_tpu_torch.tools.study_polar_match",
     "hgsfusion_tpu_torch.ops.depth_sample", "hgsfusion_tpu_torch.models.ddn_loss",
+    "hgsfusion_tpu_torch.ops.conv_int8", "hgsfusion_tpu_torch.ops.deform_conv",
 }
 
 
