@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``hgsfusion_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases NAME[,NAME...]]
 
-Phases, each of which must pass or the script exits non-zero:
+Phases, each of which must pass or the script exits non-zero (``--phases``
+runs card, build and the named ones only, by the names printed in brackets;
+an unknown name exits non-zero; the ``kernels`` line then holds the rows
+and launches of what ran):
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` of every CUDA kernel (one process per source, all
@@ -229,11 +232,14 @@ Phases, each of which must pass or the script exits non-zero:
 32. depth kernels: ``quad_sample_depth_fwd`` and ``quad_sample_depth_bwd``
     (USE_DEPTH's depth-weighted frustum sample and the gradient of its
     distribution) against their plain versions at the VoD gather maps (80
-    bins, the flagship grid read in place) in bf16 and f32 and a ragged
-    case (``depth_case`` states the tolerances; the keys bit for bit, two
+    bins, the flagship grid read in place) in bf16 and f32, a ragged case
+    and a hot pixel whose taps' pixels the backward splits into many chunks
+    (``depth_case`` states the tolerances; the keys bit for bit, two
     backward calls bit for bit), each timed beside its bound, its plain
     version and the library (``F.grid_sample`` 5-D on the built volume;
-    ``aten.grid_sampler_3d_backward`` plus the contraction over C);
+    ``aten.grid_sampler_3d_backward`` plus the contraction over C), and the
+    entry visits per pixel as a histogram (the backward's split by kernel:
+    ``compare_kernels_parent.py``);
 33. serve depth: the TINY depth model card vs CPU (serving, the depth
     logits included), then
     ``hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml`` at full width
@@ -258,13 +264,18 @@ Phases, each of which must pass or the script exits non-zero:
     ``quad_sample_reduce_q8_plain`` at both groups in one launch and a ragged
     case, at ``reduce_case``'s tolerances; each timed beside its bound, the
     plain version and (K1-q8) ``F.grid_sample``;
-38. kernel vs plain, w8a8: ``conv2d_w8a8`` against its float64 plain
-    version, exactly equal in f32 and bf16, at each of the 23 distinct
-    convolutions of the VoD ResNet-101 (``backbone_conv_shapes``, 104 in
-    all) on random int8 values, and a ragged case; each timed beside its
-    bound (int8 operations or bytes), the plain version, cuDNN's bf16
-    ``F.conv2d`` and ``torch._int_mm`` on im2col columns (yardsticks), and
-    the sums over the backbone;
+38. kernel vs plain, w8a8: ``conv2d_w8a8`` (which quantizes its own input)
+    against its plain version, exactly equal in f32 and bf16, at each of the 23
+    distinct convolutions of the VoD ResNet-101 (``backbone_conv_shapes``, 104
+    in all) on random activations with exact rounding midpoints
+    (``w8a8_input``); its first pass alone (``quantize_int8``, the stem's
+    ``im2col_int8``) equal to its plain version, ``activation_scale`` bit for
+    bit the parent's formula and the op equal to the parent's route, on
+    served-like activations; ragged cases at every tile width; each timed (the
+    kernel, its first pass, the route with ``activation_scale``) beside its
+    bound (int8 operations or bytes, x read in bf16; and read as int8), the
+    plain version, cuDNN's bf16 ``F.conv2d`` and ``torch._int_mm`` on im2col
+    columns (yardsticks), and the sums over the backbone;
 39. serve q8: ``hgsfusion_tpu_torch/configs/hgsfusion_vod_q8.yaml`` as 7:
     one P3-q8 and one NMS launch a frame;
 40. train q8: that config as 8 (REMAT on): 4 K1-q8, 2 K2 and 4 bins a step;
@@ -322,8 +333,8 @@ from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_images
 from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, quad_sample,
                                  row_scatter)
-from hgsfusion_tpu_torch.ops.grid_sample import (quad_sample_bwd_plain, quad_sample_fwd_plain,
-                                                quantize_per_channel_int8)
+from hgsfusion_tpu_torch.ops.grid_sample import (div_exact, quad_sample_bwd_plain,
+                                                quad_sample_fwd_plain, quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.parallel import mesh, spawn
@@ -3043,6 +3054,7 @@ def phase_study_small(dev):
 
 DEPTH_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_depth.yaml"
 DEPTH_BINS = 80
+DEPTH_CHUNK = 256  # entry visits a chunk of the depth backward's phase 2 (csrc CH)
 TINY_DEPTH = dataclasses.replace(TINY_XLA, use_depth=True)
 # train_cli_depth: each optimizer's run over a small full-width tree, its
 # resume by one step and the evaluation of the last run's newest checkpoint
@@ -3161,6 +3173,7 @@ def depth_case(name, shape, grid, d, dtype, gen, timed: bool):
         bwd.update(bound(n * 12 + (n * c + f.numel()) * isz + 4 * (n + b * (h + 2) * (w + 2) + 1)
                          + 4 * b * h * w * d, valid * (8.0 * c + 16)))
         bwd["ms"] = graph_ms(lambda: library.quad_sample_depth_bwd(ct, f, grid, d, bins))
+        bwd["visits_per_pixel"] = visit_histogram(per_pixel)
         bwd["bins_ms"] = cuda_ms(lambda: depth_sample.depth_bins(key, padded))
         bwd["plain_ms"] = cuda_ms(lambda: depth_sample.quad_sample_depth_bwd_plain(
             ct, f, grid, d), iters=3, warmup=1)
@@ -3191,11 +3204,39 @@ def depth_case(name, shape, grid, d, dtype, gen, timed: bool):
     return fwd, bwd
 
 
+def visit_histogram(per_pixel) -> dict:
+    """Entry visits per output pixel (the four taps' runs) in powers of two:
+    {"<=2^k": pixels}, with the mean and the largest."""
+    v = per_pixel.reshape(-1).long()
+    edges = [0] + [2 ** k for k in range(14)]
+    hist = {}
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        hist[f"{lo + 1 if lo else 0}-{hi}"] = int(((v > lo) & (v <= hi)).sum() + (
+            (v == 0).sum() if lo == 0 else 0))
+    hist[f">{edges[-1]}"] = int((v > edges[-1]).sum())
+    return {"pixels": hist, "mean": float(v.float().mean()), "max": int(v.max())}
+
+
+def hot_pixel_grid(dev, gen, n: int = 20000):
+    """(1, n, 3) grid rows: 90% of the queries on one pixel of a 9x13 map
+    (sub-pixel jitter, depth across the bins and beyond), so that the
+    pixels of its taps carry far more entries than a chunk of the depth
+    backward holds; the rest anywhere on and around the map."""
+    g = torch.rand((1, n, 3), generator=gen) * 2.4 - 1.2
+    hot = torch.rand(n, generator=gen) < 0.9
+    jitter = torch.rand((n, 2), generator=gen) * 0.02
+    g[0, hot, 0] = -0.32 + jitter[hot, 0]
+    g[0, hot, 1] = 0.11 + jitter[hot, 1]
+    return g.to(dev)
+
+
 def phase_depth_kernels(dev):
     """Both depth kernels at the VoD gather maps (A: 129x484x64, B:
-    65x242x192, 80 bins) on the flagship grid read in place, bf16 (timed)
-    and f32, and a ragged case (two frames, 37 channels, 80 bins, (u, v)
-    and depth beyond the map and the bins)."""
+    65x242x192, 80 bins) on the flagship grid read in place, bf16 (timed:
+    the backward's kernels split by ``torch.profiler``) and f32, a ragged
+    case (two frames, 37 channels, 80 bins, (u, v) and depth beyond the map
+    and the bins) and a hot pixel (``hot_pixel_grid``: its taps' pixels
+    split into many chunks of the backward's phase 2)."""
     grid = flagship_grid(dev)
     gen = torch.Generator().manual_seed(21)
     fwd, bwd = [], []
@@ -3207,11 +3248,14 @@ def phase_depth_kernels(dev):
             bwd.append(b_row)
             torch.cuda.empty_cache()
     ragged = (torch.rand((2, 7, 11, 3, 3), generator=gen) * 2.6 - 1.3).to(dev)
+    hot = hot_pixel_grid(dev, gen)
     for dtype in (torch.bfloat16, torch.float32):
-        f_row, b_row = depth_case("ragged", (2, 9, 13, 37), ragged, DEPTH_BINS, dtype, gen,
-                                  timed=False)
-        fwd.append(f_row)
-        bwd.append(b_row)
+        for name, shape, g in (("ragged", (2, 9, 13, 37), ragged), ("hot", (1, 9, 13, 64), hot)):
+            f_row, b_row = depth_case(name, shape, g, DEPTH_BINS, dtype, gen, timed=False)
+            fwd.append(f_row)
+            bwd.append(b_row)
+    if not max(r["max_adds_per_pixel"] for r in bwd if r["case"] == "hot") > 4 * DEPTH_CHUNK:
+        raise AssertionError("the hot case does not split a pixel into several chunks")
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -3406,8 +3450,11 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores, H100 SXM
 BACKBONE_CONVS = 104  # ResNet-101: the stem, 33 x 3 bottleneck convs, 4 downsamples
 Q8_FRAME = {library.REDUCE_Q8_KERNEL: 1, library.NMS: 1}
 Q8_STEP = {library.Q8_KERNEL: 4, library.BWD_KERNEL: 2, library.BINS: 4}
-W8A8_FRAME = {**Q8_FRAME, library.CONV_W8A8: BACKBONE_CONVS}
-W8A8_POLAR_FRAME = {**POLAR_FRAME, library.CONV_W8A8: BACKBONE_CONVS}
+# every convolution of the backbone quantizes its input once first
+W8A8_FRAME = {**Q8_FRAME, library.CONV_W8A8: BACKBONE_CONVS,
+              library.QUANTIZE_INT8: BACKBONE_CONVS}
+W8A8_POLAR_FRAME = {**POLAR_FRAME, library.CONV_W8A8: BACKBONE_CONVS,
+                    library.QUANTIZE_INT8: BACKBONE_CONVS}
 Q8_EVAL_FRAMES = 8
 TINY_OCC_V2 = dataclasses.replace(TINY_XLA, aspp_dilations=(1, 6, 12, 18),
                                   use_dcn=(False, True, False, False), occ_fuse_mode="SE")
@@ -3599,95 +3646,201 @@ def backbone_conv_shapes(cfg):
     return shapes
 
 
-def w8a8_case(key, count, dev, gen, timed: bool):
-    """``conv2d_w8a8`` against its float64 plain version at one conv shape
-    of the backbone on random int8 values over the whole range: the f32 and
-    the bf16 outputs exactly equal. ``timed``: the kernel (graph replays)
-    beside its bound (2 M N K int8 operations, or the bytes of x, the
-    weights and the bf16 output), the plain version, cuDNN's bf16
-    ``F.conv2d`` (channels-last) and ``torch._int_mm`` on im2col columns
-    built outside the timing, the last two yardsticks only."""
+# the kernel's W8A8 scale in the exactness inputs: amax 127 / 16, so ax =
+# 2^-4 exactly and (k + 1/2) 2^-4 are exact rounding midpoints in f32 and bf16
+W8A8_AMAX = 127 / 16
+W8A8_SUMS = ("ms", "quantize_ms", "quantize_plain_ms", "route_ms", "plain_ms", "library_ms",
+             "int_mm_ms", "bound_ms", "bound_int8_ms", "quantize_bound_ms", "ops")
+# the ragged cases' outputs: one for each tile width ``library.tile_width`` picks
+W8A8_RAGGED_O = (37, 100, 200)
+
+
+def w8a8_input(shape, gen, dev):
+    """A random f32 NHWC activation for ``conv2d_w8a8``: normal values
+    (std 2) within W8A8_AMAX, one element at W8A8_AMAX (so its
+    ``activation_scale`` is 2^-4), and one in 16 elements on an exact
+    rounding midpoint (k + 1/2) 2^-4, k in -127 .. 126: ties to even are
+    taken there, in f32 and in bf16."""
+    x = (torch.randn(shape, generator=gen) * 2).clamp(-W8A8_AMAX + 0.01, W8A8_AMAX - 0.01)
+    mid = torch.rand(shape, generator=gen) < 1 / 16
+    k = torch.randint(-127, 127, shape, generator=gen).float()
+    x = torch.where(mid, (k + 0.5) / 16, x)
+    x.view(-1)[0] = W8A8_AMAX
+    return x.to(dev)
+
+
+def w8a8_activation(shape, gen, dev, stem: bool):
+    """A served frame's kind of input for timing: the normalized image's
+    normal values at the stem, ReLU outputs (half zeros) elsewhere, bf16."""
+    x = torch.randn(shape, generator=gen) * 2
+    return (x if stem else torch.relu(x)).to(torch.bfloat16).to(dev)
+
+
+def parent_activation_scale(x):
+    """The activation scale by the formula the int8-input route used before
+    ``activation_scale`` (its ``quantize_activation``): the largest |x| in
+    x's dtype by ``abs`` and ``amax``, to f32, floored and divided exactly
+    by 127."""
+    return div_exact(torch.clamp(x.abs().amax().to(torch.float32), min=1e-8),
+                     float(conv_int8.QMAX)).reshape(1)
+
+
+def first_pass(xt, at, wt, args):
+    """(wrapper, plain version) of ``conv2d_w8a8``'s first pass on ``xt``
+    with scale ``at``: ``quantize_int8`` for channels a multiple of 16, else
+    the im2col rows ``im2col_int8`` (the stem)."""
+    kp = wt.shape[1]
+    if xt.shape[-1] % 16 == 0:
+        return (lambda: library.quantize_int8(xt, at)), (lambda: conv_int8.quantize(xt, at))
+    return ((lambda: library.im2col_int8(xt, at, *args, kp)),
+            (lambda: conv_int8.im2col_plain(conv_int8.quantize(xt, at), *args, kp)))
+
+
+def w8a8_case(key, count, dev, gen):
+    """``conv2d_w8a8`` on a ``w8a8_input`` at one conv shape of the
+    backbone, in f32 and bf16 with the input's ``activation_scale``:
+    exactly equal to its plain version. On a ``w8a8_activation`` ``xt``
+    (bf16, and in f32; its largest |x| not special): ``activation_scale``
+    bit for bit the parent's formula (``parent_activation_scale``), the op
+    with it equal to the parent's route (that scale, then the int8
+    convolution's plain version), and the first pass alone
+    (``first_pass``) equal to its plain version. Timed on
+    ``xt`` (graph replays): the kernel (``ms``, its first pass included;
+    ``quantize_ms`` that pass alone, ``quantize_plain_ms`` its plain
+    version), the route (``activation_scale`` + the kernel) beside its
+    bound (2 M N K int8 operations, or the bytes of x in bf16, the weights
+    and the bf16 output; ``bound_int8_ms`` with x read as int8, the parent
+    kernel's input), the plain version, cuDNN's bf16 ``F.conv2d``
+    (channels-last) and ``torch._int_mm`` on im2col columns of the quantized
+    input built outside the timing, the last two yardsticks only."""
     cin, h, w, cout, k, s, p, d = key
-    x = torch.randint(-127, 128, (1, h, w, cin), generator=gen, dtype=torch.int8).to(dev)
+    x = w8a8_input((1, h, w, cin), gen, dev)
     qw = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8).to(dev)
     wt = conv_int8.pack_weight(qw)
-    ax = (torch.rand(1, generator=gen) * 0.1 + 1e-3).to(dev)
     wk = (torch.rand(cout, generator=gen) * 0.01 + 1e-4).to(dev)
     args = ((k, k), (s, s), (p, p), (d, d))
-    row = {"shape": list(key), "count": count}
+    row = {"shape": list(key), "count": count, "tile_n": library.tile_width(cout)}
     for dtype in (torch.float32, torch.bfloat16):
-        got = library.conv2d_w8a8(x, wt, ax, wk, *args, dtype)
-        ref = conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args, dtype)
+        xd = x.to(dtype)
+        ax = conv_int8.activation_scale(xd)
+        ref = conv_int8.conv2d_w8a8_plain(xd, wt, ax, wk, *args, dtype)
+        got = library.conv2d_w8a8(xd, wt, ax, wk, *args, dtype)
         name = str(dtype).replace("torch.", "")
         row[f"equal_{name}"] = bool(torch.equal(got, ref))
         row[f"max_abs_err_{name}"] = float((got.float() - ref.float()).abs().max())
-    ho, wo = got.shape[1:3]
+    row["scale_is_2^-4"] = bool(float(ax) == 2.0 ** -4)
+    del got, ref
+    xt = w8a8_activation((1, h, w, cin), gen, dev, stem=cin % 16 != 0)
+    at = conv_int8.activation_scale(xt)
+    row["scale_equal_parent"] = all(
+        torch.equal(conv_int8.activation_scale(v), parent_activation_scale(v))
+        for v in (xt, xt.float()))
+    # the parent's route on xt: its scale, then the int8 convolution's plain version
+    row["equal_parent_route"] = bool(torch.equal(
+        library.conv2d_w8a8(xt, wt, at, wk, *args, torch.bfloat16),
+        conv_int8.conv2d_w8a8_plain(xt, wt, parent_activation_scale(xt), wk, *args,
+                                    torch.bfloat16)))
+    run, plain = first_pass(xt, at, wt, args)
+    qk, qp = run(), plain()
+    row["quantize_equal"] = bool(torch.equal(qk, qp))
+    row["quantize_max_abs_err"] = float((qk.int() - qp.int()).abs().max())
+    del qk, qp
+    ho, wo = (h + 2 * p - d * (k - 1) - 1) // s + 1, (w + 2 * p - d * (k - 1) - 1) // s + 1
     m, kk = ho * wo, k * k * cin
     row["max_abs_err"] = max(row["max_abs_err_float32"], row["max_abs_err_bfloat16"])
-    if timed:
-        t_ops = 2.0 * m * cout * kk / INT8_OPS_PER_S
-        nbytes = x.numel() + wt.numel() + 4 * (cout + 1) + 2 * m * cout
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   ops=2.0 * m * cout * kk, bytes=nbytes)
-        row["ms"] = graph_ms(lambda: library.conv2d_w8a8(x, wt, ax, wk, *args, torch.bfloat16),
-                             iters=10, replays=2)
-        row["plain_ms"] = cuda_ms(lambda: conv_int8.conv2d_w8a8_plain(
-            x, wt, ax, wk, *args, torch.bfloat16), iters=2, warmup=1)
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view of channels-last memory
-        wb = qw.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        row["library"] = "cuDNN F.conv2d in bf16, channels-last"
-        row["library_ms"] = cuda_ms(lambda: F.conv2d(xb, wb, None, s, p, d), iters=10)
-        cols = F.unfold(x.permute(0, 3, 1, 2).to(torch.float16), k, dilation=d, padding=p,
-                        stride=s)[0].t().to(torch.int8)
-        pad = -cols.shape[1] % 8
-        cols = F.pad(cols, (0, pad)).contiguous()
-        w_cols = F.pad(qw.reshape(cout, -1), (0, pad)).contiguous()
-        try:  # a yardstick: cuBLAS's int8 product may refuse a shape
-            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, w_cols.t()), iters=10)
-        except RuntimeError as e:
-            row["int_mm_ms"], row["int_mm_error"] = None, str(e)[:200]
-        row["bound_fraction"] = row["bound_ms"] / row["ms"]
-        del xb, wb, cols, w_cols
+    t_ops = 2.0 * m * cout * kk / INT8_OPS_PER_S
+    nbytes = 2 * xt.numel() + wt.numel() + 4 * (cout + 1) + 2 * m * cout
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    # the first pass: x in bf16 read once, its int8 levels (or rows) written once
+    q_bytes = 2 * xt.numel() + (xt.numel() if cin % 16 == 0 else m * wt.shape[1])
+    row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_int8_ms=max(t_ops, (nbytes - xt.numel()) / HBM_BYTES_PER_S) * 1e3,
+               ops=2.0 * m * cout * kk, bytes=nbytes,
+               quantize_bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3)
+    row["ms"] = graph_ms(lambda: library.conv2d_w8a8(xt, wt, at, wk, *args, torch.bfloat16),
+                         iters=10, replays=2)
+    row["quantize_ms"] = graph_ms(run, iters=10, replays=2)
+    row["quantize_plain_ms"] = cuda_ms(plain, iters=5)
+    row["route_ms"] = graph_ms(lambda: library.conv2d_w8a8(
+        xt, wt, conv_int8.activation_scale(xt), wk, *args, torch.bfloat16), iters=10,
+        replays=2)
+    row["plain_ms"] = cuda_ms(lambda: conv_int8.conv2d_w8a8_plain(
+        xt, wt, at, wk, *args, torch.bfloat16), iters=2, warmup=1)
+    xb = xt.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
+    wb = qw.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    row["library"] = "cuDNN F.conv2d in bf16, channels-last"
+    row["library_ms"] = cuda_ms(lambda: F.conv2d(xb, wb, None, s, p, d), iters=10)
+    qt = conv_int8.quantize(xt, at)
+    cols = F.unfold(qt.permute(0, 3, 1, 2).to(torch.float16), k, dilation=d, padding=p,
+                    stride=s)[0].t().to(torch.int8)
+    pad = -cols.shape[1] % 8
+    cols = F.pad(cols, (0, pad)).contiguous()
+    w_cols = F.pad(qw.reshape(cout, -1), (0, pad)).contiguous()
+    try:  # a yardstick: cuBLAS's int8 product may refuse a shape
+        row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, w_cols.t()), iters=10)
+    except RuntimeError as e:
+        row["int_mm_ms"], row["int_mm_error"] = None, str(e)[:200]
+    row["bound_fraction"] = row["bound_ms"] / row["ms"]
+    del xb, wb, cols, w_cols, qt, xt
     print("  " + json.dumps(row))
-    if not (row["equal_float32"] and row["equal_bfloat16"]):
-        raise AssertionError(f"conv2d_w8a8 {key}: differs from its plain version")
+    for flag in ("equal_float32", "equal_bfloat16", "scale_is_2^-4", "scale_equal_parent",
+                 "equal_parent_route", "quantize_equal"):
+        if not row[flag]:
+            raise AssertionError(f"conv2d_w8a8 {key}: {flag} is false")
     return row
 
 
 def phase_kernel_vs_plain_w8a8(dev):
     """``conv2d_w8a8`` exactly equal to its plain version at every distinct
     convolution of the VoD backbone (516 x 1936), each timed, and the sums
-    over the backbone's 104 convolutions; then a ragged case: two frames,
-    48 channels and 20 (the byte path), a 3 x 3 kernel at stride 2 and
-    dilation 2, 37 outputs."""
+    over the backbone's 104 convolutions; then ragged cases at every tile
+    width (37, 100 and 200 outputs, ``W8A8_RAGGED_O``): two frames, 48
+    channels and 20 (not a multiple of 16: im2col rows), a 3 x 3 kernel at
+    stride 2 and dilation 2, random scales, in f32 and bf16, and f32 in
+    with a bf16 output; then ``quantize_int8`` alone against
+    ``conv_int8.quantize`` in f32, bf16 and f16."""
     cfg = vod_pallas_config()
     shapes = backbone_conv_shapes(cfg)
     if sum(shapes.values()) != BACKBONE_CONVS:
         raise AssertionError(f"{sum(shapes.values())} convolutions, want {BACKBONE_CONVS}")
     gen = torch.Generator().manual_seed(9)
-    rows = [w8a8_case(key, count, dev, gen, timed=True) for key, count in shapes.items()]
-    # a ragged input: two frames, channels a multiple of 16 but not of 32, and
-    # 20 channels (the byte path), an odd output width
-    x2 = torch.randint(-127, 128, (2, 19, 23, 48), generator=gen, dtype=torch.int8).to(dev)
+    rows = [w8a8_case(key, count, dev, gen) for key, count in shapes.items()]
+    x2 = w8a8_input((2, 19, 23, 48), gen, dev) * 3
+    ragged = []
     for cin, x in ((48, x2), (20, x2[..., :20].contiguous())):
-        qw = torch.randint(-127, 128, (37, cin, 3, 3), generator=gen, dtype=torch.int8).to(dev)
-        wt = conv_int8.pack_weight(qw)
-        ax = torch.rand(1, generator=gen).to(dev)
-        wk = torch.rand(37, generator=gen).to(dev)
-        args = ((3, 3), (2, 2), (2, 2), (2, 2))
-        got = library.conv2d_w8a8(x, wt, ax, wk, *args, torch.float32)
-        ref = conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args, torch.float32)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"conv2d_w8a8 ragged ({cin} channels) differs from plain")
-    total = {k: None if any(r[k] is None for r in rows) else sum(r[k] * r["count"] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "int_mm_ms", "bound_ms", "ops")}
+        for o in W8A8_RAGGED_O:
+            qw = torch.randint(-127, 128, (o, cin, 3, 3), generator=gen, dtype=torch.int8).to(dev)
+            wt = conv_int8.pack_weight(qw)
+            ax = torch.rand(1, generator=gen).to(dev) * 0.1
+            wk = torch.rand(o, generator=gen).to(dev)
+            args = ((3, 3), (2, 2), (2, 2), (2, 2))
+            for dtype, out_dtype in ((torch.float32,) * 2, (torch.bfloat16,) * 2,
+                                     (torch.float32, torch.bfloat16)):
+                xd = x.to(dtype)
+                got = library.conv2d_w8a8(xd, wt, ax, wk, *args, out_dtype)
+                ref = conv_int8.conv2d_w8a8_plain(xd, wt, ax, wk, *args, out_dtype)
+                ragged.append({"channels": cin, "o": o, "tile_n": library.tile_width(o),
+                               "dtype": str(dtype), "out": str(out_dtype),
+                               "equal": bool(torch.equal(got, ref))})
+                if not ragged[-1]["equal"]:
+                    raise AssertionError(f"conv2d_w8a8 ragged differs from plain: {ragged[-1]}")
+    widths = {r["tile_n"] for r in ragged} | {r["tile_n"] for r in rows}
+    if widths != {64, 128, 256}:
+        raise AssertionError(f"conv2d_w8a8 reached tile widths {sorted(widths)}")
+    total = {k: sum(r[k] * r["count"] for r in rows)
+             if all(r[k] is not None for r in rows) else None for k in W8A8_SUMS}
     total["bound_by"] = ("operations" if sum(r["count"] * r["bound_ms"] for r in rows
                                              if r["bound_by"] == "operations")
                          >= total["bound_ms"] / 2 else "bytes")
-    print("  " + json.dumps({"backbone": total}))
-    return {"rows": rows, "backbone": total}
+    total["quantize_max_abs_err"] = max(r["quantize_max_abs_err"] for r in rows)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xd = (x2 * 5).to(dtype)
+        ax = torch.rand(1, generator=gen).to(dev)
+        if not torch.equal(library.quantize_int8(xd, ax), conv_int8.quantize(xd, ax)):
+            raise AssertionError(f"quantize_int8 {dtype} differs from its plain version")
+    print("  " + json.dumps({"backbone": total, "ragged_cases": len(ragged)}))
+    return {"rows": rows, "backbone": total, "ragged": ragged}
 
 
 def phase_serve_w8a8(dev, view: str):
@@ -3701,6 +3854,12 @@ def phase_serve_w8a8(dev, view: str):
     return phase_serve(dev, yaml_config(W8A8_YAML), W8A8_FRAME)
 
 
+def phase_serve_tj4d(dev, view: str, per_frame: dict):
+    """A TJ4D config (``view``: pallas or polar) served at 810x1280."""
+    cfg = tj4d_config(view)
+    return phase_serve(dev, cfg, per_frame, tj4d_serve_batch(cfg))
+
+
 def phase_serve_occ_v2(dev):
     """The TINY parallel-ASPP model (DCN branch, SE gate) on the card against
     the CPU, then ``hgsfusion_vod_occ_v2.yaml`` at full width through
@@ -3709,9 +3868,79 @@ def phase_serve_occ_v2(dev):
     return {**phase_serve(dev, yaml_config(OCC_V2_YAML), GATHER_FRAME), "small_reference": small}
 
 
+def phases(dev) -> list:
+    """Every phase after card and build, in order: (name, function, args)."""
+    def full(name, fn, *a):  # a phase after which the allocator's cache is emptied
+        return (name, fn, a, True)
+
+    def step(name, fn, *a):
+        return (name, fn, a, False)
+
+    out = [
+        step("kernel_vs_plain", phase_kernel_vs_plain, dev),
+        step("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev),
+        step("taps", phase_taps, dev),
+        full("kernel_vs_plain_reduce", phase_kernel_vs_plain_reduce, dev),
+        step("kernel_vs_plain_nms", phase_kernel_vs_plain_nms, dev),
+        step("small_reference", phase_small_reference, dev),
+        step("small_reference_train", phase_small_reference_train, dev),
+        full("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME),
+        full("train", phase_train, dev, vod_pallas_config(), GATHER_STEP),
+        step("kernel_vs_plain_polar", phase_kernel_vs_plain_polar, dev),
+        step("small_reference_polar", phase_small_reference_polar, dev),
+        full("polar_vs_gather", phase_polar_vs_gather, dev),
+        full("serve_polar", phase_serve, dev, vod_polar_config(), POLAR_FRAME),
+        full("train_polar", phase_train, dev, vod_polar_config(), POLAR_STEP),
+        step("small_reference_eval", phase_small_reference_eval, dev),
+        full("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME,
+             vod_pallas_config()),
+        full("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", POLAR_FRAME,
+             vod_polar_config()),
+        step("small_reference_xla", phase_small_reference_xla, dev),
+        full("train_cli", phase_train_cli, dev),
+        full("kernel_vs_plain_scatter", phase_kernel_vs_plain_scatter, dev),
+        full("bench_scatter", phase_bench_scatter, dev),
+        step("small_reference_tj4d", phase_small_reference_tj4d, dev),
+    ]
+    for view, path, per_frame in (("pallas", "serve_tj4d", GATHER_FRAME),
+                                  ("polar", "serve_tj4d_polar", POLAR_FRAME)):
+        out.append(full(path, phase_serve_tj4d, dev, view, per_frame))
+    out += [
+        full("train_cli_tj4d", phase_train_cli_tj4d, dev),
+        full("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME),
+        full("export_serve", phase_export_serve, dev, vod_pallas_config(), GATHER_FRAME),
+        full("export_serve_polar", phase_export_serve, dev, vod_polar_config(), POLAR_FRAME),
+        step("bench", phase_bench, dev),
+        step("small_reference_rhgm", phase_small_reference_rhgm, dev),
+        full("rhgm", phase_rhgm, dev),
+        full("ddp", phase_ddp, dev),
+        full("eval_multiproc", phase_eval_multiproc, dev),
+        full("tta", phase_tta, dev),
+        full("study_small", phase_study_small, dev),
+        full("depth_kernels", phase_depth_kernels, dev),
+        full("serve_depth", phase_serve_depth, dev),
+        full("train_depth", phase_train_depth, dev),
+        full("train_cli_depth", phase_train_cli_depth, dev),
+        full("export_serve_depth", phase_export_serve, dev, depth_config(), DEPTH_FRAME),
+        full("kernel_vs_plain_q8", phase_kernel_vs_plain_q8, dev),
+        full("kernel_vs_plain_w8a8", phase_kernel_vs_plain_w8a8, dev),
+        full("serve_q8", lambda: phase_serve(dev, yaml_config(Q8_YAML), Q8_FRAME)),
+        full("train_q8", lambda: phase_train(dev, yaml_config(Q8_YAML), Q8_STEP)),
+        full("eval_q8", phase_eval, dev, Q8_YAML, Q8_FRAME, None, Q8_EVAL_FRAMES),
+        full("export_serve_q8", lambda: phase_export_serve(dev, yaml_config(Q8_YAML), Q8_FRAME)),
+        full("serve_w8a8", phase_serve_w8a8, dev, "gather"),
+        full("serve_w8a8_polar", phase_serve_w8a8, dev, "polar"),
+        full("serve_occ_v2", phase_serve_occ_v2, dev),
+        step("train_occ_v2", lambda: phase_train(dev, yaml_config(OCC_V2_YAML), GATHER_STEP)),
+    ]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
+    ap.add_argument("--phases", help="run card, build and only these phases (comma-separated "
+                    "names, as printed in brackets); every phase by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3719,6 +3948,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity phases: full f32
     torch.backends.cudnn.allow_tf32 = False
+    plan = phases(dev)
+    if args.phases:
+        wanted = [p for p in args.phases.split(",") if p]
+        unknown = sorted(set(wanted) - {name for name, *_ in plan})
+        if unknown:
+            print(f"chip_smoke: unknown phases {unknown}; known: "
+                  f"{[name for name, *_ in plan]}", file=sys.stderr)
+            return 2
+        plan = [p for p in plan if p[0] in wanted]
     failed, report = [], {}
 
     def phase(name, fn, *a):
@@ -3737,95 +3975,10 @@ def main(argv=None) -> int:
     phase("build", native.build, KERNEL_SOURCES)
     for name, r in (report.get("build") or {}).items():
         print(f"  {name}: {r['seconds']:.1f} s\n" + r["ptxas"].strip())
-    phase("kernel_vs_plain", phase_kernel_vs_plain, dev)
-    phase("kernel_vs_plain_bwd", phase_kernel_vs_plain_bwd, dev)
-    phase("taps", phase_taps, dev)
-    phase("kernel_vs_plain_reduce", phase_kernel_vs_plain_reduce, dev)
-    torch.cuda.empty_cache()
-    phase("kernel_vs_plain_nms", phase_kernel_vs_plain_nms, dev)
-    phase("small_reference", phase_small_reference, dev)
-    phase("small_reference_train", phase_small_reference_train, dev)
-    phase("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME)
-    torch.cuda.empty_cache()
-    phase("train", phase_train, dev, vod_pallas_config(), GATHER_STEP)
-    torch.cuda.empty_cache()
-    phase("kernel_vs_plain_polar", phase_kernel_vs_plain_polar, dev)
-    phase("small_reference_polar", phase_small_reference_polar, dev)
-    phase("polar_vs_gather", phase_polar_vs_gather, dev)
-    torch.cuda.empty_cache()
-    phase("serve_polar", phase_serve, dev, vod_polar_config(), POLAR_FRAME)
-    torch.cuda.empty_cache()
-    phase("train_polar", phase_train, dev, vod_polar_config(), POLAR_STEP)
-    torch.cuda.empty_cache()
-    phase("small_reference_eval", phase_small_reference_eval, dev)
-    phase("eval", phase_eval, dev, "configs/hgsfusion_vod_pallas.yaml", GATHER_FRAME,
-          vod_pallas_config())
-    torch.cuda.empty_cache()
-    phase("eval_polar", phase_eval, dev, "configs/hgsfusion_vod_polar.yaml", POLAR_FRAME,
-          vod_polar_config())
-    torch.cuda.empty_cache()
-    phase("small_reference_xla", phase_small_reference_xla, dev)
-    phase("train_cli", phase_train_cli, dev)
-    torch.cuda.empty_cache()
-    phase("kernel_vs_plain_scatter", phase_kernel_vs_plain_scatter, dev)
-    torch.cuda.empty_cache()
-    phase("bench_scatter", phase_bench_scatter, dev)
-    torch.cuda.empty_cache()
-    phase("small_reference_tj4d", phase_small_reference_tj4d, dev)
-    for view, path, per_frame in (("pallas", "serve_tj4d", GATHER_FRAME),
-                                  ("polar", "serve_tj4d_polar", POLAR_FRAME)):
-        cfg = tj4d_config(view)
-        phase(path, phase_serve, dev, cfg, per_frame, tj4d_serve_batch(cfg))
-        torch.cuda.empty_cache()
-    phase("train_cli_tj4d", phase_train_cli_tj4d, dev)
-    torch.cuda.empty_cache()
-    phase("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME)
-    torch.cuda.empty_cache()
-    phase("export_serve", phase_export_serve, dev, vod_pallas_config(), GATHER_FRAME)
-    torch.cuda.empty_cache()
-    phase("export_serve_polar", phase_export_serve, dev, vod_polar_config(), POLAR_FRAME)
-    torch.cuda.empty_cache()
-    phase("bench", phase_bench, dev)
-    phase("small_reference_rhgm", phase_small_reference_rhgm, dev)
-    phase("rhgm", phase_rhgm, dev)
-    torch.cuda.empty_cache()
-    phase("ddp", phase_ddp, dev)
-    torch.cuda.empty_cache()
-    phase("eval_multiproc", phase_eval_multiproc, dev)
-    torch.cuda.empty_cache()
-    phase("tta", phase_tta, dev)
-    torch.cuda.empty_cache()
-    phase("study_small", phase_study_small, dev)
-    torch.cuda.empty_cache()
-    phase("depth_kernels", phase_depth_kernels, dev)
-    torch.cuda.empty_cache()
-    phase("serve_depth", phase_serve_depth, dev)
-    torch.cuda.empty_cache()
-    phase("train_depth", phase_train_depth, dev)
-    torch.cuda.empty_cache()
-    phase("train_cli_depth", phase_train_cli_depth, dev)
-    torch.cuda.empty_cache()
-    phase("export_serve_depth", phase_export_serve, dev, depth_config(), DEPTH_FRAME)
-    torch.cuda.empty_cache()
-    phase("kernel_vs_plain_q8", phase_kernel_vs_plain_q8, dev)
-    torch.cuda.empty_cache()
-    phase("kernel_vs_plain_w8a8", phase_kernel_vs_plain_w8a8, dev)
-    torch.cuda.empty_cache()
-    phase("serve_q8", lambda: phase_serve(dev, yaml_config(Q8_YAML), Q8_FRAME))
-    torch.cuda.empty_cache()
-    phase("train_q8", lambda: phase_train(dev, yaml_config(Q8_YAML), Q8_STEP))
-    torch.cuda.empty_cache()
-    phase("eval_q8", phase_eval, dev, Q8_YAML, Q8_FRAME, None, Q8_EVAL_FRAMES)
-    torch.cuda.empty_cache()
-    phase("export_serve_q8", lambda: phase_export_serve(dev, yaml_config(Q8_YAML), Q8_FRAME))
-    torch.cuda.empty_cache()
-    phase("serve_w8a8", phase_serve_w8a8, dev, "gather")
-    torch.cuda.empty_cache()
-    phase("serve_w8a8_polar", phase_serve_w8a8, dev, "polar")
-    torch.cuda.empty_cache()
-    phase("serve_occ_v2", phase_serve_occ_v2, dev)
-    torch.cuda.empty_cache()
-    phase("train_occ_v2", lambda: phase_train(dev, yaml_config(OCC_V2_YAML), GATHER_STEP))
+    for name, fn, a, empty_cache in plan:
+        phase(name, fn, *a)
+        if empty_cache:
+            torch.cuda.empty_cache()
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3833,6 +3986,11 @@ def main(argv=None) -> int:
     def summed(rows, key):
         vals = [r[key] for r in rows if "ms" in r]
         return None if None in vals else sum(vals)
+
+    def by_path(name):
+        # the launches on each main path this run drove
+        return {path: report[path]["launches"].get(name, 0) for path in MAIN_PATHS
+                if path in report}
 
     def kernel_row(name, source, replaces, rows, polar_rows=None):
         # per frame or step: the bf16 calls of the gather path (A, B) summed,
@@ -3842,10 +4000,10 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in polar_rows),
             **{k: summed(polar_rows, k) for k in ("ms", "route_ms", "plain_ms", "bound_ms",
                                                   "library_ms") if k in polar_rows[0]}}}
-        by_path = {path: report[path]["launches"].get(name, 0) for path in MAIN_PATHS}
+        paths = by_path(name)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": summed(rows, "ms"), "plain_ms": summed(rows, "plain_ms"),
             "bound_ms": summed(rows, "bound_ms"),
@@ -3858,68 +4016,92 @@ def main(argv=None) -> int:
             **polar_block,
         }
 
-    polar = report["kernel_vs_plain_polar"]
-    kernels = [
-        kernel_row(library.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
-                   "hgsfusion_tpu/ops/pallas_sample.py:108",
-                   [r for r in report["kernel_vs_plain"]
-                    if r["case"] in FLAGSHIP_SHAPES and r["dtype"] == "bfloat16"],
-                   [r for r in polar["fwd"] if r["dtype"] == "bfloat16"]),
-        kernel_row(library.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
-                   "hgsfusion_tpu/ops/pallas_sample.py:226",
-                   [r for r in report["kernel_vs_plain_bwd"] if "ms" in r], polar["bwd"]),
-        kernel_row(library.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
-                   "_bench_gather_pallas.py:162",
-                   [r for r in report["kernel_vs_plain_reduce"]["rows"] if "ms" in r]),
-        kernel_row(row_scatter.KERNEL, "hgsfusion_tpu_torch/csrc/row_scatter_add.cu",
-                   "_bench_scatter_pallas.py:69",
-                   [r for r in report["kernel_vs_plain_scatter"] if "ms" in r]),
-    ]
-    kernels[-1]["cases"] = {r["case"]: {k: r[k] for k in (
-        "ms", "binning_ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")}
-        for r in report["kernel_vs_plain_scatter"] if "ms" in r}
+    # a row for each kernel whose phase ran (all of them without --phases)
+    kernels = []
+    if "kernel_vs_plain" in report and "kernel_vs_plain_polar" in report:
+        kernels.append(kernel_row(
+            library.KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
+            "hgsfusion_tpu/ops/pallas_sample.py:108",
+            [r for r in report["kernel_vs_plain"]
+             if r["case"] in FLAGSHIP_SHAPES and r["dtype"] == "bfloat16"],
+            [r for r in report["kernel_vs_plain_polar"]["fwd"] if r["dtype"] == "bfloat16"]))
+    if "kernel_vs_plain_bwd" in report and "kernel_vs_plain_polar" in report:
+        kernels.append(kernel_row(
+            library.BWD_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
+            "hgsfusion_tpu/ops/pallas_sample.py:226",
+            [r for r in report["kernel_vs_plain_bwd"] if "ms" in r],
+            report["kernel_vs_plain_polar"]["bwd"]))
+    if "kernel_vs_plain_reduce" in report:
+        kernels.append(kernel_row(
+            library.REDUCE_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
+            "_bench_gather_pallas.py:162",
+            [r for r in report["kernel_vs_plain_reduce"]["rows"] if "ms" in r]))
+    if "kernel_vs_plain_scatter" in report:
+        rows = [r for r in report["kernel_vs_plain_scatter"] if "ms" in r]
+        kernels.append(kernel_row(row_scatter.KERNEL,
+                                  "hgsfusion_tpu_torch/csrc/row_scatter_add.cu",
+                                  "_bench_scatter_pallas.py:69", rows))
+        kernels[-1]["cases"] = {r["case"]: {k: r[k] for k in (
+            "ms", "binning_ms", "kernel_only_ms", "plain_ms", "library_ms", "bound_ms")}
+            for r in rows}
     # the depth-weighted sampler: no TPU kernel (XLA), held like the others
-    depth = report["depth_kernels"]
-    for name, rows in ((library.DEPTH_KERNEL, depth["fwd"]),
-                       (library.DEPTH_BWD_KERNEL, depth["bwd"])):
-        kernels.append(kernel_row(name, "hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
-                                  "none: XLA _sample_with_depth, "
-                                  "hgsfusion_tpu/models/frustum.py:221", rows))
+    if "depth_kernels" in report:
+        depth = report["depth_kernels"]
+        for name, rows in ((library.DEPTH_KERNEL, depth["fwd"]),
+                           (library.DEPTH_BWD_KERNEL, depth["bwd"])):
+            kernels.append(kernel_row(name, "hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
+                                      "none: XLA _sample_with_depth, "
+                                      "hgsfusion_tpu/models/frustum.py:221", rows))
     # F2V QUANT int8's two kernels and DDN QUANT w8a8's convolution: no TPU
     # kernel (XLA), held like the others
-    q8 = report["kernel_vs_plain_q8"]
-    kernels.append(kernel_row(library.Q8_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
-                              "none: XLA _q8_sample_impl, hgsfusion_tpu/ops/grid_sample.py:210",
-                              [r for r in q8["fwd"] if "ms" in r]))
-    kernels.append(kernel_row(library.REDUCE_Q8_KERNEL,
-                              "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
-                              "none: XLA, hgsfusion_tpu/models/frustum.py:364",
-                              [r for r in q8["reduce"] if "ms" in r]))
-    w8 = report["kernel_vs_plain_w8a8"]
-    by_path = {path: report[path]["launches"].get(library.CONV_W8A8, 0) for path in MAIN_PATHS}
-    kernels.append({
-        "name": library.CONV_W8A8, "route": "cuda",
-        "source": "hgsfusion_tpu_torch/csrc/conv_int8.cu",
-        "replaces": "none: XLA lax.conv_general_dilated on int8, "
-                    "hgsfusion_tpu/models/resnet.py:75",
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in w8["rows"]),
-        **{k: w8["backbone"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "int_mm_ms")},
-        "library": "cuDNN F.conv2d in bf16 over the backbone's 104 convolutions",
-        "shapes": [{k: r.get(k) for k in ("shape", "count", "ms", "bound_ms", "bound_by",
-                                          "library_ms", "int_mm_ms")} for r in w8["rows"]],
-    })
+    if "kernel_vs_plain_q8" in report:
+        q8 = report["kernel_vs_plain_q8"]
+        kernels.append(kernel_row(library.Q8_KERNEL, "hgsfusion_tpu_torch/csrc/quad_sample.cu",
+                                  "none: XLA _q8_sample_impl, "
+                                  "hgsfusion_tpu/ops/grid_sample.py:210",
+                                  [r for r in q8["fwd"] if "ms" in r]))
+        kernels.append(kernel_row(library.REDUCE_Q8_KERNEL,
+                                  "hgsfusion_tpu_torch/csrc/quad_sample_reduce.cu",
+                                  "none: XLA, hgsfusion_tpu/models/frustum.py:364",
+                                  [r for r in q8["reduce"] if "ms" in r]))
+    if "kernel_vs_plain_w8a8" in report:
+        w8 = report["kernel_vs_plain_w8a8"]
+        paths = by_path(library.CONV_W8A8)
+        kernels.append({
+            "name": library.CONV_W8A8, "route": "cuda",
+            "source": "hgsfusion_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "none: XLA lax.conv_general_dilated on int8, "
+                        "hgsfusion_tpu/models/resnet.py:75",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in w8["rows"]),
+            **{k: w8["backbone"][k] for k in W8A8_SUMS + ("bound_by",)},
+            "library": "cuDNN F.conv2d in bf16 over the backbone's 104 convolutions",
+            "shapes": [{k: r.get(k) for k in ("shape", "count", "tile_n")
+                        + W8A8_SUMS + ("bound_by",)} for r in w8["rows"]],
+        })
+        paths = by_path(library.QUANTIZE_INT8)
+        total = w8["backbone"]
+        kernels.append({
+            "name": library.QUANTIZE_INT8, "route": "cuda",
+            "source": "hgsfusion_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "none: XLA, the quantization of hgsfusion_tpu/models/resnet.py:80-81",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": total["quantize_max_abs_err"], "ms": total["quantize_ms"],
+            "plain_ms": total["quantize_plain_ms"],
+            "bound_ms": total["quantize_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+        })
     # NMS: the worst case (4,096 valid, 500 kept) as the row, every case in it
-    nms_rows = report["kernel_vs_plain_nms"]
-    kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",
-                              "none: hgsfusion_tpu/ops/nms.py:24 (XLA lax.while_loop)",
-                              nms_rows[:1]))
-    kernels[-1]["max_abs_err"] = max(r["max_abs_err"] for r in nms_rows)
-    kernels[-1]["tie_decisions"] = sum(r["tie_decisions"] for r in nms_rows)
-    kernels[-1]["cases"] = {r["case"]: {k: r.get(k) for k in (
-        "kept", "ms", "plain_ms", "route_ms", "plain_route_ms", "bound_ms")}
-        for r in nms_rows}
+    if "kernel_vs_plain_nms" in report:
+        nms_rows = report["kernel_vs_plain_nms"]
+        kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",
+                                  "none: hgsfusion_tpu/ops/nms.py:24 (XLA lax.while_loop)",
+                                  nms_rows[:1]))
+        kernels[-1]["max_abs_err"] = max(r["max_abs_err"] for r in nms_rows)
+        kernels[-1]["tie_decisions"] = sum(r["tie_decisions"] for r in nms_rows)
+        kernels[-1]["cases"] = {r["case"]: {k: r.get(k) for k in (
+            "kept", "ms", "plain_ms", "route_ms", "plain_route_ms", "bound_ms")}
+            for r in nms_rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

@@ -7,34 +7,55 @@ round(v / scale), -127, 127)`` in f32 with ties to even; the convolution is
 int8 x int8 into int32, exact; the result ``f32(out) * (ax * wk)`` rounded
 once to the compute dtype. So the port's output is JAX's bit for bit.
 
-The quantization passes are plain PyTorch (elementwise work and a
-reduction, which JAX leaves to XLA) and read nothing back to the host; the
-convolution is the op ``hgsfusion::conv2d_w8a8``, which launches the kernel
-on CUDA tensors and takes ``conv2d_w8a8_plain`` (``F.conv2d`` in float64 on
-the integer values: exact, |sum| <= 127^2 K < 2^53) on CPU tensors. The
-quantized weights are kept on the ``nn.Conv2d`` and used again while its
-``weight`` is the same tensor at the same version, so a ``load_state_dict``
-or any in-place update quantizes afresh; under ``torch.export`` they are
-computed in the graph.
+The activation's scale is one reduction in PyTorch (``activation_scale``:
+the largest |x|, then the floor and the division on one value), which
+reads nothing back to the host. The op ``hgsfusion::conv2d_w8a8`` takes x
+in the compute dtype with that scale: on CUDA tensors its kernels quantize
+x themselves, in a first pass over x (or into int8 im2col rows); on CPU
+tensors ``conv2d_w8a8_plain`` quantizes as ``quantize`` does and convolves
+the levels by ``F.conv2d`` in float64 (exact, |sum| <= 127^2 K < 2^53).
+The quantized weights are kept on the ``nn.Conv2d`` and used again while
+its ``weight`` is the same tensor at the same version, so a
+``load_state_dict`` or any in-place update quantizes afresh; under
+``torch.export`` they are computed in the graph.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.common import device_constant
 from .grid_sample import div_exact
 from .library import conv2d_w8a8_op
 
 QMAX = 127
 
 
-def quantize_activation(x):
-    """(q int8, ax (1,) f32) of a float tensor: ax = max(max|x|, 1e-8) / 127
-    over the whole tensor (the maximum in x's dtype, as JAX's), q =
-    clip(round(x / ax), -127, 127) in f32."""
-    ax = div_exact(torch.clamp(x.abs().amax().to(torch.float32), min=1e-8), float(QMAX))
-    q = torch.clamp(torch.round(x.to(torch.float32) / ax), -QMAX, QMAX).to(torch.int8)
-    return q, ax.reshape(1)
+def activation_scale(x):
+    """ax (1,) f32 of a float tensor: max(max|x|, 1e-8) / 127 over the whole
+    tensor in one reduction. The largest |x| is one of x's values, so taking
+    it over x's values cast to f32 gives JAX's maximum in x's dtype, cast."""
+    amax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
+    qmax = device_constant(float(QMAX), torch.float32, x.device)
+    return torch.clamp(amax, min=1e-8).div_(qmax).reshape(1)
+
+
+def quantize(x, ax):
+    """int8 clip(round(x / ax), -127, 127), the quotient in f32, ties to
+    even."""
+    return torch.clamp(torch.round(x.to(torch.float32) / ax), -QMAX, QMAX).to(torch.int8)
+
+
+def im2col_plain(q, kernel_size, stride, padding, dilation, kp):
+    """Plain version of ``library.im2col_int8`` on the levels ``q`` (B, H,
+    W, C) int8: (B Ho Wo, kp) int8, row m output pixel m's taps' levels in
+    (ky, kx, c) order, zeros outside the map and past kh kw C."""
+    b, _, _, c = q.shape
+    taps = kernel_size[0] * kernel_size[1]
+    cols = F.unfold(q.permute(0, 3, 1, 2).to(torch.float32), tuple(kernel_size),
+                    tuple(dilation), tuple(padding), tuple(stride))
+    rows = cols.view(b, c, taps, -1).permute(0, 3, 2, 1).reshape(-1, taps * c)
+    return F.pad(rows, (0, kp - taps * c)).to(torch.int8)
 
 
 def quantize_weight(weight):
@@ -57,13 +78,15 @@ def pack_weight(q):
 
 def conv2d_w8a8_plain(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
     """Plain version of ``library.conv2d_w8a8``, same arguments and
-    result: the convolution of the integer values in float64 (exact), the
-    sum to f32, times ``ax * wk`` in f32, rounded once to ``dtype``."""
+    result: x quantized by ``quantize`` with ``ax``, convolved by the
+    packed weights ``wt`` on the integer values in float64 (exact), the sum
+    to f32, times ``ax * wk`` in f32, rounded once to ``dtype``."""
+    q = quantize(x, ax)
     kh, kw = kernel_size
     o = wt.shape[0]
-    c = x.shape[-1]
+    c = q.shape[-1]
     w = wt[:, :kh * kw * c].reshape(o, kh, kw, c).permute(0, 3, 1, 2)
-    acc = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64), w.to(torch.float64), None,
+    acc = F.conv2d(q.permute(0, 3, 1, 2).to(torch.float64), w.to(torch.float64), None,
                    tuple(stride), tuple(padding), tuple(dilation))
     out = acc.to(torch.float32) * (ax * wk)[None, :, None, None]
     return out.to(dtype).permute(0, 2, 3, 1).contiguous()
@@ -92,7 +115,7 @@ def qconv2d(x, conv, dtype):
     NHWC in ``dtype``."""
     if conv.bias is not None:
         raise ValueError("QConv8 has no bias")
-    qx, ax = quantize_activation(x)
+    x = x.contiguous()
     wt, wk = _weights(conv)
-    return conv2d_w8a8_op(qx.contiguous(), wt, ax, wk, list(conv.kernel_size),
+    return conv2d_w8a8_op(x, wt, activation_scale(x), wk, list(conv.kernel_size),
                           list(conv.stride), list(conv.padding), list(conv.dilation), dtype)

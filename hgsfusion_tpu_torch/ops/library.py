@@ -21,7 +21,8 @@ shape and dtype, all ``torch.export`` needs to trace it):
   (``csrc/quad_sample_reduce.cu``);
 - ``hgsfusion::conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding,
   dilation, dtype) -> out``: the int8 implicit-GEMM convolution of DDN
-  QUANT w8a8 (``csrc/conv_int8.cu``).
+  QUANT w8a8 on x in the compute dtype, which its kernels quantize with
+  the scale ax (``csrc/conv_int8.cu``).
 
 So a frame served through these ops traces into one graph, with NMS inside
 it and nothing read back to the host, which ``torch.export`` writes out
@@ -35,8 +36,11 @@ one.
 
 This module also holds the launch wrappers the ops do not wrap: the
 training routes' backward kernels (``quad_sample_bwd``,
-``quad_sample_depth_bwd``) and the fused kernel's tap computation alone
-(``quad_sample_taps``, a check). Every wrapper counts its launches in
+``quad_sample_depth_bwd``), the fused kernel's tap computation alone
+(``quad_sample_taps``, a check) and the int8 convolution's first pass
+alone (``quantize_int8``, ``im2col_int8``: checks, counted as the
+``quantize_int8`` launches ``conv2d_w8a8`` makes). Every wrapper counts its
+launches in
 ``launches``, which also counts the bins built on the card for the backward
 kernels (``quad_sample.quad_bins``, ``depth_sample.depth_bins``); callers
 may reset them to 0.
@@ -62,12 +66,14 @@ DEPTH_BWD_KERNEL = "quad_sample_depth_bwd"
 Q8_KERNEL = "quad_sample_q8_fwd"
 REDUCE_Q8_KERNEL = "quad_sample_reduce_q8_fwd"
 CONV_W8A8 = "conv2d_w8a8"
+QUANTIZE_INT8 = "quantize_int8"
+IM2COL_INT8 = "im2col_int8"  # a launch of QUANTIZE_INT8's first pass, counted as one
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernels (PyTorch calls, no kernel of this package)
 launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0,
             DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0, Q8_KERNEL: 0, REDUCE_Q8_KERNEL: 0,
-            CONV_W8A8: 0}
-# depth bins the depth backward's phase 2 keeps in registers
+            CONV_W8A8: 0, QUANTIZE_INT8: 0}
+# depth bins the depth backward's phase 2 keeps in a shared-memory row
 MAX_DEPTH_BINS = 128
 # gather groups one launch of the fused kernel takes
 MAX_REDUCE_GROUPS = 4
@@ -94,8 +100,13 @@ _ENTRIES = {
                        [_P, _I64, _I64, _I64, _PP, _PI, _PI, _PI, _PI, _I, _P, _P, _P, _I, _I,
                         _P]),
     # x, wt, ax, wk, out, b, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, ho,
-    # wo, kp, dtype, stream
-    CONV_W8A8: ("conv_int8", [_P] * 5 + [_I] * 17 + [_P]),
+    # wo, kp, dtype (x's), out_f32, tile width, xq, stream
+    CONV_W8A8: ("conv_int8", [_P] * 5 + [_I] * 19 + [_P, _P]),
+    # x, ax, q, n, dtype, stream
+    QUANTIZE_INT8: ("conv_int8", [_P, _P, _P, _I64, _I, _P]),
+    # x, ax, q, b, h, w, c, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo, kp, dtype,
+    # stream
+    IM2COL_INT8: ("conv_int8", [_P] * 3 + [_I] * 16 + [_P]),
     # uv, uv_stride, n, per_frame, h, w, idx, w4, dtype, stream
     TAPS: ("quad_sample_reduce", [_P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P]),
     # ct, order, start, w4, out, b, h, w, c, dtype, stream
@@ -106,11 +117,11 @@ _ENTRIES = {
     # w4_out, dtype, stream
     DEPTH_KERNEL: ("quad_sample_depth",
                    [_P, _I64, _I64, _I64, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]),
-    # grid, grid_stride, n, per_frame, map, ct, order, start, rec, b, h, w, c, d,
-    # out, dtype, stream
+    # grid, grid_stride, n, per_frame, map, ct, order, start, rec, work,
+    # work_len, rows, rows_len, b, h, w, c, d, out, dtype, stream
     DEPTH_BWD_KERNEL: ("quad_sample_depth",
-                       [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-                        _P]),
+                       [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I, _I, _I,
+                        _I, _I, _P, _I, _P]),
 }
 
 
@@ -123,6 +134,22 @@ def entry(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _depth_work_entry():
+    fn = native.load("quad_sample_depth").quad_sample_depth_bwd_work
+    fn.argtypes = [_I64, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def depth_bwd_scratch(n: int, b: int, h: int, w: int) -> tuple[int, int]:
+    """(int32 entries, f32 chunk rows) of the depth backward's phase-2 work
+    list for n queries over a (b, h, w) map, as its source sizes them."""
+    chunks = ctypes.c_int64()
+    entries = _depth_work_entry()(n, b, h, w, ctypes.byref(chunks))
+    return entries, chunks.value
 
 
 def stream_of(t) -> int:
@@ -289,43 +316,112 @@ def quad_sample_reduce_q8_fwd(uv, groups, kmat, bias):
     return _launch_reduce(REDUCE_Q8_KERNEL, uv, groups, kmat, bias)
 
 
+def tile_width(o: int) -> int:
+    """The output channels of ``conv2d_w8a8``'s tile for O outputs: the
+    narrowest of 64, 128 and 256 that holds O, else 256."""
+    return 64 if o <= 64 else 128 if o <= 128 else 256
+
+
 def conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
-    """Launch the int8 convolution: ``x`` (B, H, W, C) int8 contiguous,
-    ``wt`` (O, Kp) int8 contiguous (``conv_int8.pack_weight``: row o the
-    kernel's values in (ky, kx, c) order, zeros up to Kp, a multiple of 32),
-    ``ax`` (1,) f32 the activation's scale, ``wk`` (O,) f32 the weights',
-    all on one card; ``kernel_size``, ``stride``, ``padding``, ``dilation``
-    pairs -> (B, Ho, Wo, O) in ``dtype``: the int32 sum of products
-    converted to f32, times ``ax * wk``, rounded once. Same function as
-    ``conv_int8.conv2d_w8a8_plain``, bit for bit."""
+    """Launch the int8 convolution that quantizes its own input: ``x`` (B,
+    H, W, C) contiguous in f32, bf16 or f16, ``wt`` (O, Kp) int8 contiguous
+    (``conv_int8.pack_weight``: row o the kernel's values in (ky, kx, c)
+    order, zeros up to Kp, a multiple of 32), ``ax`` (1,) f32 the
+    activation's scale, ``wk`` (O,) f32 the weights', all on one card;
+    ``kernel_size``, ``stride``, ``padding``, ``dilation`` pairs -> (B, Ho,
+    Wo, O) in ``dtype``: x quantized as clip(round(x / ax), -127, 127), the
+    int32 sum of products converted to f32, times ``ax * wk``, rounded once
+    (``dtype`` neither x's nor f32: kept in f32 by the kernel, then cast,
+    which is the same rounding). A first launch quantizes x once (channels
+    not a multiple of 16: into im2col rows) and counts as a launch of
+    ``quantize_int8``; the tile is ``tile_width(O)`` outputs wide. Same
+    function as ``conv_int8.conv2d_w8a8_plain``, bit for bit."""
     name = CONV_W8A8
-    b, h, w, c, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation)
+    b, h, w, c, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation,
+                                       dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
-    if dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: unsupported dtype {dtype}")
     for arg, t in (("x", x), ("wt", wt), ("ax", ax), ("wk", wk)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous on {x.device}")
     if wt.data_ptr() % 16:
         raise ValueError(f"{name}: wt must be 16-byte aligned")
-    out = torch.empty((b, ho, wo, o), dtype=dtype, device=x.device)
+    kp = wt.shape[1]
+    # x's levels, or the im2col rows of them
+    xq = torch.empty(x.numel() if c % 16 == 0 else b * ho * wo * kp, dtype=torch.int8,
+                     device=x.device)
+    out_f32 = dtype != x.dtype
+    out = torch.empty((b, ho, wo, o), dtype=torch.float32 if out_f32 else dtype, device=x.device)
     (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
     err = entry(name)(x.data_ptr(), wt.data_ptr(), ax.data_ptr(), wk.data_ptr(),
                       out.data_ptr(), b, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo,
-                      wt.shape[1], DTYPE_CODES[dtype], stream_of(x))
+                      kp, DTYPE_CODES[x.dtype], int(out_f32), tile_width(o), xq.data_ptr(),
+                      stream_of(x))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[QUANTIZE_INT8] += 1
+    launches[name] += 1
+    return out.to(dtype)
+
+
+def _check_first_pass(name, x, ax):
+    if x.device.type != "cuda" or x.dtype not in DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous float tensor on the card, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if ax.dtype != torch.float32 or ax.shape != (1,) or ax.device != x.device:
+        raise ValueError(f"{name}: ax must be a (1,) float32 tensor on {x.device}")
+
+
+def quantize_int8(x, ax):
+    """Launch the first pass ``conv2d_w8a8`` runs on channels a multiple of
+    16: ``x`` contiguous on the card in f32, bf16 or f16, ``ax`` (1,) f32
+    -> int8 clip(round(x / ax), -127, 127) of x's shape. Same function as
+    ``conv_int8.quantize``, bit for bit."""
+    name = QUANTIZE_INT8
+    _check_first_pass(name, x, ax)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    err = entry(name)(x.data_ptr(), ax.data_ptr(), q.data_ptr(), x.numel(),
+                      DTYPE_CODES[x.dtype], stream_of(x))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
-    return out
+    return q
 
 
-def check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation):
+def im2col_int8(x, ax, kernel_size, stride, padding, dilation, kp: int):
+    """Launch the first pass ``conv2d_w8a8`` runs on channels that are not a
+    multiple of 16 (the stem's 3): ``x`` (B, H, W, C) as ``quantize_int8``'s,
+    the convolution's pairs and ``kp`` (a multiple of 32, at least kh kw C)
+    -> (B Ho Wo, kp) int8, row m output pixel m's taps' levels in (ky, kx,
+    c) order, zeros outside the map and past kh kw C. Counted as a launch of
+    ``quantize_int8``. Same function as ``conv_int8.im2col_plain`` of
+    ``conv_int8.quantize``, bit for bit."""
+    name = IM2COL_INT8
+    _check_first_pass(name, x, ax)
+    if x.dim() != 4 or kp % 32 or not all(len(p) == 2 for p in (kernel_size, stride, padding,
+                                                                 dilation)):
+        raise ValueError(f"{name}: x must be (B, H, W, C), kp a multiple of 32 and the "
+                         f"convolution's arguments pairs")
+    b, h, w, c = x.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    q = torch.empty((b * ho * wo, kp), dtype=torch.int8, device=x.device)
+    err = entry(name)(x.data_ptr(), ax.data_ptr(), q.data_ptr(), b, h, w, c, kh, kw, sh, sw,
+                      ph, pw, dh, dw, ho, wo, kp, DTYPE_CODES[x.dtype], stream_of(x))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[QUANTIZE_INT8] += 1
+    return q
+
+
+def check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
     """The int8 convolution's argument contract (every device); returns (b,
     h, w, c, o, ho, wo)."""
     name = CONV_W8A8
-    if x.dtype != torch.int8 or wt.dtype != torch.int8:
-        raise TypeError(f"{name}: x and wt must be int8, got {x.dtype} and {wt.dtype}")
+    if x.dtype not in DTYPE_CODES or dtype not in DTYPE_CODES or wt.dtype != torch.int8:
+        raise TypeError(f"{name}: x must be f32, bf16 or f16 and wt int8, the output f32, bf16 "
+                        f"or f16; got {x.dtype}, {wt.dtype} and {dtype}")
     if ax.dtype != torch.float32 or wk.dtype != torch.float32:
         raise TypeError(f"{name}: ax and wk must be float32, got {ax.dtype} and {wk.dtype}")
     if not all(len(p) == 2 for p in (kernel_size, stride, padding, dilation)):
@@ -554,12 +650,17 @@ def quad_sample_depth_bwd(grad_out, features, grid, depth_bins: int, bins):
         if t.device != features.device or not t.is_contiguous() or t.shape != (length,):
             raise ValueError(f"{name}: bins {arg} must be a contiguous ({length},) tensor on "
                              f"{features.device}, got {tuple(t.shape)}")
-    rec = torch.empty((n, 8), dtype=torch.float32, device=features.device)
-    out = torch.empty((b, h, w, depth_bins), dtype=torch.float32, device=features.device)
+    dev = features.device
+    rec = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    entries, chunks = depth_bwd_scratch(n, b, h, w)
+    work = torch.empty(entries, dtype=torch.int32, device=dev)
+    rows = torch.empty(chunks * depth_bins, dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, w, depth_bins), dtype=torch.float32, device=dev)
     err = entry(name)(
         grid.data_ptr(), stride, n, per_frame, features.data_ptr(), grad_out.data_ptr(),
-        order.data_ptr(), start.data_ptr(), rec.data_ptr(), b, h, w, c, depth_bins,
-        out.data_ptr(), DTYPE_CODES[features.dtype], stream_of(features))
+        order.data_ptr(), start.data_ptr(), rec.data_ptr(), work.data_ptr(), work.numel(),
+        rows.data_ptr(), rows.numel(), b, h, w, c, depth_bins, out.data_ptr(),
+        DTYPE_CODES[features.dtype], stream_of(features))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
@@ -613,12 +714,14 @@ def _conv_cuda(x: torch.Tensor, wt: torch.Tensor, ax: torch.Tensor, wk: torch.Te
 
 def _conv_cpu(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
     from . import conv_int8
+    check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype)
     return conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, kernel_size, stride, padding,
                                        dilation, dtype)
 
 
 def _conv_fake(x, wt, ax, wk, kernel_size, stride, padding, dilation, dtype):
-    b, _, _, _, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation)
+    b, _, _, _, o, ho, wo = check_conv(x, wt, ax, wk, kernel_size, stride, padding, dilation,
+                                       dtype)
     return x.new_empty((b, ho, wo, o), dtype=dtype)
 
 

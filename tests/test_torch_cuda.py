@@ -10,8 +10,9 @@ import torch
 import torch.nn.functional as F
 
 from chip_smoke import (TINY, check_nms_frame, clustered_boxes, compare_instances,
-                        degenerate_boxes, edge_coords, outside_coords, plain_nms_batch,
-                        run_rhgm_tool, sampling_route, tiny_batch, unaligned)
+                        degenerate_boxes, edge_coords, hot_pixel_grid, outside_coords,
+                        parent_activation_scale, plain_nms_batch, run_rhgm_tool, sampling_route,
+                        tiny_batch, unaligned, w8a8_input)
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, quad_sample, row_scatter
@@ -483,14 +484,14 @@ def test_view_transform_routes(cuda):
         library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
-        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0}
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
         library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
-        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0}
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
     sampled = sampled.detach()
     scale = float(sampled.abs().max())
@@ -774,6 +775,29 @@ def test_depth_backward_contention_is_exact(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depth_backward_heavy_pixel(cuda, dtype):
+    """Most of 6,000 queries on one pixel, random values: the pixels of its
+    taps carry more entry visits than one chunk of phase 2 holds, so their
+    chunks are summed by the last pass; against the plain version within
+    its order bound, and bit for bit from call to call."""
+    f, p, _ = _depth_inputs(6, (1, 9, 13, 64), 80, dtype, cuda)
+    g = torch.Generator().manual_seed(7)
+    n = 6000
+    grid = hot_pixel_grid(cuda, g, n)
+    _, key, _ = library.quad_sample_depth_fwd(f, p, grid, taps=True)
+    bins = depth_sample.depth_bins(key, (1, 11, 15, 64))
+    assert int((bins[1][1:] - bins[1][:-1]).max()) > 4 * 256
+    ct = torch.randn((n, 64), generator=g).to(dtype).to(cuda)
+    got = library.quad_sample_depth_bwd(ct, f, grid, 80, bins)
+    again = library.quad_sample_depth_bwd(ct, f, grid, 80, bins)
+    assert torch.equal(got, again)
+    want = depth_sample.quad_sample_depth_bwd_plain(ct.cpu(), f.cpu(), grid.cpu(), 80)
+    tol = _depth_bwd_tol(ct.cpu(), f.cpu(), grid.cpu(), 80, want)
+    assert bool(((got.cpu() - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_depth_route_gradients_match_cpu(cuda, dtype):
     """The autograd entry on the card (the forward with keys and weights,
     the bins, quad_sample_bwd for the map and quad_sample_depth_bwd for the
@@ -915,22 +939,44 @@ CONV_CASES = [((1, 21, 33, 3), 64, 7, 2, 3, 1), ((2, 9, 11, 64), 96, 1, 1, 0, 1)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,o,k,s,p,d", CONV_CASES)
 def test_conv_w8a8_kernel_is_exact(cuda, shape, o, k, s, p, d, dtype):
-    """``conv2d_w8a8`` equal to its float64 plain version (the int32 sum is
-    exact) at the backbone's kinds of convolution and ragged ones (odd
-    outputs, 20 channels: the byte path), one launch counted; and the op
+    """``conv2d_w8a8`` on a float input it quantizes itself, equal to its
+    plain version (the int32 sum is exact) at the backbone's kinds of
+    convolution and ragged ones (odd outputs, 3 and 20 channels: int8 im2col
+    rows), every tile width among the cases, with the input's own scale
+    (2^-4: exact midpoints, ties to even) and with a small random one
+    (clipped levels), the launches counted; its first pass alone
+    (``quantize_int8``, or ``im2col_int8`` for channels not a multiple of
+    16) equal to its plain version; ``activation_scale`` on the card bit
+    for bit the parent's formula (``abs``, ``amax``, the exact division) on
+    an input whose largest |x| is not special; and the op
     ``hgsfusion::conv2d_w8a8`` through ``qconv2d`` equal on the card and the
     CPU."""
     g = torch.Generator().manual_seed(12)
-    x = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    x = w8a8_input(shape, g, "cpu").to(dtype)
     qw = torch.randint(-127, 128, (o, shape[-1], k, k), generator=g, dtype=torch.int8)
     wt = conv_int8.pack_weight(qw)
-    ax, wk = torch.rand(1, generator=g), torch.rand(o, generator=g)
-    args = ((k, k), (s, s), (p, p), (d, d), dtype)
-    before = library.launches[library.CONV_W8A8]
-    got = library.conv2d_w8a8(x.to(cuda), wt.to(cuda), ax.to(cuda), wk.to(cuda), *args)
-    torch.cuda.synchronize()
-    assert library.launches[library.CONV_W8A8] == before + 1
-    assert torch.equal(got.cpu(), conv_int8.conv2d_w8a8_plain(x, wt, ax, wk, *args))
+    wk = torch.rand(o, generator=g)
+    conv_args = ((k, k), (s, s), (p, p), (d, d))
+    args = conv_args + (dtype,)
+    ax = conv_int8.activation_scale(x)
+    assert float(ax) == 2.0 ** -4
+    for scale in (ax, torch.rand(1, generator=g) * 0.02):
+        want = conv_int8.conv2d_w8a8_plain(x, wt, scale, wk, *args)
+        before = dict(library.launches)
+        got = library.conv2d_w8a8(x.to(cuda), wt.to(cuda), scale.to(cuda), wk.to(cuda), *args)
+        torch.cuda.synchronize()
+        assert library.launches[library.CONV_W8A8] == before[library.CONV_W8A8] + 1
+        assert library.launches[library.QUANTIZE_INT8] == before[library.QUANTIZE_INT8] + 1
+        assert torch.equal(got.cpu(), want), scale
+        if shape[-1] % 16 == 0:
+            q = library.quantize_int8(x.to(cuda), scale.to(cuda))
+            assert torch.equal(q.cpu(), conv_int8.quantize(x, scale))
+        else:
+            rows = library.im2col_int8(x.to(cuda), scale.to(cuda), *conv_args, wt.shape[1])
+            assert torch.equal(rows.cpu(), conv_int8.im2col_plain(
+                conv_int8.quantize(x, scale), *conv_args, wt.shape[1]))
+    xg = (torch.randn(shape, generator=g) * 3).to(dtype).to(cuda)
+    assert torch.equal(conv_int8.activation_scale(xg), parent_activation_scale(xg))
     conv = torch.nn.Conv2d(shape[-1], o, k, s, p, d, bias=False)
     xf = torch.randn(shape, generator=g)
     assert torch.equal(conv_int8.qconv2d(xf.to(cuda), conv.to(cuda), dtype).cpu(),

@@ -113,6 +113,33 @@ def test_depth_sampler_gradients_match_jax():
     assert np.abs(ref_p).max() > 0.1  # the probabilities' gradient is exercised
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_depth_sampler_gradients_match_jax_at_a_hot_pixel(seed):
+    """Nine queries in ten on one pixel of each frame, depths across the
+    bins: the taps' pixels carry more entries than one chunk of the
+    backward's phase 2 holds on the card (256 visits), where several warps
+    share them and a last pass sums their chunks. The gradients of the
+    plain version the kernel is held to, against ``jax.vjp``."""
+    feat, probs, _ = sampler_inputs(seed)
+    rng = np.random.RandomState(seed + 10)
+    grid = rng.uniform(-1.3, 1.3, (2, 10, 7, 10, 3)).astype(np.float32)
+    hot = rng.rand(2, 10, 7, 10) < 0.9
+    grid[..., 0] = np.where(hot, -0.32 + 0.02 * rng.rand(*hot.shape), grid[..., 0])
+    grid[..., 1] = np.where(hot, 0.11 + 0.02 * rng.rand(*hot.shape), grid[..., 1])
+    _, key, _ = depth_sample.quad_sample_depth_fwd_plain(t(feat), t(probs), t(grid), taps=True)
+    assert int(torch.bincount(key.long()).max()) > 256
+    ref, vjp = jax.vjp(lambda f, p: jax_sample(f, p, grid), jnp.asarray(feat),
+                       jnp.asarray(probs))
+    g = np.random.RandomState(seed + 20).randn(*ref.shape).astype(np.float32)
+    ref_f, ref_p = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    f, p = t(feat).requires_grad_(), t(probs).requires_grad_()
+    out = depth_sample.grid_sample_depth_kernel(f, p, t(grid))
+    assert_close(out, np.asarray(ref), atol=SAMPLE_TOL)
+    out.backward(t(g))
+    assert_close(f.grad, ref_f, atol=GRAD_TOL * (1 + np.abs(ref_f).max()))
+    assert_close(p.grad, ref_p, atol=GRAD_TOL * (1 + np.abs(ref_p).max()))
+
+
 @pytest.mark.parametrize("train", [False, True])
 def test_deeplab_classifier_matches_jax(train):
     """ASPP (its pooling branch's BN at B=1 in train mode: variance 0) ->

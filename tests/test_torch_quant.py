@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from hgsfusion_tpu.models.frustum import FrustumToVoxelMultiScale as JaxF2V
 from hgsfusion_tpu.models.frustum import merge_nested_groups as jax_merge
@@ -228,6 +229,87 @@ def test_qconv8_is_bit_for_bit(cin, k, s, p, d):
         got = conv_int8.qconv2d(t(x), conv, tdt)
         assert got.dtype == tdt
         np.testing.assert_array_equal(got.float().numpy(), ref)
+        # the plain version of the kernel, on x with its one-pass scale
+        q, wk = conv_int8.quantize_weight(conv.weight)
+        plain = conv_int8.conv2d_w8a8_plain(t(x), conv_int8.pack_weight(q),
+                                            conv_int8.activation_scale(t(x)), wk, (k, k), (s, s),
+                                            (p, p), (d, d), tdt)
+        np.testing.assert_array_equal(plain.float().numpy(), ref)
+
+
+def _midpoint_input(rng, shape):
+    """Normal values within 127 / 16, that largest |x| once, and one element
+    in 8 on an exact rounding midpoint (k + 1/2) / 16: ax is 2^-4 exactly
+    (in f32 and bf16), so x / ax is k + 1/2 and rounds to even."""
+    x = np.clip(rng.randn(*shape) * 2, -7.9, 7.9)
+    mid = rng.rand(*shape) < 1 / 8
+    x = np.where(mid, (rng.randint(-127, 127, shape) + 0.5) / 16, x).astype(np.float32)
+    x.reshape(-1)[0] = 127 / 16
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,k,s,p,d", [(16, 1, 1, 0, 1), (16, 3, 1, 2, 2)])
+def test_qconv8_midpoints_are_bit_for_bit(cin, k, s, p, d, dtype):
+    """Inputs on exact rounding midpoints of the scale: ``qconv2d`` and the
+    kernel's plain version bit for bit JAX's ``QConv8``, x in the compute
+    dtype (ties to even on both sides)."""
+    x = _midpoint_input(np.random.RandomState(13), (1, 11, 12, cin))
+    jdt, tdt = (None, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    xj = jnp.asarray(x) if jdt is None else jnp.asarray(x).astype(jnp.bfloat16)
+    jmod = QConv8(24, (k, k), (s, s), ((p, p), (p, p)), (d, d), dtype=jdt)
+    v = jmod.init(KEY, xj)
+    ref = np.asarray(jmod.apply(v, xj).astype(jnp.float32))
+    conv = nn.Conv2d(cin, 24, k, s, p, d, bias=False)
+    conv.load_state_dict(weights.conv(v["params"]))
+    xt = t(x).to(tdt)
+    assert float(conv_int8.activation_scale(xt)) == 2.0 ** -4
+    halves = (xt.float() * 16 - 0.5) == torch.round(xt.float() * 16 - 0.5)
+    assert int(halves.sum()) > x.size // 16
+    np.testing.assert_array_equal(conv_int8.qconv2d(xt, conv, tdt).float().numpy(), ref)
+    q, wk = conv_int8.quantize_weight(conv.weight)
+    plain = conv_int8.conv2d_w8a8_plain(xt, conv_int8.pack_weight(q),
+                                        conv_int8.activation_scale(xt), wk, (k, k), (s, s),
+                                        (p, p), (d, d), tdt)
+    np.testing.assert_array_equal(plain.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_activation_scale_is_jax_max(dtype):
+    """The one-pass scale (``torch.linalg.vector_norm``, inf) bit for bit
+    JAX's ``max(max(|x|) in x's dtype, 1e-8) / 127``, and the maximum in x's
+    dtype equal to ``jnp.max(jnp.abs(x))``; an all-zero input takes the
+    floor."""
+    rng = np.random.RandomState(14)
+    for x in (rng.randn(3, 17, 19, 24).astype(np.float32) * 5,
+              np.zeros((1, 3, 4, 8), np.float32)):
+        xj = jnp.asarray(x).astype(jnp.bfloat16) if dtype == "bfloat16" else jnp.asarray(x)
+        xt = t(x).to(torch.bfloat16) if dtype == "bfloat16" else t(x)
+        amax = torch.linalg.vector_norm(xt, float("inf"))
+        assert amax.dtype == xt.dtype
+        assert float(amax) == float(jnp.max(jnp.abs(xj)))
+        ref = jnp.maximum(jnp.max(jnp.abs(xj)).astype(jnp.float32), 1e-8) / 127.0
+        got = conv_int8.activation_scale(xt)
+        assert got.shape == (1,) and got.dtype == torch.float32
+        assert got.numpy().view(np.int32)[0] == np.asarray(ref, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("cin,k,s,p,d", [(3, 7, 2, 3, 1), (20, 3, 2, 2, 2), (16, 3, 1, 4, 4)])
+def test_im2col_plain_rows_give_the_convolution(cin, k, s, p, d):
+    """``im2col_plain``'s rows (the plain version of the stem's first pass)
+    times the packed weights are the integer convolution of the levels:
+    the rows hold each output pixel's taps in the packed weights' (ky, kx,
+    c) order, zeros outside the map and up to Kp."""
+    g = torch.Generator().manual_seed(15)
+    q = torch.randint(-127, 128, (2, 13, 15, cin), generator=g, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (24, cin, k, k), generator=g, dtype=torch.int8)
+    wt = conv_int8.pack_weight(qw)
+    rows = conv_int8.im2col_plain(q, (k, k), (s, s), (p, p), (d, d), wt.shape[1])
+    assert rows.dtype == torch.int8 and rows.shape[1] == wt.shape[1]
+    assert not rows[:, k * k * cin:].any()
+    want = F.conv2d(q.permute(0, 3, 1, 2).double(), qw.double(), None, s, p, d)
+    got = (rows.double() @ wt.double().t()).view(2, want.shape[2], want.shape[3], 24)
+    assert torch.equal(got.permute(0, 3, 1, 2), want)
 
 
 def test_qconv8_weights_follow_the_module():
