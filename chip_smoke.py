@@ -48,18 +48,22 @@ and launches of what ran):
    the taps' L2 traffic, that route's, the plain version's
    and the library pair's (``F.grid_sample`` + ``torch.matmul``: no single
    PyTorch call computes the function, so ``library_ms`` is null);
-4c. kernel vs plain, NMS: ``nms_lazy`` (one launch per batch, the op
-   ``hgsfusion::nms_lazy``) against ``greedy_nms_lazy_plain`` at the
-   configs' 4,096 candidates and threshold 0.01: clustered boxes all valid
-   (500 kept), the trained-model regime (64 valid), two frames in one
-   launch, duplicated / touching / nested / zero-area boxes, no valid
-   candidate and a ``max_keep`` cut; every keep decision checked against
-   the greedy rule with the plain IoU given the kernel's own history
-   (``check_nms_frame``: a difference only at an IoU within NMS_TIE of the
-   threshold, counted and printed), the keep sets compared; the kernel
-   (graph replays), the plain version and ``class_agnostic_nms`` with
-   each, timed beside the operations bound of this input's circle tests
-   and IoU evaluations; 8,192 candidates must raise;
+4c. kernel vs plain, NMS: the op ``hgsfusion::nms_lazy`` (two launches per
+   batch: ``nms_mask``, the pairwise suppression mask on every SM, then
+   ``nms_sweep``) against ``greedy_nms_lazy_plain`` at the configs' 4,096
+   candidates and threshold 0.01: clustered boxes all valid (500 kept), the
+   trained-model regime (64 valid), two frames in one launch, duplicated /
+   touching / nested / zero-area boxes, no valid candidate, ``max_keep``
+   cuts at 37 and 64, and 8,192 candidates; every keep decision checked
+   against the greedy rule with the plain IoU given the kernels' own
+   history (``check_nms_frame``: a difference only at an IoU within NMS_TIE
+   of the threshold, counted and printed), the keep sets compared; the
+   mask's bits against ``nms_mask_plain`` where the sweep reads them (a
+   difference only at such a tie), the sweep against ``nms_sweep_plain`` on
+   the kernel's mask bit for bit; the op and each kernel (graph replays),
+   the plain versions and ``class_agnostic_nms`` with each, timed beside
+   the operations bound of this input's greedy circle tests and IoU
+   evaluations, and the mask's own pairs;
 5. small reference: the TINY test model on the card (kernel) against the same
    weights on the CPU (plain sampler), f32 with TF32 off, head outputs and
    post-processed boxes;
@@ -71,7 +75,7 @@ and launches of what ran):
 7. serve: ``configs/hgsfusion_vod_pallas.yaml`` at full width (ResNet-101 at
    516x1936, 320x320x31 voxels, 8192 radar points) with random weights from a
    seed, one warm-up frame, then 3 frames in bf16 with the launch counters at
-   0 before and 1 fused launch and 1 NMS launch per frame after (no other
+   0 before and 1 fused launch and 1 NMS (mask and sweep) per frame after (no other
    launch, no bins built); per-stage times, frames/s, peak device memory
    and the post-process with every candidate valid (timed; one call with
    ``torch.cuda.set_sync_debug_mode("error")``: no host read);
@@ -301,6 +305,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1042,9 +1047,14 @@ def phase_bench_scatter(dev):
 # -- rotated NMS ---------------------------------------------------------------
 # the configs' candidates (NMS_PRE_MAXSIZE) and kept boxes (NMS_POST_MAXSIZE)
 NMS_K, NMS_KEEP, NMS_THRESH = 4096, 500, 0.01
-# a keep decision of the kernel may differ from the plain rule only where an
-# IoU lies within this of the threshold (the small sums' order, see
-# csrc/nms_lazy.cu)
+# candidates beyond what one block's shared memory held (the single-launch
+# kernel refused them): the op takes any K whose mask fits int32 indexing
+NMS_K_BIG = 8192
+# one NMS op: the mask, then the sweep
+NMS_CALL = {library.NMS_MASK: 1, library.NMS_SWEEP: 1}
+# a keep decision of the kernels (or a bit of the mask) may differ from the
+# plain rule only where an IoU lies within this of the threshold (the small
+# sums' order, see csrc/nms_lazy.cu)
 NMS_TIE = 1e-5
 # f32 operations of one IoU in csrc/nms_lazy.cu, counted from its source
 # (a division as one operation): the centroid 20, the shift 16, each of the
@@ -1141,24 +1151,94 @@ def check_nms_frame(boxes, valid, keep, nms_thresh: float, max_keep: int) -> dic
             "iou_evals": int((tested & (dist2 <= gap * gap)).sum())}
 
 
+def near_pairs(boxes, valid) -> int:
+    """Valid pairs i < j whose circumcircles are not clear of each other by
+    csrc/nms_lazy.cu's test: the IoUs ``nms_mask`` evaluates."""
+    k = valid.shape[0]
+    r = 0.5 * torch.sqrt(boxes[:, 3] ** 2 + boxes[:, 4] ** 2)
+    rows = torch.nonzero(valid).squeeze(1)
+    cols = torch.arange(k, device=boxes.device)
+    total = 0
+    for r0 in range(0, rows.numel(), 512):
+        i = rows[r0:r0 + 512]
+        gap = r[i][:, None] + r[None, :]
+        gap = gap + NMS_DISC_MARGIN * (1 + gap)
+        dist2 = ((boxes[i, None, :2] - boxes[None, :, :2]) ** 2).sum(-1)
+        total += int(((dist2 <= gap * gap) & valid[None, :] & (cols[None, :] > i[:, None])).sum())
+    return total
+
+
+def mask_words_written(valid) -> int:
+    """The words ``nms_mask`` writes for one frame: each row tile holding a
+    valid candidate, its rows times the tiles from its own on."""
+    k = valid.shape[0]
+    tiles = -(-k // 64)
+    t = torch.arange(tiles, device=valid.device)
+    has_valid = F.pad(valid, (0, tiles * 64 - k)).view(tiles, 64).any(1)
+    rows = torch.clamp(k - 64 * t, max=64)
+    return int((has_valid * rows * (tiles - t)).sum())
+
+
+def check_nms_mask(boxes, valid, mask, nms_thresh: float) -> dict:
+    """``nms_mask``'s words of one frame against ``nms_mask_plain``'s where
+    the sweep reads them (rows of valid candidates, from their own tile on):
+    a bit may differ only at an IoU within NMS_TIE of the threshold (any
+    other raises). Returns the differing bits and the pairs the kernel
+    tests (every valid i < j) and evaluates (their circumcircles not
+    clear)."""
+    k = valid.shape[0]
+    want = nms.nms_mask_plain(boxes, valid, nms_thresh)
+    tiles = want.shape[1]
+    idx = torch.arange(k, device=boxes.device)
+    read = valid[:, None] & (torch.arange(tiles, device=boxes.device)[None] >= (idx // 64)[:, None])
+    diff = torch.where(read, mask ^ want, torch.zeros_like(want))
+    rows, words = torch.nonzero(diff, as_tuple=True)
+    pairs = []
+    for i, w in zip(rows.tolist(), words.tolist()):
+        bits = int(diff[i, w]) & (2**64 - 1)
+        pairs += [(i, 64 * w + b) for b in range(64) if bits >> b & 1]
+    for i, j in pairs:
+        iou = float(boxes_iou_bev(boxes[i:i + 1], boxes[j:j + 1])[0, 0])
+        if abs(iou - nms_thresh) > NMS_TIE:
+            raise AssertionError(f"mask bit ({i}, {j}): IoU {iou} at threshold {nms_thresh}")
+    nv = int(valid.sum())
+    return {"tie_bits": len(pairs), "circle_tests": nv * (nv - 1) // 2,
+            "iou_evals": near_pairs(boxes, valid)}
+
+
 def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
-    """``nms_lazy`` (the op) against the plain version on (B, K) candidates:
-    each frame's decisions checked by ``check_nms_frame``, the keep sets
-    compared with the plain version's; timed: the kernel (graph replays),
-    the plain version, and ``class_agnostic_nms`` on scores that order the
-    boxes as given, with the kernel and with the plain version (the route
-    before the kernel)."""
+    """``nms_lazy`` (the op: ``nms_mask``, then ``nms_sweep``) against the
+    plain version on (B, K) candidates: each frame's decisions checked by
+    ``check_nms_frame``, the keep sets compared with the plain version's;
+    the mask held to ``nms_mask_plain`` by ``check_nms_mask``, the sweep to
+    ``nms_sweep_plain`` over the kernel's own mask bit for bit. Timed: the
+    op and each kernel (graph replays), the plain versions, and
+    ``class_agnostic_nms`` on scores that order the boxes as given, with the
+    op and with the plain version (the route before the kernels), beside
+    the bounds."""
     got = nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep)
     want = plain_nms_batch(boxes, valid, NMS_THRESH, max_keep)
     frames = [check_nms_frame(b, v, g, NMS_THRESH, max_keep)
               for b, v, g in zip(boxes, valid, got)]
+    mask = library.nms_mask(boxes, valid, NMS_THRESH)
+    masks = [check_nms_mask(b, v, m, NMS_THRESH) for b, v, m in zip(boxes, valid, mask)]
+    sweep = library.nms_sweep(mask, valid, max_keep)
     row = {"case": name, "shape": list(boxes.shape), "valid": int(valid.sum()),
            "max_keep": max_keep, "kept": [f["kept"] for f in frames],
            "tie_decisions": sum(f["tie_decisions"] for f in frames),
            "equal_to_plain": bool(torch.equal(got, want)),
            "differs_from_plain": int((got != want).sum()),
            "circle_tests": sum(f["circle_tests"] for f in frames),
-           "iou_evals": sum(f["iou_evals"] for f in frames)}
+           "iou_evals": sum(f["iou_evals"] for f in frames),
+           "mask_tie_bits": sum(m["tie_bits"] for m in masks),
+           "mask_circle_tests": sum(m["circle_tests"] for m in masks),
+           "mask_iou_evals": sum(m["iou_evals"] for m in masks),
+           "sweep_equal_to_op": bool(torch.equal(sweep, got)),
+           "sweep_equal_to_plain_sweep": all(
+               torch.equal(nms.nms_sweep_plain(m, v, max_keep), s)
+               for m, v, s in zip(mask, valid, sweep))}
+    if not (row["sweep_equal_to_op"] and row["sweep_equal_to_plain_sweep"]):
+        raise AssertionError(f"{name}: the sweep differs from the op or its plain version")
     if timed:
         k = boxes.shape[1]
         scores = torch.linspace(1.0, 0.5, k, device=boxes.device).expand(boxes.shape[0], k)
@@ -1169,17 +1249,39 @@ def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
 
         row["ms"] = graph_ms(lambda: nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep),
                              iters=3, replays=2)
+        row["mask_ms"] = graph_ms(lambda: library.nms_mask(boxes, valid, NMS_THRESH),
+                                  iters=3, replays=2)
+        row["sweep_ms"] = graph_ms(lambda: library.nms_sweep(mask, valid, max_keep),
+                                   iters=3, replays=2)
         row["plain_ms"] = cuda_ms(lambda: plain_nms_batch(boxes, valid, NMS_THRESH, max_keep),
                                   iters=2, warmup=1)
+        row["mask_plain_ms"] = cuda_ms(lambda: [nms.nms_mask_plain(b, v, NMS_THRESH)
+                                                for b, v in zip(boxes, valid)], iters=2, warmup=1)
+        row["sweep_plain_ms"] = cuda_ms(lambda: [nms.nms_sweep_plain(m, v, max_keep)
+                                                 for m, v in zip(mask, valid)], iters=1, warmup=1)
         row["route_ms"] = cuda_ms(route, iters=5, warmup=1)
         with mock.patch.object(nms, "nms_lazy_op", plain_nms_batch):
             row["plain_route_ms"] = cuda_ms(route, iters=2, warmup=1)
-        # operations: the circle tests and IoU evaluations this input needs,
-        # over the f32 peak (boxes, valid and the mask move a few hundred KB)
+        # the op: the circle tests and IoU evaluations the greedy rule needs
+        # on this input, over the f32 peak (boxes, valid and the keep mask
+        # move a few hundred KB)
         row["bound_ms"] = (row["iou_evals"] * NMS_OPS_PER_IOU + row["circle_tests"]
                            * NMS_OPS_PER_TEST) / F32_FLOPS_PER_S * 1e3
         row["bytes_bound_ms"] = boxes.numel() * 6 / HBM_BYTES_PER_S * 1e3
         row["bound_by"] = "operations"
+        # nms_mask's own work: every valid pair's circle test and the near
+        # pairs' IoUs, or its words written, the larger
+        mask_s = (row["mask_iou_evals"] * NMS_OPS_PER_IOU
+                  + row["mask_circle_tests"] * NMS_OPS_PER_TEST) / F32_FLOPS_PER_S
+        words = sum(mask_words_written(v) for v in valid)
+        row["mask_bound_ms"] = max(mask_s, 8 * words / HBM_BYTES_PER_S) * 1e3
+        row["mask_bound_by"] = "operations" if mask_s >= 8 * words / HBM_BYTES_PER_S \
+            else "bytes"
+        # nms_sweep's bytes: the valid flags read, the keep mask written, the
+        # kept rows' words from their own tile on read
+        tiles = mask.shape[-1]
+        kept_words = sum(int((tiles - torch.nonzero(g).squeeze(1) // 64).sum()) for g in got)
+        row["sweep_bound_ms"] = (2 * valid.numel() + 8 * kept_words) / HBM_BYTES_PER_S * 1e3
         row["library_ms"] = None  # no PyTorch call computes rotated NMS
     row["max_abs_err"] = float(row["differs_from_plain"] > 0)  # the keep masks, 0 or 1
     print("  " + json.dumps(row))
@@ -1191,7 +1293,8 @@ def phase_kernel_vs_plain_nms(dev):
     candidates, 0.01: (a) the worst case, every candidate valid, clustered
     boxes, 500 kept; (b) the trained-model regime, 64 valid; (c) two frames
     in one launch; (d) duplicated, touching, nested and zero-area boxes;
-    (e) no valid candidate; (f) a ``max_keep`` cut at 37."""
+    (e) no valid candidate; (f) a ``max_keep`` cut at 37 and (g) at 64, a
+    mask tile's end; (h) 8,192 candidates, every one valid."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -1207,18 +1310,16 @@ def phase_kernel_vs_plain_nms(dev):
                  timed=False),
         nms_case("none_valid", worst, torch.zeros_like(all_valid), NMS_KEEP, timed=False),
         nms_case("max_keep", worst, all_valid, 37, timed=False),
+        nms_case("max_keep64", worst, all_valid, 64, timed=False),
+        nms_case("k8192", t(clustered_boxes(NMS_K_BIG, 1600, 4))[None],
+                 torch.ones((1, NMS_K_BIG), dtype=torch.bool, device=dev), NMS_KEEP, timed=True),
     ]
-    if rows[0]["kept"] != [NMS_KEEP] or rows[4]["kept"] != [0] or rows[5]["kept"] != [37]:
-        raise AssertionError(f"kept {[r['kept'] for r in rows]}")
-    print(f"  tie decisions: {sum(r['tie_decisions'] for r in rows)}")
-    # too many candidates for a block's shared memory: raises, no plain fallback
-    big = torch.zeros((1, 8192, 7), device=dev)
-    try:
-        nms.nms_lazy_op(big, torch.ones((1, 8192), dtype=torch.bool, device=dev), 0.1, 10)
-    except ValueError as e:
-        print(f"  8192 candidates: {e}")
-    else:
-        raise AssertionError("8192 candidates did not raise")
+    kept = [r["kept"] for r in rows]
+    if kept[0] != [NMS_KEEP] or kept[4] != [0] or kept[5] != [37] or kept[6] != [64] \
+            or kept[7] != [NMS_KEEP]:
+        raise AssertionError(f"kept {kept}")
+    print(f"  tie decisions: {sum(r['tie_decisions'] for r in rows)}, mask tie bits: "
+          f"{sum(r['mask_tie_bits'] for r in rows)}")
     return rows
 
 
@@ -1384,7 +1485,7 @@ def phase_small_reference_xla(dev):
            "train": phase_small_reference_train(dev, TINY_XLA)}
     out["launches"] = dict(library.launches)
     # the served frame: one fused launch and the NMS; the step: GATHER_STEP
-    want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, library.NMS: 1}, 1)
+    want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, **NMS_CALL}, 1)
     print(f"  launches on the card: {out['launches']}")
     if out["launches"] != want:
         raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -1504,10 +1605,10 @@ def per_frames(per_frame: dict, frames: int) -> dict:
 
 # launches per served or evaluated frame: the gather view's two groups in
 # one fused launch, the polar view's three samples; under USE_DEPTH two
-# depth-weighted samples (no fused kernel)
-GATHER_FRAME = {library.REDUCE_KERNEL: 1, library.NMS: 1}
-POLAR_FRAME = {library.KERNEL: 3, library.NMS: 1}
-DEPTH_FRAME = {library.DEPTH_KERNEL: 2, library.NMS: 1}
+# depth-weighted samples (no fused kernel); and the batch's NMS
+GATHER_FRAME = {library.REDUCE_KERNEL: 1, **NMS_CALL}
+POLAR_FRAME = {library.KERNEL: 3, **NMS_CALL}
+DEPTH_FRAME = {library.DEPTH_KERNEL: 2, **NMS_CALL}
 # launches per training step with REMAT on (the configs' default): the
 # gather view's two samples and their bins once more in the backward pass;
 # the polar view recomputes pass 2, which launches no kernel
@@ -2206,7 +2307,7 @@ def phase_small_reference_tj4d(dev):
                                               ds.collate_batch([ds[i] for i in range(2)])),
                "train": phase_small_reference_train(dev, model_cfg, train_batch)}
         out["launches"] = dict(library.launches)
-        want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, library.NMS: 1}, 1)
+        want = per_frames({**GATHER_STEP, library.REDUCE_KERNEL: 1, **NMS_CALL}, 1)
         print(f"  launches on the card: {out['launches']}")
         if out["launches"] != want:
             raise AssertionError(f"launches {out['launches']}, want {want}")
@@ -3448,7 +3549,7 @@ W8A8_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_w8a8.yaml"
 OCC_V2_YAML = "hgsfusion_tpu_torch/configs/hgsfusion_vod_occ_v2.yaml"
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores, H100 SXM
 BACKBONE_CONVS = 104  # ResNet-101: the stem, 33 x 3 bottleneck convs, 4 downsamples
-Q8_FRAME = {library.REDUCE_Q8_KERNEL: 1, library.NMS: 1}
+Q8_FRAME = {library.REDUCE_Q8_KERNEL: 1, **NMS_CALL}
 Q8_STEP = {library.Q8_KERNEL: 4, library.BWD_KERNEL: 2, library.BINS: 4}
 # every convolution of the backbone quantizes its input once first
 W8A8_FRAME = {**Q8_FRAME, library.CONV_W8A8: BACKBONE_CONVS,
@@ -3587,6 +3688,32 @@ def reduce_q8_case(name, maps, uv, o, dtype, gen, timed: bool):
         raise AssertionError(f"{name} {row['dtype']}: max error {row['max_abs_err']} over its "
                              f"tolerance")
     return row
+
+
+def reduce_q8_ragged(dev, dtype):
+    """A ragged P3-q8 call from seed 8: two frames of 130 queries (a (2, 10,
+    13, 2) view of a grid whose rows hold 3 floats, some coordinates off the
+    maps), three int8 groups of 40, 24 and 16 channels (40 and 24 take the
+    element path), 72 outputs, K in ``dtype`` with the scales folded in ->
+    (uv, groups, kmat, bias)."""
+    g = torch.Generator().manual_seed(8)
+    grid = (torch.rand((2, 10, 13, 3), generator=g) * 2.6 - 1.3).to(dev)
+    groups, scales, off = [], [], 0
+    for shape in [(2, 7, 9, 40), (2, 7, 9, 24), (2, 4, 5, 16)]:
+        q, s = quantize_per_channel_int8(torch.randn(shape, generator=g).to(dev))
+        groups.append((q, off))
+        scales.append(s)
+        off += shape[-1]
+    kernel = (torch.randn((off, 72), generator=g) * off ** -0.5).to(dev)
+    kmat = (kernel * torch.cat(scales)[:, None]).to(dtype).contiguous()
+    return grid[..., 0:2], groups, kmat, torch.randn(72, generator=g).to(dev)
+
+
+def output_digest(t) -> str:
+    """sha256 of a tensor's bytes (on the CPU), to hold an output bit for bit
+    to one recorded from another build."""
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
 
 
 def phase_kernel_vs_plain_q8(dev):
@@ -4091,17 +4218,34 @@ def main(argv=None) -> int:
             "bound_ms": total["quantize_bound_ms"], "bound_by": "bytes",
             "library_ms": None,
         })
-    # NMS: the worst case (4,096 valid, 500 kept) as the row, every case in it
+    # NMS's two kernels: the worst case (4,096 valid, 500 kept) as the row,
+    # every case in it; the op's time and the greedy rule's bound beside
     if "kernel_vs_plain_nms" in report:
         nms_rows = report["kernel_vs_plain_nms"]
-        kernels.append(kernel_row(library.NMS, "hgsfusion_tpu_torch/csrc/nms_lazy.cu",
-                                  "none: hgsfusion_tpu/ops/nms.py:24 (XLA lax.while_loop)",
-                                  nms_rows[:1]))
-        kernels[-1]["max_abs_err"] = max(r["max_abs_err"] for r in nms_rows)
-        kernels[-1]["tie_decisions"] = sum(r["tie_decisions"] for r in nms_rows)
-        kernels[-1]["cases"] = {r["case"]: {k: r.get(k) for k in (
-            "kept", "ms", "plain_ms", "route_ms", "plain_route_ms", "bound_ms")}
-            for r in nms_rows}
+        worst = nms_rows[0]
+        timed = [r for r in nms_rows if "ms" in r]
+        common = {"route": "cuda", "source": "hgsfusion_tpu_torch/csrc/nms_lazy.cu",
+                  "replaces": "none: hgsfusion_tpu/ops/nms.py:24 (XLA lax.while_loop)",
+                  "library_ms": None, "op_ms": worst["ms"], "op_plain_ms": worst["plain_ms"],
+                  "op_bound_ms": worst["bound_ms"]}
+        for name, key, err in ((library.NMS_MASK, "mask", "mask_tie_bits"),
+                               (library.NMS_SWEEP, "sweep", None)):
+            paths = by_path(name)
+            kernels.append({
+                "name": name, **common, "launches": sum(paths.values()),
+                "launches_by_path": paths,
+                # the mask: bits off the plain mask's (all at IoU ties); the
+                # sweep: keep decisions off its plain version's (none allowed)
+                "max_abs_err": float(sum(r[err] for r in nms_rows) > 0) if err else 0.0,
+                "ms": worst[f"{key}_ms"], "plain_ms": worst[f"{key}_plain_ms"],
+                "bound_ms": worst[f"{key}_bound_ms"],
+                "bound_by": worst.get(f"{key}_bound_by", "bytes"),
+                "tie_decisions": sum(r["tie_decisions"] for r in nms_rows),
+                "cases": {r["case"]: {k: r.get(k) for k in (
+                    "kept", "ms", f"{key}_ms", "plain_ms", f"{key}_plain_ms", "route_ms",
+                    "plain_route_ms", "bound_ms", f"{key}_bound_ms", "mask_circle_tests",
+                    "mask_iou_evals")} for r in timed},
+            })
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

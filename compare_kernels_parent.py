@@ -1,34 +1,49 @@
 #!/usr/bin/env python3
-"""Hold this tree's int8 convolution (W8, ``conv2d_w8a8``) and depth
-backward (D2, ``quad_sample_depth_bwd``) against another tree's on one
-NVIDIA GPU: outputs bit for bit or within their bounds, kernel and route
-times in turns, and a served w8a8 frame.
+"""Hold this tree's kernels against another tree's on one NVIDIA GPU:
+outputs bit for bit (or within their bounds), kernel and route times in
+turns, and served frames.
 
-    python3 compare_kernels_parent.py PARENT_DIR [--out results.json]
+    python3 compare_kernels_parent.py PARENT_DIR [--out results.json] [--parts NAME,...]
 
 PARENT_DIR holds a checkout of another commit (``git archive <commit> |
 tar -x -C PARENT_DIR``). Its ``hgsfusion_tpu_torch`` is imported under
 another name, its ``torch.library`` ops registered under that name as
 namespace, and it builds its kernels into its own ``_build/``. Times are
 taken in turns (parent, this tree, this tree, parent), kernels from CUDA
-graph replays (``chip_smoke.graph_ms``).
+graph replays (``chip_smoke.graph_ms``). The parts, all by default, in
+this order:
 
-- W8, at each distinct convolution of the VoD ResNet-101 at 516 x 1936
-  (``chip_smoke.backbone_conv_shapes``) on ``chip_smoke.w8a8_input`` in
-  bf16, and on ``chip_smoke.w8a8_activation`` (its largest |x| not
+- ``sass``: each tree's ``csrc/quad_sample_reduce.cu`` and
+  ``csrc/nms_lazy.cu`` built here, the ``ptxas`` lines that name C7518
+  (serialised ``wgmma``), and each kernel function's instructions counted
+  from ``cuobjdump -sass`` (all, ``I2F``, ``PRMT``, ``FADD``, ``FFMA``,
+  ``HGMMA``).
+- ``nms``: rotated NMS (``hgsfusion::nms_lazy``) on ``chip_smoke``'s six
+  cases at 4,096 candidates: the keep sets equal bit for bit; the op and
+  ``class_agnostic_nms`` around it timed in turns.
+- ``reduce``: P3-q8 (``quad_sample_reduce_q8_fwd``) and P3
+  (``quad_sample_reduce_fwd``) at the flagship gather groups in bf16 (the
+  flagship grid read in place, ``chip_smoke.reduce_q8_case``'s inputs):
+  outputs equal bit for bit, times in turns; P3-q8's digests on
+  ``chip_smoke.reduce_q8_ragged`` in bf16 and f16.
+- ``frames``: the served frames of ``hgsfusion_vod_q8.yaml`` and
+  ``hgsfusion_vod_w8a8.yaml`` (gather view, weights from seed 0 copied into
+  both trees' models, the flagship batch): the head outputs equal bit for
+  bit (and the w8a8 backbone's four taps), each tree's frames through
+  ``profile_serve.profile_frames`` with the peak device memory.
+- ``w8a8``: W8, at each distinct convolution of the VoD ResNet-101 at 516
+  x 1936 (``chip_smoke.backbone_conv_shapes``) on ``chip_smoke.w8a8_input``
+  in bf16, and on ``chip_smoke.w8a8_activation`` (its largest |x| not
   special): the parent's route (its ``quantize_activation``, then its int8
   kernel) equal to this tree's op on x with ``activation_scale`` bit for
   bit; each kernel alone and each route; cuDNN's bf16 ``F.conv2d`` and
   ``torch._int_mm`` on im2col columns as yardsticks; all summed over the
   backbone's 104 convolutions.
-- D2, at the VoD gather maps A and B (80 bins, the flagship grid read in
-  place, bf16): each tree's gradient within ``chip_smoke.depth_case``'s
-  bound of the plain version and equal from call to call; each tree's
-  time and its kernels' split (``torch.profiler``).
-- The served frame of ``hgsfusion_vod_w8a8.yaml`` (gather view, weights
-  from seed 0 copied into both trees' models, the flagship batch): the
-  backbone's four taps equal bit for bit, and each tree's frames through
-  ``profile_serve.profile_frames`` with the peak device memory.
+- ``depth_bwd``: D2, at the VoD gather maps A and B (80 bins, the flagship
+  grid read in place, bf16): each tree's gradient within
+  ``chip_smoke.depth_case``'s bound of the plain version and equal from
+  call to call; each tree's time and its kernels' split
+  (``torch.profiler``).
 
 Exits non-zero when anything differs or leaves its bound.
 """
@@ -38,16 +53,22 @@ import argparse
 import importlib
 import importlib.util
 import json
+import os
+import re
+import shutil
+import subprocess
 import sys
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 import chip_smoke as cs
 import hgsfusion_tpu_torch
-from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library
+from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, nms
+from hgsfusion_tpu_torch.ops.grid_sample import quantize_per_channel_int8
 from hgsfusion_tpu_torch.profile_serve import kernel_split_ms, profile_frames
 
 TURNS = ("parent", "change", "change", "parent")
@@ -201,46 +222,205 @@ def compare_depth(dev, parent):
     return rows, ok
 
 
-def compare_frame(dev, parent):
-    """The served w8a8 frame from each tree: backbone taps and profiles."""
+def compare_frames(dev, parent):
+    """The served q8 and w8a8 frames from each tree: head outputs (and the
+    w8a8 backbone's taps) bit for bit, and profiles."""
     pkgs = {"parent": parent.__name__, "change": hgsfusion_tpu_torch.__name__}
-    state, taps, rows, ok = None, {}, [], True
-    for label in TURNS:
-        pkg = pkgs[label]
-        config = importlib.import_module(f"{pkg}.config")
-        cfg = config.model_config_from_yaml(config.load_config(cs.W8A8_YAML))
-        model = importlib.import_module(f"{pkg}.models.detector").HGSFusionModel(
-            cfg, device=dev, seed=0)
-        if state is None:
-            state = {k: v.clone() for k, v in model.state_dict().items()}
-        model.load_state_dict(state)
-        batch = importlib.import_module(f"{pkg}.synthetic").flagship_batch(cfg)
-        resnet = importlib.import_module(f"{pkg}.models.resnet")
-        backbone = model.fusion_vfe.image_vfe.ffn.ddn.model.backbone
-        with torch.inference_mode():
-            got = backbone(resnet.preprocess_images(model.batch_to_device(batch)["images"]))
-        if label not in taps:
-            taps[label] = [t.clone() for t in got]
-        del got
-        torch.cuda.reset_peak_memory_stats(dev)
-        r = {"tree": label, **profile_frames(model, batch, frames=3),
-             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
-        r.pop("top_ops")
-        del model
-        print("  " + json.dumps(r), flush=True)
-        rows.append(r)
-        torch.cuda.empty_cache()
-    equal = [bool(torch.equal(a, b)) for a, b in zip(taps["parent"], taps["change"])]
-    print("  " + json.dumps({"backbone_taps_equal": equal}), flush=True)
-    ok = all(equal)
-    return {"frames": rows, "backbone_taps_equal": equal}, ok
+    out, ok = {}, True
+    for yaml in (cs.Q8_YAML, cs.W8A8_YAML):
+        state, kept, rows = None, {}, []
+        for label in TURNS:
+            pkg = pkgs[label]
+            config = importlib.import_module(f"{pkg}.config")
+            cfg = config.model_config_from_yaml(config.load_config(yaml))
+            model = importlib.import_module(f"{pkg}.models.detector").HGSFusionModel(
+                cfg, device=dev, seed=0)
+            if state is None:
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            batch = importlib.import_module(f"{pkg}.synthetic").flagship_batch(cfg)
+            resnet = importlib.import_module(f"{pkg}.models.resnet")
+            backbone = model.fusion_vfe.image_vfe.ffn.ddn.model.backbone
+            model.eval()
+            if label not in kept:
+                with torch.inference_mode():
+                    b = model.batch_to_device(batch)
+                    taps = [t.clone() for t in backbone(resnet.preprocess_images(b["images"]))]
+                    preds = {k: v.clone() for k, v in model(b).items()}
+                kept[label] = (taps, preds)
+            torch.cuda.reset_peak_memory_stats(dev)
+            r = {"tree": label, **profile_frames(model, batch, frames=3),
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+            r.pop("top_ops")
+            del model
+            print("  " + json.dumps(r), flush=True)
+            rows.append(r)
+            torch.cuda.empty_cache()
+        (ptaps, ppreds), (ctaps, cpreds) = kept["parent"], kept["change"]
+        res = {"frames": rows,
+               "backbone_taps_equal": [bool(torch.equal(a, b)) for a, b in zip(ptaps, ctaps)],
+               "preds_equal": {k: bool(torch.equal(ppreds[k], cpreds[k])) for k in ppreds}}
+        print("  " + json.dumps({yaml: {k: res[k] for k in ("backbone_taps_equal",
+                                                              "preds_equal")}}), flush=True)
+        ok = ok and all(res["backbone_taps_equal"]) and all(res["preds_equal"].values())
+        out[Path(yaml).stem] = res
+    return out, ok
+
+
+NMS_CASES = ("worst", "realistic", "batch2", "degenerate", "none_valid", "max_keep")
+
+
+def nms_inputs(dev, name):
+    """(boxes, valid, max_keep) of ``chip_smoke.phase_kernel_vs_plain_nms``'s
+    case ``name``."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    worst = t(cs.clustered_boxes(cs.NMS_K, 800, 0))[None]
+    all_valid = torch.ones((1, cs.NMS_K), dtype=torch.bool, device=dev)
+    if name == "realistic":
+        return worst, torch.arange(cs.NMS_K, device=dev)[None] < 64, cs.NMS_KEEP
+    if name == "batch2":
+        pair = t(np.stack([cs.clustered_boxes(cs.NMS_K, 800, 1),
+                           cs.clustered_boxes(cs.NMS_K, 1600, 2)]))
+        return pair, all_valid.expand(2, -1).contiguous(), cs.NMS_KEEP
+    if name == "degenerate":
+        return t(cs.degenerate_boxes(cs.NMS_K, 3))[None], all_valid, cs.NMS_KEEP
+    if name == "none_valid":
+        return worst, torch.zeros_like(all_valid), cs.NMS_KEEP
+    if name == "max_keep":
+        return worst, all_valid, 37
+    return worst, all_valid, cs.NMS_KEEP
+
+
+def compare_nms(dev, parent):
+    """Each tree's NMS op on the six cases: keep sets bit for bit, the op
+    and ``class_agnostic_nms`` with it in turns."""
+    mods = {"parent": importlib.import_module(f"{parent.__name__}.ops.nms"), "change": nms}
+    rows, ok = [], True
+    for name in NMS_CASES:
+        boxes, valid, max_keep = nms_inputs(dev, name)
+        k = boxes.shape[1]
+        scores = torch.linspace(1.0, 0.5, k, device=dev).expand(boxes.shape[0], k)
+        scores = torch.where(valid, scores, torch.zeros_like(scores))
+        keeps = {label: m.nms_lazy_op(boxes, valid, cs.NMS_THRESH, max_keep)
+                 for label, m in mods.items()}
+        row = {"case": name, "kept": keeps["change"].sum(1).tolist(),
+               "equal": bool(torch.equal(keeps["parent"], keeps["change"]))}
+        ok = ok and row["equal"]
+        for label in TURNS:
+            m = mods[label]
+            row.setdefault(f"{label}_ms", []).append(cs.graph_ms(
+                lambda: m.nms_lazy_op(boxes, valid, cs.NMS_THRESH, max_keep), iters=3,
+                replays=2))
+            row.setdefault(f"{label}_route_ms", []).append(cs.cuda_ms(
+                lambda: m.class_agnostic_nms(scores, boxes, 0.1, cs.NMS_THRESH, k, max_keep),
+                iters=5, warmup=1))
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, ok
+
+
+def compare_reduce(dev, parent):
+    """P3-q8 and P3 at the flagship groups (bf16) from each tree, bit for
+    bit and in turns; P3-q8's digests on the ragged case."""
+    plib = importlib.import_module(f"{parent.__name__}.ops.library")
+    gen = torch.Generator().manual_seed(5)
+    uv = cs.flagship_grid(dev)[..., 0:2]
+    maps = [torch.randn(shape, generator=gen).to(dev) for shape in cs.FLAGSHIP_SHAPES.values()]
+    qs = [quantize_per_channel_int8(m) for m in maps]
+    csum = sum(q.shape[-1] for q, _ in qs)
+    kernel = (torch.randn((csum, cs.REDUCE_O), generator=gen) * csum ** -0.5).to(dev)
+    bias = torch.randn(cs.REDUCE_O, generator=gen).to(dev)
+    q8 = (cs.reduce_groups([q for q, _ in qs]),
+          (kernel * torch.cat([s for _, s in qs])[:, None]).to(torch.bfloat16).contiguous())
+    bf16 = (cs.reduce_groups([m.to(torch.bfloat16) for m in maps]),
+            kernel.to(torch.bfloat16).contiguous())
+    rows, ok = [], True
+    for name, (groups, kmat), op in (
+            ("p3_q8", q8, lambda lib, g, k: lib.quad_sample_reduce_q8_fwd(uv, g, k, bias)),
+            ("p3_bf16", bf16, lambda lib, g, k: lib.quad_sample_reduce_fwd(uv, g, k, bias))):
+        libs = {"parent": plib, "change": library}
+        outs = {label: op(lib, groups, kmat) for label, lib in libs.items()}
+        row = {"case": name, "equal": bool(torch.equal(outs["parent"], outs["change"]))}
+        ok = ok and row["equal"]
+        del outs
+        for label in TURNS:
+            lib = libs[label]
+            row.setdefault(f"{label}_ms", []).append(cs.graph_ms(
+                lambda: op(lib, groups, kmat), iters=10, replays=2))
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+    digests = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        uv_r, groups, kmat, bias_r = cs.reduce_q8_ragged(dev, dtype)
+        d = {label: cs.output_digest(lib.quad_sample_reduce_q8_fwd(uv_r, groups, kmat, bias_r))
+             for label, lib in (("parent", plib), ("change", library))}
+        digests[str(dtype).replace("torch.", "")] = d
+        ok = ok and d["parent"] == d["change"]
+    print("  " + json.dumps({"ragged_digests": digests}), flush=True)
+    return {"rows": rows, "ragged_digests": digests}, ok
+
+
+SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HGMMA")
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel function: {"instructions": n, op: n for SASS_OPS}} from
+    ``cuobjdump -sass`` of a built library (each op counted with its
+    modifiers, e.g. I2F.S8 as I2F)."""
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+                                            / "bin" / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"instructions": 0, **{op: 0 for op in SASS_OPS}}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if m and fn is not None:
+            counts[fn]["instructions"] += 1
+            op = m.group(1)
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
+def compare_sass(dev, parent):
+    """Each tree's reduce and NMS kernels built here: C7518 lines and SASS
+    counts (see the module's docstring)."""
+    out = {}
+    for label, pkg in (("parent", parent.__name__), ("change", hgsfusion_tpu_torch.__name__)):
+        native = importlib.import_module(f"{pkg}.native")
+        report = native.build(["quad_sample_reduce", "nms_lazy"])
+        out[label] = {}
+        for name in ("quad_sample_reduce", "nms_lazy"):
+            log = report.get(name, {}).get("ptxas", "")
+            out[label][name] = {
+                "c7518": [ln.strip() for ln in log.splitlines() if "C7518" in ln],
+                "sass": {fn: c for fn, c in sass_counts(native.library_path(name)).items()
+                         if "kernel" in fn or "mma" in fn}}
+        print("  " + json.dumps({label: out[label]}), flush=True)
+    return out, True
+
+
+PARTS = {"sass": compare_sass, "nms": compare_nms, "reduce": compare_reduce,
+         "frames": compare_frames, "w8a8": compare_w8a8, "depth_bwd": compare_depth}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path, help="the other tree's root")
     ap.add_argument("--out", help="also write the results to this JSON file")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to run, of {list(PARTS)} (all by default)")
     args = ap.parse_args(argv)
+    parts = [p for p in args.parts.split(",") if p]
+    if set(parts) - set(PARTS):
+        ap.error(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     if not torch.cuda.is_available():
         print("compare_kernels_parent: no CUDA device", file=sys.stderr)
         return 2
@@ -250,8 +430,9 @@ def main(argv=None) -> int:
     print(cs.card_line(), flush=True)
     parent = load_tree(args.parent.resolve(), "parent_tree")
     results, ok = {"card": cs.card_line()}, True
-    for name, fn in (("w8a8", compare_w8a8), ("depth_bwd", compare_depth),
-                     ("w8a8_frame", compare_frame)):
+    for name, fn in PARTS.items():
+        if name not in parts:
+            continue
         print(f"[{name}]", flush=True)
         results[name], good = fn(dev, parent)
         ok = ok and good

@@ -7,7 +7,8 @@ and evaluates them with the official VoD AP (``tools/test.py``); the TPU's
 Pallas sampler kernels are replaced by the hand-written CUDA kernels in
 ``csrc/quad_sample.cu`` and ``csrc/quad_sample_bwd.cu``, and the Pallas
 prototype of the gather view's fused sample + reduce by
-``csrc/quad_sample_reduce.cu``; rotated NMS is ``csrc/nms_lazy.cu``. The
+``csrc/quad_sample_reduce.cu``; rotated NMS is ``csrc/nms_lazy.cu`` (a
+pairwise mask, then a sweep). The
 kernels a served frame launches are ``torch.library`` ops
 (``ops/library.py``), so the served graph exports whole
 (``tools/export.py``, ``tools/serve.py``; ``bench`` measures it). It

@@ -1,5 +1,6 @@
-// Rotated greedy NMS for Hopper (sm_90a): one block per frame, the whole
-// sweep in one launch, nothing read back to the host.
+// Rotated greedy NMS for Hopper (sm_90a) in two launches, nothing read back
+// to the host: nms_mask builds every frame's suppression mask on all SMs,
+// nms_sweep walks the greedy rule over it, one block a frame.
 //
 // Computes what hgsfusion_tpu/ops/nms.py::greedy_nms_lazy computes (XLA's
 // lax.while_loop there; no TPU kernel): over score-sorted candidates,
@@ -9,26 +10,40 @@
 //     keep i; suppress every later j with IoU_bev(box i, box j) > thresh
 //     i = the next candidate neither invalid nor suppressed
 //
-// The port's plain version (ops/nms.py::greedy_nms_lazy_plain) reads the
-// candidate count back to the host and launches a few kernels per kept box;
-// at 500 kept boxes that loop is the served frame's longest stage.
+// The port's plain versions (ops/nms.py) are greedy_nms_lazy_plain, which
+// reads the candidate count back to the host and launches a few kernels per
+// kept box, and the two-phase nms_mask_plain + nms_sweep_plain, which the
+// mask's bits are held to.
 //
-// Design: the block holds every candidate's BEV corners (32 B) and its
-// centre, circumradius and area (16 B) in shared memory (192 KB for the
-// configs' 4,096 candidates, past the 48 KB default: the launch raises the
-// block's limit), and a bitmask of the live candidates, one 32-bit word per
-// 32 of them. Each step keeps the first live candidate i; each warp takes
-// whole words of the bitmask from i's word on, its 32 lanes test the live
-// candidates of the word (one each) against box i, and the warp clears the
-// bits of those suppressed (and i's own) with one ballot and one store: no
-// word has two writers, so no atomics. A candidate whose circumcircle lies
-// clear of box i's (by a margin far above the corners' rounding) cannot
-// overlap it, so its IoU is 0 and it is not suppressed (at a threshold of 0
-// or more): only the lanes near box i evaluate the IoU, and a warp whose 32
-// candidates are all far from it skips the evaluation. Each warp also finds the first bit left set in
-// its words; one barrier later every thread reduces the warps' results to
-// the next i, so a step costs one __syncthreads (the warps' minima are
-// double-buffered, so a step's writes never meet the last step's reads).
+// nms_mask. mask[b, i, w] is a 64-bit word: bit j % 64 of word w = j / 64
+// is set where candidates i < j are both valid and box i suppresses box j,
+// the same decision for that pair as a sweep keeping i makes. The grid is
+// (row tile r <= column tile c of 64 candidates each, frame): 2,080 blocks a
+// frame at K = 4,096. A block whose 64 rows hold no valid candidate writes
+// nothing and exits (its words are never read). Otherwise it loads its rows'
+// and columns' BEV corners (32 B) and centre, circumradius and area (16 B)
+// into shared memory, and each of its 64 threads tests one row candidate i
+// against the valid columns j > i: a pair whose circumcircles lie clear of
+// each other (by a margin far above the corners' rounding) cannot overlap,
+// so its IoU is 0 and the bit is 0 > thresh; the other pairs go to a list in
+// shared memory, whose IoUs all 64 threads then evaluate side by side (the
+// few near pairs of a row would serialise a warp lane by lane), setting the
+// bits with shared atomics. Thread i writes its row's word: every word of a
+// row tile with a valid row and a column tile at or after it is written
+// (rows of invalid candidates as 0).
+//
+// nms_sweep. One block a frame walks the row tiles in order, keeping the
+// frame's valid bits, the bits suppressed so far and the kept bits in
+// shared memory. In tile t, warp 0 resolves the 64 candidates one after the
+// other: each live one is kept (up to max_keep) and its word of tile t (the
+// diagonal word, fetched into the warp's registers a tile ahead, handed out
+// by a shuffle) clears the later live ones. Its next words (tile t + 1),
+// fetched with them, give tile t + 1's suppressed bits at once, reduced over
+// the kept rows by the warp; meanwhile the other 15 warps OR the words of
+// the rows kept in tile t - 1 for tiles t + 1 on into the suppressed bits
+// (coalesced reads of consecutive words of a row), so a tile costs one
+// barrier and the resolution never waits for those reads. The walk stops after the last tile
+// holding a valid candidate, or at max_keep; keep is written once.
 //
 // The IoU is the port's sort-free boundary integral (ops/rotated_iou.py:
 // boxes_to_corners_bev, _pairwise_intersection_from_corners, _half_boundary)
@@ -36,28 +51,30 @@
 // ops round them (__fmul_rn / __fadd_rn never contract into an FMA) and the
 // four-term sums and means taken in index order. Only the order of those
 // small sums may differ from PyTorch's reductions, so a keep decision can
-// differ from the plain version's only where an IoU lies within rounding of
+// differ from the plain versions' only where an IoU lies within rounding of
 // the threshold.
 //
-// Bound on an H100: operations. Each step evaluates one IoU (about 700 f32
-// operations, 33 of them divisions) for every live candidate after i near
-// box i, and a circle test for the others, on the one SM that holds the
-// frame; a B-frame batch runs B blocks side by side.
-// The boxes are read once and the keep mask written once.
+// Bound on an H100: operations. The greedy rule needs, for each kept box,
+// an IoU (about 700 f32 operations, 33 of them divisions) with each live
+// later candidate near it and a circle test with the others; nms_mask makes
+// the circle test for every valid pair and the IoU for every near pair,
+// spread over all SMs. nms_sweep moves the kept rows' words (bytes).
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr float EPS = 1e-8f;       // IoU denominator floor (ops/rotated_iou.py _EPS)
-constexpr float EPS_PAR = 1e-6f;   // parallel edges (_EPS_PAR)
-constexpr float EPS_COLL = 1e-5f;  // collinear edges (_EPS_COLL)
-// the C entry's return when the candidates' corners do not fit in shared memory
-constexpr int TOO_MANY_CANDIDATES = -1;
+using u64 = unsigned long long;
+
+constexpr int TILE = 64;             // candidates a row or column tile: one 64-bit word
+constexpr int SWEEP_THREADS = 512;   // nms_sweep: warp 0 resolves, 15 warps OR words
+constexpr int HELPERS = SWEEP_THREADS - 32;
+constexpr int UNROLL = 4;            // words a helper thread has in flight
+constexpr float EPS = 1e-8f;         // IoU denominator floor (ops/rotated_iou.py _EPS)
+constexpr float EPS_PAR = 1e-6f;     // parallel edges (_EPS_PAR)
+constexpr float EPS_COLL = 1e-5f;    // collinear edges (_EPS_COLL)
 constexpr int MAX_DEVICES = 64;
+constexpr unsigned kFull = 0xffffffffu;
 // circumcircles this far apart (relative to 1 + their radii) leave their
 // boxes disjoint whatever the corners' f32 rounding
 constexpr float DISC_MARGIN = 1e-3f;
@@ -82,6 +99,16 @@ __device__ Quad corners(const float* box) {
     q.y[k] = add(add(mul(px, s), mul(py, c)), box[1]);
   }
   return q;
+}
+
+// candidate j's corners and its centre x, y, circumradius and area
+__device__ __forceinline__ void load_candidate(const float* bx, int j, Quad& q, float4& disc) {
+  float box[7];
+#pragma unroll
+  for (int c = 0; c < 7; ++c) box[c] = bx[static_cast<int64_t>(j) * 7 + c];
+  q = corners(box);
+  disc = make_float4(box[0], box[1], 0.5f * sqrtf(box[3] * box[3] + box[4] * box[4]),
+                     mul(box[3], box[4]));
 }
 
 __device__ __forceinline__ float sum4(const float (&v)[4]) {
@@ -141,121 +168,245 @@ __device__ float iou(const Quad& a, float area_a, const Quad& b, float area_b) {
   return __fdiv_rn(inter, fmaxf(sub(add(area_a, area_b), inter), EPS));
 }
 
-// the candidate of word w's lowest set bit, or INT_MAX
-__device__ __forceinline__ int first_bit(uint32_t bits, int w) {
-  return bits ? 32 * w + __ffs(bits) - 1 : INT_MAX;
+// whether the circumcircles of di and dj lie clear of each other
+__device__ __forceinline__ bool clear(const float4& di, const float4& dj) {
+  const float gap = di.z + dj.z + DISC_MARGIN * (1.f + di.z + dj.z);
+  const float ex = di.x - dj.x, ey = di.y - dj.y;
+  return ex * ex + ey * ey > gap * gap;
 }
 
-__device__ __forceinline__ int block_min(const int* warp_first) {
-  int v = INT_MAX;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) v = min(v, warp_first[w]);
-  return v;
+// the first word of row tile r in the upper triangle of t x t tiles
+__device__ __forceinline__ int64_t row_start(int64_t r, int64_t t) {
+  return r * t - r * (r - 1) / 2;
 }
 
-__global__ void __launch_bounds__(THREADS)
-nms_lazy_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid, int k,
-                float thresh, int max_keep, uint8_t* __restrict__ keep) {
-  extern __shared__ float4 smem_f4[];
-  const int words = (k + 31) / 32;
-  Quad* quad = reinterpret_cast<Quad*>(smem_f4);
-  float4* disc = reinterpret_cast<float4*>(quad + k);  // centre x, y, circumradius, area
-  uint32_t* live = reinterpret_cast<uint32_t*>(disc + k);
-  uint32_t* kept = live + words;
-  __shared__ int warp_first[2][WARPS];
+__global__ void __launch_bounds__(TILE)
+nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid, int k,
+                int tiles, float thresh, u64* __restrict__ mask) {
+  __shared__ Quad quad[2][TILE];     // the row tile's candidates, the column tile's
+  __shared__ float4 disc[2][TILE];
+  __shared__ u64 word[TILE];
+  __shared__ uint16_t pairs[TILE * TILE];  // near pairs: row << 6 | column
+  __shared__ unsigned col_bits[2];
+  __shared__ int n_pairs;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* bx = boxes + static_cast<int64_t>(blockIdx.x) * k * 7;
-  const uint8_t* vd = valid + static_cast<int64_t>(blockIdx.x) * k;
-  uint8_t* out = keep + static_cast<int64_t>(blockIdx.x) * k;
+  // this block's tile pair r <= c from its index in the upper triangle
+  const int64_t idx = blockIdx.x, nt = tiles;
+  const double b2 = 2.0 * nt + 1.0;
+  int64_t r = static_cast<int64_t>((b2 - sqrt(b2 * b2 - 8.0 * static_cast<double>(idx))) / 2.0);
+  r = r < 0 ? 0 : r >= nt ? nt - 1 : r;
+  while (r > 0 && row_start(r, nt) > idx) --r;
+  while (r + 1 < nt && row_start(r + 1, nt) <= idx) ++r;
+  const int64_t c = r + (idx - row_start(r, nt));
 
-  for (int j = threadIdx.x; j < k; j += THREADS) {
-    float box[7];
-#pragma unroll
-    for (int c = 0; c < 7; ++c) box[c] = bx[static_cast<int64_t>(j) * 7 + c];
-    quad[j] = corners(box);
-    disc[j] = make_float4(box[0], box[1], 0.5f * sqrtf(box[3] * box[3] + box[4] * box[4]),
-                          mul(box[3], box[4]));
-  }
-  // the bitmask, 32 candidates a word, one warp a word; each warp's first
-  // valid candidate
-  int first = INT_MAX;
-  for (int w = warp; w < words; w += WARPS) {
-    const int j = 32 * w + lane;
-    const uint32_t bits = __ballot_sync(0xffffffffu, j < k && vd[j] != 0);
-    if (lane == 0) live[w] = bits, kept[w] = 0u;
-    first = min(first, first_bit(bits, w));
-  }
-  if (lane == 0) warp_first[0][warp] = first;
+  const int t = threadIdx.x;
+  const int i = static_cast<int>(r) * TILE + t, j = static_cast<int>(c) * TILE + t;
+  const int64_t frame = blockIdx.y;
+  const uint8_t* vd = valid + frame * k;
+  const float* bx = boxes + frame * k * 7;
+  const bool row_valid = i < k && vd[i] != 0;
+  if (!__syncthreads_or(row_valid)) return;
+  const bool col_valid = j < k && vd[j] != 0;
+  const unsigned ballot = __ballot_sync(kFull, col_valid);
+  if ((t & 31) == 0) col_bits[t >> 5] = ballot;
+  if (t == 0) n_pairs = 0;
+  if (row_valid) load_candidate(bx, i, quad[0][t], disc[0][t]);
+  if (col_valid) load_candidate(bx, j, quad[1][t], disc[1][t]);
   __syncthreads();
 
-  int buf = 0;
-  int i = block_min(warp_first[buf]);
-  for (int n = 0; i < k && n < max_keep; ++n) {
-    if (threadIdx.x == 0) kept[i / 32] |= 1u << (i % 32);
-    const Quad qi = quad[i];
-    const float4 di = disc[i];
-    buf ^= 1;
-    first = INT_MAX;
-    // words before i's hold no live bit: i is the first
-    for (int w = i / 32 + warp; w < words; w += WARPS) {
-      const uint32_t bits = live[w];
-      const int j = 32 * w + lane;
-      bool doomed = false;
-      if (((bits >> lane) & 1u) && j > i) {
-        const float4 dj = disc[j];
-        const float gap = di.z + dj.z + DISC_MARGIN * (1.f + di.z + dj.z);
-        const float ex = di.x - dj.x, ey = di.y - dj.y;
-        doomed = ex * ex + ey * ey > gap * gap ? 0.f > thresh
-                                               : iou(qi, di.w, quad[j], dj.w) > thresh;
+  // row i against the valid columns after it: the clear pairs decided here,
+  // the near ones listed
+  u64 bits = 0;
+  if (row_valid) {
+    u64 cols = static_cast<u64>(col_bits[1]) << 32 | col_bits[0];
+    if (r == c) cols &= t == TILE - 1 ? 0ull : ~0ull << (t + 1);
+    const float4 di = disc[0][t];
+    while (cols) {
+      const int u = __ffsll(static_cast<long long>(cols)) - 1;
+      cols &= cols - 1;
+      if (clear(di, disc[1][u])) {
+        if (0.f > thresh) bits |= 1ull << u;
+      } else {
+        pairs[atomicAdd(&n_pairs, 1)] = static_cast<uint16_t>(t << 6 | u);
       }
-      doomed = doomed || j == i;
-      const uint32_t left = bits & ~__ballot_sync(0xffffffffu, doomed);
-      if (lane == 0) live[w] = left;
-      first = min(first, first_bit(left, w));
     }
-    if (lane == 0) warp_first[buf][warp] = first;
-    __syncthreads();
-    i = block_min(warp_first[buf]);
   }
-  __syncthreads();  // thread 0's last kept bit
-  for (int j = threadIdx.x; j < k; j += THREADS) out[j] = (kept[j / 32] >> (j % 32)) & 1u;
+  word[t] = bits;
+  __syncthreads();
+  const int n = n_pairs;
+  for (int p = t; p < n; p += TILE) {
+    const int a = pairs[p] >> 6, u = pairs[p] & 63;
+    if (iou(quad[0][a], disc[0][a].w, quad[1][u], disc[1][u].w) > thresh)
+      atomicOr(&word[a], 1ull << u);
+  }
+  __syncthreads();
+  if (i < k) mask[(frame * k + i) * tiles + c] = word[t];
 }
 
-size_t smem_bytes(int k) {
-  const size_t words = (static_cast<size_t>(k) + 31) / 32;
-  return static_cast<size_t>(k) * (sizeof(Quad) + sizeof(float4)) +
-         2 * words * sizeof(uint32_t);
+__device__ __forceinline__ u64 warp_or(u64 v) {
+  const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(v));
+  const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(v >> 32));
+  return static_cast<u64>(hi) << 32 | lo;
+}
+
+__global__ void __launch_bounds__(SWEEP_THREADS)
+nms_sweep_kernel(const u64* __restrict__ mask, const uint8_t* __restrict__ valid, int k,
+                 int tiles, int max_keep, uint8_t* __restrict__ keep) {
+  extern __shared__ u64 sm[];
+  u64* live = sm;                   // the valid bits, a word a tile
+  u64* removed = live + tiles;      // bits suppressed by tiles before the last one resolved
+  u64* kept = removed + tiles;      // the kept bits
+  __shared__ int kept_rows[2][TILE];  // the rows kept in a tile, double-buffered
+  __shared__ int n_kept_rows[2];
+  __shared__ int stop[2];  // whether max_keep was reached, double-buffered like them
+  __shared__ int last;
+
+  const int64_t frame = blockIdx.x;
+  const u64* fm = mask + frame * k * tiles;
+  const uint8_t* vd = valid + frame * k;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) last = -1;
+  for (int w = threadIdx.x; w < tiles; w += SWEEP_THREADS) removed[w] = 0, kept[w] = 0;
+  __syncthreads();
+  for (int h = warp; h < 2 * tiles; h += SWEEP_THREADS / 32) {  // 32 candidates a warp
+    const int j = 32 * h + lane;
+    const unsigned bits = __ballot_sync(kFull, j < k && vd[j] != 0);
+    if (lane == 0) {
+      reinterpret_cast<unsigned*>(live)[h] = bits;  // the low half of word h / 2 first
+      if (bits) atomicMax(&last, h / 2);
+    }
+  }
+  __syncthreads();
+  const int last_tile = last;
+
+  // warp 0: lane l holds rows 64 t + l and 64 t + 32 + l of tile t, their
+  // words of tile t (d) and tile t + 1 (nx), and tile t + 1's (pd, pn)
+  u64 d[2] = {0, 0}, nx[2] = {0, 0}, pd[2] = {0, 0}, pn[2] = {0, 0};
+  auto fetch = [&](int t, u64 (&dw)[2], u64 (&nw)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = TILE * t + 32 * h + lane;
+      const u64* words = fm + static_cast<int64_t>(row) * tiles;
+      dw[h] = row < k ? __ldg(words + t) : 0ull;
+      nw[h] = row < k && t + 1 < tiles ? __ldg(words + t + 1) : 0ull;
+    }
+  };
+  u64 fast = 0;  // warp 0: the bits of tile t suppressed by tile t - 1's kept rows
+  int n_kept = 0;
+  if (warp == 0 && last_tile >= 0) fetch(0, d, nx);
+
+  for (int t = 0; t <= last_tile; ++t) {
+    const int buf = t & 1;
+    if (warp == 0) {
+      if (t < last_tile) fetch(t + 1, pd, pn);
+      u64 open = live[t] & ~(removed[t] | fast);
+      u64 taken = 0;
+      while (open && n_kept < max_keep) {
+        const int i = __ffsll(static_cast<long long>(open)) - 1;
+        taken |= 1ull << i;
+        ++n_kept;
+        const u64 di = __shfl_sync(kFull, i < 32 ? d[0] : d[1], i & 31);
+        open &= ~(di | 1ull << i);
+      }
+      fast = warp_or(((taken >> lane) & 1 ? nx[0] : 0ull) |
+                     ((taken >> (32 + lane)) & 1 ? nx[1] : 0ull));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = 32 * h + lane;
+        if ((taken >> b) & 1)
+          kept_rows[buf][__popcll(taken & ((1ull << b) - 1))] = TILE * t + b;
+      }
+      if (lane == 0) {
+        kept[t] = taken;
+        n_kept_rows[buf] = __popcll(taken);
+        stop[buf] = n_kept >= max_keep;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) d[h] = pd[h], nx[h] = pn[h];
+    } else if (t > 0) {
+      // tile t - 1's kept rows: their words of tiles t + 1 .. last_tile
+      const int nr = n_kept_rows[buf ^ 1], nw = last_tile - t;
+      const int total = nr * nw;
+      for (int p0 = threadIdx.x - 32; p0 < total; p0 += UNROLL * HELPERS) {
+        u64 v[UNROLL];
+        int w[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int p = p0 + u * HELPERS;
+          v[u] = 0;
+          w[u] = 0;
+          if (p < total) {
+            const int row = kept_rows[buf ^ 1][p / nw];
+            w[u] = t + 1 + p % nw;
+            v[u] = __ldg(fm + static_cast<int64_t>(row) * tiles + w[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (v[u]) atomicOr(&removed[w[u]], v[u]);
+      }
+    }
+    __syncthreads();
+    if (stop[buf]) break;
+  }
+  uint8_t* out = keep + frame * k;
+  for (int j = threadIdx.x; j < k; j += SWEEP_THREADS) out[j] = (kept[j >> 6] >> (j & 63)) & 1;
+}
+
+// the shared memory nms_sweep needs beyond 48 KB is granted once per device
+// (so that a call inside a CUDA graph capture makes no attribute call)
+cudaError_t raise_sweep_smem() {
+  static int raised[MAX_DEVICES] = {};
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < MAX_DEVICES && raised[device])) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr{};
+  if ((err = cudaFuncGetAttributes(&attr, nms_sweep_kernel)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess && device < MAX_DEVICES) raised[device] = 1;
+  return err;
 }
 
 }  // namespace
 
 // boxes: (b, k, 7) float32 [x, y, z, dx, dy, dz, heading], score-sorted per
-// frame, contiguous. valid: (b, k) bool (one byte each). keep: (b, k) bool,
-// every element written: the greedy keep set of each frame, at most
-// max_keep entries. Returns the launch's cudaError_t, or -1 when k
-// candidates' corners exceed a block's shared memory.
-extern "C" int nms_lazy(const void* boxes, const void* valid, int b, int k, float thresh,
-                        int max_keep, void* keep, void* stream) {
+// frame, contiguous. valid: (b, k) bool (one byte each). mask: (b, k, tiles)
+// 64-bit words, tiles = ceil(k / 64): the words of every row tile holding a
+// valid candidate, at and after its own tile, are written (see the notes
+// above). b at most 65,535, k * tiles under 2^31. Returns the launch's
+// cudaError_t.
+extern "C" int nms_mask(const void* boxes, const void* valid, int b, int k, float thresh,
+                        void* mask, void* stream) {
   if (b == 0 || k == 0) return cudaSuccess;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t bytes = smem_bytes(k);
-  if (bytes + sizeof(int) * 2 * WARPS > static_cast<size_t>(optin)) return TOO_MANY_CANDIDATES;
-  // raise the block's limit once per device (to the most it can take), so
-  // that a call inside a CUDA graph capture makes no attribute call
-  static int raised[MAX_DEVICES] = {};
-  if (device >= MAX_DEVICES || !raised[device]) {
-    err = cudaFuncSetAttribute(nms_lazy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - static_cast<int>(sizeof(int) * 2 * WARPS));
+  const int64_t tiles = (static_cast<int64_t>(k) + TILE - 1) / TILE;
+  if (b < 0 || k < 0 || b > 65535 || k * tiles >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2), static_cast<unsigned>(b));
+  nms_mask_kernel<<<grid, TILE, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid), k,
+      static_cast<int>(tiles), thresh, static_cast<u64*>(mask));
+  return cudaGetLastError();
+}
+
+// mask: nms_mask's words for (b, k) candidates; valid: (b, k) bool. keep:
+// (b, k) bool, every element written: the greedy keep set of each frame, at
+// most max_keep entries. Returns the launch's cudaError_t.
+extern "C" int nms_sweep(const void* mask, const void* valid, int b, int k, int max_keep,
+                         void* keep, void* stream) {
+  if (b == 0 || k == 0) return cudaSuccess;
+  const int64_t tiles = (static_cast<int64_t>(k) + TILE - 1) / TILE;
+  if (b < 0 || k < 0 || max_keep < 0 || k * tiles >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const size_t smem = 3 * tiles * sizeof(u64);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_sweep_smem();
     if (err != cudaSuccess) return err;
-    if (device < MAX_DEVICES) raised[device] = 1;
   }
-  nms_lazy_kernel<<<b, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid), k, thresh,
-      max_keep, static_cast<uint8_t*>(keep));
+  nms_sweep_kernel<<<b, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid), k,
+      static_cast<int>(tiles), max_keep, static_cast<uint8_t*>(keep));
   return cudaGetLastError();
 }

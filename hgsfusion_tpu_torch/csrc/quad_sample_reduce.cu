@@ -61,14 +61,29 @@
 // reduce in XLA, hgsfusion_tpu/models/frustum.py:364-385). The caller gives K
 // with each group's per-channel scales already folded into its rows; the
 // kernel samples the unscaled int8 values. A chunk is then KC = 64 channels,
-// so a tap row's chunk is 64 bytes as in bf16 and the ring's stages, the
-// gather and its zero-fill are the same. The combine reads each lane's
+// so a tap row's chunk is 64 bytes as in bf16 and the stages, the gather and
+// its zero-fill are the same; the ring has three stages (two chunks
+// gathering), which leaves 256 rows for K. The combine reads each lane's
 // 16-byte piece of its two rows of each tap (one 16-byte load a row and
-// tap), converts the int8 values to f32, applies the four weights and
-// rounds once to T; for that the chunk's 64 channels enter the product in a
-// permuted order (q8_channel: lane ql's piece holds the 16 channels of its A
-// fragments for the chunk's four k16 steps) and K's rows are stored in the
-// same order. Its bound is bytes as P3's, with the taps' L2 traffic halved.
+// tap), applies the four weights and rounds once to T; for that the chunk's
+// 64 channels enter the product in a permuted order (q8_channel: lane ql's
+// piece holds the 16 channels of its A fragments for the chunk's four k16
+// steps) and K's rows are stored in the same order. The int8 values become
+// f32 without an I2F (a quarter-rate conversion, 1,024 a query): one XOR a
+// word, then per value a byte permute into the mantissa of 2^23 and one
+// exact subtraction (s8_biased), so the f32 values, their fused sum and its
+// rounding are what a conversion gives. The combine writes one of two A
+// register sets, and the warpgroup's product of a chunk runs under the next
+// chunk's gathers and combine (wgmma.wait_group 1; 0 before the epilogue),
+// each output's chunks and k16 steps in the same order as before. With o =
+// 128 a warp's 16 output rows are one 4 KB piece: the epilogue stages them
+// in the ring stage just combined and writes them with one bulk copy
+// (cp.async.bulk) instead of 8 rows' 16-byte stores a lane. Its bound is
+// bytes as P3's, with the taps' L2 traffic halved. Edited copies
+// (tune_quad_reduce.py) put the old I2F at 0.27 ms of 1.57, the 16-byte
+// stores at 0.14; what remains is mostly the products, which cost about
+// 0.5 ms beside the combine and 0.13 without it, whatever the wait depth
+// (PERF.md).
 //
 // quad_sample_taps runs quad_tap alone and writes what quad_indices builds
 // (the flat top-left pixel in the zero-padded map, the four weights), so the
@@ -149,16 +164,25 @@ constexpr int kThreads = kWarps * 32;
 constexpr int RM = 16;   // queries per warp tile
 constexpr int BN = 128;  // outputs per block
 constexpr int KC = 32;   // channels per chunk (64 B of a 16-bit tap row)
-constexpr int kStages = 2;  // chunks a warp has in flight: 1 gathering, 1 multiplied
 constexpr int kTapBytes = RM * KC * 2;           // one tap's 16 rows: 1 KB
 constexpr int kStageBytes = 4 * kTapBytes;       // four taps
 constexpr int kMetaBytes = RM * 16;              // the 16 queries' weights (float4)
-constexpr int kWarpBytes = kStages * (kStageBytes + kMetaBytes);
-constexpr int kRingBytes = kWarps * kWarpBytes;
 constexpr int kMaxSmem = 232448;                 // a block's shared memory on sm_90
-// K's slice: rows rounded up to whole 64-row swizzle atoms, 1024-byte aligned
-constexpr int kMaxKRows = (kMaxSmem - kRingBytes - 1024) / (BN * 2) / 64 * 64;
 static_assert(kWarps % 4 == 0, "whole warpgroups");
+
+// Each warp's ring for maps of type M: kStages chunks in flight, two for
+// bf16 / f16 maps (1 gathering, 1 combined and multiplied), three for int8
+// (2 gathering); K's slice takes the rest, its rows rounded up to whole
+// 64-row swizzle atoms, 1024-byte aligned: 448 rows beside the two-stage
+// ring, 256 beside the three-stage one (the configs' 64 + 192).
+template <typename M> struct Ring {
+  static constexpr int kStages = std::is_same_v<M, int8_t> ? 3 : 2;
+  static constexpr int kWarpBytes = kStages * (kStageBytes + kMetaBytes);
+  static constexpr int kRingBytes = kWarps * kWarpBytes;
+  static constexpr int kMaxKRows = (kMaxSmem - kRingBytes - 1024) / (BN * 2) / 64 * 64;
+};
+static_assert(Ring<int8_t>::kMaxKRows >= 256,
+              "the configs' 256 rows of K beside the int8 ring");
 
 // byte offset of 16-byte piece p (0..3) of row r in a tap's 16 x 64 B tile:
 // XOR-swizzled so the eight rows of an ldmatrix sit on distinct banks
@@ -255,8 +279,8 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving accumulator accesses across the
 // asynchronous product
@@ -342,13 +366,55 @@ __device__ __forceinline__ int q8_channel(int L) {
   return ((L >> 1) & 3) * 16 + (L >> 4) * 4 + ((L >> 3) & 1) * 2 + (L & 1);
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+// byte b of x, a word of int8 values each stored plus 128 (the int8 word
+// XOR 0x80808080), as that int8 value in f32 without an I2F: the byte
+// becomes the low mantissa byte of 2^23 (0x4B0000bb = 2^23 + b + 128), and
+// subtracting 2^23 + 128 leaves b exactly
+__device__ __forceinline__ float s8_biased(uint32_t x, int b) {
+  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | b)) - 8388736.0f;
 }
 
-// byte `b` of x as a signed int8 value, in f32
-__device__ __forceinline__ float s8(uint32_t x, int b) {
-  return static_cast<float>(static_cast<int8_t>(x >> (8 * b)));
+// A warp's int8 combine of one chunk (64 channels): this lane's 16-byte
+// piece ql of rows quad and quad + 8 of each tap (the int8 values of its A
+// fragments for the chunk's four k16 steps, q8_channel), summed over the
+// taps in f32 in tap order with the weights w_lo (row quad) and w_hi (row
+// quad + 8), rounded once to T.
+template <typename T>
+__device__ __forceinline__ void combine_q8(const unsigned char* stage, float4 wlo, float4 whi,
+                                           int quad, int ql, uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kp = 0; kp < 2; ++kp) {
+    // words 2 kp and 2 kp + 1 of each row's piece: the k16 steps 2 kp, 2 kp + 1
+    uint2 lo_rows[4], hi_rows[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(stage + t * kTapBytes +
+                                                       tap_offset(quad, ql) + 8 * kp);
+      const uint2 hi = *reinterpret_cast<const uint2*>(stage + t * kTapBytes +
+                                                       tap_offset(quad + 8, ql) + 8 * kp);
+      lo_rows[t] = make_uint2(lo.x ^ 0x80808080u, lo.y ^ 0x80808080u);
+      hi_rows[t] = make_uint2(hi.x ^ 0x80808080u, hi.y ^ 0x80808080u);
+    }
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 w = (i & 1) ? whi : wlo;  // a1, a3: rows 8-15
+        const uint2* rows = (i & 1) ? hi_rows : lo_rows;
+        const int b = (i >> 1) * 2;  // a2, a3: columns 8-15 of the k16 step
+        const uint32_t t0 = k2 ? rows[0].y : rows[0].x, t1 = k2 ? rows[1].y : rows[1].x;
+        const uint32_t t2 = k2 ? rows[2].y : rows[2].x, t3 = k2 ? rows[3].y : rows[3].x;
+        float lo = w.x * s8_biased(t0, b), hi = w.x * s8_biased(t0, b + 1);
+        lo = fmaf(w.y, s8_biased(t1, b), lo);
+        hi = fmaf(w.y, s8_biased(t1, b + 1), hi);
+        lo = fmaf(w.z, s8_biased(t2, b), lo);
+        hi = fmaf(w.z, s8_biased(t2, b + 1), hi);
+        lo = fmaf(w.w, s8_biased(t3, b), lo);
+        hi = fmaf(w.w, s8_biased(t3, b + 1), hi);
+        a[2 * kp + k2][i] = pack2<T>(lo, hi);
+      }
+    }
+  }
 }
 
 // T the compute type, M the maps' type (T, or int8: KC = 64 channels a chunk)
@@ -356,9 +422,11 @@ template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __grid_constant__ Params prm) {
   constexpr bool kQ8 = std::is_same_v<M, int8_t>;
   constexpr int KCM = 64 / sizeof(M);  // channels a chunk: 64 bytes of a tap row
+  constexpr int kStages = Ring<M>::kStages;
+  constexpr int kRingBytes = Ring<M>::kRingBytes;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* ring = smem + warp * kWarpBytes;
+  unsigned char* ring = smem + warp * Ring<M>::kWarpBytes;
   const uint32_t ring_addr = smem_addr(ring);
   const uint32_t ring_end = smem_addr(smem + kRingBytes);
   T* ks = reinterpret_cast<T*>(smem + kRingBytes + (((ring_end + 1023) & ~1023u) - ring_end));
@@ -462,62 +530,160 @@ __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __gr
   float acc[BN / 8][4];
   const int quad = lane >> 2, ql = lane & 3;
 
+  // a tile's accumulator starts at the bias
+  auto init_acc = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const int col = o0 + nt * 8 + ql * 2;
+      const float b0 = col < prm.o ? prm.bias[col] : 0.0f;
+      const float b1 = col + 1 < prm.o ? prm.bias[col + 1] : 0.0f;
+      acc[nt][0] = b0;
+      acc[nt][1] = b1;
+      acc[nt][2] = b0;
+      acc[nt][3] = b1;
+    }
+  };
+  // the warpgroup's 64 x 128 product of a chunk (A in registers, K's rows
+  // from krow) on the tensor cores, two k16 steps an asm statement
+  auto product = [&](const uint32_t (&a)[KCM / 16][4], int krow) {
+    static_assert(KC == 32 && KCM % 32 == 0, "whole pairs of k16 products a chunk");
+#pragma unroll
+    for (int s2 = 0; s2 < KCM / 16; s2 += 2) {
+      const uint32_t ap[2][4] = {{a[s2][0], a[s2][1], a[s2][2], a[s2][3]},
+                                 {a[s2 + 1][0], a[s2 + 1][1], a[s2 + 1][2], a[s2 + 1][3]}};
+      const int k0 = krow + 16 * s2, k1 = k0 + 16;
+      wgmma_chunk<T>(acc, ap, kmajor_sw128_desc(ks_addr + (k0 >> 6) * (BN * 128) + (k0 & 63) * 2),
+                     kmajor_sw128_desc(ks_addr + (k1 >> 6) * (BN * 128) + (k1 & 63) * 2));
+    }
+  };
+  // lane ql of a quad's 8 outputs of n-tile 4 G + ql in the tile's row quad
+  // + 8 half, rounded once to T, gathered from its quad's four lanes
+  auto pack8 = [&](int half, int G) {
+    uint32_t p[4], got[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      p[u] = pack2<T>(acc[4 * G + u][2 * half], acc[4 * G + u][2 * half + 1]);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      // send n-tile (ql + rr) & 3; receive from lane (ql - rr) & 3 of the quad
+      const uint32_t v = sel4(p[0], p[1], p[2], p[3], (ql + rr) & 3);
+      got[rr] = __shfl_sync(kFull, v, (lane & ~3) | ((ql - rr) & 3));
+    }
+    // got[rr] holds columns 2 src, 2 src + 1 with src = (ql - rr) & 3
+    uint32_t v4[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v4[k] = sel4(got[0], got[1], got[2], got[3], (ql - k) & 3);
+    return make_uint4(v4[0], v4[1], v4[2], v4[3]);
+  };
+  // the tile's rows quad and quad + 8, 16-byte streaming stores
+  auto store_tile = [&](int64_t tile) {
+    const int64_t r0 = (tile * 4 + wi) * RM + quad;
+    T* out = static_cast<T*>(prm.out);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t r = r0 + half * 8;
+#pragma unroll
+      for (int G = 0; G < BN / 32; ++G) {
+        const uint4 v = pack8(half, G);
+        const int col = o0 + (4 * G + ql) * 8;
+        if (r < prm.n) {
+          T* dst = out + r * prm.o + col;
+          if (prm.out_vec && col + 8 <= prm.o) {
+            __stcs(reinterpret_cast<uint4*>(dst), v);
+          } else {
+            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              if (col + k < prm.o) dst[k] = from_bits<T>(w[k >> 1] >> (16 * (k & 1)));
+          }
+        }
+      }
+    }
+  };
+
 #pragma unroll 1
   for (int s = 0; s < kStages - 1; ++s) issue();
 
   int64_t tile = gw;
-  int j = 0, st = 0;
+  int st = 0;
+  if constexpr (kQ8) {
+    // A tile at a time: the accumulator starts at the bias with no product
+    // in flight, and is read after wgmma.wait_group 0. Between, two A
+    // register sets: chunk j's product runs under chunk j + 1's gathers and
+    // combine, and its set is rewritten only after chunk j + 1's product is
+    // issued and wgmma.wait_group 1 has seen chunk j's done. No accumulator
+    // or A write sits on a path ptxas cannot prove uniform, so it need not
+    // serialise the products (C7518).
+    uint32_t a_set[2][4][4];
+    // 16-bit outputs, o = BN, 16-byte aligned: a tile's rows are one piece
+    const bool bulk_out = prm.o == BN && prm.out_vec;
 #pragma unroll 1
-  for (int64_t s = 0; s < steps; ++s) {
-    issue();
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    if (j == 0) {
+    for (; tile < n_tiles; tile += n_groups) {
+      init_acc();
+#pragma unroll 1
+      for (int jc = 0; jc < cpt; jc += 2) {
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const int col = o0 + nt * 8 + ql * 2;
-        const float b0 = col < prm.o ? prm.bias[col] : 0.0f;
-        const float b1 = col + 1 < prm.o ? prm.bias[col + 1] : 0.0f;
-        acc[nt][0] = b0;
-        acc[nt][1] = b1;
-        acc[nt][2] = b0;
-        acc[nt][3] = b1;
-      }
-    }
-    const unsigned char* stage = ring + st * kStageBytes;
-    const float4* meta = reinterpret_cast<const float4*>(ring + kStages * kStageBytes + st * kMetaBytes);
-    const float4 wlo = meta[quad], whi = meta[quad + 8];
-    const int krow = prm.chunk[j].krow;
-    uint32_t a[KCM / 16][4];
-    if constexpr (kQ8) {
-      // this lane's piece ql of rows quad and quad + 8 of each tap: the int8
-      // values of its A fragments (q8_channel), combined in f32, rounded once
-      uint4 lo_rows[4], hi_rows[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        lo_rows[t] = *reinterpret_cast<const uint4*>(stage + t * kTapBytes + tap_offset(quad, ql));
-        hi_rows[t] = *reinterpret_cast<const uint4*>(stage + t * kTapBytes + tap_offset(quad + 8, ql));
-      }
-#pragma unroll
-      for (int kk = 0; kk < KCM / 16; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 w = (i & 1) ? whi : wlo;  // a1, a3: rows 8-15
-          const uint4* rows = (i & 1) ? hi_rows : lo_rows;
-          const int b = (i >> 1) * 2;  // a2, a3: columns 8-15 of the k16 step
-          const uint32_t t0 = word_of(rows[0], kk), t1 = word_of(rows[1], kk);
-          const uint32_t t2 = word_of(rows[2], kk), t3 = word_of(rows[3], kk);
-          float lo = w.x * s8(t0, b), hi = w.x * s8(t0, b + 1);
-          lo = fmaf(w.y, s8(t1, b), lo);
-          hi = fmaf(w.y, s8(t1, b + 1), hi);
-          lo = fmaf(w.z, s8(t2, b), lo);
-          hi = fmaf(w.z, s8(t2, b + 1), hi);
-          lo = fmaf(w.w, s8(t3, b), lo);
-          hi = fmaf(w.w, s8(t3, b + 1), hi);
-          a[kk][i] = pack2<T>(lo, hi);
+        for (int par = 0; par < 2; ++par) {
+          if (par == 1 && jc + 1 == cpt) break;
+          uint32_t (&a)[4][4] = a_set[par];
+          issue();
+          cp_async_wait<kStages - 1>();
+          __syncwarp();
+          const unsigned char* stage = ring + st * kStageBytes;
+          const float4* meta =
+              reinterpret_cast<const float4*>(ring + kStages * kStageBytes + st * kMetaBytes);
+          combine_q8<T>(stage, meta[quad], meta[quad + 8], quad, ql, a);
+          __syncwarp();  // every lane's reads of the stage are done before it is refilled
+          wgmma_fence();
+          product(a, prm.chunk[jc + par].krow);
+          wgmma_commit();
+          wgmma_wait<1>();
+          st = st + 1 == kStages ? 0 : st + 1;
         }
       }
-    } else {
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (bulk_out) {
+        // o = BN: the warp's 16 rows are 4 KB of the output in one piece,
+        // staged in the stage the last chunk was combined from (free until
+        // the next issue) and written by one bulk copy
+        unsigned char* buf = ring + (st == 0 ? kStages - 1 : st - 1) * kStageBytes;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int G = 0; G < BN / 32; ++G)
+            *reinterpret_cast<uint4*>(buf + (quad + 8 * half) * (BN * 2) + (4 * G + ql) * 16) =
+                pack8(half, G);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        const int64_t row0 = (tile * 4 + wi) * RM;
+        if (lane == 0 && row0 < prm.n) {
+          const int rows = prm.n - row0 < RM ? static_cast<int>(prm.n - row0) : RM;
+          asm volatile(
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+              "cp.async.bulk.commit_group;\n"
+              "cp.async.bulk.wait_group.read 0;\n" ::"l"(static_cast<T*>(prm.out) + row0 * BN),
+              "r"(smem_addr(buf)), "r"(rows * BN * 2)
+              : "memory");
+        }
+        __syncwarp();  // the copy has read the stage before it is refilled
+      } else {
+        store_tile(tile);
+      }
+    }
+    if (bulk_out && lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  } else {
+    int j = 0;
+#pragma unroll 1
+    for (int64_t s = 0; s < steps; ++s) {
+      issue();
+      cp_async_wait<kStages - 1>();
+      __syncwarp();
+      if (j == 0) init_acc();
+      const unsigned char* stage = ring + st * kStageBytes;
+      const float4* meta = reinterpret_cast<const float4*>(ring + kStages * kStageBytes + st * kMetaBytes);
+      const float4 wlo = meta[quad], whi = meta[quad + 8];
+      uint32_t a[KCM / 16][4];
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         // the four taps' 16 x 16 A fragments, combined in f32, rounded once
@@ -541,69 +707,21 @@ __global__ void __launch_bounds__(kThreads, 1) quad_sample_reduce_mma(const __gr
           a[kk][i] = pack2<T>(lo, hi);
         }
       }
-    }
-    // the warpgroup's 64 x 128 product of this chunk on the tensor cores,
-    // two k16 steps an asm statement
-    fence_acc(acc);
-    wgmma_fence();
-    static_assert(KC == 32 && KCM % 32 == 0, "whole pairs of k16 products a chunk");
-#pragma unroll
-    for (int s2 = 0; s2 < KCM / 16; s2 += 2) {
-      const uint32_t ap[2][4] = {{a[s2][0], a[s2][1], a[s2][2], a[s2][3]},
-                                 {a[s2 + 1][0], a[s2 + 1][1], a[s2 + 1][2], a[s2 + 1][3]}};
-      const int k0 = krow + 16 * s2, k1 = k0 + 16;
-      wgmma_chunk<T>(acc, ap, kmajor_sw128_desc(ks_addr + (k0 >> 6) * (BN * 128) + (k0 & 63) * 2),
-                    kmajor_sw128_desc(ks_addr + (k1 >> 6) * (BN * 128) + (k1 & 63) * 2));
-    }
-    wgmma_commit();
-    // the product reads A from registers: done before the next chunk's
-    // combine rewrites them, and before the epilogue reads the accumulator
-    wgmma_wait0();
-    fence_acc(acc);
-    __syncwarp();  // every lane's reads of the stage are done before it is refilled
-
-    if (j == cpt - 1) {
-      // rows quad and quad + 8 of the tile; lane ql of a quad gathers the 8
-      // outputs of n-tile 4 G + ql from its quad's four lanes
-      const int64_t r0 = (tile * 4 + wi) * RM + quad;
-      T* out = static_cast<T*>(prm.out);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int64_t r = r0 + half * 8;
-#pragma unroll
-        for (int G = 0; G < BN / 32; ++G) {
-          uint32_t p[4], got[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            p[u] = pack2<T>(acc[4 * G + u][2 * half], acc[4 * G + u][2 * half + 1]);
-#pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            // send n-tile (ql + rr) & 3; receive from lane (ql - rr) & 3 of the quad
-            const uint32_t v = sel4(p[0], p[1], p[2], p[3], (ql + rr) & 3);
-            got[rr] = __shfl_sync(kFull, v, (lane & ~3) | ((ql - rr) & 3));
-          }
-          // got[rr] holds columns 2 src, 2 src + 1 with src = (ql - rr) & 3
-          uint32_t v4[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) v4[k] = sel4(got[0], got[1], got[2], got[3], (ql - k) & 3);
-          const int col = o0 + (4 * G + ql) * 8;
-          if (r < prm.n) {
-            T* dst = out + r * prm.o + col;
-            if (prm.out_vec && col + 8 <= prm.o) {
-              __stcs(reinterpret_cast<uint4*>(dst), make_uint4(v4[0], v4[1], v4[2], v4[3]));
-            } else {
-#pragma unroll
-              for (int k = 0; k < 8; ++k)
-                if (col + k < prm.o) dst[k] = from_bits<T>(v4[k >> 1] >> (16 * (k & 1)));
-            }
-          }
-        }
+      fence_acc(acc);
+      wgmma_fence();
+      product(a, prm.chunk[j].krow);
+      wgmma_commit();
+      // the product reads A from registers: done before the next chunk's
+      // combine rewrites them, and before the epilogue reads the accumulator
+      wgmma_wait<0>();
+      fence_acc(acc);
+      __syncwarp();  // every lane's reads of the stage are done before it is refilled
+      if (j == cpt - 1) store_tile(tile);
+      st = st + 1 == kStages ? 0 : st + 1;
+      if (++j == cpt) {
+        j = 0;
+        tile += n_groups;
       }
-    }
-    st = st + 1 == kStages ? 0 : st + 1;
-    if (++j == cpt) {
-      j = 0;
-      tile += n_groups;
     }
   }
   cp_async_wait<0>();
@@ -738,11 +856,11 @@ int launch_mma(Params& prm, cudaStream_t stream) {
     }
     k_rows += (gr.c + KCM - 1) / KCM * KCM;
   }
-  if ((k_rows + 63) / 64 * 64 > kMaxKRows) return kKSliceTooLarge;
+  if ((k_rows + 63) / 64 * 64 > Ring<M>::kMaxKRows) return kKSliceTooLarge;
   prm.chunks = chunks;
   prm.k_rows = k_rows;
   prm.out_vec = prm.o % 8 == 0 && reinterpret_cast<uintptr_t>(prm.out) % 16 == 0;
-  const int smem = kRingBytes + 1024 + (k_rows + 63) / 64 * 64 * BN * 2;
+  const int smem = Ring<M>::kRingBytes + 1024 + (k_rows + 63) / 64 * 64 * BN * 2;
   cudaError_t err = cudaFuncSetAttribute(quad_sample_reduce_mma<T, M>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

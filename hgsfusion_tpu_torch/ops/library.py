@@ -14,7 +14,8 @@ shape and dtype, all ``torch.export`` needs to trace it):
   (``csrc/quad_sample_depth.cu``) without what its backward needs;
 - ``hgsfusion::nms_lazy(boxes, valid, nms_thresh, max_keep) -> keep``:
   rotated greedy NMS of a batch of score-sorted candidates
-  (``csrc/nms_lazy.cu``), one block per frame;
+  (``csrc/nms_lazy.cu``): the suppression mask on every SM, then the
+  greedy sweep, one block per frame;
 - ``hgsfusion::quad_sample_reduce_q8_fwd(uv, maps, k_offs, kmat, bias) ->
   out``: the fused sampler + reduce on int8 maps (F2V QUANT int8), the
   per-channel scales folded into ``kmat`` by the caller
@@ -60,7 +61,9 @@ REDUCE_KERNEL = "quad_sample_reduce_fwd"
 TAPS = "quad_sample_taps"
 BWD_KERNEL = "quad_sample_bwd"
 BINS = "quad_bins"
-NMS = "nms_lazy"
+NMS = "nms_lazy"  # the op; its two kernels:
+NMS_MASK = "nms_mask"
+NMS_SWEEP = "nms_sweep"
 DEPTH_KERNEL = "quad_sample_depth_fwd"
 DEPTH_BWD_KERNEL = "quad_sample_depth_bwd"
 Q8_KERNEL = "quad_sample_q8_fwd"
@@ -70,8 +73,8 @@ QUANTIZE_INT8 = "quantize_int8"
 IM2COL_INT8 = "im2col_int8"  # a launch of QUANTIZE_INT8's first pass, counted as one
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernels (PyTorch calls, no kernel of this package)
-launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS: 0,
-            DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0, Q8_KERNEL: 0, REDUCE_Q8_KERNEL: 0,
+launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS_MASK: 0,
+            NMS_SWEEP: 0, DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0, Q8_KERNEL: 0, REDUCE_Q8_KERNEL: 0,
             CONV_W8A8: 0, QUANTIZE_INT8: 0}
 # depth bins the depth backward's phase 2 keeps in a shared-memory row
 MAX_DEPTH_BINS = 128
@@ -79,10 +82,10 @@ MAX_DEPTH_BINS = 128
 MAX_REDUCE_GROUPS = 4
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the fused entry's return when K's slice does not fit in shared memory, and
-# the NMS entry's when the candidates' corners do not
+# the fused entry's return when K's slice does not fit in shared memory
 _K_SLICE_TOO_LARGE = -1
-_TOO_MANY_CANDIDATES = -1
+# candidates of one NMS mask tile (one 64-bit word)
+NMS_TILE = 64
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
@@ -111,8 +114,10 @@ _ENTRIES = {
     TAPS: ("quad_sample_reduce", [_P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P]),
     # ct, order, start, w4, out, b, h, w, c, dtype, stream
     BWD_KERNEL: ("quad_sample_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # boxes, valid, b, k, nms_thresh, max_keep, keep, stream
-    NMS: ("nms_lazy", [_P, _P, _I, _I, _F, _I, _P, _P]),
+    # boxes, valid, b, k, nms_thresh, mask, stream
+    NMS_MASK: ("nms_lazy", [_P, _P, _I, _I, _F, _P, _P]),
+    # mask, valid, b, k, max_keep, keep, stream
+    NMS_SWEEP: ("nms_lazy", [_P, _P, _I, _I, _I, _P, _P]),
     # grid, grid_stride, n, per_frame, map, probs, b, h, w, c, d, out, key_out,
     # w4_out, dtype, stream
     DEPTH_KERNEL: ("quad_sample_depth",
@@ -459,32 +464,74 @@ def check_nms(boxes, valid, max_keep: int):
         raise ValueError(f"{NMS}: max_keep {max_keep} < 0")
 
 
-def nms_lazy(boxes, valid, nms_thresh: float, max_keep: int):
-    """Launch the NMS kernel: ``boxes`` (B, K, 7) f32, each frame's
-    candidates sorted by score, and ``valid`` (B, K) bool, contiguous on the
-    card -> keep (B, K) bool: walking each frame's valid candidates in
-    order, the ones kept, each suppressing every later one whose BEV IoU
-    with it exceeds ``nms_thresh``; at most ``max_keep`` a frame. Same keep
-    sets as ``greedy_nms_lazy_plain`` up to IoUs within rounding of
-    ``nms_thresh``. Raises if K candidates exceed a block's shared memory
-    (48 B a candidate: about 4,800 in an H100's 227 KB)."""
-    check_nms(boxes, valid, max_keep)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"{NMS} needs CUDA tensors, got {boxes.device}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError(f"{NMS}: boxes and valid must be contiguous")
+def _check_nms_launch(name, valid, *tensors):
+    """The NMS kernels' launch contract beyond ``check_nms``; returns (B,
+    K, mask tiles)."""
+    for t in (valid,) + tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: its tensors must be contiguous")
     b, k = valid.shape
-    if k >= 2**31 // 7:
-        raise ValueError(f"{NMS}: {k} candidates exceed int32 indexing")
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    err = entry(NMS)(boxes.data_ptr(), valid.data_ptr(), b, k, nms_thresh, max_keep,
-                     keep.data_ptr(), stream_of(boxes))
-    if err == _TOO_MANY_CANDIDATES:
-        raise ValueError(f"{NMS}: {k} candidates' corners exceed a block's shared memory")
+    tiles = -(-k // NMS_TILE)
+    if k * tiles >= 2**31:
+        raise ValueError(f"{name}: {k} candidates' mask exceeds int32 indexing")
+    if b > 65535:
+        raise ValueError(f"{name}: {b} frames, takes at most 65,535")
+    return b, k, tiles
+
+
+def nms_mask(boxes, valid, nms_thresh: float):
+    """Launch ``csrc/nms_lazy.cu``'s first kernel: ``boxes`` (B, K, 7) f32,
+    score-sorted, and ``valid`` (B, K) bool, contiguous on the card -> the
+    suppression mask (B, K, ceil(K / 64)) int64: bit j % 64 of word j // 64
+    of row i set where candidates i < j are both valid and box i's BEV IoU
+    with box j exceeds ``nms_thresh``. Only the words of a row tile (64
+    candidates) holding a valid candidate, at and after its own tile, are
+    written; the others hold what ``torch.empty`` left. Same bits as
+    ``nms.nms_mask_plain`` there up to IoUs within rounding of
+    ``nms_thresh``."""
+    check_nms(boxes, valid, 0)
+    b, k, tiles = _check_nms_launch(NMS_MASK, valid, boxes)
+    mask = torch.empty((b, k, tiles), dtype=torch.int64, device=boxes.device)
+    err = entry(NMS_MASK)(boxes.data_ptr(), valid.data_ptr(), b, k, nms_thresh,
+                          mask.data_ptr(), stream_of(boxes))
     if err != 0:
-        raise RuntimeError(f"{NMS} launch failed: cudaError {err}")
-    launches[NMS] += 1
+        raise RuntimeError(f"{NMS_MASK} launch failed: cudaError {err}")
+    launches[NMS_MASK] += 1
+    return mask
+
+
+def nms_sweep(mask, valid, max_keep: int):
+    """Launch ``csrc/nms_lazy.cu``'s second kernel: the greedy sweep over
+    ``nms_mask``'s words -> keep (B, K) bool, at most ``max_keep`` a frame;
+    the function of ``nms.nms_sweep_plain``."""
+    b, k, tiles = _check_nms_launch(NMS_SWEEP, valid, mask)
+    if mask.shape != (b, k, tiles) or mask.dtype != torch.int64 or max_keep < 0:
+        raise ValueError(f"{NMS_SWEEP}: mask {tuple(mask.shape)} {mask.dtype} for valid "
+                         f"{tuple(valid.shape)}, max_keep {max_keep}")
+    keep = torch.empty((b, k), dtype=torch.bool, device=valid.device)
+    err = entry(NMS_SWEEP)(mask.data_ptr(), valid.data_ptr(), b, k, max_keep, keep.data_ptr(),
+                           stream_of(valid))
+    if err != 0:
+        raise RuntimeError(f"{NMS_SWEEP} launch failed: cudaError {err}")
+    launches[NMS_SWEEP] += 1
     return keep
+
+
+def nms_lazy(boxes, valid, nms_thresh: float, max_keep: int):
+    """Rotated greedy NMS on the card, two launches: ``boxes`` (B, K, 7)
+    f32, each frame's candidates sorted by score, and ``valid`` (B, K) bool,
+    contiguous on the card -> keep (B, K) bool: walking each frame's valid
+    candidates in order, the ones kept, each suppressing every later one
+    whose BEV IoU with it exceeds ``nms_thresh``; at most ``max_keep`` a
+    frame. ``nms_mask`` writes the pairwise mask (8 B per 64 candidate pairs:
+    2 MB a frame at 4,096) into scratch allocated here, ``nms_sweep`` walks
+    it. Same keep sets as ``greedy_nms_lazy_plain`` up to IoUs within
+    rounding of ``nms_thresh``. Raises where the mask's indexing would pass
+    int32 (about 370,000 candidates)."""
+    check_nms(boxes, valid, max_keep)
+    return nms_sweep(nms_mask(boxes, valid, nms_thresh), valid, max_keep)
 
 
 def quad_sample_taps(features, coords):

@@ -3,17 +3,20 @@
 Counterpart of ``hgsfusion_tpu/ops/nms.py`` (greedy_nms_lazy,
 class_agnostic_nms). The reference NMS sweeps its suppression bitmask on the
 CPU; here the greedy sweep of a whole batch is one op,
-``hgsfusion::nms_lazy`` (``ops/library.py``): on the card one launch of
-``csrc/nms_lazy.cu``, which reads nothing back to the host, so a served
-frame's post-processing never waits for the device and traces into the
-exported graph. On the CPU the op takes the plain version,
-``greedy_nms_lazy_plain``, whose one host read (the candidate count) bounds
-its loop.
+``hgsfusion::nms_lazy`` (``ops/library.py``): on the card two launches of
+``csrc/nms_lazy.cu`` (the pairwise suppression mask on every SM, then the
+sweep), which read nothing back to the host, so a served frame's
+post-processing never waits for the device and traces into the exported
+graph. On the CPU the op takes the plain version, ``greedy_nms_lazy_plain``,
+whose one host read (the candidate count) bounds its loop. The kernels'
+two phases have their own plain versions, ``nms_mask_plain`` and
+``nms_sweep_plain``, which the card's mask is held to.
 """
 from __future__ import annotations
 
 import torch
 
+from . import library
 from .library import nms_lazy_op
 from .rotated_iou import boxes_iou_bev
 
@@ -57,6 +60,62 @@ def greedy_nms_lazy_plain(boxes, valid, nms_thresh: float, max_keep: int,
     hits = torch.zeros(n, dtype=torch.int32, device=device)
     hits.index_put_((cand[picks],), picked.to(torch.int32), accumulate=True)
     return hits > 0
+
+
+def nms_mask_plain(boxes, valid, nms_thresh: float, row_block: int = 256):
+    """The plain version of ``csrc/nms_lazy.cu``'s ``nms_mask``: boxes (K,
+    7), valid (K,) bool -> (K, ceil(K / 64)) int64 words, bit j % 64 of word
+    j // 64 of row i set where candidates i < j are both valid and IoU_bev(box
+    i, box j) > nms_thresh; every other bit 0 (the kernel leaves the words
+    of row tiles without a valid candidate, and those before a row's own
+    tile, unwritten)."""
+    k = boxes.shape[0]
+    device = boxes.device
+    tiles = -(-k // library.NMS_TILE)
+    bits = torch.zeros((k, tiles * library.NMS_TILE), dtype=torch.bool, device=device)
+    cand = torch.nonzero(valid).squeeze(1)
+    sub = boxes[cand]
+    for r0 in range(0, cand.numel(), row_block):
+        rows = cand[r0:r0 + row_block]
+        doomed = (boxes_iou_bev(sub[r0:r0 + row_block], sub) > nms_thresh) \
+            & (cand[None, :] > rows[:, None])
+        bits[rows[:, None], cand[None, :]] = doomed
+    shifts = torch.arange(library.NMS_TILE, device=device)
+    # bit 63 wraps to the sign bit: the sum of distinct powers of two is exact
+    return (bits.view(k, tiles, library.NMS_TILE).to(torch.int64) << shifts).sum(-1)
+
+
+def nms_sweep_plain(mask, valid, max_keep: int):
+    """The plain version of ``csrc/nms_lazy.cu``'s ``nms_sweep``: the greedy
+    keep set (K,) bool over a mask of ``nms_mask_plain``'s form, walked as
+    the kernel walks it: tile by tile, each tile's live candidates resolved
+    one after the other against their words of that tile (one host read a
+    tile), then the kept rows' words of the later tiles suppressing."""
+    k = valid.shape[0]
+    t = library.NMS_TILE
+    tiles = mask.shape[1]
+    shifts = torch.arange(t, device=mask.device)
+    bits = ((mask[..., None] >> shifts) & 1).bool().view(k, tiles * t)[:, :k]
+    suppressed = torch.zeros(k, dtype=torch.bool, device=mask.device)
+    keep = torch.zeros(k, dtype=torch.bool, device=mask.device)
+    kept = 0
+    for r0 in range(0, k, t):
+        if kept >= max_keep:
+            break
+        rows = slice(r0, min(r0 + t, k))
+        live = (valid[rows] & ~suppressed[rows]).tolist()
+        diag = bits[rows, rows].tolist()
+        taken = []
+        for a in range(len(live)):
+            if live[a] and kept < max_keep:
+                taken.append(r0 + a)
+                kept += 1
+                live = [v and not d for v, d in zip(live, diag[a])]
+        if taken:
+            idx = torch.tensor(taken, device=mask.device)
+            keep[idx] = True
+            suppressed[rows.stop:] |= bits[idx, rows.stop:].any(0)
+    return keep
 
 
 def class_agnostic_nms(box_scores, box_preds, score_thresh: float,

@@ -9,13 +9,14 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (TINY, check_nms_frame, clustered_boxes, compare_instances,
-                        degenerate_boxes, edge_coords, hot_pixel_grid, outside_coords,
-                        parent_activation_scale, plain_nms_batch, run_rhgm_tool, sampling_route,
-                        tiny_batch, unaligned, w8a8_input)
+from chip_smoke import (TINY, check_nms_frame, check_nms_mask, clustered_boxes,
+                        compare_instances, degenerate_boxes, edge_coords, hot_pixel_grid,
+                        outside_coords, output_digest, parent_activation_scale, plain_nms_batch,
+                        reduce_q8_ragged, run_rhgm_tool, sampling_route, tiny_batch, unaligned,
+                        w8a8_input)
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
-from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, quad_sample, row_scatter
+from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, nms, quad_sample, row_scatter
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain, quantize_per_channel_int8)
@@ -482,14 +483,14 @@ def test_view_transform_routes(cuda):
     mid = dict(library.launches)
     assert {k: mid[k] - before[k] for k in mid} == {
         library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
-        library.BWD_KERNEL: 0, library.BINS: 0, library.NMS: 0,
+        library.BWD_KERNEL: 0, library.BINS: 0, library.NMS_MASK: 0, library.NMS_SWEEP: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
         library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
         library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
-        library.BWD_KERNEL: 0, library.BINS: 2, library.NMS: 0,
+        library.BWD_KERNEL: 0, library.BINS: 2, library.NMS_MASK: 0, library.NMS_SWEEP: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
         library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
@@ -605,9 +606,9 @@ def test_rhgm_tool_on_card(cuda, tmp_path):
 
 def _nms_case(name):
     """(boxes (B, K, 7), valid (B, K), max_keep) at the configs' 4,096
-    candidates (37 for "ragged")."""
+    candidates (37 for "ragged", 3,001 for "odd_k", 8,192 for "k8192")."""
     rng = np.random.RandomState(21)
-    k = 37 if name == "ragged" else 4096
+    k = {"ragged": 37, "odd_k": 3001, "k8192": 8192}.get(name, 4096)
     allv = np.ones((1, k), bool)
     boxes = clustered_boxes(k, max(k // 5, 1), 0)[None]
     if name == "realistic":
@@ -621,33 +622,46 @@ def _nms_case(name):
         return boxes, ~allv, 500
     if name == "max_keep":
         return boxes, allv, 37
-    return boxes, allv, 500  # "worst", "ragged"
+    if name == "odd_k":
+        return boxes, rng.rand(1, k) < 0.7, 500
+    return boxes, allv, 500  # "worst", "ragged", "k8192"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["worst", "realistic", "batch2", "degenerate", "none_valid",
-                                  "max_keep", "ragged"])
+                                  "max_keep", "ragged", "odd_k", "k8192"])
 def test_nms_kernel_matches_plain(cuda, case):
-    """One launch for the batch; every keep decision follows the greedy rule
-    with the plain IoU given the kernel's own earlier decisions (a
-    difference only at an IoU within 1e-5 of the threshold), so the keep
-    sets equal the plain version's unless such a tie occurs."""
+    """One mask and one sweep launch for the batch; every keep decision
+    follows the greedy rule with the plain IoU given the kernels' own
+    earlier decisions (a difference only at an IoU within 1e-5 of the
+    threshold), so the keep sets equal the plain version's unless such a
+    tie occurs; the mask's bits equal ``nms_mask_plain``'s where the sweep
+    reads them up to such ties, and the sweep equals ``nms_sweep_plain`` on
+    the kernel's own mask."""
     boxes, valid, max_keep = _nms_case(case)
     b = torch.from_numpy(np.ascontiguousarray(boxes)).to(cuda)
     v = torch.from_numpy(np.ascontiguousarray(valid)).to(cuda)
-    before = library.launches[library.NMS]
+    before = dict(library.launches)
     got = library.nms_lazy_op(b, v, 0.01, max_keep)
-    assert library.launches[library.NMS] == before + 1
+    moved = {k: library.launches[k] - before[k] for k in before}
+    assert {k: v for k, v in moved.items() if v} == {library.NMS_MASK: 1, library.NMS_SWEEP: 1}
     assert got.dtype == torch.bool and got.shape == v.shape
     ties = sum(check_nms_frame(b[i], v[i], got[i], 0.01, max_keep)["tie_decisions"]
                for i in range(b.shape[0]))
     want = plain_nms_batch(b, v, 0.01, max_keep)
     assert torch.equal(got, want) or ties > 0
     assert torch.equal(library.nms_lazy_op(b, v, 0.01, max_keep), got)  # deterministic
+    mask = library.nms_mask(b, v, 0.01)
+    for i in range(b.shape[0]):
+        check_nms_mask(b[i], v[i], mask[i], 0.01)  # raises on a bit off the plain mask
+        assert torch.equal(nms.nms_sweep_plain(mask[i], v[i], max_keep), got[i])
 
 
 @pytest.mark.cuda
 def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    """Wrong devices and strides raise; 8,192 candidates (which one block's
+    shared memory no longer bounds) equal the plain version; a mask past
+    int32 indexing raises."""
     boxes, valid, _ = _nms_case("ragged")
     b = torch.from_numpy(boxes).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
@@ -658,8 +672,12 @@ def test_nms_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="on"):
         library.nms_lazy(b, v.cpu(), 0.01, 5)
     big = torch.zeros((1, 8192, 7), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        library.nms_lazy_op(big, torch.ones((1, 8192), dtype=torch.bool, device=cuda), 0.1, 5)
+    ones = torch.ones((1, 8192), dtype=torch.bool, device=cuda)
+    keep = library.nms_lazy_op(big, ones, 0.1, 5)
+    assert torch.equal(keep, plain_nms_batch(big, ones, 0.1, 5)) and int(keep.sum()) == 5
+    huge = torch.zeros((1, 2**19, 7), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        library.nms_lazy_op(huge, torch.ones((1, 2**19), dtype=torch.bool, device=cuda), 0.1, 5)
 
 
 @pytest.mark.cuda
@@ -927,6 +945,25 @@ def test_reduce_q8_kernel_matches_plain(cuda, case, dtype):
         mag = mag + (quad_sample_fwd_plain(F.pad(q.float().abs(), (0, 0, 1, 1, 1, 1)), idx,
                                            w4.abs()) @ kq.cpu()[k:k + q.shape[-1]].float().abs())
     assert bool((err <= 1e-5 * scale + (1e-5 + u) * mag + 2 * u * ref.abs()).all())
+
+
+# sha256 of P3-q8's output on chip_smoke.reduce_q8_ragged, recorded on an
+# NVIDIA H100 80GB HBM3 from the kernel before its int8 combine lost the I2F
+# conversions and its products overlapped the next chunk (commit 8e5f2e8):
+# the redesign keeps every rounding and each output's chunk and k16 order,
+# so the bits stay (compare_kernels_parent.py prints both trees' digests)
+Q8_RAGGED_SHA256 = {
+    torch.bfloat16: "0d3ec6a83a0f91f7ac76cf897ead0cc1ce8309186025bdbcb76b588467e6598f",
+    torch.float16: "b73085bcab93727a9a139a2eed0e8d824996ab0329a5107549e9758aa6bdb9ee"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_reduce_q8_kernel_bit_for_bit_to_its_parent(cuda, dtype):
+    uv, groups, kmat, bias = reduce_q8_ragged(cuda, dtype)
+    got = library.quad_sample_reduce_q8_fwd(uv, groups, kmat, bias)
+    assert got.dtype == dtype and got.shape == (260, 72)
+    assert output_digest(got) == Q8_RAGGED_SHA256[dtype]
 
 
 CONV_CASES = [((1, 21, 33, 3), 64, 7, 2, 3, 1), ((2, 9, 11, 64), 96, 1, 1, 0, 1),

@@ -1,10 +1,11 @@
 """Rotated greedy NMS as one op (``ops/library.py``: ``hgsfusion::nms_lazy``,
 ``ops/nms.py``) against the JAX package's ``greedy_nms_lazy``, on the CPU,
-where the op takes its plain version; ``torch.library.opcheck`` of the three
-ops of the served graph; the batched ``class_agnostic_nms`` and
-``post_process`` against their frames one by one. The kernel itself
-(``csrc/nms_lazy.cu``) is held to the plain version in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
+where the op takes its plain version; the plain form of the kernels' two
+phases (``nms_mask_plain``, ``nms_sweep_plain``) against the same;
+``torch.library.opcheck`` of the three ops of the served graph; the batched
+``class_agnostic_nms`` and ``post_process`` against their frames one by one.
+The kernels themselves (``csrc/nms_lazy.cu``) are held to the plain versions
+in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from hgsfusion_tpu_torch.models.anchors import flatten_anchors, generate_anchors
 from hgsfusion_tpu_torch.models.detector import post_process
 from hgsfusion_tpu_torch.ops import library, nms
 from hgsfusion_tpu_torch.ops.nms import class_agnostic_nms, greedy_nms_lazy_plain
+from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.utils.box_coder import ResidualCoder
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -79,6 +81,77 @@ def test_op_matches_jax(name):
         assert int(kept[0]) == max_keep
     else:
         assert int(kept.min()) > 1
+
+
+# the two-phase form beyond CASES: K not a multiple of the mask's 64-candidate
+# tiles, max_keep at a tile boundary, and a negative threshold (every later
+# valid candidate suppressed)
+TWO_PHASE_CASES = CASES + ["k301", "keep63", "keep64", "keep65", "negative"]
+
+
+def _two_phase_case(name):
+    """(boxes (B, K, 7), valid (B, K), max_keep, nms_thresh)."""
+    if name in CASES:
+        return (*_case(name), 0.01)
+    rng = np.random.RandomState(13)
+    if name == "k301":
+        return clustered_boxes(301, 30, 4)[None], rng.rand(1, 301) < 0.8, 500, 0.01
+    if name.startswith("keep"):  # about 160 survive 0.01 at 200 clusters
+        return clustered_boxes(K, 200, 6)[None], np.ones((1, K), bool), int(name[4:]), 0.01
+    if name == "negative":
+        return clustered_boxes(K, 40, 0)[None], rng.rand(1, K) < 0.5, 500, -0.5
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", TWO_PHASE_CASES)
+def test_two_phase_plain_matches_jax(name):
+    """``nms_sweep_plain`` over ``nms_mask_plain`` keeps what JAX's
+    ``greedy_nms_lazy`` and ``greedy_nms_lazy_plain`` keep."""
+    boxes, valid, max_keep, thresh = _two_phase_case(name)
+    for i in range(boxes.shape[0]):
+        b, v = torch.from_numpy(boxes[i]), torch.from_numpy(valid[i])
+        want = np.asarray(jax_greedy_nms_lazy(jnp.asarray(boxes[i]), jnp.asarray(valid[i]),
+                                              thresh, max_keep))
+        got = nms.nms_sweep_plain(nms.nms_mask_plain(b, v, thresh), v, max_keep)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"frame {i}")
+        np.testing.assert_array_equal(greedy_nms_lazy_plain(b, v, thresh, max_keep).numpy(),
+                                      want, err_msg=f"frame {i}")
+        kept = int(got.sum())
+        if name.startswith("keep"):
+            assert kept == max_keep
+        elif name == "negative":
+            assert kept == 1
+        elif name != "none_valid":
+            assert kept > 1
+
+
+@pytest.mark.parametrize("name", ["k301", "some_valid", "negative"])
+def test_mask_plain_bits(name):
+    """``nms_mask_plain``'s bits: set exactly where i < j are both valid and
+    the plain IoU exceeds the threshold; and ``nms_sweep_plain`` reads only
+    the words ``nms_mask`` writes (row tiles with a valid candidate, from
+    their own tile on): filling the others with random bits keeps the keep
+    set."""
+    boxes, valid, max_keep, thresh = _two_phase_case(name)
+    b, v = torch.from_numpy(boxes[0]), torch.from_numpy(valid[0])
+    k = v.shape[0]
+    mask = nms.nms_mask_plain(b, v, thresh)
+    tiles = -(-k // 64)
+    assert mask.shape == (k, tiles) and mask.dtype == torch.int64
+    bits = ((mask[..., None] >> torch.arange(64)) & 1).bool().view(k, -1)[:, :k]
+    idx = torch.arange(k)
+    want = (boxes_iou_bev(b, b) > thresh) & v[:, None] & v[None, :] & (idx[None] > idx[:, None])
+    assert torch.equal(bits, want)
+    rng = np.random.RandomState(2)
+    row_tile_valid = torch.zeros(tiles, dtype=torch.bool).index_fill_(
+        0, torch.unique(idx[v] // 64), True)
+    before_own_tile = torch.arange(tiles)[None] < idx[:, None] // 64
+    unwritten = ~row_tile_valid[idx // 64][:, None] | before_own_tile
+    noise = torch.from_numpy(rng.randint(-2**62, 2**62, (k, tiles), dtype=np.int64))
+    noisy = torch.where(unwritten, noise, mask)
+    assert bool((noisy != mask).any())
+    keep = nms.nms_sweep_plain(mask, v, max_keep)
+    assert torch.equal(nms.nms_sweep_plain(noisy, v, max_keep), keep)
 
 
 def test_op_rejects_what_it_does_not_take():

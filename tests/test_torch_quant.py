@@ -363,3 +363,24 @@ def test_w8a8_backbone_matches_jax():
               f"{quant_err:.3g} (relative L2)")
         assert port_err <= 2.0 * quant_err
     assert_close(got[0], ref[0], atol=1e-5 * float(np.abs(np.asarray(ref[0])).max()))
+
+
+@pytest.mark.parametrize("byte", range(4))
+def test_int8_to_f32_by_byte_permute(byte):
+    """P3-q8's combine converts int8 to f32 without an I2F
+    (``csrc/quad_sample_reduce.cu::s8_biased``): the word XOR 0x80808080
+    holds each value plus 128; ``__byte_perm(x, 0x4B000000, 0x7540 | byte)``
+    makes that byte the low mantissa byte of 2^23, and subtracting 2^23 +
+    128 leaves the value. Emulated with int32 bit operations, it equals
+    ``int8 -> float32`` for all 256 values at each byte position, whatever
+    the word's other bytes."""
+    vals = torch.arange(-128, 128, dtype=torch.int32)
+    rng = np.random.RandomState(byte)
+    b = torch.from_numpy(rng.randint(-128, 128, (256, 4)).astype(np.int32))
+    b[:, byte] = vals
+    word = ((b.to(torch.int64) & 0xFF) << torch.tensor([0, 8, 16, 24])).sum(1)
+    word = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+    biased = word ^ torch.tensor(0x80808080 - 2**32, dtype=torch.int32)
+    mantissa = ((biased >> (8 * byte)) & 0xFF) | 0x4B000000
+    got = mantissa.view(torch.float32) - torch.tensor(8388736.0)
+    assert torch.equal(got, vals.to(torch.int8).to(torch.float32))

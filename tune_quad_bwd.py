@@ -30,10 +30,13 @@ from hgsfusion_tpu_torch.ops.grid_sample import quad_sample_bwd_plain
 
 def build(variants: dict, source: str = "quad_sample_bwd", entry: str = library.BWD_KERNEL,
           tag: str = "bfloat16Li2") -> dict:
-    """{name: the variant's C entry point ``entry``}, each variant of
-    ``csrc/<source>.cu`` compiled at once (the package's headers on the
-    include path); prints the ptxas report of the kernels whose mangled
-    name holds ``tag``."""
+    """{name: the variant's C entry point ``entry``} (or {name: {e: entry
+    point}} for a tuple of entries), each variant of ``csrc/<source>.cu``
+    compiled at once (the package's headers on the include path); prints
+    the ptxas report (and any C7518 line) of the kernels whose mangled
+    name holds ``tag``. A variant maps each ``constexpr int`` constant it
+    changes to its value, or a snippet of the source (anything that is not
+    an identifier), which must occur exactly once, to its replacement."""
     out = native.BUILD_DIR / "tune"
     out.mkdir(parents=True, exist_ok=True)
     src = (native.CSRC_DIR / f"{source}.cu").read_text()
@@ -41,9 +44,14 @@ def build(variants: dict, source: str = "quad_sample_bwd", entry: str = library.
     for name, knobs in variants.items():
         text = src
         for k, v in knobs.items():
-            text, n = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {int(v)};", text)
+            if k.isidentifier():
+                text, n = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {int(v)};",
+                                  text)
+            else:
+                n = text.count(k)
+                text = text.replace(k, v)
             if n != 1:
-                raise ValueError(f"no constant {k} in {source}.cu")
+                raise ValueError(f"{k!r} is not in {source}.cu exactly once")
         cu, lib = out / f"{source}-{name}.cu", out / f"lib{source}-{name}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen([native.nvcc_path(), *native.NVCC_FLAGS,
@@ -59,11 +67,16 @@ def build(variants: dict, source: str = "quad_sample_bwd", entry: str = library.
         report = [lines[i + j].strip() for i, line in enumerate(lines)
                   if "Compiling entry function" in line and tag in line
                   for j in (2, 3)]
+        report += [line.strip() for line in lines if "C7518" in line and tag in line]
         print(name, json.dumps(variants[name]), " | ".join(report))
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = library._ENTRIES[entry][1]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        dll = ctypes.CDLL(str(lib))
+        got = {}
+        for e in (entry,) if isinstance(entry, str) else entry:
+            fn = getattr(dll, e)
+            fn.argtypes = library._ENTRIES[e][1]
+            fn.restype = ctypes.c_int
+            got[e] = fn
+        fns[name] = got[entry] if isinstance(entry, str) else got
     return fns
 
 
