@@ -108,7 +108,7 @@ and launches of what ran):
     near: the same frame ids, boxes within 1e-4, the result dict within 1e-6;
 15. eval: ``configs/hgsfusion_vod_pallas.yaml`` (read with ``load_config``:
     the card's machine has PyYAML, and Pillow for the JPEG images) over a
-    16-frame synthetic VoD tree at 516x1936 written in a temporary directory
+    8-frame synthetic VoD tree at 516x1936 written in a temporary directory
     (``structured=True``, 2048 radar and 4096 virtual points under the
     config's ``VIRTUAL_POINT_PREFIX``), its infos from the port's
     ``create_infos``, then ``run_eval`` at B=1 with random weights from seed
@@ -136,7 +136,7 @@ and launches of what ran):
     checkpoints at steps 16 and 20 only; then a resume with ``--max_steps
     4`` from step 20 whose model and optimizer state equal the file bit for
     bit before its first step, ending at step 24 (one step profiled); then
-    ``tools.test.main --ckpt_dir ... --max_frames 8`` on step 24, 1 fused
+    ``tools.test.main --ckpt_dir ... --max_frames 4`` on step 24, 1 fused
     launch per frame. Printed: steps/s after the first two steps, the
     loader wait per step, the profiled step's device time, each save's and
     the resume's seconds, the checkpoint's bytes and peak device memory;
@@ -165,17 +165,17 @@ and launches of what ran):
     xla``, ``BATCH_SIZE_PER_DEVICE: 2``) through ``tools.train.main`` over a
     16-frame synthetic TJ4D tree, 10 steps across an epoch boundary: 4
     forward, 2 backward and 4 bins per step, checkpoints at steps 8 and 10,
-    step 1 profiled; then ``tools.test.main --ckpt_dir`` over 8 frames, 1
+    step 1 profiled; then ``tools.test.main --ckpt_dir`` over 4 frames, 1
     fused launch per frame, TJ4D's result dict with every AP in [0, 100];
 25. eval TJ4D polar: ``configs/hgsfusion_tj4d_polar.yaml`` as 15 over a
-    16-frame synthetic TJ4D tree, 3 forward launches per frame;
+    8-frame synthetic TJ4D tree, 3 forward launches per frame;
 25a. export and serve: ``configs/hgsfusion_vod_pallas.yaml`` and
     ``configs/hgsfusion_vod_polar.yaml`` at full width exported by
     ``tools/export.py``'s ``export_model`` (the fused kernel, or the
     forward three times, and the NMS as ops in the graph) and saved, then
     served by ``tools/serve.py`` in a subprocess that blocks the model code
-    and JAX (``SERVE_GUARD``) from 9 ``.npz`` files (3 flagship frames,
-    each 3 times): its launches must read the view's per frame, its
+    and JAX (``SERVE_GUARD``) from 6 ``.npz`` files (3 flagship frames,
+    each twice): its launches must read the view's per frame, its
     detections equal ``serve``'s (valid and labels, boxes and scores
     within 1e-4) at a tie-free score threshold; export and save seconds,
     the artifact's bytes, ms per frame by completion gaps next to
@@ -192,7 +192,7 @@ and launches of what ran):
     flipped mask pixel only where the CPU's logit lies within ``RHGM_TOL``
     of 0);
 27. RHGM: the port's ``tools/generate_hybrid_points.py`` (``main``) on a
-    5-frame synthetic VoD tree at 516 x 1936 (2048 radar points a frame):
+    3-frame synthetic VoD tree at 516 x 1936 (2048 radar points a frame):
     ``--mask_source model --model_preset large --pixel_decoder msdeform
     --resize_shortest 1024`` (swin-L Mask2Former on 1024 x 3842, random
     weights from seed 0) with ``--confidence_threshold 0.0``, since random
@@ -283,18 +283,52 @@ and launches of what ran):
 39. serve q8: ``hgsfusion_tpu_torch/configs/hgsfusion_vod_q8.yaml`` as 7:
     one P3-q8 and one NMS launch a frame;
 40. train q8: that config as 8 (REMAT on): 4 K1-q8, 2 K2 and 4 bins a step;
-41. eval q8: that YAML as 15 over 8 frames, 1 P3-q8 a frame;
+41. eval q8: that YAML as 15 over 4 frames, 1 P3-q8 a frame;
 42. export and serve q8: as 25a on that config;
 43. serve w8a8: ``hgsfusion_vod_w8a8.yaml`` as 7 in the gather view (104
     int8 convolutions, 1 P3-q8, 1 NMS a frame) and in the polar view (F2V
     QUANT none: 104, 3 forward, 1 NMS);
 44. occupancy v2: the TINY parallel-ASPP model (DCN branch, SE gate) card
     vs CPU as 5, then ``hgsfusion_vod_occ_v2.yaml`` served as 7 (1 fused, 1
-    NMS a frame) and trained as 8 (4, 2, 4 a step).
+    NMS a frame) and trained as 8 (4, 2, 4 a step);
+45. small reference, radar-only and PointPillars multi-head: the TINY
+    radar-only model (``RadarOnlyModel`` over TINY's range, no image) and
+    the multi-head PointPillars model (``configs/pp_multihead_nuscenes.yaml``
+    cut to a 16 x 16 m range: 80 x 80 pillars, 32,000 anchors) built
+    through ``build_network``, card vs CPU: head outputs within 1e-4, the
+    post-processing (class-agnostic; per head and class, the sets stacked
+    in one NMS call) on tie-broken scores, one training step under
+    ``step_compare`` (the multi-head one from BN biases lifted by
+    ``ZOO_BN_LIFT``: a plain 20-layer conv stack with random weights is
+    ill-conditioned otherwise);
+46. serve / train radar-only: ``configs/radar_pillar_vod.yaml`` at full
+    width (f32: the config names no dtype; 8,192 points x 17 features,
+    320 x 320 pillars, 614,400 anchors, top 4,096) served 3 frames at B=1
+    (1 NMS, i.e. one mask and one sweep launch, a frame; no other kernel)
+    and 3 training steps at B=1 (no kernel); device ms a frame and a step
+    by CUDA events, peak memory, no host sync in a step;
+47. train CLI radar-only: ``tools.train.main`` on that config over an
+    8-frame synthetic VoD tree (the batches carry no image), then
+    ``tools.test.main --ckpt_dir``, then the checkpoint exported by
+    ``tools/export.py`` and served by the serving host (``SERVE_GUARD``):
+    its detections equal ``serve``'s at a tie-free threshold;
+48. serve / train PointPillars multi-head: ``configs/pp_multihead_nuscenes.yaml``
+    at full width on ``synthetic.nuscenes_batch`` (327,680 points x 5,
+    512 x 512 pillars, a 256 x 256 head map, 6 heads, 10 classes, 1,310,720
+    anchors, 128 gt boxes with velocity): served at B=1 (the 10 per-class
+    sets of a frame in one NMS call), trained at B=4; the pillar
+    scatter-max (PyTorch's ``scatter_reduce``) timed beside its bytes bound;
+49. demo: ``tools/demo.py`` on a 2-frame full-width VoD tree with
+    ``configs/radar_pillar_vod.yaml`` and ``configs/hgsfusion_vod.yaml``,
+    ``--html``: every frame served (radar: 1 NMS; HGSFusion: 1 fused + 1
+    NMS), the HTML written; the PNGs where matplotlib is installed (printed).
+
+4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
+(a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept.
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27, 28-31, 33-36 and 39-44, the ranks' launches summed),
+serving hosts, 27, 28-31, 33-36, 39-44 and 46-49, the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -331,7 +365,10 @@ from hgsfusion_tpu_torch.datasets import build_dataset
 from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_kitti,
                                                     make_synthetic_tj4d)
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
-from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
+from hgsfusion_tpu_torch.models.detector import (HGSFusionModel, multihead_candidate_sets,
+                                                 post_process)
+from hgsfusion_tpu_torch.models.layers import MaskedBatchNorm
+from hgsfusion_tpu_torch.models.registry import build_network
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
@@ -344,8 +381,10 @@ from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.parallel import mesh, spawn
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
-from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch
+from hgsfusion_tpu_torch.ops.voxelize import points_to_pillar_ids, scatter_max_dense
+from hgsfusion_tpu_torch.synthetic import LIDAR_TO_CAM, flagship_batch, nuscenes_batch
 from hgsfusion_tpu_torch.tools import export as export_cli
+from hgsfusion_tpu_torch.tools import demo as demo_cli
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
 from hgsfusion_tpu_torch.tools import make_study_data
 from hgsfusion_tpu_torch.tools import serve as serve_cli
@@ -361,7 +400,8 @@ from hgsfusion_tpu_torch.train.step_compare import (GRAD_RTOL, SENS, SENS_CAP, Z
                                                     GradCapture, compare_steps, over_cap,
                                                     perturb_inputs, sensitivity, step_record,
                                                     zero_residual_scales)
-from hgsfusion_tpu_torch.train.trainer import detections_to_pred_dicts, make_train_step
+from hgsfusion_tpu_torch.train.trainer import (detections_to_pred_dicts, make_train_step,
+                                               make_train_step_for_cfg)
 from hgsfusion_tpu_torch.utils.common import create_logger
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -1206,7 +1246,8 @@ def check_nms_mask(boxes, valid, mask, nms_thresh: float) -> dict:
             "iou_evals": near_pairs(boxes, valid)}
 
 
-def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
+def nms_case(name, boxes, valid, max_keep: int, timed: bool,
+             nms_thresh: float = NMS_THRESH) -> dict:
     """``nms_lazy`` (the op: ``nms_mask``, then ``nms_sweep``) against the
     plain version on (B, K) candidates: each frame's decisions checked by
     ``check_nms_frame``, the keep sets compared with the plain version's;
@@ -1216,14 +1257,15 @@ def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
     ``class_agnostic_nms`` on scores that order the boxes as given, with the
     op and with the plain version (the route before the kernels), beside
     the bounds."""
-    got = nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep)
-    want = plain_nms_batch(boxes, valid, NMS_THRESH, max_keep)
-    frames = [check_nms_frame(b, v, g, NMS_THRESH, max_keep)
+    got = nms.nms_lazy_op(boxes, valid, nms_thresh, max_keep)
+    want = plain_nms_batch(boxes, valid, nms_thresh, max_keep)
+    frames = [check_nms_frame(b, v, g, nms_thresh, max_keep)
               for b, v, g in zip(boxes, valid, got)]
-    mask = library.nms_mask(boxes, valid, NMS_THRESH)
-    masks = [check_nms_mask(b, v, m, NMS_THRESH) for b, v, m in zip(boxes, valid, mask)]
+    mask = library.nms_mask(boxes, valid, nms_thresh)
+    masks = [check_nms_mask(b, v, m, nms_thresh) for b, v, m in zip(boxes, valid, mask)]
     sweep = library.nms_sweep(mask, valid, max_keep)
-    row = {"case": name, "shape": list(boxes.shape), "valid": int(valid.sum()),
+    row = {"case": name, "shape": list(boxes.shape), "nms_thresh": nms_thresh,
+           "valid": int(valid.sum()),
            "max_keep": max_keep, "kept": [f["kept"] for f in frames],
            "tie_decisions": sum(f["tie_decisions"] for f in frames),
            "equal_to_plain": bool(torch.equal(got, want)),
@@ -1245,17 +1287,17 @@ def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
         scores = torch.where(valid, scores, torch.zeros_like(scores))
 
         def route():
-            return nms.class_agnostic_nms(scores, boxes, 0.1, NMS_THRESH, k, max_keep)
+            return nms.class_agnostic_nms(scores, boxes, 0.1, nms_thresh, k, max_keep)
 
-        row["ms"] = graph_ms(lambda: nms.nms_lazy_op(boxes, valid, NMS_THRESH, max_keep),
+        row["ms"] = graph_ms(lambda: nms.nms_lazy_op(boxes, valid, nms_thresh, max_keep),
                              iters=3, replays=2)
-        row["mask_ms"] = graph_ms(lambda: library.nms_mask(boxes, valid, NMS_THRESH),
+        row["mask_ms"] = graph_ms(lambda: library.nms_mask(boxes, valid, nms_thresh),
                                   iters=3, replays=2)
         row["sweep_ms"] = graph_ms(lambda: library.nms_sweep(mask, valid, max_keep),
                                    iters=3, replays=2)
-        row["plain_ms"] = cuda_ms(lambda: plain_nms_batch(boxes, valid, NMS_THRESH, max_keep),
+        row["plain_ms"] = cuda_ms(lambda: plain_nms_batch(boxes, valid, nms_thresh, max_keep),
                                   iters=2, warmup=1)
-        row["mask_plain_ms"] = cuda_ms(lambda: [nms.nms_mask_plain(b, v, NMS_THRESH)
+        row["mask_plain_ms"] = cuda_ms(lambda: [nms.nms_mask_plain(b, v, nms_thresh)
                                                 for b, v in zip(boxes, valid)], iters=2, warmup=1)
         row["sweep_plain_ms"] = cuda_ms(lambda: [nms.nms_sweep_plain(m, v, max_keep)
                                                  for m, v in zip(mask, valid)], iters=1, warmup=1)
@@ -1288,13 +1330,40 @@ def nms_case(name, boxes, valid, max_keep: int, timed: bool) -> dict:
     return row
 
 
+# the multi-head config's NMS (configs/pp_multihead_nuscenes.yaml): up to
+# 1,000 candidates a (frame, class) set at IoU 0.2, 83 kept, 10 sets a frame
+MH_NMS_K, MH_NMS_KEEP, MH_NMS_THRESH, MH_SETS = 1000, 83, 0.2, 10
+
+
+def nuscenes_candidate_sets(sets: int, k: int, seed: int):
+    """(sets, k, 7) f32 boxes, set s of nuScenes class s % 10 at that
+    class's anchor size (x 0.9-1.1), around k / 3 centres in the
+    multi-head config's +-51.2 m range with 0.4 m of jitter, random
+    headings: overlapping clusters, as a class's top scores are."""
+    anchors = model_config_from_yaml(load_config(PP_YAML)).anchor_generator
+    rng = np.random.RandomState(seed)
+    out = np.zeros((sets, k, 7), np.float32)
+    for si in range(sets):
+        size = np.asarray(anchors[si % len(anchors)]["anchor_sizes"][0], np.float32)
+        centres = rng.uniform(-51.2, 51.2, (k // 3, 2))
+        member = rng.randint(0, len(centres), k)
+        out[si, :, :2] = centres[member] + rng.normal(0, 0.4, (k, 2))
+        out[si, :, 2] = rng.uniform(-2, 1, k)
+        out[si, :, 3:6] = size * rng.uniform(0.9, 1.1, (k, 3))
+        out[si, :, 6] = rng.uniform(-np.pi, np.pi, k)
+    return out
+
+
 def phase_kernel_vs_plain_nms(dev):
     """``nms_lazy`` against ``greedy_nms_lazy_plain`` at the configs' 4,096
     candidates, 0.01: (a) the worst case, every candidate valid, clustered
     boxes, 500 kept; (b) the trained-model regime, 64 valid; (c) two frames
     in one launch; (d) duplicated, touching, nested and zero-area boxes;
     (e) no valid candidate; (f) a ``max_keep`` cut at 37 and (g) at 64, a
-    mask tile's end; (h) 8,192 candidates, every one valid."""
+    mask tile's end; (h) 8,192 candidates, every one valid; then the
+    multi-head regime (``post_process_multihead``'s stacked sets): (i) one
+    frame's 10 per-class sets and (j) B=4's 40, 1,000 candidates each, all
+    valid, at 0.2, 83 kept a set."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -1314,6 +1383,14 @@ def phase_kernel_vs_plain_nms(dev):
         nms_case("k8192", t(clustered_boxes(NMS_K_BIG, 1600, 4))[None],
                  torch.ones((1, NMS_K_BIG), dtype=torch.bool, device=dev), NMS_KEEP, timed=True),
     ]
+    for name, sets in (("multihead10", MH_SETS), ("multihead40", 4 * MH_SETS)):
+        rows.append(nms_case(name, t(nuscenes_candidate_sets(sets, MH_NMS_K, 5)),
+                             torch.ones((sets, MH_NMS_K), dtype=torch.bool, device=dev),
+                             MH_NMS_KEEP, timed=True, nms_thresh=MH_NMS_THRESH))
+        if not all(0 < n <= MH_NMS_KEEP for n in rows[-1]["kept"]):
+            raise AssertionError(f"{name}: kept {rows[-1]['kept']}")
+        if not rows[-1]["equal_to_plain"] and not rows[-1]["tie_decisions"]:
+            raise AssertionError(f"{name}: keep sets differ from the plain version's")
     kept = [r["kept"] for r in rows]
     if kept[0] != [NMS_KEEP] or kept[4] != [0] or kept[5] != [37] or kept[6] != [64] \
             or kept[7] != [NMS_KEEP]:
@@ -1594,7 +1671,8 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "eval_multiproc", "tta", "study_small", "serve_depth", "train_depth",
               "train_cli_depth", "export_serve_depth", "serve_q8", "train_q8", "eval_q8",
               "export_serve_q8", "serve_w8a8", "serve_w8a8_polar", "serve_occ_v2",
-              "train_occ_v2")
+              "train_occ_v2", "serve_radar", "train_radar", "train_cli_radar",
+              "serve_pp_multihead", "train_pp_multihead", "demo")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -1699,7 +1777,7 @@ def phase_serve(dev, cfg, per_frame: dict, batch=None):
     return result
 
 
-EVAL_FRAMES = 16
+EVAL_FRAMES = 8
 TINY_EVAL_FRAMES = 4
 EVAL_BOX_TOL, EVAL_RESULT_TOL = 1e-4, 1e-6
 
@@ -1911,7 +1989,7 @@ def phase_eval(dev, yaml_path, per_frame: dict, preset=None, frames: int = EVAL_
 # -- the serving entry points --------------------------------------------------
 # the serving host's batches: 3 flagship frames (seeds 0-2), each written 3
 # times so that its completion gaps reach the steady state
-EXPORT_FRAMES, EXPORT_REPEATS = 3, 3
+EXPORT_FRAMES, EXPORT_REPEATS = 3, 2
 # a serving host that imports no model code (nor JAX): run as
 # ``python -c SERVE_GUARD <serve.py's arguments>``
 SERVE_GUARD = r"""
@@ -1989,7 +2067,7 @@ def phase_export_serve(dev, cfg, per_frame: dict):
     """``cfg`` at full width (random weights, seed 0) exported by
     ``tools/export.py``'s ``export_model`` on the flagship batch and saved;
     ``tools/serve.py`` in a subprocess that imports no model code serves 3
-    flagship frames (seeds 0-2), each from 3 ``.npz`` files: its launches
+    flagship frames (seeds 0-2), each from 2 ``.npz`` files: its launches
     (after its warm-up) must read ``per_frame`` for each file, and its
     detections equal ``serve``'s on the same frames (valid and labels equal,
     boxes and scores within 1e-4) at a tie-free score threshold baked into
@@ -2107,7 +2185,7 @@ def phase_bench(dev):
 
 
 VOD_YAML = "configs/hgsfusion_vod.yaml"
-TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, RESUME_STEPS, TRAIN_CLI_EVAL_FRAMES = 16, 20, 4, 8
+TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, RESUME_STEPS, TRAIN_CLI_EVAL_FRAMES = 16, 20, 4, 4
 
 
 def phase_train_cli(dev, yaml_path=VOD_YAML):
@@ -2237,7 +2315,7 @@ TINY_TJ4D_FRAMES = 4
 # (step_compare.SENS_CAP: seed 1 at 2.8e-5 of the cap's 1e-3; seeds 3, 5
 # and 6 over it)
 TINY_TJ4D_TRAIN_SEED = 1
-TJ4D_CLI_FRAMES, TJ4D_CLI_STEPS, TJ4D_CLI_EVAL_FRAMES = 16, 10, 8
+TJ4D_CLI_FRAMES, TJ4D_CLI_STEPS, TJ4D_CLI_EVAL_FRAMES = 16, 10, 4
 
 
 def tiny_tj4d_cut(cfg, root):
@@ -2320,7 +2398,7 @@ def phase_train_cli_tj4d(dev):
     xla, BATCH_SIZE_PER_DEVICE: 2) at full width over a 16-frame synthetic
     TJ4D tree, across an epoch boundary (8 steps), its second step profiled
     (before the window of ``steps_per_s``, which starts at the third); then
-    ``tools/test.py --ckpt_dir`` over 8 frames."""
+    ``tools/test.py --ckpt_dir`` over 4 frames."""
     yaml_path = TJ4D_YAMLS["xla"]
     cfg = load_config(yaml_path)
     model_cfg = model_config_from_yaml(cfg)
@@ -2411,7 +2489,7 @@ RHGM_IMAGE = (70, 100)  # small_reference_rhgm: not a multiple of any stride
 # may differ only where the CPU's logit lies within it of 0, and two class
 # scores within it of each other may take their top-k ranks in either order
 RHGM_TOL = 1e-4
-RHGM_FRAMES = 4  # after one warm-up frame
+RHGM_FRAMES = 2  # after one warm-up frame
 RHGM_RESIZE = 1024  # the reference predictor's MIN_SIZE_TEST: 516 x 1936 -> 1024 x 3842
 
 
@@ -3556,7 +3634,7 @@ W8A8_FRAME = {**Q8_FRAME, library.CONV_W8A8: BACKBONE_CONVS,
               library.QUANTIZE_INT8: BACKBONE_CONVS}
 W8A8_POLAR_FRAME = {**POLAR_FRAME, library.CONV_W8A8: BACKBONE_CONVS,
                     library.QUANTIZE_INT8: BACKBONE_CONVS}
-Q8_EVAL_FRAMES = 8
+Q8_EVAL_FRAMES = 4
 TINY_OCC_V2 = dataclasses.replace(TINY_XLA, aspp_dilations=(1, 6, 12, 18),
                                   use_dcn=(False, True, False, False), occ_fuse_mode="SE")
 
@@ -3994,6 +4072,436 @@ def phase_serve_occ_v2(dev):
     small = phase_small_reference(dev, TINY_OCC_V2)
     return {**phase_serve(dev, yaml_config(OCC_V2_YAML), GATHER_FRAME), "small_reference": small}
 
+# ---------------------------------------------------------------------------
+# The zoo families: the radar-only detector (configs/radar_pillar_vod.yaml)
+# and PointPillars with the multi-head anchor head
+# (configs/pp_multihead_nuscenes.yaml), built through build_network
+# ---------------------------------------------------------------------------
+
+RADAR_YAML = "configs/radar_pillar_vod.yaml"
+PP_YAML = "configs/pp_multihead_nuscenes.yaml"
+# the TINY multi-head model: tests/test_torch_pointpillar.py's cut (80 x 80
+# pillars, a 40 x 40 head map, 32,000 anchors) on its batch
+PP_TINY_RANGE = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+# candidates a set in the TINY multi-head post-processing on the CPU (the
+# config's 1,000 run in 4c and at full width)
+PP_TINY_PRE_MAX = 200
+# the BN biases of the TINY multi-head step, lifted (ReLUs that barely ever
+# switch: tests/torch_parity.py::lift_bn_biases)
+ZOO_BN_LIFT = 4.0
+# the weights of the TINY radar-only step: a seed whose step the CPU's own
+# probes find well conditioned (step_compare.SENS_CAP)
+RADAR_TINY_SEED = 0
+PP_TRAIN_BATCH = 4  # BATCH_SIZE_PER_DEVICE of configs/pp_multihead_nuscenes.yaml
+RADAR_CLI_FRAMES, RADAR_CLI_STEPS, RADAR_CLI_EVAL_FRAMES = 8, 6, 4
+DEMO_FRAMES = 2
+
+
+def radar_config():
+    """``configs/radar_pillar_vod.yaml``'s model config (f32: it names no
+    compute dtype)."""
+    return model_config_from_yaml(load_config(RADAR_YAML))
+
+
+def pp_config(pc_range=None):
+    """``configs/pp_multihead_nuscenes.yaml``'s model config, its range
+    ``pc_range`` where given."""
+    cfg = load_config(PP_YAML)
+    if pc_range is not None:
+        cfg["DATA_CONFIG"]["POINT_CLOUD_RANGE"] = list(pc_range)
+    return model_config_from_yaml(cfg)
+
+
+def radar_batch(cfg, b: int = 1, seed: int = 0):
+    """``flagship_batch`` without its image and calibration: a radar-only
+    batch (8,192 points x 17 features, gt boxes)."""
+    fb = flagship_batch(cfg, b=b, seed=seed)
+    return {k: fb[k] for k in ("points", "points_valid", "gt_boxes")}
+
+
+def tiny_zoo(family: str):
+    """(config, batch, seed, BN lift) of a family's small reference."""
+    if family == "RadarOnly":
+        return TINY, {k: v for k, v in tiny_batch().items() if k != "images"}, \
+            RADAR_TINY_SEED, 0.0
+    cfg = dataclasses.replace(pp_config(PP_TINY_RANGE), nms_pre_max_size=PP_TINY_PRE_MAX)
+    return cfg, nuscenes_batch(cfg, b=2, max_points=2048, max_boxes=24, boxes_per_frame=20,
+                               seed=3), 0, ZOO_BN_LIFT
+
+
+def zoo_model(family: str, cfg, device, seed: int, lift: float = 0.0):
+    """``build_network`` of the family, every BN bias raised by ``lift``."""
+    model = build_network(family, cfg, device=device, seed=seed)
+    if lift:
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, (torch.nn.BatchNorm2d, MaskedBatchNorm)):
+                    m.bias.add_(lift)
+    return model
+
+
+def _listed(preds):
+    """Head outputs as (key, index, tensor), a multi-head model's lists
+    flattened."""
+    return [(k, i, t) for k, v in preds.items()
+            for i, t in enumerate(v if isinstance(v, list) else [v])]
+
+
+def multihead_nms_case(cfg, cpu_model, gpu_model, ref, on_card) -> int:
+    """The multi-head post-processing on the card against the CPU: each
+    (head, class) set's decoded boxes within 1e-4, then the sets' top
+    candidates (the CPU's decode) through the NMS op on both devices: the
+    card's keep decisions held to the greedy rule with the CPU's IoU
+    (``check_nms_frame``: a decision may differ from the CPU's only at an
+    IoU within NMS_TIE of the threshold), then ``post_process`` on the card
+    whole. Returns the CPU's kept count."""
+    sets = multihead_candidate_sets(ref, cpu_model.anchors, cpu_model.box_coder, cfg)
+    card_sets = multihead_candidate_sets(on_card, gpu_model.anchors, gpu_model.box_coder, cfg)
+    for b_cpu, b_card in zip(sets[1], card_sets[1]):
+        torch.testing.assert_close(b_card.cpu(), b_cpu, rtol=1e-4, atol=1e-4)
+    tops = [nms._select(s, b[..., :7], cfg.score_thresh, min(cfg.nms_pre_max_size, s.shape[-1]))
+            for s, b in zip(sets[0], sets[1])]
+    scores = torch.cat([t[0] for t in tops])
+    boxes = torch.cat([t[2] for t in tops]).float().contiguous()
+    valid = scores > nms.NEG_INF / 2
+    keep_cpu = nms.nms_lazy_op(boxes, valid, cfg.nms_thresh, cfg.nms_post_max_size)
+    keep_card = nms.nms_lazy_op(boxes.to(on_card["box_preds"][0].device), valid.to(
+        on_card["box_preds"][0].device), cfg.nms_thresh, cfg.nms_post_max_size).cpu()
+    ties = sum(check_nms_frame(b, v, k, cfg.nms_thresh, cfg.nms_post_max_size)["tie_decisions"]
+               for b, v, k in zip(boxes, valid, keep_card))
+    if not torch.equal(keep_card, keep_cpu) and not ties:
+        raise AssertionError("the card's NMS kept other candidates than the CPU's")
+    got = gpu_model.post_process(on_card)
+    if got["valid"].shape[1] != cfg.nms_post_max_size * cfg.num_class or not bool(
+            torch.isfinite(got["boxes"][got["valid"]]).all()):
+        raise AssertionError(f"the card's detections {got['boxes'].shape}")
+    print(f"  multi-head NMS: {boxes.shape[0]} sets, {int(keep_cpu.sum())} kept on the CPU, "
+          f"{int((keep_card != keep_cpu).sum())} decisions differ on the card, {ties} at a tie")
+    return int(keep_cpu.sum())
+
+
+def run_zoo_step(family, cfg, device, batch, seed: int, lift: float, perturb_seed=None):
+    """One training step of the family's model (``make_train_step_for_cfg``)
+    on ``device``: ``step_record`` and the step's learning rate."""
+    model = zoo_model(family, cfg, device, seed, lift)
+    opt, lr_schedule = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    _, step = make_train_step_for_cfg(model, cap, cfg)
+    b = model.batch_to_device(batch)
+    if perturb_seed is not None:
+        b = perturb_inputs(b, perturb_seed)
+    _, tb = step(b)
+    return step_record(model, cap, tb), float(lr_schedule(0))
+
+
+def phase_small_reference_zoo(dev, family: str):
+    """A TINY zoo model card vs CPU, one set of weights: the head outputs
+    within 1e-4, the post-processing on tie-broken scores (the kept sets
+    equal, boxes within 1e-5), one training step under ``step_compare``."""
+    cfg, batch, seed, lift = tiny_zoo(family)
+    cpu_model = zoo_model(family, cfg, "cpu", seed, lift)
+    gpu_model = zoo_model(family, cfg, dev, seed, lift)
+    with torch.inference_mode():
+        ref = cpu_model(cpu_model.batch_to_device(batch))
+        got = gpu_model(gpu_model.batch_to_device(batch))
+        errs = {f"{k}{i}": float((g.cpu() - r).abs().max())
+                for (k, i, r), (_, _, g) in zip(_listed(ref), _listed(got))}
+        print("  head max abs err vs CPU: " + json.dumps(errs))
+        for (k, i, r), (_, _, g) in zip(_listed(ref), _listed(got)):
+            torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-4)
+
+        # equal scores of identical regions order differently in each
+        # device's topk: break the ties first
+        def untied(c):
+            return c + torch.linspace(0, 0.1, c.numel()).view(c.shape)
+
+        cls = ref["cls_preds"]
+        ref = {**ref, "cls_preds": [untied(c) for c in cls] if isinstance(cls, list)
+               else untied(cls)}
+        on_card = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+                   for k, v in ref.items()}
+        if family == "RadarOnly":
+            kw = dict(score_thresh=0.0, nms_thresh=0.01, pre_max_size=512, post_max_size=100)
+            d_ref = post_process(ref, cpu_model.anchors, cpu_model.box_coder, cfg, **kw)
+            d_got = post_process(on_card, gpu_model.anchors, gpu_model.box_coder, cfg, **kw)
+            if not torch.equal(d_got["valid"].cpu(), d_ref["valid"]):
+                raise AssertionError("the card kept other candidates than the CPU")
+            v = d_ref["valid"]
+            torch.testing.assert_close(d_got["boxes"].cpu()[v], d_ref["boxes"][v],
+                                       rtol=1e-5, atol=1e-5)
+            kept = int(v.sum())
+        else:
+            kept = multihead_nms_case(cfg, cpu_model, gpu_model, ref, on_card)
+        print(f"  post-process: {kept} boxes kept on the CPU")
+    ref_step, lr = run_zoo_step(family, cfg, "cpu", batch, seed, lift)
+    probes = [run_zoo_step(family, cfg, "cpu", batch, seed, lift, perturb_seed=s)[0]["grads"]
+              for s in (1, 2)]
+    got_step, _ = run_zoo_step(family, cfg, dev, batch, seed, lift)
+    report = compare_steps(ref_step, got_step, sensitivity(ref_step["grads"], probes), lr)
+    report["loss_terms_cpu"] = {k: float(v) for k, v in ref_step["tb"].items()}
+    report["loss_terms_card"] = {k: float(v) for k, v in got_step["tb"].items()}
+    print("  " + json.dumps(report))
+    return {"head_errs": errs, "kept": kept, "train": report}
+
+
+def scatter_max_case(model, batch, dev) -> dict:
+    """The pillar scatter-max (``ops/voxelize.py``, PyTorch's
+    ``scatter_reduce``) at the batch's points and the reader's width:
+    timed beside its bytes (the rows and their ids read, the grid written)
+    and the whole reader's time."""
+    reader = model.pillar_net if hasattr(model, "pillar_net") else model.radar_backbone.reader
+    b = model.batch_to_device(batch)
+    ny, nx = reader.grid_shape
+    pc_min = torch.tensor(reader.pc_range[:3], device=dev)
+    ids, _ = points_to_pillar_ids(b["points"][..., :3] - pc_min, b["points_valid"],
+                                  reader.pillar_size, nx, ny)
+    width = reader.pfn_layers.shared_mlps[0].out_features
+    rows = torch.rand(ids.shape + (width,), device=dev)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: scatter_max_dense(rows, ids, ny * nx), iters=10, warmup=2)
+        reader_ms = cuda_ms(lambda: reader(b["points"], b["points_valid"]), iters=10, warmup=2)
+    nbytes = rows.numel() * 4 + ids.numel() * ids.element_size() \
+        + ids.shape[0] * ny * nx * width * 4
+    return {"points": int(ids.numel()), "pillars": ny * nx, "width": width,
+            "occupied": int(torch.unique(ids[b["points_valid"]]).numel()),
+            "scatter_max_ms": ms, "scatter_max_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "reader_ms": reader_ms}
+
+
+def profiled_device_ms(fn) -> float:
+    """The device time of one call of ``fn`` under ``torch.profiler``: its
+    kernels' own time summed (the stream's idle gaps left out)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e3
+
+
+def phase_serve_zoo(dev, family: str, cfg, batch, frames: int = 3):
+    """A zoo config at full width through ``serve()`` after a warm-up: the
+    frames' launches (one NMS a batch, no other kernel), each frame's stream
+    ms (CUDA events around it, the host's gaps included) and wall ms, one
+    profiled frame's device time, peak memory, the detections' shape; the
+    pillar scatter-max timed."""
+    model = build_network(family, cfg, device=dev, seed=0)
+    model.serve(batch)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    device_ms, wall = [], []
+    for _ in range(frames):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dets = model.serve(batch)
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = per_frames(NMS_CALL, frames)
+    if launches != want:
+        raise AssertionError(f"launches in {frames} frames {launches}, want {want}")
+    rows = dets["valid"].shape[1]
+    want_rows = (cfg.nms_post_max_size * cfg.num_class if family == "PointPillar"
+                 else cfg.nms_post_max_size)
+    if rows != want_rows or dets["boxes"].shape != (1, rows, 7):
+        raise AssertionError(f"detections {dets['boxes'].shape}, want {want_rows} rows")
+    if not bool(torch.isfinite(dets["boxes"][dets["valid"]]).all()):
+        raise AssertionError("non-finite detections")
+    result = {"frames": frames, "launches": launches, "frame_stream_ms": device_ms,
+              "frame_wall_ms": wall, "profiled_frame_device_ms": profiled_device_ms(
+                  lambda: model.serve(batch)), "peak_memory_bytes": peak,
+              "valid_boxes": int(dets["valid"].sum()), "anchors": int(model.anchors.shape[0]),
+              **scatter_max_case(model, batch, dev)}
+    print("  " + json.dumps(result))
+    return result
+
+
+def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3):
+    """A zoo config's training step at full width (``make_train_step_for_cfg``)
+    after a warm-up: no kernel launched, finite losses, a positive anchor,
+    every trainable tensor with a gradient moved, no host sync in a step;
+    each step's stream ms (CUDA events), one profiled step's device time,
+    peak memory."""
+    model = build_network(family, cfg, device=dev, seed=0)
+    opt, _ = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    assigner, step = make_train_step_for_cfg(model, cap, cfg)
+    b = model.batch_to_device(batch)
+    positives = int((assigner(b["gt_boxes"])["box_cls_labels"] > 0).sum())
+    if positives == 0:
+        raise AssertionError("no anchor is positive for the synthetic gt boxes")
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    _, warm = step(b)
+    moving = {k for k, g in zip(params, cap.grads) if g is not None and bool(g.any())}
+    cap.grads = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    device_ms, terms = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, tb = step(b)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        terms.append({k: float(v) for k, v in tb.items()})
+    launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != per_frames({}, steps):
+        raise AssertionError(f"launches in {steps} steps {launches}, want none")
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"non-finite loss terms {terms}")
+    params = dict(model.named_parameters())
+    still = sorted(k for k in moving if torch.equal(params[k], before[k]))
+    if still:
+        raise AssertionError(f"trainable tensors that did not move: {still}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    if syncs:
+        raise AssertionError(f"the training step made the host wait for the device at {syncs}")
+    result = {"steps": steps, "batch": int(b["points"].shape[0]), "launches": launches,
+              "step_stream_ms": device_ms, "profiled_step_device_ms": profiled_device_ms(
+                  lambda: step(b)), "peak_memory_bytes": peak,
+              "positive_anchors": positives, "loss_terms": terms,
+              "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
+              "trainable_tensors": len(before), "moved": len(moving)}
+    print("  " + json.dumps(result))
+    return result
+
+
+def phase_train_cli_radar(dev):
+    """``configs/radar_pillar_vod.yaml`` through the CLIs at full width:
+    ``tools/train.py`` over an 8-frame tree (no image in its batches, no
+    kernel launched), ``tools/test.py --ckpt_dir`` (one NMS a frame), then
+    the checkpoint exported and served by the serving host on the eval
+    frames: its detections equal ``serve``'s at a tie-free threshold."""
+    cfg = load_config(RADAR_YAML)
+    data = cfg["DATA_CONFIG"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        data["DATA_PATH"] = str(root)
+        write_tree(root, data, RADAR_CLI_FRAMES)
+        create_infos(data, cfg["CLASS_NAMES"])
+        data_set = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+        zero_launches()
+        trained = train_cli.main(["--cfg_file", RADAR_YAML, "--epochs", "1", "--workers", "2",
+                                  "--max_steps", str(RADAR_CLI_STEPS), "--output_dir", str(out)]
+                                 + data_set)
+        train_launches = dict(library.launches)
+        ckpt = CheckpointManager(Path(trained["out_dir"]) / "ckpt")
+        zero_launches()
+        evaluated = test_cli.main(["--cfg_file", RADAR_YAML, "--ckpt_dir", str(ckpt.ckpt_dir),
+                                   "--max_frames", str(RADAR_CLI_EVAL_FRAMES), "--output_dir",
+                                   str(out / "eval")] + data_set)
+        eval_launches = dict(library.launches)
+        (result_dict, stats), = evaluated.values()
+        model = build_network(cfg, device=dev, seed=0)
+        model.load_state_dict(torch.load(ckpt.path(ckpt.latest_step()), map_location=dev,
+                                         weights_only=True)["model_state"])
+        ds = build_dataset(data, cfg["CLASS_NAMES"], training=False)
+        frames = [ds.collate_batch([ds[i]]) for i in range(RADAR_CLI_EVAL_FRAMES)]
+        if any("images" in f for f in frames):
+            raise AssertionError("a radar-only batch carries an image")
+        # the serving host keeps PyTorch's defaults, cuDNN's TF32 among them,
+        # and this f32 config's convolutions take it: serve so here too
+        torch.backends.cudnn.allow_tf32 = True
+        thr = tie_free_serving_threshold(model, frames)
+        model.cfg = dataclasses.replace(model.cfg, score_thresh=thr)
+        program, spec = export_cli.export_model(model, frames[0])
+        if "images" in spec["inputs"]:
+            raise AssertionError(f"the artifact's inputs {sorted(spec['inputs'])}")
+        export_cli.save_artifact(program, spec, Path(tmp) / "radar.pt2")
+        (Path(tmp) / "in").mkdir()
+        for i, f in enumerate(frames):
+            np.savez(Path(tmp) / "in" / f"frame{i}.npz",
+                     **{k: np.asarray(f[k]) for k in spec["inputs"]})
+        summary, dets = run_serving_host(Path(tmp) / "radar.pt2", Path(tmp) / "in",
+                                         Path(tmp) / "dets")
+    kept = []
+    refs = [{k: v.cpu().numpy() for k, v in model.serve(f).items()} for f in frames]
+    torch.backends.cudnn.allow_tf32 = False
+    for i, ref in enumerate(refs):
+        got = dets[f"frame{i}"]
+        for k in ("valid", "labels"):
+            if not np.array_equal(got[k], ref[k]):
+                raise AssertionError(f"frame {i}: the artifact's {k} differ from serve's")
+        for k in ("boxes", "scores"):
+            if float(np.abs(got[k] - ref[k]).max()) > 1e-4:
+                raise AssertionError(f"frame {i}: the artifact's {k} off serve's")
+        kept.append(int(ref["valid"].sum()))
+    checks = {"train": (train_launches, per_frames({}, RADAR_CLI_STEPS)),
+              "eval": (eval_launches, per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES)),
+              "serving_host": (summary["launches"], per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES))}
+    for name, (got_l, want_l) in checks.items():
+        if got_l != want_l:
+            raise AssertionError(f"{name}: launches {got_l}, want {want_l}")
+    if trained["steps"] != RADAR_CLI_STEPS or not all(math.isfinite(v) for v in trained["losses"]):
+        raise AssertionError(f"training: {trained['steps']} steps, losses {trained['losses']}")
+    if stats.get("frames") != RADAR_CLI_EVAL_FRAMES or not all(
+            math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()):
+        raise AssertionError(f"evaluation: {stats.get('frames')} frames, {result_dict}")
+    result = {"launches": {k: train_launches[k] + eval_launches[k] + summary["launches"][k]
+                           for k in library.launches},
+              "launches_by_run": {k: v[0] for k, v in checks.items()},
+              "steps_per_s": trained["steps_per_s"], "losses": trained["losses"],
+              "peak_memory_bytes": trained["peak_memory_bytes"],
+              "eval_ms_per_frame": stats.get("ms_per_frame"), "eval_result": result_dict,
+              "score_thresh": thr, "kept": kept,
+              "artifact_ms_per_frame": summary["ms_per_frame"]}
+    print("  " + json.dumps(result))
+    return result
+
+
+def phase_demo(dev):
+    """``tools/demo.py`` (``main``) on a 2-frame full-width VoD tree with
+    the radar-only config and HGSFusion's, ``--html``: each frame served on
+    the card (radar: 1 NMS; HGSFusion: 1 fused + 1 NMS), each HTML viewer
+    written; the PNGs only where matplotlib is installed (printed)."""
+    runs, launches = {}, {k: 0 for k in library.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        cfg = load_config(RADAR_YAML)
+        cfg["DATA_CONFIG"]["DATA_PATH"] = str(root)
+        write_tree(root, cfg["DATA_CONFIG"], DEMO_FRAMES)
+        create_infos(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"])
+        for name, yaml_path, per_frame in (("radar", RADAR_YAML, NMS_CALL),
+                                           ("hgsfusion", VOD_YAML, GATHER_FRAME)):
+            zero_launches()
+            out = demo_cli.main(["--cfg_file", yaml_path, "--frames", str(DEMO_FRAMES),
+                                 "--out_dir", f"{tmp}/{name}", "--html",
+                                 "--set", "DATA_CONFIG.DATA_PATH", str(root)])
+            want = per_frames(per_frame, DEMO_FRAMES)
+            if dict(library.launches) != want or out["launches"] != want:
+                raise AssertionError(f"{name}: launches {dict(library.launches)}, want {want}")
+            html = [Path(f).read_text() for f in out["html"]]
+            if len(html) != DEMO_FRAMES or not all("pred_boxes" in h for h in html):
+                raise AssertionError(f"{name}: HTML files {out['html']}")
+            pngs = [Path(f).read_bytes()[:8] for f in out["png"]]
+            if out["matplotlib"] and (not pngs or any(h != b"\x89PNG\r\n\x1a\n" for h in pngs)):
+                raise AssertionError(f"{name}: PNG files {out['png']}")
+            for k in launches:
+                launches[k] += library.launches[k]
+            runs[name] = {"frames": out["frames"], "html_bytes": [len(h) for h in html],
+                          "png": len(out["png"]), "matplotlib": out["matplotlib"]}
+    print(f"  PNGs written: {any(r['png'] for r in runs.values())} (matplotlib "
+          f"{'installed' if runs['radar']['matplotlib'] else 'not installed'})")
+    result = {"launches": launches, "runs": runs}
+    print("  " + json.dumps(result))
+    return result
+
 
 def phases(dev) -> list:
     """Every phase after card and build, in order: (name, function, args)."""
@@ -4011,6 +4519,8 @@ def phases(dev) -> list:
         step("kernel_vs_plain_nms", phase_kernel_vs_plain_nms, dev),
         step("small_reference", phase_small_reference, dev),
         step("small_reference_train", phase_small_reference_train, dev),
+        step("small_reference_radar", phase_small_reference_zoo, dev, "RadarOnly"),
+        step("small_reference_pp", phase_small_reference_zoo, dev, "PointPillar"),
         full("serve", phase_serve, dev, vod_pallas_config(), GATHER_FRAME),
         full("train", phase_train, dev, vod_pallas_config(), GATHER_STEP),
         step("kernel_vs_plain_polar", phase_kernel_vs_plain_polar, dev),
@@ -4059,6 +4569,16 @@ def phases(dev) -> list:
         full("serve_w8a8_polar", phase_serve_w8a8, dev, "polar"),
         full("serve_occ_v2", phase_serve_occ_v2, dev),
         step("train_occ_v2", lambda: phase_train(dev, yaml_config(OCC_V2_YAML), GATHER_STEP)),
+        full("serve_radar", lambda: phase_serve_zoo(dev, "RadarOnly", radar_config(),
+                                                    radar_batch(radar_config()))),
+        full("train_radar", lambda: phase_train_zoo(dev, "RadarOnly", radar_config(),
+                                                    radar_batch(radar_config()))),
+        full("train_cli_radar", phase_train_cli_radar, dev),
+        full("serve_pp_multihead", lambda: phase_serve_zoo(dev, "PointPillar", pp_config(),
+                                                           nuscenes_batch(pp_config()))),
+        full("train_pp_multihead", lambda: phase_train_zoo(
+            dev, "PointPillar", pp_config(), nuscenes_batch(pp_config(), b=PP_TRAIN_BATCH))),
+        full("demo", phase_demo, dev),
     ]
     return out
 

@@ -45,6 +45,7 @@ import torch
 
 from .config import load_config, model_config_from_yaml
 from .models.detector import HGSFusionModel, resolve_device
+from .models.registry import build_network
 from .ops import library
 from .synthetic import flagship_batch
 
@@ -92,7 +93,7 @@ def run(name: str = "vod_polar", batch_size: int = 1, realistic: bool = False) -
     report's."""
     device = resolve_device("cuda")
     cfg = flagship_config(name)
-    model = HGSFusionModel(cfg, device=device, seed=0)
+    model = build_network("HGSFusion", cfg, device=device, seed=0)
     batch = model.batch_to_device(flagship_batch(cfg, b=batch_size))
     shift = calibrate_realistic(model, batch) if realistic else None
     out = model.serve(batch)  # warm-up: cuDNN plans, the allocator, the kernels' build

@@ -100,6 +100,19 @@ class HGSFusionConfig:
     dir_offset: float = 0.78539
     dir_limit_offset: float = 0.0
     code_size: int = 7
+    # AnchorHeadMulti (the grouped multi-head head): the class groups, the
+    # anchors per location of each class, the shared and separate convs,
+    # and the box coder of TARGET_ASSIGNER_CONFIG.BOX_CODER_CONFIG
+    rpn_head_cfgs: tuple | None = None
+    mh_num_per_loc: Tuple[int, ...] = ()
+    mh_shared_conv_filters: int = 64
+    mh_separate_reg_list: Tuple[str, ...] = ("reg:2", "height:1", "size:3", "angle:2", "velo:2")
+    mh_num_middle_conv: int = 1
+    mh_num_middle_filter: int = 64
+    mh_separate_multihead: bool = True
+    mh_use_dir: bool = False
+    box_coder_size: int = 7
+    box_coder_sincos: bool = False
     compute_dtype: str = "float32"
     # recompute the gather f2v's sample + reduce product and the polar view's
     # pass 2 in the backward pass instead of keeping what they save
@@ -292,8 +305,9 @@ def cfg_from_list(cfg: dict, kv_list) -> dict:
 
 
 def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
-    """HGSFusionConfig from a loaded reference-schema YAML (HGSFusion with an
-    AnchorHeadSingle)."""
+    """HGSFusionConfig from a loaded reference-schema YAML: the HGSFusion,
+    radar-only and PointPillar families, with an AnchorHeadSingle or an
+    AnchorHeadMulti (its static fields as the JAX package reads them)."""
     model, data = cfg["MODEL"], cfg["DATA_CONFIG"]
     fusion_vfe = model["FusionVFE"]
     image_vfe = fusion_vfe["ImageVFE"]
@@ -318,6 +332,12 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
          "unmatched_threshold": float(c["unmatched_threshold"])}
         for c in head["ANCHOR_GENERATOR_CONFIG"])
     nms = model.get("POST_PROCESSING", {}).get("NMS_CONFIG", {})
+    coder = head.get("TARGET_ASSIGNER_CONFIG", {}).get("BOX_CODER_CONFIG", {})
+    sep_reg = head.get("SEPARATE_REG_CONFIG", {})
+    multihead = head.get("NAME") == "AnchorHeadMulti"
+    per_loc = tuple(
+        len(c["anchor_rotations"]) * len(c["anchor_sizes"]) * len(c["anchor_bottom_heights"])
+        for c in head["ANCHOR_GENERATOR_CONFIG"])
     return HGSFusionConfig(
         class_names=tuple(cfg["CLASS_NAMES"]),
         pc_range=tuple(data["POINT_CLOUD_RANGE"]),
@@ -351,9 +371,21 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         occ_fuse_mode=occ.get("FUSE_MODE", "MUL"),
         fusion_image_out=fuse.get("IMAGE_OUT_CHANNELS", 128),
         fusion_radar_out=fuse.get("RADAR_OUT_CHANNELS", 128),
-        num_anchors_per_location=sum(
-            len(c["anchor_rotations"]) * len(c["anchor_sizes"]) * len(c["anchor_bottom_heights"])
-            for c in head["ANCHOR_GENERATOR_CONFIG"]),
+        num_anchors_per_location=sum(per_loc),
+        rpn_head_cfgs=(tuple(tuple(h["HEAD_CLS_NAME"]) for h in head["RPN_HEAD_CFGS"])
+                       if multihead else None),
+        mh_num_per_loc=per_loc if multihead else (),
+        mh_shared_conv_filters=head.get("SHARED_CONV_NUM_FILTER", 64),
+        mh_separate_reg_list=tuple(sep_reg.get(
+            "REG_LIST", ("reg:2", "height:1", "size:3", "angle:2", "velo:2"))),
+        mh_num_middle_conv=sep_reg.get("NUM_MIDDLE_CONV", 1),
+        mh_num_middle_filter=sep_reg.get("NUM_MIDDLE_FILTER", 64),
+        mh_separate_multihead=head.get("SEPARATE_MULTIHEAD", True),
+        # the reference emits direction predictions (and applies the
+        # direction loss) only where USE_DIRECTION_CLASSIFIER is true
+        mh_use_dir=bool(head.get("USE_DIRECTION_CLASSIFIER", False)) if multihead else False,
+        box_coder_size=coder.get("code_size", 7),
+        box_coder_sincos=coder.get("encode_angle_by_sincos", False),
         num_dir_bins=head.get("NUM_DIR_BINS", 2),
         dir_offset=head.get("DIR_OFFSET", 0.78539),
         dir_limit_offset=head.get("DIR_LIMIT_OFFSET", 0.0),

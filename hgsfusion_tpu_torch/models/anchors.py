@@ -1,7 +1,8 @@
 """Dense grid anchors and the axis-aligned target assigner (counterpart of
 ``hgsfusion_tpu/models/anchors.py``: generate_anchors, flatten_anchors,
-_assign_single_class, TargetAssigner). The anchors are static, computed with
-numpy; the assignment runs on the anchors' device with no host read."""
+flatten_anchors_multihead, _assign_single_class, TargetAssigner). The anchors
+are static, computed with numpy; the assignment runs on the anchors' device
+with no host read."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -59,6 +60,13 @@ def flatten_anchors(all_anchors: List[np.ndarray]) -> np.ndarray:
     return cat.reshape(-1, cat.shape[-1])
 
 
+def flatten_anchors_multihead(all_anchors: List[np.ndarray]) -> np.ndarray:
+    """The multi-head anchor order: one block per class, anchor type major:
+    within a block, index = (((size*n_rot + rot)*nz + z)*ny + y)*nx + x."""
+    return np.concatenate([np.transpose(a, (3, 4, 0, 1, 2, 5)).reshape(-1, a.shape[-1])
+                           for a in all_anchors], axis=0)
+
+
 def _assign_single_class(anchors, gt_boxes, gt_mask, gt_classes, matched_thr: float,
                          unmatched_thr: float, box_coder: ResidualCoder):
     """Assign one class's anchors, batched over images.
@@ -87,36 +95,47 @@ def _assign_single_class(anchors, gt_boxes, gt_mask, gt_classes, matched_thr: fl
 
     fg = labels > 0
     matched = torch.gather(gt_boxes, 1, anchor_arg[..., None].expand(-1, -1, gt_boxes.shape[-1]))
-    targets = box_coder.encode(matched, anchors.expand_as(matched))
+    targets = box_coder.encode(matched, anchors[None])
     targets = torch.where(fg[..., None], targets, torch.zeros_like(targets))
     return labels, targets, fg.to(torch.float32)
 
 
 class TargetAssigner:
-    """Axis-aligned target assigner over padded gt boxes (single-head anchor
-    order, that of ``flatten_anchors``). The per-class thresholds come from
-    each anchor config's ``matched_threshold`` / ``unmatched_threshold``."""
+    """Axis-aligned target assigner over padded gt boxes, in the single-head
+    anchor order (``flatten_anchors``) or, with ``use_multihead``, the
+    multi-head one (``flatten_anchors_multihead``). The per-class thresholds
+    come from each anchor config's ``matched_threshold`` /
+    ``unmatched_threshold``. A ``box_coder`` wider than 7 (velocities,
+    sin-cos) pads the anchors with zero columns to its width, as the
+    reference's anchor generator does."""
 
     def __init__(self, anchor_configs, grid_size, pc_range, class_names,
-                 use_multihead: bool = False, device="cuda"):
-        if use_multihead:
-            raise NotImplementedError("the multi-head anchor order is not ported "
-                                      "(ROADMAP queue 1, the inherited zoo)")
+                 box_coder: ResidualCoder | None = None, use_multihead: bool = False,
+                 device="cuda"):
         self.class_names = list(class_names)
-        self.box_coder = ResidualCoder()
+        self.box_coder = box_coder or ResidualCoder()
         self.anchor_configs = list(anchor_configs)
-        all_anchors, _ = generate_anchors(anchor_configs, grid_size, pc_range)
+        self.use_multihead = use_multihead
+        all_anchors, num_per_loc = generate_anchors(anchor_configs, grid_size, pc_range)
+        pad = self.box_coder.code_size - 7
+        if pad > 0:
+            all_anchors = [np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), np.float32)], -1)
+                           for a in all_anchors]
+        self.num_per_loc = [int(n) for n in num_per_loc]
         self.per_class_anchors = [torch.from_numpy(a.reshape(-1, a.shape[-1])).to(device)
                                   for a in all_anchors]
         self.anchor_shapes = [a.shape for a in all_anchors]
-        self.flat_anchors = torch.from_numpy(flatten_anchors(all_anchors)).to(device)
+        flat = flatten_anchors_multihead(all_anchors) if use_multihead \
+            else flatten_anchors(all_anchors)
+        self.flat_anchors = torch.from_numpy(flat).to(device)
         self.matched = [float(c["matched_threshold"]) for c in anchor_configs]
         self.unmatched = [float(c["unmatched_threshold"]) for c in anchor_configs]
 
     def __call__(self, gt_boxes):
-        """gt_boxes (B, M, 8) padded, class id in the last column (0 = pad) ->
-        {box_cls_labels (B, A), box_reg_targets (B, A, 7), reg_weights (B, A)}
-        in the flat anchor order."""
+        """gt_boxes (B, M, 8) padded (or (B, M, 10) with velocities), class id
+        in the last column (0 = pad) -> {box_cls_labels (B, A),
+        box_reg_targets (B, A, code_size), reg_weights (B, A)} in the flat
+        anchor order."""
         gt7 = gt_boxes[..., :-1]
         gt_cls = gt_boxes[..., -1].to(torch.int32)
         b = gt_boxes.shape[0]
@@ -127,10 +146,24 @@ class TargetAssigner:
                 anchors, gt7, gt_cls == class_id, gt_cls, self.matched[ci],
                 self.unmatched[ci], self.box_coder)
             nz, ny, nx, ns, nr, _ = self.anchor_shapes[ci]
+            if self.use_multihead:
+                # one block per class, anchor type major
+                def block(x):
+                    x = x.reshape((b, nz, ny, nx, ns, nr) + x.shape[2:])
+                    x = x.permute((0, 4, 5, 1, 2, 3) + tuple(range(6, x.dim())))
+                    return x.reshape((b, -1) + x.shape[6:])
+                labels_c.append(block(labels))
+                targets_c.append(block(targets))
+                weights_c.append(block(weights))
+                continue
             # interleave the classes per location: (B, nz*ny*nx, ncls, ns*nr)
             labels_c.append(labels.reshape(b, nz * ny * nx, ns * nr))
             targets_c.append(targets.reshape(b, nz * ny * nx, ns * nr, targets.shape[-1]))
             weights_c.append(weights.reshape(b, nz * ny * nx, ns * nr))
+        if self.use_multihead:
+            return {"box_cls_labels": torch.cat(labels_c, dim=1),
+                    "box_reg_targets": torch.cat(targets_c, dim=1),
+                    "reg_weights": torch.cat(weights_c, dim=1)}
         return {
             "box_cls_labels": torch.cat(labels_c, dim=-1).reshape(b, -1),
             "box_reg_targets": torch.cat(targets_c, dim=-2).reshape(b, -1, targets_c[0].shape[-1]),

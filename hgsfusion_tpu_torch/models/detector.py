@@ -1,9 +1,11 @@
-"""HGSFusion detector: camera + radar branches, DSM fusion, anchor head,
-post-processing.
+"""Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
+the radar-only detector and the PointPillar families; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
-``f2v_view="polar"``; post_process):
+``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
+PointPillarMultiHeadModel; post_process, post_process_multihead).
+``models/registry.py::build_network`` picks the family of a config.
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
     --collapse--> image BEV   (gather view)
@@ -44,10 +46,12 @@ import torch.nn as nn
 
 from ..config import HGSFusionConfig
 from ..ops.deform_conv import ModulatedDeformConv2d
-from ..ops.nms import NEG_INF, class_agnostic_nms
+from ..ops.nms import NEG_INF, class_agnostic_nms, multi_set_nms
 from ..utils.box_coder import ResidualCoder
-from .anchor_head import AnchorHeadSingle, decode_selected_boxes
-from .anchors import flatten_anchors, generate_anchors
+from .anchor_head import (AnchorHeadMulti, AnchorHeadSingle, decode_selected_boxes,
+                          generate_predicted_boxes_multihead)
+from .anchors import TargetAssigner, flatten_anchors, generate_anchors
+from .base_bev_backbone import BaseBEVBackbone
 from .bev_encoder import PillarNetRadar, SparseConv2d
 from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
@@ -57,7 +61,9 @@ from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
 from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
 
-__all__ = ["HGSFusionConfig", "HGSFusionModel", "post_process", "resolve_device"]
+__all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
+           "PointPillarMultiHeadModel", "post_process", "post_process_multihead",
+           "resolve_device"]
 
 # the batch keys the model and its losses read; TARGET_KEYS only the losses
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
@@ -91,8 +97,11 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, SparseConv2d,
-                              ModulatedDeformConv2d)):
-                fan_in = m.weight.numel() // m.weight.shape[0]
+                              ModulatedDeformConv2d, nn.ConvTranspose2d)):
+                # a transposed conv's weight is (I, O, kH, kW)
+                fan_in = (m.weight.numel() // m.weight.shape[1]
+                          if isinstance(m, nn.ConvTranspose2d)
+                          else m.weight.numel() // m.weight.shape[0])
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
@@ -102,7 +111,51 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                 m.conv_offset.bias.zero_()
 
 
-class HGSFusionModel(nn.Module):
+class Detector(nn.Module):
+    """What every family shares: the device of its anchors, the batch moved
+    there, and ``serve``."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.anchors.device
+
+    def batch_to_device(self, batch):
+        """The batch keys the model reads, as tensors on the model's device;
+        a tensor in pinned memory is copied without making the host wait."""
+        return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
+                    else torch.from_numpy(np.array(batch[k]))).to(self.device, non_blocking=True)
+                for k in BATCH_KEYS if k in batch}
+
+    def parameters_without_grad(self):
+        """The trainable parameters a training step never differentiates."""
+        return []
+
+    def serve(self, batch):
+        """One batch of frames -> fixed-shape detections (see post_process),
+        in eval mode."""
+        self.eval()
+        with torch.inference_mode():
+            return self.post_process(self(self.batch_to_device(batch)))
+
+
+def _radar_parameters_without_grad(radar, prefix: str):
+    """The radar backbone's stages past its last output, which train mode
+    runs only for their BN statistics. Their gradient reads 0 in the update
+    (weight decay alone moves them, as in JAX), and
+    ``DistributedDataParallel`` must not wait for them."""
+    backbone = radar.backbone
+    return [f"{prefix}backbone.{stage}.{name}" for stage in backbone.stages_without_grad()
+            for name, _ in getattr(backbone, stage).named_parameters()]
+
+
+def _init_anchor_head(head: AnchorHeadSingle, gen: torch.Generator):
+    """The reference's prior-probability cls bias and small box kernel."""
+    with torch.no_grad():
+        head.conv_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
+        head.conv_box.weight.normal_(0.0, 0.001, generator=gen)
+
+
+class HGSFusionModel(Detector):
     """End-to-end HGSFusion forward (images + radar points -> head outputs).
 
     ``device`` defaults to "cuda" and raises without a CUDA device; weights
@@ -166,35 +219,18 @@ class HGSFusionModel(nn.Module):
                                              cfg.disc_cfg, cfg.bev_aug)
         gen = torch.Generator().manual_seed(seed)
         init_weights(self, gen)
-        with torch.no_grad():  # the reference's prior-probability output biases
-            self.dense_head.conv_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
-            self.dense_head.conv_box.weight.normal_(0.0, 0.001, generator=gen)
+        _init_anchor_head(self.dense_head, gen)
+        with torch.no_grad():  # the occupancy head's prior-probability bias
             self.fusion_vfe.radar_occupancy.pred_occupancy[9].bias.fill_(
                 bias_init_with_prob(0.01))
         self.to(device)
         self.eval()
 
-    @property
-    def device(self) -> torch.device:
-        return self.anchors.device
-
-    def batch_to_device(self, batch):
-        """The batch keys the model reads, as tensors on the model's device;
-        a tensor in pinned memory is copied without making the host wait."""
-        return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
-                    else torch.from_numpy(np.array(batch[k]))).to(self.device, non_blocking=True)
-                for k in BATCH_KEYS if k in batch}
-
     def parameters_without_grad(self):
         """The names of the trainable parameters that a training step never
-        differentiates: the radar backbone's stages past its last output,
-        which train mode runs only for their BN statistics. Their gradient
-        reads 0 in the update (weight decay alone moves them, as in JAX),
-        and ``DistributedDataParallel`` must not wait for them."""
-        backbone = self.fusion_vfe.radar_backbone.backbone
-        prefix = "fusion_vfe.radar_backbone.backbone."
-        return [f"{prefix}{stage}.{name}" for stage in backbone.stages_without_grad()
-                for name, _ in getattr(backbone, stage).named_parameters()]
+        differentiates (``_radar_parameters_without_grad``)."""
+        return _radar_parameters_without_grad(self.fusion_vfe.radar_backbone,
+                                              "fusion_vfe.radar_backbone.")
 
     # -- stages (separate so a caller can time each) -------------------------
     def image_features(self, batch):
@@ -266,12 +302,130 @@ class HGSFusionModel(nn.Module):
                             cfg.score_thresh, cfg.nms_thresh,
                             cfg.nms_pre_max_size, cfg.nms_post_max_size)
 
-    def serve(self, batch):
-        """One batch of frames -> fixed-shape detections (see post_process),
-        in eval mode."""
+
+class _SingleHeadDetector(Detector):
+    """A detector with an AnchorHeadSingle over the config's anchors and the
+    class-agnostic post-processing."""
+
+    def _finish(self, cfg, head_in: int, device, seed: int):
+        self.cfg = cfg
+        self.dense_head = AnchorHeadSingle(head_in, cfg.num_class, cfg.num_anchors_per_location,
+                                           cfg.code_size, cfg.num_dir_bins)
+        anchors = flatten_anchors(
+            generate_anchors(cfg.anchor_generator, cfg.grid_size, cfg.pc_range)[0])
+        self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        self.box_coder = ResidualCoder(cfg.code_size)
+        gen = torch.Generator().manual_seed(seed)
+        init_weights(self, gen)
+        _init_anchor_head(self.dense_head, gen)
+        self.to(device)
         self.eval()
-        with torch.inference_mode():
-            return self.post_process(self(self.batch_to_device(batch)))
+
+    def post_process(self, preds):
+        cfg = self.cfg
+        return post_process(preds, self.anchors, self.box_coder, cfg,
+                            cfg.score_thresh, cfg.nms_thresh,
+                            cfg.nms_pre_max_size, cfg.nms_post_max_size)
+
+
+class RadarOnlyModel(_SingleHeadDetector):
+    """The radar-only pillar detector (BASELINE.json config 1): HGSFusion's
+    radar branch (pillar encoder, masked ResNet-18 BEV encoder, FPN) and an
+    anchor head, no camera branch; its batch carries no image. Parameters
+    ``radar_backbone.{reader, backbone, neck}`` (the reference PillarNet's
+    names) and ``dense_head``."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        dt = cfg.dtype
+        reader = PillarFeatureNet(cfg.reader_num_input, (32,), cfg.voxel_size[0],
+                                  cfg.pc_range, dtype=dt)
+        self.radar_backbone = PillarNetRadar(reader, 32, cfg.backbone_out_indices,
+                                             cfg.neck_out_channels, dt)
+        self._finish(cfg, cfg.neck_out_channels[0], device, seed)
+
+    def parameters_without_grad(self):
+        return _radar_parameters_without_grad(self.radar_backbone, "radar_backbone.")
+
+    def forward(self, batch):
+        radar = self.radar_backbone
+        pillar_bev, occ = radar.reader(batch["points"], batch["points_valid"])
+        return self.dense_head(radar(pillar_bev, occ))
+
+
+def _pillar_net(cfg):
+    """The PointPillar families' reader: the raw point encoding (no virtual
+    points), one 64-wide layer."""
+    return PillarFeatureNet(cfg.num_point_features, (64,), cfg.voxel_size[0], cfg.pc_range,
+                            use_virtual=False, encoding_type="mixed", dtype=cfg.dtype)
+
+
+class PointPillarModel(_SingleHeadDetector):
+    """PointPillars over the point cloud (zoo family): pillar encoder ->
+    BaseBEVBackbone (stride 2 out) -> AnchorHeadSingle. Parameters
+    ``pillar_net``, ``backbone_2d``, ``dense_head``."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.pillar_net = _pillar_net(cfg)
+        self.backbone_2d = BaseBEVBackbone(64, dtype=cfg.dtype)
+        self._finish(cfg, self.backbone_2d.out_channels, device, seed)
+
+    def forward(self, batch):
+        bev, _ = self.pillar_net(batch["points"], batch["points_valid"])
+        return self.dense_head(self.backbone_2d(bev))
+
+
+def make_multihead_assigner(cfg: HGSFusionConfig, device="cuda") -> TargetAssigner:
+    """The multi-head anchor order and the config's box coder (code size,
+    sin-cos), as the JAX package's ``make_anchor_assigner`` builds them."""
+    return TargetAssigner(cfg.anchor_generator, cfg.grid_size, cfg.pc_range, cfg.class_names,
+                          box_coder=ResidualCoder(cfg.box_coder_size, cfg.box_coder_sincos),
+                          use_multihead=True, device=device)
+
+
+class PointPillarMultiHeadModel(Detector):
+    """PointPillars with the grouped multi-head anchor head (the nuScenes
+    CBGS topology, zoo family): pillar encoder -> BaseBEVBackbone ->
+    AnchorHeadMulti; per-head output lists in the multi-head anchor order.
+    Parameters ``pillar_net``, ``backbone_2d``, ``dense_head``."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        if not cfg.rpn_head_cfgs:
+            raise ValueError("PointPillarMultiHeadModel needs DENSE_HEAD.RPN_HEAD_CFGS")
+        self.cfg = cfg
+        self.pillar_net = _pillar_net(cfg)
+        self.backbone_2d = BaseBEVBackbone(64, dtype=cfg.dtype)
+        self.box_coder = ResidualCoder(cfg.box_coder_size, cfg.box_coder_sincos)
+        self.dense_head = AnchorHeadMulti(
+            self.backbone_2d.out_channels, cfg.class_names, cfg.rpn_head_cfgs,
+            cfg.mh_num_per_loc, self.box_coder.code_size, cfg.mh_shared_conv_filters,
+            cfg.mh_separate_reg_list, cfg.mh_num_middle_conv, cfg.mh_num_middle_filter,
+            cfg.num_dir_bins, cfg.mh_use_dir, cfg.mh_separate_multihead, cfg.dtype)
+        assigner = make_multihead_assigner(cfg, device="cpu")
+        self.register_buffer("anchors", assigner.flat_anchors, persistent=False)
+        gen = torch.Generator().manual_seed(seed)
+        init_weights(self, gen)
+        with torch.no_grad():  # the reference's prior-probability cls biases
+            for hi in range(self.dense_head.num_heads):
+                getattr(self.dense_head, f"head_{hi}").conv_cls.bias.fill_(
+                    -math.log((1 - 0.01) / 0.01))
+        self.to(device)
+        self.eval()
+
+    def forward(self, batch):
+        bev, _ = self.pillar_net(batch["points"], batch["points_valid"])
+        return self.dense_head(self.backbone_2d(bev))
+
+    def post_process(self, preds):
+        cfg = self.cfg
+        return post_process_multihead(preds, self.anchors, self.box_coder, cfg,
+                                      cfg.score_thresh, cfg.nms_thresh,
+                                      cfg.nms_pre_max_size, cfg.nms_post_max_size)
 
 
 def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
@@ -307,3 +461,48 @@ def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
 
     return {"boxes": kept(dec), "scores": kept(rows(cls_scores)),
             "labels": kept(rows(labels)), "valid": valid}
+
+
+def post_process_multihead(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
+                           nms_thresh: float = 0.2, pre_max_size: int = 1000,
+                           post_max_size: int = 83):
+    """Per head and per class of the head, rotated NMS on that class's
+    scores (the reference's MULTI_CLASSES_NMS branch), labels mapped to the
+    global classes. Every (frame, head, class) candidate set is a frame of
+    one ``hgsfusion::nms_lazy`` call (``ops.nms.multi_set_nms``). ``anchors``:
+    the multi-head flat anchors. Returns {"boxes" (B, S*post_max, 7),
+    "scores", "labels" (1-based), "valid", and "vels" (B, S*post_max, C) when
+    the boxes carry velocities}, S = the classes of all heads, each set a
+    block of ``post_max_size`` rows in head, then class order."""
+    set_scores, set_boxes, set_labels = multihead_candidate_sets(preds, anchors, box_coder, cfg)
+    idx, valid = multi_set_nms(set_scores, set_boxes, score_thresh, nms_thresh,
+                               pre_max_size, post_max_size)
+    kept_boxes = torch.cat([torch.take_along_dim(b, idx[:, si, :, None], dim=1)
+                            for si, b in enumerate(set_boxes)], dim=1)
+    kept_scores = torch.cat([torch.take_along_dim(s, idx[:, si], dim=1)
+                             for si, s in enumerate(set_scores)], dim=1)
+    labels = torch.cat([torch.full_like(idx[:, si], lab, dtype=torch.int64)
+                        for si, lab in enumerate(set_labels)], dim=1)
+    out = {"boxes": kept_boxes[..., :7], "scores": kept_scores, "labels": labels,
+           "valid": valid.flatten(1)}
+    if kept_boxes.shape[-1] > 7:  # velocities ride along
+        out["vels"] = kept_boxes[..., 7:]
+    return out
+
+
+def multihead_candidate_sets(preds, anchors, box_coder, cfg):
+    """The (head, class) candidate sets of a multi-head model's outputs:
+    per set its sigmoid scores (B, A_h), the head's decoded boxes (B, A_h,
+    7 + C) and the class's global 1-based label, in head, then class
+    order."""
+    cls_list, box_list, label_idx = generate_predicted_boxes_multihead(
+        preds, anchors, box_coder, cfg.class_names, cfg.rpn_head_cfgs, cfg.mh_num_per_loc,
+        cfg.dir_offset, cfg.dir_limit_offset, cfg.num_dir_bins)
+    set_scores, set_boxes, set_labels = [], [], []
+    for cp, boxes, labels in zip(cls_list, box_list, label_idx):
+        scores = torch.sigmoid(cp.float())
+        for ci, label in enumerate(labels):
+            set_scores.append(scores[..., ci])
+            set_boxes.append(boxes)
+            set_labels.append(label)
+    return set_scores, set_boxes, set_labels

@@ -1,8 +1,13 @@
-"""Radar pillar feature net: split real/virtual encoding -> MLP -> scatter-max.
+"""Pillar feature net: point encoding -> MLP -> scatter-max.
 
-Counterpart of ``hgsfusion_tpu/models/pillar_encoder.py::PillarFeatureNet``
-with the split encoding the HGSFusion configs use. Parameter names follow
-the reference reader: ``pfn_layers.shared_mlps.{0: Linear, 1: BatchNorm1d}``.
+Counterpart of ``hgsfusion_tpu/models/pillar_encoder.py::PillarFeatureNet``:
+the split real/virtual encoding the HGSFusion and radar-only configs use,
+and the ``mixed`` (the raw point as it is; also what ``split`` means without
+virtual points) and ``direct`` (the point without its two idf columns)
+encodings of the PointPillar families, with any number of MLP layers.
+Parameter names follow the reference reader: ``pfn_layers.shared_mlps`` is
+(Linear, BatchNorm1d, ReLU) per layer, so layer i's Linear is ``3 i`` and
+its BatchNorm ``3 i + 1``.
 
 Feature layout (VoD): input [xyz 3 | radar 4 | label one-hot 8 | idf 2] = 17,
 split re-encoding [xyz 3 | real 12 | virtual 12 | idf 2] = 29, MLP input
@@ -21,19 +26,26 @@ from .layers import MaskedBatchNorm, compute_dtype
 class PillarFeatureNet(nn.Module):
     def __init__(self, num_input_features: int = 29, num_filters=(32,),
                  pillar_size: float = 0.16, pc_range=(0, -25.6, -3, 51.2, 25.6, 2),
-                 dtype=None):
+                 use_virtual: bool = True, encoding_type: str = "split", dtype=None):
+        """``num_input_features``: the split encoding's width, else the raw
+        point's."""
         super().__init__()
-        if len(num_filters) != 1:
-            raise NotImplementedError("the split reader has one MLP layer")
+        if encoding_type not in ("split", "mixed", "direct"):
+            raise ValueError(f"encoding_type {encoding_type!r}")
         self.num_input_features = num_input_features
         self.pillar_size = float(pillar_size)
         self.pc_range = tuple(float(v) for v in pc_range)
+        self.split = use_virtual and encoding_type == "split"
+        self.encoding_type = encoding_type
         self.dtype = dtype
-        width = num_filters[0]
+        width = num_input_features - (2 if encoding_type == "direct" and not self.split else 0)
+        layers = []
+        for out in num_filters:
+            layers += [nn.Linear(width + 6 if not layers else width, out, bias=False),
+                       MaskedBatchNorm(out, eps=1e-3, momentum=0.01), nn.ReLU()]
+            width = out
         self.pfn_layers = nn.Module()
-        self.pfn_layers.shared_mlps = nn.Sequential(
-            nn.Linear(num_input_features + 6, width, bias=False),
-            MaskedBatchNorm(width, eps=1e-3, momentum=0.01))
+        self.pfn_layers.shared_mlps = nn.Sequential(*layers)
 
     @property
     def grid_shape(self):
@@ -58,7 +70,12 @@ class PillarFeatureNet(nn.Module):
         """points (B, N, D), points_valid (B, N) bool -> (bev (B, ny, nx, C),
         occupancy mask (B, ny, nx, 1) bool)."""
         ny, nx = self.grid_shape
-        pt_features = self._split_encode(points)
+        if self.split:
+            pt_features = self._split_encode(points)
+        elif self.encoding_type == "direct":
+            pt_features = points[..., :-2]
+        else:
+            pt_features = points
         pc_min = device_constant(tuple(self.pc_range[:3]), points.dtype, points.device)
         xyz_rel = points[..., 0:3] - pc_min
         ids, in_grid = points_to_pillar_ids(xyz_rel, points_valid, self.pillar_size, nx, ny)
@@ -72,11 +89,11 @@ class PillarFeatureNet(nn.Module):
             torch.full_like(ix, (self.pc_range[5] + self.pc_range[2]) / 2),
         ], dim=-1)
         x = torch.cat([pt_features, xyz_rel, xyz_rel - center], dim=-1)
-        linear, bn = self.pfn_layers.shared_mlps
         dt = compute_dtype(self.dtype)
-        x = x.to(dt) @ linear.weight.t().to(dt)
         mask = in_grid[..., None]
-        x = torch.relu(bn(x, mask))
+        mlps = self.pfn_layers.shared_mlps
+        for i in range(0, len(mlps), 3):
+            x = torch.relu(mlps[i + 1](x.to(dt) @ mlps[i].weight.t().to(dt), mask))
         x = x * mask.to(x.dtype)
         bev = scatter_max_dense(x, ids, ny * nx).reshape(x.shape[0], ny, nx, x.shape[-1])
         occ = scatter_any_dense(ids, ny * nx).reshape(x.shape[0], ny, nx, 1)

@@ -1,0 +1,56 @@
+"""The model registry: a config's ``MODEL.NAME`` -> its detector family.
+
+Counterpart of ``hgsfusion_tpu/models/registry.py::build_network`` for the
+families the port has: HGSFusion (``HGSFusion``, and ``CaDDN``, the
+reference's name for its topology), the radar-only detector (``RadarOnly``,
+``PillarNet``) and PointPillars (``PointPillar``; with
+``DENSE_HEAD.NAME: AnchorHeadMulti`` the grouped multi-head variant). Every
+other name of the JAX registry raises, naming the ROADMAP.md item that
+ports it.
+"""
+from __future__ import annotations
+
+from ..config import model_config_from_yaml
+from .detector import (HGSFusionModel, PointPillarModel, PointPillarMultiHeadModel,
+                       RadarOnlyModel)
+
+DETECTORS = {
+    "HGSFusion": HGSFusionModel,
+    "CaDDN": HGSFusionModel,
+    "RadarOnly": RadarOnlyModel,
+    "PillarNet": RadarOnlyModel,
+    "PointPillar": PointPillarModel,
+}
+
+
+def network_class(name: str, multihead: bool = False):
+    """The detector class of a ``MODEL.NAME`` (``multihead``: its
+    ``DENSE_HEAD.NAME`` is AnchorHeadMulti)."""
+    if name in ("PointPillar", "PointPillarMultiHead") and multihead:
+        return PointPillarMultiHeadModel
+    if name not in DETECTORS:
+        raise NotImplementedError(
+            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9, the inherited "
+            f"zoo); the port builds {sorted(DETECTORS)}")
+    return DETECTORS[name]
+
+
+def yaml_network_class(cfg: dict):
+    """The detector class of a loaded YAML config."""
+    head = (cfg["MODEL"].get("DENSE_HEAD") or {}).get("NAME")
+    return network_class(cfg["MODEL"]["NAME"], head == "AnchorHeadMulti")
+
+
+def build_network(cfg, model_cfg=None, device="cuda", seed: int = 0):
+    """The detector on ``device`` with weights from ``seed``. ``cfg``: a
+    loaded YAML config (``model_cfg``, its ``model_config_from_yaml``, is
+    read here when not given), or a ``MODEL.NAME`` with ``model_cfg`` (a
+    preset; its ``rpn_head_cfgs`` say whether the head is AnchorHeadMulti)."""
+    if isinstance(cfg, str):
+        if model_cfg is None:
+            raise ValueError("build_network by MODEL.NAME needs model_cfg")
+        return network_class(cfg, bool(model_cfg.rpn_head_cfgs))(model_cfg, device=device,
+                                                                 seed=seed)
+    if model_cfg is None:
+        model_cfg = model_config_from_yaml(cfg)
+    return yaml_network_class(cfg)(model_cfg, device=device, seed=seed)

@@ -118,6 +118,37 @@ def nms_sweep_plain(mask, valid, max_keep: int):
     return keep
 
 
+def _select(box_scores, box_preds, score_thresh: float, k: int, valid=None):
+    """Score threshold -> top ``k`` of (B, N) scores: (top scores (B, k)
+    with NEG_INF where none passed, their indices, their boxes (B, k, C))."""
+    ok = box_scores >= score_thresh
+    if valid is not None:
+        ok = ok & valid
+    masked = torch.where(ok, box_scores, torch.full_like(box_scores, NEG_INF))
+    top_scores, top_idx = torch.topk(masked, k, dim=-1)
+    return top_scores, top_idx, torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
+
+
+def _kept_slots(top_scores, top_boxes, top_idx, nms_thresh: float, post_max_size: int):
+    """One ``hgsfusion::nms_lazy`` call over the frames of (F, k)
+    score-sorted candidates -> (indices (F, post_max) of the first
+    ``post_max_size`` kept, in score order, valid mask (F, post_max));
+    empty slots hold index 0."""
+    keep = nms_lazy_op(top_boxes[..., :7].float().contiguous(), top_scores > NEG_INF / 2,
+                       float(nms_thresh), int(post_max_size))
+    rank = torch.cumsum(keep.to(torch.int64), -1) - 1
+    slot = torch.where(keep & (rank < post_max_size), rank,
+                       torch.full_like(rank, post_max_size))
+    frames = top_scores.shape[0]
+    out_idx = torch.zeros((frames, post_max_size + 1), dtype=top_idx.dtype,
+                          device=top_idx.device)
+    out_idx.scatter_(1, slot, top_idx)
+    out_valid = torch.zeros((frames, post_max_size + 1), dtype=torch.bool,
+                            device=top_idx.device)
+    out_valid.scatter_(1, slot, True)
+    return out_idx[:, :post_max_size], out_valid[:, :post_max_size]
+
+
 def class_agnostic_nms(box_scores, box_preds, score_thresh: float,
                        nms_thresh: float, pre_max_size: int, post_max_size: int,
                        valid=None):
@@ -130,23 +161,34 @@ def class_agnostic_nms(box_scores, box_preds, score_thresh: float,
     if not batched:
         box_scores, box_preds = box_scores[None], box_preds[None]
         valid = None if valid is None else valid[None]
-    n = box_scores.shape[-1]
-    ok = box_scores >= score_thresh
-    if valid is not None:
-        ok = ok & valid
-    masked = torch.where(ok, box_scores, torch.full_like(box_scores, NEG_INF))
-    k = min(pre_max_size, n)
-    top_scores, top_idx = torch.topk(masked, k, dim=-1)
-    top_boxes = torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
-    keep = nms_lazy_op(top_boxes.float().contiguous(), top_scores > NEG_INF / 2,
-                       float(nms_thresh), int(post_max_size))
-    rank = torch.cumsum(keep.to(torch.int64), -1) - 1
-    slot = torch.where(keep & (rank < post_max_size), rank,
-                       torch.full_like(rank, post_max_size))
-    bsz = box_scores.shape[0]
-    out_idx = torch.zeros((bsz, post_max_size + 1), dtype=top_idx.dtype, device=top_idx.device)
-    out_idx.scatter_(1, slot, top_idx)
-    out_valid = torch.zeros((bsz, post_max_size + 1), dtype=torch.bool, device=top_idx.device)
-    out_valid.scatter_(1, slot, True)
-    out_idx, out_valid = out_idx[:, :post_max_size], out_valid[:, :post_max_size]
+    k = min(pre_max_size, box_scores.shape[-1])
+    top_scores, top_idx, top_boxes = _select(box_scores, box_preds, score_thresh, k, valid)
+    out_idx, out_valid = _kept_slots(top_scores, top_boxes, top_idx, nms_thresh, post_max_size)
     return (out_idx, out_valid) if batched else (out_idx[0], out_valid[0])
+
+
+def multi_set_nms(set_scores, set_boxes, score_thresh: float, nms_thresh: float,
+                  pre_max_size: int, post_max_size: int):
+    """``class_agnostic_nms`` of S candidate sets per frame (the per-class
+    NMS of a multi-class head): ``set_scores`` S tensors (B, N_s),
+    ``set_boxes`` S tensors (B, N_s, >= 7). Every set's top candidates are
+    stacked as frames of one ``hgsfusion::nms_lazy`` call (B x S frames:
+    one ``nms_mask`` and one ``nms_sweep`` launch on the card), a set with
+    fewer than the others padded with invalid ones. Returns (indices (B, S,
+    post_max) into each set, valid mask (B, S, post_max)), each set's keep
+    set the one ``class_agnostic_nms`` gives it alone."""
+    bsz, n_sets = set_scores[0].shape[0], len(set_scores)
+    k = max(min(pre_max_size, s.shape[-1]) for s in set_scores)
+    tops = []
+    for s, b in zip(set_scores, set_boxes):
+        ts, ti, tb = _select(s, b[..., :7], score_thresh, min(pre_max_size, s.shape[-1]))
+        if ts.shape[-1] < k:
+            pad = k - ts.shape[-1]
+            ts = torch.cat([ts, ts.new_full((bsz, pad), NEG_INF)], dim=1)
+            ti = torch.cat([ti, ti.new_zeros((bsz, pad))], dim=1)
+            tb = torch.cat([tb, tb.new_zeros((bsz, pad, 7))], dim=1)
+        tops.append((ts, ti, tb))
+    ts, ti, tb = (torch.stack(x, dim=1).flatten(0, 1) for x in zip(*tops))
+    out_idx, out_valid = _kept_slots(ts, tb, ti, nms_thresh, post_max_size)
+    return (out_idx.reshape(bsz, n_sets, post_max_size),
+            out_valid.reshape(bsz, n_sets, post_max_size))

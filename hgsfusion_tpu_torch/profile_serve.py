@@ -31,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from .config import load_config, model_config_from_yaml, vod_pallas_config, vod_polar_config
 from .datasets.synthetic import make_calib
-from .models.detector import HGSFusionModel
+from .models.registry import build_network
 from .synthetic import flagship_batch
 
 STAGES = ("backbone", "view_transform", "radar_branch", "fusion_head", "post_process")
@@ -138,7 +138,7 @@ def main(argv=None) -> int:
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
     cfg, batch = frame_config(args.view, args.cfg_file)
-    model = HGSFusionModel(cfg, device="cuda", seed=0)
+    model = build_network("HGSFusion", cfg, device="cuda", seed=0)
     result = profile_frames(model, batch, args.frames)
     result["view"] = cfg.f2v_view
     result["config"] = args.cfg_file

@@ -1,5 +1,7 @@
-"""Synthetic flagship input: the JAX package's ``__graft_entry__._vod_flagship``
-batch, built the same way from numpy ``RandomState(seed)``."""
+"""Synthetic full-size inputs from numpy ``RandomState(seed)``: the JAX
+package's ``__graft_entry__._vod_flagship`` batch, built the same way
+(``flagship_batch``), and a nuScenes-shaped lidar batch for the multi-head
+PointPillars config (``nuscenes_batch``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -59,3 +61,50 @@ def flagship_batch(cfg, b: int = 1, max_points: int = 8192, seed: int = 0,
         "lidar_aug_matrix": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
         "gt_boxes": gt,
     }
+
+
+# nuscenes_dataset.yaml: MAX_POINTS, MAX_GT_BOXES; a 10-sweep frame carries
+# about 250-300k points after ego filtering
+NUSCENES_MAX_POINTS = 327680
+NUSCENES_MAX_BOXES = 128
+NUSCENES_VALID = 0.85
+
+
+def nuscenes_batch(cfg, b: int = 1, max_points: int = NUSCENES_MAX_POINTS,
+                   max_boxes: int = NUSCENES_MAX_BOXES, boxes_per_frame: int = 40,
+                   seed: int = 0):
+    """A nuScenes-shaped frame batch: ``max_points`` rows of [x, y, z,
+    intensity, timestamp], the first ``NUSCENES_VALID`` of them valid, their
+    range from the ego exponential (mean 15 m; a lidar's density falls with
+    range) and clipped to ``cfg.pc_range``; ``gt_boxes`` (B, max_boxes, 10)
+    [x, y, z, dx, dy, dz, heading, vx, vy, class id], ``boxes_per_frame``
+    boxes of classes drawn in turn, each near its class anchor's size and
+    bottom height, and zero padding rows. numpy arrays."""
+    rng = np.random.RandomState(seed)
+    pr = cfg.pc_range
+    n_valid = int(NUSCENES_VALID * max_points)
+    pts = np.zeros((b, max_points, 5), np.float32)
+    r = np.clip(rng.exponential(15.0, (b, n_valid)), 1.0, min(pr[3], pr[4]) - 0.5)
+    phi = rng.uniform(-np.pi, np.pi, (b, n_valid))
+    pts[:, :n_valid, 0] = np.clip(r * np.cos(phi), pr[0] + 0.05, pr[3] - 0.05)
+    pts[:, :n_valid, 1] = np.clip(r * np.sin(phi), pr[1] + 0.05, pr[4] - 0.05)
+    pts[:, :n_valid, 2] = rng.uniform(pr[2] + 0.5, pr[5] - 0.5, (b, n_valid))
+    pts[:, :n_valid, 3] = rng.uniform(0, 255, (b, n_valid))
+    pts[:, :n_valid, 4] = rng.choice(np.arange(10) * 0.05, (b, n_valid))
+    valid = np.zeros((b, max_points), bool)
+    valid[:, :n_valid] = True
+    anchors = {c["class_name"]: c for c in cfg.anchor_generator}
+    gt = np.zeros((b, max_boxes, 10), np.float32)
+    for i in range(b):
+        for j in range(min(boxes_per_frame, max_boxes)):
+            cls = j % cfg.num_class
+            a = anchors[cfg.class_names[cls]]
+            dims = np.asarray(a["anchor_sizes"][0]) * rng.uniform(0.9, 1.1, 3)
+            gt[i, j, 0] = rng.uniform(pr[0] + 3.0, pr[3] - 3.0)
+            gt[i, j, 1] = rng.uniform(pr[1] + 3.0, pr[4] - 3.0)
+            gt[i, j, 2] = a["anchor_bottom_heights"][0] + dims[2] / 2
+            gt[i, j, 3:6] = dims
+            gt[i, j, 6] = rng.uniform(-np.pi, np.pi)
+            gt[i, j, 7:9] = rng.normal(0, 2.0, 2)
+            gt[i, j, 9] = cls + 1
+    return {"points": pts, "points_valid": valid, "gt_boxes": gt}

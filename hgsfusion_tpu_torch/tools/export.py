@@ -27,7 +27,8 @@ import torch.nn as nn
 
 from ..config import cfg_from_list, load_config, model_config_from_yaml
 from ..datasets import build_dataset
-from ..models.detector import BATCH_KEYS, TARGET_KEYS, HGSFusionModel, resolve_device
+from ..models.detector import BATCH_KEYS, TARGET_KEYS, Detector, resolve_device
+from ..models.registry import build_network
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..utils.common import create_logger
 
@@ -38,10 +39,10 @@ SPEC_FILE = "inputs.json"
 
 
 class ServingModule(nn.Module):
-    """A batch of frames -> fixed-shape detections (``HGSFusionModel.serve``
+    """A batch of frames -> fixed-shape detections (``Detector.serve``
     for a batch already on the model's device)."""
 
-    def __init__(self, model: HGSFusionModel):
+    def __init__(self, model: Detector):
         super().__init__()
         self.model = model
 
@@ -49,13 +50,13 @@ class ServingModule(nn.Module):
         return self.model.post_process(self.model(batch))
 
 
-def model_inputs(model: HGSFusionModel, batch) -> dict:
+def model_inputs(model: Detector, batch) -> dict:
     """The keys of ``batch`` the served graph reads, as tensors on the
     model's device."""
     return {k: v for k, v in model.batch_to_device(batch).items() if k in INPUT_KEYS}
 
 
-def export_model(model: HGSFusionModel, example_batch):
+def export_model(model: Detector, example_batch):
     """-> (``torch.export.ExportedProgram`` of ``ServingModule(model)`` on
     the example's shapes, its input spec)."""
     model.eval()
@@ -100,7 +101,7 @@ def main(argv=None) -> dict:
     if len(dataset) == 0:
         raise SystemExit("dataset is empty: run tools/create_infos.py first")
     example = dataset.collate_batch([dataset[0]])
-    model = HGSFusionModel(model_config_from_yaml(cfg), device=device, seed=args.seed)
+    model = build_network(cfg, model_config_from_yaml(cfg), device=device, seed=args.seed)
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, log=logger)
         step = args.ckpt_step if args.ckpt_step is not None else ckpt.latest_step()

@@ -40,7 +40,8 @@ import torch
 from ..config import cfg_from_list, load_config, model_config_from_yaml
 from ..datasets import build_dataset
 from ..eval.rotated_iou_np import rotate_iou_eval
-from ..models.detector import HGSFusionModel, resolve_device
+from ..models.detector import resolve_device
+from ..models.registry import build_network
 from ..ops import library
 from ..parallel.mesh import init_distributed, shutdown
 from ..parallel.multihost import (allreduce_host_scalars, is_padding,
@@ -337,7 +338,7 @@ def _evaluate(args, ctx):
     logger = create_logger(out_dir / "eval.log", rank=ctx.rank)
     dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
                             logger=logger)
-    model = HGSFusionModel(model_cfg, device=device, seed=args.seed)
+    model = build_network(cfg, model_cfg, device=device, seed=args.seed)
 
     def eval_once(tag=""):
         result_dir = out_dir / f"final_result{tag}" if args.save_to_file else None

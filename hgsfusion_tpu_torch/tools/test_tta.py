@@ -26,7 +26,8 @@ from ..datasets.tj4d import TJ4DDataset
 from ..eval.tj4d_eval import tj4d_official_eval
 from ..eval.tta import make_tta_variants
 from ..eval.vod_eval import vod_official_eval
-from ..models.detector import HGSFusionModel, resolve_device
+from ..models.detector import resolve_device
+from ..models.registry import build_network
 from ..ops import library
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.trainer import detections_to_pred_dicts
@@ -115,7 +116,7 @@ def main(argv=None):
     logger = create_logger(out_dir / "eval_tta.log")
     dataset = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False,
                             logger=logger)
-    model = HGSFusionModel(model_config_from_yaml(cfg), device=device, seed=args.seed)
+    model = build_network(cfg, model_config_from_yaml(cfg), device=device, seed=args.seed)
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, log=logger)
         step = args.ckpt_step if args.ckpt_step is not None else mgr.latest_step()

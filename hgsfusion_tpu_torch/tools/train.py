@@ -1,5 +1,5 @@
 """Training CLI (counterpart of the JAX package's ``tools/train.py``, its
-HGSFusion branch).
+HGSFusion, radar-only and PointPillar branches).
 
     python -m hgsfusion_tpu_torch.tools.train --cfg_file configs/hgsfusion_vod.yaml \\
         [--set DATA_CONFIG.DATA_PATH <root> ...] [--device cuda] [--epochs N] \\
@@ -22,8 +22,10 @@ written by rank 0 to ``<output_dir>/<TAG>/<extra_tag>/ckpt`` at each epoch
 boundary, every ``--ckpt_save_interval_s`` and at the end, and a new run
 resumes from the newest one that loads (every rank from the same file).
 ``--ckpt <file>`` starts from a file's weights with a fresh optimizer;
-``--ckpt <step>`` resumes from that step. Rank 0 logs. The other model
-families' training steps are ROADMAP.md queue 1 item 9.
+``--ckpt <step>`` resumes from that step. Rank 0 logs. The model family
+comes from ``MODEL.NAME`` through ``models/registry.py::build_network``,
+its step from ``train/trainer.py::make_train_step_for_cfg``; a family the
+port does not build raises there (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -41,13 +43,13 @@ import torch
 from ..config import cfg_from_list, load_config, model_config_from_yaml
 from ..datasets import build_dataset
 from ..datasets.loader import PrefetchLoader
-from ..models.anchors import TargetAssigner
-from ..models.detector import BATCH_KEYS, HGSFusionModel, resolve_device
+from ..models.detector import BATCH_KEYS, Detector, resolve_device
+from ..models.registry import build_network, yaml_network_class
 from ..ops import library
 from ..parallel.mesh import DistContext, init_distributed, shutdown, wrap_model
 from ..train.checkpoint import CheckpointManager, load_checkpoint
 from ..train.optim import build_optimizer
-from ..train.trainer import make_train_step
+from ..train.trainer import make_train_step_for_cfg
 from ..utils.common import create_logger
 
 WEIGHT_SEED = 0  # the random weights of a run that loads none
@@ -92,7 +94,7 @@ class Run:
     device: torch.device
     dataset: Any
     loader: PrefetchLoader
-    model: HGSFusionModel
+    model: Detector
     optimizer: Any
     lr_schedule: Any
     train_step: Any
@@ -113,11 +115,7 @@ def prepare(args) -> Run:
     cfg = load_config(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(cfg, args.set_cfgs)
-    name = cfg["MODEL"]["NAME"]
-    if name != "HGSFusion":
-        raise NotImplementedError(
-            f"MODEL.NAME: {name}: the port trains HGSFusion only; the other families' "
-            "training steps are ROADMAP.md queue 1 item 9")
+    yaml_network_class(cfg)  # an unported MODEL.NAME raises before anything starts
     ctx = init_distributed(args.device)
     device = ctx.device if ctx.active else resolve_device(args.device)
     model_cfg = model_config_from_yaml(cfg)
@@ -159,9 +157,7 @@ def prepare(args) -> Run:
                 + (f" ({per_rank} per rank)" if ctx.world_size > 1 else "")
                 + f", {steps_per_epoch} steps/epoch, {total_steps} total")
 
-    model = HGSFusionModel(model_cfg, device=device, seed=WEIGHT_SEED)
-    assigner = TargetAssigner(model_cfg.anchor_generator, model_cfg.grid_size,
-                              model_cfg.pc_range, model_cfg.class_names, device=device)
+    model = build_network(cfg, model_cfg, device=device, seed=WEIGHT_SEED)
     optimizer, lr_schedule = build_optimizer(model_cfg.optimization, total_steps, model)
     schedule_seed = None  # the loader draws its own from np.random
     if ctx.active:
@@ -194,8 +190,8 @@ def prepare(args) -> Run:
         start_step = int(state["step"])
         logger.info(f"auto-resumed from step {resumed_from}")
     resume_s = time.perf_counter() - t0
-    train_step = make_train_step(model, assigner, optimizer, model_cfg.loss_weights, model_cfg,
-                                 ddp=wrap_model(model, ctx))
+    _, train_step = make_train_step_for_cfg(model, optimizer, model_cfg,
+                                            ddp=wrap_model(model, ctx))
     return Run(args, cfg, logger, out_dir, device, dataset, loader, model, optimizer,
                lr_schedule, train_step, ckpt, steps_per_epoch, epochs, total_steps,
                start_step, resumed_from, resume_s, tb, ctx)

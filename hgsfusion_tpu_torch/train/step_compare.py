@@ -77,12 +77,14 @@ def zero_residual_scales(model):
 
 
 def perturb_inputs(batch, seed: int, rel: float = PERTURB):
-    """``batch`` with its images and points scaled by 1 + rel N(0, 1); uint8
-    images (a dataset's) first become the f32 images the model reads them
-    as, x / 255."""
+    """``batch`` with its images (where it has them) and points scaled by
+    1 + rel N(0, 1); uint8 images (a dataset's) first become the f32 images
+    the model reads them as, x / 255."""
     g = torch.Generator().manual_seed(seed)
     out = dict(batch)
     for k in ("images", "points"):
+        if k not in batch:  # a radar- or lidar-only batch has no images
+            continue
         x = batch[k]
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) / 255.0

@@ -1,11 +1,16 @@
 """The training step (counterpart of ``hgsfusion_tpu/train/trainer.py``:
-model_inputs, _grad_step, make_train_step), and the detections of ``serve``
-as per-frame numpy dicts (detections_to_pred_dicts).
+model_inputs, _grad_step, make_train_step, make_anchor_assigner,
+make_multihead_train_step, and the family dispatch of ``tools/train.py``
+as ``make_train_step_for_cfg``), and the detections of ``serve`` as
+per-frame numpy dicts (detections_to_pred_dicts).
 
-One step is the forward pass in train mode, target assignment, the RPN and
-occupancy losses (and, under USE_DEPTH with depth maps in the batch, the DDN
-depth loss), the backward pass and the optimizer's update. PyTorch runs it
-eagerly; nothing in it reads a tensor back to the host.
+One step is the forward pass in train mode, target assignment, the RPN
+losses (and, where the model predicts occupancy, the occupancy loss; under
+USE_DEPTH with depth maps in the batch, the DDN depth loss), the backward
+pass and the optimizer's update. The multi-head family's step takes its
+grouped loss instead. PyTorch runs it eagerly; nothing in it reads a tensor
+back to the host. Evaluation needs no dispatch here: every family's
+``serve`` runs its own post-processing.
 
 Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
 through the wrapper, whose hooks average the gradients of ``backward`` over
@@ -22,10 +27,10 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from ..models.anchor_head import anchor_head_loss
+from ..models.anchor_head import anchor_head_loss, anchor_head_multi_loss
 from ..models.anchors import TargetAssigner
 from ..models.ddn_loss import ddn_loss
-from ..models.detector import BATCH_KEYS
+from ..models.detector import BATCH_KEYS, PointPillarMultiHeadModel, make_multihead_assigner
 from ..models.occupancy import occupancy_loss
 from ..parallel.mesh import all_reduce_mean_
 
@@ -63,11 +68,11 @@ OCC_MAX_HALF_EXTENT = 48
 
 def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
                     cfg, ddp=None) -> Callable:
-    """One training step: loss = rpn (cls + loc + dir) + occupancy focal
-    (+ the DDN loss where the model gives depth logits and the batch has
-    ``depth_maps``). ``batch`` holds tensors on the model's device,
+    """One training step: loss = rpn (cls + loc + dir) (+ the occupancy focal
+    loss where the model predicts occupancy, + the DDN loss where it gives
+    depth logits and the batch has ``depth_maps``). ``batch`` holds tensors on the model's device,
     ``gt_boxes`` (B, M, 8) among them; tb keys rpn_loss_cls, rpn_loss_loc,
-    rpn_loss_dir, rpn_loss, loss_occ, loss (and ddn_loss, fg_loss, bg_loss).
+    rpn_loss_dir, rpn_loss, (loss_occ,) loss (and ddn_loss, fg_loss, bg_loss).
     Puts ``model`` in train mode. ``ddp``: ``model`` under
     ``DistributedDataParallel`` (``parallel.mesh.wrap_model``), which then
     runs the forward pass."""
@@ -80,10 +85,11 @@ def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Di
         targets = assigner(batch["gt_boxes"])
         total, tb = anchor_head_loss(preds, targets, anchors, cfg.num_class, loss_weights,
                                      dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins)
-        occ = occupancy_loss(preds["occupancy"], batch["gt_boxes"], cfg.grid_size,
-                             cfg.pc_range, cfg.voxel_size, OCC_MAX_HALF_EXTENT)
-        total = total + occ
-        tb = {**tb, "loss_occ": occ}
+        if "occupancy" in preds:
+            occ = occupancy_loss(preds["occupancy"], batch["gt_boxes"], cfg.grid_size,
+                                 cfg.pc_range, cfg.voxel_size, OCC_MAX_HALF_EXTENT)
+            total = total + occ
+            tb = {**tb, "loss_occ": occ}
         if "depth_logits" in preds and "depth_maps" in batch:
             # as the JAX package calls it: 2-D boxes (B, N, 4), zeros when the
             # batch has none, and downsample_factor 1 although the boxes are
@@ -100,11 +106,55 @@ def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Di
     return _grad_step(loss_fn, optimizer)
 
 
+def make_multihead_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
+                              cfg, ddp=None) -> Callable:
+    """The AnchorHeadMulti family's step: ``anchor_head_multi_loss`` over
+    the per-head slices of the multi-head anchor order; tb keys
+    rpn_loss_cls, rpn_loss_loc (rpn_loss_dir), rpn_loss, loss."""
+    net = model if ddp is None else ddp
+    s = assigner.anchor_shapes[0]
+    grid_hw = int(s[0] * s[1] * s[2])
+
+    def loss_fn(batch):
+        net.train()
+        preds = net(model_inputs(batch))
+        targets = assigner(batch["gt_boxes"])
+        total, tb = anchor_head_multi_loss(
+            preds, targets, assigner, loss_weights, cfg.rpn_head_cfgs, grid_hw,
+            dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins,
+            separate_multihead=cfg.mh_separate_multihead)
+        return total, {**tb, "loss": total}
+
+    return _grad_step(loss_fn, optimizer)
+
+
+def make_anchor_assigner(model_cfg, multihead: bool, device="cuda") -> TargetAssigner:
+    """The target assigner of a family: the multi-head anchor order and the
+    config's box coder for AnchorHeadMulti, else the single-head one."""
+    if multihead:
+        return make_multihead_assigner(model_cfg, device=device)
+    return TargetAssigner(model_cfg.anchor_generator, model_cfg.grid_size, model_cfg.pc_range,
+                          model_cfg.class_names, device=device)
+
+
+def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
+    """The family's training step for ``model`` (``models/registry.py``'s
+    build): the multi-head step for PointPillarMultiHeadModel, else
+    ``make_train_step``. Returns (assigner, step)."""
+    multihead = isinstance(model, PointPillarMultiHeadModel)
+    assigner = make_anchor_assigner(model_cfg, multihead, device=model.device)
+    make = make_multihead_train_step if multihead else make_train_step
+    return assigner, make(model, assigner, optimizer, model_cfg.loss_weights, model_cfg, ddp=ddp)
+
+
 def detections_to_pred_dicts(out: Dict) -> list:
     """``serve``'s fixed-shape detections -> one dict of numpy arrays per
-    frame, its valid rows only: pred_boxes (N, 7), pred_scores (N,),
-    pred_labels (N,) int64. Reads the batch back to the host once."""
+    frame, its valid rows only: pred_boxes (N, 7) (N, 9 with the velocities
+    of a multi-head model's ``vels``), pred_scores (N,), pred_labels (N,)
+    int64. Reads the batch back to the host once."""
     host = {k: out[k].cpu().numpy() for k in ("boxes", "scores", "labels", "valid")}
+    if "vels" in out:
+        host["boxes"] = np.concatenate([host["boxes"], out["vels"].cpu().numpy()], axis=-1)
     return [{"pred_boxes": host["boxes"][i][m], "pred_scores": host["scores"][i][m],
              "pred_labels": host["labels"][i][m].astype(np.int64)}
             for i, m in enumerate(host["valid"])]

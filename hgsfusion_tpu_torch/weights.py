@@ -1,9 +1,10 @@
 """Weights from the JAX package's variable trees.
 
 ``from_jax_variables`` turns the JAX package's ``{"params", "batch_stats"}``
-tree of an HGSFusionModel (numpy arrays) into this package's ``state_dict``,
-whose keys are the reference pcdet/torchvision names. It is the inverse of
-the JAX package's ``train/torch_convert.py::convert_hgsfusion_state``. The
+tree of a detector (numpy arrays) into this package's ``state_dict``, whose
+keys are the reference pcdet/torchvision names where the JAX package's
+``train/torch_convert.py::convert_hgsfusion_state`` maps them (of which it
+is the inverse), else the JAX package's own. The
 per-module functions convert the sub-tree of one JAX module into the
 ``state_dict`` of its counterpart here. ``from_jax_mask2former`` does the
 same for the RHGM segmentor, the inverse of ``convert_mask2former_state``.
@@ -103,9 +104,52 @@ def frustum_to_voxel(p, s):
 
 
 def pillar_feature_net(p, s):
-    """pillar_encoder.PillarFeatureNet: ``pfn_layers.shared_mlps.{0, 1}``."""
-    return {"pfn_layers.shared_mlps.0.weight": _linear(p["mlp_0"]["kernel"]),
-            **_prefix("pfn_layers.shared_mlps.1", batch_norm(p["bn_0"], s["bn_0"]))}
+    """pillar_encoder.PillarFeatureNet: layer i's ``mlp_i`` / ``bn_i`` ->
+    ``pfn_layers.shared_mlps.{3i, 3i + 1}``."""
+    out = {}
+    for i in range(sum(1 for k in p if k.startswith("mlp_"))):
+        out[f"pfn_layers.shared_mlps.{3 * i}.weight"] = _linear(p[f"mlp_{i}"]["kernel"])
+        out.update(_prefix(f"pfn_layers.shared_mlps.{3 * i + 1}",
+                           batch_norm(p[f"bn_{i}"], s[f"bn_{i}"])))
+    return out
+
+
+def _conv_transpose(k):
+    """flax ConvTranspose kernel (kH, kW, I, O), applied without flipping,
+    -> torch ConvTranspose2d (I, O, kH, kW), which applies it flipped."""
+    return _t(np.transpose(np.asarray(k)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def conv_bn_layers(p, s):
+    """base_bev_backbone.BaseBEVBackbone / RPNV2 (the JAX names kept):
+    ``{name}_conv`` (transposed where the name is a ``deblock`` of a
+    stride, its kernel 2-D) and ``{name}_bn``."""
+    out = {}
+    for name in p:
+        if name.endswith("_bn"):
+            out.update(_prefix(name, batch_norm(p[name], s[name])))
+        elif name.startswith("deblock") and not name.startswith("deblock4"):
+            out[f"{name}.weight"] = _conv_transpose(p[name]["kernel"])
+        else:
+            out.update(_prefix(name, conv(p[name])))
+    return out
+
+
+def anchor_head_multi(p, s):
+    """anchor_head.AnchorHeadMulti (the JAX names kept): ``shared_conv``,
+    ``shared_bn``, ``head_{i}.{part}_mid{k}_conv`` / ``_bn``,
+    ``head_{i}.conv_*``."""
+    out = {}
+    for name, sub in p.items():
+        if name == "shared_bn":
+            out.update(_prefix(name, batch_norm(sub, s[name])))
+        elif name == "shared_conv":
+            out.update(_prefix(name, conv(sub)))
+        else:  # head_{i}
+            for part, q in sub.items():
+                out.update(_prefix(f"{name}.{part}", batch_norm(q, s[name][part])
+                                   if part.endswith("_bn") else conv(q)))
+    return out
 
 
 def _subm(p, s):
@@ -198,8 +242,22 @@ def anchor_head(p):
 
 
 def from_jax_variables(variables):
-    """JAX HGSFusionModel variables {"params", "batch_stats"} -> state_dict."""
+    """JAX detector variables {"params", "batch_stats"} -> state_dict, for
+    HGSFusionModel, RadarOnlyModel, PointPillarModel and
+    PointPillarMultiHeadModel (told apart by their top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
+    if "backbone_2d" in p:  # the PointPillar families
+        head = p["dense_head"]
+        return {**_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])),
+                **_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])),
+                **_prefix("dense_head", anchor_head(head) if "conv_cls" in head
+                          else anchor_head_multi(head, s.get("dense_head", {})))}
+    if "ddn_backbone" not in p:  # the radar-only detector
+        return {**_prefix("radar_backbone.reader",
+                          pillar_feature_net(p["pillar_net"], s["pillar_net"])),
+                **_prefix("radar_backbone",
+                          pillar_net_radar(p["radar_backbone"], s["radar_backbone"])),
+                **_prefix("dense_head", anchor_head(p["dense_head"]))}
     image = "fusion_vfe.image_vfe"
     out = _prefix(f"{image}.ffn.ddn.model.backbone",
                   resnet_backbone(p["ddn_backbone"], s["ddn_backbone"]))

@@ -13,7 +13,7 @@ from hgsfusion_tpu.datasets import build_dataset as jax_build_dataset
 from hgsfusion_tpu.datasets.augmentor import DataAugmentor as JaxAugmentor
 from hgsfusion_tpu_torch.config import vod_dataset_config
 from hgsfusion_tpu_torch.datasets import build_dataset
-from hgsfusion_tpu_torch.datasets.augmentor import DataAugmentor
+from hgsfusion_tpu_torch.datasets.augmentor import PORTED, DataAugmentor
 from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
 from hgsfusion_tpu_torch.tools.create_infos import create_infos
 from test_torch_data import _assert_tree_equal
@@ -112,18 +112,26 @@ def test_forward_matches_jax(frames, seed):
     assert np.all(got["gt_boxes"][:, 6] >= -np.pi) and np.all(got["gt_boxes"][:, 6] < np.pi)
 
 
-UNPORTED = ["gt_sampling", "random_world_translation", "random_local_translation",
-            "random_local_rotation", "random_local_scaling", "random_world_frustum_dropout",
-            "random_local_frustum_dropout", "random_local_pyramid_aug", "random_image_flip",
-            "imgaug"]
+# the ops no HGSFusion config lists: all but the database sampler (ROADMAP
+# queue 1 item 9) are ported (their parity: tests/test_torch_augment_zoo.py)
+ZOO_OPS = ["gt_sampling", "random_world_translation", "random_local_translation",
+           "random_local_rotation", "random_local_scaling", "random_world_frustum_dropout",
+           "random_local_frustum_dropout", "random_local_pyramid_aug", "random_image_flip",
+           "imgaug"]
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", ZOO_OPS)
 def test_unported_op_raises_unless_disabled(name):
+    """An unported op raises at construction, a ported one is queued; either
+    is dropped when disabled."""
     cfg = {"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [{"NAME": name}]}
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        DataAugmentor(None, cfg, CLASSES)
+    if name in PORTED:
+        assert [c["NAME"] for _, c in DataAugmentor(None, cfg, CLASSES).queue] == [name]
+    else:
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            DataAugmentor(None, cfg, CLASSES)
     assert DataAugmentor(None, {**cfg, "DISABLE_AUG_LIST": [name]}, CLASSES).queue == []
+    assert (name in PORTED) == (name != "gt_sampling")
 
 
 def test_wide_boxes_and_roi_boxes_raise(frames):

@@ -1044,3 +1044,36 @@ def test_deform_conv_card_matches_cpu(cuda):
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
         assert float((q.grad.cpu() - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max()), name
     assert float((xs[1].grad.cpu() - xs[0].grad).abs().max()) <= 1e-4 * float(xs[0].grad.abs().max())
+
+
+@pytest.mark.cuda
+def test_multihead_post_process_stacks_its_sets_into_one_nms(cuda):
+    """The TINY multi-head PointPillars model (``chip_smoke.tiny_zoo``):
+    its post-process launches one mask and one sweep for the batch's 20
+    (frame, class) sets, makes no host read, and keeps in each set what
+    the NMS op keeps for that set alone (one launch pair a set)."""
+    from chip_smoke import tiny_zoo, zoo_model
+
+    cfg, batch, seed, lift = tiny_zoo("PointPillar")
+    model = zoo_model("PointPillar", cfg, cuda, seed, lift)
+    with torch.inference_mode():
+        preds = model(model.batch_to_device(batch))
+        before = dict(library.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = model.post_process(preds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        moved = {k: library.launches[k] - before[k] for k in before}
+        assert {k: v for k, v in moved.items() if v} == {library.NMS_MASK: 1,
+                                                         library.NMS_SWEEP: 1}
+        from hgsfusion_tpu_torch.models.detector import multihead_candidate_sets
+        scores, boxes, _ = multihead_candidate_sets(preds, model.anchors, model.box_coder, cfg)
+        post = cfg.nms_post_max_size
+        for si, (s, b) in enumerate(zip(scores, boxes)):
+            idx, valid = nms.class_agnostic_nms(s, b[..., :7], cfg.score_thresh, cfg.nms_thresh,
+                                                cfg.nms_pre_max_size, post)
+            block = slice(si * post, (si + 1) * post)
+            assert torch.equal(got["valid"][:, block], valid)
+            want = torch.take_along_dim(b[..., :7], idx[..., None], dim=1)
+            assert torch.equal(got["boxes"][:, block][valid], want[valid])

@@ -296,16 +296,23 @@ def test_vod_dataset_config_equals_yaml():
 
 def test_training_and_unported_datasets_raise(tree):
     data_cfg, names = _full_cfg(tree)
-    aug = {"DISABLE_AUG_LIST": ["gt_sampling"],
+    # the database sampler is queue 1 item 9; a disabled one is skipped
+    aug = {"DISABLE_AUG_LIST": [],
            "AUG_CONFIG_LIST": [{"NAME": "gt_sampling"}, {"NAME": "random_world_translation"}]}
-    with pytest.raises(NotImplementedError, match="random_world_translation is not ported"):
+    with pytest.raises(NotImplementedError, match="gt_sampling is not ported.*item 9"):
         build_dataset({**data_cfg, "DATA_AUGMENTOR": aug}, names, training=True)
+    ported = {**aug, "DISABLE_AUG_LIST": ["gt_sampling"]}
+    translated = build_dataset({**data_cfg, "DATA_AUGMENTOR": {
+        **ported, "AUG_CONFIG_LIST": [{"NAME": "gt_sampling"}, {
+            "NAME": "random_world_translation", "NOISE_TRANSLATE_STD": [0.5, 0.5, 0.1]}]}},
+        names, training=True)
+    assert [c["NAME"] for _, c in translated.data_augmentor.queue] == ["random_world_translation"]
     assert len(build_dataset(data_cfg, names, training=True)) == 3
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         build_dataset({**data_cfg, "DATASET": "KittiDataset"}, names)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         build_dataset({**data_cfg, "DATASET": "NuScenesDataset"}, names)
-    with pytest.raises(NotImplementedError, match="random_world_translation"):
+    with pytest.raises(NotImplementedError, match="gt_sampling"):
         DatasetTemplate({**data_cfg, "DATA_AUGMENTOR": aug}, names, training=True)
 
 

@@ -57,6 +57,9 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.tools.make_study_data", "hgsfusion_tpu_torch.tools.study_polar_match",
     "hgsfusion_tpu_torch.ops.depth_sample", "hgsfusion_tpu_torch.models.ddn_loss",
     "hgsfusion_tpu_torch.ops.conv_int8", "hgsfusion_tpu_torch.ops.deform_conv",
+    "hgsfusion_tpu_torch.models.registry", "hgsfusion_tpu_torch.models.base_bev_backbone",
+    "hgsfusion_tpu_torch.utils.visual", "hgsfusion_tpu_torch.utils.visual_3d",
+    "hgsfusion_tpu_torch.tools.demo",
 }
 
 
@@ -80,6 +83,12 @@ def test_port_imports_without_pillow_and_yaml():
     """Pillow and PyYAML are imported only where a JPEG is read or a YAML
     loaded."""
     assert NEW_SUBMODULES <= _walk("PIL", "yaml")
+
+
+def test_port_imports_without_matplotlib_and_scipy():
+    """matplotlib (the demo's PNGs) and scipy (``imgaug``'s rotation) are
+    imported only where a figure is drawn or an image rotated."""
+    assert NEW_SUBMODULES <= _walk("matplotlib", "scipy")
 
 
 # the serving host's import contract: torch, the ops and their loader, no

@@ -21,6 +21,7 @@ from hgsfusion_tpu.utils import box_utils as jbox
 from hgsfusion_tpu.utils.box_coder import ResidualCoder as JaxCoder
 from hgsfusion_tpu_torch.models import anchor_head
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
+from hgsfusion_tpu_torch.models.registry import network_class
 from hgsfusion_tpu_torch.models.occupancy import occupancy_loss, rasterize_gt_boxes_bev
 from hgsfusion_tpu_torch.train import optim
 from hgsfusion_tpu_torch.utils import box_utils
@@ -94,9 +95,15 @@ def test_target_assigner_matches_jax(assigned):
     np.testing.assert_array_equal(got["box_cls_labels"].numpy(), labels)
     np.testing.assert_array_equal(got["reg_weights"].numpy(), ref["reg_weights"])
     assert_close(got["box_reg_targets"], ref["box_reg_targets"], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names,
-                       use_multihead=True, device="cpu")
+    # the multi-head order is ported (its targets: test_torch_pointpillar.py):
+    # the same labels, one block per class; the zoo's center-head families
+    # (queue 1 item 9 (c)) are not
+    multi = TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names,
+                           use_multihead=True, device="cpu")
+    mh = multi(torch.from_numpy(np.asarray(assigned[0])))["box_cls_labels"].numpy()
+    np.testing.assert_array_equal(np.sort(mh, axis=1), np.sort(labels, axis=1))
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        network_class("CenterPoint")
 
 
 def test_anchor_head_loss_matches_jax(assigned):

@@ -55,6 +55,23 @@ def perturb_variables(variables, seed=0):
     return walk(to_numpy_tree(dict(variables)))
 
 
+def lift_bn_biases(variables, shift: float = 4.0):
+    """``variables`` with every BatchNorm's bias (a module named ``*bn*``)
+    raised by ``shift``: in train mode a normalized value plus 4 sits below
+    0 for 0.003% of the units, so the ReLUs after them barely ever switch
+    under a rounding-sized change of the input. A deep plain conv stack
+    with random weights in train mode is ill-conditioned otherwise (single
+    ReLU flips move its gradients by percents, ``step_compare.SENS_CAP``);
+    this is the plain-stack counterpart of ``zero_residual_scales``."""
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if path[-1] == "bias" and "bn" in path[-2]:
+            return np.asarray(node) + np.float32(shift)
+        return node
+    return {**variables, "params": walk(variables["params"])}
+
+
 def load(module, state_dict):
     """Load a converted state_dict strictly into ``module`` and return it in
     eval mode."""
@@ -71,3 +88,66 @@ def assert_close(got, ref, atol, rtol=0.0, err_msg=""):
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(ref, np.float32), rtol=rtol, atol=atol,
                                err_msg=err_msg)
+
+
+def _grad_capture():
+    """An optax transformation that passes the gradients on and keeps them
+    as its state, so a jitted step returns what it differentiated."""
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(np.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+def compare_one_step(variables, jax_make_step, port_model, port_make_step, batch, optim_cfg,
+                     total_steps: int = 20, probes=(1, 2)):
+    """One training step from the same weights and a fresh optimizer on both
+    sides, held to ``step_compare.compare_steps``; returns its report.
+
+    ``variables``: the JAX model's {"params", "batch_stats"} (numpy);
+    ``jax_make_step(tx)`` -> the JAX step (state, batch) -> (state, tb);
+    ``port_model()`` -> a fresh port model on the CPU (the weights are
+    loaded here); ``port_make_step(model, optimizer)`` -> the port's step;
+    ``batch``: numpy arrays. The port's sensitivity comes from its own step
+    on inputs perturbed by ``probes``' seeds."""
+    import optax
+
+    from hgsfusion_tpu.train.optim import build_optimizer as jax_build_optimizer
+    from hgsfusion_tpu.train.trainer import TrainState
+    from hgsfusion_tpu_torch.train.optim import build_optimizer
+    from hgsfusion_tpu_torch.train.step_compare import (GradCapture, compare_steps,
+                                                        perturb_inputs, sensitivity,
+                                                        step_record)
+    from hgsfusion_tpu_torch.weights import from_jax_variables
+
+    def port_tree(params, stats):
+        return {k: torch.from_numpy(np.array(v)) for k, v in
+                from_jax_variables({"params": params, "batch_stats": stats}).items()}
+
+    def port_run(perturb_seed=None):
+        model = load(port_model(), from_jax_variables(variables))
+        opt, lr_schedule = build_optimizer(dict(optim_cfg), total_steps, model)
+        cap = GradCapture(opt)
+        step = port_make_step(model, cap)
+        pbatch = model.batch_to_device({k: np.asarray(v) for k, v in batch.items()})
+        if perturb_seed is not None:
+            pbatch = perturb_inputs(pbatch, perturb_seed)
+        _, tb = step(pbatch)
+        return step_record(model, cap, tb), float(lr_schedule(0))
+
+    got, lr = port_run()
+    sens = sensitivity(got["grads"], [port_run(s)[0]["grads"] for s in probes])
+    tx, _ = jax_build_optimizer(optim_cfg, total_steps=total_steps, params=variables["params"])
+    tx = optax.chain(_grad_capture(), tx)
+    state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+    after, tb = jax.jit(jax_make_step(tx))(state, {k: np.asarray(v) for k, v in batch.items()})
+    names = list(got["grads"])
+    grads = port_tree(after.opt_state[0], after.batch_stats)
+    tree = port_tree(after.params, after.batch_stats)
+    ref = {"tb": {k: torch.tensor(float(v)) for k, v in tb.items()},
+           "grads": {k: grads[k] for k in names}, "params": {k: tree[k] for k in names},
+           "stats": {k: v for k, v in tree.items()
+                     if k.endswith(("running_mean", "running_var"))}}
+    return compare_steps(ref, got, sens, lr)
