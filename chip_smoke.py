@@ -321,14 +321,37 @@ and launches of what ran):
 49. demo: ``tools/demo.py`` on a 2-frame full-width VoD tree with
     ``configs/radar_pillar_vod.yaml`` and ``configs/hgsfusion_vod.yaml``,
     ``--html``: every frame served (radar: 1 NMS; HGSFusion: 1 fused + 1
-    NMS), the HTML written; the PNGs where matplotlib is installed (printed).
+    NMS), the HTML written; the PNGs where matplotlib is installed (printed);
+50. depth kernels at BEVFusion's shapes: D1 (``quad_sample_depth_fwd``),
+    D2 (``quad_sample_depth_bwd``) and K2 (``quad_sample_bwd`` on D1's
+    effective weights) against their plain versions on the FPN's reduced
+    map (65 x 242 x 64, 80 bins) at the camera grid (B, 40, 40, 25, 3) read
+    in place, B=1 (timed; f32 and bf16) and B=2 (f32, bf16);
+51. small reference, BEVFusion: the TINY BEVFusion (small Swin) card (D1)
+    vs CPU: heads within 1e-4, proposals matched by class and cell and
+    ranked alike wherever no score lies within 1e-5 of a neighbour's;
+52. serve BEVFusion: ``configs/bevfusion_vod.yaml`` (f32, Swin-T +
+    GeneralizedLSSFPN, the depth-lifted camera BEV, the dense-masked
+    VoxelBackBone8x on 51 x 320 x 320 voxels, ConvFuser, TransFusion head,
+    200 proposals) served 3 frames at B=1 (1 D1 a frame) with stream, wall,
+    profiled device ms and peak memory, then ``bench.main(["--bevfusion"])``;
+53. train BEVFusion: 3 B=1 steps after a warm-up (2 D1, 2 bins, 1 K2, 1
+    D2 a step; stochastic depth on; the one host read of the Hungarian
+    costs the only sync), every trainable tensor with a gradient moved;
+54. train CLI BEVFusion: ``tools.train.main`` over an 8-frame full-width
+    VoD tree (4 steps), then ``tools.test.main --ckpt_dir`` on 4 frames;
+55. serve TransFusion-L: ``configs/transfusion_vod.yaml`` (pillars, head at
+    160 x 160) served as 52 (no kernel), then ``bench --transfusion``;
+56. train CLI TransFusion-L: that config through ``tools.train.main`` and
+    ``tools.test.main --ckpt_dir`` as 54 (no kernel).
 
 4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
 (a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept.
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27, 28-31, 33-36, 39-44 and 46-49, the ranks' launches summed),
+serving hosts, 27, 28-31, 33-36, 39-44, 46-49 and 52-56, the ranks' launches
+summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -338,8 +361,10 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -365,8 +390,8 @@ from hgsfusion_tpu_torch.datasets import build_dataset
 from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_kitti,
                                                     make_synthetic_tj4d)
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
-from hgsfusion_tpu_torch.models.detector import (HGSFusionModel, multihead_candidate_sets,
-                                                 post_process)
+from hgsfusion_tpu_torch.models.detector import (BEVFusionModel, HGSFusionModel,
+                                                 multihead_candidate_sets, post_process)
 from hgsfusion_tpu_torch.models.layers import MaskedBatchNorm
 from hgsfusion_tpu_torch.models.registry import build_network
 from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
@@ -1672,7 +1697,9 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "train_cli_depth", "export_serve_depth", "serve_q8", "train_q8", "eval_q8",
               "export_serve_q8", "serve_w8a8", "serve_w8a8_polar", "serve_occ_v2",
               "train_occ_v2", "serve_radar", "train_radar", "train_cli_radar",
-              "serve_pp_multihead", "train_pp_multihead", "demo")
+              "serve_pp_multihead", "train_pp_multihead", "demo", "serve_bevfusion",
+              "train_bevfusion", "train_cli_bevfusion", "serve_transfusion",
+              "train_cli_transfusion")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -4268,14 +4295,23 @@ def scatter_max_case(model, batch, dev) -> dict:
             "reader_ms": reader_ms}
 
 
-def profiled_device_ms(fn) -> float:
-    """The device time of one call of ``fn`` under ``torch.profiler``: its
-    kernels' own time summed (the stream's idle gaps left out)."""
+def profiled_top(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its kernels' own device
+    time summed, and the ``top`` kernels by that time (name, ms, calls)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages()) / 1e3
+    ops = sorted(((e.key, getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.count)
+                  for e in prof.key_averages()), key=lambda r: -r[1])
+    return {"device_ms": sum(ms for _, ms, _ in ops),
+            "top": [{"op": k[:90], "device_ms": ms, "calls": n} for k, ms, n in ops[:top]]}
+
+
+def profiled_device_ms(fn) -> float:
+    """The device time of one call of ``fn`` under ``torch.profiler``: its
+    kernels' own time summed (the stream's idle gaps left out)."""
+    return profiled_top(fn, top=0)["device_ms"]
 
 
 def phase_serve_zoo(dev, family: str, cfg, batch, frames: int = 3):
@@ -4503,6 +4539,353 @@ def phase_demo(dev):
     return result
 
 
+# ---- BEVFusion and TransFusion-L ------------------------------------------
+BEV_YAML = "configs/bevfusion_vod.yaml"
+TF_YAML = "configs/transfusion_vod.yaml"
+# launches a served BEVFusion frame (one depth-weighted sample of the FPN's
+# reduced map) and a B=1 step with REMAT on (the sample and its bins again
+# in the backward; K2 for the map, D2 for the distribution)
+BEV_FRAME = {library.DEPTH_KERNEL: 1}
+BEV_STEP = {library.DEPTH_KERNEL: 2, library.BINS: 2, library.BWD_KERNEL: 1,
+            library.DEPTH_BWD_KERNEL: 1}
+BEV_CLI_FRAMES, BEV_CLI_STEPS, BEV_CLI_EVAL_FRAMES = 8, 4, 4
+# BEVFusion's level-0 FPN map after channel_reduce (516 x 1936 / 8), its
+# bins and the camera grid (nx / 8, ny / 8, nz / 2): 40,000 queries a frame
+BEV_MAP = (65, 242, 64)
+BEV_BINS = 80
+# tests/test_bevfusion.py's TINY BEVFusion with the small Swin, on tiny_batch
+TINY_BEV = HGSFusionConfig(
+    pc_range=(0.0, -8.0, -3.0, 16.0, 8.0, 2.0), voxel_size=(0.5, 0.5, 0.125), image_size=(64, 96),
+    disc_num_bins=16, disc_depth_max=16.0, center_max_k=16, center_feature_map_stride=8,
+    image_backbone_arch="swin", swin_embed_dims=16, swin_depths=(2, 2), swin_num_heads=(2, 4),
+    swin_window_size=4, swin_mlp_ratio=2, swin_out_indices=(0, 1), fpn_out_channels=24)
+QUERY_TIE = 1e-5  # proposal scores closer than this may rank either way
+
+
+def bevfusion_config():
+    """``configs/bevfusion_vod.yaml``'s model config (f32: it names no
+    compute dtype)."""
+    return model_config_from_yaml(load_config(BEV_YAML))
+
+
+def transfusion_config():
+    return model_config_from_yaml(load_config(TF_YAML))
+
+
+def bevfusion_grid(dev, b: int = 1):
+    """The BEVFusion camera grid (b, 40, 40, 25, 3) of ``flagship_batch``'s
+    calibration."""
+    cfg = bevfusion_config()
+    nx, ny, nz = cfg.grid_size
+    batch = flagship_batch(cfg, b=b)
+    gen = FrustumGridGenerator((nx // 8, ny // 8, max(nz // 2, 1)), cfg.pc_range, cfg.disc_cfg,
+                               cfg.bev_aug)
+    return gen(*(torch.from_numpy(batch[k]).to(dev) for k in
+                 ("trans_lidar_to_cam", "trans_cam_to_img")), cfg.image_size,
+               bda=torch.from_numpy(batch["lidar_aug_matrix"]).to(dev))
+
+
+def k2_depth_case(name, shape, grid, d, dtype, gen, timed: bool):
+    """``quad_sample_bwd`` (K2) on the depth route's effective weights and
+    keys (D1's taps) against its plain version: the features' gradient of a
+    training step. Tolerances as ``bwd_case``'s; ``timed``: the kernel
+    beside its bound, the plain version and the library's pair
+    (``aten.grid_sampler_3d_backward`` on the (B, C, D, H, W) volume, then
+    the contraction over the bins)."""
+    b, h, w, c = shape
+    dev = grid.device
+    f = torch.randn(shape, generator=gen).to(dtype).to(dev)
+    probs = torch.softmax(2 * torch.randn(shape[:3] + (d + 1,), generator=gen), -1)[..., :d]
+    probs = probs.to(dtype).contiguous().to(dev)
+    padded = (b, h + 2, w + 2, c)
+    _, key, we = library.quad_sample_depth_fwd(f, probs, grid, taps=True)
+    n = key.numel()
+    bins = depth_sample.depth_bins(key, padded)
+    g = torch.randn((n, c), generator=gen).to(dtype).to(dev)
+    got = library.quad_sample_bwd(g, key, we, padded, bins)
+    torch.cuda.synchronize()
+    idx = torch.where(key < b * (h + 2) * (w + 2), key, torch.zeros_like(key))
+    ref = quad_sample_bwd_plain(g, idx, we, padded)
+    diff = (got.float() - ref.float()).abs()
+    stats = contention(idx, we, padded)
+    if dtype == torch.float32:
+        tol = torch.full_like(diff, F32_TOL * (1 + float(ref.abs().max())))
+    else:
+        s_abs = quad_sample_bwd_plain(g.float().abs(), idx, we.abs(), padded)
+        tol = 1e-6 + 2.0 ** -7 * ref.float().abs() + stats["max_adds_per_pixel"] * F32_U * s_abs
+    row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+           "queries": n, "max_abs_err": float(diff.max()),
+           "max_err_over_tol": float((diff / tol.clamp(min=1e-30)).max())}
+    if timed:
+        isz = g.element_size()
+        valid = int(bins[1][-1])
+        row.update(bound(n * 20 + valid * c * isz + b * h * w * c * isz,
+                         2.0 * stats["tap_adds"] * c))
+        row["ms"] = graph_ms(lambda: library.quad_sample_bwd(g, key, we, padded, bins))
+        row["plain_ms"] = cuda_ms(lambda: quad_sample_bwd_plain(g, idx, we, padded),
+                                  iters=3, warmup=1)
+        vol = (f.permute(0, 3, 1, 2)[:, :, None] * probs.permute(0, 3, 1, 2)[:, None]).contiguous()
+        g5 = grid.to(dtype)
+        g5out = g.view(grid.shape[:-1] + (c,)).permute(0, 4, 1, 2, 3).contiguous()
+        p5 = probs.permute(0, 3, 1, 2)[:, None]
+
+        def library_bwd():
+            gvol = torch.ops.aten.grid_sampler_3d_backward(g5out, vol, g5, 0, 0, True,
+                                                           [True, False])[0]
+            return (gvol * p5).sum(2)
+
+        row["library_ms"] = cuda_ms(library_bwd, iters=3, warmup=1)
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
+        del vol, g5out
+    print("  k2 " + json.dumps(row))
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{name} {row['dtype']}: K2 max error {row['max_abs_err']} over "
+                             "its tolerance")
+    return row
+
+
+def phase_depth_kernels_bevfusion(dev):
+    """D1, D2 and K2 against their plain versions at BEVFusion's shapes: the
+    level-0 map 65 x 242 x 64, 80 bins, the camera grid (B, 40, 40, 25, 3)
+    read in place; B=1 timed (f32, the config's dtype, and bf16) and B=2
+    (f32, bf16), the bins' 16-bit keys over two frames."""
+    gen = torch.Generator().manual_seed(23)
+    rows = {"fwd": [], "bwd": [], "k2": []}
+    for b in (1, 2):
+        grid = bevfusion_grid(dev, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            f_row, b_row = depth_case(f"bevfusion_b{b}", (b,) + BEV_MAP, grid, BEV_BINS, dtype,
+                                      gen, timed=b == 1)
+            rows["fwd"].append(f_row)
+            rows["bwd"].append(b_row)
+            rows["k2"].append(k2_depth_case(f"bevfusion_b{b}", (b,) + BEV_MAP, grid, BEV_BINS,
+                                            dtype, gen, timed=b == 1))
+            torch.cuda.empty_cache()
+    if rows["fwd"][0]["queries"] != 40000:
+        raise AssertionError(f"BEVFusion's grid has {rows['fwd'][0]['queries']} queries")
+    return rows
+
+
+def compare_transfusion_heads(ref, got, tol: float = 1e-4) -> dict:
+    """TransFusion head outputs of one model on two devices: the dense
+    heatmap within ``tol``; the proposals matched by (class, cell), every
+    per-query output within ``tol``, and the class and cell equal at every
+    rank whose score is not within QUERY_TIE of a neighbour's."""
+    got = {k: v.cpu() for k, v in got.items()}
+    torch.testing.assert_close(got["dense_heatmap"], ref["dense_heatmap"], rtol=tol, atol=tol)
+    errs = {"dense_heatmap": float((got["dense_heatmap"] - ref["dense_heatmap"]).abs().max())}
+    tied_ranks = 0
+    for b in range(ref["query_labels"].shape[0]):
+        s = torch.take_along_dim(ref["query_heatmap_score"][b], ref["query_labels"][b][:, None],
+                                 dim=1)[:, 0]
+        close = ((s[1:] - s[:-1]).abs() < QUERY_TIE) & (s[1:] > 0)
+        tied = torch.zeros_like(s, dtype=torch.bool)
+        tied[1:] |= close
+        tied[:-1] |= close
+        tied_ranks += int(tied.sum())
+        for k in ("query_labels", "query_pos"):
+            if not torch.equal(got[k][b][~tied], ref[k][b][~tied]):
+                raise AssertionError(f"frame {b}: {k} differ at a tie-free rank")
+        key = {(int(lab), *map(float, pos)): i for i, (lab, pos) in
+               enumerate(zip(ref["query_labels"][b], ref["query_pos"][b]))}
+        order = [key[(int(lab), *map(float, pos))]
+                 for lab, pos in zip(got["query_labels"][b], got["query_pos"][b])]
+        for k in ("heatmap", "center", "height", "dim", "rot", "query_heatmap_score"):
+            torch.testing.assert_close(got[k][b], ref[k][b][order], rtol=tol, atol=tol)
+            errs[k] = max(errs.get(k, 0.0), float((got[k][b] - ref[k][b][order]).abs().max()))
+    return {"max_abs_err": errs, "tied_ranks": tied_ranks}
+
+
+def phase_small_reference_bevfusion(dev):
+    """The TINY BEVFusion (swin) on the card (D1) against the CPU (its plain
+    version), one set of weights: heads within 1e-4 after the tie rule
+    (``compare_transfusion_heads``), one D1 launch; the detections of the
+    CPU's heads through the card's ``post_process`` equal the CPU's."""
+    cpu_model = BEVFusionModel(TINY_BEV, device="cpu", seed=5)
+    gpu_model = BEVFusionModel(TINY_BEV, device=dev, seed=5)
+    batch = tiny_batch()
+    zero_launches()
+    with torch.inference_mode():
+        ref = cpu_model(cpu_model.batch_to_device(batch))
+        got = gpu_model(gpu_model.batch_to_device(batch))
+        launches = dict(library.launches)
+        report = compare_transfusion_heads(ref, got)
+        d_ref = cpu_model.post_process(ref)
+        d_got = gpu_model.post_process({k: v.to(dev) for k, v in ref.items()})
+    if launches != per_frames(BEV_FRAME, 1):
+        raise AssertionError(f"launches {launches}, want one D1")
+    for k in ("valid", "labels"):
+        if not torch.equal(d_got[k].cpu(), d_ref[k]):
+            raise AssertionError(f"post_process {k} differ on the card")
+    torch.testing.assert_close(d_got["boxes"].cpu(), d_ref["boxes"], rtol=1e-5, atol=1e-5)
+    print("  " + json.dumps(report))
+    return report
+
+
+def phase_serve_transfusion_family(dev, name: str, cfg, batch, per_frame: dict, frames: int = 3):
+    """A TransFusion-head config (``bench.ZOO[name]``) at full width through
+    ``serve()`` after a warm-up: the frames' launches, each frame's stream
+    ms (CUDA events) and wall ms, one profiled frame's device time, peak
+    memory, the detections (one per proposal, finite); then the port's
+    ``bench`` entry point (``main(["--<name>"])``, in this process): one
+    JSON line with a positive value and its timed calls' launches."""
+    model = build_network(bench.ZOO[name][1], cfg, device=dev, seed=0)
+    model.serve(batch)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    stream_ms, wall = [], []
+    for _ in range(frames):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dets = model.serve(batch)
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        stream_ms.append(start.elapsed_time(end))
+    launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != per_frames(per_frame, frames):
+        raise AssertionError(f"launches in {frames} frames {launches}, want "
+                             f"{per_frames(per_frame, frames)}")
+    if dets["boxes"].shape != (1, cfg.center_max_k, 7) or not bool(
+            torch.isfinite(dets["boxes"]).all() and torch.isfinite(dets["scores"]).all()):
+        raise AssertionError(f"detections {dets['boxes'].shape}, want {cfg.center_max_k} rows, "
+                             "finite")
+    profiled = profiled_top(lambda: model.serve(batch))
+    del model
+    torch.cuda.empty_cache()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main([f"--{name}"])
+    lines = out.getvalue().strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    notes = [s for s in err.getvalue().splitlines() if s.startswith("#")]
+    counted = [json.loads(s[len("# launches "):]) for s in notes if s.startswith("# launches ")]
+    if rc != 0 or len(lines) != 1 or not line.get("value", 0) > 0 \
+            or line.get("metric") != bench.metric_name(name, 1, False) or len(counted) != 1:
+        raise AssertionError(f"bench --{name}: rc {rc}, {lines}, {err.getvalue()[-2000:]}")
+    if counted[0]["counts"] != per_frames(per_frame, counted[0]["serve_calls"]):
+        raise AssertionError(f"bench --{name}: launches {counted[0]}")
+    result = {"frames": frames,
+              "launches": {k: launches[k] + counted[0]["counts"][k] for k in launches},
+              "frame_stream_ms": stream_ms, "frame_wall_ms": wall,
+              "profiled_frame_device_ms": profiled["device_ms"],
+              "profiled_frame_top": profiled["top"], "peak_memory_bytes": peak,
+              "valid_boxes": int(dets["valid"].sum()), "bench": {**line, "stderr": notes}}
+    print("  " + json.dumps(result))
+    return result
+
+
+def phase_train_bevfusion(dev, steps: int = 3):
+    """A B=1 BEVFusion step at full width (``make_train_step_for_cfg``,
+    stochastic depth on) after a warm-up: each step's launches (BEV_STEP),
+    finite loss terms, every trainable tensor with a gradient moved, the
+    host waiting for the device only where the matching costs are read
+    (``transfusion_head.solve_assignment``, one read a step); each step's
+    stream ms, one profiled step's device time, peak memory."""
+    cfg = bevfusion_config()
+    model = build_network("BEVFusion", cfg, device=dev, seed=0)
+    opt, _ = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
+    cap = GradCapture(opt)
+    _, step = make_train_step_for_cfg(model, cap, cfg)
+    b = model.batch_to_device(flagship_batch(cfg))
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    _, warm = step(b)
+    moving = {k for k, g in zip(params, cap.grads) if g is not None and bool(g.any())}
+    cap.grads = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    stream_ms, terms = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, tb = step(b)
+        end.record()
+        end.synchronize()
+        stream_ms.append(start.elapsed_time(end))
+        terms.append({k: float(v) for k, v in tb.items()})
+    launches = dict(library.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != per_frames(BEV_STEP, steps):
+        raise AssertionError(f"launches in {steps} steps {launches}, want "
+                             f"{per_frames(BEV_STEP, steps)}")
+    if not all(math.isfinite(v) for t in terms for v in t.values()):
+        raise AssertionError(f"non-finite loss terms {terms}")
+    params = dict(model.named_parameters())
+    still = sorted(k for k in moving if torch.equal(params[k], before[k]))
+    if still:
+        raise AssertionError(f"trainable tensors that did not move: {still}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    if len(syncs) != 1 or not syncs[0].split(":")[0].endswith("transfusion_head.py"):
+        raise AssertionError(f"the step made the host wait for the device at {syncs} (one read "
+                             "of the matching costs expected)")
+    profiled = profiled_top(lambda: step(b))
+    result = {"steps": steps, "batch": 1, "launches": launches, "step_stream_ms": stream_ms,
+              "profiled_step_device_ms": profiled["device_ms"],
+              "profiled_step_top": profiled["top"],
+              "peak_memory_bytes": peak, "loss_terms": terms, "host_reads": syncs,
+              "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
+              "trainable_tensors": len(before), "moved": len(moving)}
+    print("  " + json.dumps(result))
+    return result
+
+
+def phase_train_cli_transfusion_family(dev, yaml_path: str, per_step: dict, per_frame: dict):
+    """A TransFusion-head YAML through the CLIs at full width:
+    ``tools/train.py`` over an 8-frame VoD tree (``per_step`` launches a
+    step; BEVFusion: BEV_STEP), then ``tools/test.py --ckpt_dir`` on its
+    checkpoint (``per_frame``; BEVFusion: one D1)."""
+    cfg = load_config(yaml_path)
+    data = cfg["DATA_CONFIG"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        data["DATA_PATH"] = str(root)
+        write_tree(root, data, BEV_CLI_FRAMES)
+        create_infos(data, cfg["CLASS_NAMES"])
+        data_set = ["--set", "DATA_CONFIG.DATA_PATH", str(root)]
+        zero_launches()
+        trained = train_cli.main(["--cfg_file", yaml_path, "--epochs", "1", "--workers", "2",
+                                  "--max_steps", str(BEV_CLI_STEPS), "--output_dir", str(out)]
+                                 + data_set)
+        train_launches = dict(library.launches)
+        ckpt = CheckpointManager(Path(trained["out_dir"]) / "ckpt")
+        zero_launches()
+        evaluated = test_cli.main(["--cfg_file", yaml_path, "--ckpt_dir", str(ckpt.ckpt_dir),
+                                   "--max_frames", str(BEV_CLI_EVAL_FRAMES), "--output_dir",
+                                   str(out / "eval")] + data_set)
+        eval_launches = dict(library.launches)
+    (result_dict, stats), = evaluated.values()
+    checks = {"train": (train_launches, per_frames(per_step, BEV_CLI_STEPS)),
+              "eval": (eval_launches, per_frames(per_frame, BEV_CLI_EVAL_FRAMES))}
+    for name, (got_l, want_l) in checks.items():
+        if got_l != want_l:
+            raise AssertionError(f"{name}: launches {got_l}, want {want_l}")
+    if trained["steps"] != BEV_CLI_STEPS or not all(math.isfinite(v) for v in trained["losses"]):
+        raise AssertionError(f"training: {trained['steps']} steps, losses {trained['losses']}")
+    if stats.get("frames") != BEV_CLI_EVAL_FRAMES or not all(
+            math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()):
+        raise AssertionError(f"evaluation: {stats.get('frames')} frames, {result_dict}")
+    result = {"launches": {k: train_launches[k] + eval_launches[k] for k in library.launches},
+              "launches_by_run": {k: v[0] for k, v in checks.items()},
+              "steps_per_s": trained["steps_per_s"], "losses": trained["losses"],
+              "peak_memory_bytes": trained["peak_memory_bytes"],
+              "eval_ms_per_frame": stats.get("ms_per_frame"), "eval_result": result_dict}
+    print("  " + json.dumps(result))
+    return result
+
+
 def phases(dev) -> list:
     """Every phase after card and build, in order: (name, function, args)."""
     def full(name, fn, *a):  # a phase after which the allocator's cache is emptied
@@ -4579,6 +4962,16 @@ def phases(dev) -> list:
         full("train_pp_multihead", lambda: phase_train_zoo(
             dev, "PointPillar", pp_config(), nuscenes_batch(pp_config(), b=PP_TRAIN_BATCH))),
         full("demo", phase_demo, dev),
+        full("depth_kernels_bevfusion", phase_depth_kernels_bevfusion, dev),
+        step("small_reference_bevfusion", phase_small_reference_bevfusion, dev),
+        full("serve_bevfusion", lambda: phase_serve_transfusion_family(
+            dev, "bevfusion", bevfusion_config(), flagship_batch(bevfusion_config()), BEV_FRAME)),
+        full("train_bevfusion", phase_train_bevfusion, dev),
+        full("train_cli_bevfusion", phase_train_cli_transfusion_family, dev, BEV_YAML, BEV_STEP,
+             BEV_FRAME),
+        full("serve_transfusion", lambda: phase_serve_transfusion_family(
+            dev, "transfusion", transfusion_config(), radar_batch(transfusion_config()), {})),
+        full("train_cli_transfusion", phase_train_cli_transfusion_family, dev, TF_YAML, {}, {}),
     ]
     return out
 
@@ -4699,6 +5092,31 @@ def main(argv=None) -> int:
             kernels.append(kernel_row(name, "hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
                                       "none: XLA _sample_with_depth, "
                                       "hgsfusion_tpu/models/frustum.py:221", rows))
+    # BEVFusion's shapes: a block on the D1, D2 and K2 rows, each
+    # dtype's timed call (B=1, 40,000 queries); a row of its own where the
+    # flagship phase did not run (``--phases``)
+    if "depth_kernels_bevfusion" in report:
+        bev = report["depth_kernels_bevfusion"]
+        sources = {library.DEPTH_KERNEL: ("hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
+                                          "none: XLA _sample_with_depth, "
+                                          "hgsfusion_tpu/models/frustum.py:221", bev["fwd"]),
+                   library.DEPTH_BWD_KERNEL: ("hgsfusion_tpu_torch/csrc/quad_sample_depth.cu",
+                                              "none: XLA _sample_with_depth, "
+                                              "hgsfusion_tpu/models/frustum.py:221", bev["bwd"]),
+                   library.BWD_KERNEL: ("hgsfusion_tpu_torch/csrc/quad_sample_bwd.cu",
+                                        "hgsfusion_tpu/ops/pallas_sample.py:226", bev["k2"])}
+        for name, (source, replaces, rows) in sources.items():
+            timed = [r for r in rows if "ms" in r]
+            row = next((k for k in kernels if k["name"] == name), None)
+            if row is None:
+                row = kernel_row(name, source, replaces,
+                                 [r for r in timed if r["dtype"] == "float32"])
+                kernels.append(row)
+            row["bevfusion"] = {
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "queries": rows[0]["queries"],
+                **{r["dtype"]: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")} for r in timed}}
     # F2V QUANT int8's two kernels and DDN QUANT w8a8's convolution: no TPU
     # kernel (XLA), held like the others
     if "kernel_vs_plain_q8" in report:

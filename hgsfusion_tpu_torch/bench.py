@@ -2,6 +2,7 @@
 counterpart of the repository's ``bench.py``).
 
     python -m hgsfusion_tpu_torch.bench [--<name>] [--batch N] [--realistic]
+    python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion [--batch N]
 
 Frames/s of the whole served pipeline (image backbone, view transform,
 radar branch, fusion, anchor head, box decode and rotated NMS) through
@@ -53,11 +54,18 @@ REF_A100_FPS = 18.0  # bench.py's estimate of the reference on an A100
 TARGET_MULTIPLIER = 3.0
 CHAINS, CHAIN_LEN = 3, 20
 IMAGE_HW = (516, 1936)
+# the zoo families' configs (f32) and their MODEL.NAME
+ZOO = {"bevfusion": ("configs/bevfusion_vod.yaml", "BEVFusion"),
+       "transfusion": ("configs/transfusion_vod.yaml", "TransFusion")}
 
 
 def flagship_config(name: str):
     """``configs/hgsfusion_<name>.yaml`` as ``_vod_flagship`` builds it: a
-    516 x 1936 image, bf16 compute."""
+    516 x 1936 image, bf16 compute; a zoo family's YAML as it is, at that
+    image."""
+    if name in ZOO:
+        return dataclasses.replace(model_config_from_yaml(load_config(ZOO[name][0])),
+                                   image_size=IMAGE_HW)
     cfg = model_config_from_yaml(load_config(f"configs/hgsfusion_{name}.yaml"))
     return dataclasses.replace(cfg, image_size=IMAGE_HW, compute_dtype="bfloat16")
 
@@ -79,6 +87,8 @@ def calibrate_realistic(model: HGSFusionModel, batch, target: int = 64) -> float
 
 def metric_name(name: str, batch_size: int, realistic: bool) -> str:
     tag = "" if batch_size == 1 else f"_b{batch_size}"
+    if name in ZOO:
+        return f"{name}_vod{tag}_e2e_inference"
     return f"hgsfusion_{name}{tag}{'_realistic' if realistic else ''}_e2e_inference"
 
 
@@ -92,8 +102,11 @@ def run(name: str = "vod_polar", batch_size: int = 1, realistic: bool = False) -
     """The measurement; returns the stdout line's fields and the stderr
     report's."""
     device = resolve_device("cuda")
+    if realistic and name in ZOO:
+        raise ValueError(f"--realistic shifts an anchor head's scores; {name} has none")
     cfg = flagship_config(name)
-    model = build_network("HGSFusion", cfg, device=device, seed=0)
+    model = build_network(ZOO[name][1] if name in ZOO else "HGSFusion", cfg, device=device,
+                          seed=0)
     batch = model.batch_to_device(flagship_batch(cfg, b=batch_size))
     shift = calibrate_realistic(model, batch) if realistic else None
     out = model.serve(batch)  # warm-up: cuDNN plans, the allocator, the kernels' build

@@ -113,6 +113,28 @@ class HGSFusionConfig:
     mh_use_dir: bool = False
     box_coder_size: int = 7
     box_coder_sincos: bool = False
+    # the BEVFusion camera branch (IMAGE_BACKBONE / NECK): "swin" (Swin +
+    # GeneralizedLSSFPN) or "ddn" (the ResNet-DeepLab DDN)
+    image_backbone_arch: str = "ddn"
+    swin_embed_dims: int = 96
+    swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
+    swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    swin_window_size: int = 7
+    swin_mlp_ratio: int = 4
+    swin_out_indices: Tuple[int, ...] = (1, 2, 3)
+    swin_drop_path: float = 0.2
+    swin_patch_size: int = 4
+    fpn_out_channels: int = 256
+    # anchor-free heads (TransFusion): the target map's stride, the proposals
+    # (MAX_OBJ_PER_SAMPLE), the heatmap gaussians, the box-center limits, and
+    # the classes exempt from peak pooling (TARGET_ASSIGNER_CONFIG.DATASET:
+    # nuScenes 8, 9; Waymo 1, 2; any other dataset none)
+    center_feature_map_stride: int = 2
+    center_max_k: int = 500
+    tf_no_pool_classes: Tuple[int, ...] = ()
+    center_gaussian_overlap: float = 0.1
+    center_min_radius: int = 2
+    center_post_limit: Tuple[float, ...] = (-75.0, -75.0, -10.0, 75.0, 75.0, 10.0)
     compute_dtype: str = "float32"
     # recompute the gather f2v's sample + reduce product and the polar view's
     # pass 2 in the backward pass instead of keeping what they save
@@ -306,8 +328,9 @@ def cfg_from_list(cfg: dict, kv_list) -> dict:
 
 def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
     """HGSFusionConfig from a loaded reference-schema YAML: the HGSFusion,
-    radar-only and PointPillar families, with an AnchorHeadSingle or an
-    AnchorHeadMulti (its static fields as the JAX package reads them)."""
+    radar-only, PointPillar, BEVFusion and TransFusion-L families, with an
+    AnchorHeadSingle, an AnchorHeadMulti or the anchor-free TransFusionHead
+    (its static fields as the JAX package reads them)."""
     model, data = cfg["MODEL"], cfg["DATA_CONFIG"]
     fusion_vfe = model["FusionVFE"]
     image_vfe = fusion_vfe["ImageVFE"]
@@ -321,6 +344,7 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
                                   "depth_min": 1.0, "depth_max": 51.2})
     voxel_size = next(p["VOXEL_SIZE"] for p in data["DATA_PROCESSOR"]
                       if p["NAME"] == "calculate_grid_size")
+    anchor_cfgs = head.get("ANCHOR_GENERATOR_CONFIG", ())  # none: anchor-free
     anchors = tuple(
         {"class_name": c["class_name"],
          "anchor_sizes": tuple(tuple(float(v) for v in s) for s in c["anchor_sizes"]),
@@ -330,14 +354,17 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
          "feature_map_stride": c.get("feature_map_stride", 1),
          "matched_threshold": float(c["matched_threshold"]),
          "unmatched_threshold": float(c["unmatched_threshold"])}
-        for c in head["ANCHOR_GENERATOR_CONFIG"])
+        for c in anchor_cfgs)
     nms = model.get("POST_PROCESSING", {}).get("NMS_CONFIG", {})
     coder = head.get("TARGET_ASSIGNER_CONFIG", {}).get("BOX_CODER_CONFIG", {})
     sep_reg = head.get("SEPARATE_REG_CONFIG", {})
     multihead = head.get("NAME") == "AnchorHeadMulti"
     per_loc = tuple(
         len(c["anchor_rotations"]) * len(c["anchor_sizes"]) * len(c["anchor_bottom_heights"])
-        for c in head["ANCHOR_GENERATOR_CONFIG"])
+        for c in anchor_cfgs)
+    tgt = head.get("TARGET_ASSIGNER_CONFIG", {})
+    post = model.get("POST_PROCESSING", {})
+    image_backbone = model.get("IMAGE_BACKBONE", {})
     return HGSFusionConfig(
         class_names=tuple(cfg["CLASS_NAMES"]),
         pc_range=tuple(data["POINT_CLOUD_RANGE"]),
@@ -389,6 +416,23 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         num_dir_bins=head.get("NUM_DIR_BINS", 2),
         dir_offset=head.get("DIR_OFFSET", 0.78539),
         dir_limit_offset=head.get("DIR_LIMIT_OFFSET", 0.0),
+        image_backbone_arch="swin" if image_backbone.get("NAME") == "SwinTransformer" else "ddn",
+        swin_embed_dims=image_backbone.get("EMBED_DIMS", 96),
+        swin_depths=tuple(image_backbone.get("DEPTHS", (2, 2, 6, 2))),
+        swin_num_heads=tuple(image_backbone.get("NUM_HEADS", (3, 6, 12, 24))),
+        swin_window_size=image_backbone.get("WINDOW_SIZE", 7),
+        swin_mlp_ratio=image_backbone.get("MLP_RATIO", 4),
+        swin_out_indices=tuple(image_backbone.get("OUT_INDICES", (1, 2, 3))),
+        swin_drop_path=image_backbone.get("DROP_PATH_RATE", 0.2),
+        swin_patch_size=image_backbone.get("PATCH_SIZE", 4),
+        fpn_out_channels=model.get("NECK", {}).get("OUT_CHANNELS", 256),
+        center_feature_map_stride=tgt.get("FEATURE_MAP_STRIDE", 2),
+        center_max_k=post.get("MAX_OBJ_PER_SAMPLE", 500),
+        tf_no_pool_classes={"nuScenes": (8, 9), "Waymo": (1, 2)}.get(tgt.get("DATASET", ""), ()),
+        center_gaussian_overlap=tgt.get("GAUSSIAN_OVERLAP", 0.1),
+        center_min_radius=tgt.get("MIN_RADIUS", 2),
+        center_post_limit=tuple(post.get("POST_CENTER_LIMIT_RANGE",
+                                         (-75.0, -75.0, -10.0, 75.0, 75.0, 10.0))),
         compute_dtype=model.get("COMPUTE_DTYPE", "float32"),
         remat=model.get("REMAT", True),
         anchor_generator=anchors,

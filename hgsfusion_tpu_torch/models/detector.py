@@ -1,10 +1,12 @@
 """Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
-the radar-only detector and the PointPillar families; post-processing.
+the radar-only detector, the PointPillar families, BEVFusion and
+TransFusion-L; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
-PointPillarMultiHeadModel; post_process, post_process_multihead).
+PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel; post_process,
+post_process_multihead).
 ``models/registry.py::build_network`` picks the family of a config.
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
@@ -55,15 +57,18 @@ from .base_bev_backbone import BaseBEVBackbone
 from .bev_encoder import PillarNetRadar, SparseConv2d
 from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
-from .layers import ConvBNReLU, resize_bilinear
+from .layers import ConvBNReLU, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
 from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
+from .swin import GeneralizedLSSFPN, SwinTransformer
+from .transfusion_head import MultiheadAttention, TransFusionHead, transfusion_get_boxes
+from .voxel_backbone import SparseConv3d, VoxelBackBone8x, height_compression, mean_vfe
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
-           "PointPillarMultiHeadModel", "post_process", "post_process_multihead",
-           "resolve_device"]
+           "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "post_process",
+           "post_process_multihead", "resolve_device"]
 
 # the batch keys the model and its losses read; TARGET_KEYS only the losses
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
@@ -93,10 +98,15 @@ class _Scope(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator):
     """LeCun-normal kernels and zero biases from ``generator`` (BatchNorms
     keep their identity initialization; a deformable convolution's
-    ``conv_offset`` stays zero, as JAX's and mmcv's)."""
+    ``conv_offset`` stays zero, as JAX's and mmcv's; an attention's packed
+    q, k, v rows each have fan-in ``channels``)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, SparseConv2d,
+            if isinstance(m, MultiheadAttention):
+                m.in_proj_weight.normal_(0.0, 1.0 / math.sqrt(m.in_proj_weight.shape[1]),
+                                         generator=generator)
+                m.in_proj_bias.zero_()
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, SparseConv2d, SparseConv3d,
                               ModulatedDeformConv2d, nn.ConvTranspose2d)):
                 # a transposed conv's weight is (I, O, kH, kW)
                 fan_in = (m.weight.numel() // m.weight.shape[1]
@@ -426,6 +436,156 @@ class PointPillarMultiHeadModel(Detector):
         return post_process_multihead(preds, self.anchors, self.box_coder, cfg,
                                       cfg.score_thresh, cfg.nms_thresh,
                                       cfg.nms_pre_max_size, cfg.nms_post_max_size)
+
+
+class _TransFusionDetector(Detector):
+    """A detector with the TransFusion head: anchor-free, its detections
+    one per query (``transfusion_get_boxes``, no NMS)."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.dense_head.shared_conv.weight.device
+
+    def _finish(self, cfg, head_in: int, device, seed: int):
+        self.dense_head = TransFusionHead(head_in, cfg.num_class, num_proposals=cfg.center_max_k,
+                                          no_pool_classes=cfg.tf_no_pool_classes, dtype=cfg.dtype)
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.dense_head.init_biases()
+        self.to(device)
+        self.eval()
+
+    def post_process(self, preds):
+        cfg = self.cfg
+        return transfusion_get_boxes(preds, cfg.pc_range, cfg.voxel_size,
+                                     cfg.center_feature_map_stride, cfg.score_thresh,
+                                     cfg.center_post_limit)
+
+
+def voxel_backbone_depth(nz: int) -> int:
+    """The z planes ``VoxelBackBone8x`` leaves of a grid with ``nz``
+    (mean_vfe adds one): three stride-2 convolutions (padding 1, 1, 0), then
+    ``conv_out`` (kernel 3, stride 2, no padding)."""
+    d = nz + 1
+    for pad in (1, 1, 0, 0):
+        d = (d + 2 * pad - 3) // 2 + 1
+    return d
+
+
+class BEVFusionModel(_TransFusionDetector):
+    """BEVFusion (zoo family): a camera BEV lifted by a depth distribution,
+    a voxel lidar BEV, a ConvFuser, BaseBEVBackbone and the TransFusion head.
+
+    Camera branch, by ``image_backbone_arch``: "swin" (Swin ->
+    ``GeneralizedLSSFPN``; ``channel_reduce`` and a 1x1 ``depth_head`` on
+    the finest FPN level; the backbone trains, with stochastic depth drawn
+    from a generator seeded by ``seed`` on ``device``) or "ddn" (the frozen
+    ResNet-50 DeepLab backbone ``ddn_backbone``, run without autograd;
+    ``channel_reduce`` on layer1, ``ddn_classifier`` on layer4). The depth
+    logits, resized to the reduced map, give a softmax over
+    ``disc_num_bins`` + 1 bins without the overflow bin; the frustum grid at
+    (nx/8, ny/8, max(nz/2, 1)) samples the depth-weighted map
+    (``FrustumToVoxelMultiScale`` on one group: the D1 kernel, in training
+    D1, K2 and D2 with their bins), and the z axis is summed. Lidar branch:
+    ``mean_vfe`` -> ``backbone_3d`` (VoxelBackBone8x) ->
+    ``height_compression``. Then ``fuser_conv`` (3x3, no bias) ->
+    ``fuser_bn`` -> ReLU over the concatenation -> ``backbone_2d`` ->
+    ``dense_head``. The JAX package's names."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        dt = cfg.dtype
+        nx, ny, nz = cfg.grid_size
+        bins = cfg.disc_num_bins
+        if cfg.image_backbone_arch == "swin":
+            self.image_backbone = SwinTransformer(
+                cfg.swin_embed_dims, cfg.swin_depths, cfg.swin_num_heads, cfg.swin_window_size,
+                cfg.swin_mlp_ratio, cfg.swin_out_indices, cfg.swin_patch_size,
+                drop_path_rate=cfg.swin_drop_path)
+            self.neck = GeneralizedLSSFPN([cfg.swin_embed_dims * 2 ** i
+                                           for i in cfg.swin_out_indices],
+                                          cfg.fpn_out_channels, dt)
+            feat_in = cfg.fpn_out_channels
+            self.depth_head = nn.Conv2d(feat_in, bins + 1, 1)
+        elif cfg.image_backbone_arch == "ddn":
+            self.ddn_backbone = ResNetDeepLabBackbone((3, 4, 6, 3), dt)
+            self.ddn_classifier = DeepLabClassifier(2048, bins + 1, dt)
+            feat_in = 256
+        else:
+            raise NotImplementedError(f"image backbone {cfg.image_backbone_arch}")
+        self.channel_reduce = ConvBNReLU(feat_in, cfg.channel_reduce_out, (1, 1), use_bias=False,
+                                         dtype=dt)
+        self.f2v = FrustumToVoxelMultiScale([cfg.channel_reduce_out], cfg.f2v_out_channels,
+                                            dtype=dt, remat=cfg.remat)
+        self.grid_gen = FrustumGridGenerator((nx // 8, ny // 8, max(nz // 2, 1)), cfg.pc_range,
+                                             cfg.disc_cfg, cfg.bev_aug)
+        self.backbone_3d = VoxelBackBone8x(cfg.num_point_features, dt)
+        self.fuser_conv = nn.Conv2d(cfg.f2v_out_channels + 128 * voxel_backbone_depth(nz),
+                                    cfg.fusion_radar_out, 3, padding=1, bias=False)
+        self.fuser_bn = nn.BatchNorm2d(cfg.fusion_radar_out, eps=1e-5, momentum=0.1)
+        self.backbone_2d = BaseBEVBackbone(cfg.fusion_radar_out, (5, 5), (1, 2), (128, 256),
+                                           (1, 2), (128, 128), dtype=dt)
+        self._finish(cfg, self.backbone_2d.out_channels, device, seed)
+        if cfg.image_backbone_arch == "swin":
+            self.image_backbone.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def image_features(self, batch):
+        """-> (the reduced map (B, H, W, C), the depth logits (B, H, W, D + 1)
+        at its size)."""
+        dt = compute_dtype(self.cfg.dtype)
+        images = preprocess_images(batch["images"])
+        if self.cfg.image_backbone_arch == "swin":
+            level0 = self.neck(self.image_backbone(images))[0]
+            feat = self.channel_reduce(level0)
+            logits = conv_nhwc(level0, self.depth_head, dt)
+        else:
+            with torch.no_grad():  # frozen: its BN statistics still update in train mode
+                taps = self.ddn_backbone(images)
+            feat = self.channel_reduce(taps[0])
+            logits = self.ddn_classifier(taps[-1])
+        return feat, resize_bilinear(logits, feat.shape[1:3])
+
+    def camera_bev(self, feat, logits, batch):
+        """The depth-weighted frustum sample of ``feat``, summed over z:
+        (B, ny/8, nx/8, C)."""
+        probs = torch.softmax(logits, dim=-1)[..., :self.cfg.disc_num_bins]
+        grid = self.grid_gen(batch["trans_lidar_to_cam"], batch["trans_cam_to_img"],
+                             self.cfg.image_size, bda=batch.get("lidar_aug_matrix"))
+        return self.f2v([feat], grid, [probs]).sum(dim=3)
+
+    def lidar_bev(self, batch):
+        cfg = self.cfg
+        dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
+                               cfg.voxel_size, cfg.grid_size)
+        x3d, _ = self.backbone_3d(dense.to(compute_dtype(cfg.dtype)), mask)
+        return height_compression(x3d)
+
+    def forward(self, batch):
+        dt = compute_dtype(self.cfg.dtype)
+        feat, logits = self.image_features(batch)
+        cam = self.camera_bev(feat, logits, batch)
+        fused = torch.cat([cam, self.lidar_bev(batch).to(cam.dtype)], dim=-1)
+        fused = torch.relu(batch_norm(conv_nhwc(fused, self.fuser_conv, dt), self.fuser_bn, dt))
+        return self.dense_head(self.backbone_2d(fused))
+
+
+class TransFusionModel(_TransFusionDetector):
+    """TransFusion-L (zoo family): the PointPillars reader (``pillar_net``)
+    -> ``backbone_2d`` (BaseBEVBackbone) -> the TransFusion head
+    (``dense_head``)."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.pillar_net = _pillar_net(cfg)
+        self.backbone_2d = BaseBEVBackbone(64, dtype=cfg.dtype)
+        self._finish(cfg, self.backbone_2d.out_channels, device, seed)
+
+    def forward(self, batch):
+        bev, _ = self.pillar_net(batch["points"], batch["points_valid"])
+        return self.dense_head(self.backbone_2d(bev))
 
 
 def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,

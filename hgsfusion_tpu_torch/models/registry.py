@@ -3,16 +3,18 @@
 Counterpart of ``hgsfusion_tpu/models/registry.py::build_network`` for the
 families the port has: HGSFusion (``HGSFusion``, and ``CaDDN``, the
 reference's name for its topology), the radar-only detector (``RadarOnly``,
-``PillarNet``) and PointPillars (``PointPillar``; with
-``DENSE_HEAD.NAME: AnchorHeadMulti`` the grouped multi-head variant). Every
+``PillarNet``), PointPillars (``PointPillar``; with
+``DENSE_HEAD.NAME: AnchorHeadMulti`` the grouped multi-head variant),
+BEVFusion (``BevFusion``, ``BEVFusion``) and TransFusion-L
+(``TransFusion``). Every
 other name of the JAX registry raises, naming the ROADMAP.md item that
 ports it.
 """
 from __future__ import annotations
 
 from ..config import model_config_from_yaml
-from .detector import (HGSFusionModel, PointPillarModel, PointPillarMultiHeadModel,
-                       RadarOnlyModel)
+from .detector import (BEVFusionModel, HGSFusionModel, PointPillarModel,
+                       PointPillarMultiHeadModel, RadarOnlyModel, TransFusionModel)
 
 DETECTORS = {
     "HGSFusion": HGSFusionModel,
@@ -20,6 +22,9 @@ DETECTORS = {
     "RadarOnly": RadarOnlyModel,
     "PillarNet": RadarOnlyModel,
     "PointPillar": PointPillarModel,
+    "BevFusion": BEVFusionModel,
+    "BEVFusion": BEVFusionModel,
+    "TransFusion": TransFusionModel,
 }
 
 

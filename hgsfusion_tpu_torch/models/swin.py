@@ -18,7 +18,13 @@ pos * C + c), and ``SwinBlock.attn`` holds the window attention's
 parameters itself (the JAX ``ShiftWindowMSA`` nests them in ``w_msa``).
 ``weights.from_jax_mask2former`` converts. Attention is plain batched
 products and a softmax in f32, as the JAX package computes it in XLA.
-Inference only: no stochastic depth.
+
+In train mode each block's attention and FFN outputs pass through
+``DropPath`` (stochastic depth, rates rising linearly to
+``drop_path_rate``), drawn from the backbone's ``generator``; in eval mode,
+and at rate 0 (Mask2Former's backbone), they pass unchanged.
+``GeneralizedLSSFPN`` is BEVFusion's top-down neck over the backbone's
+outputs.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import conv_nhwc
+from .layers import ConvBNReLU, conv_nhwc, resize_bilinear
 
 
 def _rel_position_index(wh: int, ww: int) -> np.ndarray:
@@ -83,6 +89,26 @@ def _window_reverse(x, window: int, h: int, w: int):
     b = x.shape[0] // ((h // window) * (w // window))
     x = x.reshape(b, h // window, w // window, window, window, -1)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, x.shape[-1])
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in train mode at ``rate`` > 0 a sample
+    is kept with probability 1 - rate (a draw from ``generator``) and
+    scaled by 1 / (1 - rate), else zeroed; the identity otherwise."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in train mode needs a generator")
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class WindowMSA(nn.Module):
@@ -159,17 +185,19 @@ class SwinBlock(nn.Module):
     """Pre-LN attention + FFN residual block."""
 
     def __init__(self, embed_dims: int, num_heads: int, feedforward_channels: int,
-                 window_size: int = 7, shift: bool = False, qkv_bias: bool = True):
+                 window_size: int = 7, shift: bool = False, qkv_bias: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.attn = ShiftWindowMSA(embed_dims, num_heads, window_size,
                                    window_size // 2 if shift else 0, qkv_bias)
         self.norm2 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.mlp = SwinFFN(embed_dims, feedforward_channels)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, hw_shape):
-        x = x + self.attn(self.norm1(x), hw_shape)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, hw_shape, generator=None):
+        x = x + self.drop_path(self.attn(self.norm1(x), hw_shape), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class PatchEmbed(nn.Module):
@@ -214,30 +242,39 @@ class SwinStage(nn.Module):
     (None in the last stage)."""
 
     def __init__(self, dims: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: int, qkv_bias: bool, downsample: bool):
+                 mlp_ratio: int, qkv_bias: bool, downsample: bool, drop_paths=None):
         super().__init__()
+        drop_paths = drop_paths or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dims, num_heads, mlp_ratio * dims, window_size, shift=i % 2 == 1,
-                      qkv_bias=qkv_bias) for i in range(depth))
+                      qkv_bias=qkv_bias, drop_path=drop_paths[i]) for i in range(depth))
         self.downsample = PatchMerging(dims, 2 * dims) if downsample else None
 
 
 class SwinTransformer(nn.Module):
     """Hierarchical Swin backbone: (B, H, W, 3) NHWC -> the LayerNormed NHWC
-    features of the stages in ``out_indices`` (strides 4 * 2^i)."""
+    features of the stages in ``out_indices`` (strides 4 * 2^i). Block i of
+    all ``sum(depths)`` has the drop-path rate linspace(0,
+    ``drop_path_rate``)[i]; ``generator`` (a ``torch.Generator`` on the
+    backbone's device) draws them in train mode."""
 
     def __init__(self, embed_dims: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: int = 4, out_indices: Sequence[int] = (1, 2, 3),
-                 patch_size: int = 4, qkv_bias: bool = True, in_channels: int = 3):
+                 patch_size: int = 4, qkv_bias: bool = True, in_channels: int = 3,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.generator = None
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size)
         dims = [embed_dims * 2 ** i for i in range(len(depths))]
         self.num_features = dims
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum([0] + list(depths)).tolist()
         self.layers = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias,
-                      downsample=i < len(depths) - 1) for i in range(len(depths)))
+                      downsample=i < len(depths) - 1,
+                      drop_paths=dpr[starts[i]:starts[i + 1]]) for i in range(len(depths)))
         for i in self.out_indices:
             self.add_module(f"norm{i}", nn.LayerNorm(dims[i], eps=1e-5))
 
@@ -247,10 +284,38 @@ class SwinTransformer(nn.Module):
         outs = []
         for si, stage in enumerate(self.layers):
             for block in stage.blocks:
-                x = block(x, hw)
+                x = block(x, hw, self.generator)
             if si in self.out_indices:
                 out = getattr(self, f"norm{si}")(x)
                 outs.append(out.reshape(b, hw[0], hw[1], -1))
             if stage.downsample is not None:
                 x, hw = stage.downsample(x, hw)
         return outs
+
+
+class GeneralizedLSSFPN(nn.Module):
+    """BEVFusion's top-down neck (the JAX package's ``GeneralizedLSSFPN``):
+    for n inputs, n - 1 outputs; from the coarsest down, level i =
+    ``fpn_convs[i]`` (3x3) of ``lateral_convs[i]`` (1x1) of input i
+    concatenated with level i + 1 (input n - 1 for the last) resized
+    bilinearly to input i's size. Each conv is a ConvBNReLU without bias
+    (``conv``, ``bn``). NHWC in and out."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256, dtype=None):
+        super().__init__()
+        n = len(in_channels)
+        self.lateral_convs = nn.ModuleList(
+            ConvBNReLU(in_channels[i] + (in_channels[i + 1] if i == n - 2 else out_channels),
+                       out_channels, (1, 1), use_bias=False, dtype=dtype) for i in range(n - 1))
+        self.fpn_convs = nn.ModuleList(
+            ConvBNReLU(out_channels, out_channels, (3, 3), use_bias=False, dtype=dtype)
+            for _ in range(n - 1))
+
+    def forward(self, inputs):
+        laterals = list(inputs)
+        n = len(laterals)
+        for i in range(n - 2, -1, -1):
+            up = resize_bilinear(laterals[i + 1], laterals[i].shape[1:3])
+            y = self.lateral_convs[i](torch.cat([laterals[i], up.to(laterals[i].dtype)], dim=-1))
+            laterals[i] = self.fpn_convs[i](y)
+        return tuple(laterals[:n - 1])

@@ -1,4 +1,5 @@
-"""Rotated BEV overlap / IoU by the sort-free boundary integral.
+"""Rotated BEV overlap / IoU by the sort-free boundary integral, and the
+rotated 3D IoU on top of it.
 
 Counterpart of ``hgsfusion_tpu/ops/rotated_iou.py``: the intersection of two
 convex quads is the sum over each quad's edges, clipped to the other quad's
@@ -75,3 +76,18 @@ def boxes_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=_EPS)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """Rotated 3D IoU (N, M): the BEV overlap times the height overlap over
+    the union of the volumes (the JAX package's ``boxes_iou3d``)."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
+    inter3d = inter_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter3d / torch.clamp(vol_a + vol_b - inter3d, min=1e-6)

@@ -26,8 +26,11 @@ import math
 
 import torch
 
-# the frozen DDN image backbone, in the port's (reference) module names
+# the frozen DDN image backbone, in the port's (reference) module names;
+# BEVFusion's ddn camera branch keeps the JAX name (the JAX package freezes
+# every ``ddn_backbone``)
 FROZEN_PREFIX = "fusion_vfe.image_vfe.ffn.ddn.model.backbone."
+BEVFUSION_FROZEN_PREFIX = "ddn_backbone."
 
 
 def annealing_cos(start: float, end: float, pct):
@@ -68,7 +71,7 @@ def onecycle_mom_schedule(total_steps: int, moms, pct_start: float):
 
 def default_frozen_predicate(name: str) -> bool:
     """True for parameters of the frozen DDN image backbone."""
-    return name.startswith(FROZEN_PREFIX)
+    return name.startswith((FROZEN_PREFIX, BEVFUSION_FROZEN_PREFIX))
 
 
 class AdamOneCycle:

@@ -10,7 +10,9 @@ per-module functions convert the sub-tree of one JAX module into the
 same for the RHGM segmentor, the inverse of ``convert_mask2former_state``.
 
 Layouts: flax conv kernel (kH, kW, I, O) -> torch (O, I, kH, kW); sparse
-conv -> spconv's (O, kH, kW, I); dense (I, O) -> (O, I); flax BatchNorm
+conv -> spconv's (O, kH, kW, I) (3-D: (O, kD, kH, kW, I)); dense (I, O) ->
+(O, I); flax attention q/k/v (I, heads, head_dim) -> torch
+``MultiheadAttention``'s packed rows; flax BatchNorm
 {scale, bias} + {mean, var} -> {weight, bias, running_mean, running_var,
 num_batches_tracked}.
 """
@@ -29,7 +31,7 @@ def _conv(k):
 
 
 def _spconv(k):
-    return _t(np.transpose(np.asarray(k), (3, 0, 1, 2)))
+    return _t(np.moveaxis(np.asarray(k), -1, 0))
 
 
 def _linear(k):
@@ -241,11 +243,111 @@ def anchor_head(p):
             for k, v in _prefix(name, conv(p[name])).items()}
 
 
+def voxel_backbone(p, s):
+    """voxel_backbone.VoxelBackBone8x (pcdet names): ``conv_input``,
+    ``conv1.0``, ``conv{i}.{0, 1, 2}`` from the JAX ``conv{i}_down``,
+    ``_a``, ``_b``, ``conv_out``; each block ``0`` the convolution, ``1``
+    the BN."""
+    names = {"conv_input": "conv_input", "conv1": "conv1.0", "conv_out": "conv_out"}
+    for i in (2, 3, 4):
+        names.update({f"conv{i}_down": f"conv{i}.0", f"conv{i}_a": f"conv{i}.1",
+                      f"conv{i}_b": f"conv{i}.2"})
+    out = {}
+    for jax_name, name in names.items():
+        out.update(_prefix(f"{name}.0", conv(p[jax_name]["conv"], _spconv)))
+        out.update(_prefix(f"{name}.1", batch_norm(p[jax_name]["bn"], s[jax_name]["bn"])))
+    return out
+
+
+def flax_attention(p):
+    """transfusion_head.MultiheadAttention from flax
+    ``MultiHeadDotProductAttention``: ``query``/``key``/``value`` kernels
+    (I, heads, head_dim) -> rows [Wq; Wk; Wv], ``out`` (heads, head_dim, O)."""
+    def rows(k):
+        k = np.asarray(k)
+        return k.reshape(k.shape[0], -1).T
+
+    out = np.asarray(p["out"]["kernel"])
+    return {"in_proj_weight": _t(np.concatenate([rows(p[n]["kernel"])
+                                                 for n in ("query", "key", "value")])),
+            "in_proj_bias": _t(np.concatenate([np.asarray(p[n]["bias"]).reshape(-1)
+                                               for n in ("query", "key", "value")])),
+            "out_proj.weight": _t(out.reshape(-1, out.shape[-1]).T),
+            "out_proj.bias": _t(p["out"]["bias"])}
+
+
+def _mlp_bn(p, s, names):
+    """Linear / BatchNorm1d leaves by their JAX names."""
+    out = {}
+    for n in names:
+        out.update(_prefix(n, batch_norm(p[n], s[n]) if n == "bn" else conv(p[n], _linear)))
+    return out
+
+
+def transfusion_head(p, s):
+    """transfusion_head.TransFusionHead (the JAX names)."""
+    out = {**_prefix("shared_conv", conv(p["shared_conv"])),
+           **_prefix("hm_conv1", conv(p["hm_conv1"])),
+           **_prefix("hm_bn", batch_norm(p["hm_bn"], s["hm_bn"])),
+           **_prefix("hm_out", conv(p["hm_out"])),
+           **_prefix("class_encoding", conv(p["class_encoding"], _linear))}
+    dp, ds = p["decoder"], s["decoder"]
+    for n in ("self_posembed", "cross_posembed"):
+        out.update(_prefix(f"decoder.{n}", _mlp_bn(dp[n], ds[n], ("fc1", "bn", "fc2"))))
+    for n in ("self_attn", "cross_attn"):
+        out.update(_prefix(f"decoder.{n}", flax_attention(dp[n])))
+    for n in ("norm1", "norm2", "norm3"):
+        out.update(_prefix(f"decoder.{n}", layer_norm(dp[n])))
+    for n in ("linear1", "linear2"):
+        out.update(_prefix(f"decoder.{n}", conv(dp[n], _linear)))
+    for n in ("center", "height", "dim", "rot", "heatmap"):
+        out.update(_prefix(n, _mlp_bn(p[n], s[n], ("fc", "bn", "out"))))
+    return out
+
+
+def generalized_lss_fpn(p, s):
+    """swin.GeneralizedLSSFPN: the JAX ``lateral_{i}`` / ``fpn_{i}`` ->
+    ``lateral_convs.{i}`` / ``fpn_convs.{i}``."""
+    out = {}
+    for name in p:
+        kind, i = name.rsplit("_", 1)
+        out.update(_prefix(f"{'lateral_convs' if kind == 'lateral' else 'fpn_convs'}.{i}",
+                           conv_bn_relu(p[name], s[name])))
+    return out
+
+
+def _bevfusion(p, s):
+    """BEVFusionModel (either camera branch)."""
+    if "image_backbone" in p:
+        out = {**_prefix("image_backbone", swin_transformer(p["image_backbone"])),
+               **_prefix("neck", generalized_lss_fpn(p["neck"], s["neck"])),
+               **_prefix("depth_head", conv(p["depth_head"]))}
+    else:
+        out = {**_prefix("ddn_backbone", resnet_backbone(p["ddn_backbone"], s["ddn_backbone"])),
+               **_prefix("ddn_classifier",
+                         deeplab_classifier(p["ddn_classifier"], s["ddn_classifier"]))}
+    return {**out, **_prefix("channel_reduce", conv_bn_relu(p["channel_reduce"],
+                                                            s["channel_reduce"])),
+            **_prefix("f2v", frustum_to_voxel(p["f2v"], s["f2v"])),
+            **_prefix("backbone_3d", voxel_backbone(p["backbone_3d"], s["backbone_3d"])),
+            **_prefix("fuser_conv", conv(p["fuser_conv"])),
+            **_prefix("fuser_bn", batch_norm(p["fuser_bn"], s["fuser_bn"])),
+            **_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])),
+            **_prefix("dense_head", transfusion_head(p["dense_head"], s["dense_head"]))}
+
+
 def from_jax_variables(variables):
     """JAX detector variables {"params", "batch_stats"} -> state_dict, for
-    HGSFusionModel, RadarOnlyModel, PointPillarModel and
-    PointPillarMultiHeadModel (told apart by their top-level modules)."""
+    HGSFusionModel, RadarOnlyModel, PointPillarModel,
+    PointPillarMultiHeadModel, BEVFusionModel and TransFusionModel (told
+    apart by their top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
+    if "backbone_3d" in p:
+        return _bevfusion(p, s)
+    if "decoder" in p.get("dense_head", {}):  # TransFusion-L
+        return {**_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])),
+                **_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])),
+                **_prefix("dense_head", transfusion_head(p["dense_head"], s["dense_head"]))}
     if "backbone_2d" in p:  # the PointPillar families
         head = p["dense_head"]
         return {**_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])),

@@ -55,6 +55,29 @@ def perturb_variables(variables, seed=0):
     return walk(to_numpy_tree(dict(variables)))
 
 
+def shaped_variables(module, *args, seed: int = 0):
+    """Numpy variables in the shapes of ``module``'s init on ``args``
+    (``jax.eval_shape``: nothing compiles): kernels LeCun normal, biases
+    near 0, norm scales near 1, BN means near 0 and variances in [0.5,
+    1.5], other parameters N(0, 0.5)."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            a = rng.normal(0.0, 1.0 / np.sqrt(np.prod(s.shape[:-1])), s.shape)
+        elif name in ("scale", "var"):
+            a = rng.uniform(0.8, 1.2, s.shape) if name == "scale" else rng.uniform(0.5, 1.5, s.shape)
+        elif name in ("bias", "mean"):
+            a = rng.normal(0.0, 0.05 if name == "bias" else 0.1, s.shape)
+        else:
+            a = rng.normal(0.0, 0.5, s.shape)
+        return a.astype(np.float32)
+
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))
+    return jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+
+
 def lift_bn_biases(variables, shift: float = 4.0):
     """``variables`` with every BatchNorm's bias (a module named ``*bn*``)
     raised by ``shift``: in train mode a normalized value plus 4 sits below
