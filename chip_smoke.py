@@ -343,15 +343,36 @@ and launches of what ran):
 55. serve TransFusion-L: ``configs/transfusion_vod.yaml`` (pillars, head at
     160 x 160) served as 52 (no kernel), then ``bench --transfusion``;
 56. train CLI TransFusion-L: that config through ``tools.train.main`` and
-    ``tools.test.main --ckpt_dir`` as 54 (no kernel).
+    ``tools.test.main --ckpt_dir`` as 54 (no kernel);
+57. nms center: ``nms_lazy`` against its plain version at the center
+    families' shapes (the decode's 500 candidates at 0.01, B=1 and B=2, a
+    tenth valid; the nuScenes CenterPoint's 500 at 0.2, 83 kept): equal keep
+    sets, timed beside the bound;
+58. small reference, center families: CenterPoint (classic and res2d),
+    SECOND, VoxelNeXt and VoxelNeXt2D cut to TINY (``tiny_center``), card vs
+    CPU: heads within 1e-4, the post-processing of the CPU's heads (scores
+    untied by a ramp) equal on both devices, one NMS call on the card;
+59. serve the center families and SECOND (``CENTER_ZOO``:
+    ``configs/centerpoint_vod.yaml``, ``centerpoint_pillarres2d_vod.yaml``,
+    ``second_vod.yaml``, ``voxelnext_vod.yaml``, ``voxelnext2d_vod.yaml``)
+    at full width on ``flagship_batch``, and ``centerpoint_nuscenes.yaml``
+    on ``nuscenes_batch``: 3 frames at B=1 (one NMS call each, no other
+    kernel), stream, wall and profiled device ms, peak memory, as 52; then
+    ``bench.main(["--<name>"])`` for each VoD one;
+60. train CenterPoint, SECOND and VoxelNeXt at B=1 and the nuScenes
+    CenterPoint at B=4 as 46: 3 steps after a warm-up, no kernel, every
+    trainable tensor with a gradient moved, no host sync, the 3-D
+    convolutions' tap products a step;
+61. train CLI CenterPoint and SECOND: as 54, one NMS call a frame.
 
 4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
-(a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept.
+(a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept;
+57 to the center families' (the NMS rows' ``center`` block).
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27, 28-31, 33-36, 39-44, 46-49 and 52-56, the ranks' launches
-summed),
+serving hosts, 27, 28-31, 33-36, 39-44, 46-49, 52-56 and 59-61, the ranks'
+launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -398,6 +419,8 @@ from hgsfusion_tpu_torch.models.frustum import FrustumGridGenerator
 from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_images
+from hgsfusion_tpu_torch.models.transfusion_head import TransFusionHead
+from hgsfusion_tpu_torch.models.voxel_backbone import SparseConv3d
 from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, quad_sample,
                                  row_scatter)
 from hgsfusion_tpu_torch.ops.grid_sample import (div_exact, quad_sample_bwd_plain,
@@ -1699,7 +1722,11 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "train_occ_v2", "serve_radar", "train_radar", "train_cli_radar",
               "serve_pp_multihead", "train_pp_multihead", "demo", "serve_bevfusion",
               "train_bevfusion", "train_cli_bevfusion", "serve_transfusion",
-              "train_cli_transfusion")
+              "train_cli_transfusion", "serve_centerpoint", "serve_centerpoint_res2d",
+              "serve_second", "serve_voxelnext", "serve_voxelnext2d",
+              "serve_centerpoint_nuscenes", "train_centerpoint", "train_second",
+              "train_voxelnext", "train_centerpoint_nuscenes", "train_cli_centerpoint",
+              "train_cli_second")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -4356,20 +4383,30 @@ def phase_serve_zoo(dev, family: str, cfg, batch, frames: int = 3):
     return result
 
 
+def conv3d_taps(model) -> int:
+    """The weight-gradient products of a training step's 3-D convolutions:
+    one per kernel tap of each (``voxel_backbone._Conv3dNDHWC``)."""
+    return sum(int(np.prod(m.weight.shape[1:4])) for m in model.modules()
+               if isinstance(m, SparseConv3d))
+
+
 def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3):
     """A zoo config's training step at full width (``make_train_step_for_cfg``)
-    after a warm-up: no kernel launched, finite losses, a positive anchor,
-    every trainable tensor with a gradient moved, no host sync in a step;
-    each step's stream ms (CUDA events), one profiled step's device time,
-    peak memory."""
+    after a warm-up: no kernel launched, finite losses, a positive anchor
+    (where the family has anchors), every trainable tensor with a gradient
+    moved, no host sync in a step; each step's stream ms (CUDA events), one
+    profiled step's device time and top kernels, peak memory, the 3-D
+    convolutions' tap products a step (``conv3d_taps``)."""
     model = build_network(family, cfg, device=dev, seed=0)
     opt, _ = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, model)
     cap = GradCapture(opt)
     assigner, step = make_train_step_for_cfg(model, cap, cfg)
     b = model.batch_to_device(batch)
-    positives = int((assigner(b["gt_boxes"])["box_cls_labels"] > 0).sum())
-    if positives == 0:
-        raise AssertionError("no anchor is positive for the synthetic gt boxes")
+    positives = None
+    if assigner is not None:
+        positives = int((assigner(b["gt_boxes"])["box_cls_labels"] > 0).sum())
+        if positives == 0:
+            raise AssertionError("no anchor is positive for the synthetic gt boxes")
     params = dict(model.named_parameters())
     before = {k: p.detach().clone() for k, p in params.items()}
     _, warm = step(b)
@@ -4408,12 +4445,14 @@ def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3):
                     if "called a synchronizing CUDA operation" in str(w.message)})
     if syncs:
         raise AssertionError(f"the training step made the host wait for the device at {syncs}")
+    profiled = profiled_top(lambda: step(b))
     result = {"steps": steps, "batch": int(b["points"].shape[0]), "launches": launches,
-              "step_stream_ms": device_ms, "profiled_step_device_ms": profiled_device_ms(
-                  lambda: step(b)), "peak_memory_bytes": peak,
+              "step_stream_ms": device_ms, "profiled_step_device_ms": profiled["device_ms"],
+              "profiled_step_top": profiled["top"], "peak_memory_bytes": peak,
               "positive_anchors": positives, "loss_terms": terms,
               "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
-              "trainable_tensors": len(before), "moved": len(moving)}
+              "conv3d_tap_products": conv3d_taps(model), "trainable_tensors": len(before),
+              "moved": len(moving)}
     print("  " + json.dumps(result))
     return result
 
@@ -4722,14 +4761,17 @@ def phase_small_reference_bevfusion(dev):
     return report
 
 
-def phase_serve_transfusion_family(dev, name: str, cfg, batch, per_frame: dict, frames: int = 3):
-    """A TransFusion-head config (``bench.ZOO[name]``) at full width through
-    ``serve()`` after a warm-up: the frames' launches, each frame's stream
-    ms (CUDA events) and wall ms, one profiled frame's device time, peak
-    memory, the detections (one per proposal, finite); then the port's
-    ``bench`` entry point (``main(["--<name>"])``, in this process): one
-    JSON line with a positive value and its timed calls' launches."""
-    model = build_network(bench.ZOO[name][1], cfg, device=dev, seed=0)
+def phase_serve_family(dev, name: str, cfg, batch, per_frame: dict, frames: int = 3,
+                       family=None):
+    """A zoo config (``bench.ZOO[name]``, or the MODEL.NAME ``family``) at
+    full width through ``serve()`` after a warm-up: the frames' launches,
+    each frame's stream ms (CUDA events) and wall ms, one profiled frame's
+    device time, peak memory, the detections (one per proposal for the
+    TransFusion head, else the NMS's ``nms_post_max_size`` slots; finite);
+    then, for a ``bench.ZOO`` name, the port's ``bench`` entry point
+    (``main(["--<name>"])``, in this process): one JSON line with a
+    positive value and its timed calls' launches."""
+    model = build_network(family or bench.ZOO[name][1], cfg, device=dev, seed=0)
     model.serve(batch)  # warm-up: cuDNN plans, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4749,13 +4791,21 @@ def phase_serve_transfusion_family(dev, name: str, cfg, batch, per_frame: dict, 
     if launches != per_frames(per_frame, frames):
         raise AssertionError(f"launches in {frames} frames {launches}, want "
                              f"{per_frames(per_frame, frames)}")
-    if dets["boxes"].shape != (1, cfg.center_max_k, 7) or not bool(
+    rows = (cfg.center_max_k if isinstance(model.dense_head, TransFusionHead)
+            else cfg.nms_post_max_size)
+    if dets["boxes"].shape != (1, rows, 7) or not bool(
             torch.isfinite(dets["boxes"]).all() and torch.isfinite(dets["scores"]).all()):
-        raise AssertionError(f"detections {dets['boxes'].shape}, want {cfg.center_max_k} rows, "
-                             "finite")
+        raise AssertionError(f"detections {dets['boxes'].shape}, want {rows} rows, finite")
     profiled = profiled_top(lambda: model.serve(batch))
     del model
     torch.cuda.empty_cache()
+    result = {"frames": frames, "launches": launches, "frame_stream_ms": stream_ms,
+              "frame_wall_ms": wall, "profiled_frame_device_ms": profiled["device_ms"],
+              "profiled_frame_top": profiled["top"], "peak_memory_bytes": peak,
+              "valid_boxes": int(dets["valid"].sum())}
+    if name not in bench.ZOO:
+        print("  " + json.dumps(result))
+        return result
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = bench.main([f"--{name}"])
@@ -4768,12 +4818,8 @@ def phase_serve_transfusion_family(dev, name: str, cfg, batch, per_frame: dict, 
         raise AssertionError(f"bench --{name}: rc {rc}, {lines}, {err.getvalue()[-2000:]}")
     if counted[0]["counts"] != per_frames(per_frame, counted[0]["serve_calls"]):
         raise AssertionError(f"bench --{name}: launches {counted[0]}")
-    result = {"frames": frames,
-              "launches": {k: launches[k] + counted[0]["counts"][k] for k in launches},
-              "frame_stream_ms": stream_ms, "frame_wall_ms": wall,
-              "profiled_frame_device_ms": profiled["device_ms"],
-              "profiled_frame_top": profiled["top"], "peak_memory_bytes": peak,
-              "valid_boxes": int(dets["valid"].sum()), "bench": {**line, "stderr": notes}}
+    result.update(launches={k: launches[k] + counted[0]["counts"][k] for k in launches},
+                  bench={**line, "stderr": notes})
     print("  " + json.dumps(result))
     return result
 
@@ -4842,11 +4888,12 @@ def phase_train_bevfusion(dev, steps: int = 3):
     return result
 
 
-def phase_train_cli_transfusion_family(dev, yaml_path: str, per_step: dict, per_frame: dict):
-    """A TransFusion-head YAML through the CLIs at full width:
-    ``tools/train.py`` over an 8-frame VoD tree (``per_step`` launches a
-    step; BEVFusion: BEV_STEP), then ``tools/test.py --ckpt_dir`` on its
-    checkpoint (``per_frame``; BEVFusion: one D1)."""
+def phase_train_cli_family(dev, yaml_path: str, per_step: dict, per_frame: dict):
+    """A zoo YAML (the TransFusion-head families, CenterPoint, SECOND)
+    through the CLIs at full width: ``tools/train.py`` over an 8-frame VoD
+    tree (``per_step`` launches a step; BEVFusion: BEV_STEP), then
+    ``tools/test.py --ckpt_dir`` on its checkpoint (``per_frame``;
+    BEVFusion: one D1; CenterPoint, SECOND: one NMS call)."""
     cfg = load_config(yaml_path)
     data = cfg["DATA_CONFIG"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4884,6 +4931,168 @@ def phase_train_cli_transfusion_family(dev, yaml_path: str, per_step: dict, per_
               "eval_ms_per_frame": stats.get("ms_per_frame"), "eval_result": result_dict}
     print("  " + json.dumps(result))
     return result
+
+
+# ---- CenterPoint, SECOND and VoxelNeXt -----------------------------------
+# the VoD configs of the center-head families and SECOND (f32), by the
+# ``bench.ZOO`` name of each; the nuScenes CenterPoint served and trained
+# on ``nuscenes_batch``
+CENTER_ZOO = ("centerpoint", "centerpoint_res2d", "second", "voxelnext", "voxelnext2d")
+CP_NUSCENES_YAML = "configs/centerpoint_nuscenes.yaml"
+CENTER_TRAIN_BATCH = 4  # BATCH_SIZE_PER_DEVICE of configs/centerpoint_nuscenes.yaml
+# the decoded candidates' NMS: VoD 500 at 0.01 (500 kept at most), nuScenes
+# 500 at 0.2 (83 kept)
+CENTER_K, NUSC_NMS_KEEP = 500, 83
+# the TINY cut of each VoD arch (tests/test_torch_center_families.py)
+TINY_RANGE = (0.0, -8.0, -3.0, 16.0, 8.0, 2.0)
+
+
+def zoo_config(name: str):
+    """The model config of ``bench.ZOO[name]``'s YAML (f32)."""
+    return model_config_from_yaml(load_config(bench.ZOO[name][0]))
+
+
+def cp_nuscenes_config():
+    return model_config_from_yaml(load_config(CP_NUSCENES_YAML))
+
+
+def cp_nuscenes_batch(cfg, b: int = 1):
+    """``nuscenes_batch`` for the anchor-free CenterPoint config: its boxes
+    sized by the multi-head config's anchors (the same ten classes)."""
+    return nuscenes_batch(dataclasses.replace(cfg, anchor_generator=pp_config().anchor_generator),
+                          b=b)
+
+
+def tiny_center(name: str):
+    """A VoD arch cut to TINY: 0.5 m pillars (CenterPoint, head at stride 2),
+    0.25 m (the sparse-pillar archs, stride 8), 0.5 / 0.125 m voxels (SECOND,
+    VoxelNeXt: 41 planes), 16 candidates, NMS over all of them, score
+    threshold 0 (random weights score near the 0.1 default)."""
+    cfg = zoo_config(name)
+    voxel = {"centerpoint": (0.5, 0.5, 0.5), "second": (0.5, 0.5, 0.125),
+             "voxelnext": (0.5, 0.5, 0.125)}.get(name, (0.25, 0.25, 0.5))
+    anchors = tuple(cfg.anchor_generator)
+    return dataclasses.replace(cfg, pc_range=TINY_RANGE, voxel_size=voxel, center_max_k=16,
+                               nms_pre_max_size=96, nms_post_max_size=16, score_thresh=0.0,
+                               center_post_limit=(-5.0, -30.0, -5.0, 55.0, 30.0, 5.0),
+                               anchor_generator=anchors)
+
+
+def tiny_center_batch(cfg):
+    """Two frames of 256 points over the TINY range (17 features), two gt
+    boxes."""
+    rng = np.random.RandomState(0)
+    pts = np.zeros((2, 256, cfg.num_point_features), np.float32)
+    pts[..., 0] = rng.uniform(0.5, 15, (2, 256))
+    pts[..., 1] = rng.uniform(-7, 7, (2, 256))
+    pts[..., 2] = rng.uniform(-2.5, 1.5, (2, 256))
+    pts[..., 3:] = rng.randn(2, 256, cfg.num_point_features - 3)
+    gt = np.zeros((2, 4, 8), np.float32)
+    gt[:, 0] = [4, -2, -0.5, 3.9, 1.6, 1.56, 0.3, 1]
+    return {"points": pts, "points_valid": np.ones((2, 256), bool), "gt_boxes": gt}
+
+
+def phase_nms_center(dev):
+    """``nms_lazy`` against its plain version at the center families'
+    shapes: the decode's 500 candidates at 0.01 (500 kept at most) for B=1
+    and B=2, and the nuScenes CenterPoint's 500 at 0.2 (83 kept), every
+    candidate valid, and a B=1 case with a tenth valid (the decode's
+    ``valid``); the keep sets must equal the plain version's."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    vod = t(clustered_boxes(CENTER_K, 100, 7))[None]
+    pair = t(np.stack([clustered_boxes(CENTER_K, 100, 8), clustered_boxes(CENTER_K, 200, 9)]))
+    ones = torch.ones((1, CENTER_K), dtype=torch.bool, device=dev)
+    rows = [
+        nms_case("center_vod", vod, ones, NMS_KEEP, timed=True),
+        nms_case("center_vod_b2", pair, ones.expand(2, -1).contiguous(), NMS_KEEP, timed=True),
+        nms_case("center_vod_tenth", vod, torch.arange(CENTER_K, device=dev)[None] % 10 == 0,
+                 NMS_KEEP, timed=False),
+        nms_case("center_nuscenes", t(nuscenes_candidate_sets(1, CENTER_K, 10)), ones,
+                 NUSC_NMS_KEEP, timed=True, nms_thresh=MH_NMS_THRESH),
+    ]
+    for r in rows:
+        if not r["equal_to_plain"]:
+            raise AssertionError(f"{r['case']}: keep sets differ from the plain version's")
+    if rows[3]["kept"] != [NUSC_NMS_KEEP]:
+        raise AssertionError(f"nuScenes kept {rows[3]['kept']}")
+    return rows
+
+
+def phase_top_scores(dev):
+    """``ops.nms.top_scores`` (a stable descending sort, equal scores by
+    index, as every detection pre-selection of the port takes it) against
+    ``torch.topk`` (ties in no stated order) at the pre-selection shapes:
+    the radar-only VoD anchors, SECOND's, the CenterPoint heatmaps (VoD,
+    nuScenes) and the NMS's own top ``NMS_PRE_MAXSIZE``: the device ms of
+    each; the values must be equal."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rows = []
+    for case, b, n, k in (("radar_vod_anchors", 1, 614_400, NMS_K),
+                          ("second_anchors", 1, 9_600, NMS_K),
+                          ("centerpoint_vod_hm", 1, 76_800, CENTER_K),
+                          ("centerpoint_nuscenes_hm", 1, 655_360, CENTER_K),
+                          ("centerpoint_vod_hm_b2", 2, 76_800, CENTER_K),
+                          ("nms_pre", 1, CENTER_K, CENTER_K)):
+        # sigmoid scores quantized so that ties occur, as random weights give
+        scores = (torch.rand((b, n), generator=g) * 4096).floor().div(4096).to(dev)
+        values, _ = nms.top_scores(scores, k)
+        if not torch.equal(values, torch.topk(scores, k, dim=-1).values):
+            raise AssertionError(f"{case}: top_scores' values differ from torch.topk's")
+        rows.append({"case": case, "batch": b, "n": n, "k": k,
+                     "ms": cuda_ms(lambda: nms.top_scores(scores, k), iters=20),
+                     "topk_ms": cuda_ms(lambda: torch.topk(scores, k, dim=-1), iters=20)})
+    print("  " + json.dumps(rows))
+    return rows
+
+
+def compare_center_detections(d_ref, d_got) -> dict:
+    """Detections of one model's post-processing on the CPU and on the card
+    from the same (tie-broken) head outputs: valid and labels equal, boxes
+    and scores within 1e-5."""
+    d_got = {k: v.cpu() for k, v in d_got.items()}
+    for k in ("valid", "labels"):
+        if not torch.equal(d_got[k], d_ref[k]):
+            raise AssertionError(f"the card's post_process {k} differ from the CPU's")
+    for k in ("boxes", "scores"):
+        torch.testing.assert_close(d_got[k], d_ref[k], rtol=1e-5, atol=1e-5)
+    return {"kept": int(d_ref["valid"].sum())}
+
+
+def phase_small_reference_center(dev):
+    """Each VoD arch (CenterPoint classic and res2d, SECOND, VoxelNeXt, and
+    VoxelNeXt2D) cut to TINY, card vs CPU, one set of weights: every head
+    output within 1e-4; the post-processing (decode and NMS, or SECOND's
+    anchors and NMS) of the CPU's heads with a ramp added to the scores
+    (the tie rule: random weights leave scores within 1e-6 of each other,
+    which the two devices' sigmoids may order apart) on both devices: the
+    kept candidates equal; one NMS call each on the card."""
+    out = {}
+    for name in CENTER_ZOO:
+        cfg = tiny_center(name)
+        family = bench.ZOO[name][1]
+        cpu_model = build_network(family, cfg, device="cpu", seed=3)
+        gpu_model = build_network(family, cfg, device=dev, seed=3)
+        batch = tiny_center_batch(cfg)
+        with torch.inference_mode():
+            ref = cpu_model(cpu_model.batch_to_device(batch))
+            got = gpu_model(gpu_model.batch_to_device(batch))
+            errs = {k: float((got[k].cpu() - r).abs().max()) for k, r in ref.items()}
+            for k, r in ref.items():
+                torch.testing.assert_close(got[k].cpu(), r, rtol=1e-4, atol=1e-4)
+            key = "cls_preds" if name == "second" else "hm"
+            ramp = torch.linspace(0, 1.0, ref[key].numel()).view(ref[key].shape)
+            ref = {**ref, key: ref[key] + ramp}
+            zero_launches()
+            d_got = gpu_model.post_process({k: v.to(dev) for k, v in ref.items()})
+            launches = dict(library.launches)
+            d_ref = cpu_model.post_process(ref)
+        if launches != per_frames(NMS_CALL, 1):
+            raise AssertionError(f"{name}: launches {launches}, want one NMS call")
+        out[name] = {"head_max_abs_err": errs, **compare_center_detections(d_ref, d_got)}
+    print("  " + json.dumps(out))
+    return out
 
 
 def phases(dev) -> list:
@@ -4964,14 +5173,35 @@ def phases(dev) -> list:
         full("demo", phase_demo, dev),
         full("depth_kernels_bevfusion", phase_depth_kernels_bevfusion, dev),
         step("small_reference_bevfusion", phase_small_reference_bevfusion, dev),
-        full("serve_bevfusion", lambda: phase_serve_transfusion_family(
+        full("serve_bevfusion", lambda: phase_serve_family(
             dev, "bevfusion", bevfusion_config(), flagship_batch(bevfusion_config()), BEV_FRAME)),
         full("train_bevfusion", phase_train_bevfusion, dev),
-        full("train_cli_bevfusion", phase_train_cli_transfusion_family, dev, BEV_YAML, BEV_STEP,
+        full("train_cli_bevfusion", phase_train_cli_family, dev, BEV_YAML, BEV_STEP,
              BEV_FRAME),
-        full("serve_transfusion", lambda: phase_serve_transfusion_family(
+        full("serve_transfusion", lambda: phase_serve_family(
             dev, "transfusion", transfusion_config(), radar_batch(transfusion_config()), {})),
-        full("train_cli_transfusion", phase_train_cli_transfusion_family, dev, TF_YAML, {}, {}),
+        full("train_cli_transfusion", phase_train_cli_family, dev, TF_YAML, {}, {}),
+        step("nms_center", phase_nms_center, dev),
+        step("top_scores", phase_top_scores, dev),
+        step("small_reference_center", phase_small_reference_center, dev),
+    ]
+    for name in CENTER_ZOO:
+        out.append(full(f"serve_{name}", lambda n=name: phase_serve_family(
+            dev, n, zoo_config(n), flagship_batch(zoo_config(n)), NMS_CALL)))
+    out.append(full("serve_centerpoint_nuscenes", lambda: phase_serve_family(
+        dev, "centerpoint_nuscenes", cp_nuscenes_config(),
+        cp_nuscenes_batch(cp_nuscenes_config()), NMS_CALL, family="CenterPoint")))
+    for name in ("centerpoint", "second", "voxelnext"):
+        out.append(full(f"train_{name}", lambda n=name: phase_train_zoo(
+            dev, bench.ZOO[n][1], zoo_config(n), flagship_batch(zoo_config(n)))))
+    out += [
+        full("train_centerpoint_nuscenes", lambda: phase_train_zoo(
+            dev, "CenterPoint", cp_nuscenes_config(),
+            cp_nuscenes_batch(cp_nuscenes_config(), b=CENTER_TRAIN_BATCH))),
+        full("train_cli_centerpoint", phase_train_cli_family, dev,
+             bench.ZOO["centerpoint"][0], {}, NMS_CALL),
+        full("train_cli_second", phase_train_cli_family, dev,
+             bench.ZOO["second"][0], {}, NMS_CALL),
     ]
     return out
 
@@ -5184,6 +5414,12 @@ def main(argv=None) -> int:
                     "plain_route_ms", "bound_ms", f"{key}_bound_ms", "mask_circle_tests",
                     "mask_iou_evals")} for r in timed},
             })
+            # the center families' shapes (500 decoded candidates), where
+            # that phase ran too; alone, its rows stay under "nms_center"
+            if "nms_center" in report:
+                kernels[-1]["center"] = {r["case"]: {k: r.get(k) for k in (
+                    "kept", "equal_to_plain", "ms", f"{key}_ms", "plain_ms", f"{key}_plain_ms",
+                    "bound_ms", f"{key}_bound_ms")} for r in report["nms_center"]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

@@ -2,7 +2,8 @@
 counterpart of the repository's ``bench.py``).
 
     python -m hgsfusion_tpu_torch.bench [--<name>] [--batch N] [--realistic]
-    python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion [--batch N]
+    python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion | --centerpoint |
+        --centerpoint_res2d | --second | --voxelnext | --voxelnext2d [--batch N]
 
 Frames/s of the whole served pipeline (image backbone, view transform,
 radar branch, fusion, anchor head, box decode and rotated NMS) through
@@ -54,9 +55,14 @@ REF_A100_FPS = 18.0  # bench.py's estimate of the reference on an A100
 TARGET_MULTIPLIER = 3.0
 CHAINS, CHAIN_LEN = 3, 20
 IMAGE_HW = (516, 1936)
-# the zoo families' configs (f32) and their MODEL.NAME
+# the zoo families' VoD configs (f32) and their MODEL.NAME
 ZOO = {"bevfusion": ("configs/bevfusion_vod.yaml", "BEVFusion"),
-       "transfusion": ("configs/transfusion_vod.yaml", "TransFusion")}
+       "transfusion": ("configs/transfusion_vod.yaml", "TransFusion"),
+       "centerpoint": ("configs/centerpoint_vod.yaml", "CenterPoint"),
+       "centerpoint_res2d": ("configs/centerpoint_pillarres2d_vod.yaml", "CenterPoint"),
+       "second": ("configs/second_vod.yaml", "SECONDNet"),
+       "voxelnext": ("configs/voxelnext_vod.yaml", "VoxelNeXt"),
+       "voxelnext2d": ("configs/voxelnext2d_vod.yaml", "VoxelNeXt")}
 
 
 def flagship_config(name: str):

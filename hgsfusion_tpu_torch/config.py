@@ -48,6 +48,25 @@ _VOD_OPTIMIZATION = {
 }
 
 
+# the CenterHead branches' default widths (SEPARATE_HEAD_CFG.HEAD_DICT)
+_DEFAULT_CENTER_CHANNELS = {"center": 2, "center_z": 1, "dim": 3, "rot": 2, "vel": 2, "iou": 1}
+# BACKBONE_3D.NAME -> backbone_3d_arch (any other name, or none: "voxel8x")
+_BACKBONE_3D_ARCH = {"VoxelBackBone8xFocal": "voxel8x_focal", "PillarBackBone8x": "pillar_8x",
+                     "PillarRes18BackBone8x": "pillar_res2d_8x",
+                     "VoxelResBackBone8xVoxelNeXt2D": "voxelnext2d"}
+
+
+def _center_head_layout(head: dict):
+    """(HEAD_ORDER, each branch's out_channels) of a CenterHead block, with
+    the defaults where SEPARATE_HEAD_CFG leaves them out."""
+    sep = head.get("SEPARATE_HEAD_CFG", {})
+    order = tuple(sep.get("HEAD_ORDER", ("center", "center_z", "dim", "rot")))
+    head_dict = sep.get("HEAD_DICT", {})
+    return order, tuple(head_dict.get(k, {}).get("out_channels",
+                                                 _DEFAULT_CENTER_CHANNELS.get(k, 2))
+                        for k in order)
+
+
 def _frozen(v):
     """YAML lists as tuples, so configs compare and print alike."""
     if isinstance(v, dict):
@@ -135,6 +154,18 @@ class HGSFusionConfig:
     center_gaussian_overlap: float = 0.1
     center_min_radius: int = 2
     center_post_limit: Tuple[float, ...] = (-75.0, -75.0, -10.0, 75.0, 75.0, 10.0)
+    # the CenterHead's regression branches (SEPARATE_HEAD_CFG.HEAD_ORDER and
+    # their out_channels; ``vel`` adds 2)
+    center_head_order: Tuple[str, ...] = ("center", "center_z", "dim", "rot")
+    center_head_channels: Tuple[int, ...] = (2, 1, 3, 2)
+    # BACKBONE_3D.NAME: "voxel8x" (VoxelBackBone8x, or none), "voxel8x_focal",
+    # "pillar_8x", "pillar_res2d_8x", "voxelnext2d"; and BaseBEVBackboneV1's
+    # BACKBONE_2D
+    backbone_3d_arch: str = "voxel8x"
+    bev_v1_layer_nums: Tuple[int, ...] = (5, 5)
+    bev_v1_num_filters: Tuple[int, ...] = (256, 256)
+    bev_v1_upsample_strides: Tuple[int, ...] = (1, 2)
+    bev_v1_num_upsample_filters: Tuple[int, ...] = (128, 128)
     compute_dtype: str = "float32"
     # recompute the gather f2v's sample + reduce product and the polar view's
     # pass 2 in the backward pass instead of keeping what they save
@@ -148,6 +179,9 @@ class HGSFusionConfig:
     nms_thresh: float = 0.01
     nms_pre_max_size: int = 4096
     nms_post_max_size: int = 500
+    # NMS_CONFIG.NMS_TYPE; None where POST_PROCESSING has no NMS_CONFIG (a
+    # CenterHead then keeps its raw decode)
+    nms_type: str | None = "nms_gpu"
     optimization: Dict[str, Any] = dataclasses.field(
         default_factory=lambda: dict(_VOD_OPTIMIZATION))
 
@@ -328,9 +362,10 @@ def cfg_from_list(cfg: dict, kv_list) -> dict:
 
 def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
     """HGSFusionConfig from a loaded reference-schema YAML: the HGSFusion,
-    radar-only, PointPillar, BEVFusion and TransFusion-L families, with an
-    AnchorHeadSingle, an AnchorHeadMulti or the anchor-free TransFusionHead
-    (its static fields as the JAX package reads them)."""
+    radar-only, PointPillar, BEVFusion, TransFusion-L, CenterPoint, SECOND
+    and VoxelNeXt families, with an AnchorHeadSingle, an AnchorHeadMulti or
+    the anchor-free TransFusionHead or CenterHead (its static fields as the
+    JAX package reads them)."""
     model, data = cfg["MODEL"], cfg["DATA_CONFIG"]
     fusion_vfe = model["FusionVFE"]
     image_vfe = fusion_vfe["ImageVFE"]
@@ -365,6 +400,8 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
     tgt = head.get("TARGET_ASSIGNER_CONFIG", {})
     post = model.get("POST_PROCESSING", {})
     image_backbone = model.get("IMAGE_BACKBONE", {})
+    backbone_2d = model.get("BACKBONE_2D", {})
+    head_order, head_channels = _center_head_layout(head)
     return HGSFusionConfig(
         class_names=tuple(cfg["CLASS_NAMES"]),
         pc_range=tuple(data["POINT_CLOUD_RANGE"]),
@@ -433,6 +470,14 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         center_min_radius=tgt.get("MIN_RADIUS", 2),
         center_post_limit=tuple(post.get("POST_CENTER_LIMIT_RANGE",
                                          (-75.0, -75.0, -10.0, 75.0, 75.0, 10.0))),
+        center_head_order=head_order,
+        center_head_channels=head_channels,
+        backbone_3d_arch=_BACKBONE_3D_ARCH.get(model.get("BACKBONE_3D", {}).get("NAME"),
+                                               "voxel8x"),
+        bev_v1_layer_nums=tuple(backbone_2d.get("LAYER_NUMS", (5, 5))),
+        bev_v1_num_filters=tuple(backbone_2d.get("NUM_FILTERS", (256, 256))),
+        bev_v1_upsample_strides=tuple(backbone_2d.get("UPSAMPLE_STRIDES", (1, 2))),
+        bev_v1_num_upsample_filters=tuple(backbone_2d.get("NUM_UPSAMPLE_FILTERS", (128, 128))),
         compute_dtype=model.get("COMPUTE_DTYPE", "float32"),
         remat=model.get("REMAT", True),
         anchor_generator=anchors,
@@ -442,4 +487,5 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         nms_thresh=nms.get("NMS_THRESH", 0.01),
         nms_pre_max_size=nms.get("NMS_PRE_MAXSIZE", 4096),
         nms_post_max_size=nms.get("NMS_POST_MAXSIZE", 500),
+        nms_type=nms.get("NMS_TYPE", "nms_gpu") if nms else None,
     )

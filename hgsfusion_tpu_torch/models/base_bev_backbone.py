@@ -30,7 +30,11 @@ def conv_transpose_nhwc(x, conv: nn.ConvTranspose2d, dtype):
 
 
 class _Layers(nn.Module):
-    """Named conv / BN pairs, each applied as conv, BN, ReLU (``cbr``)."""
+    """Named conv / BN pairs, each applied as conv, BN, ReLU (``cbr``); the
+    BN gives the compute dtype, or f32 where ``BN_F32`` (the JAX package's
+    ``layers.batch_norm``)."""
+
+    BN_F32 = False
 
     def __init__(self, dtype=None):
         super().__init__()
@@ -45,7 +49,7 @@ class _Layers(nn.Module):
         dt = compute_dtype(self.dtype)
         y = (conv_transpose_nhwc(x, conv, dt) if isinstance(conv, nn.ConvTranspose2d)
              else conv_nhwc(x, conv, dt))
-        return torch.relu(batch_norm(y, bn, dt))
+        return torch.relu(batch_norm(y, bn, torch.float32 if self.BN_F32 else dt))
 
 
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:

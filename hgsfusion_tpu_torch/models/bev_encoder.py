@@ -44,10 +44,11 @@ class SparseConv2d(nn.Module):
 
 
 class _SubMConvBN(nn.Sequential):
-    """3x3 submanifold conv (+bias) -> masked BN; output re-masked."""
+    """3x3 submanifold conv (with a bias unless ``bias`` is False) -> masked
+    BN; output re-masked."""
 
-    def __init__(self, in_channels: int, features: int, dtype=None):
-        super().__init__(SparseConv2d(in_channels, features),
+    def __init__(self, in_channels: int, features: int, dtype=None, bias: bool = True):
+        super().__init__(SparseConv2d(in_channels, features, bias=bias),
                          MaskedBatchNorm(features, eps=1e-3, momentum=0.01))
         self.dtype = dtype
 
@@ -90,14 +91,15 @@ class SparseBasicBlock(nn.Module):
 
 class _DownStage(nn.Sequential):
     """Reference stage layout: 0 SparseConv2d 3x3/2 (no bias), 1 BN,
-    2 ReLU, 3-4 residual blocks."""
+    2 ReLU, 3... the stage's blocks (default: two residual blocks), each
+    called as block(x, mask)."""
 
-    def __init__(self, in_channels: int, features: int, dtype=None):
+    def __init__(self, in_channels: int, features: int, dtype=None, blocks=None):
+        if blocks is None:
+            blocks = [SparseBasicBlock(features, dtype), SparseBasicBlock(features, dtype)]
         super().__init__(SparseConv2d(in_channels, features, stride=2, bias=False),
                          MaskedBatchNorm(features, eps=1e-3, momentum=0.01),
-                         nn.ReLU(),
-                         SparseBasicBlock(features, dtype),
-                         SparseBasicBlock(features, dtype))
+                         nn.ReLU(), *blocks)
         self.dtype = dtype
 
     def forward(self, x, mask):
@@ -105,7 +107,8 @@ class _DownStage(nn.Sequential):
         new_mask = _dilate_mask_3x3_s2(mask)
         y = y * new_mask.to(y.dtype)
         y = torch.relu(self[1](y, new_mask)) * new_mask.to(y.dtype)
-        y = self[4](self[3](y, new_mask), new_mask)
+        for block in list(self)[3:]:
+            y = block(y, new_mask)
         return y, new_mask
 
 

@@ -1,12 +1,14 @@
 """Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
-the radar-only detector, the PointPillar families, BEVFusion and
-TransFusion-L; post-processing.
+the radar-only detector, the PointPillar families, BEVFusion,
+TransFusion-L, CenterPoint, SECOND and VoxelNeXt; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
-PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel; post_process,
-post_process_multihead).
+PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
+CenterPointModel, SECONDModel, VoxelNeXtModel; post_process,
+post_process_multihead) and of the JAX package's
+``train/trainer.py::make_center_eval_step`` (``center_post_process``).
 ``models/registry.py::build_network`` picks the family of a config.
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
@@ -48,13 +50,14 @@ import torch.nn as nn
 
 from ..config import HGSFusionConfig
 from ..ops.deform_conv import ModulatedDeformConv2d
-from ..ops.nms import NEG_INF, class_agnostic_nms, multi_set_nms
+from ..ops.nms import NEG_INF, class_agnostic_nms, multi_set_nms, top_scores
 from ..utils.box_coder import ResidualCoder
 from .anchor_head import (AnchorHeadMulti, AnchorHeadSingle, decode_selected_boxes,
                           generate_predicted_boxes_multihead)
 from .anchors import TargetAssigner, flatten_anchors, generate_anchors
 from .base_bev_backbone import BaseBEVBackbone
 from .bev_encoder import PillarNetRadar, SparseConv2d
+from .center_head import CenterHead, decode_center_boxes
 from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
 from .layers import ConvBNReLU, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
@@ -62,13 +65,16 @@ from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
 from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
+from .sparse_backbone_2d import BaseBEVBackboneV1, PillarRes18BackBone8x, VoxelNeXt2DBackbone
 from .swin import GeneralizedLSSFPN, SwinTransformer
 from .transfusion_head import MultiheadAttention, TransFusionHead, transfusion_get_boxes
-from .voxel_backbone import SparseConv3d, VoxelBackBone8x, height_compression, mean_vfe
+from .voxel_backbone import (SparseConv3d, VoxelBackBone8x, VoxelResBackBone8xVoxelNeXt,
+                             height_compression, mean_vfe)
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
-           "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "post_process",
-           "post_process_multihead", "resolve_device"]
+           "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "CenterPointModel",
+           "SECONDModel", "VoxelNeXtModel", "post_process", "post_process_multihead",
+           "center_post_process", "resolve_device"]
 
 # the batch keys the model and its losses read; TARGET_KEYS only the losses
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
@@ -588,6 +594,168 @@ class TransFusionModel(_TransFusionDetector):
         return self.dense_head(self.backbone_2d(bev))
 
 
+class SECONDModel(_SingleHeadDetector):
+    """SECOND (zoo family): ``mean_vfe`` -> ``backbone_3d``
+    (VoxelBackBone8x) -> ``height_compression`` -> ``backbone_2d``
+    (BaseBEVBackbone (5, 5) at strides (1, 2), 128 and 256 wide, upsampled
+    (1, 2) to 256 each) -> ``dense_head`` (AnchorHeadSingle; the config's
+    anchors at ``feature_map_stride`` 8). ``backbone_3d_arch``
+    "voxel8x_focal" (VoxelBackBone8xFocal) is not ported and raises."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        if cfg.backbone_3d_arch != "voxel8x":
+            raise NotImplementedError(
+                f"backbone_3d_arch {cfg.backbone_3d_arch!r} (BACKBONE_3D.NAME: "
+                "VoxelBackBone8xFocal) is not ported: ROADMAP.md queue 1 item 9 (c), the "
+                "focal SECOND is its next entry")
+        dt = cfg.dtype
+        self.backbone_3d = VoxelBackBone8x(cfg.num_point_features, dt)
+        self.backbone_2d = BaseBEVBackbone(128 * voxel_backbone_depth(cfg.grid_size[2]), (5, 5),
+                                           (1, 2), (128, 256), (1, 2), (256, 256), dtype=dt)
+        self._finish(cfg, self.backbone_2d.out_channels, device, seed)
+
+    def forward(self, batch):
+        cfg = self.cfg
+        dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
+                               cfg.voxel_size, cfg.grid_size)
+        x3d, _ = self.backbone_3d(dense.to(compute_dtype(cfg.dtype)), mask)
+        return self.dense_head(self.backbone_2d(height_compression(x3d)))
+
+
+class _CenterDetector(Detector):
+    """A detector with the CenterHead: decode and one class-agnostic NMS
+    (``center_post_process``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.dense_head.shared_conv.weight.device
+
+    def _finish(self, cfg, head_in: int, device, seed: int, shared_channels: int = 64):
+        self.cfg = cfg
+        self.dense_head = CenterHead(head_in, cfg.num_class, shared_channels,
+                                     cfg.center_head_order, cfg.center_head_channels,
+                                     dtype=cfg.dtype)
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.dense_head.init_biases()
+        self.to(device)
+        self.eval()
+
+    def post_process(self, preds):
+        return center_post_process(preds, self.cfg)
+
+
+class CenterPointModel(_CenterDetector):
+    """CenterPoint (zoo family). ``backbone_3d_arch`` "voxel8x" (the
+    classic pillar model): ``pillar_net`` (the raw point, 64 wide) ->
+    ``backbone_2d`` (BaseBEVBackbone, stride 2 out) -> ``dense_head``.
+    "pillar_res2d_8x" / "pillar_8x": ``pillar_net`` (32 wide) ->
+    ``backbone_3d`` (PillarRes18BackBone8x, residual or post-activation
+    blocks) -> ``backbone_2d`` (BaseBEVBackboneV1 over x_conv4 and x_conv5,
+    stride 8 out) -> ``dense_head``. The head's stride is the config's
+    ``center_feature_map_stride``."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        dt = cfg.dtype
+        if cfg.backbone_3d_arch in ("pillar_8x", "pillar_res2d_8x"):
+            self.pillar_net = PillarFeatureNet(cfg.num_point_features, (32,), cfg.voxel_size[0],
+                                               cfg.pc_range, use_virtual=False,
+                                               encoding_type="mixed", dtype=dt)
+            self.backbone_3d = PillarRes18BackBone8x(cfg.backbone_3d_arch == "pillar_res2d_8x",
+                                                     dt)
+            self.backbone_2d = BaseBEVBackboneV1(
+                (256, 256), cfg.bev_v1_layer_nums, cfg.bev_v1_num_filters,
+                cfg.bev_v1_upsample_strides, cfg.bev_v1_num_upsample_filters, dt)
+        elif cfg.backbone_3d_arch == "voxel8x":
+            self.pillar_net = _pillar_net(cfg)
+            self.backbone_2d = BaseBEVBackbone(64, dtype=dt)
+        else:
+            raise NotImplementedError(f"CenterPoint with backbone_3d_arch "
+                                      f"{cfg.backbone_3d_arch!r}")
+        self._finish(cfg, self.backbone_2d.out_channels, device, seed)
+
+    def forward(self, batch):
+        bev, occ = self.pillar_net(batch["points"], batch["points_valid"])
+        if not hasattr(self, "backbone_3d"):
+            return self.dense_head(self.backbone_2d(bev))
+        outs, _ = self.backbone_3d(bev, occ)
+        return self.dense_head(self.backbone_2d(outs["x_conv4"], outs["x_conv5"]))
+
+
+class VoxelNeXtModel(_CenterDetector):
+    """VoxelNeXt (zoo family). ``backbone_3d_arch`` "voxel8x": ``mean_vfe``
+    -> ``backbone_3d`` (VoxelResBackBone8xVoxelNeXt); "voxelnext2d":
+    ``pillar_net`` (32 wide) -> ``backbone_3d`` (VoxelNeXt2DBackbone); then
+    ``dense_head`` (the CenterHead, 128 shared channels) at stride 8, dense
+    over the masked BEV as in JAX."""
+
+    def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        dt = cfg.dtype
+        if cfg.backbone_3d_arch == "voxelnext2d":
+            self.pillar_net = PillarFeatureNet(cfg.num_point_features, (32,), cfg.voxel_size[0],
+                                               cfg.pc_range, use_virtual=False,
+                                               encoding_type="mixed", dtype=dt)
+            self.backbone_3d = VoxelNeXt2DBackbone(dt)
+            head_in = 256
+        elif cfg.backbone_3d_arch == "voxel8x":
+            self.backbone_3d = VoxelResBackBone8xVoxelNeXt(cfg.num_point_features, dtype=dt)
+            head_in = 128
+        else:
+            raise NotImplementedError(f"VoxelNeXt with backbone_3d_arch "
+                                      f"{cfg.backbone_3d_arch!r}")
+        self._finish(cfg, head_in, device, seed, shared_channels=128)
+
+    def forward(self, batch):
+        cfg = self.cfg
+        if hasattr(self, "pillar_net"):
+            bev, occ = self.pillar_net(batch["points"], batch["points_valid"])
+            feats, _, _ = self.backbone_3d(bev, occ)
+        else:
+            dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
+                                   cfg.voxel_size, cfg.grid_size)
+            feats, _ = self.backbone_3d(dense.to(compute_dtype(cfg.dtype)), mask)
+        return self.dense_head(feats)
+
+
+def center_post_process(preds, cfg):
+    """The CenterHead's detections (the JAX package's ``make_center_eval_step``
+    after the forward): ``decode_center_boxes`` at ``center_max_k`` with the
+    config's stride, center limits and score threshold; then, unless the
+    config has no NMS_CONFIG (``nms_type`` None: the raw decode), one
+    class-agnostic rotated NMS over each frame's decoded candidates (the
+    decode's ``valid``, no score threshold: the decode applied it; equal
+    scores ranked by index), the whole batch in one ``hgsfusion::nms_lazy``
+    call. ``circle_nms`` and ``class_specific_nms`` raise, as in JAX.
+    Returns {"boxes" (B, post_max, 7), "scores" (0 where not valid),
+    "labels", "valid", and "vels" (B, post_max, 2) with a ``vel`` branch}."""
+    if cfg.nms_type in ("circle_nms", "class_specific_nms"):
+        raise NotImplementedError(f"CenterPoint eval NMS_TYPE {cfg.nms_type} is not "
+                                  "implemented")
+    out = decode_center_boxes(preds, cfg.center_max_k, cfg.center_feature_map_stride,
+                              cfg.pc_range, cfg.voxel_size, cfg.center_post_limit,
+                              cfg.score_thresh)
+    if cfg.nms_type is None:
+        return out
+    idx, valid = class_agnostic_nms(out["scores"], out["boxes"], -1.0, cfg.nms_thresh,
+                                    cfg.nms_pre_max_size, cfg.nms_post_max_size,
+                                    valid=out["valid"])
+
+    def kept(t):  # (B, K, ...) -> the kept slots (B, post_max, ...)
+        return torch.take_along_dim(t, idx.reshape(idx.shape + (1,) * (t.dim() - 2)), dim=1)
+
+    res = {"boxes": kept(out["boxes"]),
+           "scores": torch.where(valid, kept(out["scores"]), torch.zeros((), device=idx.device)),
+           "labels": kept(out["labels"]), "valid": valid}
+    if "vels" in out:
+        res["vels"] = kept(out["vels"])
+    return res
+
+
 def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
                  nms_thresh: float = 0.01, pre_max_size: int = 4096,
                  post_max_size: int = 500):
@@ -605,7 +773,7 @@ def post_process(preds, anchors, box_coder, cfg, score_thresh: float = 0.1,
     k = min(pre_max_size, a)
     masked = torch.where(cls_scores >= score_thresh, cls_scores,
                          torch.full_like(cls_scores, NEG_INF))
-    top_s, top_i = torch.topk(masked, k, dim=-1)
+    top_s, top_i = top_scores(masked, k)
 
     def rows(t):  # (B, A, ...) -> the top candidates' rows (B, k, ...)
         return torch.take_along_dim(t, top_i.reshape(top_i.shape + (1,) * (t.dim() - 2)), dim=1)

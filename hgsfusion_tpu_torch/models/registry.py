@@ -5,16 +5,17 @@ families the port has: HGSFusion (``HGSFusion``, and ``CaDDN``, the
 reference's name for its topology), the radar-only detector (``RadarOnly``,
 ``PillarNet``), PointPillars (``PointPillar``; with
 ``DENSE_HEAD.NAME: AnchorHeadMulti`` the grouped multi-head variant),
-BEVFusion (``BevFusion``, ``BEVFusion``) and TransFusion-L
-(``TransFusion``). Every
-other name of the JAX registry raises, naming the ROADMAP.md item that
-ports it.
+BEVFusion (``BevFusion``, ``BEVFusion``), TransFusion-L
+(``TransFusion``), CenterPoint (``CenterPoint``), SECOND (``SECONDNet``,
+``SECOND``) and VoxelNeXt (``VoxelNeXt``). Every other name of the JAX
+registry raises, naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 from ..config import model_config_from_yaml
-from .detector import (BEVFusionModel, HGSFusionModel, PointPillarModel,
-                       PointPillarMultiHeadModel, RadarOnlyModel, TransFusionModel)
+from .detector import (BEVFusionModel, CenterPointModel, HGSFusionModel, PointPillarModel,
+                       PointPillarMultiHeadModel, RadarOnlyModel, SECONDModel, TransFusionModel,
+                       VoxelNeXtModel)
 
 DETECTORS = {
     "HGSFusion": HGSFusionModel,
@@ -25,6 +26,10 @@ DETECTORS = {
     "BevFusion": BEVFusionModel,
     "BEVFusion": BEVFusionModel,
     "TransFusion": TransFusionModel,
+    "CenterPoint": CenterPointModel,
+    "SECONDNet": SECONDModel,
+    "SECOND": SECONDModel,
+    "VoxelNeXt": VoxelNeXtModel,
 }
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.nms import top_scores
 from ..ops.rotated_iou import boxes_iou3d
 from ..utils.common import device_constant
 from .center_head import center_targets
@@ -136,13 +137,6 @@ class _Branch(nn.Module):
 
 HEAD_BRANCHES = (("center", 2), ("height", 1), ("dim", 3), ("rot", 2))
 HEATMAP_PRIOR = -2.19  # the query heatmap branch's initial bias
-
-
-def top_scores(flat, k: int):
-    """The ``k`` largest of each row of ``flat`` (B, N), descending, equal
-    values by index: (values, indices)."""
-    values, order = torch.sort(flat, dim=1, descending=True, stable=True)
-    return values[:, :k], order[:, :k]
 
 
 class TransFusionHead(nn.Module):

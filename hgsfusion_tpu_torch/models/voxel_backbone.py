@@ -1,9 +1,12 @@
-"""The SECOND-family 3-D voxel backbone: sparse convolutions as dense masked
-3-D convolutions, the voxel mean of the points, and the height compression.
+"""The SECOND-family 3-D voxel backbones: sparse convolutions as dense
+masked 3-D convolutions, the voxel mean of the points, and the height
+compression.
 
 Counterpart of ``hgsfusion_tpu/models/voxel_backbone.py``
 (``points_to_voxel_ids``, ``mean_vfe``, ``_SubMConvBN3D``,
-``_SparseDown3D``, ``VoxelBackBone8x``, ``height_compression``). As there:
+``_SparseDown3D``, ``VoxelBackBone8x``, ``_SparseBasicBlock3D``,
+``_place_strided``, ``VoxelResBackBone8xVoxelNeXt``,
+``height_compression``). As there:
 
 - a submanifold convolution is a dense 3x3x3 convolution of the masked
   volume, re-masked to the input's active set;
@@ -17,10 +20,14 @@ channels-last (B, D, H, W, C) volumes, as the JAX package runs ``nn.Conv``;
 their input gradient is cuDNN's, their weight gradient one product a kernel
 tap (``conv3d_ndhwc``): cuDNN's f32 3-D weight gradient took 180-250 ms a
 convolution on the 51 x 320 x 320 grid (``compare_conv3d_layout.py``).
-Parameter names are the reference pcdet ``VoxelBackBone8x``'s
-(``conv_input``, ``conv1``, ``conv2`` .. ``conv4``, ``conv_out``; each
-block's ``0`` is the convolution, ``1`` its BatchNorm), the weights in
-spconv's (O, kD, kH, kW, I) layout.
+A bias is added outside it. Parameter names are the reference pcdet
+``VoxelBackBone8x``'s (``conv_input``, ``conv1``, ``conv2`` .. ``conv4``,
+``conv_out``; each block's ``0`` is the convolution, ``1`` its BatchNorm)
+and ``VoxelResBackBone8xVoxelNeXt``'s (``conv_input``; ``conv1`` two
+residual blocks ``conv1``/``bn1``/``conv2``/``bn2``; ``conv2`` .. ``conv6``
+a strided block then two residual ones; ``conv_out`` and ``shared_conv``
+the 2-D sparse conv and its BN), the weights in spconv's (O, kD, kH, kW, I)
+or (O, kH, kW, I) layout.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.common import device_constant
+from .bev_encoder import SparseConv2d
 from .layers import MaskedBatchNorm, compute_dtype
 
 
@@ -118,17 +126,19 @@ def conv3d_ndhwc(x, w, stride, padding):
 
 class SparseConv3d(nn.Module):
     """A 3-D sparse convolution's weight in spconv's (O, kD, kH, kW, I)
-    layout, applied densely to a (B, D, H, W, I) volume."""
+    layout (and its bias, where it has one), applied densely to a (B, D, H,
+    W, I) volume."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel=(3, 3, 3), stride=(1, 1, 1),
-                 padding=(1, 1, 1)):
+                 padding=(1, 1, 1), bias: bool = False):
         super().__init__()
         self.stride, self.padding = tuple(stride), tuple(padding)
         self.weight = nn.Parameter(torch.empty((out_channels,) + tuple(kernel) + (in_channels,)))
-        self.bias = None
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x, dtype):
-        return conv3d_ndhwc(x.to(dtype), self.weight.to(dtype), self.stride, self.padding)
+        y = conv3d_ndhwc(x.to(dtype), self.weight.to(dtype), self.stride, self.padding)
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class _ConvBN3D(nn.Sequential):
@@ -186,15 +196,111 @@ class VoxelBackBone8x(nn.Module):
                                   padding=(0, 0, 0), dtype=dtype)
 
     def forward(self, x, mask):
-        if x.shape[1] < 25:
-            raise ValueError(
-                f"VoxelBackBone8x needs >= 25 z-planes (got {x.shape[1]}): the four stride-2 "
-                "z-downsamples otherwise collapse depth to 0. Use a finer VOXEL_SIZE z "
-                "(reference KITTI: 41 planes).")
+        _refuse_shallow("VoxelBackBone8x", x)
         x, mask = self.conv_input(x, mask)
         for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
             x, mask = stage(x, mask)
         return self.conv_out(x, mask)
+
+
+def _refuse_shallow(name: str, x):
+    if x.shape[1] < 25:
+        raise ValueError(
+            f"{name} needs >= 25 z-planes (got {x.shape[1]}): the four stride-2 "
+            "z-downsamples otherwise collapse depth to 0. Use a finer VOXEL_SIZE z "
+            "(reference KITTI: 41 planes).")
+
+
+class _SparseBasicBlock3D(nn.Module):
+    """The residual submanifold block, (conv1 -> BN -> ReLU -> conv2 -> BN)
+    + identity -> ReLU, re-masked; both convolutions with a bias (the
+    reference's bias = norm_fn is not None). Called as block(x, mask) ->
+    (x, mask)."""
+
+    def __init__(self, features: int, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = SparseConv3d(features, features, bias=True)
+        self.bn1 = MaskedBatchNorm(features, eps=1e-3, momentum=0.01)
+        self.conv2 = SparseConv3d(features, features, bias=True)
+        self.bn2 = MaskedBatchNorm(features, eps=1e-3, momentum=0.01)
+
+    def forward(self, x, mask):
+        dt = compute_dtype(self.dtype)
+        m = mask.to(x.dtype)
+        out = self.bn1(self.conv1(x * m, dt) * m, mask)
+        out = torch.relu(out) * m
+        out = self.bn2(self.conv2(out * m, dt) * m, mask)
+        return torch.relu(out + x) * m, mask
+
+
+def _place_strided(src, src_mask, target_dhw, stride: int):
+    """A coarser volume (B, d, h, w, C) and its mask placed on a finer grid
+    ``target_dhw`` at every ``stride``-th site, zeros elsewhere (the dense
+    image of the reference's ``indices *= stride``; not an upsample); sites
+    past the grid's edge are dropped."""
+    d, h, w = target_dhw
+    nd = min(src.shape[1], (d + stride - 1) // stride)
+    nh = min(src.shape[2], (h + stride - 1) // stride)
+    nw = min(src.shape[3], (w + stride - 1) // stride)
+    out = src.new_zeros(src.shape[:1] + (d, h, w) + src.shape[-1:])
+    m = torch.zeros(src_mask.shape[:1] + (d, h, w, 1), dtype=torch.bool, device=src.device)
+    out[:, :nd * stride:stride, :nh * stride:stride, :nw * stride:stride] = src[:, :nd, :nh, :nw]
+    m[:, :nd * stride:stride, :nh * stride:stride, :nw * stride:stride] = \
+        src_mask.bool()[:, :nd, :nh, :nw]
+    return out, m
+
+
+class VoxelResBackBone8xVoxelNeXt(nn.Module):
+    """The VoxelNeXt backbone: residual stages of 16, 32, 64, 128 channels
+    at strides 1, 2, 4, 8 and two more stride-2 stages of 128 (``conv5``,
+    ``conv6``) placed back on the stride-8 grid (``_place_strided``) and
+    summed with ``conv4``; the z axis summed to BEV (its mask: any plane
+    active); then ``conv_out`` (a regular sparse 3x3 2-D conv, its active
+    set dilated) and ``shared_conv`` (submanifold, with a bias; BN eps 1e-5,
+    momentum 0.1). (B, D, H, W, C) + mask -> (features (B, H/8, W/8,
+    out_channel), mask (B, H/8, W/8, 1)). Refuses fewer than 25 z-planes,
+    as JAX."""
+
+    STAGES = (("conv2", 16, 32), ("conv3", 32, 64), ("conv4", 64, 128), ("conv5", 128, 128),
+              ("conv6", 128, 128))
+
+    def __init__(self, in_channels: int, out_channel: int = 128, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_input = _ConvBN3D(in_channels, 16, dtype=dtype)
+        self.conv1 = _Stage(_SparseBasicBlock3D(16, dtype), _SparseBasicBlock3D(16, dtype))
+        for name, cin, cout in self.STAGES:
+            setattr(self, name, _Stage(
+                _ConvBN3D(cin, cout, stride=(2, 2, 2), dtype=dtype),
+                _SparseBasicBlock3D(cout, dtype), _SparseBasicBlock3D(cout, dtype)))
+        self.conv_out = nn.Sequential(SparseConv2d(128, out_channel, bias=False),
+                                      MaskedBatchNorm(out_channel, eps=1e-3, momentum=0.01))
+        self.shared_conv = nn.Sequential(SparseConv2d(out_channel, out_channel, bias=True),
+                                         MaskedBatchNorm(out_channel, eps=1e-5, momentum=0.1))
+
+    def forward(self, x, mask):
+        _refuse_shallow("VoxelNeXt backbone", x)
+        dt = compute_dtype(self.dtype)
+        x, mask = self.conv_input(x, mask)
+        x, mask = self.conv1(x, mask)
+        feats = {}
+        for name, *_ in self.STAGES:
+            x, mask = getattr(self, name)(x, mask)
+            feats[name] = (x, mask)
+        x4, m4 = feats["conv4"]
+        d4 = tuple(x4.shape[1:4])
+        p5, m5 = _place_strided(*feats["conv5"], d4, 2)
+        p6, m6 = _place_strided(*feats["conv6"], d4, 4)
+        bev = (x4 + p5 + p6).sum(dim=1)
+        bev_mask = (m4.bool() | m5 | m6).any(dim=1)
+        out_mask = F.max_pool2d(bev_mask.to(torch.float32).permute(0, 3, 1, 2), 3, 1,
+                                1).permute(0, 2, 3, 1) > 0
+        om = out_mask.to(dt)
+        y = self.conv_out[0](bev * bev_mask.to(bev.dtype), dt) * om
+        y = torch.relu(self.conv_out[1](y, out_mask)) * om
+        y = self.shared_conv[0](y, dt) * om
+        return torch.relu(self.shared_conv[1](y, out_mask)) * om, out_mask
 
 
 def height_compression(x):

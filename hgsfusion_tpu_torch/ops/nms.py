@@ -24,6 +24,14 @@ from .rotated_iou import boxes_iou_bev
 NEG_INF = -1.0
 
 
+def top_scores(flat, k: int):
+    """The ``k`` largest of each row of ``flat`` (B, N), descending, equal
+    values by index as JAX's ``exact_top_k`` ranks them (a stable sort):
+    (values, indices)."""
+    values, order = torch.sort(flat, dim=-1, descending=True, stable=True)
+    return values[..., :k], order[..., :k]
+
+
 def greedy_nms_lazy_plain(boxes, valid, nms_thresh: float, max_keep: int,
                           row_block: int = 256):
     """Greedy rotated NMS over score-sorted candidates, the plain version of
@@ -120,26 +128,27 @@ def nms_sweep_plain(mask, valid, max_keep: int):
 
 def _select(box_scores, box_preds, score_thresh: float, k: int, valid=None):
     """Score threshold -> top ``k`` of (B, N) scores: (top scores (B, k)
-    with NEG_INF where none passed, their indices, their boxes (B, k, C))."""
+    with NEG_INF where none passed, their indices, their boxes (B, k, C)).
+    Equal scores rank by index (``top_scores``)."""
     ok = box_scores >= score_thresh
     if valid is not None:
         ok = ok & valid
     masked = torch.where(ok, box_scores, torch.full_like(box_scores, NEG_INF))
-    top_scores, top_idx = torch.topk(masked, k, dim=-1)
-    return top_scores, top_idx, torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
+    top_s, top_idx = top_scores(masked, k)
+    return top_s, top_idx, torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
 
 
-def _kept_slots(top_scores, top_boxes, top_idx, nms_thresh: float, post_max_size: int):
+def _kept_slots(top_s, top_boxes, top_idx, nms_thresh: float, post_max_size: int):
     """One ``hgsfusion::nms_lazy`` call over the frames of (F, k)
     score-sorted candidates -> (indices (F, post_max) of the first
     ``post_max_size`` kept, in score order, valid mask (F, post_max));
     empty slots hold index 0."""
-    keep = nms_lazy_op(top_boxes[..., :7].float().contiguous(), top_scores > NEG_INF / 2,
+    keep = nms_lazy_op(top_boxes[..., :7].float().contiguous(), top_s > NEG_INF / 2,
                        float(nms_thresh), int(post_max_size))
     rank = torch.cumsum(keep.to(torch.int64), -1) - 1
     slot = torch.where(keep & (rank < post_max_size), rank,
                        torch.full_like(rank, post_max_size))
-    frames = top_scores.shape[0]
+    frames = top_s.shape[0]
     out_idx = torch.zeros((frames, post_max_size + 1), dtype=top_idx.dtype,
                           device=top_idx.device)
     out_idx.scatter_(1, slot, top_idx)
@@ -156,14 +165,15 @@ def class_agnostic_nms(box_scores, box_preds, score_thresh: float,
     ``post_max_size`` kept in score order, for scores (..., N) and boxes
     (..., N, 7), a leading batch dimension or none; the batch's NMS is one
     ``hgsfusion::nms_lazy`` call. Returns (indices (..., post_max) into the
-    inputs, valid mask (..., post_max)); empty slots hold index 0."""
+    inputs, valid mask (..., post_max)); empty slots hold index 0. Equal
+    scores rank by index (``_select``)."""
     batched = box_scores.dim() == 2
     if not batched:
         box_scores, box_preds = box_scores[None], box_preds[None]
         valid = None if valid is None else valid[None]
     k = min(pre_max_size, box_scores.shape[-1])
-    top_scores, top_idx, top_boxes = _select(box_scores, box_preds, score_thresh, k, valid)
-    out_idx, out_valid = _kept_slots(top_scores, top_boxes, top_idx, nms_thresh, post_max_size)
+    top_s, top_idx, top_boxes = _select(box_scores, box_preds, score_thresh, k, valid)
+    out_idx, out_valid = _kept_slots(top_s, top_boxes, top_idx, nms_thresh, post_max_size)
     return (out_idx, out_valid) if batched else (out_idx[0], out_valid[0])
 
 

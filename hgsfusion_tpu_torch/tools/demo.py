@@ -6,7 +6,8 @@
         [--html] [--device cuda] [--set DATA_CONFIG.DATA_PATH <root> ...]
 
 Any family ``models/registry.py::build_network`` builds (HGSFusion, the
-radar-only detector, the PointPillar families, BEVFusion, TransFusion-L),
+radar-only detector, the PointPillar families, BEVFusion, TransFusion-L,
+CenterPoint, SECOND, VoxelNeXt),
 served one frame at a time
 through ``serve`` on the card (``--device cpu`` on the CPU). Per frame it
 writes ``<frame>_bev.png`` (the points, the gt boxes in cyan, the

@@ -1,6 +1,6 @@
 """Training CLI (counterpart of the JAX package's ``tools/train.py``, its
-HGSFusion, radar-only, PointPillar and TransFusion-head (BEVFusion,
-TransFusion-L) branches).
+HGSFusion, radar-only, PointPillar, TransFusion-head (BEVFusion,
+TransFusion-L), CenterHead (CenterPoint, VoxelNeXt) and SECOND branches).
 
     python -m hgsfusion_tpu_torch.tools.train --cfg_file configs/hgsfusion_vod.yaml \\
         [--set DATA_CONFIG.DATA_PATH <root> ...] [--device cuda] [--epochs N] \\

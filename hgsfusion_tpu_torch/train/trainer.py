@@ -1,21 +1,24 @@
 """The training step (counterpart of ``hgsfusion_tpu/train/trainer.py``:
 model_inputs, _grad_step, make_train_step, make_anchor_assigner,
-make_multihead_train_step, make_transfusion_train_step, and the family
-dispatch of ``tools/train.py`` as ``make_train_step_for_cfg``), and the
-detections of ``serve`` as per-frame numpy dicts
-(detections_to_pred_dicts).
+make_multihead_train_step, make_transfusion_train_step,
+make_center_train_step, and the family dispatch of ``tools/train.py`` as
+``make_train_step_for_cfg``), and the detections of ``serve`` as per-frame
+numpy dicts (detections_to_pred_dicts).
 
 One step is the forward pass in train mode, target assignment, the RPN
 losses (and, where the model predicts occupancy, the occupancy loss; under
 USE_DEPTH with depth maps in the batch, the DDN depth loss), the backward
 pass and the optimizer's update. The multi-head family's step takes its
 grouped loss instead, the TransFusion families' (BEVFusion, TransFusion-L)
-their Hungarian-matched set loss. PyTorch runs it eagerly; nothing in it
-reads a tensor back to the host but the TransFusion step's matching costs
-(one read a step, ``models/transfusion_head.py``). Evaluation needs no
-dispatch here: every family's ``serve`` runs its own post-processing (the
-JAX package's ``make_transfusion_eval_step`` is the TransFusion families'
-``post_process``).
+their Hungarian-matched set loss, the CenterHead families' (CenterPoint,
+VoxelNeXt) the heatmap focal loss and the L1 at the gt centers; SECOND's is
+the anchor step with its stride-8 anchors. PyTorch runs it eagerly;
+nothing in it reads a tensor back to the host but the TransFusion step's
+matching costs (one read a step, ``models/transfusion_head.py``).
+Evaluation needs no dispatch here: every family's ``serve`` runs its own
+post-processing (the JAX package's ``make_transfusion_eval_step`` is the
+TransFusion families' ``post_process``, its ``make_center_eval_step`` the
+CenterHead families', ``models/detector.py::center_post_process``).
 
 Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
 through the wrapper, whose hooks average the gradients of ``backward`` over
@@ -34,9 +37,11 @@ import torch
 
 from ..models.anchor_head import anchor_head_loss, anchor_head_multi_loss
 from ..models.anchors import TargetAssigner
+from ..models.center_head import center_head_loss, center_targets
 from ..models.ddn_loss import ddn_loss
-from ..models.detector import (BATCH_KEYS, BEVFusionModel, PointPillarMultiHeadModel,
-                               TransFusionModel, make_multihead_assigner)
+from ..models.detector import (BATCH_KEYS, BEVFusionModel, CenterPointModel,
+                               PointPillarMultiHeadModel, TransFusionModel, VoxelNeXtModel,
+                               make_multihead_assigner)
 from ..models.occupancy import occupancy_loss
 from ..models.transfusion_head import transfusion_loss
 from ..parallel.mesh import all_reduce_mean_
@@ -159,6 +164,34 @@ def make_transfusion_train_step(model, optimizer, loss_weights: Dict, cfg, ddp=N
     return _grad_step(loss_fn, optimizer)
 
 
+def make_center_train_step(model, optimizer, loss_weights: Dict, cfg, ddp=None) -> Callable:
+    """The CenterHead families' step: ``center_targets`` at the head's map
+    (``grid_size`` / FEATURE_MAP_STRIDE; code size the sum of the head's
+    regression widths: 8, or 10 with ``vel``), then ``center_head_loss``
+    with LOSS_WEIGHTS' ``code_weights`` (default 1), ``cls_weight`` and
+    ``loc_weight``; tb keys hm_loss, loc_loss_center, loss."""
+    gx, gy, _ = cfg.grid_size
+    stride = cfg.center_feature_map_stride
+    fmap_hw = (gy // stride, gx // stride)
+    head_order = tuple(cfg.center_head_order)
+    code_size = int(sum(cfg.center_head_channels))
+    code_weights = loss_weights.get("code_weights", (1.0,) * code_size)
+    net = model if ddp is None else ddp
+
+    def loss_fn(batch):
+        net.train()
+        preds = net(model_inputs(batch))
+        targets = center_targets(batch["gt_boxes"], cfg.num_class, fmap_hw, stride, cfg.pc_range,
+                                 cfg.voxel_size, gaussian_overlap=cfg.center_gaussian_overlap,
+                                 min_radius=cfg.center_min_radius, code_size=code_size)
+        total, tb = center_head_loss(preds, targets, head_order, code_weights,
+                                     cls_weight=loss_weights.get("cls_weight", 1.0),
+                                     loc_weight=loss_weights.get("loc_weight", 2.0))
+        return total, {**tb, "loss": total}
+
+    return _grad_step(loss_fn, optimizer)
+
+
 def make_anchor_assigner(model_cfg, multihead: bool, device="cuda") -> TargetAssigner:
     """The target assigner of a family: the multi-head anchor order and the
     config's box coder for AnchorHeadMulti, else the single-head one."""
@@ -170,12 +203,17 @@ def make_anchor_assigner(model_cfg, multihead: bool, device="cuda") -> TargetAss
 
 def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
     """The family's training step for ``model`` (``models/registry.py``'s
-    build): the TransFusion step for BEVFusionModel and TransFusionModel
-    (no assigner: None), the multi-head step for PointPillarMultiHeadModel,
-    else ``make_train_step``. Returns (assigner, step)."""
+    build): the TransFusion step for BEVFusionModel and TransFusionModel,
+    the center step for CenterPointModel and VoxelNeXtModel (no assigner:
+    None), the multi-head step for PointPillarMultiHeadModel, else
+    ``make_train_step`` (SECONDModel's included). Returns (assigner,
+    step)."""
     if isinstance(model, (BEVFusionModel, TransFusionModel)):
         return None, make_transfusion_train_step(model, optimizer, model_cfg.loss_weights,
                                                  model_cfg, ddp=ddp)
+    if isinstance(model, (CenterPointModel, VoxelNeXtModel)):
+        return None, make_center_train_step(model, optimizer, model_cfg.loss_weights, model_cfg,
+                                            ddp=ddp)
     multihead = isinstance(model, PointPillarMultiHeadModel)
     assigner = make_anchor_assigner(model_cfg, multihead, device=model.device)
     make = make_multihead_train_step if multihead else make_train_step

@@ -10,7 +10,9 @@ per-module functions convert the sub-tree of one JAX module into the
 same for the RHGM segmentor, the inverse of ``convert_mask2former_state``.
 
 Layouts: flax conv kernel (kH, kW, I, O) -> torch (O, I, kH, kW); sparse
-conv -> spconv's (O, kH, kW, I) (3-D: (O, kD, kH, kW, I)); dense (I, O) ->
+conv -> spconv's (O, kH, kW, I) (3-D: (O, kD, kH, kW, I); the VoxelNeXt
+backbones' ``conv_out`` / ``shared_conv``, flax ``nn.Conv`` kernels in JAX,
+are sparse convs in the reference and take this layout); dense (I, O) ->
 (O, I); flax attention q/k/v (I, heads, head_dim) -> torch
 ``MultiheadAttention``'s packed rows; flax BatchNorm
 {scale, bias} + {mean, var} -> {weight, bias, running_mean, running_var,
@@ -259,6 +261,123 @@ def voxel_backbone(p, s):
     return out
 
 
+def center_head(p, s):
+    """center_head.CenterHead (the JAX names): ``shared_conv``,
+    ``shared_bn``, ``head.{name}_conv{i}`` / ``_bn{i}`` / ``_out``."""
+    out = {**_prefix("shared_conv", conv(p["shared_conv"])),
+           **_prefix("shared_bn", batch_norm(p["shared_bn"], s["shared_bn"]))}
+    for name, sub in p["head"].items():
+        out.update(_prefix(f"head.{name}", batch_norm(sub, s["head"][name]) if "_bn" in name
+                           else conv(sub)))
+    return out
+
+
+def _sparse_basic_block(p, s):
+    """bev_encoder.SparseBasicBlock: ``conv1``, ``conv2`` (each 0 conv, 1 BN)."""
+    return {k: v for sub in ("conv1", "conv2")
+            for k, v in _prefix(sub, _subm(p[sub], s[sub])).items()}
+
+
+def _sparse_stages(p, s, stages):
+    """The 2-D sparse backbones' stages: ``conv1_block{j}`` -> ``conv1.{j}``;
+    ``conv{i}_down`` -> ``conv{i}.{0, 1}`` and ``conv{i}_block{j}`` ->
+    ``conv{i}.{3 + j}`` (bev_encoder._DownStage). A residual block's JAX
+    tree has ``conv1``/``conv2``, a post-activation one ``convbn``."""
+    def block(q, t):
+        return _subm(q["convbn"], t["convbn"]) if "convbn" in q else _sparse_basic_block(q, t)
+
+    out = {}
+    for stage in stages:
+        first = 0 if stage == "conv1" else 3
+        if stage != "conv1":
+            down = f"{stage}_down"
+            out.update(_prefix(f"{stage}.0", conv(p[down]["conv"], _spconv)))
+            out.update(_prefix(f"{stage}.1", batch_norm(p[down]["bn"], s[down]["bn"])))
+        j = 0
+        while f"{stage}_block{j}" in p:
+            name = f"{stage}_block{j}"
+            out.update(_prefix(f"{stage}.{first + j}", block(p[name], s[name])))
+            j += 1
+    return out
+
+
+def pillar_res18_backbone(p, s):
+    """sparse_backbone_2d.PillarRes18BackBone8x (either kind): the sparse
+    stages (``_sparse_stages``), then ``conv5``: 0 from ``conv5_down``
+    (``conv``, ``bn``), 1-2 from ``conv5_block{j}`` (``conv1``/``bn1``/
+    ``conv2``/``bn2``, or ``conv``/``bn``), dense layouts."""
+    out = _sparse_stages(p, s, ("conv1", "conv2", "conv3", "conv4"))
+    for i, name in enumerate(("conv5_down", "conv5_block0", "conv5_block1")):
+        for part, q in p[name].items():
+            out.update(_prefix(f"conv5.{i}.{part}", batch_norm(q, s[name][part]) if "bn" in part
+                               else conv(q)))
+    return out
+
+
+def _conv_out_shared(p, s):
+    """The VoxelNeXt backbones' tail: ``conv_out`` / ``conv_out_bn`` ->
+    ``conv_out.{0, 1}``, ``shared_conv`` / ``shared_bn`` ->
+    ``shared_conv.{0, 1}``; the convolutions sparse (spconv layout)."""
+    return {**_prefix("conv_out.0", conv(p["conv_out"], _spconv)),
+            **_prefix("conv_out.1", batch_norm(p["conv_out_bn"], s["conv_out_bn"])),
+            **_prefix("shared_conv.0", conv(p["shared_conv"], _spconv)),
+            **_prefix("shared_conv.1", batch_norm(p["shared_bn"], s["shared_bn"]))}
+
+
+def voxelnext2d_backbone(p, s):
+    """sparse_backbone_2d.VoxelNeXt2DBackbone: six stages and the tail."""
+    return {**_sparse_stages(p, s, ("conv1",) + tuple(f"conv{i}" for i in range(2, 7))),
+            **_conv_out_shared(p, s)}
+
+
+def voxelnext_backbone(p, s):
+    """voxel_backbone.VoxelResBackBone8xVoxelNeXt: ``conv_input``;
+    ``conv{i}_res{j}`` (``a_conv``/``a_bn``/``b_conv``/``b_bn``) ->
+    ``conv{i}.{j (+1 past a strided block)}.{conv1, bn1, conv2, bn2}``;
+    ``conv{i}_down`` -> ``conv{i}.0``; the tail."""
+    out = {**_prefix("conv_input", _subm(p["conv_input"], s["conv_input"]))}
+    for i in range(1, 7):
+        first = 0 if i == 1 else 1
+        if i > 1:
+            out.update(_prefix(f"conv{i}.0", _subm(p[f"conv{i}_down"], s[f"conv{i}_down"])))
+        for j in range(2):
+            q, t = p[f"conv{i}_res{j}"], s[f"conv{i}_res{j}"]
+            for jax_part, part in (("a", "1"), ("b", "2")):
+                out.update(_prefix(f"conv{i}.{first + j}.conv{part}",
+                                   conv(q[f"{jax_part}_conv"], _spconv)))
+                out.update(_prefix(f"conv{i}.{first + j}.bn{part}",
+                                   batch_norm(q[f"{jax_part}_bn"], t[f"{jax_part}_bn"])))
+    return {**out, **_conv_out_shared(p, s)}
+
+
+def backbone_3d(p, s):
+    """The ``backbone_3d`` of CenterPoint, SECOND and VoxelNeXt, told apart
+    by its JAX modules."""
+    if "conv1_res0" in p:
+        return voxelnext_backbone(p, s)
+    if "conv6_down" in p:
+        return voxelnext2d_backbone(p, s)
+    if "conv5_down" in p:
+        return pillar_res18_backbone(p, s)
+    return voxel_backbone(p, s)
+
+
+def _backbone_families(p, s):
+    """CenterPointModel, SECONDModel and VoxelNeXtModel: ``pillar_net``,
+    ``backbone_3d``, ``backbone_2d`` where the model has them, and the
+    ``dense_head`` (a CenterHead or an AnchorHeadSingle)."""
+    out = {}
+    if "pillar_net" in p:
+        out.update(_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])))
+    if "backbone_3d" in p:
+        out.update(_prefix("backbone_3d", backbone_3d(p["backbone_3d"], s["backbone_3d"])))
+    if "backbone_2d" in p:
+        out.update(_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])))
+    head = p["dense_head"]
+    return {**out, **_prefix("dense_head", center_head(head, s["dense_head"]) if "head" in head
+                             else anchor_head(head))}
+
+
 def flax_attention(p):
     """transfusion_head.MultiheadAttention from flax
     ``MultiHeadDotProductAttention``: ``query``/``key``/``value`` kernels
@@ -339,11 +458,14 @@ def _bevfusion(p, s):
 def from_jax_variables(variables):
     """JAX detector variables {"params", "batch_stats"} -> state_dict, for
     HGSFusionModel, RadarOnlyModel, PointPillarModel,
-    PointPillarMultiHeadModel, BEVFusionModel and TransFusionModel (told
-    apart by their top-level modules)."""
+    PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
+    CenterPointModel, SECONDModel and VoxelNeXtModel (told apart by their
+    top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
-    if "backbone_3d" in p:
+    if "fuser_conv" in p:
         return _bevfusion(p, s)
+    if "backbone_3d" in p or "head" in p.get("dense_head", {}):
+        return _backbone_families(p, s)
     if "decoder" in p.get("dense_head", {}):  # TransFusion-L
         return {**_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])),
                 **_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])),

@@ -96,14 +96,14 @@ def test_target_assigner_matches_jax(assigned):
     np.testing.assert_array_equal(got["reg_weights"].numpy(), ref["reg_weights"])
     assert_close(got["box_reg_targets"], ref["box_reg_targets"], atol=1e-5)
     # the multi-head order is ported (its targets: test_torch_pointpillar.py):
-    # the same labels, one block per class; the zoo's center-head families
-    # (queue 1 item 9 (c)) are not
+    # the same labels, one block per class; the zoo's second-stage families
+    # (queue 1 item 9) are not
     multi = TargetAssigner(ANCHOR_CFG, TINY.grid_size, TINY.pc_range, TINY.class_names,
                            use_multihead=True, device="cpu")
     mh = multi(torch.from_numpy(np.asarray(assigned[0])))["box_cls_labels"].numpy()
     np.testing.assert_array_equal(np.sort(mh, axis=1), np.sort(labels, axis=1))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        network_class("CenterPoint")
+        network_class("PVRCNN")
 
 
 def test_anchor_head_loss_matches_jax(assigned):

@@ -145,9 +145,9 @@ def test_build_network_by_name_and_refusals():
         {**c, "feature_map_stride": 2} for c in _port_cfg().anchor_generator))
     assert type(build_network("PointPillar", single, device="cpu")) is PointPillarModel
     assert type(build_network("PillarNet", _port_cfg(), device="cpu")) is RadarOnlyModel
-    # every other name of the JAX registry: ROADMAP.md queue 1 item 9 (c)
+    # every other name of the JAX registry: ROADMAP.md queue 1 item 9
     unported = sorted(set(JAX_DETECTORS) - set(DETECTORS))
-    assert len(unported) == 16
+    assert len(unported) == 12
     for name in unported:
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             build_network(name, _port_cfg(), device="cpu")

@@ -138,13 +138,13 @@ def test_manager_prunes_skips_truncated_and_keeps_duplicates(tmp_path, caplog):
 
 
 def test_cli_refusals(setup, tmp_path):
-    # a family the port does not build (queue 1 item 9 (c)) raises; the
+    # a family the port does not build (queue 1 item 9) raises; the
     # radar-only PillarNet config is built (its training: test_torch_radar_only.py)
     _write_cfg(tmp_path / "pillarnet.yaml", tmp_path / "data")
     assert yaml_network_class(load_config(tmp_path / "pillarnet.yaml")) is RadarOnlyModel
-    with pytest.raises(NotImplementedError, match="CenterPoint is not ported.*queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="PVRCNN is not ported.*queue 1 item 9"):
         train.main(["--cfg_file", str(tmp_path / "pillarnet.yaml"), "--device", "cpu",
-                    "--set", "MODEL.NAME", "CenterPoint"])
+                    "--set", "MODEL.NAME", "PVRCNN"])
     with pytest.raises(SystemExit, match="dataset is empty"):
         train.main(_argv(setup, "--set", "DATA_CONFIG.DATA_PATH", str(tmp_path)))
     if not torch.cuda.is_available():

@@ -6,7 +6,9 @@ train-mode outputs and the masked BatchNorms' updated statistics within
 1e-5, the convolution's tapwise weight gradient against autograd's through
 ``F.conv3d`` (f64, each kernel, stride and padding of the backbone), the
 channel order of the height compression, and the refusal of a grid under
-25 z-planes. The TINY grid: 32 x 32 x 40 voxels (41 planes with
+25 z-planes; VoxelNeXt's ``VoxelResBackBone8xVoxelNeXt`` likewise (eval
+within 1e-5 of the largest output, train-mode outputs and statistics within
+1e-5, its refusal) and ``_place_strided`` at odd sizes exactly. The TINY grid: 32 x 32 x 40 voxels (41 planes with
 spconv's extra one), 5 point features, two frames."""
 import jax
 import jax.numpy as jnp
@@ -149,4 +151,74 @@ def test_height_compression_channel_order():
 def test_refuses_fewer_than_25_planes():
     m = vb.VoxelBackBone8x(5)
     with pytest.raises(ValueError, match="25 z-planes"):
+        m(torch.zeros(1, 24, 8, 8, 5), torch.zeros(1, 24, 8, 8, 1, dtype=torch.bool))
+
+
+# ---- VoxelNeXt's backbone (VoxelResBackBone8xVoxelNeXt) -------------------
+
+@pytest.fixture(scope="module")
+def voxelnext(volume):
+    """The JAX module's eval and train-mode outputs and updated statistics
+    on ``volume`` (one jit each)."""
+    _, _, dense, mask = volume
+    module = jvb.VoxelResBackBone8xVoxelNeXt()
+    variables = shaped_variables(module, dense, mask, False, seed=4)
+    fwd = jax.jit(lambda v, x, m: module.apply(v, x, m, False))
+    train = jax.jit(lambda v, x, m: module.apply(v, x, m, True, mutable=["batch_stats"]))
+    (ref_train, ref_train_mask), stats = train(variables, dense, mask)
+    return variables, jax.tree_util.tree_map(np.asarray, fwd(variables, dense, mask)), \
+        (np.asarray(ref_train), np.asarray(ref_train_mask),
+         jax.tree_util.tree_map(np.asarray, stats["batch_stats"]))
+
+
+def _port_voxelnext(variables, stats=None):
+    m = vb.VoxelResBackBone8xVoxelNeXt(5)
+    m.load_state_dict(weights.voxelnext_backbone(variables["params"], stats or
+                                                 variables["batch_stats"]), strict=True)
+    return m
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_voxelnext_backbone_matches_jax(volume, voxelnext, train):
+    """Eval: the BEV features and mask within 1e-5 of the largest output.
+    Train: the outputs and every masked BN's updated running mean and
+    (unbiased) variance within 1e-5 (32 BNs: conv_input, 2 x 2 in conv1,
+    1 + 2 x 2 in each of conv2-6, conv_out, shared_conv)."""
+    _, _, dense, mask = volume
+    variables, (ref, ref_mask), (ref_t, ref_t_mask, ref_stats) = voxelnext
+    m = _port_voxelnext(variables).train(train)
+    with torch.set_grad_enabled(train):
+        got, got_mask = m(t(dense), t(mask))
+    want, want_mask = (ref_t, ref_t_mask) if train else (ref, ref_mask)
+    assert got.shape == want.shape == (2, 4, 4, 128)
+    np.testing.assert_array_equal(got_mask.numpy(), want_mask)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=TOL * float(np.abs(want).max()))
+    if train:
+        sd = m.state_dict()
+        expect = weights.voxelnext_backbone(variables["params"], ref_stats)
+        names = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+        assert len(names) == 2 * 32
+        for k in names:
+            np.testing.assert_allclose(sd[k].numpy(), expect[k].numpy(), rtol=TOL, atol=TOL,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("stride,src,target", [(2, (3, 2, 2), (6, 4, 4)), (2, (4, 3, 5), (7, 5, 9)),
+                                               (4, (2, 2, 3), (5, 6, 9)), (4, (2, 1, 1), (3, 3, 3))])
+def test_place_strided_matches_jax_exactly(stride, src, target):
+    """Odd sizes: the placed volume clipped at the grid's edge."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, *src, 3).astype(np.float32)
+    m = rng.rand(2, *src, 1) < 0.5
+    ref, ref_m = jvb._place_strided(jnp.asarray(x), jnp.asarray(m), target, stride)
+    got, got_m = vb._place_strided(t(x), t(m), target, stride)
+    assert got.shape == (2,) + target + (3,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(ref_m))
+
+
+def test_voxelnext_refuses_fewer_than_25_planes():
+    m = vb.VoxelResBackBone8xVoxelNeXt(5)
+    with pytest.raises(ValueError, match="VoxelNeXt backbone needs >= 25 z-planes"):
         m(torch.zeros(1, 24, 8, 8, 5), torch.zeros(1, 24, 8, 8, 1, dtype=torch.bool))
