@@ -172,18 +172,21 @@ and launches of what ran):
 25a. export and serve: ``configs/hgsfusion_vod_pallas.yaml`` and
     ``configs/hgsfusion_vod_polar.yaml`` at full width exported by
     ``tools/export.py``'s ``export_model`` (the fused kernel, or the
-    forward three times, and the NMS as ops in the graph) and saved, then
-    served by ``tools/serve.py`` in a subprocess that blocks the model code
-    and JAX (``SERVE_GUARD``) from 6 ``.npz`` files (3 flagship frames,
-    each twice): its launches must read the view's per frame, its
-    detections equal ``serve``'s (valid and labels, boxes and scores
-    within 1e-4) at a tie-free score threshold; export and save seconds,
-    the artifact's bytes, ms per frame by completion gaps next to
-    ``serve``'s in the same loop;
-25b. bench: ``python -m hgsfusion_tpu_torch.bench`` (the polar default),
-    ``--vod``, ``--realistic`` and ``--tj4d``, each in its own process:
-    exactly one JSON line each, its metric named as ``bench.py`` names it,
-    a positive value;
+    forward three times, and the NMS as ops in the graph) and saved; export
+    and save seconds, the artifact's bytes, ms per frame by completion gaps
+    through ``serve`` and through the artifact in this process; then (the
+    ``serving_host`` phase, the last) every export phase's artifact served by
+    ``tools/serve.py`` in one subprocess that blocks the model code and JAX
+    (``SERVE_GUARD_RUNS``), one run each over 6 ``.npz`` files (3 flagship
+    frames, each twice): each run's launches must read the view's per
+    frame, its detections equal ``serve``'s (valid and labels, boxes and
+    scores within 1e-4) at a tie-free score threshold, its ms per frame by
+    completion gaps beside ``serve``'s;
+25b. bench: the port's ``bench`` entry point (``bench.main`` in this
+    process, as ``python -m hgsfusion_tpu_torch.bench`` runs it) for the
+    polar default, ``--vod``, ``--realistic`` and ``--tj4d``: exactly one
+    JSON line each, its metric named as ``bench.py`` names it, a positive
+    value, the timed calls' launches;
 26. small reference, RHGM: the segmentor's tiny preset with either pixel
     decoder (weights from one seed) on a 70 x 100 image, on the card against
     the CPU in f32 with TF32 off: logits and mask logits within
@@ -363,16 +366,44 @@ and launches of what ran):
     CenterPoint at B=4 as 46: 3 steps after a warm-up, no kernel, every
     trainable tensor with a gradient moved, no host sync, the 3-D
     convolutions' tap products a step;
-61. train CLI CenterPoint and SECOND: as 54, one NMS call a frame.
+61. train CLI CenterPoint and SECOND: as 54, one NMS call a frame;
+62. nms twostage: ``nms_lazy`` against its plain version at the two-stage
+    shapes: the proposal layer's 512 candidates at 0.8, 128 kept (B=1
+    timed, B=2), and SECOND-IoU's final 128 proposals at 0.01: equal keep
+    sets, timed beside the bound;
+63. ball query: ``configs/voxelrcnn_vod.yaml`` on the flagship batch, its
+    128 proposals' 27,648 RoI grid points over x_conv2, x_conv3 and
+    x_conv4 (``ops/pointnet2.py::ball_query_grid``, the windowed query)
+    timed; its index lists equal to the dense query's exactly on 216,
+    864 and all 27,648 points of the three stages;
+64. focal backbone: VoxelBackBone8xFocal beside VoxelBackBone8x in eval
+    mode at full width (device ms, the focal layers' active sites);
+65. small reference, two-stage: the focal SECOND, SECOND-IoU and Voxel
+    R-CNN cut to TINY (``tiny_twostage``), card vs CPU: RPN maps within
+    1e-4 (the focal importances spread by ``spread_importances`` and
+    checked tie-free by ``focal_premise``), the proposals of the CPU's
+    ramped RPN maps equal on both devices, the second stage on them
+    within 1e-4, the post-processing equal (1 or 2 NMS calls), one
+    training step on the card (finite terms; one NMS call for the
+    two-stage families);
+66. serve the focal SECOND, SECOND-IoU and Voxel R-CNN
+    (``configs/second_focal_vod.yaml``, ``second_iou_vod.yaml``,
+    ``voxelrcnn_vod.yaml``) at full width as 59 (1, 2 and 2 NMS calls a
+    frame), then ``bench.main(["--<name>"])``; train each at B=1 as 60
+    (0, 1 and 1 NMS calls a step); train CLI Voxel R-CNN and SECOND-IoU as
+    54 (1 NMS call a step, 2 a frame), each checkpoint then exported by
+    ``tools/export.py`` and served by the serving host of 25a on 3
+    evaluation frames (2 NMS calls a frame; detections equal ``serve``'s).
 
 4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
 (a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept;
-57 to the center families' (the NMS rows' ``center`` block).
+57 to the center families' (the NMS rows' ``center`` block), 62 to the
+two-stage families' (``twostage``).
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving hosts, 27, 28-31, 33-36, 39-44, 46-49, 52-56 and 59-61, the ranks'
-launches summed),
+serving host runs, 27, 28-31, 33-36, 39-44, 46-49, 52-56, 59-61 and 66, the
+ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -391,6 +422,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -420,12 +452,14 @@ from hgsfusion_tpu_torch.models.layers import resize_bilinear
 from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_images
 from hgsfusion_tpu_torch.models.transfusion_head import TransFusionHead
-from hgsfusion_tpu_torch.models.voxel_backbone import SparseConv3d
+from hgsfusion_tpu_torch.models.pvrcnn import roi_grid_points, stage_point_set
+from hgsfusion_tpu_torch.models.voxel_backbone import SparseConv3d, height_compression, mean_vfe
 from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, quad_sample,
                                  row_scatter)
 from hgsfusion_tpu_torch.ops.grid_sample import (div_exact, quad_sample_bwd_plain,
                                                 quad_sample_fwd_plain, quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
+from hgsfusion_tpu_torch.ops.pointnet2 import ball_query, ball_query_grid, window_span
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.parallel import mesh, spawn
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance, instance_inference
@@ -1726,7 +1760,9 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "serve_second", "serve_voxelnext", "serve_voxelnext2d",
               "serve_centerpoint_nuscenes", "train_centerpoint", "train_second",
               "train_voxelnext", "train_centerpoint_nuscenes", "train_cli_centerpoint",
-              "train_cli_second")
+              "train_cli_second", "serve_second_focal", "serve_second_iou", "serve_voxelrcnn",
+              "train_second_focal", "train_second_iou", "train_voxelrcnn",
+              "train_cli_voxelrcnn", "train_cli_second_iou")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -2057,6 +2093,16 @@ sys.meta_path.insert(0, Block())
 sys.argv[0] = "serve"
 runpy.run_module("hgsfusion_tpu_torch.tools.serve", run_name="__main__")
 """
+# the same host serving several artifacts in one process, one
+# ``tools/serve.py`` run each: ``python -c SERVE_GUARD_RUNS <JSON list of
+# serve.py argument lists>``; a line "SERVED <summary JSON>" after each
+SERVE_GUARD_RUNS = SERVE_GUARD.replace(
+    'sys.argv[0] = "serve"\nrunpy.run_module("hgsfusion_tpu_torch.tools.serve", '
+    'run_name="__main__")\n', """import json
+from hgsfusion_tpu_torch.tools import serve
+for argv in json.loads(sys.argv[1]):
+    print("SERVED " + json.dumps(serve.main(argv)), flush=True)
+""")
 REPO = Path(__file__).resolve().parent
 
 
@@ -2117,19 +2163,25 @@ def pipelined_ms(serve_fn, frames) -> list:
     return gaps
 
 
-def phase_export_serve(dev, cfg, per_frame: dict):
+# the exported artifacts that the serving host has still to serve, by
+# name: (its work directory, the launches it must make, serve's detections,
+# the result dict its numbers join); and the phase results whose launches
+# take those of an artifact's serving run (a CLI phase that exported one)
+PENDING_HOST = {}
+HOST_OWNERS = {}
+
+
+def phase_export_serve(dev, name: str, cfg, per_frame: dict):
     """``cfg`` at full width (random weights, seed 0) exported by
     ``tools/export.py``'s ``export_model`` on the flagship batch and saved;
-    ``tools/serve.py`` in a subprocess that imports no model code serves 3
-    flagship frames (seeds 0-2), each from 2 ``.npz`` files: its launches
-    (after its warm-up) must read ``per_frame`` for each file, and its
-    detections equal ``serve``'s on the same frames (valid and labels equal,
-    boxes and scores within 1e-4) at a tie-free score threshold baked into
-    both. Beside the export's and the save's seconds and the artifact's
-    bytes: ms per frame by completion gaps through the host (which reads
-    each ``.npz`` and copies it from pageable memory) and through ``serve``
-    on the same numpy frames, and through the artifact loaded in this
-    process and ``serve`` on the frames already on the card."""
+    3 flagship frames (seeds 0-2), each as 2 ``.npz`` files, and
+    ``serve``'s detections of each at a tie-free score threshold baked into
+    both are left for ``phase_serving_host``, which serves every export
+    phase's artifact from one serving-host process. Here: the export's and
+    the save's seconds, the artifact's bytes, ms per frame by completion
+    gaps through ``serve`` on the same numpy frames, and through the
+    artifact loaded in this process and ``serve`` on the frames already on
+    the card."""
     model = HGSFusionModel(cfg, device=dev, seed=0)
     frames = [flagship_batch(cfg, seed=s) for s in range(EXPORT_FRAMES)]
     thr = tie_free_serving_threshold(model, frames)
@@ -2140,22 +2192,18 @@ def phase_export_serve(dev, cfg, per_frame: dict):
     nodes = sorted({str(n.target) for n in program.graph.nodes
                     if library.NAMESPACE in str(n.target)})
     graph_nodes = sum(n.op == "call_function" for n in program.graph.nodes)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        size = export_cli.save_artifact(program, spec, tmp / "model.pt2")
-        save_s = time.perf_counter() - t0
-        del program
-        (tmp / "in").mkdir()
-        for r in range(EXPORT_REPEATS):
-            for i, f in enumerate(frames):
-                np.savez(tmp / "in" / f"r{r}_frame{i}.npz", **{k: f[k] for k in spec["inputs"]})
-        t0 = time.perf_counter()
-        summary, dets = run_serving_host(tmp / "model.pt2", tmp / "in", tmp / "out")
-        host_s = time.perf_counter() - t0
-        # the artifact in this process on batches already on the card: its
-        # graph against serve, without the host's file reads and copies
-        module, _ = serve_cli.load_artifact(tmp / "model.pt2")
+    work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+    t0 = time.perf_counter()
+    size = export_cli.save_artifact(program, spec, work / "model.pt2")
+    save_s = time.perf_counter() - t0
+    del program
+    (work / "in").mkdir()
+    for r in range(EXPORT_REPEATS):
+        for i, f in enumerate(frames):
+            np.savez(work / "in" / f"r{r}_frame{i}.npz", **{k: f[k] for k in spec["inputs"]})
+    # the artifact in this process on batches already on the card: its
+    # graph against serve, without the host's file reads and copies
+    module, _ = serve_cli.load_artifact(work / "model.pt2")
     on_card = [serve_cli.batch_inputs(f, spec) for f in frames] * EXPORT_REPEATS
 
     def artifact(batch):
@@ -2165,38 +2213,83 @@ def phase_export_serve(dev, cfg, per_frame: dict):
     artifact(on_card[0])  # warm-up
     artifact_gaps = pipelined_ms(artifact, on_card)
     del module
-    want = per_frames(per_frame, EXPORT_FRAMES * EXPORT_REPEATS)
-    if summary["launches"] != want:
-        raise AssertionError(f"the artifact's launches {summary['launches']}, want {want}")
     model.serve(frames[0])  # warm-up
     serve_gaps = pipelined_ms(model.serve, frames * EXPORT_REPEATS)
     serve_card_gaps = pipelined_ms(model.serve, on_card)
-    errs = {"boxes": 0.0, "scores": 0.0}
-    kept = []
-    for i, f in enumerate(frames):
-        ref = {k: v.cpu().numpy() for k, v in model.serve(f).items()}
-        for r in range(EXPORT_REPEATS):
-            got = dets[f"r{r}_frame{i}"]
-            for k in ("valid", "labels"):
-                if not np.array_equal(got[k], ref[k]):
-                    raise AssertionError(f"frame {i}: the artifact's {k} differ from serve's")
-            for k in errs:
-                errs[k] = max(errs[k], float(np.abs(got[k] - ref[k]).max()))
-        kept.append(int(ref["valid"].sum()))
-    if max(errs.values()) > 1e-4 or not all(kept):
-        raise AssertionError(f"max abs err {errs}, kept {kept}")
-    result = {"launches": summary["launches"], "graph_ops": nodes, "score_thresh": thr,
-              "kept": kept, "max_abs_err": errs,
+    refs = [{k: v.cpu().numpy() for k, v in model.serve(f).items()} for f in frames]
+    result = {"graph_ops": nodes, "score_thresh": thr,
+              "kept": [int(r["valid"].sum()) for r in refs],
               "export_s": export_s, "save_s": save_s, "artifact_bytes": size,
-              "serving_host_s": host_s, "artifact_ms_per_frame": summary["ms_per_frame"],
-              "artifact_gaps_ms": summary["gaps_ms"],
-              "serve_ms_per_frame": float(np.mean(serve_gaps)),
-              "serve_gaps_ms": serve_gaps,
+              "serve_ms_per_frame": float(np.mean(serve_gaps)), "serve_gaps_ms": serve_gaps,
               "on_card_artifact_ms_per_frame": float(np.mean(artifact_gaps)),
               "on_card_serve_ms_per_frame": float(np.mean(serve_card_gaps)),
               "graph_nodes": graph_nodes, "inputs": spec["inputs"]}
+    if not all(result["kept"]):
+        raise AssertionError(f"kept {result['kept']}")
+    PENDING_HOST[name] = (work, per_frames(per_frame, EXPORT_FRAMES * EXPORT_REPEATS), refs,
+                          result)
     print("  " + json.dumps(result))
     return result
+
+
+def phase_serving_host(dev):
+    """Every pending export phase's artifact served by ``tools/serve.py`` in
+    one subprocess that blocks the model code and JAX (``SERVE_GUARD_RUNS``),
+    one run each over its 6 ``.npz`` files: each run's launches (after its
+    warm-up) must read its view's per-frame launches for each file, and its
+    detections equal ``serve``'s (valid and labels equal, boxes and scores
+    within 1e-4). Each export phase's result gains its launches, the
+    host's ms per frame and gaps and the errors; this phase's, the host's
+    seconds."""
+    if not PENDING_HOST:
+        raise AssertionError("no export phase left an artifact to serve")
+    names = list(PENDING_HOST)
+    runs = [["--artifact", str(PENDING_HOST[n][0] / "model.pt2"), "--inputs",
+             str(PENDING_HOST[n][0] / "in"), "--out_dir", str(PENDING_HOST[n][0] / "out"),
+             "--time"] for n in names]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", SERVE_GUARD_RUNS, json.dumps(runs)],
+                              capture_output=True, text=True, timeout=900, cwd=REPO)
+        host_s = time.perf_counter() - t0
+        served = [json.loads(s[len("SERVED "):]) for s in proc.stdout.splitlines()
+                  if s.startswith("SERVED ")]
+        if proc.returncode != 0 or len(served) != len(names):
+            raise AssertionError(f"the serving host failed:\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-4000:]}")
+        for name, summary in zip(names, served):
+            work, want, refs, result = PENDING_HOST[name]
+            if summary["launches"] != want:
+                raise AssertionError(f"{name}: the artifact's launches {summary['launches']}, "
+                                     f"want {want}")
+            errs = {"boxes": 0.0, "scores": 0.0}
+            repeats = len(list((work / "in").glob("*.npz"))) // len(refs)
+            for i, ref in enumerate(refs):
+                for r in range(repeats):
+                    with np.load(work / "out" / f"r{r}_frame{i}_dets.npz") as got:
+                        for k in ("valid", "labels"):
+                            if not np.array_equal(got[k], ref[k]):
+                                raise AssertionError(f"{name} frame {i}: the artifact's {k} "
+                                                     "differ from serve's")
+                        for k in errs:
+                            errs[k] = max(errs[k], float(np.abs(got[k] - ref[k]).max()))
+            if max(errs.values()) > 1e-4:
+                raise AssertionError(f"{name}: max abs err {errs}")
+            result.update(launches=summary["launches"], max_abs_err=errs,
+                          artifact_ms_per_frame=summary["ms_per_frame"],
+                          artifact_gaps_ms=summary["gaps_ms"], serving_host_s=host_s)
+            owner = HOST_OWNERS.pop(name, None)
+            if owner is not None:
+                owner["launches_by_run"]["serving_host"] = summary["launches"]
+                for k, v in summary["launches"].items():
+                    owner["launches"][k] += v
+    finally:
+        for work, *_ in PENDING_HOST.values():
+            shutil.rmtree(work, ignore_errors=True)
+        PENDING_HOST.clear()
+    out = {"artifacts": names, "serving_host_s": host_s}
+    print("  " + json.dumps(out))
+    return out
 
 
 # python -m hgsfusion_tpu_torch.bench runs: the polar default, the gather
@@ -2204,27 +2297,43 @@ def phase_export_serve(dev, cfg, per_frame: dict):
 BENCH_RUNS = ((), ("--vod",), ("--realistic",), ("--tj4d",))
 
 
+def run_bench(args):
+    """``bench.main(args)`` in this process under PyTorch's default TF32
+    settings, as ``python -m hgsfusion_tpu_torch.bench`` runs: (its return
+    code, its stdout lines, its stderr's ``#`` notes)."""
+    out, err = io.StringIO(), io.StringIO()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(list(args))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.cuda.empty_cache()
+    return (rc, out.getvalue().strip().splitlines(),
+            [s for s in err.getvalue().splitlines() if s.startswith("#")])
+
+
 def phase_bench(dev):
-    """The port's ``bench`` entry point, each of BENCH_RUNS in its own
-    process: exactly one JSON line on stdout, with a positive value, and
-    the timed serve calls' kernel launches (its stderr) those of a gather
-    or polar frame each."""
+    """The port's ``bench`` entry point, each of BENCH_RUNS through
+    ``bench.main`` in this process: exactly one JSON line on stdout, with a
+    positive value, its metric's name and unit and ``vs_baseline``, and the
+    timed serve calls' kernel launches (its stderr) those of a gather or
+    polar frame each."""
     lines = []
     for args in BENCH_RUNS:
-        proc = subprocess.run([sys.executable, "-m", "hgsfusion_tpu_torch.bench", *args],
-                              capture_output=True, text=True, timeout=600, cwd=REPO)
-        out = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or len(out) != 1:
-            raise AssertionError(f"bench {args}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
-                                 f"{proc.stderr[-3000:]}")
+        t0 = time.perf_counter()
+        rc, out, notes = run_bench(args)
+        if rc != 0 or len(out) != 1:
+            raise AssertionError(f"bench {args}: rc {rc}\n{out[-20:]}\n{notes[-20:]}")
         line = json.loads(out[0])
         cfg_name = args[0][2:] if args and args[0] != "--realistic" else "vod_polar"
         name = bench.metric_name(cfg_name, 1, "--realistic" in args)
         if line.get("metric") != name or not line.get("value", 0) > 0 \
                 or line.get("unit") != "frames/sec/chip" or "vs_baseline" not in line:
             raise AssertionError(f"bench {args}: {line}")
-        line["stderr"] = [s for s in proc.stderr.strip().splitlines() if s.startswith("#")]
-        launched = [json.loads(s[len("# launches "):]) for s in line["stderr"]
+        line["stderr"] = notes
+        launched = [json.loads(s[len("# launches "):]) for s in notes
                     if s.startswith("# launches ")]
         if len(launched) != 1:
             raise AssertionError(f"bench {args}: no launch counts on stderr")
@@ -2233,6 +2342,7 @@ def phase_bench(dev):
                           launched[0]["serve_calls"])
         if launched[0]["counts"] != want:
             raise AssertionError(f"bench {args}: launches {launched[0]}, want {want}")
+        line["run_s"] = time.perf_counter() - t0
         print("  " + json.dumps(line))
         lines.append(line)
     return lines
@@ -2873,8 +2983,9 @@ def phase_ddp(dev):
     # (b) two gloo ranks at B=1 against one process at B=2, at full width
     # (DDP_SEED) and TINY (DDP_TINY_SEED)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    gloo = {"full": two_ranks_vs_one(cfg32, flagship_batch(cfg32, b=RANKS), DDP_SEED),
-            "tiny": two_ranks_vs_one(TINY, tiny_batch(RANKS), DDP_TINY_SEED)}
+    gloo = dict(zip(("full", "tiny"), two_ranks_vs_one(
+        [(cfg32, flagship_batch(cfg32, b=RANKS), DDP_SEED),
+         (TINY, tiny_batch(RANKS), DDP_TINY_SEED)])))
     result = {
         "world1": {"bit_equal": diff == 0.0, "max_abs_diff": diff, "plain_spread": spread,
                    "steps": 2, "plain_ms": plain[0][3], "wrapped_ms": wrapped[3],
@@ -2886,37 +2997,50 @@ def phase_ddp(dev):
     return result
 
 
-def two_ranks_vs_one(cfg, batch, seed: int) -> dict:
-    """One training step of ``cfg`` (weights ``seed``) in two gloo ranks on
-    the card at B=1 each against one process at B=2 on ``batch``'s two
-    frames, under the whole ``step_compare`` comparison (loss terms,
-    gradients, updated parameters, BN statistics), the tensors whose
-    sensitivity (``DDP_PROBES`` probes) passes ``SENS_CAP`` named and
-    exempted, their errors reported. The ranks bit-equal, each rank's
-    launches those of a gather step."""
-    (ref,), lr, _, ref_ms = train_steps(None, cfg, batch, 1, seed)
-    probes = [train_steps(None, cfg, batch, 1, seed, perturb_seed=s)[0][0]["grads"]
-              for s in range(1, DDP_PROBES + 1)]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    ranks = spawn.spawn_ranks(train_steps, RANKS, cfg, batch, 1, seed, device="cuda:0",
-                              backend="gloo")
-    got = ranks[0][0][0]
-    if _record_diff(got, ranks[1][0][0]) != 0.0:
-        raise AssertionError("the two ranks' steps differ")
-    for r, (_, _, launches, _) in enumerate(ranks):
-        if launches != per_frames(GATHER_STEP, 1):
-            raise AssertionError(f"rank {r}: launches {launches}, want "
-                                 f"{per_frames(GATHER_STEP, 1)}")
-    sens = sensitivity(ref["grads"], probes)
-    exempt = over_cap(ref["grads"], sens)
-    report = compare_steps(ref, got, sens, lr, exempt=exempt)
-    exempt_err = {k: float((got["grads"][k] - ref["grads"][k]).abs().max())
-                  / float(ref["grads"][k].abs().max()) for k in exempt}
-    return {**report, "exempt_err_over_max": exempt_err, "tensors": len(ref["grads"]),
-            "single_b2_ms": ref_ms, "rank_ms": [r[3] for r in ranks],
-            "loss_single": float(ref["tb"]["loss"]), "loss_ranks": float(got["tb"]["loss"]),
-            "launches": {k: sum(r[2][k] for r in ranks) for k in library.launches}}
+def train_step_cases(ctx, cases):
+    """``train_steps(ctx, cfg, batch, 1, seed)`` for each (cfg, batch, seed)
+    of ``cases`` in turn, in one process group."""
+    return [train_steps(ctx, cfg, batch, 1, seed) for cfg, batch, seed in cases]
+
+
+def two_ranks_vs_one(cases) -> list:
+    """For each (cfg, batch, seed) of ``cases``: one training step of
+    ``cfg`` (weights ``seed``) in two gloo ranks on the card at B=1 each
+    against one process at B=2 on ``batch``'s two frames, under the whole
+    ``step_compare`` comparison (loss terms, gradients, updated parameters,
+    BN statistics), the tensors whose sensitivity (``DDP_PROBES`` probes)
+    passes ``SENS_CAP`` named and exempted, their errors reported. The
+    ranks bit-equal, each rank's launches those of a gather step. Every
+    case's ranks run in one spawn of the two processes."""
+    refs = []
+    for cfg, batch, seed in cases:
+        (ref,), lr, _, ref_ms = train_steps(None, cfg, batch, 1, seed)
+        probes = [train_steps(None, cfg, batch, 1, seed, perturb_seed=s)[0][0]["grads"]
+                  for s in range(1, DDP_PROBES + 1)]
+        refs.append((ref, lr, ref_ms, sensitivity(ref["grads"], probes)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    ranks = spawn.spawn_ranks(train_step_cases, RANKS, cases, device="cuda:0", backend="gloo")
+    out = []
+    for i, (ref, lr, ref_ms, sens) in enumerate(refs):
+        runs = [r[i] for r in ranks]
+        got = runs[0][0][0]
+        if _record_diff(got, runs[1][0][0]) != 0.0:
+            raise AssertionError("the two ranks' steps differ")
+        for r, (_, _, launches, _) in enumerate(runs):
+            if launches != per_frames(GATHER_STEP, 1):
+                raise AssertionError(f"rank {r}: launches {launches}, want "
+                                     f"{per_frames(GATHER_STEP, 1)}")
+        exempt = over_cap(ref["grads"], sens)
+        report = compare_steps(ref, got, sens, lr, exempt=exempt)
+        exempt_err = {k: float((got["grads"][k] - ref["grads"][k]).abs().max())
+                      / float(ref["grads"][k].abs().max()) for k in exempt}
+        out.append({**report, "exempt_err_over_max": exempt_err, "tensors": len(ref["grads"]),
+                    "single_b2_ms": ref_ms, "rank_ms": [r[3] for r in runs],
+                    "loss_single": float(ref["tb"]["loss"]),
+                    "loss_ranks": float(got["tb"]["loss"]),
+                    "launches": {k: sum(r[2][k] for r in runs) for k in library.launches}})
+    return out
 
 
 def ddp_conditioning(dev, seeds=range(8), tiny: bool = False):
@@ -4390,9 +4514,10 @@ def conv3d_taps(model) -> int:
                if isinstance(m, SparseConv3d))
 
 
-def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3):
+def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3, per_step=None):
     """A zoo config's training step at full width (``make_train_step_for_cfg``)
-    after a warm-up: no kernel launched, finite losses, a positive anchor
+    after a warm-up: the kernels ``per_step`` names launched that often a
+    step (by default none), finite losses, a positive anchor
     (where the family has anchors), every trainable tensor with a gradient
     moved, no host sync in a step; each step's stream ms (CUDA events), one
     profiled step's device time and top kernels, peak memory, the 3-D
@@ -4426,8 +4551,9 @@ def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3):
         terms.append({k: float(v) for k, v in tb.items()})
     launches = dict(library.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != per_frames({}, steps):
-        raise AssertionError(f"launches in {steps} steps {launches}, want none")
+    if launches != per_frames(per_step or {}, steps):
+        raise AssertionError(f"launches in {steps} steps {launches}, want "
+                             f"{per_frames(per_step or {}, steps)}")
     if not all(math.isfinite(v) for t in terms for v in t.values()):
         raise AssertionError(f"non-finite loss terms {terms}")
     params = dict(model.named_parameters())
@@ -4806,16 +4932,12 @@ def phase_serve_family(dev, name: str, cfg, batch, per_frame: dict, frames: int 
     if name not in bench.ZOO:
         print("  " + json.dumps(result))
         return result
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = bench.main([f"--{name}"])
-    lines = out.getvalue().strip().splitlines()
+    rc, lines, notes = run_bench([f"--{name}"])
     line = json.loads(lines[-1]) if lines else {}
-    notes = [s for s in err.getvalue().splitlines() if s.startswith("#")]
     counted = [json.loads(s[len("# launches "):]) for s in notes if s.startswith("# launches ")]
     if rc != 0 or len(lines) != 1 or not line.get("value", 0) > 0 \
             or line.get("metric") != bench.metric_name(name, 1, False) or len(counted) != 1:
-        raise AssertionError(f"bench --{name}: rc {rc}, {lines}, {err.getvalue()[-2000:]}")
+        raise AssertionError(f"bench --{name}: rc {rc}, {lines}, {notes[-20:]}")
     if counted[0]["counts"] != per_frames(per_frame, counted[0]["serve_calls"]):
         raise AssertionError(f"bench --{name}: launches {counted[0]}")
     result.update(launches={k: launches[k] + counted[0]["counts"][k] for k in launches},
@@ -4888,12 +5010,17 @@ def phase_train_bevfusion(dev, steps: int = 3):
     return result
 
 
-def phase_train_cli_family(dev, yaml_path: str, per_step: dict, per_frame: dict):
-    """A zoo YAML (the TransFusion-head families, CenterPoint, SECOND)
-    through the CLIs at full width: ``tools/train.py`` over an 8-frame VoD
-    tree (``per_step`` launches a step; BEVFusion: BEV_STEP), then
-    ``tools/test.py --ckpt_dir`` on its checkpoint (``per_frame``;
-    BEVFusion: one D1; CenterPoint, SECOND: one NMS call)."""
+def phase_train_cli_family(dev, yaml_path: str, per_step: dict, per_frame: dict,
+                           export_as: str | None = None):
+    """A zoo YAML (the TransFusion-head families, CenterPoint, SECOND,
+    SECOND-IoU, Voxel R-CNN) through the CLIs at full width:
+    ``tools/train.py`` over an 8-frame VoD tree (``per_step`` launches a
+    step; BEVFusion: BEV_STEP), then ``tools/test.py --ckpt_dir`` on its
+    checkpoint (``per_frame``; BEVFusion: one D1; CenterPoint, SECOND: one
+    NMS call; the two-stage families two). With ``export_as``, the
+    checkpoint is also exported by ``tools/export.py`` (``main``) and left,
+    with the first 3 evaluation frames and ``serve``'s detections of them
+    from that checkpoint, for ``phase_serving_host`` under that name."""
     cfg = load_config(yaml_path)
     data = cfg["DATA_CONFIG"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4913,6 +5040,8 @@ def phase_train_cli_family(dev, yaml_path: str, per_step: dict, per_frame: dict)
                                    "--max_frames", str(BEV_CLI_EVAL_FRAMES), "--output_dir",
                                    str(out / "eval")] + data_set)
         eval_launches = dict(library.launches)
+        exported = None if export_as is None else export_checkpoint(
+            dev, export_as, yaml_path, cfg, ckpt.ckpt_dir, per_frame)
     (result_dict, stats), = evaluated.values()
     checks = {"train": (train_launches, per_frames(per_step, BEV_CLI_STEPS)),
               "eval": (eval_launches, per_frames(per_frame, BEV_CLI_EVAL_FRAMES))}
@@ -4929,7 +5058,52 @@ def phase_train_cli_family(dev, yaml_path: str, per_step: dict, per_frame: dict)
               "steps_per_s": trained["steps_per_s"], "losses": trained["losses"],
               "peak_memory_bytes": trained["peak_memory_bytes"],
               "eval_ms_per_frame": stats.get("ms_per_frame"), "eval_result": result_dict}
+    if exported is not None:
+        result["export"] = exported
+        HOST_OWNERS[export_as] = result
     print("  " + json.dumps(result))
+    return result
+
+
+EXPORT_CLI_FRAMES = 3
+
+
+def export_checkpoint(dev, name: str, yaml_path: str, cfg: dict, ckpt_dir, per_frame: dict):
+    """``tools/export.py`` (``main``) on the newest checkpoint of
+    ``ckpt_dir``; the first EXPORT_CLI_FRAMES evaluation frames written as
+    ``.npz`` files and ``serve``'s detections of them (the checkpoint's
+    weights, PyTorch's default TF32 settings, as the serving host keeps
+    them; a second call must give the same bits) left for
+    ``phase_serving_host`` under ``name``. Returns the
+    export's seconds and bytes (the host's numbers join them there)."""
+    work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+    t0 = time.perf_counter()
+    spec = export_cli.main(["--cfg_file", yaml_path, "--ckpt_dir", str(ckpt_dir), "--out",
+                            str(work / "model.pt2"), "--set", "DATA_CONFIG.DATA_PATH",
+                            cfg["DATA_CONFIG"]["DATA_PATH"]])
+    export_s = time.perf_counter() - t0
+    model = build_network(cfg, device=dev, seed=0)
+    ckpt = CheckpointManager(Path(ckpt_dir))
+    model.load_state_dict(torch.load(ckpt.path(ckpt.latest_step()), map_location=dev,
+                                     weights_only=True)["model_state"])
+    ds = build_dataset(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"], training=False)
+    frames = [ds.collate_batch([ds[i]]) for i in range(EXPORT_CLI_FRAMES)]
+    (work / "in").mkdir()
+    for i, f in enumerate(frames):
+        np.savez(work / "in" / f"r0_frame{i}.npz",
+                 **{k: np.asarray(f[k]) for k in spec["inputs"]})
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        refs = [{k: v.cpu().numpy() for k, v in model.serve(f).items()} for f in frames]
+        again = [{k: v.cpu().numpy() for k, v in model.serve(f).items()} for f in frames]
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    if not all(np.array_equal(a[k], r[k]) for a, r in zip(again, refs) for k in r):
+        raise AssertionError(f"{name}: serve gave other detections on a second call")
+    result = {"export_s": export_s, "artifact_bytes": (work / "model.pt2").stat().st_size,
+              "inputs": sorted(spec["inputs"]), "kept": [int(r["valid"].sum()) for r in refs]}
+    PENDING_HOST[name] = (work, per_frames(per_frame, EXPORT_CLI_FRAMES), refs, result)
     return result
 
 
@@ -5095,6 +5269,252 @@ def phase_small_reference_center(dev):
     return out
 
 
+# ---- the focal SECOND, SECOND-IoU and Voxel R-CNN ---------------------------
+# the VoD configs (f32) by their ``bench.ZOO`` names
+TWOSTAGE_ZOO = ("second_focal", "second_iou", "voxelrcnn")
+NMS_TWICE = {library.NMS_MASK: 2, library.NMS_SWEEP: 2}
+# NMS calls a served frame (the two-stage families: the proposals' and the
+# detections') and a training step (the proposals')
+TWOSTAGE_FRAME = {"second_focal": NMS_CALL, "second_iou": NMS_TWICE, "voxelrcnn": NMS_TWICE}
+TWOSTAGE_STEP = {"second_focal": {}, "second_iou": NMS_CALL, "voxelrcnn": NMS_CALL}
+# the proposal layer's NMS (top 512 at ROI_HEAD.NMS_THRESH_TRAIN 0.8, 128
+# kept) and SECOND-IoU's final one (its 128 proposals at 0.01, 500 slots)
+PROPOSAL_K, PROPOSAL_KEEP, PROPOSAL_THRESH = 512, 128, 0.8
+# the weight seed of the TINY cuts; no importance of the focal layers may lie
+# within FOCAL_TIE of a k-th one but its exact ties (checked on the CPU)
+TWOSTAGE_TINY_SEED, FOCAL_TIE = 3, 1e-6
+
+
+def phase_nms_twostage(dev):
+    """``nms_lazy`` against its plain version at the two-stage shapes: the
+    proposals (512 candidates, 0.8, at most 128 kept; B=1 timed, B=2) and
+    SECOND-IoU's detections (128 proposals at 0.01, 500 slots): equal keep
+    sets."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ones = torch.ones((1, PROPOSAL_K), dtype=torch.bool, device=dev)
+    rows = [
+        nms_case("proposals", t(clustered_boxes(PROPOSAL_K, 64, 21))[None], ones,
+                 PROPOSAL_KEEP, timed=True, nms_thresh=PROPOSAL_THRESH),
+        nms_case("proposals_b2", t(np.stack([clustered_boxes(PROPOSAL_K, 64, 22),
+                                             clustered_boxes(PROPOSAL_K, 32, 23)])),
+                 ones.expand(2, -1).contiguous(), PROPOSAL_KEEP, timed=False,
+                 nms_thresh=PROPOSAL_THRESH),
+        nms_case("second_iou_final", t(clustered_boxes(PROPOSAL_KEEP, 40, 24))[None],
+                 ones[:, :PROPOSAL_KEEP].contiguous(), NMS_KEEP, timed=True),
+    ]
+    for r in rows:
+        if not r["equal_to_plain"]:
+            raise AssertionError(f"{r['case']}: keep sets differ from the plain version's")
+    if rows[0]["kept"] != [PROPOSAL_KEEP]:
+        raise AssertionError(f"proposals kept {rows[0]['kept']}, want the {PROPOSAL_KEEP} cut")
+    return rows
+
+
+def phase_ball_query(dev):
+    """Voxel R-CNN's ball query at full width: ``configs/voxelrcnn_vod.yaml``
+    on the flagship batch (random weights, seed 0), its 128 proposals'
+    27,648 grid points over x_conv2, x_conv3 and x_conv4: the windowed
+    query (``ball_query_grid``) timed at every grid point, and its index
+    lists and masks equal to the dense form's (``ball_query``) exactly
+    where the dense (M, N) matrix fits: one RoI's 216 points at x_conv2,
+    4 RoIs' at x_conv3, every point at x_conv4."""
+    cfg = zoo_config("voxelrcnn")
+    model = build_network("VoxelRCNN", cfg, device=dev, seed=0)
+    with torch.inference_mode():
+        batch = model.batch_to_device(flagship_batch(cfg))
+        x3d, stages, _ = model.voxel_features(batch)
+        rois, _, _, _ = model.rpn_proposals(model.dense_head(
+            model.backbone_2d(height_compression(x3d))))
+        grid = roi_grid_points(rois, 6).reshape(-1, 3)
+        rows = []
+        for (name, _, _), dense_rois in zip(model.roi_grid_pool.SOURCES, (1, 4, PROPOSAL_KEEP)):
+            centers, _, valid, geom = stage_point_set(stages[name], cfg.pc_range,
+                                                      cfg.voxel_size)
+            radius = getattr(model.roi_grid_pool, f"pool_{name}").radii[0]
+
+            def windowed():
+                return ball_query_grid(grid, *geom, valid[0], radius, 16)
+
+            idx, any_nb = windowed()
+            n = dense_rois * 216
+            ref_idx, ref_any = ball_query(grid[:n], centers, valid[0], radius, 16)
+            row = {"stage": name, "cells": int(centers.shape[0]), "active": int(valid.sum()),
+                   "centres": int(grid.shape[0]), "radius": radius,
+                   "window": [window_span(radius, p) for p in geom[1]],
+                   "with_neighbours": int(any_nb.sum()), "ms": cuda_ms(windowed, iters=5),
+                   "dense_centres": n, "equal_to_dense": bool(
+                       torch.equal(idx[:n], ref_idx) and torch.equal(any_nb[:n], ref_any)),
+                   "dense_ms": cuda_ms(lambda: ball_query(grid[:n], centers, valid[0], radius,
+                                                          16), iters=2, warmup=1)}
+            del ref_idx, ref_any
+            torch.cuda.empty_cache()
+            print("  " + json.dumps(row))
+            if not row["equal_to_dense"]:
+                raise AssertionError(f"{name}: the windowed query differs from the dense one")
+            rows.append(row)
+    if not any(r["with_neighbours"] for r in rows):
+        raise AssertionError("no grid point found a voxel")
+    return rows
+
+
+def phase_focal_backbone(dev):
+    """The focal SECOND's 3-D backbone (VoxelBackBone8xFocal) beside the
+    plain VoxelBackBone8x, each in eval mode at full width on the flagship
+    batch's voxels (random weights, seed 0): device ms (CUDA events, 5
+    calls), the active sites each focal layer takes in and gives out, and
+    the outputs finite."""
+    out = {}
+    for name in ("second", "second_focal"):
+        cfg = zoo_config(name)
+        model = build_network("SECONDNet", cfg, device=dev, seed=0)
+        with torch.inference_mode():
+            batch = model.batch_to_device(flagship_batch(cfg))
+            dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
+                                   cfg.voxel_size, cfg.grid_size)
+            got = model.backbone_3d(dense, mask)
+            if not bool(torch.isfinite(got[0]).all()):
+                raise AssertionError(f"{name}: non-finite backbone output")
+            out[name] = {"ms": cuda_ms(lambda: model.backbone_3d(dense, mask), iters=5),
+                         "voxels": int(mask.sum())}
+            if name == "second_focal":
+                out[name]["focal_layers"] = [
+                    {"active_in": int(a["active"].sum()),
+                     "foreground": int(model.backbone_3d.focal1.foreground(
+                         a["mask_voxel"], a["active"]).sum()) if i == 0 else None,
+                     "active_out": int(got[2][f"x_conv{i + 1}"][1].sum())}
+                    for i, a in enumerate(got[3])]
+        del model
+        torch.cuda.empty_cache()
+    print("  " + json.dumps(out))
+    return out
+
+
+def tiny_twostage(name: str):
+    """A two-stage VoD config (or the focal SECOND's) cut to TINY: 0.5 x 0.5
+    x 0.125 m voxels (41 planes), 16 RoIs, a 3 x 3 IoU grid, 16 detection
+    slots, score threshold 0."""
+    return dataclasses.replace(zoo_config(name), pc_range=TINY_RANGE,
+                               voxel_size=(0.5, 0.5, 0.125), pv_num_rois=16, iou_grid_size=3,
+                               nms_post_max_size=16, score_thresh=0.0)
+
+
+def spread_importances(cpu_model, gpu_model, batch, scale: float = 0.5):
+    """Each focal layer's importance head scaled (on both models) so that
+    its logits' mean magnitude over the active sites is ``scale`` on the
+    CPU's eval-mode forward: random weights in eval mode shrink the
+    activations layer by layer and leave the logits at 1e-5-1e-2, every
+    importance within 1e-6 of 0.5, where the devices' last bits would
+    decide the foreground."""
+    cfg, bb = cpu_model.cfg, cpu_model.backbone_3d
+    x, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range, cfg.voxel_size,
+                       cfg.grid_size)
+    x, mask = bb.conv_input(x, mask)
+    for i, stage in enumerate((bb.conv1, bb.conv2, bb.conv3), start=1):
+        x, mask = stage(x, mask)
+        focal = getattr(bb, f"focal{i}")
+        logits = focal.conv_imp(x * mask, torch.float32)[mask[..., 0]]
+        factor = scale / float(logits.abs().mean())
+        for m in (cpu_model, gpu_model):
+            getattr(m.backbone_3d, f"focal{i}").conv_imp.weight.mul_(factor)
+        x, mask, _ = focal(x, mask)
+
+
+def focal_premise(model, batch):
+    """The focal layers' importances (eval, on the CPU): every one within
+    FOCAL_TIE of a frame's k-th is an exact tie, so that the card's ulp-off
+    sigmoids select the same foreground."""
+    cfg = model.cfg
+    dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
+                           cfg.voxel_size, cfg.grid_size)
+    _, _, _, aux = model.backbone_3d(dense, mask)
+    for a in aux:
+        mv, act = a["mask_voxel"].flatten(1), a["active"].flatten(1)
+        for f in range(mv.shape[0]):
+            vals = mv[f][act[f]].sort(descending=True).values
+            kth = vals[max(int(vals.numel() * cfg.focal_threshold) - 1, 0)]
+            near = vals[(vals - kth).abs() <= FOCAL_TIE]
+            if not bool((near == kth).all()):
+                raise AssertionError("an importance within FOCAL_TIE of the k-th: "
+                                     "change TWOSTAGE_TINY_SEED")
+
+
+def phase_small_reference_twostage(dev):
+    """The focal SECOND, SECOND-IoU and Voxel R-CNN cut to TINY
+    (``tiny_twostage``), card vs CPU, one set of weights, two frames: the
+    RPN's maps within 1e-4 (the focal SECOND's importance heads scaled by
+    ``spread_importances``, and its foreground the same on both:
+    ``focal_premise``); the proposals of the CPU's RPN maps with a ramp
+    added to the class scores (the tie rule) equal on both devices; the
+    second stage on those proposals within 1e-4; the post-processing of
+    the CPU's outputs equal on both devices with one NMS call on the card
+    (two with the proposals); then one training step on the card: finite
+    loss terms, one NMS call (the proposals') for the two-stage families."""
+    out = {}
+    for name in TWOSTAGE_ZOO:
+        cfg = tiny_twostage(name)
+        family = bench.ZOO[name][1]
+        cpu_model = build_network(family, cfg, device="cpu", seed=TWOSTAGE_TINY_SEED)
+        gpu_model = build_network(family, cfg, device=dev, seed=TWOSTAGE_TINY_SEED)
+        batch = tiny_center_batch(cfg)
+        row = {}
+        with torch.inference_mode():
+            cb, gb = cpu_model.batch_to_device(batch), gpu_model.batch_to_device(batch)
+            if name == "second_focal":
+                spread_importances(cpu_model, gpu_model, cb)
+                focal_premise(cpu_model, cb)
+            c3d, c_stages, _ = cpu_model.voxel_features(cb)
+            g3d, g_stages, _ = gpu_model.voxel_features(gb)
+            c2d = cpu_model.backbone_2d(height_compression(c3d))
+            g2d = gpu_model.backbone_2d(height_compression(g3d))
+            ref, got = cpu_model.dense_head(c2d), gpu_model.dense_head(g2d)
+            row["rpn_max_abs_err"] = {k: float((got[k].cpu() - r).abs().max())
+                                      for k, r in ref.items()}
+            for k, r in ref.items():
+                torch.testing.assert_close(got[k].cpu(), r, rtol=1e-4, atol=1e-4)
+            ramp = torch.linspace(0, 1.0, ref["cls_preds"].numel()).view(ref["cls_preds"].shape)
+            ref = {**ref, "cls_preds": ref["cls_preds"] + ramp}
+            if name == "second_focal":
+                d_ref = cpu_model.post_process(ref)
+                zero_launches()
+                d_got = gpu_model.post_process({k: v.to(dev) for k, v in ref.items()})
+                want = NMS_CALL
+            else:
+                props = cpu_model.rpn_proposals(ref)
+                zero_launches()
+                g_props = gpu_model.rpn_proposals({k: v.to(dev) for k, v in ref.items()})
+                for a, b in zip(props, g_props):
+                    torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+                c2 = cpu_model.roi_stage(props[0], c_stages, c2d)
+                g2 = gpu_model.roi_stage(props[0].to(dev), g_stages, g2d)
+                row["second_stage_max_abs_err"] = {k: float((g2[k].cpu() - v).abs().max())
+                                                   for k, v in c2.items()}
+                for k, v in c2.items():
+                    torch.testing.assert_close(g2[k].cpu(), v, rtol=1e-4, atol=1e-4)
+                preds = {**ref, "rois": props[0], "roi_scores": props[1],
+                         "roi_labels": props[2], "roi_valid": props[3], **c2}
+                d_ref = cpu_model.post_process(preds)
+                d_got = gpu_model.post_process({k: v.to(dev) for k, v in preds.items()})
+                want = NMS_TWICE
+            launches = dict(library.launches)
+        if launches != per_frames(want, 1):
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        row.update(compare_center_detections(d_ref, d_got))
+        opt, _ = build_optimizer(cfg.optimization, TRAIN_TOTAL_STEPS, gpu_model)
+        _, step = make_train_step_for_cfg(gpu_model, opt, cfg)
+        zero_launches()
+        _, tb = step(gpu_model.batch_to_device(batch))
+        launches = dict(library.launches)
+        if launches != per_frames(TWOSTAGE_STEP[name], 1) or not all(
+                math.isfinite(float(v)) for v in tb.values()):
+            raise AssertionError(f"{name}: step launches {launches}, terms {tb}")
+        row["step_loss_terms"] = {k: float(v) for k, v in tb.items()}
+        out[name] = row
+    print("  " + json.dumps(out))
+    return out
+
+
 def phases(dev) -> list:
     """Every phase after card and build, in order: (name, function, args)."""
     def full(name, fn, *a):  # a phase after which the allocator's cache is emptied
@@ -5137,8 +5557,10 @@ def phases(dev) -> list:
     out += [
         full("train_cli_tj4d", phase_train_cli_tj4d, dev),
         full("eval_tj4d_polar", phase_eval, dev, TJ4D_YAMLS["polar"], POLAR_FRAME),
-        full("export_serve", phase_export_serve, dev, vod_pallas_config(), GATHER_FRAME),
-        full("export_serve_polar", phase_export_serve, dev, vod_polar_config(), POLAR_FRAME),
+        full("export_serve", phase_export_serve, dev, "export_serve", vod_pallas_config(),
+             GATHER_FRAME),
+        full("export_serve_polar", phase_export_serve, dev, "export_serve_polar",
+             vod_polar_config(), POLAR_FRAME),
         step("bench", phase_bench, dev),
         step("small_reference_rhgm", phase_small_reference_rhgm, dev),
         full("rhgm", phase_rhgm, dev),
@@ -5150,13 +5572,15 @@ def phases(dev) -> list:
         full("serve_depth", phase_serve_depth, dev),
         full("train_depth", phase_train_depth, dev),
         full("train_cli_depth", phase_train_cli_depth, dev),
-        full("export_serve_depth", phase_export_serve, dev, depth_config(), DEPTH_FRAME),
+        full("export_serve_depth", phase_export_serve, dev, "export_serve_depth",
+             depth_config(), DEPTH_FRAME),
         full("kernel_vs_plain_q8", phase_kernel_vs_plain_q8, dev),
         full("kernel_vs_plain_w8a8", phase_kernel_vs_plain_w8a8, dev),
         full("serve_q8", lambda: phase_serve(dev, yaml_config(Q8_YAML), Q8_FRAME)),
         full("train_q8", lambda: phase_train(dev, yaml_config(Q8_YAML), Q8_STEP)),
         full("eval_q8", phase_eval, dev, Q8_YAML, Q8_FRAME, None, Q8_EVAL_FRAMES),
-        full("export_serve_q8", lambda: phase_export_serve(dev, yaml_config(Q8_YAML), Q8_FRAME)),
+        full("export_serve_q8", lambda: phase_export_serve(dev, "export_serve_q8",
+                                                           yaml_config(Q8_YAML), Q8_FRAME)),
         full("serve_w8a8", phase_serve_w8a8, dev, "gather"),
         full("serve_w8a8_polar", phase_serve_w8a8, dev, "polar"),
         full("serve_occ_v2", phase_serve_occ_v2, dev),
@@ -5202,7 +5626,23 @@ def phases(dev) -> list:
              bench.ZOO["centerpoint"][0], {}, NMS_CALL),
         full("train_cli_second", phase_train_cli_family, dev,
              bench.ZOO["second"][0], {}, NMS_CALL),
+        step("nms_twostage", phase_nms_twostage, dev),
+        full("ball_query", phase_ball_query, dev),
+        full("focal_backbone", phase_focal_backbone, dev),
+        step("small_reference_twostage", phase_small_reference_twostage, dev),
     ]
+    for name in TWOSTAGE_ZOO:
+        out.append(full(f"serve_{name}", lambda n=name: phase_serve_family(
+            dev, n, zoo_config(n), flagship_batch(zoo_config(n)), TWOSTAGE_FRAME[n])))
+    for name in TWOSTAGE_ZOO:
+        out.append(full(f"train_{name}", lambda n=name: phase_train_zoo(
+            dev, bench.ZOO[n][1], zoo_config(n), flagship_batch(zoo_config(n)),
+            per_step=TWOSTAGE_STEP[n])))
+    for name in ("voxelrcnn", "second_iou"):
+        out.append(full(f"train_cli_{name}", phase_train_cli_family, dev, bench.ZOO[name][0],
+                        NMS_CALL, NMS_TWICE, f"export_{name}"))
+    # every export's artifact served by one serving-host process, last
+    out.append(step("serving_host", phase_serving_host, dev))
     return out
 
 
@@ -5226,6 +5666,9 @@ def main(argv=None) -> int:
             print(f"chip_smoke: unknown phases {unknown}; known: "
                   f"{[name for name, *_ in plan]}", file=sys.stderr)
             return 2
+        if any(p.startswith("export_serve") or p in ("train_cli_voxelrcnn",
+                                                     "train_cli_second_iou") for p in wanted):
+            wanted.append("serving_host")  # the exported artifacts are served there
         plan = [p for p in plan if p[0] in wanted]
     failed, report = [], {}
 
@@ -5416,10 +5859,12 @@ def main(argv=None) -> int:
             })
             # the center families' shapes (500 decoded candidates), where
             # that phase ran too; alone, its rows stay under "nms_center"
-            if "nms_center" in report:
-                kernels[-1]["center"] = {r["case"]: {k: r.get(k) for k in (
-                    "kept", "equal_to_plain", "ms", f"{key}_ms", "plain_ms", f"{key}_plain_ms",
-                    "bound_ms", f"{key}_bound_ms")} for r in report["nms_center"]}
+            for block, phase_name in (("center", "nms_center"), ("twostage", "nms_twostage")):
+                if phase_name in report:
+                    kernels[-1][block] = {r["case"]: {k: r.get(k) for k in (
+                        "kept", "equal_to_plain", "ms", f"{key}_ms", "plain_ms",
+                        f"{key}_plain_ms", "bound_ms", f"{key}_bound_ms")}
+                        for r in report[phase_name]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

@@ -3,7 +3,8 @@ counterpart of the repository's ``bench.py``).
 
     python -m hgsfusion_tpu_torch.bench [--<name>] [--batch N] [--realistic]
     python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion | --centerpoint |
-        --centerpoint_res2d | --second | --voxelnext | --voxelnext2d [--batch N]
+        --centerpoint_res2d | --second | --second_focal | --second_iou | --voxelrcnn |
+        --voxelnext | --voxelnext2d [--batch N]
 
 Frames/s of the whole served pipeline (image backbone, view transform,
 radar branch, fusion, anchor head, box decode and rotated NMS) through
@@ -61,6 +62,9 @@ ZOO = {"bevfusion": ("configs/bevfusion_vod.yaml", "BEVFusion"),
        "centerpoint": ("configs/centerpoint_vod.yaml", "CenterPoint"),
        "centerpoint_res2d": ("configs/centerpoint_pillarres2d_vod.yaml", "CenterPoint"),
        "second": ("configs/second_vod.yaml", "SECONDNet"),
+       "second_focal": ("configs/second_focal_vod.yaml", "SECONDNet"),
+       "second_iou": ("configs/second_iou_vod.yaml", "SECONDNetIoU"),
+       "voxelrcnn": ("configs/voxelrcnn_vod.yaml", "VoxelRCNN"),
        "voxelnext": ("configs/voxelnext_vod.yaml", "VoxelNeXt"),
        "voxelnext2d": ("configs/voxelnext2d_vod.yaml", "VoxelNeXt")}
 

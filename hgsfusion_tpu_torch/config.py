@@ -162,6 +162,19 @@ class HGSFusionConfig:
     # "pillar_8x", "pillar_res2d_8x", "voxelnext2d"; and BaseBEVBackboneV1's
     # BACKBONE_2D
     backbone_3d_arch: str = "voxel8x"
+    # VoxelBackBone8xFocal's foreground rule (BACKBONE_3D.TOPK, THRESHOLD,
+    # MASK_MULTI, SKIP_MASK_KERNEL)
+    focal_topk: bool = True
+    focal_threshold: float = 0.5
+    focal_mask_multi: bool = False
+    focal_skip_mask_kernel: bool = False
+    # the two-stage families: proposals kept (ROI_HEAD.NUM_ROIS) and their
+    # NMS (NMS_THRESH_TRAIN); SECOND-IoU's BEV grid (GRID_SIZE_2D) and NMS
+    # score (POST_PROCESSING.SCORE_TYPE)
+    pv_num_rois: int = 128
+    pv_nms_thresh: float = 0.8
+    iou_grid_size: int = 7
+    iou_score_type: str = "iou"
     bev_v1_layer_nums: Tuple[int, ...] = (5, 5)
     bev_v1_num_filters: Tuple[int, ...] = (256, 256)
     bev_v1_upsample_strides: Tuple[int, ...] = (1, 2)
@@ -363,9 +376,10 @@ def cfg_from_list(cfg: dict, kv_list) -> dict:
 def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
     """HGSFusionConfig from a loaded reference-schema YAML: the HGSFusion,
     radar-only, PointPillar, BEVFusion, TransFusion-L, CenterPoint, SECOND
-    and VoxelNeXt families, with an AnchorHeadSingle, an AnchorHeadMulti or
-    the anchor-free TransFusionHead or CenterHead (its static fields as the
-    JAX package reads them)."""
+    (and its focal backbone), SECOND-IoU, Voxel R-CNN and VoxelNeXt
+    families, with an AnchorHeadSingle, an AnchorHeadMulti or the
+    anchor-free TransFusionHead or CenterHead (its static fields as the JAX
+    package reads them)."""
     model, data = cfg["MODEL"], cfg["DATA_CONFIG"]
     fusion_vfe = model["FusionVFE"]
     image_vfe = fusion_vfe["ImageVFE"]
@@ -474,6 +488,14 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         center_head_channels=head_channels,
         backbone_3d_arch=_BACKBONE_3D_ARCH.get(model.get("BACKBONE_3D", {}).get("NAME"),
                                                "voxel8x"),
+        focal_topk=model.get("BACKBONE_3D", {}).get("TOPK", True),
+        focal_threshold=model.get("BACKBONE_3D", {}).get("THRESHOLD", 0.5),
+        focal_mask_multi=model.get("BACKBONE_3D", {}).get("MASK_MULTI", False),
+        focal_skip_mask_kernel=model.get("BACKBONE_3D", {}).get("SKIP_MASK_KERNEL", False),
+        pv_num_rois=model.get("ROI_HEAD", {}).get("NUM_ROIS", 128),
+        pv_nms_thresh=model.get("ROI_HEAD", {}).get("NMS_THRESH_TRAIN", 0.8),
+        iou_grid_size=model.get("ROI_HEAD", {}).get("GRID_SIZE_2D", 7),
+        iou_score_type=post.get("SCORE_TYPE", "iou"),
         bev_v1_layer_nums=tuple(backbone_2d.get("LAYER_NUMS", (5, 5))),
         bev_v1_num_filters=tuple(backbone_2d.get("NUM_FILTERS", (256, 256))),
         bev_v1_upsample_strides=tuple(backbone_2d.get("UPSAMPLE_STRIDES", (1, 2))),

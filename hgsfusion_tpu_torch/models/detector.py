@@ -1,14 +1,18 @@
 """Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
 the radar-only detector, the PointPillar families, BEVFusion,
-TransFusion-L, CenterPoint, SECOND and VoxelNeXt; post-processing.
+TransFusion-L, CenterPoint, SECOND (and the focal SECOND), SECOND-IoU,
+Voxel R-CNN and VoxelNeXt; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
 PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
-CenterPointModel, SECONDModel, VoxelNeXtModel; post_process,
-post_process_multihead) and of the JAX package's
-``train/trainer.py::make_center_eval_step`` (``center_post_process``).
+CenterPointModel, SECONDModel, _RPNProposals, VoxelRCNNModel,
+SECONDIoUModel, VoxelNeXtModel; post_process, post_process_multihead)
+and of the JAX package's ``train/trainer.py::make_center_eval_step``
+(``center_post_process``), ``make_pvrcnn_eval_step``
+(``refine_post_process``) and ``make_secondiou_eval_step``
+(``rectified_post_process``).
 ``models/registry.py::build_network`` picks the family of a config.
 
   images --ResNet-DeepLab--> 4 taps --1x1 reduce--> frustum sample -> voxel
@@ -50,7 +54,7 @@ import torch.nn as nn
 
 from ..config import HGSFusionConfig
 from ..ops.deform_conv import ModulatedDeformConv2d
-from ..ops.nms import NEG_INF, class_agnostic_nms, multi_set_nms, top_scores
+from ..ops.nms import NEG_INF, class_agnostic_nms, kept_slots, multi_set_nms, top_scores
 from ..utils.box_coder import ResidualCoder
 from .anchor_head import (AnchorHeadMulti, AnchorHeadSingle, decode_selected_boxes,
                           generate_predicted_boxes_multihead)
@@ -58,13 +62,16 @@ from .anchors import TargetAssigner, flatten_anchors, generate_anchors
 from .base_bev_backbone import BaseBEVBackbone
 from .bev_encoder import PillarNetRadar, SparseConv2d
 from .center_head import CenterHead, decode_center_boxes
+from .focal_conv import VoxelBackBone8xFocal
 from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
 from .layers import ConvBNReLU, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
+from .pvrcnn import RCNNHead, decode_canonical, generate_proposals
 from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
+from .roi_heads import SECONDIoUHead, VoxelRCNNPool, rectified_scores, rotated_bev_grid_pool
 from .sparse_backbone_2d import BaseBEVBackboneV1, PillarRes18BackBone8x, VoxelNeXt2DBackbone
 from .swin import GeneralizedLSSFPN, SwinTransformer
 from .transfusion_head import MultiheadAttention, TransFusionHead, transfusion_get_boxes
@@ -73,8 +80,9 @@ from .voxel_backbone import (SparseConv3d, VoxelBackBone8x, VoxelResBackBone8xVo
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
            "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "CenterPointModel",
-           "SECONDModel", "VoxelNeXtModel", "post_process", "post_process_multihead",
-           "center_post_process", "resolve_device"]
+           "SECONDModel", "VoxelRCNNModel", "SECONDIoUModel", "VoxelNeXtModel", "post_process",
+           "post_process_multihead", "center_post_process", "refine_post_process",
+           "rectified_post_process", "resolve_device"]
 
 # the batch keys the model and its losses read; TARGET_KEYS only the losses
 BATCH_KEYS = ("points", "points_valid", "images", "trans_lidar_to_cam",
@@ -594,34 +602,191 @@ class TransFusionModel(_TransFusionDetector):
         return self.dense_head(self.backbone_2d(bev))
 
 
+def _voxel_backbone_3d(cfg: HGSFusionConfig):
+    """The SECOND-style 3-D backbone of ``backbone_3d_arch``: "voxel8x"
+    (VoxelBackBone8x) or "voxel8x_focal" (VoxelBackBone8xFocal with the
+    config's foreground rule)."""
+    if cfg.backbone_3d_arch == "voxel8x_focal":
+        return VoxelBackBone8xFocal(cfg.num_point_features, cfg.focal_topk, cfg.focal_threshold,
+                                    cfg.focal_mask_multi, cfg.focal_skip_mask_kernel, cfg.dtype)
+    if cfg.backbone_3d_arch != "voxel8x":
+        raise NotImplementedError(f"a SECOND-style detector with backbone_3d_arch "
+                                  f"{cfg.backbone_3d_arch!r}")
+    return VoxelBackBone8x(cfg.num_point_features, cfg.dtype)
+
+
+def _second_bev_backbone(cfg: HGSFusionConfig):
+    """SECOND's BaseBEVBackbone: (5, 5) layers at strides (1, 2), 128 and
+    256 wide, upsampled (1, 2) to 256 each, over the height-compressed
+    voxel features."""
+    return BaseBEVBackbone(128 * voxel_backbone_depth(cfg.grid_size[2]), (5, 5), (1, 2),
+                           (128, 256), (1, 2), (256, 256), dtype=cfg.dtype)
+
+
 class SECONDModel(_SingleHeadDetector):
     """SECOND (zoo family): ``mean_vfe`` -> ``backbone_3d``
-    (VoxelBackBone8x) -> ``height_compression`` -> ``backbone_2d``
-    (BaseBEVBackbone (5, 5) at strides (1, 2), 128 and 256 wide, upsampled
-    (1, 2) to 256 each) -> ``dense_head`` (AnchorHeadSingle; the config's
-    anchors at ``feature_map_stride`` 8). ``backbone_3d_arch``
-    "voxel8x_focal" (VoxelBackBone8xFocal) is not ported and raises."""
+    (VoxelBackBone8x, or VoxelBackBone8xFocal where ``backbone_3d_arch`` is
+    "voxel8x_focal", the focal SECOND) -> ``height_compression`` ->
+    ``backbone_2d`` (``_second_bev_backbone``) -> ``dense_head``
+    (AnchorHeadSingle; the config's anchors at ``feature_map_stride`` 8).
+    In train mode the focal backbone's importance maps ride along as
+    ``preds["focal_aux"]`` for ``focal_conv_loss``."""
 
     def __init__(self, cfg: HGSFusionConfig, device="cuda", seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        if cfg.backbone_3d_arch != "voxel8x":
-            raise NotImplementedError(
-                f"backbone_3d_arch {cfg.backbone_3d_arch!r} (BACKBONE_3D.NAME: "
-                "VoxelBackBone8xFocal) is not ported: ROADMAP.md queue 1 item 9 (c), the "
-                "focal SECOND is its next entry")
-        dt = cfg.dtype
-        self.backbone_3d = VoxelBackBone8x(cfg.num_point_features, dt)
-        self.backbone_2d = BaseBEVBackbone(128 * voxel_backbone_depth(cfg.grid_size[2]), (5, 5),
-                                           (1, 2), (128, 256), (1, 2), (256, 256), dtype=dt)
+        self.backbone_3d = self.voxel_backbone(cfg)
+        self.backbone_2d = _second_bev_backbone(cfg)
+        self.build_second_stage(cfg)
         self._finish(cfg, self.backbone_2d.out_channels, device, seed)
 
-    def forward(self, batch):
+    def voxel_backbone(self, cfg):
+        return _voxel_backbone_3d(cfg)
+
+    def build_second_stage(self, cfg):
+        """The modules after the RPN (none for SECOND)."""
+
+    def voxel_features(self, batch):
+        """-> (the 3-D backbone's output, its stages, the focal backbone's
+        aux list or None)."""
         cfg = self.cfg
         dense, mask = mean_vfe(batch["points"], batch["points_valid"], cfg.pc_range,
                                cfg.voxel_size, cfg.grid_size)
-        x3d, _ = self.backbone_3d(dense.to(compute_dtype(cfg.dtype)), mask)
-        return self.dense_head(self.backbone_2d(height_compression(x3d)))
+        dense = dense.to(compute_dtype(cfg.dtype))
+        if isinstance(self.backbone_3d, VoxelBackBone8xFocal):
+            x3d, _, stages, aux = self.backbone_3d(dense, mask)
+            return x3d, stages, aux
+        x3d, _, stages = self.backbone_3d(dense, mask, with_stages=True)
+        return x3d, stages, None
+
+    def forward(self, batch):
+        x3d, _, aux = self.voxel_features(batch)
+        out = self.dense_head(self.backbone_2d(height_compression(x3d)))
+        if aux is not None and self.training:
+            out["focal_aux"] = aux
+        return out
+
+
+class _TwoStageDetector(SECONDModel):
+    """The anchor-RPN two-stage families: SECOND's RPN, its proposals
+    (``rpn_proposals``, JAX's ``_RPNProposals``), then a second stage
+    (``roi_stage``)."""
+
+    def rpn_proposals(self, rpn):
+        """Every anchor's box decoded from the detached RPN outputs, each
+        anchor's max-class sigmoid and label, then ``generate_proposals``
+        at ``pv_num_rois`` and ``pv_nms_thresh``: (rois, scores, labels,
+        valid)."""
+        cfg = self.cfg
+        bsz, a = rpn["cls_preds"].shape[0], self.anchors.shape[0]
+        with torch.no_grad():
+            cls = rpn["cls_preds"].detach().reshape(bsz, a, cfg.num_class).float()
+            dirs = rpn.get("dir_cls_preds")
+            boxes = decode_selected_boxes(
+                rpn["box_preds"].detach().reshape(bsz, a, -1).float(),
+                None if dirs is None else dirs.detach().reshape(bsz, a, -1), self.anchors,
+                self.box_coder, dir_offset=cfg.dir_offset,
+                dir_limit_offset=cfg.dir_limit_offset, num_dir_bins=cfg.num_dir_bins)
+            scores, labels = torch.sigmoid(cls).max(dim=-1)
+            return generate_proposals(scores, labels + 1, boxes, cfg.pv_num_rois,
+                                      cfg.pv_nms_thresh)
+
+    def forward(self, batch):
+        x3d, stages, aux = self.voxel_features(batch)
+        feats2d = self.backbone_2d(height_compression(x3d))
+        rpn = self.dense_head(feats2d)
+        rois, roi_scores, roi_labels, roi_valid = self.rpn_proposals(rpn)
+        out = {**rpn, "rois": rois, "roi_scores": roi_scores, "roi_labels": roi_labels,
+               "roi_valid": roi_valid, **self.roi_stage(rois, stages, feats2d)}
+        if aux is not None and self.training:
+            out["focal_aux"] = aux
+        return out
+
+
+class VoxelRCNNModel(_TwoStageDetector):
+    """Voxel R-CNN (zoo family): SECOND's RPN (either 3-D backbone), then
+    ``roi_grid_pool`` (VoxelRCNNPool: x_conv2 .. x_conv4 at each proposal's
+    6^3 grid points) and ``roi_head`` (RCNNHead: ``rcnn_cls``,
+    ``rcnn_reg``). ``post_process``: the refined boxes
+    (``decode_canonical``) scored by sigmoid(``rcnn_cls``), one rotated NMS
+    (the JAX package's ``make_pvrcnn_eval_step``)."""
+
+    def build_second_stage(self, cfg):
+        self.roi_grid_pool = VoxelRCNNPool(cfg.pc_range, cfg.voxel_size, cfg.dtype)
+        self.roi_head = RCNNHead(6 ** 3 * 96, cfg.dtype)
+
+    def roi_stage(self, rois, stages, feats2d):
+        rcnn_cls, rcnn_reg = self.roi_head(self.roi_grid_pool(rois, stages))
+        return {"rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg}
+
+    def post_process(self, preds):
+        return refine_post_process(preds, self.box_coder, self.cfg)
+
+
+class SECONDIoUModel(_TwoStageDetector):
+    """SECOND-IoU (zoo family): SECOND's RPN (VoxelBackBone8x, as JAX),
+    then ``rotated_bev_grid_pool`` of the detached stride-8 BEV features
+    over each proposal (``iou_grid_size`` squared) and ``roi_head``
+    (SECONDIoUHead: ``iou_preds``). ``post_process``: the proposals scored
+    by ``rectified_scores`` (``iou_score_type``), one class-agnostic
+    rotated NMS (``rectified_post_process``)."""
+
+    def voxel_backbone(self, cfg):
+        return VoxelBackBone8x(cfg.num_point_features, cfg.dtype)
+
+    def build_second_stage(self, cfg):
+        self.roi_head = SECONDIoUHead(cfg.iou_grid_size ** 2 * self.backbone_2d.out_channels,
+                                      dtype=cfg.dtype)
+
+    def roi_stage(self, rois, stages, feats2d):
+        cfg = self.cfg
+        pooled = rotated_bev_grid_pool(feats2d.detach(), rois, cfg.pc_range, cfg.voxel_size,
+                                       8, cfg.iou_grid_size)
+        return {"iou_preds": self.roi_head(pooled)}
+
+    def post_process(self, preds):
+        return rectified_post_process(preds, self.cfg)
+
+
+def rectified_post_process(preds, cfg):
+    """SECOND-IoU's detections (the JAX package's
+    ``make_secondiou_eval_step`` after the forward): each proposal scored by
+    ``rectified_scores`` of its class score and sigmoid(``iou_preds``) (0
+    where not valid), then ``class_agnostic_nms`` with the config's
+    threshold, sizes and score threshold, one NMS call for the batch."""
+    scores = rectified_scores(preds["roi_scores"], torch.sigmoid(preds["iou_preds"]),
+                              cfg.iou_score_type) * preds["roi_valid"]
+    idx, valid = class_agnostic_nms(scores, preds["rois"], cfg.score_thresh, cfg.nms_thresh,
+                                    cfg.nms_pre_max_size, cfg.nms_post_max_size,
+                                    valid=preds["roi_valid"])
+    return {"boxes": torch.take_along_dim(preds["rois"], idx[..., None], dim=1),
+            "scores": torch.where(valid, torch.take_along_dim(scores, idx, dim=1),
+                                  torch.zeros((), device=idx.device)),
+            "labels": torch.take_along_dim(preds["roi_labels"], idx, dim=1), "valid": valid}
+
+
+def refine_post_process(preds, box_coder, cfg):
+    """The refining second stage's detections (the JAX package's
+    ``make_pvrcnn_eval_step`` after the forward): each RoI's box refined by
+    ``decode_canonical``, scored by sigmoid(``rcnn_cls``) (0 where the RoI
+    is not valid), those above ``score_thresh`` ranked (ties by index), one
+    rotated NMS at ``nms_thresh`` for the batch keeping
+    ``nms_post_max_size``. Returns {"boxes", "scores", "labels", "valid"},
+    zeros in the unfilled slots."""
+    refined = decode_canonical(preds["rcnn_reg"], preds["rois"], box_coder)
+    scores = torch.sigmoid(preds["rcnn_cls"]) * preds["roi_valid"]
+    ranked = torch.where(scores > cfg.score_thresh, scores, torch.full_like(scores, NEG_INF))
+    top_s, top_i = top_scores(ranked, ranked.shape[-1])
+    top_b = torch.take_along_dim(refined, top_i[..., None], dim=1)
+    idx, valid = kept_slots(top_s, top_b, top_i, cfg.nms_thresh, cfg.nms_post_max_size)
+    zero = torch.zeros((), device=idx.device)
+    return {"boxes": torch.where(valid[..., None],
+                                 torch.take_along_dim(refined, idx[..., None], dim=1), zero),
+            "scores": torch.where(valid, torch.take_along_dim(scores, idx, dim=1), zero),
+            "labels": torch.where(valid, torch.take_along_dim(preds["roi_labels"], idx, dim=1),
+                                  torch.zeros((), dtype=preds["roi_labels"].dtype,
+                                              device=idx.device)),
+            "valid": valid}
 
 
 class _CenterDetector(Detector):

@@ -7,15 +7,17 @@ reference's name for its topology), the radar-only detector (``RadarOnly``,
 ``DENSE_HEAD.NAME: AnchorHeadMulti`` the grouped multi-head variant),
 BEVFusion (``BevFusion``, ``BEVFusion``), TransFusion-L
 (``TransFusion``), CenterPoint (``CenterPoint``), SECOND (``SECONDNet``,
-``SECOND``) and VoxelNeXt (``VoxelNeXt``). Every other name of the JAX
-registry raises, naming the ROADMAP.md item that ports it.
+``SECOND``; with ``BACKBONE_3D.NAME: VoxelBackBone8xFocal`` the focal
+SECOND), SECOND-IoU (``SECONDNetIoU``), Voxel R-CNN (``VoxelRCNN``) and
+VoxelNeXt (``VoxelNeXt``). Every other name of the JAX registry raises,
+naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 from ..config import model_config_from_yaml
 from .detector import (BEVFusionModel, CenterPointModel, HGSFusionModel, PointPillarModel,
-                       PointPillarMultiHeadModel, RadarOnlyModel, SECONDModel, TransFusionModel,
-                       VoxelNeXtModel)
+                       PointPillarMultiHeadModel, RadarOnlyModel, SECONDIoUModel, SECONDModel,
+                       TransFusionModel, VoxelNeXtModel, VoxelRCNNModel)
 
 DETECTORS = {
     "HGSFusion": HGSFusionModel,
@@ -29,6 +31,8 @@ DETECTORS = {
     "CenterPoint": CenterPointModel,
     "SECONDNet": SECONDModel,
     "SECOND": SECONDModel,
+    "SECONDNetIoU": SECONDIoUModel,
+    "VoxelRCNN": VoxelRCNNModel,
     "VoxelNeXt": VoxelNeXtModel,
 }
 
@@ -40,8 +44,9 @@ def network_class(name: str, multihead: bool = False):
         return PointPillarMultiHeadModel
     if name not in DETECTORS:
         raise NotImplementedError(
-            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9, the inherited "
-            f"zoo); the port builds {sorted(DETECTORS)}")
+            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9 (c4)-(c9), the "
+            f"inherited zoo's PV-RCNN, PV-RCNN++, Part-A2, PointRCNN, DSVT and MPPNet); the "
+            f"port builds {sorted(DETECTORS)}")
     return DETECTORS[name]
 
 

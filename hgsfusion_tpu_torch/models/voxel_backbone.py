@@ -60,7 +60,10 @@ def mean_vfe(points, valid, pc_range, voxel_size, grid_size: Tuple[int, int, int
     """MeanVFE: the mean of each voxel's point features in a dense (B, D, H,
     W, C) volume and its active mask (B, D, H, W, 1) bool, D = nz + 1 (the
     empty top plane spconv's sparse shape adds). A plain scatter: the sums
-    and counts by ``index_add_`` in f32."""
+    and counts in f32 by ``index_put_`` with ``accumulate``, which on the
+    card sorts the voxel ids stably and sums each voxel's points in point
+    order, as the CPU does, so a frame's volume is the same bits in every
+    process (``index_add_``'s atomics would add them in any order)."""
     nx, ny, nz = grid_size
     b, n, c = points.shape
     ids, in_grid = points_to_voxel_ids(points, valid, pc_range, voxel_size, grid_size)
@@ -69,9 +72,9 @@ def mean_vfe(points, valid, pc_range, voxel_size, grid_size: Tuple[int, int, int
     flat = (ids + torch.arange(b, device=ids.device)[:, None] * (cells + 1)).reshape(-1)
     m = in_grid.to(torch.float32).reshape(-1)
     fsum = torch.zeros((b * (cells + 1), c), dtype=torch.float32, device=points.device)
-    fsum.index_add_(0, flat, points.reshape(-1, c).float() * m[:, None])
+    fsum.index_put_((flat,), points.reshape(-1, c).float() * m[:, None], accumulate=True)
     cnt = torch.zeros(b * (cells + 1), dtype=torch.float32, device=points.device)
-    cnt.index_add_(0, flat, m)
+    cnt.index_put_((flat,), m, accumulate=True)
     fsum = fsum.view(b, cells + 1, c)[:, :cells]
     cnt = cnt.view(b, cells + 1)[:, :cells]
     dense = (fsum / torch.clamp(cnt, min=1.0)[..., None]).to(points.dtype)
@@ -179,9 +182,11 @@ class _Stage(nn.Sequential):
 class VoxelBackBone8x(nn.Module):
     """16 -> 16 -> 32/s2 -> 64/s2 -> 64/s2 (z padding 0) -> 128, the z axis
     collapsing 2x once more: (B, D, H, W, C) + (B, D, H, W, 1) mask ->
-    (features (B, D', H/8, W/8, 128), mask). Refuses fewer than 25
-    z-planes, as JAX: the four stride-2 z-downsamples would collapse depth
-    to 0."""
+    (features (B, D', H/8, W/8, 128), mask), and with ``with_stages`` also
+    the stages as JAX returns them: x_conv1 .. x_conv4 -> (features, mask,
+    stride 1, 2, 4, 8), the multi-scale taps a two-stage head pools from.
+    Refuses fewer than 25 z-planes, as JAX: the four stride-2
+    z-downsamples would collapse depth to 0."""
 
     def __init__(self, in_channels: int, dtype=None):
         super().__init__()
@@ -195,12 +200,15 @@ class VoxelBackBone8x(nn.Module):
         self.conv_out = _ConvBN3D(64, 128, kernel=(3, 1, 1), stride=(2, 1, 1),
                                   padding=(0, 0, 0), dtype=dtype)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, with_stages: bool = False):
         _refuse_shallow("VoxelBackBone8x", x)
         x, mask = self.conv_input(x, mask)
-        for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
+        stages = {}
+        for i, stage in enumerate((self.conv1, self.conv2, self.conv3, self.conv4), start=1):
             x, mask = stage(x, mask)
-        return self.conv_out(x, mask)
+            stages[f"x_conv{i}"] = (x, mask, 2 ** (i - 1))
+        x, mask = self.conv_out(x, mask)
+        return (x, mask, stages) if with_stages else (x, mask)
 
 
 def _refuse_shallow(name: str, x):

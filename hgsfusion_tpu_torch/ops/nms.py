@@ -138,7 +138,7 @@ def _select(box_scores, box_preds, score_thresh: float, k: int, valid=None):
     return top_s, top_idx, torch.take_along_dim(box_preds, top_idx[..., None], dim=1)
 
 
-def _kept_slots(top_s, top_boxes, top_idx, nms_thresh: float, post_max_size: int):
+def kept_slots(top_s, top_boxes, top_idx, nms_thresh: float, post_max_size: int):
     """One ``hgsfusion::nms_lazy`` call over the frames of (F, k)
     score-sorted candidates -> (indices (F, post_max) of the first
     ``post_max_size`` kept, in score order, valid mask (F, post_max));
@@ -173,7 +173,7 @@ def class_agnostic_nms(box_scores, box_preds, score_thresh: float,
         valid = None if valid is None else valid[None]
     k = min(pre_max_size, box_scores.shape[-1])
     top_s, top_idx, top_boxes = _select(box_scores, box_preds, score_thresh, k, valid)
-    out_idx, out_valid = _kept_slots(top_s, top_boxes, top_idx, nms_thresh, post_max_size)
+    out_idx, out_valid = kept_slots(top_s, top_boxes, top_idx, nms_thresh, post_max_size)
     return (out_idx, out_valid) if batched else (out_idx[0], out_valid[0])
 
 
@@ -199,6 +199,6 @@ def multi_set_nms(set_scores, set_boxes, score_thresh: float, nms_thresh: float,
             tb = torch.cat([tb, tb.new_zeros((bsz, pad, 7))], dim=1)
         tops.append((ts, ti, tb))
     ts, ti, tb = (torch.stack(x, dim=1).flatten(0, 1) for x in zip(*tops))
-    out_idx, out_valid = _kept_slots(ts, tb, ti, nms_thresh, post_max_size)
+    out_idx, out_valid = kept_slots(ts, tb, ti, nms_thresh, post_max_size)
     return (out_idx.reshape(bsz, n_sets, post_max_size),
             out_valid.reshape(bsz, n_sets, post_max_size))

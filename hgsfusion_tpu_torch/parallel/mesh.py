@@ -49,14 +49,16 @@ class DistContext:
         return self.backend is not None
 
 
-def init_distributed(device: str = "cuda", backend: Optional[str] = None) -> DistContext:
+def init_distributed(device: str = "cuda", backend: Optional[str] = None, init_method=None,
+                     timeout=None) -> DistContext:
     """Join torchrun's process group, or describe a lone process when the
     environment names none. ``device`` is the entry point's ``--device``:
     "cuda" gives each process ``cuda:LOCAL_RANK`` (one card a process; more
     local processes than cards raise), "cuda:i" puts the process on card i
     as asked (ranks that share a card must talk over gloo: NCCL refuses
     two ranks on one card); ``backend`` defaults to NCCL on CUDA and gloo
-    on the CPU."""
+    on the CPU. ``init_method`` and ``timeout`` go to
+    ``init_process_group`` (default: torchrun's environment, its timeout)."""
     dev = torch.device(device)
     if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
         return DistContext(0, 1, 0, dev, None)
@@ -75,7 +77,9 @@ def init_distributed(device: str = "cuda", backend: Optional[str] = None) -> Dis
         torch.cuda.set_device(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if not dist.is_initialized():
-        dist.init_process_group(backend, rank=rank, world_size=world)
+        kw = {} if timeout is None else {"timeout": timeout}
+        dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                                **kw)
     return DistContext(rank, world, local, dev, backend)
 
 

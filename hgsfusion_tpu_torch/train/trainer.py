@@ -1,9 +1,9 @@
 """The training step (counterpart of ``hgsfusion_tpu/train/trainer.py``:
 model_inputs, _grad_step, make_train_step, make_anchor_assigner,
 make_multihead_train_step, make_transfusion_train_step,
-make_center_train_step, and the family dispatch of ``tools/train.py`` as
-``make_train_step_for_cfg``), and the detections of ``serve`` as per-frame
-numpy dicts (detections_to_pred_dicts).
+make_center_train_step, make_twostage_train_step, and the family dispatch
+of ``tools/train.py`` as ``make_train_step_for_cfg``), and the detections
+of ``serve`` as per-frame numpy dicts (detections_to_pred_dicts).
 
 One step is the forward pass in train mode, target assignment, the RPN
 losses (and, where the model predicts occupancy, the occupancy loss; under
@@ -12,13 +12,18 @@ pass and the optimizer's update. The multi-head family's step takes its
 grouped loss instead, the TransFusion families' (BEVFusion, TransFusion-L)
 their Hungarian-matched set loss, the CenterHead families' (CenterPoint,
 VoxelNeXt) the heatmap focal loss and the L1 at the gt centers; SECOND's is
-the anchor step with its stride-8 anchors. PyTorch runs it eagerly;
-nothing in it reads a tensor back to the host but the TransFusion step's
-matching costs (one read a step, ``models/transfusion_head.py``).
-Evaluation needs no dispatch here: every family's ``serve`` runs its own
-post-processing (the JAX package's ``make_transfusion_eval_step`` is the
-TransFusion families' ``post_process``, its ``make_center_eval_step`` the
-CenterHead families', ``models/detector.py::center_post_process``).
+the anchor step with its stride-8 anchors (the focal SECOND's adds its
+backbone's importance loss), Voxel R-CNN's and SECOND-IoU's the anchor
+losses and their second stage's (``make_twostage_train_step``). PyTorch
+runs it eagerly; nothing in it reads a tensor back to the host but the
+TransFusion step's matching costs (one read a step,
+``models/transfusion_head.py``). Evaluation needs no dispatch here: every
+family's ``serve`` runs its own post-processing (the JAX package's
+``make_transfusion_eval_step`` is the TransFusion families'
+``post_process``, its ``make_center_eval_step`` the CenterHead families',
+``models/detector.py::center_post_process``, its
+``make_pvrcnn_eval_step`` Voxel R-CNN's, ``refine_post_process``, and its
+``make_secondiou_eval_step`` SECOND-IoU's).
 
 Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
 through the wrapper, whose hooks average the gradients of ``backward`` over
@@ -40,11 +45,15 @@ from ..models.anchors import TargetAssigner
 from ..models.center_head import center_head_loss, center_targets
 from ..models.ddn_loss import ddn_loss
 from ..models.detector import (BATCH_KEYS, BEVFusionModel, CenterPointModel,
-                               PointPillarMultiHeadModel, TransFusionModel, VoxelNeXtModel,
-                               make_multihead_assigner)
+                               PointPillarMultiHeadModel, SECONDIoUModel, TransFusionModel,
+                               VoxelNeXtModel, VoxelRCNNModel, make_multihead_assigner)
+from ..models.focal_conv import focal_conv_loss
 from ..models.occupancy import occupancy_loss
+from ..models.pvrcnn import rcnn_losses, roi_targets
+from ..models.roi_heads import iou_head_loss
 from ..models.transfusion_head import transfusion_loss
 from ..parallel.mesh import all_reduce_mean_
+from ..utils.box_coder import ResidualCoder
 
 
 def model_inputs(batch: Dict) -> Dict:
@@ -113,6 +122,52 @@ def make_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Di
                                   cfg.disc_cfg)
             tb = {**tb, **dtb}
             total = total + dloss
+        total, tb = _add_focal_loss(preds, batch, cfg, total, tb)
+        return total, {**tb, "loss": total}
+
+    return _grad_step(loss_fn, optimizer)
+
+
+def _add_focal_loss(preds, batch, cfg, total, tb):
+    """The focal backbone's importance loss (``loss_box_of_pts``), added
+    unweighted where the model gives ``focal_aux``."""
+    if "focal_aux" not in preds:
+        return total, tb
+    fl = focal_conv_loss(preds["focal_aux"], batch["gt_boxes"], cfg.pc_range, cfg.voxel_size)
+    return total + fl, {**tb, "loss_box_of_pts": fl}
+
+
+def make_twostage_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
+                             cfg, family: str, ddp=None) -> Callable:
+    """The anchor-RPN two-stage families' step: the RPN's anchor losses, the
+    focal backbone's loss where it has one, then the second stage against
+    each proposal's ``roi_targets``: "voxelrcnn" ``rcnn_losses`` (tb keys
+    rcnn_cls, rcnn_reg), "secondiou" ``iou_head_loss`` (rcnn_iou). The
+    JAX package's other families raise, naming their ROADMAP.md entry."""
+    later = {"pvrcnn": "(c4)", "pvrcnnpp": "(c5)", "parta2": "(c6)", "pointrcnn": "(c7)"}
+    if family in later:
+        raise NotImplementedError(f"the {family} two-stage step is not ported (ROADMAP.md "
+                                  f"queue 1 item 9 {later[family]})")
+    if family not in ("voxelrcnn", "secondiou"):
+        raise ValueError(f"unknown two-stage family {family!r}")
+    anchors = assigner.flat_anchors
+    coder = ResidualCoder()
+    net = model if ddp is None else ddp
+
+    def loss_fn(batch):
+        net.train()
+        preds = net(model_inputs(batch))
+        targets = assigner(batch["gt_boxes"])
+        total, tb = anchor_head_loss(preds, targets, anchors, cfg.num_class, loss_weights,
+                                     dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins)
+        total, tb = _add_focal_loss(preds, batch, cfg, total, tb)
+        rt = roi_targets(preds["rois"], preds["roi_valid"], batch["gt_boxes"])
+        if family == "secondiou":
+            il = iou_head_loss(preds["iou_preds"], rt)
+            total, tb = total + il, {**tb, "rcnn_iou": il}
+        else:
+            rl, rtb = rcnn_losses(preds["rcnn_cls"], preds["rcnn_reg"], rt, preds["rois"], coder)
+            total, tb = total + rl, {**tb, **rtb}
         return total, {**tb, "loss": total}
 
     return _grad_step(loss_fn, optimizer)
@@ -205,9 +260,9 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
     """The family's training step for ``model`` (``models/registry.py``'s
     build): the TransFusion step for BEVFusionModel and TransFusionModel,
     the center step for CenterPointModel and VoxelNeXtModel (no assigner:
-    None), the multi-head step for PointPillarMultiHeadModel, else
-    ``make_train_step`` (SECONDModel's included). Returns (assigner,
-    step)."""
+    None), the multi-head step for PointPillarMultiHeadModel, the two-stage
+    step for VoxelRCNNModel and SECONDIoUModel, else ``make_train_step``
+    (SECONDModel's, the focal one's included). Returns (assigner, step)."""
     if isinstance(model, (BEVFusionModel, TransFusionModel)):
         return None, make_transfusion_train_step(model, optimizer, model_cfg.loss_weights,
                                                  model_cfg, ddp=ddp)
@@ -216,6 +271,11 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
                                             ddp=ddp)
     multihead = isinstance(model, PointPillarMultiHeadModel)
     assigner = make_anchor_assigner(model_cfg, multihead, device=model.device)
+    if isinstance(model, (VoxelRCNNModel, SECONDIoUModel)):
+        family = "voxelrcnn" if isinstance(model, VoxelRCNNModel) else "secondiou"
+        return assigner, make_twostage_train_step(model, assigner, optimizer,
+                                                  model_cfg.loss_weights, model_cfg, family,
+                                                  ddp=ddp)
     make = make_multihead_train_step if multihead else make_train_step
     return assigner, make(model, assigner, optimizer, model_cfg.loss_weights, model_cfg, ddp=ddp)
 

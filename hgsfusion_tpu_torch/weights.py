@@ -249,7 +249,7 @@ def voxel_backbone(p, s):
     """voxel_backbone.VoxelBackBone8x (pcdet names): ``conv_input``,
     ``conv1.0``, ``conv{i}.{0, 1, 2}`` from the JAX ``conv{i}_down``,
     ``_a``, ``_b``, ``conv_out``; each block ``0`` the convolution, ``1``
-    the BN."""
+    the BN; VoxelBackBone8xFocal's ``focal{1,2,3}`` by their own names."""
     names = {"conv_input": "conv_input", "conv1": "conv1.0", "conv_out": "conv_out"}
     for i in (2, 3, 4):
         names.update({f"conv{i}_down": f"conv{i}.0", f"conv{i}_a": f"conv{i}.1",
@@ -258,7 +258,32 @@ def voxel_backbone(p, s):
     for jax_name, name in names.items():
         out.update(_prefix(f"{name}.0", conv(p[jax_name]["conv"], _spconv)))
         out.update(_prefix(f"{name}.1", batch_norm(p[jax_name]["bn"], s[jax_name]["bn"])))
+    for name in ("focal1", "focal2", "focal3"):  # VoxelBackBone8xFocal
+        if name in p:
+            out.update(_prefix(name, focal_conv(p[name], s[name])))
     return out
+
+
+def focal_conv(p, s):
+    """focal_conv.FocalSparseConv3D: ``conv_imp``, ``conv`` (spconv layout),
+    ``bn1``."""
+    return {**_prefix("conv_imp", conv(p["conv_imp"], _spconv)),
+            **_prefix("conv", conv(p["conv"], _spconv)),
+            **_prefix("bn1", batch_norm(p["bn1"], s["bn1"]))}
+
+
+def linear_bn_stack(p, s):
+    """Linear (flax ``Dense``) and BatchNorm1d leaves by their JAX names: a
+    name with ``bn`` is a BatchNorm (``GroupMLP``, ``RCNNHead``,
+    ``SECONDIoUHead``)."""
+    return {k: v for n in p for k, v in _prefix(
+        n, batch_norm(p[n], s[n]) if "bn" in n else conv(p[n], _linear)).items()}
+
+
+def roi_grid_pool(p, s):
+    """roi_heads.VoxelRCNNPool: ``pool_x_conv{i}.mlp_r{j}`` (GroupMLPs)."""
+    return {k: v for pool in p for mlp in p[pool] for k, v in _prefix(
+        f"{pool}.{mlp}", linear_bn_stack(p[pool][mlp], s[pool][mlp])).items()}
 
 
 def center_head(p, s):
@@ -351,7 +376,8 @@ def voxelnext_backbone(p, s):
 
 
 def backbone_3d(p, s):
-    """The ``backbone_3d`` of CenterPoint, SECOND and VoxelNeXt, told apart
+    """The ``backbone_3d`` of CenterPoint, SECOND (either), Voxel R-CNN,
+    SECOND-IoU and VoxelNeXt, told apart
     by its JAX modules."""
     if "conv1_res0" in p:
         return voxelnext_backbone(p, s)
@@ -363,9 +389,11 @@ def backbone_3d(p, s):
 
 
 def _backbone_families(p, s):
-    """CenterPointModel, SECONDModel and VoxelNeXtModel: ``pillar_net``,
-    ``backbone_3d``, ``backbone_2d`` where the model has them, and the
-    ``dense_head`` (a CenterHead or an AnchorHeadSingle)."""
+    """CenterPointModel, SECONDModel (the focal one too), VoxelRCNNModel,
+    SECONDIoUModel and VoxelNeXtModel: ``pillar_net``, ``backbone_3d``,
+    ``backbone_2d``, ``roi_grid_pool`` and ``roi_head`` where the model
+    has them, and the ``dense_head`` (a CenterHead or an
+    AnchorHeadSingle)."""
     out = {}
     if "pillar_net" in p:
         out.update(_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])))
@@ -373,6 +401,11 @@ def _backbone_families(p, s):
         out.update(_prefix("backbone_3d", backbone_3d(p["backbone_3d"], s["backbone_3d"])))
     if "backbone_2d" in p:
         out.update(_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])))
+    if "roi_grid_pool" in p:  # Voxel R-CNN
+        out.update(_prefix("roi_grid_pool", roi_grid_pool(p["roi_grid_pool"],
+                                                          s["roi_grid_pool"])))
+    if "roi_head" in p:  # Voxel R-CNN's RCNNHead, SECOND-IoU's head
+        out.update(_prefix("roi_head", linear_bn_stack(p["roi_head"], s["roi_head"])))
     head = p["dense_head"]
     return {**out, **_prefix("dense_head", center_head(head, s["dense_head"]) if "head" in head
                              else anchor_head(head))}
@@ -459,8 +492,8 @@ def from_jax_variables(variables):
     """JAX detector variables {"params", "batch_stats"} -> state_dict, for
     HGSFusionModel, RadarOnlyModel, PointPillarModel,
     PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
-    CenterPointModel, SECONDModel and VoxelNeXtModel (told apart by their
-    top-level modules)."""
+    CenterPointModel, SECONDModel, VoxelRCNNModel, SECONDIoUModel and
+    VoxelNeXtModel (told apart by their top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
     if "fuser_conv" in p:
         return _bevfusion(p, s)

@@ -8,8 +8,9 @@ eval mode, heads within 1e-4; one training step each of CenterPoint
 4, ``torch_parity.lift_bn_biases``: a plain conv stack in train mode over
 a TINY map is ill-conditioned otherwise); SECOND's stride-8 anchor targets
 equal to JAX's ``TargetAssigner``'s; the six YAMLs' model configs equal to
-JAX's and ``second_focal_vod.yaml``'s refusal; and ``tools/train.py`` ->
-``tools/test.py`` -> ``tools/export.py`` -> ``tools/serve.py`` for
+JAX's and ``second_focal_vod.yaml`` built and served at TINY; and
+``tools/train.py`` -> ``tools/test.py`` -> ``tools/export.py`` ->
+``tools/serve.py`` for
 ``configs/centerpoint_vod.yaml`` cut to TINY on a small synthetic VoD tree.
 JAX variables come from ``jax.eval_shape`` and numpy (only the forwards
 and the two steps compile)."""
@@ -190,11 +191,19 @@ def test_yaml_config_and_family(path):
         assert got.center_head_channels == (2, 1, 3, 2, 2) and got.nms_post_max_size == 83
 
 
-def test_focal_second_refuses():
+def test_focal_second_builds_and_serves():
+    """``second_focal_vod.yaml`` builds the SECOND on VoxelBackBone8xFocal;
+    cut to the TINY range (41 planes) it serves a frame."""
     cfg = load_config("configs/second_focal_vod.yaml")
     assert model_config_from_yaml(cfg).backbone_3d_arch == "voxel8x_focal"
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 9 \(c\)"):
-        build_network(cfg, device="cpu")
+    cfg["DATA_CONFIG"]["POINT_CLOUD_RANGE"] = list(RANGE)
+    cfg["DATA_CONFIG"]["DATA_PROCESSOR"][1]["VOXEL_SIZE"] = [0.5, 0.5, 0.125]
+    model = build_network(cfg, device="cpu")
+    assert isinstance(model, SECONDModel) and hasattr(model.backbone_3d, "focal3")
+    batch = _batch()
+    dets = model.serve({**batch, "points": np.concatenate(
+        [batch["points"], np.zeros((1, 256, 12), np.float32)], axis=-1)})
+    assert dets["boxes"].shape == (1, 500, 7) and bool(torch.isfinite(dets["boxes"]).all())
 
 
 def _tiny_centerpoint_yaml(root):

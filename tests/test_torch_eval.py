@@ -82,7 +82,7 @@ def jax_rotate_iou_lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_rotate_iou") / "librotate_iou.so"
     cxx = os.environ.get("CXX", "g++")
     proc = subprocess.run([cxx, *native.HOST_CXX_FLAGS, str(src), "-o", str(out)],
-                          capture_output=True, text=True)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, f"{cxx} failed for {src}:\n{proc.stdout}{proc.stderr}"
     lib = ctypes.CDLL(str(out))
     dp = ctypes.POINTER(ctypes.c_double)

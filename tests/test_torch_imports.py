@@ -59,7 +59,9 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.ops.conv_int8", "hgsfusion_tpu_torch.ops.deform_conv",
     "hgsfusion_tpu_torch.models.registry", "hgsfusion_tpu_torch.models.base_bev_backbone",
     "hgsfusion_tpu_torch.utils.visual", "hgsfusion_tpu_torch.utils.visual_3d",
-    "hgsfusion_tpu_torch.tools.demo",
+    "hgsfusion_tpu_torch.tools.demo", "hgsfusion_tpu_torch.models.focal_conv",
+    "hgsfusion_tpu_torch.models.pvrcnn", "hgsfusion_tpu_torch.models.roi_heads",
+    "hgsfusion_tpu_torch.ops.pointnet2",
 }
 
 

@@ -1,0 +1,499 @@
+"""The two-stage families, SECOND-IoU and Voxel R-CNN, and the focal SECOND
+(``models/pvrcnn.py``, ``models/roi_heads.py``, ``models/detector.py``'s
+``VoxelRCNNModel``, ``SECONDIoUModel`` and ``SECONDModel`` on
+VoxelBackBone8xFocal, ``train/trainer.py::make_twostage_train_step``)
+against the JAX package's, on the CPU, f32, at the TINY cut of the center
+families' test ((0, -8, -3, 16, 8, 2) at 0.5 x 0.5 x 0.125 m: 32 x 32 x 40
+voxels, a 4 x 4 BEV map, 96 anchors, 16 RoIs).
+
+Module outputs are held within 1e-5 of their largest value: the RoI grid
+points, the grouped MLP in train mode (its BatchNorm over every grouped
+row, the empty groups' included) with its statistics, the rotated BEV grid
+pool, both RoI heads, the Voxel R-CNN pool (over the windowed ball query),
+the RoI targets and canonical codes, the RCNN and IoU losses (1e-5
+relative) and their gradients. Proposals from tie-free scores keep JAX's
+rows in JAX's order; the models' forward passes are compared where the
+proposals came out in the same order (asserted for the seeds used: a
+random-weight RPN's scores sit close together, and a pair that rounds
+apart between the frameworks would swap ranks, ROADMAP's ties rule). The
+post-processing is held to the JAX package's eval steps on the same
+second-stage outputs. One training step of SECOND-IoU and one of Voxel
+R-CNN on the focal backbone (so with the focal loss) run under
+``train/step_compare.py`` with every BN bias lifted by 4
+(``lift_bn_biases``): a train-mode conv stack over the TINY maps is
+ill-conditioned otherwise, as SECOND's; the focal SECOND's anchor step
+adds its importance loss unweighted. The three YAMLs' model configs equal
+JAX's, and each trains and evaluates through ``tools/train.py`` and
+``tools/test.py`` on a small synthetic VoD tree."""
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from hgsfusion_tpu.config import load_config as jax_load_config
+from hgsfusion_tpu.config import model_config_from_yaml as jax_model_config
+from hgsfusion_tpu.models import pvrcnn as jpv
+from hgsfusion_tpu.models import roi_heads as jrh
+from hgsfusion_tpu.models.anchors import TargetAssigner as JaxAssigner
+from hgsfusion_tpu.models.detector import HGSFusionConfig as JaxConfig
+from hgsfusion_tpu.models.detector import SECONDIoUModel as JaxSECONDIoU
+from hgsfusion_tpu.models.detector import VoxelRCNNModel as JaxVoxelRCNN
+from hgsfusion_tpu.train.trainer import make_twostage_train_step as jax_twostage_step
+from hgsfusion_tpu.utils.box_coder import ResidualCoder as JaxCoder
+from hgsfusion_tpu_torch import weights
+from hgsfusion_tpu_torch.config import load_config, model_config_from_yaml
+from hgsfusion_tpu_torch.datasets.synthetic import make_synthetic_kitti
+from hgsfusion_tpu_torch.models import pvrcnn as pv
+from hgsfusion_tpu_torch.models import roi_heads as rh
+from hgsfusion_tpu_torch.models.detector import SECONDIoUModel, SECONDModel, VoxelRCNNModel
+from hgsfusion_tpu_torch.models.registry import build_network, yaml_network_class
+from hgsfusion_tpu_torch.tools import test as port_test
+from hgsfusion_tpu_torch.tools import train
+from hgsfusion_tpu_torch.tools.create_infos import create_infos
+from hgsfusion_tpu_torch.train.trainer import make_train_step_for_cfg, make_twostage_train_step
+from hgsfusion_tpu_torch.utils.box_coder import ResidualCoder
+from hgsfusion_tpu_torch.weights import from_jax_variables
+from test_torch_center_families import ANCHORS, PORT_ONLY, RANGE, SECOND_LOSS, _batch
+from test_train import OPTIM_CFG
+from torch_parity import (compare_one_step, lift_bn_biases, load,  # noqa: F401
+                          one_torch_thread, port_config, shaped_variables, t)
+
+TOL = 1e-5
+BN_LIFT = 4.0
+NUM_ROIS = 16
+FAMILIES = {  # name -> (JAX model, port model, backbone_3d_arch, two-stage family)
+    "voxelrcnn": (JaxVoxelRCNN, VoxelRCNNModel, "voxel8x", "voxelrcnn"),
+    "voxelrcnn_focal": (JaxVoxelRCNN, VoxelRCNNModel, "voxel8x_focal", "voxelrcnn"),
+    "secondiou": (JaxSECONDIoU, SECONDIoUModel, "voxel8x", "secondiou"),
+}
+# weight seeds whose step is well conditioned (``step_compare.SENS_CAP``):
+# Voxel R-CNN on the focal backbone trips the cap at seed 13 (an RCNN head
+# weight) and moves rcnn_cls by 1e-4 at 12 (a proposal or foreground site
+# that flips between the frameworks)
+STEP_SEEDS = {"secondiou": 11, "voxelrcnn_focal": 14}
+YAMLS = {"configs/second_focal_vod.yaml": SECONDModel,
+         "configs/second_iou_vod.yaml": SECONDIoUModel,
+         "configs/voxelrcnn_vod.yaml": VoxelRCNNModel}
+
+
+def _jax_cfg(name):
+    return JaxConfig(pc_range=RANGE, voxel_size=(0.5, 0.5, 0.125), num_anchors_per_location=6,
+                     num_point_features=5, pv_num_rois=NUM_ROIS, iou_grid_size=3,
+                     backbone_3d_arch=FAMILIES[name][2])
+
+
+def _port_cfg(name, **kw):
+    return port_config(_jax_cfg(name), anchor_generator=ANCHORS, loss_weights=SECOND_LOSS, **kw)
+
+
+def _assigner(cfg):
+    return JaxAssigner([dict(c) for c in ANCHORS], cfg.grid_size, cfg.pc_range,
+                       class_names=cfg.class_names)
+
+
+# ---- modules -----------------------------------------------------------------
+
+def test_roi_grid_points_match_jax():
+    rng = np.random.RandomState(0)
+    rois = np.concatenate([rng.uniform(-5, 5, (2, 7, 3)), rng.uniform(0.5, 4, (2, 7, 3)),
+                           rng.uniform(-3, 3, (2, 7, 1))], axis=-1).astype(np.float32)
+    ref = jax.jit(jax.vmap(lambda r: jpv.roi_grid_points(r, 6)))(rois)
+    got = pv.roi_grid_points(t(rois), 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL * 10, rtol=0)
+
+
+def test_group_mlp_train_mode_matches_jax():
+    """``_GroupMLP`` in train mode over (B, K, S, C) groups, a third empty:
+    the max-pooled output and both BNs' updated statistics within 1e-5; the
+    statistics take every row, the empty groups' included."""
+    rng = np.random.RandomState(1)
+    grouped = rng.randn(2, 10, 8, 7).astype(np.float32)
+    valid = np.broadcast_to(rng.rand(2, 10, 1) > 0.33, (2, 10, 8))
+    module = jpv._GroupMLP((16, 12))
+    variables = shaped_variables(module, grouped, valid, False, seed=1)
+    (ref, stats) = jax.jit(lambda v, g, m: module.apply(v, g, m, True, mutable=["batch_stats"]))(
+        variables, grouped, valid)
+    port = pv.GroupMLP(7, (16, 12))
+    port.load_state_dict(weights.linear_bn_stack(variables["params"], variables["batch_stats"]))
+    got = port.train()(t(grouped), t(np.array(valid)))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=TOL * np.abs(ref).max())
+    want = weights.linear_bn_stack(variables["params"], stats["batch_stats"])
+    for k, v in port.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=TOL, rtol=TOL, err_msg=k)
+
+
+def test_rotated_bev_grid_pool_matches_jax():
+    """Rotated 3 x 3 grids over boxes inside, across and outside a 6 x 5 map
+    (zeros outside it)."""
+    rng = np.random.RandomState(2)
+    feats = rng.randn(2, 6, 5, 4).astype(np.float32)
+    rois = np.concatenate([rng.uniform(-4, 20, (2, 9, 1)), rng.uniform(-12, 12, (2, 9, 1)),
+                           rng.uniform(-2, 1, (2, 9, 1)), rng.uniform(0.5, 6, (2, 9, 3)),
+                           rng.uniform(-3, 3, (2, 9, 1))], axis=-1).astype(np.float32)
+    ref = jax.jit(lambda f, r: jrh.rotated_bev_grid_pool(f, r, RANGE, (0.5, 0.5, 0.125), 8, 3))(
+        feats, rois)
+    got = rh.rotated_bev_grid_pool(t(feats), t(rois), RANGE, (0.5, 0.5, 0.125), 8, 3)
+    assert got.shape == (2, 9, 9, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL * np.abs(ref).max())
+    assert (np.asarray(ref) == 0).any() and (np.asarray(ref) != 0).any()
+
+
+@pytest.mark.parametrize("head", ["rcnn", "secondiou"])
+def test_roi_heads_match_jax(head):
+    rng = np.random.RandomState(3)
+    pooled = rng.randn(2, 5, 9, 6).astype(np.float32)
+    module = jpv.RCNNHead() if head == "rcnn" else jrh.SECONDIoUHead()
+    variables = shaped_variables(module, pooled, False, seed=4)
+    ref = jax.jit(lambda v, p: module.apply(v, p, False))(variables, pooled)
+    port = pv.RCNNHead(54) if head == "rcnn" else rh.SECONDIoUHead(54)
+    port.load_state_dict(weights.linear_bn_stack(variables["params"], variables["batch_stats"]))
+    with torch.no_grad():
+        got = port.eval()(t(pooled))
+    for g, r in zip(got if head == "rcnn" else (got,), ref if head == "rcnn" else (ref,)):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, atol=TOL * np.abs(r).max())
+
+
+def _stages(seed=5):
+    """x_conv2 .. x_conv4 of the TINY grid (strides 2, 4, 8), a third of the
+    cells active, 32 / 64 / 64 channels."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape, c, ds in (("x_conv2", (21, 16, 16), 32, 2), ("x_conv3", (11, 8, 8), 64, 4),
+                               ("x_conv4", (5, 4, 4), 64, 8)):
+        mask = rng.rand(1, *shape, 1) < 0.33
+        out[name] = ((rng.randn(1, *shape, c) * mask).astype(np.float32), mask, ds)
+    return out
+
+
+def test_voxel_rcnn_pool_matches_jax():
+    """VoxelRCNNPool (eval) at 4 RoIs' 6^3 grid points over the three
+    stages: within 1e-5 of the largest (the windowed query's index lists
+    are JAX's dense ones, ``test_torch_pointnet2.py``)."""
+    stages = _stages()
+    rois = np.array([[[4, -2, -0.5, 3.9, 1.6, 1.56, 0.3], [10, 3, -0.8, 0.8, 0.6, 1.73, -1.0],
+                      [8, 0, -1, 5, 3, 2, 2.0], [1, 6, 0, 2, 2, 1, 0.0]]], np.float32)
+    voxel = (0.5, 0.5, 0.125)
+    module = jrh.VoxelRCNNPool(pc_range=RANGE, voxel_size=voxel)
+    variables = shaped_variables(module, rois, stages, False, seed=6)
+    ref = np.asarray(jax.jit(lambda v, r, s: module.apply(v, r, s, False))(variables, rois, stages))
+    port = rh.VoxelRCNNPool(RANGE, voxel)
+    port.load_state_dict(weights.roi_grid_pool(variables["params"], variables["batch_stats"]))
+    with torch.no_grad():
+        got = port.eval()(t(rois), {k: (t(f), t(m), ds) for k, (f, m, ds) in stages.items()})
+    assert got.shape == ref.shape == (1, 4, 216, 96)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL * np.abs(ref).max())
+
+
+def _scored_boxes(seed=7, n=96):
+    """RPN-like boxes in clusters with tie-free scores."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.uniform(-6, 6, (n // 8, 1, 2))
+    xy = (ctr + rng.normal(0, 0.4, (n // 8, 8, 2))).reshape(n, 2)
+    boxes = np.concatenate([xy, rng.uniform(-1, 0, (n, 1)), rng.uniform(1, 4, (n, 1)),
+                            rng.uniform(1, 2, (n, 2)), rng.uniform(-3, 3, (n, 1))], axis=1)
+    scores = rng.permutation(n) / n * 0.9 + 0.05
+    labels = rng.randint(1, 4, n)
+    return boxes.astype(np.float32)[None], scores.astype(np.float32)[None], labels[None]
+
+
+def test_generate_proposals_match_jax():
+    """Top 64 -> NMS at 0.8 (and at 0.1) -> the first 16: the same kept
+    (label, box) rows in the same order, zeros past the kept ones."""
+    boxes, scores, labels = _scored_boxes()
+    for thresh in (0.8, 0.1):
+        ref = jax.jit(jax.vmap(lambda s, l, b: jpv.generate_proposals(s, l, b, NUM_ROIS, thresh,
+                                                                      pre_top=64)))(
+            scores, labels, boxes)
+        got = pv.generate_proposals(t(scores), t(labels), t(boxes), NUM_ROIS, thresh, pre_top=64)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
+        assert 0 < int(got[3].sum()) <= NUM_ROIS
+
+
+def _rois_near(gt, rng, n=12):
+    """RoIs jittered around the gt boxes (foregrounds) and a few far ones;
+    the last two invalid."""
+    rows = []
+    for i in range(n):
+        g = gt[i % 2, :7].copy()
+        if i >= n - 4:
+            g[:2] += 20
+        g[:3] += rng.normal(0, 0.15, 3)
+        g[3:6] *= rng.uniform(0.85, 1.15, 3)
+        g[6] += rng.normal(0, 0.2) + (np.pi if i % 3 == 0 else 0)
+        rows.append(g)
+    rois = np.array(rows, np.float32)[None]
+    valid = np.ones((1, n), bool)
+    valid[0, -2:] = False
+    return rois, valid
+
+
+def test_roi_targets_and_canonical_codes_match_jax():
+    """``roi_targets`` (soft labels, foregrounds, matched boxes),
+    ``canonical_reg_targets`` of the matched boxes (opposite headings
+    flipped) and ``decode_canonical``'s inverse within 1e-5 of JAX's."""
+    gt = _batch()["gt_boxes"]
+    rois, valid = _rois_near(gt[0], np.random.RandomState(8))
+    ref = jax.jit(jax.vmap(jpv.roi_targets))(rois, valid, gt)
+    got = pv.roi_targets(t(rois), t(valid), t(gt))
+    for k in ("cls_labels", "reg_valid", "gt_of_roi", "iou", "cls_valid"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=TOL, err_msg=k)
+    assert 0 < int(got["reg_valid"].sum()) < 10
+    coder, jcoder = ResidualCoder(), JaxCoder()
+    codes = pv.canonical_reg_targets(t(rois[0]), got["gt_of_roi"][0, :, :7], coder)
+    ref_codes = jpv.canonical_reg_targets(rois[0], np.asarray(ref["gt_of_roi"])[0, :, :7], jcoder)
+    np.testing.assert_allclose(codes.numpy(), np.asarray(ref_codes), atol=TOL)
+    back = pv.decode_canonical(codes, t(rois[0]), coder)
+    ref_back = jpv.decode_canonical(np.asarray(ref_codes), rois[0], jcoder)
+    np.testing.assert_allclose(back.numpy(), np.asarray(ref_back), atol=TOL * 10)
+
+
+def test_rcnn_and_iou_losses_match_jax():
+    """``rcnn_losses`` and ``iou_head_loss`` (values 1e-5 relative, and
+    the gradients of their sum with respect to the logits and residuals,
+    1e-5 of the largest)."""
+    gt = _batch()["gt_boxes"]
+    rng = np.random.RandomState(9)
+    rois, valid = _rois_near(gt[0], rng)
+    cls = rng.randn(1, 12).astype(np.float32)
+    reg = (rng.randn(1, 12, 7) * 0.3).astype(np.float32)
+    iou = rng.randn(1, 12).astype(np.float32)
+
+    def jax_loss(c, r, i):
+        tg = jax.vmap(jpv.roi_targets)(rois, valid, gt)
+        total, tb = jpv.rcnn_losses(c, r, tg, rois, JaxCoder())
+        return total + jrh.iou_head_loss(i, tg), (tb, jrh.iou_head_loss(i, tg))
+
+    (ref, (ref_tb, ref_iou)), ref_g = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
+                                                                 has_aux=True))(cls, reg, iou)
+    tc, tr, ti = (t(a).requires_grad_() for a in (cls, reg, iou))
+    tg = pv.roi_targets(t(rois), t(valid), t(gt))
+    total, tb = pv.rcnn_losses(tc, tr, tg, t(rois), ResidualCoder())
+    il = rh.iou_head_loss(ti, tg)
+    (total + il).backward()
+    for g, r in ((tb["rcnn_cls"], ref_tb["rcnn_cls"]), (tb["rcnn_reg"], ref_tb["rcnn_reg"]),
+                 (il, ref_iou), (total + il, ref)):
+        np.testing.assert_allclose(float(g.detach()), float(r), rtol=TOL)
+    assert float(tb["rcnn_reg"].detach()) > 0
+    for g, r in zip((tc.grad, tr.grad, ti.grad), ref_g):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, atol=TOL * np.abs(r).max())
+
+
+@pytest.mark.parametrize("score_type", ["iou", "weighted_iou_cls", "cls"])
+def test_rectified_scores_match_jax(score_type):
+    cls, iou = np.float32([0.2, 0.7, 0.5]), np.float32([0.9, 0.1, 0.5])
+    np.testing.assert_allclose(rh.rectified_scores(t(cls), t(iou), score_type).numpy(),
+                               np.asarray(jrh.rectified_scores(cls, iou, score_type)), atol=1e-7)
+
+
+def test_twostage_step_refuses_unported_families():
+    cfg = _port_cfg("voxelrcnn")
+    for family, entry in (("pvrcnn", r"\(c4\)"), ("parta2", r"\(c6\)"), ("pointrcnn", r"\(c7\)")):
+        with pytest.raises(NotImplementedError, match=entry):
+            make_twostage_train_step(None, None, None, {}, cfg, family)
+
+
+class _FixedPreds:
+    """A stand-in JAX model whose ``apply`` returns fixed predictions, so
+    that a JAX eval step runs its post-processing alone."""
+
+    def __init__(self, preds):
+        self.preds = preds
+
+    def apply(self, variables, inputs, train):
+        return self.preds
+
+
+def _second_stage_preds(seed=12):
+    """Two frames of 16 RoIs in overlapping clusters (the last three of the
+    second frame not valid), tie-free scores and IoU / cls logits."""
+    rng = np.random.RandomState(seed)
+    boxes, _, labels = _scored_boxes(seed, n=32)
+    rois = boxes.reshape(2, 16, 7)
+    valid = np.ones((2, 16), bool)
+    valid[1, -3:] = False
+    order = rng.permutation(32).reshape(2, 16).astype(np.float32)
+    return {"rois": rois * valid[..., None], "roi_valid": valid,
+            "roi_labels": (labels.reshape(2, 16) * valid).astype(np.int32),
+            "roi_scores": (0.05 + 0.9 * order / 32) * valid,
+            "rcnn_cls": (order - 12.0) / 4.0, "iou_preds": (20.0 - order) / 5.0,
+            "rcnn_reg": (rng.randn(2, 16, 7) * 0.2).astype(np.float32)}
+
+
+@pytest.mark.parametrize("family,score_type", [("voxelrcnn", "iou"), ("secondiou", "iou"),
+                                               ("secondiou", "weighted_iou_cls")])
+def test_post_process_matches_jax_eval_step(family, score_type):
+    """The port's post-processing against the JAX package's eval step on
+    the same second-stage outputs (``make_pvrcnn_eval_step``: refined
+    boxes, sigmoid scores over 0.1, NMS at 0.01; ``make_secondiou_eval_step``:
+    rectified scores, ``class_agnostic_nms``): valid slots and labels equal,
+    boxes and scores within 1e-5."""
+    from hgsfusion_tpu.train.trainer import make_pvrcnn_eval_step, make_secondiou_eval_step
+
+    preds = {k: np.asarray(v, np.int32 if k == "roi_labels" else None)
+             for k, v in _second_stage_preds().items()}
+    preds = {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in preds.items()}
+    jcfg = JaxConfig(pc_range=RANGE, iou_score_type=score_type)
+    post = {"SCORE_THRESH": 0.1, "NMS_CONFIG": {"NMS_THRESH": 0.01, "NMS_PRE_MAXSIZE": 4096,
+                                                 "NMS_POST_MAXSIZE": 20}}
+    maker = make_pvrcnn_eval_step if family == "voxelrcnn" else make_secondiou_eval_step
+    step = maker(_FixedPreds(preds), _assigner(jcfg), jcfg, post)
+    ref = jax.jit(lambda b: step({}, {}, b))(_batch())
+    cfg = port_config(jcfg, nms_post_max_size=20)
+    tp = {k: t(v) for k, v in preds.items()}
+    from hgsfusion_tpu_torch.models.detector import (rectified_post_process,
+                                                     refine_post_process)
+    got = (refine_post_process(tp, ResidualCoder(), cfg) if family == "voxelrcnn"
+           else rectified_post_process(tp, cfg))
+    for k in ("valid", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    for k in ("boxes", "scores"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=TOL, err_msg=k)
+    kept = got["valid"].sum(1)
+    assert (kept > 1).all() and (kept < 13).all()
+
+
+def test_anchor_step_adds_the_focal_loss():
+    """The focal SECOND's step (the anchor step) adds ``loss_box_of_pts``,
+    ``focal_conv_loss`` of its importances, unweighted: the step's total is
+    the RPN loss plus that term."""
+    from hgsfusion_tpu_torch.train.optim import build_optimizer
+
+    cfg = _port_cfg("voxelrcnn", backbone_3d_arch="voxel8x_focal")
+    model = SECONDModel(cfg, device="cpu", seed=0)
+    opt, _ = build_optimizer(dict(OPTIM_CFG), 20, model)
+    _, step = make_train_step_for_cfg(model, opt, cfg)
+    _, tb = step(model.batch_to_device(_batch()))
+    assert {"rpn_loss", "loss_box_of_pts", "loss"} <= set(tb)
+    torch.testing.assert_close(tb["loss"], tb["rpn_loss"] + tb["loss_box_of_pts"])
+    assert float(tb["loss_box_of_pts"]) > 0
+
+
+# ---- the models ----------------------------------------------------------------
+
+def _jax_batch(cfg):
+    return {**_batch(), "anchors": _assigner(cfg).flat_anchors}
+
+
+@pytest.mark.parametrize("name", ["secondiou", "voxelrcnn"])
+def test_model_forward_matches_jax(name):
+    """Eval-mode forward from the same weights: the RPN's maps within 1e-5
+    of the largest, the proposals equal (the same rows in the same order),
+    the second stage's outputs within 1e-5 of the largest; then the port's
+    detections (``post_process``) are finite and fill the NMS's slots."""
+    jax_cls, port_cls, _, _ = FAMILIES[name]
+    cfg = _jax_cfg(name)
+    model = jax_cls(cfg=cfg)
+    batch = _jax_batch(cfg)
+    variables = shaped_variables(model, batch, False, seed=10)
+    ref = jax.jit(lambda v, b: model.apply(v, b, False))(variables, batch)
+    port = load(port_cls(_port_cfg(name), device="cpu"), from_jax_variables(variables))
+    with torch.no_grad():
+        got = port(port.batch_to_device(batch))
+        dets = port.post_process(got)
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        r = np.asarray(r)
+        tol = 1e-6 if k in ("rois", "roi_scores") else TOL * max(np.abs(r).max(), 1e-6)
+        np.testing.assert_allclose(got[k].numpy(), r, atol=tol, rtol=0, err_msg=k)
+    if "roi_valid" in ref:
+        assert int(got["roi_valid"].sum()) == NUM_ROIS
+    assert dets["boxes"].shape == (1, port.cfg.nms_post_max_size, 7)
+    assert bool(torch.isfinite(dets["boxes"]).all()) and int(dets["valid"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["secondiou", "voxelrcnn_focal"])
+def test_one_step_matches_jax(name):
+    """One step from the same weights (BN biases lifted by 4): loss terms,
+    gradients, updated parameters and BN statistics (``compare_one_step``);
+    Voxel R-CNN's on the focal backbone, so its step carries the focal
+    loss too."""
+    jax_cls, port_cls, _, family = FAMILIES[name]
+    cfg = _jax_cfg(name)
+    model = jax_cls(cfg=cfg)
+    variables = lift_bn_biases(shaped_variables(model, _jax_batch(cfg), False,
+                                                seed=STEP_SEEDS[name]), BN_LIFT)
+    assigner = _assigner(cfg)
+
+    def jax_make(tx):
+        return jax_twostage_step(model, assigner, tx, dict(SECOND_LOSS), cfg, family=family)
+    pcfg = _port_cfg(name)
+
+    def port_step(m, opt):
+        return make_train_step_for_cfg(m, opt, pcfg)[1]
+
+    report = compare_one_step(variables, jax_make, lambda: port_cls(pcfg, device="cpu"),
+                              port_step, _batch(), OPTIM_CFG)
+    print(report)
+
+
+# ---- the YAMLs and the CLIs --------------------------------------------------------
+
+@pytest.mark.parametrize("path", sorted(YAMLS))
+def test_yaml_config_and_family(path):
+    """Each YAML's family, and its model config equal to the JAX package's
+    on every field they share (the focal, RoI and IoU fields among them)."""
+    cfg = load_config(path)
+    assert yaml_network_class(cfg) is YAMLS[path]
+    ref = jax_model_config(jax_load_config(path))
+    got = model_config_from_yaml(cfg)
+    assert got == port_config(ref, **{f: getattr(got, f) for f in PORT_ONLY})
+    assert got.pv_num_rois == 128 and got.pv_nms_thresh == 0.8
+    assert got.backbone_3d_arch == ("voxel8x_focal" if "focal" in path else "voxel8x")
+
+
+def _tiny_yaml(path, root):
+    """A YAML cut to the TINY range at 0.5 x 0.5 x 0.125 m, 16 RoIs (a
+    3 x 3 IoU grid), every proposal above the score threshold a detection
+    candidate (random weights score near 0.1)."""
+    cfg = load_config(path)
+    cfg.pop("TAG", None)
+    data = cfg["DATA_CONFIG"]
+    data.update(DATA_PATH=str(root), POINT_CLOUD_RANGE=list(RANGE), MAX_POINTS=256,
+                MAX_GT_BOXES=8, VIRTUAL_POINT_PREFIX="virtual_points")
+    data["DATA_PROCESSOR"][1]["VOXEL_SIZE"] = [0.5, 0.5, 0.125]
+    model = cfg["MODEL"]
+    model.setdefault("ROI_HEAD", {}).update(NUM_ROIS=NUM_ROIS, GRID_SIZE_2D=3)
+    model["POST_PROCESSING"].update(SCORE_THRESH=0.0)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """Each YAML (cut by ``_tiny_yaml``): one training step on a 2-frame
+    tree, then ``tools/test.py --ckpt_dir`` over both frames."""
+    torch.set_num_threads(1)
+    tmp = tmp_path_factory.mktemp("twostage_cli")
+    root = tmp / "data"
+    make_synthetic_kitti(root, num_frames=2, num_points=128, num_virtual=32, image_hw=(32, 48),
+                         structured=True)
+    runs = {}
+    for i, path in enumerate(sorted(YAMLS)):
+        cfg = _tiny_yaml(path, root)
+        if i == 0:
+            create_infos(cfg["DATA_CONFIG"], cfg["CLASS_NAMES"])
+        stem = path.split("/")[-1][:-5]
+        cfg_path = tmp / f"{stem}.yaml"
+        cfg_path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        out = tmp / "out"
+        trained = train.main(["--cfg_file", str(cfg_path), "--device", "cpu", "--workers", "0",
+                              "--epochs", "1", "--max_steps", "1", "--output_dir", str(out)])
+        tested = port_test.main(["--cfg_file", str(cfg_path), "--device", "cpu", "--ckpt_dir",
+                                 str(out / stem / "default" / "ckpt"), "--max_frames", "2",
+                                 "--output_dir", str(out)])
+        runs[path] = (trained, tested, build_network(load_config(cfg_path), device="cpu"))
+    return runs
+
+
+@pytest.mark.parametrize("path", sorted(YAMLS))
+def test_cli_trains_and_tests(cli_runs, path):
+    trained, tested, model = cli_runs[path]
+    assert isinstance(model, YAMLS[path])
+    assert trained["steps"] == 1 and all(np.isfinite(trained["losses"]))
+    (result, stats), = tested.values()
+    assert stats["frames"] == 2 and all(0 <= v <= 100 for v in result.values())
