@@ -174,14 +174,18 @@ and launches of what ran):
     ``tools/export.py``'s ``export_model`` (the fused kernel, or the
     forward three times, and the NMS as ops in the graph) and saved; export
     and save seconds, the artifact's bytes, ms per frame by completion gaps
-    through ``serve`` and through the artifact in this process; then (the
-    ``serving_host`` phase, the last) every export phase's artifact served by
-    ``tools/serve.py`` in one subprocess that blocks the model code and JAX
-    (``SERVE_GUARD_RUNS``), one run each over 6 ``.npz`` files (3 flagship
-    frames, each twice): each run's launches must read the view's per
-    frame, its detections equal ``serve``'s (valid and labels, boxes and
-    scores within 1e-4) at a tie-free score threshold, its ms per frame by
-    completion gaps beside ``serve``'s;
+    through ``serve`` and through the artifact in this process; then every
+    export phase's artifact served by ``tools/serve.py`` in a subprocess
+    that blocks the model code and JAX (``SERVE_GUARD_RUNS``), one run each
+    over 6 ``.npz`` files (3 flagship frames, each twice): these four
+    artifacts by a host started right after them (``serving_host_start``,
+    which runs while the later phases do, so its ms a frame share
+    the card with them), the CLI exports' by one more in the
+    ``serving_host`` phase, the last, which checks both: each run's
+    launches must read the view's per frame, its detections equal
+    ``serve``'s (valid and labels, boxes and scores within 1e-4) at a
+    tie-free score threshold, its ms per frame by completion gaps beside
+    ``serve``'s;
 25b. bench: the port's ``bench`` entry point (``bench.main`` in this
     process, as ``python -m hgsfusion_tpu_torch.bench`` runs it) for the
     polar default, ``--vod``, ``--realistic`` and ``--tj4d``: exactly one
@@ -378,14 +382,14 @@ and launches of what ran):
     864 and all 27,648 points of the three stages;
 64. focal backbone: VoxelBackBone8xFocal beside VoxelBackBone8x in eval
     mode at full width (device ms, the focal layers' active sites);
-65. small reference, two-stage: the focal SECOND, SECOND-IoU and Voxel
-    R-CNN cut to TINY (``tiny_twostage``), card vs CPU: RPN maps within
+65. small reference, two-stage: the focal SECOND, SECOND-IoU, Voxel R-CNN,
+    PV-RCNN and PV-RCNN++ cut to TINY (``tiny_twostage``), card vs CPU: RPN maps within
     1e-4 (the focal importances spread by ``spread_importances`` and
     checked tie-free by ``focal_premise``), the proposals of the CPU's
     ramped RPN maps equal on both devices, the second stage on them
-    within 1e-4, the post-processing equal (1 or 2 NMS calls), one
-    training step on the card (finite terms; one NMS call for the
-    two-stage families);
+    within 1e-4 (the keypoints equal), the post-processing equal (1 or 2
+    NMS calls, and PV-RCNN's FPS), one training step on the card (finite
+    terms; one NMS call for the two-stage families, one FPS for PV-RCNN's);
 66. serve the focal SECOND, SECOND-IoU and Voxel R-CNN
     (``configs/second_focal_vod.yaml``, ``second_iou_vod.yaml``,
     ``voxelrcnn_vod.yaml``) at full width as 59 (1, 2 and 2 NMS calls a
@@ -393,7 +397,18 @@ and launches of what ran):
     (0, 1 and 1 NMS calls a step); train CLI Voxel R-CNN and SECOND-IoU as
     54 (1 NMS call a step, 2 a frame), each checkpoint then exported by
     ``tools/export.py`` and served by the serving host of 25a on 3
-    evaluation frames (2 NMS calls a frame; detections equal ``serve``'s).
+    evaluation frames (2 NMS calls a frame; detections equal ``serve``'s);
+67. fps: ``hgsfusion::farthest_point_sample`` (``csrc/fps.cu``) against its
+    plain version at PV-RCNN's 8,192 points -> 1,024 keypoints: B=1 and
+    B=2 and 16,384 points (timed beside the bound), a proposal-centric
+    mask, exact ties, fewer valid points than keypoints; the indices equal;
+68. PV-RCNN and PV-RCNN++ (``configs/pvrcnn_vod.yaml``,
+    ``pvrcnnpp_vod.yaml``): served at full width as 59 (2 NMS calls and 1
+    FPS a frame; the FPS, the voxel set abstraction, the keypoint weighting
+    and the RoI-grid pool timed alone) and ``bench``; trained at B=1 as 60
+    (1 NMS and 1 FPS a step; the gather backward's device ms); PV-RCNN
+    through the CLIs and exported as 66 (1 + 1 a step, 2 + 1 a frame, the
+    serving host equal to ``serve``).
 
 4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
 (a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept;
@@ -402,8 +417,8 @@ two-stage families' (``twostage``).
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving host runs, 27, 28-31, 33-36, 39-44, 46-49, 52-56, 59-61 and 66, the
-ranks' launches summed),
+serving host runs, 27, 28-31, 33-36, 39-44, 46-49, 52-56, 59-61, 66 and 68,
+the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
 ``kernels`` JSON line, the ``nvidia-smi`` line and ``{"ok": true,
@@ -454,8 +469,8 @@ from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_
 from hgsfusion_tpu_torch.models.transfusion_head import TransFusionHead
 from hgsfusion_tpu_torch.models.pvrcnn import roi_grid_points, stage_point_set
 from hgsfusion_tpu_torch.models.voxel_backbone import SparseConv3d, height_compression, mean_vfe
-from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, quad_sample,
-                                 row_scatter)
+from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, pointnet2,
+                                     quad_sample, row_scatter)
 from hgsfusion_tpu_torch.ops.grid_sample import (div_exact, quad_sample_bwd_plain,
                                                 quad_sample_fwd_plain, quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.matmul import matmul_f32
@@ -491,7 +506,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 KERNEL_SOURCES = ["quad_sample", "quad_sample_bwd", "quad_sample_reduce", "row_scatter_add",
-                  "nms_lazy", "quad_sample_depth", "conv_int8"]
+                  "nms_lazy", "quad_sample_depth", "conv_int8", "fps"]
 BF16_TOL, F32_TOL = 0.04, 1e-5
 F32_U = 2.0 ** -24  # f32 unit round-off
 # the two gathers of a frame: layer1 (64 ch at /4), layers 2-4 (192 ch at /8)
@@ -1762,7 +1777,8 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "train_voxelnext", "train_centerpoint_nuscenes", "train_cli_centerpoint",
               "train_cli_second", "serve_second_focal", "serve_second_iou", "serve_voxelrcnn",
               "train_second_focal", "train_second_iou", "train_voxelrcnn",
-              "train_cli_voxelrcnn", "train_cli_second_iou")
+              "train_cli_voxelrcnn", "train_cli_second_iou", "serve_pvrcnn", "serve_pvrcnnpp",
+              "train_pvrcnn", "train_pvrcnnpp", "train_cli_pvrcnn")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -2232,33 +2248,48 @@ def phase_export_serve(dev, name: str, cfg, per_frame: dict):
     return result
 
 
-def phase_serving_host(dev):
-    """Every pending export phase's artifact served by ``tools/serve.py`` in
-    one subprocess that blocks the model code and JAX (``SERVE_GUARD_RUNS``),
-    one run each over its 6 ``.npz`` files: each run's launches (after its
-    warm-up) must read its view's per-frame launches for each file, and its
-    detections equal ``serve``'s (valid and labels equal, boxes and scores
-    within 1e-4). Each export phase's result gains its launches, the
-    host's ms per frame and gaps and the errors; this phase's, the host's
-    seconds."""
+def start_serving_host():
+    """Every pending export phase's artifact handed to one serving-host
+    subprocess (``tools/serve.py`` behind ``SERVE_GUARD_RUNS``, one run each
+    over its ``.npz`` files), started now, its output to temporary files:
+    -> (the process, its stdout and stderr files, the artifacts' names, their
+    pending entries, the start time)."""
     if not PENDING_HOST:
         raise AssertionError("no export phase left an artifact to serve")
     names = list(PENDING_HOST)
     runs = [["--artifact", str(PENDING_HOST[n][0] / "model.pt2"), "--inputs",
              str(PENDING_HOST[n][0] / "in"), "--out_dir", str(PENDING_HOST[n][0] / "out"),
              "--time"] for n in names]
-    t0 = time.perf_counter()
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen([sys.executable, "-c", SERVE_GUARD_RUNS, json.dumps(runs)],
+                            stdout=logs[0], stderr=logs[1], text=True, cwd=REPO)
+    pending = {n: PENDING_HOST.pop(n) for n in names}
+    return proc, logs, names, pending, time.perf_counter()
+
+
+def finish_serving_host(host) -> dict:
+    """Wait for a ``start_serving_host`` process and check it: each run's
+    launches (after its warm-up) must read its view's per-frame launches
+    for each file, and its detections equal ``serve``'s (valid and labels
+    equal, boxes and scores within 1e-4). Each export phase's result gains
+    its launches, the host's ms per frame and gaps and the errors."""
+    proc, logs, names, pending, t0 = host
     try:
-        proc = subprocess.run([sys.executable, "-c", SERVE_GUARD_RUNS, json.dumps(runs)],
-                              capture_output=True, text=True, timeout=900, cwd=REPO)
+        try:
+            proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
         host_s = time.perf_counter() - t0
-        served = [json.loads(s[len("SERVED "):]) for s in proc.stdout.splitlines()
+        for f in logs:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in logs)
+        served = [json.loads(s[len("SERVED "):]) for s in stdout.splitlines()
                   if s.startswith("SERVED ")]
         if proc.returncode != 0 or len(served) != len(names):
-            raise AssertionError(f"the serving host failed:\n{proc.stdout[-2000:]}"
-                                 f"{proc.stderr[-4000:]}")
+            raise AssertionError(f"the serving host failed:\n{stdout[-2000:]}{stderr[-4000:]}")
         for name, summary in zip(names, served):
-            work, want, refs, result = PENDING_HOST[name]
+            work, want, refs, result = pending[name]
             if summary["launches"] != want:
                 raise AssertionError(f"{name}: the artifact's launches {summary['launches']}, "
                                      f"want {want}")
@@ -2284,10 +2315,51 @@ def phase_serving_host(dev):
                 for k, v in summary["launches"].items():
                     owner["launches"][k] += v
     finally:
-        for work, *_ in PENDING_HOST.values():
+        for f in logs:
+            f.close()
+        for work, *_ in pending.values():
             shutil.rmtree(work, ignore_errors=True)
-        PENDING_HOST.clear()
-    out = {"artifacts": names, "serving_host_s": host_s}
+    return {"artifacts": names, "serving_host_s": host_s}
+
+
+# serving hosts started after the export phases, which serve their
+# artifacts while the phases after them run (``serving_host`` waits for
+# them); the hosts' own ms a frame then share the card with those phases
+EARLY_HOST = []
+
+
+def phase_serving_host_start(dev):
+    """``start_serving_host`` for the artifacts pending now (the export
+    phases'), left running; ``phase_serving_host`` checks it."""
+    host = start_serving_host()
+    EARLY_HOST.append(host)
+    out = {"artifacts": host[2]}
+    print("  " + json.dumps(out))
+    return out
+
+
+def phase_serving_host(dev):
+    """Every export phase's artifact served by ``tools/serve.py`` in a
+    subprocess that blocks the model code and JAX (``SERVE_GUARD_RUNS``),
+    one run each over its ``.npz`` files, checked by
+    ``finish_serving_host``: the early hosts' (``phase_serving_host_start``)
+    and one more for any artifacts left since. This phase's result: each
+    host's artifacts and seconds."""
+    hosts = [EARLY_HOST.pop(0) for _ in list(EARLY_HOST)]
+    if PENDING_HOST:
+        hosts.append(start_serving_host())
+    if not hosts:
+        raise AssertionError("no export phase left an artifact to serve")
+    out = {"hosts": []}
+    try:
+        while hosts:
+            out["hosts"].append(finish_serving_host(hosts.pop(0)))
+    finally:
+        for proc, logs, *_ in hosts:
+            proc.kill()
+            proc.wait()
+            for f in logs:
+                f.close()
     print("  " + json.dumps(out))
     return out
 
@@ -4446,9 +4518,10 @@ def scatter_max_case(model, batch, dev) -> dict:
             "reader_ms": reader_ms}
 
 
-def profiled_top(fn, top: int = 10) -> dict:
+def profiled_top(fn, top: int = 10, match=()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its kernels' own device
-    time summed, and the ``top`` kernels by that time (name, ms, calls)."""
+    time summed, the ``top`` kernels by that time (name, ms, calls), and the
+    device ms of the kernels whose names hold each string of ``match``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -4456,7 +4529,8 @@ def profiled_top(fn, top: int = 10) -> dict:
                                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.count)
                   for e in prof.key_averages()), key=lambda r: -r[1])
     return {"device_ms": sum(ms for _, ms, _ in ops),
-            "top": [{"op": k[:90], "device_ms": ms, "calls": n} for k, ms, n in ops[:top]]}
+            "top": [{"op": k[:90], "device_ms": ms, "calls": n} for k, ms, n in ops[:top]],
+            "matched_ms": {m: sum(ms for k, ms, _ in ops if m in k) for m in match}}
 
 
 def profiled_device_ms(fn) -> float:
@@ -4571,10 +4645,12 @@ def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3, per_step=None)
                     if "called a synchronizing CUDA operation" in str(w.message)})
     if syncs:
         raise AssertionError(f"the training step made the host wait for the device at {syncs}")
-    profiled = profiled_top(lambda: step(b))
+    # the grouped features' gather backward (a sort-based index_put)
+    profiled = profiled_top(lambda: step(b), match=("indexing_backward",))
     result = {"steps": steps, "batch": int(b["points"].shape[0]), "launches": launches,
               "step_stream_ms": device_ms, "profiled_step_device_ms": profiled["device_ms"],
               "profiled_step_top": profiled["top"], "peak_memory_bytes": peak,
+              "profiled_step_gather_backward_ms": profiled["matched_ms"]["indexing_backward"],
               "positive_anchors": positives, "loss_terms": terms,
               "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
               "conv3d_tap_products": conv3d_taps(model), "trainable_tensors": len(before),
@@ -4587,8 +4663,9 @@ def phase_train_cli_radar(dev):
     """``configs/radar_pillar_vod.yaml`` through the CLIs at full width:
     ``tools/train.py`` over an 8-frame tree (no image in its batches, no
     kernel launched), ``tools/test.py --ckpt_dir`` (one NMS a frame), then
-    the checkpoint exported and served by the serving host on the eval
-    frames: its detections equal ``serve``'s at a tie-free threshold."""
+    the checkpoint exported at a tie-free threshold and left, with the eval
+    frames and ``serve``'s detections of them, for ``phase_serving_host``
+    (as ``export_radar``): its detections must equal ``serve``'s."""
     cfg = load_config(RADAR_YAML)
     data = cfg["DATA_CONFIG"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4624,28 +4701,20 @@ def phase_train_cli_radar(dev):
         program, spec = export_cli.export_model(model, frames[0])
         if "images" in spec["inputs"]:
             raise AssertionError(f"the artifact's inputs {sorted(spec['inputs'])}")
-        export_cli.save_artifact(program, spec, Path(tmp) / "radar.pt2")
-        (Path(tmp) / "in").mkdir()
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_export_radar_"))
+        export_cli.save_artifact(program, spec, work / "model.pt2")
+        (work / "in").mkdir()
         for i, f in enumerate(frames):
-            np.savez(Path(tmp) / "in" / f"frame{i}.npz",
+            np.savez(work / "in" / f"r0_frame{i}.npz",
                      **{k: np.asarray(f[k]) for k in spec["inputs"]})
-        summary, dets = run_serving_host(Path(tmp) / "radar.pt2", Path(tmp) / "in",
-                                         Path(tmp) / "dets")
-    kept = []
     refs = [{k: v.cpu().numpy() for k, v in model.serve(f).items()} for f in frames]
     torch.backends.cudnn.allow_tf32 = False
-    for i, ref in enumerate(refs):
-        got = dets[f"frame{i}"]
-        for k in ("valid", "labels"):
-            if not np.array_equal(got[k], ref[k]):
-                raise AssertionError(f"frame {i}: the artifact's {k} differ from serve's")
-        for k in ("boxes", "scores"):
-            if float(np.abs(got[k] - ref[k]).max()) > 1e-4:
-                raise AssertionError(f"frame {i}: the artifact's {k} off serve's")
-        kept.append(int(ref["valid"].sum()))
+    kept = [int(ref["valid"].sum()) for ref in refs]
+    exported = {"inputs": sorted(spec["inputs"]), "kept": kept}
+    PENDING_HOST["export_radar"] = (work, per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES), refs,
+                                    exported)
     checks = {"train": (train_launches, per_frames({}, RADAR_CLI_STEPS)),
-              "eval": (eval_launches, per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES)),
-              "serving_host": (summary["launches"], per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES))}
+              "eval": (eval_launches, per_frames(NMS_CALL, RADAR_CLI_EVAL_FRAMES))}
     for name, (got_l, want_l) in checks.items():
         if got_l != want_l:
             raise AssertionError(f"{name}: launches {got_l}, want {want_l}")
@@ -4654,14 +4723,13 @@ def phase_train_cli_radar(dev):
     if stats.get("frames") != RADAR_CLI_EVAL_FRAMES or not all(
             math.isfinite(v) and 0 <= v <= 100 for v in result_dict.values()):
         raise AssertionError(f"evaluation: {stats.get('frames')} frames, {result_dict}")
-    result = {"launches": {k: train_launches[k] + eval_launches[k] + summary["launches"][k]
-                           for k in library.launches},
+    result = {"launches": {k: train_launches[k] + eval_launches[k] for k in library.launches},
               "launches_by_run": {k: v[0] for k, v in checks.items()},
               "steps_per_s": trained["steps_per_s"], "losses": trained["losses"],
               "peak_memory_bytes": trained["peak_memory_bytes"],
               "eval_ms_per_frame": stats.get("ms_per_frame"), "eval_result": result_dict,
-              "score_thresh": thr, "kept": kept,
-              "artifact_ms_per_frame": summary["ms_per_frame"]}
+              "score_thresh": thr, "export": exported}
+    HOST_OWNERS["export_radar"] = result
     print("  " + json.dumps(result))
     return result
 
@@ -4923,12 +4991,15 @@ def phase_serve_family(dev, name: str, cfg, batch, per_frame: dict, frames: int 
             torch.isfinite(dets["boxes"]).all() and torch.isfinite(dets["scores"]).all()):
         raise AssertionError(f"detections {dets['boxes'].shape}, want {rows} rows, finite")
     profiled = profiled_top(lambda: model.serve(batch))
+    stages = pv_stage_ms(model, model.batch_to_device(batch)) if hasattr(model, "pfe") else None
     del model
     torch.cuda.empty_cache()
     result = {"frames": frames, "launches": launches, "frame_stream_ms": stream_ms,
               "frame_wall_ms": wall, "profiled_frame_device_ms": profiled["device_ms"],
               "profiled_frame_top": profiled["top"], "peak_memory_bytes": peak,
               "valid_boxes": int(dets["valid"].sum())}
+    if stages is not None:
+        result["stage_ms"] = stages
     if name not in bench.ZOO:
         print("  " + json.dumps(result))
         return result
@@ -5271,12 +5342,17 @@ def phase_small_reference_center(dev):
 
 # ---- the focal SECOND, SECOND-IoU and Voxel R-CNN ---------------------------
 # the VoD configs (f32) by their ``bench.ZOO`` names
-TWOSTAGE_ZOO = ("second_focal", "second_iou", "voxelrcnn")
+TWOSTAGE_ZOO = ("second_focal", "second_iou", "voxelrcnn", "pvrcnn", "pvrcnnpp")
 NMS_TWICE = {library.NMS_MASK: 2, library.NMS_SWEEP: 2}
 # NMS calls a served frame (the two-stage families: the proposals' and the
-# detections') and a training step (the proposals')
-TWOSTAGE_FRAME = {"second_focal": NMS_CALL, "second_iou": NMS_TWICE, "voxelrcnn": NMS_TWICE}
-TWOSTAGE_STEP = {"second_focal": {}, "second_iou": NMS_CALL, "voxelrcnn": NMS_CALL}
+# detections') and a training step (the proposals'); PV-RCNN's and
+# PV-RCNN++'s keypoints: one FPS launch a batch, in serving and training
+PV_FRAME = {**NMS_TWICE, library.FPS: 1}
+PV_STEP = {**NMS_CALL, library.FPS: 1}
+TWOSTAGE_FRAME = {"second_focal": NMS_CALL, "second_iou": NMS_TWICE, "voxelrcnn": NMS_TWICE,
+                  "pvrcnn": PV_FRAME, "pvrcnnpp": PV_FRAME}
+TWOSTAGE_STEP = {"second_focal": {}, "second_iou": NMS_CALL, "voxelrcnn": NMS_CALL,
+                 "pvrcnn": PV_STEP, "pvrcnnpp": PV_STEP}
 # the proposal layer's NMS (top 512 at ROI_HEAD.NMS_THRESH_TRAIN 0.8, 128
 # kept) and SECOND-IoU's final one (its 128 proposals at 0.01, 500 slots)
 PROPOSAL_K, PROPOSAL_KEEP, PROPOSAL_THRESH = 512, 128, 0.8
@@ -5393,11 +5469,11 @@ def phase_focal_backbone(dev):
 
 def tiny_twostage(name: str):
     """A two-stage VoD config (or the focal SECOND's) cut to TINY: 0.5 x 0.5
-    x 0.125 m voxels (41 planes), 16 RoIs, a 3 x 3 IoU grid, 16 detection
-    slots, score threshold 0."""
+    x 0.125 m voxels (41 planes), 16 RoIs, 128 keypoints, a 3 x 3 IoU grid,
+    16 detection slots, score threshold 0."""
     return dataclasses.replace(zoo_config(name), pc_range=TINY_RANGE,
                                voxel_size=(0.5, 0.5, 0.125), pv_num_rois=16, iou_grid_size=3,
-                               nms_post_max_size=16, score_thresh=0.0)
+                               pv_num_keypoints=128, nms_post_max_size=16, score_thresh=0.0)
 
 
 def spread_importances(cpu_model, gpu_model, batch, scale: float = 0.5):
@@ -5441,16 +5517,18 @@ def focal_premise(model, batch):
 
 
 def phase_small_reference_twostage(dev):
-    """The focal SECOND, SECOND-IoU and Voxel R-CNN cut to TINY
-    (``tiny_twostage``), card vs CPU, one set of weights, two frames: the
+    """The focal SECOND, SECOND-IoU, Voxel R-CNN, PV-RCNN and PV-RCNN++ cut to
+    TINY (``tiny_twostage``), card vs CPU, one set of weights, two frames: the
     RPN's maps within 1e-4 (the focal SECOND's importance heads scaled by
     ``spread_importances``, and its foreground the same on both:
     ``focal_premise``); the proposals of the CPU's RPN maps with a ramp
     added to the class scores (the tie rule) equal on both devices; the
-    second stage on those proposals within 1e-4; the post-processing of
-    the CPU's outputs equal on both devices with one NMS call on the card
-    (two with the proposals); then one training step on the card: finite
-    loss terms, one NMS call (the proposals') for the two-stage families."""
+    second stage on those proposals within 1e-4 (PV-RCNN's and PV-RCNN++'s
+    keypoints equal: the FPS kernel against its plain version); the
+    post-processing of the CPU's outputs equal on both devices with one NMS
+    call on the card (two with the proposals, and PV-RCNN's FPS); then one
+    training step on the card: finite loss terms, one NMS call (the
+    proposals') for the two-stage families, one FPS for PV-RCNN's."""
     out = {}
     for name in TWOSTAGE_ZOO:
         cfg = tiny_twostage(name)
@@ -5466,8 +5544,8 @@ def phase_small_reference_twostage(dev):
                 focal_premise(cpu_model, cb)
             c3d, c_stages, _ = cpu_model.voxel_features(cb)
             g3d, g_stages, _ = gpu_model.voxel_features(gb)
-            c2d = cpu_model.backbone_2d(height_compression(c3d))
-            g2d = gpu_model.backbone_2d(height_compression(g3d))
+            c_bev, g_bev = height_compression(c3d), height_compression(g3d)
+            c2d, g2d = cpu_model.backbone_2d(c_bev), gpu_model.backbone_2d(g_bev)
             ref, got = cpu_model.dense_head(c2d), gpu_model.dense_head(g2d)
             row["rpn_max_abs_err"] = {k: float((got[k].cpu() - r).abs().max())
                                       for k, r in ref.items()}
@@ -5486,17 +5564,20 @@ def phase_small_reference_twostage(dev):
                 g_props = gpu_model.rpn_proposals({k: v.to(dev) for k, v in ref.items()})
                 for a, b in zip(props, g_props):
                     torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
-                c2 = cpu_model.roi_stage(props[0], c_stages, c2d)
-                g2 = gpu_model.roi_stage(props[0].to(dev), g_stages, g2d)
+                c2 = cpu_model.roi_stage(cb, props[0], props[3], c_stages, c_bev, c2d)
+                g2 = gpu_model.roi_stage(gb, props[0].to(dev), props[3].to(dev), g_stages, g_bev,
+                                         g2d)
                 row["second_stage_max_abs_err"] = {k: float((g2[k].cpu() - v).abs().max())
                                                    for k, v in c2.items()}
+                if "keypoints" in c2 and not torch.equal(g2["keypoints"].cpu(), c2["keypoints"]):
+                    raise AssertionError(f"{name}: the card's keypoints differ from the CPU's")
                 for k, v in c2.items():
                     torch.testing.assert_close(g2[k].cpu(), v, rtol=1e-4, atol=1e-4)
                 preds = {**ref, "rois": props[0], "roi_scores": props[1],
                          "roi_labels": props[2], "roi_valid": props[3], **c2}
                 d_ref = cpu_model.post_process(preds)
                 d_got = gpu_model.post_process({k: v.to(dev) for k, v in preds.items()})
-                want = NMS_TWICE
+                want = TWOSTAGE_FRAME[name]
             launches = dict(library.launches)
         if launches != per_frames(want, 1):
             raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -5513,6 +5594,128 @@ def phase_small_reference_twostage(dev):
         out[name] = row
     print("  " + json.dumps(out))
     return out
+
+
+FPS_K = 1024  # PFE.NUM_KEYPOINTS of configs/pvrcnn_vod.yaml
+# the H100's f32 rate outside the tensor cores (NVIDIA H100 SXM datasheet)
+F32_OPS_PER_S = 67e12
+FPS_CASES = ("flagship", "flagship_b2", "points_16k", "proposal_centric", "ties", "short")
+# the VoD dataset's MAX_POINTS (radar and virtual points), the CLIs' frames
+FPS_CLI_POINTS = 16384
+
+
+def fps_inputs(case: str, dev):
+    """(xyz (B, N, 3) f32, valid (B, N)) of an FPS case at full width: the
+    flagship batch's 8,192 points (B=1 and 2) and 16,384 (the dataset
+    frames of the CLIs, radar and virtual points); those near its gt boxes
+    (``sample_keypoints_proposal_centric``'s rule, the boxes as proposals);
+    1,024 distinct points each repeated 8 times (exact distance ties);
+    700 valid points, fewer than the 1,024 keypoints."""
+    cfg = zoo_config("pvrcnn")
+    batch = flagship_batch(cfg, b=2 if case == "flagship_b2" else 1,
+                           max_points=FPS_CLI_POINTS if case == "points_16k" else 8192)
+    xyz = torch.from_numpy(np.ascontiguousarray(batch["points"][..., :3])).to(dev)
+    valid = torch.from_numpy(batch["points_valid"]).to(dev)
+    if case == "proposal_centric":
+        rois = torch.from_numpy(batch["gt_boxes"][..., :7]).to(dev)
+        dims = rois[..., 3:6]
+        half = torch.sqrt((dims[..., 0] ** 2 + dims[..., 1] ** 2) + dims[..., 2] ** 2) / 2
+        d = torch.linalg.vector_norm(xyz[:, :, None, :] - rois[:, None, :, :3], dim=-1)
+        near = ((d < (half + 1.6)[:, None, :]) & (rois[..., 3] > 0)[:, None, :]).any(-1)
+        valid = valid & near
+    elif case == "ties":
+        gen = torch.Generator().manual_seed(31)
+        base = xyz[:, :1024].repeat(1, 8, 1)
+        xyz = base[:, torch.randperm(8192, generator=gen).to(dev)].contiguous()
+    elif case == "short":
+        valid = valid.clone()
+        valid[:, 700:] = False
+    return xyz.contiguous(), valid.contiguous()
+
+
+def phase_fps(dev):
+    """``hgsfusion::farthest_point_sample`` (``csrc/fps.cu``) against its
+    plain version (``farthest_point_sample_plain``) at PV-RCNN's full width,
+    8,192 points -> 1,024 keypoints: the flagship points at B=1 and B=2 and
+    16,384 (the CLIs' frames: the kernel's shared-memory variant), a
+    proposal-centric mask, exact ties and fewer valid points than
+    keypoints; the indices equal in every case. The kernel timed from CUDA
+    graph replays, the plain loop by CUDA events, beside the bound: bytes
+    (xyz and the mask read once, the indices written) against operations
+    (10 f32 operations a point a step: the difference, squares, sums, min
+    and compare), and the chain of k - 1 dependent block-wide argmax steps
+    (its ms a step printed). No PyTorch call computes FPS (library null)."""
+    rows = []
+    for case in FPS_CASES:
+        xyz, valid = fps_inputs(case, dev)
+        got = pointnet2.farthest_point_sample(xyz, valid, FPS_K)
+        ref = pointnet2.farthest_point_sample_plain(xyz, valid, FPS_K)
+        b, n = valid.shape
+        row = {"case": case, "batch": b, "points": n, "valid": int(valid.sum()),
+               "k": FPS_K, "equal_to_plain": bool(torch.equal(got, ref)),
+               "max_abs_err": float((got != ref).sum())}
+        if case in ("flagship", "flagship_b2", "points_16k"):
+            nbytes = b * n * 13 + b * FPS_K * 8
+            ops = 10.0 * b * n * (FPS_K - 1)
+            row.update(ms=graph_ms(lambda: pointnet2.farthest_point_sample(xyz, valid, FPS_K),
+                                   iters=5),
+                       plain_ms=cuda_ms(lambda: pointnet2.farthest_point_sample_plain(
+                           xyz, valid, FPS_K), iters=2, warmup=1),
+                       bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_ops_ms=ops / F32_OPS_PER_S * 1e3, chain_steps=FPS_K - 1,
+                       library_ms=None)
+            row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
+            row["bound_by"] = ("bytes" if row["bound_bytes_ms"] >= row["bound_ops_ms"]
+                               else "operations")
+            row["ms_per_step"] = row["ms"] / (FPS_K - 1)
+        print("  " + json.dumps(row))
+        if not row["equal_to_plain"]:
+            raise AssertionError(f"fps {case}: the kernel's indices differ from the plain "
+                                 f"version's at {int(row['max_abs_err'])} places")
+        rows.append(row)
+    return rows
+
+
+def pv_stage_ms(model, batch) -> dict:
+    """PV-RCNN's second-stage pieces alone at full width (CUDA events, 5
+    calls each, eval mode): the keypoints' FPS, the voxel set abstraction
+    (FPS included), the keypoint weighting and the RoI-grid pool; and the
+    ball queries inside them alone (the raw points' dense query, x_conv3's
+    and x_conv4's windowed ones at the VSA's outer radius, the RoI grid's
+    dense query of the keypoints at its outer radius), with the share of
+    the RoI grid points whose ball holds no keypoint (their slots all take
+    keypoint 0, and the grouping's gather backward sums them there)."""
+    with torch.inference_mode():
+        x3d, stages, _ = model.voxel_features(batch)
+        bev = height_compression(x3d)
+        rois, _, _, roi_valid = model.rpn_proposals(model.dense_head(model.backbone_2d(bev)))
+        centric = (rois, roi_valid) if model.PROPOSAL_CENTRIC else ()
+        keypoints, feats = model.pfe(batch["points"], batch["points_valid"], bev, stages,
+                                     *centric)
+        weighted, _ = model.point_head(feats)
+        xyz = batch["points"][..., :3].contiguous()
+        valid = batch["points_valid"][0]
+        grid = roi_grid_points(rois, 6).reshape(-1, 3)
+        ones = torch.ones(keypoints.shape[1], dtype=torch.bool, device=grid.device)
+        queries = {"raw_0.8": cuda_ms(lambda: ball_query(keypoints[0], xyz[0], valid, 0.8, 16),
+                                      iters=5),
+                   "roi_grid_1.6": cuda_ms(lambda: ball_query(grid, keypoints[0], ones, 1.6, 16),
+                                           iters=5)}
+        for name, radii in model.pfe.STAGES:
+            _, _, sv, geom = stage_point_set(stages[name], model.cfg.pc_range,
+                                             model.cfg.voxel_size)
+            queries[f"{name}_{radii[-1]}"] = cuda_ms(lambda: ball_query_grid(
+                keypoints[0], *geom, sv[0], radii[-1], 16), iters=5)
+        empty = {r: float(1.0 - ball_query(grid, keypoints[0], ones, r, 16)[1].float().mean())
+                 for r in (0.8, 1.6)}
+        return {"query_ms": queries, "roi_grid_empty_ball_share": empty,
+            "fps_ms": cuda_ms(lambda: pointnet2.farthest_point_sample(
+                xyz, batch["points_valid"], model.cfg.pv_num_keypoints), iters=5),
+            "vsa_ms": cuda_ms(lambda: model.pfe(batch["points"], batch["points_valid"], bev,
+                                                stages, *centric), iters=5),
+            "point_head_ms": cuda_ms(lambda: model.point_head(feats), iters=5),
+            "roi_grid_pool_ms": cuda_ms(lambda: model.roi_grid_pool(rois, keypoints, weighted),
+                                        iters=5)}
 
 
 def phases(dev) -> list:
@@ -5581,6 +5784,7 @@ def phases(dev) -> list:
         full("eval_q8", phase_eval, dev, Q8_YAML, Q8_FRAME, None, Q8_EVAL_FRAMES),
         full("export_serve_q8", lambda: phase_export_serve(dev, "export_serve_q8",
                                                            yaml_config(Q8_YAML), Q8_FRAME)),
+        step("serving_host_start", phase_serving_host_start, dev),
         full("serve_w8a8", phase_serve_w8a8, dev, "gather"),
         full("serve_w8a8_polar", phase_serve_w8a8, dev, "polar"),
         full("serve_occ_v2", phase_serve_occ_v2, dev),
@@ -5630,7 +5834,13 @@ def phases(dev) -> list:
         full("ball_query", phase_ball_query, dev),
         full("focal_backbone", phase_focal_backbone, dev),
         step("small_reference_twostage", phase_small_reference_twostage, dev),
+        step("fps", phase_fps, dev),
     ]
+    for name in ("voxelrcnn", "second_iou", "pvrcnn"):
+        out.append(full(f"train_cli_{name}", phase_train_cli_family, dev, bench.ZOO[name][0],
+                        TWOSTAGE_STEP[name], TWOSTAGE_FRAME[name], f"export_{name}"))
+    # the CLI exports' artifacts served while the two-stage paths run
+    out.append(step("serving_host_start_cli", phase_serving_host_start, dev))
     for name in TWOSTAGE_ZOO:
         out.append(full(f"serve_{name}", lambda n=name: phase_serve_family(
             dev, n, zoo_config(n), flagship_batch(zoo_config(n)), TWOSTAGE_FRAME[n])))
@@ -5638,10 +5848,7 @@ def phases(dev) -> list:
         out.append(full(f"train_{name}", lambda n=name: phase_train_zoo(
             dev, bench.ZOO[n][1], zoo_config(n), flagship_batch(zoo_config(n)),
             per_step=TWOSTAGE_STEP[n])))
-    for name in ("voxelrcnn", "second_iou"):
-        out.append(full(f"train_cli_{name}", phase_train_cli_family, dev, bench.ZOO[name][0],
-                        NMS_CALL, NMS_TWICE, f"export_{name}"))
-    # every export's artifact served by one serving-host process, last
+    # every serving host checked, last
     out.append(step("serving_host", phase_serving_host, dev))
     return out
 
@@ -5666,8 +5873,9 @@ def main(argv=None) -> int:
             print(f"chip_smoke: unknown phases {unknown}; known: "
                   f"{[name for name, *_ in plan]}", file=sys.stderr)
             return 2
-        if any(p.startswith("export_serve") or p in ("train_cli_voxelrcnn",
-                                                     "train_cli_second_iou") for p in wanted):
+        if any(p.startswith("export_serve") or p in ("train_cli_radar", "train_cli_voxelrcnn",
+                                                     "train_cli_second_iou", "train_cli_pvrcnn")
+               for p in wanted):
             wanted.append("serving_host")  # the exported artifacts are served there
         plan = [p for p in plan if p[0] in wanted]
     failed, report = [], {}
@@ -5865,6 +6073,22 @@ def main(argv=None) -> int:
                         "kept", "equal_to_plain", "ms", f"{key}_ms", "plain_ms",
                         f"{key}_plain_ms", "bound_ms", f"{key}_bound_ms")}
                         for r in report[phase_name]}
+    # FPS (PV-RCNN's keypoints): no TPU kernel (XLA lax.fori_loop)
+    if "fps" in report:
+        timed = [r for r in report["fps"] if "ms" in r]
+        paths = by_path(library.FPS)
+        kernels.append({
+            "name": library.FPS, "route": "cuda", "source": "hgsfusion_tpu_torch/csrc/fps.cu",
+            "replaces": "none: XLA lax.fori_loop, hgsfusion_tpu/ops/pointnet2.py:20",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in report["fps"]),
+            **{k: timed[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "bound_bytes_ms", "bound_ops_ms", "chain_steps",
+                                        "ms_per_step")},
+            "cases": {r["case"]: {k: r.get(k) for k in ("batch", "valid", "equal_to_plain", "ms",
+                                                       "plain_ms", "bound_ms")}
+                      for r in report["fps"]},
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": report["card"], "kernels": kernels, **report}, f, indent=1)

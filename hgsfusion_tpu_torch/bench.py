@@ -4,7 +4,7 @@ counterpart of the repository's ``bench.py``).
     python -m hgsfusion_tpu_torch.bench [--<name>] [--batch N] [--realistic]
     python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion | --centerpoint |
         --centerpoint_res2d | --second | --second_focal | --second_iou | --voxelrcnn |
-        --voxelnext | --voxelnext2d [--batch N]
+        --pvrcnn | --pvrcnnpp | --voxelnext | --voxelnext2d [--batch N]
 
 Frames/s of the whole served pipeline (image backbone, view transform,
 radar branch, fusion, anchor head, box decode and rotated NMS) through
@@ -65,6 +65,8 @@ ZOO = {"bevfusion": ("configs/bevfusion_vod.yaml", "BEVFusion"),
        "second_focal": ("configs/second_focal_vod.yaml", "SECONDNet"),
        "second_iou": ("configs/second_iou_vod.yaml", "SECONDNetIoU"),
        "voxelrcnn": ("configs/voxelrcnn_vod.yaml", "VoxelRCNN"),
+       "pvrcnn": ("configs/pvrcnn_vod.yaml", "PVRCNN"),
+       "pvrcnnpp": ("configs/pvrcnnpp_vod.yaml", "PVRCNNPlusPlus"),
        "voxelnext": ("configs/voxelnext_vod.yaml", "VoxelNeXt"),
        "voxelnext2d": ("configs/voxelnext2d_vod.yaml", "VoxelNeXt")}
 

@@ -168,9 +168,12 @@ class HGSFusionConfig:
     focal_threshold: float = 0.5
     focal_mask_multi: bool = False
     focal_skip_mask_kernel: bool = False
-    # the two-stage families: proposals kept (ROI_HEAD.NUM_ROIS) and their
-    # NMS (NMS_THRESH_TRAIN); SECOND-IoU's BEV grid (GRID_SIZE_2D) and NMS
-    # score (POST_PROCESSING.SCORE_TYPE)
+    # the two-stage families: PV-RCNN's keypoints (PFE.NUM_KEYPOINTS),
+    # proposals kept (ROI_HEAD.NUM_ROIS) and their NMS (NMS_THRESH_TRAIN);
+    # SECOND-IoU's BEV grid (GRID_SIZE_2D) and NMS score
+    # (POST_PROCESSING.SCORE_TYPE). ROI_HEAD.AGGREGATION is not read, as in
+    # JAX: the family (PV-RCNN or PV-RCNN++) fixes it
+    pv_num_keypoints: int = 1024
     pv_num_rois: int = 128
     pv_nms_thresh: float = 0.8
     iou_grid_size: int = 7
@@ -492,6 +495,7 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         focal_threshold=model.get("BACKBONE_3D", {}).get("THRESHOLD", 0.5),
         focal_mask_multi=model.get("BACKBONE_3D", {}).get("MASK_MULTI", False),
         focal_skip_mask_kernel=model.get("BACKBONE_3D", {}).get("SKIP_MASK_KERNEL", False),
+        pv_num_keypoints=model.get("PFE", {}).get("NUM_KEYPOINTS", 1024),
         pv_num_rois=model.get("ROI_HEAD", {}).get("NUM_ROIS", 128),
         pv_nms_thresh=model.get("ROI_HEAD", {}).get("NMS_THRESH_TRAIN", 0.8),
         iou_grid_size=model.get("ROI_HEAD", {}).get("GRID_SIZE_2D", 7),

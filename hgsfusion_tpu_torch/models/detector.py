@@ -1,14 +1,15 @@
 """Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
 the radar-only detector, the PointPillar families, BEVFusion,
 TransFusion-L, CenterPoint, SECOND (and the focal SECOND), SECOND-IoU,
-Voxel R-CNN and VoxelNeXt; post-processing.
+Voxel R-CNN, PV-RCNN, PV-RCNN++ and VoxelNeXt; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
 PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
 CenterPointModel, SECONDModel, _RPNProposals, VoxelRCNNModel,
-SECONDIoUModel, VoxelNeXtModel; post_process, post_process_multihead)
+SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel, VoxelNeXtModel;
+post_process, post_process_multihead)
 and of the JAX package's ``train/trainer.py::make_center_eval_step``
 (``center_post_process``), ``make_pvrcnn_eval_step``
 (``refine_post_process``) and ``make_secondiou_eval_step``
@@ -69,7 +70,8 @@ from .layers import ConvBNReLU, batch_norm, compute_dtype, conv_nhwc, resize_bil
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
-from .pvrcnn import RCNNHead, decode_canonical, generate_proposals
+from .pvrcnn import (KeypointWeighting, RCNNHead, RoIGridPool, VoxelSetAbstraction,
+                     decode_canonical, generate_proposals)
 from .resnet import DeepLabClassifier, ResNetDeepLabBackbone, preprocess_images
 from .roi_heads import SECONDIoUHead, VoxelRCNNPool, rectified_scores, rotated_bev_grid_pool
 from .sparse_backbone_2d import BaseBEVBackboneV1, PillarRes18BackBone8x, VoxelNeXt2DBackbone
@@ -80,7 +82,8 @@ from .voxel_backbone import (SparseConv3d, VoxelBackBone8x, VoxelResBackBone8xVo
 
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
            "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "CenterPointModel",
-           "SECONDModel", "VoxelRCNNModel", "SECONDIoUModel", "VoxelNeXtModel", "post_process",
+           "SECONDModel", "VoxelRCNNModel", "SECONDIoUModel", "PVRCNNModel",
+           "PVRCNNPlusPlusModel", "VoxelNeXtModel", "post_process",
            "post_process_multihead", "center_post_process", "refine_post_process",
            "rectified_post_process", "resolve_device"]
 
@@ -670,7 +673,8 @@ class SECONDModel(_SingleHeadDetector):
 class _TwoStageDetector(SECONDModel):
     """The anchor-RPN two-stage families: SECOND's RPN, its proposals
     (``rpn_proposals``, JAX's ``_RPNProposals``), then a second stage
-    (``roi_stage``)."""
+    (``roi_stage``, which sees the batch, the proposals, the 3-D stages,
+    the stride-8 BEV features and the 2-D backbone's features)."""
 
     def rpn_proposals(self, rpn):
         """Every anchor's box decoded from the detached RPN outputs, each
@@ -693,14 +697,22 @@ class _TwoStageDetector(SECONDModel):
 
     def forward(self, batch):
         x3d, stages, aux = self.voxel_features(batch)
-        feats2d = self.backbone_2d(height_compression(x3d))
+        bev = height_compression(x3d)
+        feats2d = self.backbone_2d(bev)
         rpn = self.dense_head(feats2d)
         rois, roi_scores, roi_labels, roi_valid = self.rpn_proposals(rpn)
         out = {**rpn, "rois": rois, "roi_scores": roi_scores, "roi_labels": roi_labels,
-               "roi_valid": roi_valid, **self.roi_stage(rois, stages, feats2d)}
+               "roi_valid": roi_valid,
+               **self.roi_stage(batch, rois, roi_valid, stages, bev, feats2d)}
         if aux is not None and self.training:
             out["focal_aux"] = aux
         return out
+
+    def roi_stage(self, batch, rois, roi_valid, stages, bev, feats2d):
+        """The second stage's outputs from the batch, the (B, R, 7) proposals
+        and their (B, R) mask, the 3-D backbone's stages, the stride-8 BEV
+        features (B, H, W, C) and the 2-D backbone's."""
+        raise NotImplementedError
 
 
 class VoxelRCNNModel(_TwoStageDetector):
@@ -715,7 +727,7 @@ class VoxelRCNNModel(_TwoStageDetector):
         self.roi_grid_pool = VoxelRCNNPool(cfg.pc_range, cfg.voxel_size, cfg.dtype)
         self.roi_head = RCNNHead(6 ** 3 * 96, cfg.dtype)
 
-    def roi_stage(self, rois, stages, feats2d):
+    def roi_stage(self, batch, rois, roi_valid, stages, bev, feats2d):
         rcnn_cls, rcnn_reg = self.roi_head(self.roi_grid_pool(rois, stages))
         return {"rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg}
 
@@ -738,7 +750,7 @@ class SECONDIoUModel(_TwoStageDetector):
         self.roi_head = SECONDIoUHead(cfg.iou_grid_size ** 2 * self.backbone_2d.out_channels,
                                       dtype=cfg.dtype)
 
-    def roi_stage(self, rois, stages, feats2d):
+    def roi_stage(self, batch, rois, roi_valid, stages, bev, feats2d):
         cfg = self.cfg
         pooled = rotated_bev_grid_pool(feats2d.detach(), rois, cfg.pc_range, cfg.voxel_size,
                                        8, cfg.iou_grid_size)
@@ -746,6 +758,55 @@ class SECONDIoUModel(_TwoStageDetector):
 
     def post_process(self, preds):
         return rectified_post_process(preds, self.cfg)
+
+
+class PVRCNNModel(_TwoStageDetector):
+    """PV-RCNN (zoo family): SECOND's RPN (either 3-D backbone, as JAX's
+    ``_voxel_backbone_3d``), its proposals, then ``pfe``
+    (VoxelSetAbstraction: 1,024 keypoints by FPS over the raw points, the
+    stride-8 BEV features, the raw points, x_conv3 and x_conv4), ``point_head``
+    (KeypointWeighting: ``point_logits``), ``roi_grid_pool`` (RoIGridPool:
+    the keypoints at each proposal's 6^3 grid points) and ``roi_head``
+    (RCNNHead: ``rcnn_cls``, ``rcnn_reg``); ``keypoints`` ride along for the
+    loss. ``post_process``: ``refine_post_process``, as Voxel R-CNN. The
+    YAML's FusionVFE block is not read (nor by JAX's model)."""
+
+    AGGREGATION = "sa"
+    PROPOSAL_CENTRIC = False
+
+    def build_second_stage(self, cfg):
+        self.pfe = VoxelSetAbstraction(
+            cfg.num_point_features - 3, 128 * voxel_backbone_depth(cfg.grid_size[2]),
+            {"x_conv3": 64, "x_conv4": 64}, cfg.pv_num_keypoints, cfg.pc_range,
+            cfg.voxel_size, aggregation=self.AGGREGATION, dtype=cfg.dtype)
+        self.point_head = KeypointWeighting(128, cfg.dtype)
+        self.roi_grid_pool = RoIGridPool(128, aggregation=self.AGGREGATION, dtype=cfg.dtype)
+        self.roi_head = RCNNHead(6 ** 3 * 128, cfg.dtype)
+
+    def roi_stage(self, batch, rois, roi_valid, stages, bev, feats2d):
+        centric = (rois, roi_valid) if self.PROPOSAL_CENTRIC else ()
+        keypoints, kp_feats = self.pfe(batch["points"], batch["points_valid"], bev, stages,
+                                       *centric)
+        kp_feats, point_logits = self.point_head(kp_feats)
+        rcnn_cls, rcnn_reg = self.roi_head(self.roi_grid_pool(rois, keypoints, kp_feats))
+        return {"keypoints": keypoints, "point_logits": point_logits, "rcnn_cls": rcnn_cls,
+                "rcnn_reg": rcnn_reg}
+
+    def post_process(self, preds):
+        return refine_post_process(preds, self.box_coder, self.cfg)
+
+
+class PVRCNNPlusPlusModel(PVRCNNModel):
+    """PV-RCNN++ (zoo family): PV-RCNN on the plain VoxelBackBone8x (as
+    JAX), its keypoints sampled around the proposals
+    (``sample_keypoints_proposal_centric``), and VectorPool aggregation in
+    the set abstraction and the RoI-grid pool."""
+
+    AGGREGATION = "vectorpool"
+    PROPOSAL_CENTRIC = True
+
+    def voxel_backbone(self, cfg):
+        return VoxelBackBone8x(cfg.num_point_features, cfg.dtype)
 
 
 def rectified_post_process(preds, cfg):

@@ -1,12 +1,17 @@
-"""The two-stage RoI pieces the anchor-RPN families share: set abstraction
+"""The two-stage RoI pieces of the anchor-RPN families: set abstraction
 over grouped points, voxel stages as point sets, the RoI grid, the RCNN
-head, the proposal layer, the RoI targets and the second-stage losses.
+head, the proposal layer, the RoI targets and the second-stage losses; and
+PV-RCNN's and PV-RCNN++'s own: the keypoints, the voxel set abstraction,
+the keypoint weighting, VectorPool, the RoI-grid pool and the keypoints'
+foreground loss.
 
-Counterpart of the shared part of ``hgsfusion_tpu/models/pvrcnn.py``
-(``_GroupMLP``, ``SALayer``, ``_stage_point_set``, ``generate_proposals``,
-``roi_targets``, ``canonical_reg_targets``, ``decode_canonical``,
-``roi_grid_points``, ``RCNNHead``, ``rcnn_losses``); PV-RCNN's own parts
-(the keypoint set abstraction, VectorPool) are not ported. As there:
+Counterpart of ``hgsfusion_tpu/models/pvrcnn.py`` (``_GroupMLP``,
+``SALayer``, ``_stage_point_set``, ``interpolate_bev``,
+``VoxelSetAbstraction``, ``KeypointWeighting``,
+``sample_keypoints_proposal_centric``, ``VectorPoolLocal``,
+``generate_proposals``, ``roi_targets``, ``canonical_reg_targets``,
+``decode_canonical``, ``roi_grid_points``, ``RoIGridPool``, ``RCNNHead``,
+``rcnn_losses``, ``point_fg_loss``). As there:
 
 - everything is fixed-shape: the proposals are the top 512 RPN boxes by
   score (ties by index, ``ops/nms.py::top_scores``), rotated NMS at
@@ -17,11 +22,25 @@ Counterpart of the shared part of ``hgsfusion_tpu/models/pvrcnn.py``
   IoU 0.55 or more regress the canonical residual of their gt box
   (no random sampling, no corner loss);
 - the grouped MLP's train-mode BatchNorm takes its statistics over every
-  grouped row, the empty groups' included, before they are masked.
+  grouped row, the empty groups' included, before they are masked;
+- the keypoints are one masked farthest-point sampling a batch
+  (``ops/pointnet2.py::farthest_point_sample``, the hand kernel
+  ``csrc/fps.cu`` on the card), PV-RCNN++'s over the points near a valid
+  proposal (one global FPS, not the reference's sectors);
+- the voxel stages enter the set abstraction and VectorPool as cell-centre
+  point sets through the windowed ball query (``stage_point_set``'s grid),
+  the raw points and the keypoints through the dense one;
+- VectorPool averages each ball's 32 slots per cell of a 3 x 3 x 3 grid
+  over the ball (repeated fill slots counted, an empty ball zero) as one
+  batched product with the slots' one-hot cells: a deterministic sum
+  where JAX takes ``segment_sum``.
 
 Parameter names are JAX's (``mlp_r{i}.fc{j}`` / ``bn{j}``; the RCNN head's
-``fc0``, ``bn0``, ``fc1``, ``bn1``, ``cls``, ``reg``), as torch ``Linear``
-and ``BatchNorm1d`` (flax momentum 0.9 is torch's 0.1).
+``fc0``, ``bn0``, ``fc1``, ``bn1``, ``cls``, ``reg``; the set abstraction's
+``sa_raw``, ``sa_x_conv3``, ``sa_x_conv4`` or ``vp_*``, ``fusion_fc``,
+``fusion_bn``; the keypoint weighting's ``fc0`` .. ``cls``; the RoI-grid
+pool's ``pool`` or ``pool_vp``), as torch ``Linear`` and ``BatchNorm1d``
+(flax momentum 0.9 is torch's 0.1).
 """
 from __future__ import annotations
 
@@ -33,10 +52,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.grid_sample import div_exact
 from ..ops.nms import kept_slots, top_scores
-from ..ops.pointnet2 import grid_axes, grid_centers, query_and_group
+from ..ops.pointnet2 import (ball_query, ball_query_grid, farthest_point_sample, grid_axes,
+                             grid_centers, query_and_group)
+from ..ops.points_in_boxes import points_in_boxes
 from ..ops.rotated_iou import boxes_iou3d
-from .anchor_head import weighted_smooth_l1
+from ..utils.common import device_constant
+from .anchor_head import sigmoid_focal_loss, weighted_smooth_l1
 from .layers import batch_norm, compute_dtype
 
 
@@ -252,3 +275,232 @@ def rcnn_losses(rcnn_cls, rcnn_reg, targets: Dict, rois, coder, cls_weight: floa
     loss_reg = sl1.sum() / torch.clamp(rv.sum(), min=1.0)
     return (loss_cls * cls_weight + loss_reg * reg_weight,
             {"rcnn_cls": loss_cls, "rcnn_reg": loss_reg})
+
+
+# -- PV-RCNN and PV-RCNN++ ------------------------------------------------------
+
+def interpolate_bev(bev, xy, pc_range, voxel_size, stride: int):
+    """Bilinear BEV features (B, H, W, C) at metric (x, y) (B, K, 2) ->
+    (B, K, C): the coordinate (x - range min) / (voxel x stride) with no
+    half-texel shift, its four taps clamped to the map's border (a point at
+    a cell's metric centre blends that cell and the next 50/50). Not
+    ``roi_heads.bilinear_sample_pixel``, which zeroes taps outside the map."""
+    b, h, w, c = bev.shape
+    fx = div_exact(xy[..., 0] - pc_range[0], voxel_size[0] * stride)
+    fy = div_exact(xy[..., 1] - pc_range[1], voxel_size[1] * stride)
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    tx, ty = (fx - x0)[..., None], (fy - y0)[..., None]
+    flat_map = bev.reshape(b, h * w, c)
+
+    def tap(xi, yi):
+        xc = torch.clamp(xi, 0, w - 1).long()
+        yc = torch.clamp(yi, 0, h - 1).long()
+        return torch.take_along_dim(flat_map, (yc * w + xc)[..., None], dim=1)
+
+    return (tap(x0, y0) * (1 - tx) * (1 - ty) + tap(x0 + 1, y0) * tx * (1 - ty)
+            + tap(x0, y0 + 1) * (1 - tx) * ty + tap(x0 + 1, y0 + 1) * tx * ty)
+
+
+def gather_points(xyz, idx):
+    """(B, N, 3) points at (B, K) indices -> (B, K, 3)."""
+    return torch.take_along_dim(xyz, idx[..., None], dim=1)
+
+
+def sample_keypoints_proposal_centric(xyz, valid, rois, roi_valid, num_keypoints: int,
+                                      radius_extra: float = 1.6):
+    """PV-RCNN++'s keypoints (B, K, 3): the valid points within half a
+    proposal's diagonal + ``radius_extra`` of a valid proposal's centre (all
+    valid points of a frame where none is), one masked farthest-point
+    sampling of them."""
+    dims = rois[..., 3:6]
+    half_diag = torch.sqrt((dims[..., 0] * dims[..., 0] + dims[..., 1] * dims[..., 1])
+                           + dims[..., 2] * dims[..., 2]) / 2.0
+    d = xyz[:, :, None, :] - rois[:, None, :, :3]
+    dist = torch.sqrt((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2])
+    near = ((dist < (half_diag + radius_extra)[:, None, :]) & roi_valid[:, None, :]).any(-1)
+    near = near & valid
+    sel = torch.where(near.any(-1, keepdim=True), near, valid)
+    return gather_points(xyz, farthest_point_sample(xyz, sel, num_keypoints))
+
+
+class VectorPoolLocal(nn.Module):
+    """VectorPool aggregation: each centre's ball (``nsample`` slots of the
+    ball query) split into a ``grid_n``^3 grid of sub-voxels over [-r, r]^3;
+    each sub-voxel the average of its slots' (relative xyz / r, features),
+    zeros where none falls, an empty ball all zeros; the flattened
+    (grid_n^3 (3 + C)) vector through ``fc`` (no bias), ``bn``, ReLU: a
+    weight slice for each sub-voxel position."""
+
+    def __init__(self, in_channels: int, radius: float, out_channels: int, nsample: int = 32,
+                 grid_n: int = 3, dtype=None):
+        super().__init__()
+        self.radius, self.nsample, self.grid_n, self.dtype = radius, nsample, grid_n, dtype
+        self.fc = nn.Linear(grid_n ** 3 * (3 + in_channels), out_channels, bias=False)
+        self.bn = nn.BatchNorm1d(out_channels, eps=1e-5, momentum=0.1)
+
+    def pool(self, new_xyz, xyz, features, valid, grid=None):
+        """One frame: (M, 3) centres over (N, 3) points (a grid's cell
+        centres with ``grid``) -> (M, grid_n^3 (3 + C)) cell averages."""
+        if grid is None:
+            idx, any_nb = ball_query(new_xyz, xyz, valid, self.radius, self.nsample)
+        else:
+            idx, any_nb = ball_query_grid(new_xyz, *grid, valid, self.radius, self.nsample)
+        n = self.grid_n
+        rel = div_exact(xyz[idx] - new_xyz[:, None, :], self.radius)  # (M, S, 3) in [-1, 1]
+        feats = torch.cat([rel, features[idx].to(rel.dtype)], dim=-1)
+        cell = torch.clamp(torch.floor((rel + 1.0) / 2.0 * n), 0, n - 1).long()
+        flat = (cell[..., 0] * n + cell[..., 1]) * n + cell[..., 2]
+        onehot = (flat[..., None] == torch.arange(n ** 3, device=flat.device)).to(rel.dtype)
+        sums = torch.bmm(onehot.transpose(1, 2), feats)  # (M, n^3, 3 + C)
+        cells = sums / torch.clamp(onehot.sum(1), min=1.0)[..., None]
+        return cells.flatten(1) * any_nb[:, None].to(cells.dtype)
+
+    def forward(self, new_xyz, xyz, features, valid, grid=None):
+        """new_xyz (B, M, 3), xyz (B, N, 3) (or (N, 3) for every frame),
+        features (B, N, C), valid (B, N) -> (B, M, out_channels)."""
+        pooled = torch.stack([self.pool(new_xyz[f], xyz if xyz.dim() == 2 else xyz[f],
+                                        features[f], valid[f], grid)
+                              for f in range(new_xyz.shape[0])])
+        dt = compute_dtype(self.dtype)
+        return torch.relu(batch_norm(linear(pooled, self.fc, dt), self.bn, dt))
+
+
+class VoxelSetAbstraction(nn.Module):
+    """The keypoints and their features (``pfe``): ``num_keypoints`` a frame
+    by FPS over the valid points (PV-RCNN) or proposal-centric
+    (``sample_keypoints_proposal_centric``, PV-RCNN++); at each keypoint
+    the stride-``bev_stride`` BEV map (``interpolate_bev``), the raw points'
+    features (``sa_raw``: radii 0.4 / 0.8) and x_conv3's and x_conv4's
+    (``sa_x_conv3`` 1.2 / 2.4, ``sa_x_conv4`` 2.4 / 4.8), 16 samples each;
+    with ``aggregation`` "vectorpool" ``vp_raw`` (0.8, 32 wide),
+    ``vp_x_conv3`` (2.4, 64) and ``vp_x_conv4`` (4.8, 64) instead; the
+    concatenation through ``fusion_fc``, ``fusion_bn``, ReLU to
+    ``out_channels``, f32."""
+
+    STAGES = (("x_conv3", (1.2, 2.4)), ("x_conv4", (2.4, 4.8)))
+
+    def __init__(self, point_channels: int, bev_channels: int, stage_channels: Dict[str, int],
+                 num_keypoints: int, pc_range, voxel_size, bev_stride: int = 8,
+                 out_channels: int = 128, aggregation: str = "sa", dtype=None):
+        super().__init__()
+        if aggregation not in ("sa", "vectorpool"):
+            raise ValueError(f"VSA aggregation {aggregation!r}: 'sa' or 'vectorpool'")
+        self.num_keypoints, self.bev_stride = num_keypoints, bev_stride
+        self.pc_range, self.voxel_size = tuple(pc_range), tuple(voxel_size)
+        self.aggregation, self.dtype = aggregation, dtype
+        if aggregation == "vectorpool":
+            self.vp_raw = VectorPoolLocal(point_channels, 0.8, 32, dtype=dtype)
+            width = bev_channels + 32
+            for name, radii in self.STAGES:
+                setattr(self, f"vp_{name}", VectorPoolLocal(stage_channels[name], radii[-1], 64,
+                                                            dtype=dtype))
+                width += 64
+        else:
+            self.sa_raw = SALayer(point_channels, (0.4, 0.8), (16, 16), ((16, 16), (16, 16)),
+                                  dtype=dtype)
+            width = bev_channels + 32
+            for name, radii in self.STAGES:
+                setattr(self, f"sa_{name}", SALayer(stage_channels[name], radii, (16, 16),
+                                                    ((32, 32), (32, 32)), dtype=dtype))
+                width += 64
+        self.fusion_fc = nn.Linear(width, out_channels, bias=False)
+        self.fusion_bn = nn.BatchNorm1d(out_channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, points, points_valid, bev, stages, rois=None, roi_valid=None):
+        """points (B, N, 3 + C), points_valid (B, N), bev (B, H, W, C'),
+        stages (``VoxelBackBone8x``'s), and for the proposal-centric
+        keypoints the proposals (B, R, 7) and their valid mask ->
+        (keypoints (B, K, 3), features (B, K, out_channels) f32)."""
+        xyz = points[..., :3].float()
+        if rois is not None:
+            keypoints = sample_keypoints_proposal_centric(xyz, points_valid, rois, roi_valid,
+                                                          self.num_keypoints)
+        else:
+            keypoints = gather_points(xyz, farthest_point_sample(xyz, points_valid,
+                                                                 self.num_keypoints))
+        feats = [interpolate_bev(bev, keypoints[..., :2], self.pc_range, self.voxel_size,
+                                 self.bev_stride)]
+        prefix = "vp" if self.aggregation == "vectorpool" else "sa"
+        feats.append(getattr(self, f"{prefix}_raw")(keypoints, xyz, points[..., 3:],
+                                                    points_valid))
+        for name, _ in self.STAGES:
+            centers, sf, sv, geometry = stage_point_set(stages[name], self.pc_range,
+                                                        self.voxel_size)
+            feats.append(getattr(self, f"{prefix}_{name}")(keypoints, centers, sf, sv,
+                                                           grid=geometry))
+        dt = compute_dtype(self.dtype)
+        fused = torch.cat([f.to(dt) for f in feats], dim=-1)
+        fused = batch_norm(linear(fused, self.fusion_fc, dt), self.fusion_bn, dt)
+        return keypoints, torch.relu(fused).float()
+
+
+class KeypointWeighting(nn.Module):
+    """The predicted keypoint weighting (``point_head``): ``fc0`` / ``bn0``
+    / ReLU and ``fc1`` / ``bn1`` / ReLU (256 wide), then the foreground logit
+    ``cls``; returns (features x sigmoid(logit), logit (B, K, 1) f32)."""
+
+    def __init__(self, in_channels: int, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        for i in range(2):
+            setattr(self, f"fc{i}", nn.Linear(in_channels if i == 0 else 256, 256, bias=False))
+            setattr(self, f"bn{i}", nn.BatchNorm1d(256, eps=1e-5, momentum=0.1))
+        self.cls = nn.Linear(256, 1)
+
+    def forward(self, feats):
+        dt = compute_dtype(self.dtype)
+        h = feats
+        for i in range(2):
+            h = torch.relu(batch_norm(linear(h, getattr(self, f"fc{i}"), dt),
+                                      getattr(self, f"bn{i}"), dt))
+        logit = linear(h, self.cls, dt).float()
+        return feats * torch.sigmoid(logit), logit
+
+
+class RoIGridPool(nn.Module):
+    """The keypoints' features at each RoI's ``grid_size``^3 grid points
+    (``roi_grid_points``): ``pool``, an SALayer (radii 0.8 / 1.6, 16
+    samples, MLPs (64, 64) twice) over the dense ball query of the
+    keypoints, or with ``aggregation`` "vectorpool" ``pool_vp``
+    (VectorPoolLocal at 1.6, 128 wide) -> (B, R, grid^3, 128)."""
+
+    def __init__(self, in_channels: int, grid_size: int = 6, aggregation: str = "sa",
+                 dtype=None):
+        super().__init__()
+        if aggregation not in ("sa", "vectorpool"):
+            raise ValueError(f"RoI grid pool aggregation {aggregation!r}: 'sa' or 'vectorpool'")
+        self.grid_size = grid_size
+        if aggregation == "vectorpool":
+            self.pool_vp = VectorPoolLocal(in_channels, 1.6, 128, dtype=dtype)
+        else:
+            self.pool = SALayer(in_channels, (0.8, 1.6), (16, 16), ((64, 64), (64, 64)),
+                                dtype=dtype)
+
+    def forward(self, rois, keypoints, kp_feats):
+        b, r = rois.shape[:2]
+        grid = roi_grid_points(rois, self.grid_size).reshape(b, r * self.grid_size ** 3, 3)
+        kv = torch.ones(keypoints.shape[:2], dtype=torch.bool, device=keypoints.device)
+        pool = self.pool_vp if hasattr(self, "pool_vp") else self.pool
+        return pool(grid, keypoints, kp_feats, kv).reshape(b, r, self.grid_size ** 3, -1)
+
+
+def point_fg_loss(point_logits, keypoints, gt_boxes, extra_width=(0.2, 0.2, 0.2)):
+    """The keypoints' foreground loss: sigmoid focal loss of (B, K, 1)
+    logits against "inside a real gt box", keypoints in a box's shell
+    enlarged by ``extra_width`` (and in no box) ignored, summed and divided
+    by the positives (at least 1)."""
+    fgs, ignores = [], []
+    widths = device_constant(tuple(extra_width), gt_boxes.dtype, gt_boxes.device)
+    for f in range(keypoints.shape[0]):
+        gt = gt_boxes[f]
+        real = (gt[:, -1] > 0)[:, None]
+        inb = points_in_boxes(keypoints[f], gt[:, :7]) & real
+        big = torch.cat([gt[:, :3], gt[:, 3:6] + widths, gt[:, 6:7]], dim=-1)
+        in_big = points_in_boxes(keypoints[f], big) & real
+        fg = inb.any(0)
+        fgs.append(fg)
+        ignores.append(in_big.any(0) & ~fg)
+    fg = torch.stack(fgs).to(torch.float32)
+    weights = 1.0 - torch.stack(ignores).to(torch.float32)
+    pos_norm = torch.clamp(fg.sum(), min=1.0)
+    return sigmoid_focal_loss(point_logits[..., :1], fg[..., None], weights / pos_norm).sum()

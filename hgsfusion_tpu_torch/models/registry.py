@@ -8,16 +8,18 @@ reference's name for its topology), the radar-only detector (``RadarOnly``,
 BEVFusion (``BevFusion``, ``BEVFusion``), TransFusion-L
 (``TransFusion``), CenterPoint (``CenterPoint``), SECOND (``SECONDNet``,
 ``SECOND``; with ``BACKBONE_3D.NAME: VoxelBackBone8xFocal`` the focal
-SECOND), SECOND-IoU (``SECONDNetIoU``), Voxel R-CNN (``VoxelRCNN``) and
-VoxelNeXt (``VoxelNeXt``). Every other name of the JAX registry raises,
+SECOND), SECOND-IoU (``SECONDNetIoU``), Voxel R-CNN (``VoxelRCNN``),
+PV-RCNN (``PVRCNN``, ``PV-RCNN``), PV-RCNN++ (``PVRCNNPlusPlus``,
+``PV-RCNN++``) and VoxelNeXt (``VoxelNeXt``). Every other name of the JAX registry raises,
 naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 from ..config import model_config_from_yaml
 from .detector import (BEVFusionModel, CenterPointModel, HGSFusionModel, PointPillarModel,
-                       PointPillarMultiHeadModel, RadarOnlyModel, SECONDIoUModel, SECONDModel,
-                       TransFusionModel, VoxelNeXtModel, VoxelRCNNModel)
+                       PointPillarMultiHeadModel, PVRCNNModel, PVRCNNPlusPlusModel,
+                       RadarOnlyModel, SECONDIoUModel, SECONDModel, TransFusionModel,
+                       VoxelNeXtModel, VoxelRCNNModel)
 
 DETECTORS = {
     "HGSFusion": HGSFusionModel,
@@ -33,6 +35,10 @@ DETECTORS = {
     "SECOND": SECONDModel,
     "SECONDNetIoU": SECONDIoUModel,
     "VoxelRCNN": VoxelRCNNModel,
+    "PVRCNN": PVRCNNModel,
+    "PV-RCNN": PVRCNNModel,
+    "PVRCNNPlusPlus": PVRCNNPlusPlusModel,
+    "PV-RCNN++": PVRCNNPlusPlusModel,
     "VoxelNeXt": VoxelNeXtModel,
 }
 
@@ -44,9 +50,9 @@ def network_class(name: str, multihead: bool = False):
         return PointPillarMultiHeadModel
     if name not in DETECTORS:
         raise NotImplementedError(
-            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9 (c4)-(c9), the "
-            f"inherited zoo's PV-RCNN, PV-RCNN++, Part-A2, PointRCNN, DSVT and MPPNet); the "
-            f"port builds {sorted(DETECTORS)}")
+            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9 (c6)-(c9), the "
+            f"inherited zoo's Part-A2, PointRCNN, DSVT and MPPNet); the port builds "
+            f"{sorted(DETECTORS)}")
     return DETECTORS[name]
 
 

@@ -23,7 +23,10 @@ shape and dtype, all ``torch.export`` needs to trace it):
 - ``hgsfusion::conv2d_w8a8(x, wt, ax, wk, kernel_size, stride, padding,
   dilation, dtype) -> out``: the int8 implicit-GEMM convolution of DDN
   QUANT w8a8 on x in the compute dtype, which its kernels quantize with
-  the scale ax (``csrc/conv_int8.cu``).
+  the scale ax (``csrc/conv_int8.cu``);
+- ``hgsfusion::farthest_point_sample(xyz, valid, k) -> idx``: masked
+  farthest-point sampling of a batch of point sets, PV-RCNN's keypoints
+  (``csrc/fps.cu``, one block a frame).
 
 So a frame served through these ops traces into one graph, with NMS inside
 it and nothing read back to the host, which ``torch.export`` writes out
@@ -31,7 +34,7 @@ it and nothing read back to the host, which ``torch.export`` writes out
 ``torch.export.load`` (``tools/serve.py``): it registers the ops and carries
 the kernel loader (``native.load``) and the launch wrappers, and imports no
 model code. The plain versions live beside the Python entry points that
-call the ops (``ops/quad_sample.py``, ``ops/nms.py``); the CPU
+call the ops (``ops/quad_sample.py``, ``ops/nms.py``, ``ops/pointnet2.py``); the CPU
 implementations import them at the call, since those modules import this
 one.
 
@@ -71,11 +74,12 @@ REDUCE_Q8_KERNEL = "quad_sample_reduce_q8_fwd"
 CONV_W8A8 = "conv2d_w8a8"
 QUANTIZE_INT8 = "quantize_int8"
 IM2COL_INT8 = "im2col_int8"  # a launch of QUANTIZE_INT8's first pass, counted as one
+FPS = "fps"  # the op hgsfusion::farthest_point_sample
 # launches of each kernel in this process, and the bins built on the card
 # for the backward kernels (PyTorch calls, no kernel of this package)
 launches = {KERNEL: 0, REDUCE_KERNEL: 0, TAPS: 0, BWD_KERNEL: 0, BINS: 0, NMS_MASK: 0,
             NMS_SWEEP: 0, DEPTH_KERNEL: 0, DEPTH_BWD_KERNEL: 0, Q8_KERNEL: 0, REDUCE_Q8_KERNEL: 0,
-            CONV_W8A8: 0, QUANTIZE_INT8: 0}
+            CONV_W8A8: 0, QUANTIZE_INT8: 0, FPS: 0}
 # depth bins the depth backward's phase 2 keeps in a shared-memory row
 MAX_DEPTH_BINS = 128
 # gather groups one launch of the fused kernel takes
@@ -127,6 +131,8 @@ _ENTRIES = {
     DEPTH_BWD_KERNEL: ("quad_sample_depth",
                        [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I, _I, _I,
                         _I, _I, _P, _I, _P]),
+    # xyz, valid, b, n, k, out, stream
+    FPS: ("fps", [_P, _P, _I, _I, _I, _P, _P]),
 }
 
 
@@ -534,6 +540,59 @@ def nms_lazy(boxes, valid, nms_thresh: float, max_keep: int):
     return nms_sweep(nms_mask(boxes, valid, nms_thresh), valid, max_keep)
 
 
+@functools.cache
+def fps_max_points() -> int:
+    """The most points a frame may hold for ``csrc/fps.cu`` (one block keeps
+    them all)."""
+    fn = native.load("fps").fps_max_points
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def check_fps(xyz, valid, k: int):
+    """The FPS op's argument contract (every device)."""
+    if xyz.dim() != 3 or xyz.shape[-1] != 3 or valid.shape != xyz.shape[:2] \
+            or xyz.shape[1] < 1:
+        raise ValueError(f"{FPS}: bad shapes xyz {tuple(xyz.shape)} valid {tuple(valid.shape)}, "
+                         f"want (B, N, 3) and (B, N), N >= 1")
+    if xyz.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"{FPS}: xyz must be float32 and valid bool, got {xyz.dtype} and "
+                        f"{valid.dtype}")
+    if valid.device != xyz.device:
+        raise ValueError(f"{FPS}: xyz on {xyz.device}, valid on {valid.device}")
+    if k < 0:
+        raise ValueError(f"{FPS}: k {k} < 0")
+
+
+def farthest_point_sample(xyz, valid, k: int):
+    """Launch ``csrc/fps.cu``: ``xyz`` (B, N, 3) f32 and ``valid`` (B, N)
+    bool, contiguous on the card -> (B, k) int64, each frame's indices in
+    selection order (one block a frame, one launch a batch): index 0 first,
+    then the valid point farthest from those chosen, ties to the lower
+    index; invalid points only where the valid ones run out at distance 0
+    before them (index 0 where none is valid). Equal to
+    ``pointnet2.farthest_point_sample_plain``. Raises for N above
+    ``fps_max_points()`` (16,384: a frame's points and their running
+    minima stay in one block's shared memory and registers)."""
+    check_fps(xyz, valid, k)
+    for t in (xyz, valid):
+        if t.device.type != "cuda":
+            raise ValueError(f"{FPS} needs CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{FPS}: its tensors must be contiguous")
+    b, n = valid.shape
+    limit = fps_max_points()
+    if n > limit:
+        raise ValueError(f"{FPS}: {n} points a frame, one block of the kernel holds at most "
+                         f"{limit}")
+    out = torch.empty((b, k), dtype=torch.int64, device=xyz.device)
+    err = entry(FPS)(xyz.data_ptr(), valid.data_ptr(), b, n, k, out.data_ptr(), stream_of(xyz))
+    if err != 0:
+        raise RuntimeError(f"{FPS} launch failed: cudaError {err}")
+    launches[FPS] += 1
+    return out
+
+
 def quad_sample_taps(features, coords):
     """The fused kernel's tap computation alone: ``quad_indices``' result
     (idx (N,) int32 into the zero-padded map, w4 (N, 4) f32) for a map of
@@ -804,6 +863,20 @@ def _nms_fake(boxes, valid, nms_thresh, max_keep):
     return valid.new_empty(valid.shape)
 
 
+def _fps_cuda(xyz: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    return farthest_point_sample(xyz, valid, k)
+
+
+def _fps_cpu(xyz, valid, k):
+    from . import pointnet2
+    check_fps(xyz, valid, k)
+    return pointnet2.farthest_point_sample_plain(xyz, valid, k)
+
+
+def _fps_fake(xyz, valid, k):
+    return xyz.new_empty((xyz.shape[0], k), dtype=torch.int64)
+
+
 def _register(name, cuda, cpu, fake):
     op = torch.library.custom_op(f"{NAMESPACE}::{name}", cuda, mutates_args=(),
                                  device_types="cuda")
@@ -819,3 +892,4 @@ quad_sample_depth_op = _register(DEPTH_KERNEL, _depth_cuda, _depth_cpu, _depth_f
 quad_sample_reduce_q8_op = _register(REDUCE_Q8_KERNEL, _reduce_q8_cuda, _reduce_q8_cpu,
                                      _reduce_fake)
 conv2d_w8a8_op = _register(CONV_W8A8, _conv_cuda, _conv_cpu, _conv_fake)
+farthest_point_sample_op = _register("farthest_point_sample", _fps_cuda, _fps_cpu, _fps_fake)

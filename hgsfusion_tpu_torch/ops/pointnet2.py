@@ -1,13 +1,18 @@
-"""Ball query and grouping over point sets and over dense voxel-center grids.
+"""Farthest-point sampling, ball query and grouping over point sets and
+over dense voxel-center grids.
 
-Counterpart of ``hgsfusion_tpu/ops/pointnet2.py`` (``ball_query``,
-``query_and_group``). ``ball_query`` is JAX's dense form: the whole (M, N)
-squared-distance matrix and its cumulative count, which fits only small
-point sets. A two-stage detector pools from voxel-center sets of up to
-640,000 cells (Voxel R-CNN's ``x_conv2`` at full width), where that matrix
-would take 71 GB for 27,648 centres, so ``ball_query_grid`` walks only the
-window of cells that can lie within the radius of each centre and keeps
-the dense form's rule exactly:
+Counterpart of ``hgsfusion_tpu/ops/pointnet2.py`` (``farthest_point_sample``,
+``ball_query``, ``query_and_group``). ``farthest_point_sample`` is the op
+``hgsfusion::farthest_point_sample`` (``ops/library.py``): on the card the
+hand kernel ``csrc/fps.cu``, one launch a batch; on the CPU its plain
+version, ``farthest_point_sample_plain``, the max-min loop. ``ball_query``
+is JAX's dense form: the (M, N) squared-distance matrix and its cumulative
+count, taken ``chunk`` centres at a time so that it fits (PV-RCNN's RoI
+grid: 27,648 centres over 1,024 keypoints). A two-stage detector pools
+from voxel-center sets of up to 640,000 cells (Voxel R-CNN's ``x_conv2``
+at full width), where that matrix would take 71 GB for 27,648 centres, so
+``ball_query_grid`` walks only the window of cells that can lie within the
+radius of each centre and keeps the dense form's rule exactly:
 
 - a cell counts when it is valid and its squared distance, summed over x,
   y, z in that order, is below radius * radius;
@@ -27,16 +32,52 @@ import math
 import numpy as np
 import torch
 
+from . import library  # noqa: F401  (registers hgsfusion::farthest_point_sample)
 
-def ball_query(new_xyz, xyz, valid, radius: float, nsample: int):
+
+def farthest_point_sample_plain(xyz, valid, k: int):
+    """(B, N, 3) f32 points and (B, N) bool -> (B, k) int64 indices, the JAX
+    package's max-min loop: index 0 first (even where it is not valid), each
+    valid point's distance to the chosen set ((dx*dx + dy*dy) + dz*dz, f32)
+    its running minimum from 1e10, an invalid one's -1, then the first
+    argmax. The kernel's plain version (``csrc/fps.cu``)."""
+    b = xyz.shape[0]
+    dists = torch.where(valid, torch.full((), 1e10, device=xyz.device),
+                        torch.full((), -1.0, device=xyz.device))
+    rows = torch.arange(b, device=xyz.device)
+    idx = torch.zeros((b, k), dtype=torch.int64, device=xyz.device)
+    last = xyz[:, 0]
+    for i in range(1, k):
+        d = xyz - last[:, None]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        dists = torch.minimum(dists, torch.where(valid, d2, torch.full_like(d2, -1.0)))
+        nxt = dists.argmax(dim=1)
+        idx[:, i] = nxt
+        last = xyz[rows, nxt]
+    return idx
+
+
+def farthest_point_sample(xyz, valid, k: int):
+    """(B, N, 3) points, (B, N) valid -> (B, k) int64 keypoint indices: the
+    op ``hgsfusion::farthest_point_sample`` (the kernel on the card, one
+    launch a batch; ``farthest_point_sample_plain`` on the CPU)."""
+    return torch.ops.hgsfusion.farthest_point_sample(
+        xyz.float().contiguous(), valid.contiguous(), k)
+
+
+def ball_query(new_xyz, xyz, valid, radius: float, nsample: int, chunk: int = 4096):
     """(M, 3) centres x (N, 3) points -> (M, nsample) neighbour indices
     (int64) and the (M,) any-neighbour mask, the dense form (an (M, N)
-    matrix)."""
-    d = new_xyz[:, None, :] - xyz[None, :, :]
-    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    mask = (d2 < radius * radius) & valid[None, :]
-    return _first_in_order(mask, torch.arange(xyz.shape[0], device=xyz.device)[None, :],
-                           nsample)
+    matrix), ``chunk`` centres at a time."""
+    cols = torch.arange(xyz.shape[0], device=xyz.device)[None, :]
+    idx_out, any_out = [], []
+    for c0 in range(0, max(new_xyz.shape[0], 1), chunk):
+        d = new_xyz[c0:c0 + chunk, None, :] - xyz[None, :, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        idx, any_nb = _first_in_order((d2 < radius * radius) & valid[None, :], cols, nsample)
+        idx_out.append(idx)
+        any_out.append(any_nb)
+    return torch.cat(idx_out), torch.cat(any_out)
 
 
 def _first_in_order(mask, cells, nsample: int):

@@ -13,8 +13,10 @@ grouped loss instead, the TransFusion families' (BEVFusion, TransFusion-L)
 their Hungarian-matched set loss, the CenterHead families' (CenterPoint,
 VoxelNeXt) the heatmap focal loss and the L1 at the gt centers; SECOND's is
 the anchor step with its stride-8 anchors (the focal SECOND's adds its
-backbone's importance loss), Voxel R-CNN's and SECOND-IoU's the anchor
-losses and their second stage's (``make_twostage_train_step``). PyTorch
+backbone's importance loss), Voxel R-CNN's, SECOND-IoU's, PV-RCNN's and
+PV-RCNN++'s the anchor losses and their second stage's
+(``make_twostage_train_step``; PV-RCNN's with the keypoints' foreground
+loss). PyTorch
 runs it eagerly; nothing in it reads a tensor back to the host but the
 TransFusion step's matching costs (one read a step,
 ``models/transfusion_head.py``). Evaluation needs no dispatch here: every
@@ -22,7 +24,8 @@ family's ``serve`` runs its own post-processing (the JAX package's
 ``make_transfusion_eval_step`` is the TransFusion families'
 ``post_process``, its ``make_center_eval_step`` the CenterHead families',
 ``models/detector.py::center_post_process``, its
-``make_pvrcnn_eval_step`` Voxel R-CNN's, ``refine_post_process``, and its
+``make_pvrcnn_eval_step`` Voxel R-CNN's, PV-RCNN's and PV-RCNN++'s,
+``refine_post_process``, and its
 ``make_secondiou_eval_step`` SECOND-IoU's).
 
 Under ``DistributedDataParallel`` (``parallel/mesh.py``) the forward goes
@@ -45,11 +48,12 @@ from ..models.anchors import TargetAssigner
 from ..models.center_head import center_head_loss, center_targets
 from ..models.ddn_loss import ddn_loss
 from ..models.detector import (BATCH_KEYS, BEVFusionModel, CenterPointModel,
-                               PointPillarMultiHeadModel, SECONDIoUModel, TransFusionModel,
-                               VoxelNeXtModel, VoxelRCNNModel, make_multihead_assigner)
+                               PointPillarMultiHeadModel, PVRCNNModel, PVRCNNPlusPlusModel,
+                               SECONDIoUModel, TransFusionModel, VoxelNeXtModel, VoxelRCNNModel,
+                               make_multihead_assigner)
 from ..models.focal_conv import focal_conv_loss
 from ..models.occupancy import occupancy_loss
-from ..models.pvrcnn import rcnn_losses, roi_targets
+from ..models.pvrcnn import point_fg_loss, rcnn_losses, roi_targets
 from ..models.roi_heads import iou_head_loss
 from ..models.transfusion_head import transfusion_loss
 from ..parallel.mesh import all_reduce_mean_
@@ -139,16 +143,18 @@ def _add_focal_loss(preds, batch, cfg, total, tb):
 
 def make_twostage_train_step(model, assigner: TargetAssigner, optimizer, loss_weights: Dict,
                              cfg, family: str, ddp=None) -> Callable:
-    """The anchor-RPN two-stage families' step: the RPN's anchor losses, the
-    focal backbone's loss where it has one, then the second stage against
-    each proposal's ``roi_targets``: "voxelrcnn" ``rcnn_losses`` (tb keys
-    rcnn_cls, rcnn_reg), "secondiou" ``iou_head_loss`` (rcnn_iou). The
-    JAX package's other families raise, naming their ROADMAP.md entry."""
-    later = {"pvrcnn": "(c4)", "pvrcnnpp": "(c5)", "parta2": "(c6)", "pointrcnn": "(c7)"}
+    """The anchor-RPN two-stage families' step: the RPN's anchor losses,
+    "pvrcnn" and "pvrcnnpp" the keypoints' ``point_fg_loss`` (tb key
+    point_fg), the focal backbone's loss where it has one, then the second
+    stage against each proposal's ``roi_targets``: "voxelrcnn", "pvrcnn"
+    and "pvrcnnpp" ``rcnn_losses`` (tb keys rcnn_cls, rcnn_reg),
+    "secondiou" ``iou_head_loss`` (rcnn_iou). The JAX package's other
+    families raise, naming their ROADMAP.md entry."""
+    later = {"parta2": "(c6)", "pointrcnn": "(c7)"}
     if family in later:
         raise NotImplementedError(f"the {family} two-stage step is not ported (ROADMAP.md "
                                   f"queue 1 item 9 {later[family]})")
-    if family not in ("voxelrcnn", "secondiou"):
+    if family not in ("voxelrcnn", "secondiou", "pvrcnn", "pvrcnnpp"):
         raise ValueError(f"unknown two-stage family {family!r}")
     anchors = assigner.flat_anchors
     coder = ResidualCoder()
@@ -160,6 +166,9 @@ def make_twostage_train_step(model, assigner: TargetAssigner, optimizer, loss_we
         targets = assigner(batch["gt_boxes"])
         total, tb = anchor_head_loss(preds, targets, anchors, cfg.num_class, loss_weights,
                                      dir_offset=cfg.dir_offset, num_dir_bins=cfg.num_dir_bins)
+        if family in ("pvrcnn", "pvrcnnpp"):
+            pt = point_fg_loss(preds["point_logits"], preds["keypoints"], batch["gt_boxes"])
+            total, tb = total + pt, {**tb, "point_fg": pt}
         total, tb = _add_focal_loss(preds, batch, cfg, total, tb)
         rt = roi_targets(preds["rois"], preds["roi_valid"], batch["gt_boxes"])
         if family == "secondiou":
@@ -261,7 +270,8 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
     build): the TransFusion step for BEVFusionModel and TransFusionModel,
     the center step for CenterPointModel and VoxelNeXtModel (no assigner:
     None), the multi-head step for PointPillarMultiHeadModel, the two-stage
-    step for VoxelRCNNModel and SECONDIoUModel, else ``make_train_step``
+    step for VoxelRCNNModel, SECONDIoUModel, PVRCNNModel and
+    PVRCNNPlusPlusModel, else ``make_train_step``
     (SECONDModel's, the focal one's included). Returns (assigner, step)."""
     if isinstance(model, (BEVFusionModel, TransFusionModel)):
         return None, make_transfusion_train_step(model, optimizer, model_cfg.loss_weights,
@@ -271,8 +281,10 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
                                             ddp=ddp)
     multihead = isinstance(model, PointPillarMultiHeadModel)
     assigner = make_anchor_assigner(model_cfg, multihead, device=model.device)
-    if isinstance(model, (VoxelRCNNModel, SECONDIoUModel)):
-        family = "voxelrcnn" if isinstance(model, VoxelRCNNModel) else "secondiou"
+    twostage = ((PVRCNNPlusPlusModel, "pvrcnnpp"), (PVRCNNModel, "pvrcnn"),
+                (VoxelRCNNModel, "voxelrcnn"), (SECONDIoUModel, "secondiou"))
+    family = next((f for cls, f in twostage if isinstance(model, cls)), None)
+    if family is not None:
         return assigner, make_twostage_train_step(model, assigner, optimizer,
                                                   model_cfg.loss_weights, model_cfg, family,
                                                   ddp=ddp)

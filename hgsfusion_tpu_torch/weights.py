@@ -273,17 +273,22 @@ def focal_conv(p, s):
 
 
 def linear_bn_stack(p, s):
-    """Linear (flax ``Dense``) and BatchNorm1d leaves by their JAX names: a
-    name with ``bn`` is a BatchNorm (``GroupMLP``, ``RCNNHead``,
-    ``SECONDIoUHead``)."""
-    return {k: v for n in p for k, v in _prefix(
-        n, batch_norm(p[n], s[n]) if "bn" in n else conv(p[n], _linear)).items()}
-
-
-def roi_grid_pool(p, s):
-    """roi_heads.VoxelRCNNPool: ``pool_x_conv{i}.mlp_r{j}`` (GroupMLPs)."""
-    return {k: v for pool in p for mlp in p[pool] for k, v in _prefix(
-        f"{pool}.{mlp}", linear_bn_stack(p[pool][mlp], s[pool][mlp])).items()}
+    """Linear (flax ``Dense``) and BatchNorm1d modules by their JAX names,
+    nested to any depth (a module with a kernel is a Linear, one with a
+    scale a BatchNorm1d): ``GroupMLP``, ``RCNNHead``, ``SECONDIoUHead``,
+    the RoI-grid pools (``roi_heads.VoxelRCNNPool``'s
+    ``pool_x_conv{i}.mlp_r{j}``, ``pvrcnn.RoIGridPool``'s ``pool.mlp_r{j}``
+    or ``pool_vp``), PV-RCNN's ``pfe`` (``sa_*`` / ``vp_*``, ``fusion_fc``,
+    ``fusion_bn``) and ``point_head``."""
+    out = {}
+    for n, sub in p.items():
+        if "kernel" in sub:
+            out.update(_prefix(n, conv(sub, _linear)))
+        elif "scale" in sub:
+            out.update(_prefix(n, batch_norm(sub, s[n])))
+        else:
+            out.update(_prefix(n, linear_bn_stack(sub, s.get(n, {}))))
+    return out
 
 
 def center_head(p, s):
@@ -390,10 +395,10 @@ def backbone_3d(p, s):
 
 def _backbone_families(p, s):
     """CenterPointModel, SECONDModel (the focal one too), VoxelRCNNModel,
-    SECONDIoUModel and VoxelNeXtModel: ``pillar_net``, ``backbone_3d``,
-    ``backbone_2d``, ``roi_grid_pool`` and ``roi_head`` where the model
-    has them, and the ``dense_head`` (a CenterHead or an
-    AnchorHeadSingle)."""
+    SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel and VoxelNeXtModel:
+    ``pillar_net``, ``backbone_3d``, ``backbone_2d``, ``pfe``,
+    ``point_head``, ``roi_grid_pool`` and ``roi_head`` where the model has
+    them, and the ``dense_head`` (a CenterHead or an AnchorHeadSingle)."""
     out = {}
     if "pillar_net" in p:
         out.update(_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])))
@@ -401,11 +406,10 @@ def _backbone_families(p, s):
         out.update(_prefix("backbone_3d", backbone_3d(p["backbone_3d"], s["backbone_3d"])))
     if "backbone_2d" in p:
         out.update(_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])))
-    if "roi_grid_pool" in p:  # Voxel R-CNN
-        out.update(_prefix("roi_grid_pool", roi_grid_pool(p["roi_grid_pool"],
-                                                          s["roi_grid_pool"])))
-    if "roi_head" in p:  # Voxel R-CNN's RCNNHead, SECOND-IoU's head
-        out.update(_prefix("roi_head", linear_bn_stack(p["roi_head"], s["roi_head"])))
+    # PV-RCNN(++), Voxel R-CNN; the RCNNHead, SECOND-IoU's head
+    for name in ("pfe", "point_head", "roi_grid_pool", "roi_head"):
+        if name in p:
+            out.update(_prefix(name, linear_bn_stack(p[name], s.get(name, {}))))
     head = p["dense_head"]
     return {**out, **_prefix("dense_head", center_head(head, s["dense_head"]) if "head" in head
                              else anchor_head(head))}
@@ -492,8 +496,9 @@ def from_jax_variables(variables):
     """JAX detector variables {"params", "batch_stats"} -> state_dict, for
     HGSFusionModel, RadarOnlyModel, PointPillarModel,
     PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
-    CenterPointModel, SECONDModel, VoxelRCNNModel, SECONDIoUModel and
-    VoxelNeXtModel (told apart by their top-level modules)."""
+    CenterPointModel, SECONDModel, VoxelRCNNModel, SECONDIoUModel,
+    PVRCNNModel, PVRCNNPlusPlusModel and VoxelNeXtModel (told apart by
+    their top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
     if "fuser_conv" in p:
         return _bevfusion(p, s)

@@ -12,7 +12,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -25,7 +24,7 @@ from hgsfusion_tpu_torch.models.detector import HGSFusionModel
 from hgsfusion_tpu_torch.synthetic import flagship_batch
 from hgsfusion_tpu_torch.weights import from_jax_variables
 from test_model import TINY, make_tiny_batch
-from torch_parity import load, one_torch_thread, perturb_variables, port_config  # noqa: F401
+from torch_parity import load, one_torch_thread, port_config, shaped_variables  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
@@ -123,8 +122,7 @@ def test_realistic_shift_equals_bench_pys():
     tiny = dataclasses.replace(TINY, f2v_sampler_kernel="pallas")
     batch = make_tiny_batch(np.random.RandomState(0), b=2)
     jmodel = JaxModel(cfg=tiny)
-    variables = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, False))(batch)
-    variables = perturb_variables(variables, seed=1)
+    variables = shaped_variables(jmodel, batch, False, seed=1)
     shifted = jax_bench._calibrate_realistic(jmodel, variables, batch)
     before = np.asarray(variables["params"]["dense_head"]["conv_cls"]["bias"])
     after = np.asarray(shifted["params"]["dense_head"]["conv_cls"]["bias"])

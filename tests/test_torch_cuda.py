@@ -485,14 +485,16 @@ def test_view_transform_routes(cuda):
         library.KERNEL: 0, library.REDUCE_KERNEL: 1, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 0, library.NMS_MASK: 0, library.NMS_SWEEP: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
-        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0,
+        library.FPS: 0}
     sampled = f2v.accumulate(feats, grid)
     after = dict(library.launches)
     assert {k: after[k] - mid[k] for k in mid} == {
         library.KERNEL: 2, library.REDUCE_KERNEL: 0, library.TAPS: 0,
         library.BWD_KERNEL: 0, library.BINS: 2, library.NMS_MASK: 0, library.NMS_SWEEP: 0,
         library.DEPTH_KERNEL: 0, library.DEPTH_BWD_KERNEL: 0, library.Q8_KERNEL: 0,
-        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0}
+        library.REDUCE_Q8_KERNEL: 0, library.CONV_W8A8: 0, library.QUANTIZE_INT8: 0,
+        library.FPS: 0}
     assert fused.dtype == torch.bfloat16 and sampled.dtype == torch.float32
     sampled = sampled.detach()
     scale = float(sampled.abs().max())
@@ -1077,3 +1079,39 @@ def test_multihead_post_process_stacks_its_sets_into_one_nms(cuda):
             assert torch.equal(got["valid"][:, block], valid)
             want = torch.take_along_dim(b[..., :7], idx[..., None], dim=1)
             assert torch.equal(got["boxes"][:, block][valid], want[valid])
+
+
+# FPS cases: (B, N, k, what): point 0 invalid, k above the valid points,
+# none valid, exact ties, N = 1, the shared-memory variant (N > 8,192), k = 0
+FPS_CASES = [(3, 300, 64, "point0_invalid"), (2, 500, 400, "short"), (1, 200, 10, "none_valid"),
+             (2, 640, 100, "ties"), (1, 1, 5, "single"), (1, 9000, 256, "shared_xyz"),
+             (2, 100, 0, "k0")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,what", FPS_CASES)
+def test_fps_kernel_equals_plain(cuda, b, n, k, what):
+    """``hgsfusion::farthest_point_sample`` on the card: the plain loop's
+    indices exactly, one counted launch a batch (at k = 0 the C entry
+    returns at once), and N above the kernel's limit refused."""
+    from hgsfusion_tpu_torch.ops import pointnet2
+    g = torch.Generator().manual_seed(n + k)
+    xyz = torch.rand((b, n, 3), generator=g) * 40 - 20
+    valid = torch.rand((b, n), generator=g) > 0.3
+    if what == "point0_invalid":
+        valid[:, 0] = False
+    elif what == "short":
+        valid[:, 100:] = False
+    elif what == "none_valid":
+        valid[:] = False
+    elif what == "ties":
+        xyz = xyz[:, :64].repeat(1, 10, 1)[:, torch.randperm(n, generator=g)]
+    xyz, valid = xyz.to(cuda).contiguous(), valid.to(cuda)
+    before = library.launches[library.FPS]
+    got = pointnet2.farthest_point_sample(xyz, valid, k)
+    assert library.launches[library.FPS] == before + 1
+    assert got.shape == (b, k) and got.dtype == torch.int64
+    assert torch.equal(got, pointnet2.farthest_point_sample_plain(xyz, valid, k))
+    with pytest.raises(ValueError, match="at most 16384"):
+        library.farthest_point_sample(torch.zeros((1, 16385, 3), device=cuda),
+                                      torch.ones((1, 16385), dtype=torch.bool, device=cuda), 4)

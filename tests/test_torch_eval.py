@@ -11,7 +11,6 @@ import subprocess
 import threading
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,7 +41,7 @@ from hgsfusion_tpu_torch.train.checkpoint import KEY_ALIASES, load_checkpoint
 from hgsfusion_tpu_torch.utils.common import create_logger
 from hgsfusion_tpu_torch.weights import from_jax_variables
 from test_model import TINY
-from torch_parity import one_torch_thread, perturb_variables, port_config  # noqa: F401
+from torch_parity import one_torch_thread, port_config, shaped_variables  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 YAML = REPO / "configs" / "hgsfusion_vod_pallas.yaml"
@@ -217,8 +216,7 @@ def tiny_eval(tree):
     init_batch = add_init_anchors(
         {k: jnp.asarray(v) for k, v in device_batch(jds.collate_batch([jds[0]])).items()},
         jcfg, jm)
-    variables = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, False))(init_batch)
-    variables = perturb_variables(variables, seed=1)
+    variables = shaped_variables(jmodel, init_batch, False, seed=2)
 
     model = HGSFusionModel(model_config_from_yaml(pcfg), device="cpu")
     model.load_state_dict(from_jax_variables(variables), strict=True)

@@ -12,7 +12,6 @@ import importlib.util
 import os
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +37,7 @@ from hgsfusion_tpu_torch.tools.create_infos import create_infos
 from hgsfusion_tpu_torch.train.checkpoint import load_checkpoint
 from hgsfusion_tpu_torch.weights import from_jax_variables
 from test_torch_eval import _tiny_cfg
-from torch_parity import one_torch_thread, perturb_variables  # noqa: F401
+from torch_parity import one_torch_thread, shaped_variables  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FRAMES = 2
@@ -193,8 +192,9 @@ def _jax_tools_export():
 
 
 def test_artifact_matches_jax_export(setup, tmp_path):
-    """Both packages' artifacts of one set of weights (JAX's init with
-    perturbed BN statistics, carried by ``from_jax_variables``) on the
+    """Both packages' artifacts of one set of weights (random, in the shapes
+    of JAX's init, BN statistics not the identity: ``shaped_variables``,
+    which compiles nothing; carried by ``from_jax_variables``) on the
     gather view's cut YAML, at a tie-free score threshold baked into both:
     the same kept boxes and labels, boxes and scores within 1e-4."""
     pcfg = load_config(setup["gather"])
@@ -203,9 +203,8 @@ def test_artifact_matches_jax_export(setup, tmp_path):
     jm = jax_model_config(jcfg)
     jmodel = build_network(jcfg, jm)
     example = {k: jnp.asarray(v) for k, v in device_batch(jds.collate_batch([jds[0]])).items()}
-    variables = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, False))(
-        add_init_anchors(model_inputs(example), jcfg, jm))
-    variables = perturb_variables(variables, seed=1)
+    variables = shaped_variables(jmodel, add_init_anchors(model_inputs(example), jcfg, jm),
+                                 False, seed=2)
 
     model = HGSFusionModel(model_config_from_yaml(pcfg), device="cpu")
     model.load_state_dict(from_jax_variables(variables), strict=True)

@@ -120,6 +120,9 @@ probs, grid = torch.rand(1, 4, 5, 6), torch.rand(1, 3, 3) * 2 - 1
 assert library.quad_sample_depth_op(feats, probs, grid).shape == (3, 8)
 keep = library.nms_lazy_op(boxes, torch.ones(1, 3, dtype=torch.bool), 0.1, 10)
 assert keep.tolist() == [[True, False, True]], keep
+pts = torch.tensor([[[0.0, 0, 0], [1, 0, 0], [3, 0, 0], [2, 0, 0]]])
+idx = library.farthest_point_sample_op(pts, torch.ones(1, 4, dtype=torch.bool), 3)
+assert idx.tolist() == [[0, 2, 1]], idx
 print(" ".join(sorted(k for k in sys.modules if k.startswith("hgsfusion_tpu_torch"))))
 """
 
@@ -134,5 +137,6 @@ def test_serving_host_imports_no_model_code():
     mods = set(proc.stdout.split())
     assert {"hgsfusion_tpu_torch.ops.library", "hgsfusion_tpu_torch.tools.serve",
             "hgsfusion_tpu_torch.native", "hgsfusion_tpu_torch.ops.nms",
-            "hgsfusion_tpu_torch.ops.quad_sample", "hgsfusion_tpu_torch.ops.depth_sample"} <= mods
+            "hgsfusion_tpu_torch.ops.quad_sample", "hgsfusion_tpu_torch.ops.depth_sample",
+            "hgsfusion_tpu_torch.ops.pointnet2"} <= mods
     assert not any(m.startswith("hgsfusion_tpu_torch.models") for m in mods)

@@ -34,12 +34,21 @@ from hgsfusion_tpu_torch.ops.nms import class_agnostic_nms
 from hgsfusion_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from hgsfusion_tpu_torch.utils.box_coder import ResidualCoder
 from torch_parity import (assert_close, load, one_torch_thread,  # noqa: F401
-                          perturb_variables, t)
+                          perturb_variables, shaped_variables, t)
 
 KEY = jax.random.PRNGKey(0)
 
 
 def _init(module, *args):
+    """Random variables in the shapes of ``module``'s init on ``args``, BN
+    statistics not the identity (``shaped_variables``: nothing runs)."""
+    return shaped_variables(module, *args, seed=7)
+
+
+def _eager_init(module, *args):
+    """JAX's init run eagerly, BN perturbed: for a module whose init indexes
+    with concrete values (``RadarOccupancy2D``'s resize), which a trace
+    cannot give."""
     return perturb_variables(module.init(KEY, *args), seed=7)
 
 
@@ -161,7 +170,7 @@ def test_collapse_occupancy_fusion():
     col = load(Conv2DCollapse(16, 5, 24), weights.conv2d_collapse(vc["params"], vc["batch_stats"]))
     radar_bev = _nhwc(rng, 1, 8, 8, 24)
     jocc = JaxOccupancy(radar_input_channels=24, aspp_dilation=6)
-    vo = _init(jocc, image_bev, radar_bev, False)
+    vo = _eager_init(jocc, image_bev, radar_bev, False)
     gated_ref, occ_ref = _apply(jocc, vo, image_bev, radar_bev, False)
     occ = load(RadarOccupancy2D(24, aspp_dilation=6),
                weights.radar_occupancy(vo["params"], vo["batch_stats"]))

@@ -46,7 +46,8 @@ from hgsfusion_tpu_torch.weights import (anchor_head_multi, conv_bn_layers, from
 from test_model import TINY, make_tiny_batch
 from test_train import OPTIM_CFG
 from torch_parity import (assert_close, compare_one_step, lift_bn_biases, load,  # noqa: F401
-                          one_torch_thread, perturb_variables, port_config, t, to_numpy_tree)
+                          one_torch_thread, perturb_variables, port_config, shaped_variables, t,
+                          to_numpy_tree)
 
 YAML = "configs/pp_multihead_nuscenes.yaml"
 CUT_RANGE = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
@@ -55,9 +56,10 @@ MODULE_TOL = 1e-5
 
 
 def _variables(module, *args):
-    """The module's eval-mode init (args, then train=False), BN perturbed."""
-    v = jax.jit(lambda *a: module.init(jax.random.PRNGKey(0), *a, False))(*args)
-    return perturb_variables(v, seed=1)
+    """Random variables in the shapes of the module's eval-mode init (args,
+    then train=False), BN statistics not the identity (``shaped_variables``:
+    nothing compiles)."""
+    return shaped_variables(module, *args, False, seed=1)
 
 
 def _sub(variables):
@@ -220,8 +222,7 @@ def single():
     """PointPillarModel over TINY (stride-2 anchors for its head map)."""
     batch = make_tiny_batch(np.random.RandomState(0))
     jmodel = JaxPointPillar(cfg=TINY)
-    variables = perturb_variables(
-        jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, False))(batch), seed=1)
+    variables = shaped_variables(jmodel, batch, False, seed=1)
     preds = jax.jit(lambda v, b: jmodel.apply(v, b, False))(variables, batch)
     cfg = port_config(TINY)
     cfg = dataclasses.replace(cfg, anchor_generator=tuple(

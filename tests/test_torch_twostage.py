@@ -181,7 +181,7 @@ def test_voxel_rcnn_pool_matches_jax():
     variables = shaped_variables(module, rois, stages, False, seed=6)
     ref = np.asarray(jax.jit(lambda v, r, s: module.apply(v, r, s, False))(variables, rois, stages))
     port = rh.VoxelRCNNPool(RANGE, voxel)
-    port.load_state_dict(weights.roi_grid_pool(variables["params"], variables["batch_stats"]))
+    port.load_state_dict(weights.linear_bn_stack(variables["params"], variables["batch_stats"]))
     with torch.no_grad():
         got = port.eval()(t(rois), {k: (t(f), t(m), ds) for k, (f, m, ds) in stages.items()})
     assert got.shape == ref.shape == (1, 4, 216, 96)
@@ -293,7 +293,7 @@ def test_rectified_scores_match_jax(score_type):
 
 def test_twostage_step_refuses_unported_families():
     cfg = _port_cfg("voxelrcnn")
-    for family, entry in (("pvrcnn", r"\(c4\)"), ("parta2", r"\(c6\)"), ("pointrcnn", r"\(c7\)")):
+    for family, entry in (("parta2", r"\(c6\)"), ("pointrcnn", r"\(c7\)")):
         with pytest.raises(NotImplementedError, match=entry):
             make_twostage_train_step(None, None, None, {}, cfg, family)
 

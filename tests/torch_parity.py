@@ -55,11 +55,26 @@ def perturb_variables(variables, seed=0):
     return walk(to_numpy_tree(dict(variables)))
 
 
+_SHAPES = {}
+
+
+def variable_shapes(module, *args):
+    """The shapes of ``module``'s init on ``args`` (``jax.eval_shape``:
+    traced, nothing compiles), traced once per module (its ``repr``: type
+    and fields) and argument shapes in a process: a test file's forward
+    and step of one model share the trace."""
+    key = (repr(module), str(jax.tree_util.tree_map(
+        lambda a: (np.shape(a), np.asarray(a).dtype.str), args)))
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))
+    return _SHAPES[key]
+
+
 def shaped_variables(module, *args, seed: int = 0):
     """Numpy variables in the shapes of ``module``'s init on ``args``
-    (``jax.eval_shape``: nothing compiles): kernels LeCun normal, biases
-    near 0, norm scales near 1, BN means near 0 and variances in [0.5,
-    1.5], other parameters N(0, 0.5)."""
+    (``variable_shapes``): kernels LeCun normal, biases near 0, norm scales
+    near 1, BN means near 0 and variances in [0.5, 1.5], other parameters
+    N(0, 0.5)."""
     rng = np.random.RandomState(seed)
 
     def leaf(path, s):
@@ -74,8 +89,7 @@ def shaped_variables(module, *args, seed: int = 0):
             a = rng.normal(0.0, 0.5, s.shape)
         return a.astype(np.float32)
 
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))
-    return jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+    return jax.tree_util.tree_map_with_path(leaf, dict(variable_shapes(module, *args)))
 
 
 def lift_bn_biases(variables, shift: float = 4.0):
