@@ -400,8 +400,9 @@ and launches of what ran):
     evaluation frames (2 NMS calls a frame; detections equal ``serve``'s);
 67. fps: ``hgsfusion::farthest_point_sample`` (``csrc/fps.cu``) against its
     plain version at PV-RCNN's 8,192 points -> 1,024 keypoints: B=1 and
-    B=2 and 16,384 points (timed beside the bound), a proposal-centric
-    mask, exact ties, fewer valid points than keypoints; the indices equal;
+    B=2, 16,384 points and a proposal-centric mask (timed beside the bound
+    and the chain floor, ``tune_fps.CHAIN_FLOOR``, with the cluster size),
+    exact ties, fewer valid points than keypoints; the indices equal;
 68. PV-RCNN and PV-RCNN++ (``configs/pvrcnn_vod.yaml``,
     ``pvrcnnpp_vod.yaml``): served at full width as 59 (2 NMS calls and 1
     FPS a frame; the FPS, the voxel set abstraction, the keypoint weighting
@@ -5637,14 +5638,18 @@ def phase_fps(dev):
     """``hgsfusion::farthest_point_sample`` (``csrc/fps.cu``) against its
     plain version (``farthest_point_sample_plain``) at PV-RCNN's full width,
     8,192 points -> 1,024 keypoints: the flagship points at B=1 and B=2 and
-    16,384 (the CLIs' frames: the kernel's shared-memory variant), a
-    proposal-centric mask, exact ties and fewer valid points than
-    keypoints; the indices equal in every case. The kernel timed from CUDA
-    graph replays, the plain loop by CUDA events, beside the bound: bytes
-    (xyz and the mask read once, the indices written) against operations
-    (10 f32 operations a point a step: the difference, squares, sums, min
-    and compare), and the chain of k - 1 dependent block-wide argmax steps
-    (its ms a step printed). No PyTorch call computes FPS (library null)."""
+    16,384 (the CLIs' frames), a proposal-centric mask, exact ties and fewer
+    valid points than keypoints; the indices equal in every case. The first
+    four timed: the kernel from CUDA graph replays (its ms a step and its
+    cluster size printed), the chain floor (``tune_fps.CHAIN_FLOOR``: the
+    kernel without its distance updates) the same way, the plain loop by
+    CUDA events, beside the bound: bytes (xyz and the mask read once, the
+    indices written) against operations (10 f32 operations a point a step:
+    the difference, squares, sums, min and compare), and the chain of k - 1
+    dependent frame-wide argmax steps. No PyTorch call computes FPS
+    (library null)."""
+    import tune_fps
+    floor = tune_fps.chain_floor()
     rows = []
     for case in FPS_CASES:
         xyz, valid = fps_inputs(case, dev)
@@ -5652,13 +5657,16 @@ def phase_fps(dev):
         ref = pointnet2.farthest_point_sample_plain(xyz, valid, FPS_K)
         b, n = valid.shape
         row = {"case": case, "batch": b, "points": n, "valid": int(valid.sum()),
-               "k": FPS_K, "equal_to_plain": bool(torch.equal(got, ref)),
+               "k": FPS_K, "cluster": library.fps_plan(n)[0],
+               "equal_to_plain": bool(torch.equal(got, ref)),
                "max_abs_err": float((got != ref).sum())}
-        if case in ("flagship", "flagship_b2", "points_16k"):
+        if case in tune_fps.TIMED:
             nbytes = b * n * 13 + b * FPS_K * 8
             ops = 10.0 * b * n * (FPS_K - 1)
             row.update(ms=graph_ms(lambda: pointnet2.farthest_point_sample(xyz, valid, FPS_K),
                                    iters=5),
+                       chain_floor_ms=graph_ms(lambda: tune_fps.launch(floor, xyz, valid, FPS_K),
+                                               iters=5),
                        plain_ms=cuda_ms(lambda: pointnet2.farthest_point_sample_plain(
                            xyz, valid, FPS_K), iters=2, warmup=1),
                        bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -5668,6 +5676,7 @@ def phase_fps(dev):
             row["bound_by"] = ("bytes" if row["bound_bytes_ms"] >= row["bound_ops_ms"]
                                else "operations")
             row["ms_per_step"] = row["ms"] / (FPS_K - 1)
+            row["chain_floor_ms_per_step"] = row["chain_floor_ms"] / (FPS_K - 1)
         print("  " + json.dumps(row))
         if not row["equal_to_plain"]:
             raise AssertionError(f"fps {case}: the kernel's indices differ from the plain "
@@ -6084,9 +6093,10 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in report["fps"]),
             **{k: timed[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "bound_bytes_ms", "bound_ops_ms", "chain_steps",
-                                        "ms_per_step")},
-            "cases": {r["case"]: {k: r.get(k) for k in ("batch", "valid", "equal_to_plain", "ms",
-                                                       "plain_ms", "bound_ms")}
+                                        "ms_per_step", "cluster", "chain_floor_ms")},
+            "cases": {r["case"]: {k: r.get(k) for k in ("batch", "valid", "cluster",
+                                                       "equal_to_plain", "ms", "ms_per_step",
+                                                       "chain_floor_ms", "plain_ms", "bound_ms")}
                       for r in report["fps"]},
         })
     if args.out:

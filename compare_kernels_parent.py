@@ -44,6 +44,15 @@ this order:
   ``chip_smoke.depth_case``'s bound of the plain version and equal from
   call to call; each tree's time and its kernels' split
   (``torch.profiler``).
+- ``fps``: farthest-point sampling (``hgsfusion::farthest_point_sample``)
+  on ``chip_smoke.fps_inputs``' six cases (8,192 points -> 1,024
+  keypoints): the indices equal bit for bit; at ``tune_fps.TIMED`` (B=1,
+  B=2, 16,384 points, the proposal-centric mask) the op in turns, and this
+  tree's chain floor (``tune_fps.CHAIN_FLOOR``: its kernel without the
+  distance updates); then this tree's PV-RCNN and PV-RCNN++ (seed 0, the
+  flagship batch) served with each tree's FPS in turns: the detections
+  equal, each frame's device time (``torch.profiler``, the kernels' own
+  time summed).
 
 Exits non-zero when anything differs or leaves its bound.
 """
@@ -60,6 +69,7 @@ import subprocess
 import sys
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -67,7 +77,9 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 import hgsfusion_tpu_torch
-from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, nms
+import tune_fps
+from hgsfusion_tpu_torch.models import pvrcnn
+from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, nms, pointnet2
 from hgsfusion_tpu_torch.ops.grid_sample import quantize_per_channel_int8
 from hgsfusion_tpu_torch.profile_serve import kernel_split_ms, profile_frames
 
@@ -407,8 +419,58 @@ def compare_sass(dev, parent):
     return out, True
 
 
+def compare_fps(dev, parent):
+    """Each tree's FPS op on the six cases: indices bit for bit, the timed
+    cases in turns beside this tree's chain floor."""
+    libs = {"parent": importlib.import_module(f"{parent.__name__}.ops.library"),
+            "change": library}
+    floor = tune_fps.chain_floor()
+    rows, ok = [], True
+    for case in cs.FPS_CASES:
+        xyz, valid = cs.fps_inputs(case, dev)
+        outs = {label: lib.farthest_point_sample(xyz, valid, cs.FPS_K)
+                for label, lib in libs.items()}
+        row = {"case": case, "batch": valid.shape[0], "valid": int(valid.sum()),
+               "cluster": library.fps_plan(valid.shape[1])[0],
+               "equal": bool(torch.equal(outs["parent"], outs["change"]))}
+        ok = ok and row["equal"]
+        if case in tune_fps.TIMED:
+            for label in TURNS:
+                lib = libs[label]
+                row.setdefault(f"{label}_ms", []).append(cs.graph_ms(
+                    lambda: lib.farthest_point_sample(xyz, valid, cs.FPS_K), iters=5,
+                    replays=2))
+            row["chain_floor_ms"] = cs.graph_ms(
+                lambda: tune_fps.launch(floor, xyz, valid, cs.FPS_K), iters=5, replays=2)
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+    fps_of = {"parent": lambda xyz, valid, k: libs["parent"].farthest_point_sample(
+        xyz.float().contiguous(), valid.contiguous(), k), "change": pointnet2.farthest_point_sample}
+    for name in ("pvrcnn", "pvrcnnpp"):
+        cfg = cs.zoo_config(name)
+        batch = cs.flagship_batch(cfg)
+        model = cs.build_network(cs.bench.ZOO[name][1], cfg, device=dev, seed=0)
+        row, dets = {"model": name}, {}
+        for label in TURNS:
+            with mock.patch.object(pvrcnn, "farthest_point_sample", fps_of[label]):
+                model.serve(batch)  # warm-up
+                if label not in dets:
+                    dets[label] = {k: v.clone() for k, v in model.serve(batch).items()}
+                row.setdefault(f"{label}_frame_device_ms", []).append(
+                    cs.profiled_device_ms(lambda: model.serve(batch)))
+        row["detections_equal"] = all(torch.equal(v, dets["change"][k])
+                                      for k, v in dets["parent"].items())
+        ok = ok and row["detections_equal"]
+        del model
+        torch.cuda.empty_cache()
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, ok
+
+
 PARTS = {"sass": compare_sass, "nms": compare_nms, "reduce": compare_reduce,
-         "frames": compare_frames, "w8a8": compare_w8a8, "depth_bwd": compare_depth}
+         "frames": compare_frames, "w8a8": compare_w8a8, "depth_bwd": compare_depth,
+         "fps": compare_fps}
 
 
 def main(argv=None) -> int:

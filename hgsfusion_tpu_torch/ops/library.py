@@ -26,7 +26,7 @@ shape and dtype, all ``torch.export`` needs to trace it):
   the scale ax (``csrc/conv_int8.cu``);
 - ``hgsfusion::farthest_point_sample(xyz, valid, k) -> idx``: masked
   farthest-point sampling of a batch of point sets, PV-RCNN's keypoints
-  (``csrc/fps.cu``, one block a frame).
+  (``csrc/fps.cu``, a cluster of blocks a frame, ``fps_plan``).
 
 So a frame served through these ops traces into one graph, with NMS inside
 it and nothing read back to the host, which ``torch.export`` writes out
@@ -90,6 +90,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _K_SLICE_TOO_LARGE = -1
 # candidates of one NMS mask tile (one 64-bit word)
 NMS_TILE = 64
+# csrc/fps.cu's THREADS, its largest points a thread (the instantiations of
+# fps_kernel) and MAX_CLUSTER: a block's threads, the points a thread keeps,
+# the blocks of a frame's cluster
+FPS_THREADS = 128
+FPS_MAX_PTS = 32
+FPS_MAX_CLUSTER = 16
+FPS_MAX_POINTS = FPS_MAX_CLUSTER * FPS_THREADS * FPS_MAX_PTS
+# the points a block of the FPS kernel takes where the cluster is not full
+FPS_BLOCK_POINTS = 2048
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _PP, _PI = (ctypes.POINTER(t) for t in (_P, _I))
@@ -131,8 +140,8 @@ _ENTRIES = {
     DEPTH_BWD_KERNEL: ("quad_sample_depth",
                        [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I, _I, _I,
                         _I, _I, _P, _I, _P]),
-    # xyz, valid, b, n, k, out, stream
-    FPS: ("fps", [_P, _P, _I, _I, _I, _P, _P]),
+    # xyz, valid, b, n, k, cluster, pts, out, stream
+    FPS: ("fps", [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
 }
 
 
@@ -540,13 +549,22 @@ def nms_lazy(boxes, valid, nms_thresh: float, max_keep: int):
     return nms_sweep(nms_mask(boxes, valid, nms_thresh), valid, max_keep)
 
 
-@functools.cache
-def fps_max_points() -> int:
-    """The most points a frame may hold for ``csrc/fps.cu`` (one block keeps
-    them all)."""
-    fn = native.load("fps").fps_max_points
-    fn.restype = ctypes.c_int
-    return fn()
+def fps_plan(n: int, threads: int = FPS_THREADS,
+             block_points: int = FPS_BLOCK_POINTS) -> tuple[int, int]:
+    """(cluster, pts): the FPS kernel's blocks a frame of ``n`` points and the
+    points a thread keeps (a power of 2), each block a contiguous slice of
+    ``threads * pts`` points, the last one partly filled. The cluster aims at
+    ``block_points`` a block and is at most ``FPS_MAX_CLUSTER`` blocks; past
+    that each thread keeps more points. Raises above what the largest
+    cluster holds (``FPS_MAX_POINTS`` at ``FPS_THREADS``)."""
+    cluster = min(FPS_MAX_CLUSTER, -(-n // block_points))
+    pts = 1
+    while cluster * threads * pts < n:
+        pts *= 2
+    if pts > FPS_MAX_PTS:
+        raise ValueError(f"{FPS}: {n} points a frame, a cluster of the kernel holds at most "
+                         f"{FPS_MAX_CLUSTER * threads * FPS_MAX_PTS}")
+    return -(-n // (threads * pts)), pts
 
 
 def check_fps(xyz, valid, k: int):
@@ -567,13 +585,13 @@ def check_fps(xyz, valid, k: int):
 def farthest_point_sample(xyz, valid, k: int):
     """Launch ``csrc/fps.cu``: ``xyz`` (B, N, 3) f32 and ``valid`` (B, N)
     bool, contiguous on the card -> (B, k) int64, each frame's indices in
-    selection order (one block a frame, one launch a batch): index 0 first,
-    then the valid point farthest from those chosen, ties to the lower
-    index; invalid points only where the valid ones run out at distance 0
-    before them (index 0 where none is valid). Equal to
-    ``pointnet2.farthest_point_sample_plain``. Raises for N above
-    ``fps_max_points()`` (16,384: a frame's points and their running
-    minima stay in one block's shared memory and registers)."""
+    selection order (a cluster of blocks a frame, ``fps_plan``; one launch
+    a batch): index 0 first, then the valid point farthest from those
+    chosen, ties to the lower index; invalid points only where the valid
+    ones run out at distance 0 before them (index 0 where none is valid).
+    Equal to ``pointnet2.farthest_point_sample_plain``. Raises for N above
+    ``FPS_MAX_POINTS`` (65,536: a frame's points and their running minima
+    stay in the registers of a cluster of 16 blocks)."""
     check_fps(xyz, valid, k)
     for t in (xyz, valid):
         if t.device.type != "cuda":
@@ -581,12 +599,10 @@ def farthest_point_sample(xyz, valid, k: int):
         if not t.is_contiguous():
             raise ValueError(f"{FPS}: its tensors must be contiguous")
     b, n = valid.shape
-    limit = fps_max_points()
-    if n > limit:
-        raise ValueError(f"{FPS}: {n} points a frame, one block of the kernel holds at most "
-                         f"{limit}")
+    cluster, pts = fps_plan(n)
     out = torch.empty((b, k), dtype=torch.int64, device=xyz.device)
-    err = entry(FPS)(xyz.data_ptr(), valid.data_ptr(), b, n, k, out.data_ptr(), stream_of(xyz))
+    err = entry(FPS)(xyz.data_ptr(), valid.data_ptr(), b, n, k, cluster, pts, out.data_ptr(),
+                     stream_of(xyz))
     if err != 0:
         raise RuntimeError(f"{FPS} launch failed: cudaError {err}")
     launches[FPS] += 1

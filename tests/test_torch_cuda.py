@@ -1082,10 +1082,21 @@ def test_multihead_post_process_stacks_its_sets_into_one_nms(cuda):
 
 
 # FPS cases: (B, N, k, what): point 0 invalid, k above the valid points,
-# none valid, exact ties, N = 1, the shared-memory variant (N > 8,192), k = 0
+# none valid, exact ties, N = 1, N not a multiple of a block's 2,048 points
+# (a cluster of 5, the last block ragged; named for the shared-memory variant
+# of the one-block kernel it first tested), k = 0, exact ties whose equal
+# points sit in every block of a cluster of 4, the only valid points at the
+# highest indices, B=3 at 8,192 points, 32,768 (a cluster of 16) and the
+# largest frame (16 blocks of 4,096 points)
 FPS_CASES = [(3, 300, 64, "point0_invalid"), (2, 500, 400, "short"), (1, 200, 10, "none_valid"),
              (2, 640, 100, "ties"), (1, 1, 5, "single"), (1, 9000, 256, "shared_xyz"),
-             (2, 100, 0, "k0")]
+             (2, 100, 0, "k0"), (2, 8192, 200, "ties_across_blocks"),
+             (1, 8192, 64, "valid_at_end"), (3, 8192, 128, "b3"), (1, 32768, 128, "cluster16"),
+             (1, library.FPS_MAX_POINTS, 64, "limit")]
+# (N, cluster, pts) launched through the C entry with a plan of its own:
+# fewer points than blocks (the later blocks empty), two points a thread
+# over 16 blocks, a frame on two blocks of 4,096 points
+FPS_FORCED_PLANS = [(5, 8, 1), (3000, 16, 2), (8192, 2, 32)]
 
 
 @pytest.mark.cuda
@@ -1106,12 +1117,38 @@ def test_fps_kernel_equals_plain(cuda, b, n, k, what):
         valid[:] = False
     elif what == "ties":
         xyz = xyz[:, :64].repeat(1, 10, 1)[:, torch.randperm(n, generator=g)]
+    elif what == "ties_across_blocks":
+        xyz = xyz[:, :64].repeat(1, n // 64, 1)
+    elif what == "valid_at_end":
+        valid[:, :n - 100] = False
     xyz, valid = xyz.to(cuda).contiguous(), valid.to(cuda)
     before = library.launches[library.FPS]
     got = pointnet2.farthest_point_sample(xyz, valid, k)
     assert library.launches[library.FPS] == before + 1
     assert got.shape == (b, k) and got.dtype == torch.int64
     assert torch.equal(got, pointnet2.farthest_point_sample_plain(xyz, valid, k))
-    with pytest.raises(ValueError, match="at most 16384"):
-        library.farthest_point_sample(torch.zeros((1, 16385, 3), device=cuda),
-                                      torch.ones((1, 16385), dtype=torch.bool, device=cuda), 4)
+    over = library.FPS_MAX_POINTS + 1
+    with pytest.raises(ValueError, match=f"at most {library.FPS_MAX_POINTS}"):
+        library.farthest_point_sample(torch.zeros((1, over, 3), device=cuda),
+                                      torch.ones((1, over), dtype=torch.bool, device=cuda), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cluster,pts", FPS_FORCED_PLANS)
+def test_fps_kernel_forced_plans(cuda, n, cluster, pts):
+    """The FPS kernel's C entry under a cluster size and points a thread
+    that ``fps_plan`` would not pick, the plain loop's indices exactly; a
+    plan that does not cover the frame refused."""
+    from hgsfusion_tpu_torch.ops import pointnet2
+    g = torch.Generator().manual_seed(n)
+    xyz = (torch.rand((2, n, 3), generator=g) * 40 - 20).to(cuda)
+    valid = (torch.rand((2, n), generator=g) > 0.2).to(cuda)
+    k = min(n + 3, 100)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((2, k), dtype=torch.int64, device=cuda)
+    fps = library.entry(library.FPS)
+    assert fps(xyz.data_ptr(), valid.data_ptr(), 2, n, k, cluster, pts, out.data_ptr(),
+               stream) == 0
+    assert torch.equal(out, pointnet2.farthest_point_sample_plain(xyz, valid, k))
+    assert fps(xyz.data_ptr(), valid.data_ptr(), 2, n, k, cluster, pts // 2 if pts > 1 else 3,
+               out.data_ptr(), stream) != 0

@@ -47,6 +47,7 @@ from hgsfusion_tpu_torch.config import load_config, model_config_from_yaml
 from hgsfusion_tpu_torch.models import pvrcnn as pv
 from hgsfusion_tpu_torch.models.detector import PVRCNNModel, PVRCNNPlusPlusModel
 from hgsfusion_tpu_torch.models.registry import build_network, yaml_network_class
+from hgsfusion_tpu_torch.ops import library
 from hgsfusion_tpu_torch.ops import pointnet2 as pn
 from hgsfusion_tpu_torch.train.trainer import make_train_step_for_cfg
 from hgsfusion_tpu_torch.weights import from_jax_variables
@@ -133,6 +134,70 @@ def test_farthest_point_sample_equals_jax(case):
     np.testing.assert_array_equal(pn.farthest_point_sample_plain(t(xyz), t(valid), k).numpy(),
                                   ref)
     assert (got[:, 0] == 0).all()
+
+
+# frame sizes across fps_plan's thresholds: one block, a cluster of 2, of
+# 4 and 8, the full cluster of 16 at 16 points a thread, then 32
+PLAN_SIZES = (1, 700, 2048, 2049, 8192, 16384, 32768, 32769, library.FPS_MAX_POINTS)
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_fps_plan_covers_the_frame(n):
+    """The FPS kernel's plan: every point in one block of at most 16, no
+    block empty, a power of 2 of points a thread; 8,192 points on a cluster
+    of 4, 16,384 on 8; a frame above the limit refused."""
+    cluster, pts = library.fps_plan(n)
+    block = library.FPS_THREADS * pts
+    assert 1 <= cluster <= library.FPS_MAX_CLUSTER and pts in (1, 2, 4, 8, 16, 32)
+    assert (cluster - 1) * block < n <= cluster * block
+    assert library.fps_plan(8192) == (4, 16) and library.fps_plan(16384) == (8, 16)
+    with pytest.raises(ValueError, match=f"at most {library.FPS_MAX_POINTS}"):
+        library.fps_plan(library.FPS_MAX_POINTS + 1)
+
+
+def _fps_by_records(xyz, valid, k):
+    """``csrc/fps.cu``'s selection under ``fps_plan`` in PyTorch: each
+    warp's record (the largest 32-bit key, bits(d) + 1 for d >= 0 and 0
+    else, then the lowest index of its 32 * pts points), then the records'
+    largest key, then the lowest slot; the frame padded to the cluster's
+    points with -inf."""
+    b, n = valid.shape
+    cluster, pts = library.fps_plan(n)
+    pad = cluster * library.FPS_THREADS * pts - n
+    xyz = torch.nn.functional.pad(xyz, (0, 0, 0, pad))
+    dist = torch.nn.functional.pad(torch.where(valid, 1e10, -1.0), (0, pad), value=-np.inf)
+    rows = torch.arange(b)
+    idx = torch.zeros((b, k), dtype=torch.int64)
+    last = xyz[:, 0]
+    for i in range(1, k):
+        d = xyz - last[:, None]
+        dist = torch.minimum(dist, (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+                             + d[..., 2] * d[..., 2])
+        key = torch.where(dist >= 0, dist.view(torch.int32).long() + 1, 0).view(b, -1, 32 * pts)
+        lane = key.argmax(-1)
+        slot = key.gather(-1, lane[..., None])[..., 0].argmax(-1)
+        idx[:, i] = slot * 32 * pts + lane[rows, slot]
+        last = xyz[rows, idx[:, i]]
+    return idx
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES[1:-1])
+def test_fps_records_equal_jax(n):
+    """The kernel's two-level selection (warp records, then the cluster's
+    slots) over ``fps_plan``'s blocks gives JAX's indices at frame sizes
+    across its thresholds: a third of the points invalid, point 0 among
+    them, exact duplicates in different blocks, more keypoints than the 10
+    valid points of the second frame."""
+    rng = np.random.RandomState(n)
+    xyz = np.repeat(rng.uniform(-20, 20, (2, -(-n // 4), 3)), 4, axis=1)[:, :n].astype(np.float32)
+    xyz = xyz[:, rng.permutation(n)]
+    valid = rng.rand(2, n) > 0.33
+    valid[0, 0] = False
+    valid[1] = False
+    valid[1, rng.choice(n, min(n, 10), replace=False)] = True
+    k = 24
+    ref = np.asarray(_jax_fps(k)(xyz, valid))
+    np.testing.assert_array_equal(_fps_by_records(t(xyz), t(valid), k).numpy(), ref)
 
 
 def test_chunked_dense_ball_query_equals_one_chunk():
