@@ -383,8 +383,8 @@ and launches of what ran):
 64. focal backbone: VoxelBackBone8xFocal beside VoxelBackBone8x in eval
     mode at full width (device ms, the focal layers' active sites);
 65. small reference, two-stage: the focal SECOND, SECOND-IoU, Voxel R-CNN,
-    PV-RCNN and PV-RCNN++ cut to TINY (``tiny_twostage``), card vs CPU: RPN maps within
-    1e-4 (the focal importances spread by ``spread_importances`` and
+    PV-RCNN, PV-RCNN++ and Part-A2 cut to TINY (``tiny_twostage``), card vs
+    CPU: RPN maps within 1e-4 (the focal importances spread by ``spread_importances`` and
     checked tie-free by ``focal_premise``), the proposals of the CPU's
     ramped RPN maps equal on both devices, the second stage on them
     within 1e-4 (the keypoints equal), the post-processing equal (1 or 2
@@ -409,7 +409,16 @@ and launches of what ran):
     and the RoI-grid pool timed alone) and ``bench``; trained at B=1 as 60
     (1 NMS and 1 FPS a step; the gather backward's device ms); PV-RCNN
     through the CLIs and exported as 66 (1 + 1 a step, 2 + 1 a frame, the
-    serving host equal to ``serve``).
+    serving host equal to ``serve``);
+69. Part-A2 (``configs/parta2_vod.yaml``): in 65 at TINY (its point head
+    and second stage within 1e-4, its two RoI-aware pools on the CPU's
+    inputs: the max bit for bit, the mean within f32 rounding); served at
+    full width as 59 (2 NMS calls a frame; the UNet decoder, the points'
+    features, the point head, the pools' cells, the max and mean pools and
+    the RoI head timed alone) and ``bench``; trained at B=1 as 60 (1 NMS
+    call a step; the max pool's forward and backward timed on
+    ``parta2_pool_inputs``, the decoder's tap products); through the CLIs
+    and exported as 66.
 
 4c also holds the NMS kernels to the multi-head regime: 10 and 40 sets
 (a frame, and B=4) of 1,000 nuScenes-sized candidates at IoU 0.2, 83 kept;
@@ -418,7 +427,7 @@ two-stage families' (``twostage``).
 
 The ``kernels`` line counts each kernel's launches over the main paths
 (``MAIN_PATHS``: 7, 8, 12, 13, 15, 16, 18's three runs, 20, 22-25, 25a's
-serving host runs, 27, 28-31, 33-36, 39-44, 46-49, 52-56, 59-61, 66 and 68,
+serving host runs, 27, 28-31, 33-36, 39-44, 46-49, 52-56, 59-61, 66, 68 and 69,
 the ranks' launches summed),
 each path's count taken with the counters at 0 just before it; the
 forward's row also carries ``route_ms``, its autograd entry's time. The last lines are the
@@ -459,7 +468,7 @@ from hgsfusion_tpu_torch.datasets import build_dataset
 from hgsfusion_tpu_torch.datasets.synthetic import (make_calib, make_synthetic_kitti,
                                                     make_synthetic_tj4d)
 from hgsfusion_tpu_torch.models.anchors import TargetAssigner
-from hgsfusion_tpu_torch.models.detector import (BEVFusionModel, HGSFusionModel,
+from hgsfusion_tpu_torch.models.detector import (BEVFusionModel, HGSFusionModel, PartA2Model,
                                                  multihead_candidate_sets, post_process)
 from hgsfusion_tpu_torch.models.layers import MaskedBatchNorm
 from hgsfusion_tpu_torch.models.registry import build_network
@@ -469,7 +478,9 @@ from hgsfusion_tpu_torch.models.polar_f2v import polar_geometry
 from hgsfusion_tpu_torch.models.resnet import ResNetDeepLabBackbone, preprocess_images
 from hgsfusion_tpu_torch.models.transfusion_head import TransFusionHead
 from hgsfusion_tpu_torch.models.pvrcnn import roi_grid_points, stage_point_set
-from hgsfusion_tpu_torch.models.voxel_backbone import SparseConv3d, height_compression, mean_vfe
+from hgsfusion_tpu_torch.ops.roiaware_pool import pool_cells, roiaware_cells
+from hgsfusion_tpu_torch.models.voxel_backbone import (SparseConv3d, height_compression, mean_vfe,
+                                                       points_to_voxel_ids)
 from hgsfusion_tpu_torch.ops import (conv_int8, depth_sample, library, nms, pointnet2,
                                      quad_sample, row_scatter)
 from hgsfusion_tpu_torch.ops.grid_sample import (div_exact, quad_sample_bwd_plain,
@@ -1779,7 +1790,8 @@ MAIN_PATHS = ("serve", "train", "serve_polar", "train_polar", "eval", "eval_pola
               "train_cli_second", "serve_second_focal", "serve_second_iou", "serve_voxelrcnn",
               "train_second_focal", "train_second_iou", "train_voxelrcnn",
               "train_cli_voxelrcnn", "train_cli_second_iou", "serve_pvrcnn", "serve_pvrcnnpp",
-              "train_pvrcnn", "train_pvrcnnpp", "train_cli_pvrcnn")
+              "train_pvrcnn", "train_pvrcnnpp", "train_cli_pvrcnn", "serve_parta2",
+              "train_parta2", "train_cli_parta2")
 
 
 def per_frames(per_frame: dict, frames: int) -> dict:
@@ -2123,18 +2135,31 @@ for argv in json.loads(sys.argv[1]):
 REPO = Path(__file__).resolve().parent
 
 
-def run_serving_host(artifact, inputs, out_dir, timeout: int = 600, env=None):
-    """``tools/serve.py`` in a subprocess that blocks the model code and
-    JAX (``env``: its environment, default this one's); returns its JSON
-    summary (its last line) and the detections, by input stem."""
-    proc = subprocess.run([sys.executable, "-c", SERVE_GUARD, "--artifact", str(artifact),
-                           "--inputs", str(inputs), "--out_dir", str(out_dir), "--time"],
-                          capture_output=True, text=True, timeout=timeout, cwd=REPO, env=env)
+def start_serving_host_run(artifact, inputs, out_dir, env=None):
+    """``tools/serve.py`` started in a subprocess that blocks the model code
+    and JAX (``env``: its environment, default this one's), to be finished
+    by ``run_serving_host``."""
+    return subprocess.Popen([sys.executable, "-c", SERVE_GUARD, "--artifact", str(artifact),
+                             "--inputs", str(inputs), "--out_dir", str(out_dir), "--time"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO, env=env)
+
+
+def run_serving_host(artifact, inputs, out_dir, timeout: int = 600, env=None, proc=None):
+    """A serving-host run (``proc``, from ``start_serving_host_run`` with
+    these arguments; else started now) waited for: its JSON summary (its
+    last line) and the detections, by input stem."""
+    proc = proc or start_serving_host_run(artifact, inputs, out_dir, env)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     if proc.returncode != 0:
-        raise AssertionError(f"the serving host failed:\n{proc.stdout[-2000:]}"
-                             f"{proc.stderr[-4000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    summary["stdout"] = proc.stdout.strip().splitlines()[:-1]
+        raise AssertionError(f"the serving host failed:\n{stdout[-2000:]}{stderr[-4000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    summary["stdout"] = stdout.strip().splitlines()[:-1]
     dets = {}
     for path in sorted(Path(out_dir).glob("*_dets.npz")):
         with np.load(path) as d:
@@ -4648,6 +4673,7 @@ def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3, per_step=None)
         raise AssertionError(f"the training step made the host wait for the device at {syncs}")
     # the grouped features' gather backward (a sort-based index_put)
     profiled = profiled_top(lambda: step(b), match=("indexing_backward",))
+    parta2 = parta2_train_ms(model, b) if isinstance(model, PartA2Model) else None
     result = {"steps": steps, "batch": int(b["points"].shape[0]), "launches": launches,
               "step_stream_ms": device_ms, "profiled_step_device_ms": profiled["device_ms"],
               "profiled_step_top": profiled["top"], "peak_memory_bytes": peak,
@@ -4656,6 +4682,8 @@ def phase_train_zoo(dev, family: str, cfg, batch, steps: int = 3, per_step=None)
               "warmup_loss_terms": {k: float(v) for k, v in warm.items()},
               "conv3d_tap_products": conv3d_taps(model), "trainable_tensors": len(before),
               "moved": len(moving)}
+    if parta2 is not None:
+        result["parta2"] = parta2
     print("  " + json.dumps(result))
     return result
 
@@ -4992,7 +5020,11 @@ def phase_serve_family(dev, name: str, cfg, batch, per_frame: dict, frames: int 
             torch.isfinite(dets["boxes"]).all() and torch.isfinite(dets["scores"]).all()):
         raise AssertionError(f"detections {dets['boxes'].shape}, want {rows} rows, finite")
     profiled = profiled_top(lambda: model.serve(batch))
-    stages = pv_stage_ms(model, model.batch_to_device(batch)) if hasattr(model, "pfe") else None
+    stages = None
+    if hasattr(model, "pfe"):
+        stages = pv_stage_ms(model, model.batch_to_device(batch))
+    elif isinstance(model, PartA2Model):
+        stages = parta2_stage_ms(model, model.batch_to_device(batch))
     del model
     torch.cuda.empty_cache()
     result = {"frames": frames, "launches": launches, "frame_stream_ms": stream_ms,
@@ -5343,7 +5375,7 @@ def phase_small_reference_center(dev):
 
 # ---- the focal SECOND, SECOND-IoU and Voxel R-CNN ---------------------------
 # the VoD configs (f32) by their ``bench.ZOO`` names
-TWOSTAGE_ZOO = ("second_focal", "second_iou", "voxelrcnn", "pvrcnn", "pvrcnnpp")
+TWOSTAGE_ZOO = ("second_focal", "second_iou", "voxelrcnn", "pvrcnn", "pvrcnnpp", "parta2")
 NMS_TWICE = {library.NMS_MASK: 2, library.NMS_SWEEP: 2}
 # NMS calls a served frame (the two-stage families: the proposals' and the
 # detections') and a training step (the proposals'); PV-RCNN's and
@@ -5351,9 +5383,9 @@ NMS_TWICE = {library.NMS_MASK: 2, library.NMS_SWEEP: 2}
 PV_FRAME = {**NMS_TWICE, library.FPS: 1}
 PV_STEP = {**NMS_CALL, library.FPS: 1}
 TWOSTAGE_FRAME = {"second_focal": NMS_CALL, "second_iou": NMS_TWICE, "voxelrcnn": NMS_TWICE,
-                  "pvrcnn": PV_FRAME, "pvrcnnpp": PV_FRAME}
+                  "pvrcnn": PV_FRAME, "pvrcnnpp": PV_FRAME, "parta2": NMS_TWICE}
 TWOSTAGE_STEP = {"second_focal": {}, "second_iou": NMS_CALL, "voxelrcnn": NMS_CALL,
-                 "pvrcnn": PV_STEP, "pvrcnnpp": PV_STEP}
+                 "pvrcnn": PV_STEP, "pvrcnnpp": PV_STEP, "parta2": NMS_CALL}
 # the proposal layer's NMS (top 512 at ROI_HEAD.NMS_THRESH_TRAIN 0.8, 128
 # kept) and SECOND-IoU's final one (its 128 proposals at 0.01, 500 slots)
 PROPOSAL_K, PROPOSAL_KEEP, PROPOSAL_THRESH = 512, 128, 0.8
@@ -5518,14 +5550,16 @@ def focal_premise(model, batch):
 
 
 def phase_small_reference_twostage(dev):
-    """The focal SECOND, SECOND-IoU, Voxel R-CNN, PV-RCNN and PV-RCNN++ cut to
-    TINY (``tiny_twostage``), card vs CPU, one set of weights, two frames: the
+    """The focal SECOND, SECOND-IoU, Voxel R-CNN, PV-RCNN, PV-RCNN++ and
+    Part-A2 cut to TINY (``tiny_twostage``), card vs CPU, one set of
+    weights, two frames: the
     RPN's maps within 1e-4 (the focal SECOND's importance heads scaled by
     ``spread_importances``, and its foreground the same on both:
     ``focal_premise``); the proposals of the CPU's RPN maps with a ramp
     added to the class scores (the tie rule) equal on both devices; the
     second stage on those proposals within 1e-4 (PV-RCNN's and PV-RCNN++'s
-    keypoints equal: the FPS kernel against its plain version); the
+    keypoints equal: the FPS kernel against its plain version; Part-A2's
+    RoI-aware pools on the CPU's inputs, ``compare_parta2_pools``); the
     post-processing of the CPU's outputs equal on both devices with one NMS
     call on the card (two with the proposals, and PV-RCNN's FPS); then one
     training step on the card: finite loss terms, one NMS call (the
@@ -5572,6 +5606,9 @@ def phase_small_reference_twostage(dev):
                                                    for k, v in c2.items()}
                 if "keypoints" in c2 and not torch.equal(g2["keypoints"].cpu(), c2["keypoints"]):
                     raise AssertionError(f"{name}: the card's keypoints differ from the CPU's")
+                if name == "parta2":
+                    row["pools"] = compare_parta2_pools(cpu_model, gpu_model, cb, c_stages,
+                                                        props[0], dev)
                 for k, v in c2.items():
                     torch.testing.assert_close(g2[k].cpu(), v, rtol=1e-4, atol=1e-4)
                 preds = {**ref, "rois": props[0], "roi_scores": props[1],
@@ -5727,6 +5764,121 @@ def pv_stage_ms(model, batch) -> dict:
                                         iters=5)}
 
 
+# ---- Part-A2 ----------------------------------------------------------------
+# configs/parta2_vod.yaml's proposals (ROI_HEAD.NUM_ROIS) and RoI-aware grid
+# (POOL_SIZE) at full width: 128 x 8,192 (RoI, point) pairs, 6^3 cells
+PARTA2_ROIS, PARTA2_POOL = 128, 6
+
+
+def parta2_pool_inputs(seed: int = 0):
+    """Part-A2's RoI-aware pool at full width on the CPU: the flagship
+    batch's 8,192 points over configs/parta2_vod.yaml's range, 128 rotated
+    RoIs (its gt boxes, jittered, then boxes of the anchors' sizes anywhere
+    in the range), 16 point features as the decoder gives them (a ReLU's
+    zeros, every point of one stride-1 voxel the same row: ties) and the 4
+    part features (parts zeroed under a score of 0.3, the score).
+    Returns (rois (1, R, 7), xyz (1, N, 3), valid (1, N), feats (1, N,
+    16), part_feats (1, N, 4))."""
+    cfg = zoo_config("parta2")
+    batch = flagship_batch(cfg)
+    rng = np.random.RandomState(seed)
+    gt = batch["gt_boxes"][0]
+    gt = gt[gt[:, -1] > 0, :7]
+    near = np.repeat(gt, 8, axis=0)
+    near[:, :3] += rng.normal(0, 0.3, near[:, :3].shape)
+    near[:, 3:6] *= rng.uniform(0.8, 1.2, near[:, 3:6].shape)
+    near[:, 6] += rng.normal(0, 0.3, len(near))
+    n_far = PARTA2_ROIS - len(near)
+    pr = cfg.pc_range
+    far = np.concatenate([rng.uniform(pr[0], pr[3], (n_far, 1)), rng.uniform(pr[1], pr[4], (
+        n_far, 1)), rng.uniform(-2, 0, (n_far, 1)), gt[rng.randint(len(gt), size=n_far), 3:6]
+        * rng.uniform(0.8, 2.0, (n_far, 3)), rng.uniform(-np.pi, np.pi, (n_far, 1))], axis=1)
+    rois = torch.from_numpy(np.concatenate([near, far])[None].astype(np.float32))
+    xyz = torch.from_numpy(np.ascontiguousarray(batch["points"][..., :3]))
+    valid = torch.from_numpy(batch["points_valid"])
+    ids, _ = points_to_voxel_ids(xyz, valid, cfg.pc_range, cfg.voxel_size, cfg.grid_size)
+    table = torch.relu(torch.from_numpy(rng.randn(int(ids.max()) + 1, 16).astype(np.float32)))
+    scores = torch.from_numpy(rng.rand(1, xyz.shape[1]).astype(np.float32))[..., None]
+    parts = torch.from_numpy(rng.rand(1, xyz.shape[1], 3).astype(np.float32))
+    part_feats = torch.cat([torch.where(scores >= 0.3, parts, 0.0), scores], dim=-1)
+    return rois, xyz, valid, table[ids], part_feats
+
+
+def compare_parta2_pools(cpu_model, gpu_model, batch, stages, rois, dev) -> dict:
+    """Part-A2's two RoI-aware pools on the card against the CPU on the
+    CPU's inputs (its point features, scores and parts, the proposals):
+    the max pool bit for bit, the mean within f32 rounding (1e-6 of the
+    largest; the sums' order differs)."""
+    xyz, valid = batch["points"][..., :3], batch["points_valid"]
+    feats = cpu_model.point_features(batch, stages)
+    seg, part = cpu_model.point_head(feats)
+    args = (rois, xyz, valid, feats, torch.sigmoid(seg).amax(-1), torch.sigmoid(part))
+    ref = cpu_model.roi_head.pools(*args)
+    got = gpu_model.roi_head.pools(*(a.to(dev) for a in args))
+    avg_err = float((got[0].cpu() - ref[0]).abs().max())
+    if not torch.equal(got[1].cpu(), ref[1]):
+        raise AssertionError("parta2: the card's max pool differs from the CPU's")
+    if avg_err > 1e-6 * max(float(ref[0].abs().max()), 1e-6):
+        raise AssertionError(f"parta2: the card's mean pool is {avg_err} off the CPU's")
+    return {"max_equal": True, "avg_max_abs_err": avg_err,
+            "filled_cells": int((ref[0] != 0).any(-1).sum())}
+
+
+def parta2_stage_ms(model, batch) -> dict:
+    """Part-A2's own stages alone at full width (CUDA events, 5 calls each,
+    eval mode): the UNet decoder (with its convolutions' GFLOP), the points'
+    gather of its stride-1 features, the point part head, the RoI-aware
+    cells of every (RoI, point) pair, the max pool of the 16 point features,
+    the mean pool of the 4 part features, and the whole RoI head (both
+    pools, the conv stacks, the FCs); the pairs inside a RoI."""
+    with torch.inference_mode():
+        x3d, stages, _ = model.voxel_features(batch)
+        rois = model.rpn_proposals(model.dense_head(model.backbone_2d(
+            height_compression(x3d))))[0]
+        feats = model.point_features(batch, stages)
+        seg, part = model.point_head(feats)
+        scores, parts = torch.sigmoid(seg).amax(-1), torch.sigmoid(part)
+        xyz, valid = batch["points"][..., :3], batch["points_valid"]
+        head, o = model.roi_head, model.roi_head.pool_size
+        cells = roiaware_cells(rois, xyz, valid, o)
+        part_feats = torch.cat([parts, scores[..., None]], dim=-1)
+        flops = 0  # each level's two convolutions at its skip stage's sites
+        for skip, _, name in model.unet_decoder.PLAN:
+            for part in "ab":
+                w = getattr(model.unet_decoder, f"{name}_{part}")[0].weight
+                flops += 2 * stages[skip][0][..., 0].numel() * w.numel()
+        return {"decoder_ms": cuda_ms(lambda: model.unet_decoder(stages), iters=5),
+                "decoder_gflop": flops / 1e9,
+                "point_features_ms": cuda_ms(lambda: model.point_features(batch, stages), iters=5),
+                "point_head_ms": cuda_ms(lambda: model.point_head(feats), iters=5),
+                "pool_cells_ms": cuda_ms(lambda: roiaware_cells(rois, xyz, valid, o), iters=5),
+                "max_pool_ms": cuda_ms(lambda: pool_cells(cells, feats, o, "max"), iters=5),
+                "avg_pool_ms": cuda_ms(lambda: pool_cells(cells, part_feats, o, "avg"), iters=5),
+                "roi_head_ms": cuda_ms(lambda: head(rois, xyz, valid, feats, scores, parts),
+                                       iters=5),
+                "pairs": int(cells.numel()), "inside_pairs": int((cells < o ** 3).sum())}
+
+
+def parta2_train_ms(model, batch) -> dict:
+    """Part-A2's RoI-aware max pool in training at full width: its forward
+    and its backward (the ties' counts and the split cotangent) on the
+    ``parta2_pool_inputs`` pairs (CUDA events, 5 calls); the decoder's
+    weight-gradient tap products a step."""
+    rois, xyz, valid, feats, _ = (a.to(batch["points"].device) for a in parta2_pool_inputs())
+    cells = roiaware_cells(rois, xyz, valid, PARTA2_POOL)
+    x = feats.requires_grad_()
+    ct = torch.randn((1, PARTA2_ROIS) + (PARTA2_POOL,) * 3 + (16,), device=x.device)
+
+    def fwd_bwd():
+        pool_cells(cells, x, PARTA2_POOL, "max").backward(ct)
+        x.grad = None
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: pool_cells(cells, feats, PARTA2_POOL, "max"), iters=5)
+    return {"max_pool_ms": fwd, "max_pool_fwd_bwd_ms": cuda_ms(fwd_bwd, iters=5),
+            "decoder_tap_products": conv3d_taps(model.unet_decoder)}
+
+
 def phases(dev) -> list:
     """Every phase after card and build, in order: (name, function, args)."""
     def full(name, fn, *a):  # a phase after which the allocator's cache is emptied
@@ -5845,7 +5997,7 @@ def phases(dev) -> list:
         step("small_reference_twostage", phase_small_reference_twostage, dev),
         step("fps", phase_fps, dev),
     ]
-    for name in ("voxelrcnn", "second_iou", "pvrcnn"):
+    for name in ("voxelrcnn", "second_iou", "pvrcnn", "parta2"):
         out.append(full(f"train_cli_{name}", phase_train_cli_family, dev, bench.ZOO[name][0],
                         TWOSTAGE_STEP[name], TWOSTAGE_FRAME[name], f"export_{name}"))
     # the CLI exports' artifacts served while the two-stage paths run
@@ -5883,7 +6035,8 @@ def main(argv=None) -> int:
                   f"{[name for name, *_ in plan]}", file=sys.stderr)
             return 2
         if any(p.startswith("export_serve") or p in ("train_cli_radar", "train_cli_voxelrcnn",
-                                                     "train_cli_second_iou", "train_cli_pvrcnn")
+                                                     "train_cli_second_iou", "train_cli_pvrcnn",
+                                                     "train_cli_parta2")
                for p in wanted):
             wanted.append("serving_host")  # the exported artifacts are served there
         plan = [p for p in plan if p[0] in wanted]

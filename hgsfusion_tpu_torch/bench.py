@@ -4,7 +4,7 @@ counterpart of the repository's ``bench.py``).
     python -m hgsfusion_tpu_torch.bench [--<name>] [--batch N] [--realistic]
     python -m hgsfusion_tpu_torch.bench --bevfusion | --transfusion | --centerpoint |
         --centerpoint_res2d | --second | --second_focal | --second_iou | --voxelrcnn |
-        --pvrcnn | --pvrcnnpp | --voxelnext | --voxelnext2d [--batch N]
+        --pvrcnn | --pvrcnnpp | --parta2 | --voxelnext | --voxelnext2d [--batch N]
 
 Frames/s of the whole served pipeline (image backbone, view transform,
 radar branch, fusion, anchor head, box decode and rotated NMS) through
@@ -67,6 +67,7 @@ ZOO = {"bevfusion": ("configs/bevfusion_vod.yaml", "BEVFusion"),
        "voxelrcnn": ("configs/voxelrcnn_vod.yaml", "VoxelRCNN"),
        "pvrcnn": ("configs/pvrcnn_vod.yaml", "PVRCNN"),
        "pvrcnnpp": ("configs/pvrcnnpp_vod.yaml", "PVRCNNPlusPlus"),
+       "parta2": ("configs/parta2_vod.yaml", "PartA2Net"),
        "voxelnext": ("configs/voxelnext_vod.yaml", "VoxelNeXt"),
        "voxelnext2d": ("configs/voxelnext2d_vod.yaml", "VoxelNeXt")}
 

@@ -178,6 +178,9 @@ class HGSFusionConfig:
     pv_nms_thresh: float = 0.8
     iou_grid_size: int = 7
     iou_score_type: str = "iou"
+    # Part-A2's RoI-aware pool (ROI_HEAD.POOL_SIZE; the reference pools at
+    # 12). ROI_AWARE_POOL is not read, nor its MAX_POINTS_PER_VOXEL cap, as in JAX
+    parta2_pool_size: int = 6
     bev_v1_layer_nums: Tuple[int, ...] = (5, 5)
     bev_v1_num_filters: Tuple[int, ...] = (256, 256)
     bev_v1_upsample_strides: Tuple[int, ...] = (1, 2)
@@ -500,6 +503,7 @@ def model_config_from_yaml(cfg: dict) -> HGSFusionConfig:
         pv_nms_thresh=model.get("ROI_HEAD", {}).get("NMS_THRESH_TRAIN", 0.8),
         iou_grid_size=model.get("ROI_HEAD", {}).get("GRID_SIZE_2D", 7),
         iou_score_type=post.get("SCORE_TYPE", "iou"),
+        parta2_pool_size=model.get("ROI_HEAD", {}).get("POOL_SIZE", 6),
         bev_v1_layer_nums=tuple(backbone_2d.get("LAYER_NUMS", (5, 5))),
         bev_v1_num_filters=tuple(backbone_2d.get("NUM_FILTERS", (256, 256))),
         bev_v1_upsample_strides=tuple(backbone_2d.get("UPSAMPLE_STRIDES", (1, 2))),

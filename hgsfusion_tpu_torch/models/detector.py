@@ -1,14 +1,14 @@
 """Detectors: HGSFusion (camera + radar branches, DSM fusion, anchor head),
 the radar-only detector, the PointPillar families, BEVFusion,
 TransFusion-L, CenterPoint, SECOND (and the focal SECOND), SECOND-IoU,
-Voxel R-CNN, PV-RCNN, PV-RCNN++ and VoxelNeXt; post-processing.
+Voxel R-CNN, PV-RCNN, PV-RCNN++, Part-A2 and VoxelNeXt; post-processing.
 
 Counterpart of ``hgsfusion_tpu/models/detector.py`` (HGSFusionModel with
 ``f2v_view="gather"`` under either ``f2v_sampler_kernel``, or
 ``f2v_view="polar"``; RadarOnlyModel, PointPillarModel,
 PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
 CenterPointModel, SECONDModel, _RPNProposals, VoxelRCNNModel,
-SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel, VoxelNeXtModel;
+SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel, PartA2Model, VoxelNeXtModel;
 post_process, post_process_multihead)
 and of the JAX package's ``train/trainer.py::make_center_eval_step``
 (``center_post_process``), ``make_pvrcnn_eval_step``
@@ -68,6 +68,7 @@ from .frustum import FrustumGridGenerator, FrustumToVoxelMultiScale
 from .fusion_bev import FusionAfterBEVSE
 from .layers import ConvBNReLU, batch_norm, compute_dtype, conv_nhwc, resize_bilinear
 from .occupancy import Conv2DCollapse, RadarOccupancy2D, bias_init_with_prob
+from .parta2 import PartA2RoIHead, PointPartHead, UNetDecoder, gather_point_voxel_features
 from .pillar_encoder import PillarFeatureNet
 from .polar_f2v import PolarF2V, polar_image_bev
 from .pvrcnn import (KeypointWeighting, RCNNHead, RoIGridPool, VoxelSetAbstraction,
@@ -83,7 +84,7 @@ from .voxel_backbone import (SparseConv3d, VoxelBackBone8x, VoxelResBackBone8xVo
 __all__ = ["HGSFusionConfig", "HGSFusionModel", "RadarOnlyModel", "PointPillarModel",
            "PointPillarMultiHeadModel", "BEVFusionModel", "TransFusionModel", "CenterPointModel",
            "SECONDModel", "VoxelRCNNModel", "SECONDIoUModel", "PVRCNNModel",
-           "PVRCNNPlusPlusModel", "VoxelNeXtModel", "post_process",
+           "PVRCNNPlusPlusModel", "PartA2Model", "VoxelNeXtModel", "post_process",
            "post_process_multihead", "center_post_process", "refine_post_process",
            "rectified_post_process", "resolve_device"]
 
@@ -790,6 +791,47 @@ class PVRCNNModel(_TwoStageDetector):
         kp_feats, point_logits = self.point_head(kp_feats)
         rcnn_cls, rcnn_reg = self.roi_head(self.roi_grid_pool(rois, keypoints, kp_feats))
         return {"keypoints": keypoints, "point_logits": point_logits, "rcnn_cls": rcnn_cls,
+                "rcnn_reg": rcnn_reg}
+
+    def post_process(self, preds):
+        return refine_post_process(preds, self.box_coder, self.cfg)
+
+
+class PartA2Model(_TwoStageDetector):
+    """Part-A2 (zoo family): SECOND's RPN on the plain VoxelBackBone8x (as
+    JAX, whatever ``backbone_3d_arch`` says), its proposals, then the
+    part-aware stage, ``unet_decoder`` (UNetDecoder: the backbone's stages
+    back to stride 1) and ``point_head`` (PointPartHead over each point's
+    voxel feature: ``seg_logits``, ``part_pred``), and the aggregation,
+    ``roi_head`` (PartA2RoIHead: the proposals' RoI-aware pools of the
+    detached parts and segmentation scores and of the point features,
+    which keep their gradient: ``rcnn_cls``, ``rcnn_reg``).
+    ``post_process``: ``refine_post_process``, as Voxel R-CNN. The YAML's
+    FusionVFE block is not read (nor by JAX's model)."""
+
+    def voxel_backbone(self, cfg):
+        return VoxelBackBone8x(cfg.num_point_features, cfg.dtype)
+
+    def build_second_stage(self, cfg):
+        self.unet_decoder = UNetDecoder(cfg.dtype)
+        self.point_head = PointPartHead(16, cfg.num_class, cfg.dtype)
+        self.roi_head = PartA2RoIHead(16, cfg.parta2_pool_size, dtype=cfg.dtype)
+
+    def point_features(self, batch, stages):
+        """Each point's stride-1 decoder feature (B, N, 16), f32."""
+        cfg = self.cfg
+        voxels, _ = self.unet_decoder(stages)
+        return gather_point_voxel_features(voxels.float(), batch["points"],
+                                           batch["points_valid"], cfg.pc_range, cfg.voxel_size,
+                                           cfg.grid_size)
+
+    def roi_stage(self, batch, rois, roi_valid, stages, bev, feats2d):
+        point_feats = self.point_features(batch, stages)
+        seg_logits, part_pred = self.point_head(point_feats)
+        rcnn_cls, rcnn_reg = self.roi_head(
+            rois, batch["points"][..., :3], batch["points_valid"], point_feats,
+            torch.sigmoid(seg_logits).amax(dim=-1).detach(), torch.sigmoid(part_pred).detach())
+        return {"seg_logits": seg_logits, "part_pred": part_pred, "rcnn_cls": rcnn_cls,
                 "rcnn_reg": rcnn_reg}
 
     def post_process(self, preds):

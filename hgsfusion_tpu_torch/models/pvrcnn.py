@@ -1,6 +1,7 @@
-"""The two-stage RoI pieces of the anchor-RPN families: set abstraction
-over grouped points, voxel stages as point sets, the RoI grid, the RCNN
-head, the proposal layer, the RoI targets and the second-stage losses; and
+"""The two-stage RoI pieces of the anchor-RPN families: the FC stack every
+FC head is built on, set abstraction over grouped points, voxel stages as
+point sets, the RoI grid, the RCNN head, the proposal layer, the RoI
+targets and the second-stage losses; and
 PV-RCNN's and PV-RCNN++'s own: the keypoints, the voxel set abstraction,
 the keypoint weighting, VectorPool, the RoI-grid pool and the keypoints'
 foreground loss.
@@ -11,7 +12,8 @@ Counterpart of ``hgsfusion_tpu/models/pvrcnn.py`` (``_GroupMLP``,
 ``sample_keypoints_proposal_centric``, ``VectorPoolLocal``,
 ``generate_proposals``, ``roi_targets``, ``canonical_reg_targets``,
 ``decode_canonical``, ``roi_grid_points``, ``RoIGridPool``, ``RCNNHead``,
-``rcnn_losses``, ``point_fg_loss``). As there:
+``rcnn_losses``, ``point_fg_loss``) and of
+``hgsfusion_tpu/models/point_rcnn.py::_FCStack`` (``FCStack``). As there:
 
 - everything is fixed-shape: the proposals are the top 512 RPN boxes by
   score (ties by index, ``ops/nms.py::top_scores``), rotated NMS at
@@ -69,25 +71,37 @@ def linear(x, fc: nn.Linear, dtype):
                     else fc.bias.to(dtype))
 
 
-class GroupMLP(nn.Module):
-    """The shared per-point MLP of a set abstraction (``fc{i}`` without
-    bias, ``bn{i}``, ReLU) over (B, K, S, C) grouped rows, the empty
-    groups' rows zeroed after it, then the max over each group's S."""
+class FCStack(nn.Module):
+    """Linear without bias (``fc{i}``), BatchNorm (``bn{i}``; eps 1e-5,
+    flax momentum 0.9) and ReLU for each width of ``channels``, over the
+    last axis of any (..., C) rows; in train mode each BN takes its
+    statistics over every row, padded ones included, as flax's
+    ``nn.BatchNorm`` (JAX's ``point_rcnn._FCStack``, ``pvrcnn._GroupMLP``
+    and the RCNN heads' FC layers)."""
 
-    def __init__(self, in_channels: int, mlps: Sequence[int], dtype=None):
+    def __init__(self, in_channels: int, channels: Sequence[int], dtype=None):
         super().__init__()
-        self.dtype, self.depth = dtype, len(mlps)
-        for i, c in enumerate(mlps):
+        self.dtype, self.depth = dtype, len(channels)
+        for i, c in enumerate(channels):
             setattr(self, f"fc{i}", nn.Linear(in_channels, c, bias=False))
             setattr(self, f"bn{i}", nn.BatchNorm1d(c, eps=1e-5, momentum=0.1))
             in_channels = c
 
-    def forward(self, grouped, group_valid):
+    def forward(self, h):
         dt = compute_dtype(self.dtype)
-        h = grouped
         for i in range(self.depth):
             h = torch.relu(batch_norm(linear(h, getattr(self, f"fc{i}"), dt),
                                       getattr(self, f"bn{i}"), dt))
+        return h
+
+
+class GroupMLP(FCStack):
+    """The shared per-point MLP of a set abstraction (an ``FCStack``) over
+    (B, K, S, C) grouped rows, the empty groups' rows zeroed after it, then
+    the max over each group's S."""
+
+    def forward(self, grouped, group_valid):
+        h = super().forward(grouped)
         h = h * group_valid[..., None].to(h.dtype)
         return h.amax(dim=2)
 
@@ -157,25 +171,18 @@ def roi_grid_points(rois, grid_size: int):
                         local[..., 2] + rois[..., None, 2]], dim=-1)
 
 
-class RCNNHead(nn.Module):
-    """Shared FCs (256, 256; BN, ReLU) over each RoI's flattened grid
+class RCNNHead(FCStack):
+    """Shared FCs (256, 256; an ``FCStack``) over each RoI's flattened grid
     features -> (cls (B, R), reg (B, R, 7)), f32."""
 
     def __init__(self, in_channels: int, dtype=None):
-        super().__init__()
-        self.dtype = dtype
-        for i in range(2):
-            setattr(self, f"fc{i}", nn.Linear(in_channels if i == 0 else 256, 256, bias=False))
-            setattr(self, f"bn{i}", nn.BatchNorm1d(256, eps=1e-5, momentum=0.1))
+        super().__init__(in_channels, (256, 256), dtype)
         self.cls = nn.Linear(256, 1)
         self.reg = nn.Linear(256, 7)
 
     def forward(self, pooled):
         dt = compute_dtype(self.dtype)
-        h = pooled.flatten(2)
-        for i in range(2):
-            h = torch.relu(batch_norm(linear(h, getattr(self, f"fc{i}"), dt),
-                                      getattr(self, f"bn{i}"), dt))
+        h = super().forward(pooled.flatten(2))
         return linear(h, self.cls, dt).float()[..., 0], linear(h, self.reg, dt).float()
 
 
@@ -434,26 +441,18 @@ class VoxelSetAbstraction(nn.Module):
         return keypoints, torch.relu(fused).float()
 
 
-class KeypointWeighting(nn.Module):
-    """The predicted keypoint weighting (``point_head``): ``fc0`` / ``bn0``
-    / ReLU and ``fc1`` / ``bn1`` / ReLU (256 wide), then the foreground logit
-    ``cls``; returns (features x sigmoid(logit), logit (B, K, 1) f32)."""
+class KeypointWeighting(FCStack):
+    """The predicted keypoint weighting (``point_head``): an ``FCStack``
+    (256, 256), then the foreground logit ``cls``; returns (features x
+    sigmoid(logit), logit (B, K, 1) f32)."""
 
     def __init__(self, in_channels: int, dtype=None):
-        super().__init__()
-        self.dtype = dtype
-        for i in range(2):
-            setattr(self, f"fc{i}", nn.Linear(in_channels if i == 0 else 256, 256, bias=False))
-            setattr(self, f"bn{i}", nn.BatchNorm1d(256, eps=1e-5, momentum=0.1))
+        super().__init__(in_channels, (256, 256), dtype)
         self.cls = nn.Linear(256, 1)
 
     def forward(self, feats):
         dt = compute_dtype(self.dtype)
-        h = feats
-        for i in range(2):
-            h = torch.relu(batch_norm(linear(h, getattr(self, f"fc{i}"), dt),
-                                      getattr(self, f"bn{i}"), dt))
-        logit = linear(h, self.cls, dt).float()
+        logit = linear(super().forward(feats), self.cls, dt).float()
         return feats * torch.sigmoid(logit), logit
 
 

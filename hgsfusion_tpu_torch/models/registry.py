@@ -10,16 +10,17 @@ BEVFusion (``BevFusion``, ``BEVFusion``), TransFusion-L
 ``SECOND``; with ``BACKBONE_3D.NAME: VoxelBackBone8xFocal`` the focal
 SECOND), SECOND-IoU (``SECONDNetIoU``), Voxel R-CNN (``VoxelRCNN``),
 PV-RCNN (``PVRCNN``, ``PV-RCNN``), PV-RCNN++ (``PVRCNNPlusPlus``,
-``PV-RCNN++``) and VoxelNeXt (``VoxelNeXt``). Every other name of the JAX registry raises,
+``PV-RCNN++``), Part-A2 (``PartA2Net``, ``PartA2``) and VoxelNeXt
+(``VoxelNeXt``). Every other name of the JAX registry raises,
 naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 from ..config import model_config_from_yaml
-from .detector import (BEVFusionModel, CenterPointModel, HGSFusionModel, PointPillarModel,
-                       PointPillarMultiHeadModel, PVRCNNModel, PVRCNNPlusPlusModel,
-                       RadarOnlyModel, SECONDIoUModel, SECONDModel, TransFusionModel,
-                       VoxelNeXtModel, VoxelRCNNModel)
+from .detector import (BEVFusionModel, CenterPointModel, HGSFusionModel, PartA2Model,
+                       PointPillarModel, PointPillarMultiHeadModel, PVRCNNModel,
+                       PVRCNNPlusPlusModel, RadarOnlyModel, SECONDIoUModel, SECONDModel,
+                       TransFusionModel, VoxelNeXtModel, VoxelRCNNModel)
 
 DETECTORS = {
     "HGSFusion": HGSFusionModel,
@@ -39,6 +40,8 @@ DETECTORS = {
     "PV-RCNN": PVRCNNModel,
     "PVRCNNPlusPlus": PVRCNNPlusPlusModel,
     "PV-RCNN++": PVRCNNPlusPlusModel,
+    "PartA2Net": PartA2Model,
+    "PartA2": PartA2Model,
     "VoxelNeXt": VoxelNeXtModel,
 }
 
@@ -50,8 +53,8 @@ def network_class(name: str, multihead: bool = False):
         return PointPillarMultiHeadModel
     if name not in DETECTORS:
         raise NotImplementedError(
-            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9 (c6)-(c9), the "
-            f"inherited zoo's Part-A2, PointRCNN, DSVT and MPPNet); the port builds "
+            f"MODEL.NAME: {name} is not ported (ROADMAP.md queue 1 item 9 (c7)-(c9), the "
+            f"inherited zoo's PointRCNN, DSVT and MPPNet); the port builds "
             f"{sorted(DETECTORS)}")
     return DETECTORS[name]
 

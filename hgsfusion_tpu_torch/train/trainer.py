@@ -14,9 +14,9 @@ their Hungarian-matched set loss, the CenterHead families' (CenterPoint,
 VoxelNeXt) the heatmap focal loss and the L1 at the gt centers; SECOND's is
 the anchor step with its stride-8 anchors (the focal SECOND's adds its
 backbone's importance loss), Voxel R-CNN's, SECOND-IoU's, PV-RCNN's and
-PV-RCNN++'s the anchor losses and their second stage's
+PV-RCNN++'s and Part-A2's the anchor losses and their second stage's
 (``make_twostage_train_step``; PV-RCNN's with the keypoints' foreground
-loss). PyTorch
+loss, Part-A2's with its point part head's). PyTorch
 runs it eagerly; nothing in it reads a tensor back to the host but the
 TransFusion step's matching costs (one read a step,
 ``models/transfusion_head.py``). Evaluation needs no dispatch here: every
@@ -24,7 +24,7 @@ family's ``serve`` runs its own post-processing (the JAX package's
 ``make_transfusion_eval_step`` is the TransFusion families'
 ``post_process``, its ``make_center_eval_step`` the CenterHead families',
 ``models/detector.py::center_post_process``, its
-``make_pvrcnn_eval_step`` Voxel R-CNN's, PV-RCNN's and PV-RCNN++'s,
+``make_pvrcnn_eval_step`` Voxel R-CNN's, PV-RCNN's, PV-RCNN++'s and Part-A2's,
 ``refine_post_process``, and its
 ``make_secondiou_eval_step`` SECOND-IoU's).
 
@@ -47,12 +47,13 @@ from ..models.anchor_head import anchor_head_loss, anchor_head_multi_loss
 from ..models.anchors import TargetAssigner
 from ..models.center_head import center_head_loss, center_targets
 from ..models.ddn_loss import ddn_loss
-from ..models.detector import (BATCH_KEYS, BEVFusionModel, CenterPointModel,
+from ..models.detector import (BATCH_KEYS, BEVFusionModel, CenterPointModel, PartA2Model,
                                PointPillarMultiHeadModel, PVRCNNModel, PVRCNNPlusPlusModel,
                                SECONDIoUModel, TransFusionModel, VoxelNeXtModel, VoxelRCNNModel,
                                make_multihead_assigner)
 from ..models.focal_conv import focal_conv_loss
 from ..models.occupancy import occupancy_loss
+from ..models.parta2 import part_head_loss, part_targets
 from ..models.pvrcnn import point_fg_loss, rcnn_losses, roi_targets
 from ..models.roi_heads import iou_head_loss
 from ..models.transfusion_head import transfusion_loss
@@ -145,16 +146,17 @@ def make_twostage_train_step(model, assigner: TargetAssigner, optimizer, loss_we
                              cfg, family: str, ddp=None) -> Callable:
     """The anchor-RPN two-stage families' step: the RPN's anchor losses,
     "pvrcnn" and "pvrcnnpp" the keypoints' ``point_fg_loss`` (tb key
-    point_fg), the focal backbone's loss where it has one, then the second
-    stage against each proposal's ``roi_targets``: "voxelrcnn", "pvrcnn"
-    and "pvrcnnpp" ``rcnn_losses`` (tb keys rcnn_cls, rcnn_reg),
-    "secondiou" ``iou_head_loss`` (rcnn_iou). The JAX package's other
-    families raise, naming their ROADMAP.md entry."""
-    later = {"parta2": "(c6)", "pointrcnn": "(c7)"}
-    if family in later:
-        raise NotImplementedError(f"the {family} two-stage step is not ported (ROADMAP.md "
-                                  f"queue 1 item 9 {later[family]})")
-    if family not in ("voxelrcnn", "secondiou", "pvrcnn", "pvrcnnpp"):
+    point_fg), "parta2" the point part head's ``part_head_loss`` of its
+    ``part_targets`` (part_cls, part_reg), the focal backbone's loss where
+    it has one, then the second stage against each proposal's
+    ``roi_targets``: "voxelrcnn", "pvrcnn", "pvrcnnpp" and "parta2"
+    ``rcnn_losses`` (tb keys rcnn_cls, rcnn_reg), "secondiou"
+    ``iou_head_loss`` (rcnn_iou). The JAX package's other family,
+    "pointrcnn", raises, naming its ROADMAP.md entry."""
+    if family == "pointrcnn":
+        raise NotImplementedError("the pointrcnn two-stage step is not ported (ROADMAP.md "
+                                  "queue 1 item 9 (c7))")
+    if family not in ("voxelrcnn", "secondiou", "pvrcnn", "pvrcnnpp", "parta2"):
         raise ValueError(f"unknown two-stage family {family!r}")
     anchors = assigner.flat_anchors
     coder = ResidualCoder()
@@ -169,6 +171,10 @@ def make_twostage_train_step(model, assigner: TargetAssigner, optimizer, loss_we
         if family in ("pvrcnn", "pvrcnnpp"):
             pt = point_fg_loss(preds["point_logits"], preds["keypoints"], batch["gt_boxes"])
             total, tb = total + pt, {**tb, "point_fg": pt}
+        elif family == "parta2":
+            pt = part_targets(batch["points"][..., :3], batch["points_valid"], batch["gt_boxes"])
+            pl, ptb = part_head_loss(preds["seg_logits"], preds["part_pred"], pt)
+            total, tb = total + pl, {**tb, **ptb}
         total, tb = _add_focal_loss(preds, batch, cfg, total, tb)
         rt = roi_targets(preds["rois"], preds["roi_valid"], batch["gt_boxes"])
         if family == "secondiou":
@@ -270,8 +276,8 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
     build): the TransFusion step for BEVFusionModel and TransFusionModel,
     the center step for CenterPointModel and VoxelNeXtModel (no assigner:
     None), the multi-head step for PointPillarMultiHeadModel, the two-stage
-    step for VoxelRCNNModel, SECONDIoUModel, PVRCNNModel and
-    PVRCNNPlusPlusModel, else ``make_train_step``
+    step for VoxelRCNNModel, SECONDIoUModel, PVRCNNModel,
+    PVRCNNPlusPlusModel and PartA2Model, else ``make_train_step``
     (SECONDModel's, the focal one's included). Returns (assigner, step)."""
     if isinstance(model, (BEVFusionModel, TransFusionModel)):
         return None, make_transfusion_train_step(model, optimizer, model_cfg.loss_weights,
@@ -282,7 +288,8 @@ def make_train_step_for_cfg(model, optimizer, model_cfg, ddp=None):
     multihead = isinstance(model, PointPillarMultiHeadModel)
     assigner = make_anchor_assigner(model_cfg, multihead, device=model.device)
     twostage = ((PVRCNNPlusPlusModel, "pvrcnnpp"), (PVRCNNModel, "pvrcnn"),
-                (VoxelRCNNModel, "voxelrcnn"), (SECONDIoUModel, "secondiou"))
+                (VoxelRCNNModel, "voxelrcnn"), (SECONDIoUModel, "secondiou"),
+                (PartA2Model, "parta2"))
     family = next((f for cls, f in twostage if isinstance(model, cls)), None)
     if family is not None:
         return assigner, make_twostage_train_step(model, assigner, optimizer,

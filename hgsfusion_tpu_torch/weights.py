@@ -274,16 +274,20 @@ def focal_conv(p, s):
 
 def linear_bn_stack(p, s):
     """Linear (flax ``Dense``) and BatchNorm1d modules by their JAX names,
-    nested to any depth (a module with a kernel is a Linear, one with a
-    scale a BatchNorm1d): ``GroupMLP``, ``RCNNHead``, ``SECONDIoUHead``,
+    nested to any depth (a module with a 2-D kernel is a Linear, with a 5-D
+    one a 3-D convolution in spconv's layout, one with a scale a
+    BatchNorm): ``GroupMLP``, ``RCNNHead``, ``SECONDIoUHead``,
     the RoI-grid pools (``roi_heads.VoxelRCNNPool``'s
     ``pool_x_conv{i}.mlp_r{j}``, ``pvrcnn.RoIGridPool``'s ``pool.mlp_r{j}``
     or ``pool_vp``), PV-RCNN's ``pfe`` (``sa_*`` / ``vp_*``, ``fusion_fc``,
-    ``fusion_bn``) and ``point_head``."""
+    ``fusion_bn``) and ``point_head``, Part-A2's ``point_head`` and
+    ``roi_head`` (``conv_part{i}`` / ``conv_rpn{i}`` and their masked BNs
+    among its FC stacks)."""
     out = {}
     for n, sub in p.items():
         if "kernel" in sub:
-            out.update(_prefix(n, conv(sub, _linear)))
+            out.update(_prefix(n, conv(sub, _spconv if np.ndim(sub["kernel"]) == 5
+                                       else _linear)))
         elif "scale" in sub:
             out.update(_prefix(n, batch_norm(sub, s[n])))
         else:
@@ -393,12 +397,19 @@ def backbone_3d(p, s):
     return voxel_backbone(p, s)
 
 
+def unet_decoder(p, s):
+    """parta2.UNetDecoder: ``up{4,3,2}_{a,b}`` (each ``0`` the convolution,
+    spconv layout, ``1`` its BN)."""
+    return {k: v for name in p for k, v in _prefix(name, _subm(p[name], s[name])).items()}
+
+
 def _backbone_families(p, s):
     """CenterPointModel, SECONDModel (the focal one too), VoxelRCNNModel,
-    SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel and VoxelNeXtModel:
-    ``pillar_net``, ``backbone_3d``, ``backbone_2d``, ``pfe``,
-    ``point_head``, ``roi_grid_pool`` and ``roi_head`` where the model has
-    them, and the ``dense_head`` (a CenterHead or an AnchorHeadSingle)."""
+    SECONDIoUModel, PVRCNNModel, PVRCNNPlusPlusModel, PartA2Model and
+    VoxelNeXtModel: ``pillar_net``, ``backbone_3d``, ``backbone_2d``,
+    ``unet_decoder``, ``pfe``, ``point_head``, ``roi_grid_pool`` and
+    ``roi_head`` where the model has them, and the ``dense_head`` (a
+    CenterHead or an AnchorHeadSingle)."""
     out = {}
     if "pillar_net" in p:
         out.update(_prefix("pillar_net", pillar_feature_net(p["pillar_net"], s["pillar_net"])))
@@ -406,7 +417,9 @@ def _backbone_families(p, s):
         out.update(_prefix("backbone_3d", backbone_3d(p["backbone_3d"], s["backbone_3d"])))
     if "backbone_2d" in p:
         out.update(_prefix("backbone_2d", conv_bn_layers(p["backbone_2d"], s["backbone_2d"])))
-    # PV-RCNN(++), Voxel R-CNN; the RCNNHead, SECOND-IoU's head
+    if "unet_decoder" in p:
+        out.update(_prefix("unet_decoder", unet_decoder(p["unet_decoder"], s["unet_decoder"])))
+    # PV-RCNN(++), Voxel R-CNN, Part-A2; the RCNNHead, SECOND-IoU's head
     for name in ("pfe", "point_head", "roi_grid_pool", "roi_head"):
         if name in p:
             out.update(_prefix(name, linear_bn_stack(p[name], s.get(name, {}))))
@@ -497,7 +510,7 @@ def from_jax_variables(variables):
     HGSFusionModel, RadarOnlyModel, PointPillarModel,
     PointPillarMultiHeadModel, BEVFusionModel, TransFusionModel,
     CenterPointModel, SECONDModel, VoxelRCNNModel, SECONDIoUModel,
-    PVRCNNModel, PVRCNNPlusPlusModel and VoxelNeXtModel (told apart by
+    PVRCNNModel, PVRCNNPlusPlusModel, PartA2Model and VoxelNeXtModel (told apart by
     their top-level modules)."""
     p, s = variables["params"], variables["batch_stats"]
     if "fuser_conv" in p:

@@ -9,11 +9,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (TINY, check_nms_frame, check_nms_mask, clustered_boxes,
+from chip_smoke import (PARTA2_POOL, TINY, check_nms_frame, check_nms_mask, clustered_boxes,
                         compare_instances, degenerate_boxes, edge_coords, hot_pixel_grid,
-                        outside_coords, output_digest, parent_activation_scale, plain_nms_batch,
-                        reduce_q8_ragged, run_rhgm_tool, sampling_route, tiny_batch, unaligned,
-                        w8a8_input)
+                        outside_coords, output_digest, parent_activation_scale,
+                        parta2_pool_inputs, plain_nms_batch, reduce_q8_ragged, run_rhgm_tool,
+                        sampling_route, tiny_batch, unaligned, w8a8_input)
 from hgsfusion_tpu_torch.models.detector import HGSFusionModel, post_process
 from hgsfusion_tpu_torch.models.frustum import FrustumToVoxelMultiScale
 from hgsfusion_tpu_torch.ops import conv_int8, depth_sample, library, nms, quad_sample, row_scatter
@@ -21,6 +21,7 @@ from hgsfusion_tpu_torch.ops.matmul import matmul_f32
 from hgsfusion_tpu_torch.ops.grid_sample import (grid_sample_2d_quad, quad_sample_bwd_plain,
                                                  quad_sample_fwd_plain, quantize_per_channel_int8)
 from hgsfusion_tpu_torch.ops.quad_sample import grid_sample_2d_quad_kernel, quad_indices
+from hgsfusion_tpu_torch.ops.roiaware_pool import roiaware_pool3d
 from hgsfusion_tpu_torch.rhgm.mask2former import Mask2FormerInstance
 from hgsfusion_tpu_torch.tools import generate_hybrid_points as ghp
 
@@ -1152,3 +1153,34 @@ def test_fps_kernel_forced_plans(cuda, n, cluster, pts):
     assert torch.equal(out, pointnet2.farthest_point_sample_plain(xyz, valid, k))
     assert fps(xyz.data_ptr(), valid.data_ptr(), 2, n, k, cluster, pts // 2 if pts > 1 else 3,
                out.data_ptr(), stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["max", "avg"])
+def test_roiaware_pool_full_shapes_on_the_card(cuda, method):
+    """Part-A2's RoI-aware pools at full shapes (128 RoIs over 8,192 points,
+    6^3 cells; the max over 16 point features that tie within a voxel, the
+    mean over the 4 part features): two card runs equal bit for bit, the
+    CPU within f32 rounding (the max equal); the max pool's gradient too
+    (two runs bit for bit, the CPU within 1e-6 of its largest)."""
+    rois, xyz, valid, feats, part_feats = parta2_pool_inputs()
+    f = feats if method == "max" else part_feats
+    ct = torch.randn((1, 128) + (PARTA2_POOL,) * 3 + (f.shape[-1],),
+                     generator=torch.Generator().manual_seed(0))
+
+    def run(device):
+        x = f.to(device).requires_grad_()
+        out = roiaware_pool3d(rois.to(device), xyz.to(device), x, valid.to(device),
+                              PARTA2_POOL, method)
+        out.backward(ct.to(device))
+        return out.detach().cpu(), x.grad.cpu()
+
+    (a, ga), (b, gb), (ref, gref) = run(cuda), run(cuda), run("cpu")
+    assert torch.equal(a, b) and torch.equal(ga, gb)
+    assert (ref != 0).any(-1).sum() > 100
+    if method == "max":
+        assert torch.equal(a, ref)
+    else:
+        torch.testing.assert_close(a, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    torch.testing.assert_close(ga, gref, rtol=0, atol=1e-6 * float(gref.abs().max()))
+

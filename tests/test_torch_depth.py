@@ -308,7 +308,8 @@ def jax_depth():
                            class_names=TINY.class_names)
     jstep = jax.jit(jax_make_train_step(jmodel, assigner, tx, LOSS_WEIGHTS, TINY_DEPTH))
     start = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+                       opt_state=jax.jit(tx.init)(variables["params"]),
+                       step=np.zeros((), np.int32))
     after, tb = jstep(start, batch)
     return variables, batch, {k: np.asarray(v) for k, v in preds.items()}, (after, tb)
 

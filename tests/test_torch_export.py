@@ -18,7 +18,7 @@ import pytest
 import torch
 import yaml
 
-from chip_smoke import run_serving_host, tie_free_threshold
+from chip_smoke import run_serving_host, start_serving_host_run, tie_free_threshold
 from hgsfusion_tpu.config import ConfigDict
 from hgsfusion_tpu.config import load_config as jax_load_config
 from hgsfusion_tpu.config import model_config_from_yaml as jax_model_config
@@ -83,10 +83,14 @@ def _export(setup, view, tag, *extra):
     return art, res
 
 
-def _serve_equal(setup, view, art, model, tag):
-    """The serving host's detections equal ``model.serve``'s bit for bit."""
-    summary, dets = run_serving_host(art, setup["tmp"] / "in", setup["tmp"] / f"out_{tag}",
-                                     env=ONE_THREAD)
+def _host_args(setup, art, tag):
+    return art, setup["tmp"] / "in", setup["tmp"] / f"out_{tag}"
+
+
+def _serve_equal(setup, view, art, model, tag, proc=None):
+    """The serving host's detections (``proc``: its run, started by
+    ``start_serving_host_run``) equal ``model.serve``'s bit for bit."""
+    summary, dets = run_serving_host(*_host_args(setup, art, tag), env=ONE_THREAD, proc=proc)
     assert summary["frames"] == FRAMES and summary["device"] == "cpu"
     assert not any(summary["launches"].values())  # the CPU: plain versions, no kernel
     assert sorted(dets) == [f"frame{i}" for i in range(FRAMES)]
@@ -104,26 +108,45 @@ def _serve_equal(setup, view, art, model, tag):
 
 @pytest.fixture(scope="module")
 def seed_artifacts(setup):
-    """Each view's random weights from seed 0, exported by the CLI."""
-    return {view: _export(setup, view, "seed") for view in VIEWS}
+    """Each view's random weights from seed 0, exported by the CLI, and its
+    serving host started right after (it runs beside the later exports and
+    tests)."""
+    out = {}
+    for view in VIEWS:
+        art, res = _export(setup, view, "seed")
+        out[view] = (art, res, start_serving_host_run(*_host_args(setup, art, view),
+                                                      env=ONE_THREAD))
+    yield out
+    for _, _, proc in out.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def seed_programs(seed_artifacts):
+    """Each seed artifact's program, loaded once (``torch.export.load``
+    takes seconds)."""
+    return {view: torch.export.load(str(art)) for view, (art, _, _) in seed_artifacts.items()}
 
 
 @pytest.mark.parametrize("view", sorted(VIEWS))
-def test_export_then_serve_equals_serve(setup, seed_artifacts, view):
+def test_export_then_serve_equals_serve(setup, seed_artifacts, seed_programs, view):
     """Random weights from seed 0, exported by the CLI on the first frame,
     served from ``.npz`` in a process without the model code."""
-    art, res = seed_artifacts[view]
+    art, res, proc = seed_artifacts[view]
     assert res["bytes"] == art.stat().st_size > 1e6 and res["device"] == "cpu"
     assert sorted(res["inputs"]) == sorted(k for k in export_cli.INPUT_KEYS
                                            if k in setup["batches"][0])
     assert res["inputs"]["images"]["shape"] == [1, 64, 96, 3]
-    program = torch.export.load(str(art))
+    program = seed_programs[view]
     ops = {str(n.target) for n in program.graph.nodes if library.NAMESPACE in str(n.target)}
     want = {"gather": {"hgsfusion.quad_sample_reduce_fwd.default"},
             "polar": {"hgsfusion.quad_sample_fwd.default"}}[view]
     assert ops == want | {"hgsfusion.nms_lazy.default"}
     cfg = model_config_from_yaml(load_config(setup[view]))
-    summary = _serve_equal(setup, view, art, HGSFusionModel(cfg, device="cpu", seed=0), view)
+    summary = _serve_equal(setup, view, art, HGSFusionModel(cfg, device="cpu", seed=0), view,
+                           proc)
     assert len(summary["gaps_ms"]) == FRAMES - 1
 
 
@@ -146,6 +169,9 @@ def test_export_a_trained_checkpoint(setup, trained, how):
     extra = (["--ckpt", str(trained / "checkpoint_step_2.pth")] if how == "ckpt"
              else ["--ckpt_dir", str(trained), "--ckpt_step", "2"])
     art, _ = _export(setup, "gather", how, *extra)
+    # the host serves while this process checks the weights
+    proc = (start_serving_host_run(*_host_args(setup, art, how), env=ONE_THREAD)
+            if how == "ckpt" else None)
     model = HGSFusionModel(model_config_from_yaml(load_config(setup["gather"])), device="cpu")
     load_checkpoint(model, trained / "checkpoint_step_2.pth")
     seed = HGSFusionModel(model.cfg, device="cpu", seed=0)
@@ -158,11 +184,11 @@ def test_export_a_trained_checkpoint(setup, trained, how):
     assert sum(f"model.{n}" in baked for n, _ in model.named_parameters()) == len(
         list(model.parameters()))
     if how == "ckpt":
-        _serve_equal(setup, "gather", art, model, how)
+        _serve_equal(setup, "gather", art, model, how, proc)
 
 
-def test_serving_host_checks_its_inputs(setup, seed_artifacts, tmp_path):
-    art, res = seed_artifacts["gather"]
+def test_serving_host_checks_its_inputs(setup, seed_artifacts, seed_programs, tmp_path):
+    art, res, _ = seed_artifacts["gather"]
     module, spec = serve_cli.load_artifact(art)
     assert spec["inputs"] == res["inputs"]
     with np.load(setup["tmp"] / "in" / "frame0.npz") as data:
@@ -175,8 +201,8 @@ def test_serving_host_checks_its_inputs(setup, seed_artifacts, tmp_path):
     with pytest.raises(ValueError, match="missing"):
         serve_cli.batch_inputs({k: v for k, v in good.items() if k != "points"}, spec)
     # an artifact of the card on a host without one: refused, not run on the CPU
-    program = torch.export.load(str(art))
-    export_cli.save_artifact(program, {**spec, "device": "cuda"}, tmp_path / "cuda.pt2")
+    export_cli.save_artifact(seed_programs["gather"], {**spec, "device": "cuda"},
+                             tmp_path / "cuda.pt2")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.load_artifact(tmp_path / "cuda.pt2")

@@ -61,7 +61,8 @@ NEW_SUBMODULES = {
     "hgsfusion_tpu_torch.utils.visual", "hgsfusion_tpu_torch.utils.visual_3d",
     "hgsfusion_tpu_torch.tools.demo", "hgsfusion_tpu_torch.models.focal_conv",
     "hgsfusion_tpu_torch.models.pvrcnn", "hgsfusion_tpu_torch.models.roi_heads",
-    "hgsfusion_tpu_torch.ops.pointnet2",
+    "hgsfusion_tpu_torch.ops.pointnet2", "hgsfusion_tpu_torch.models.parta2",
+    "hgsfusion_tpu_torch.ops.roiaware_pool",
 }
 
 

@@ -103,7 +103,7 @@ def test_target_assigner_matches_jax(assigned):
     mh = multi(torch.from_numpy(np.asarray(assigned[0])))["box_cls_labels"].numpy()
     np.testing.assert_array_equal(np.sort(mh, axis=1), np.sort(labels, axis=1))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        network_class("PartA2Net")
+        network_class("PointRCNN")
 
 
 def test_anchor_head_loss_matches_jax(assigned):

@@ -170,9 +170,13 @@ def mh():
     init = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, False))(inputs)
     variables = perturb_variables(init, seed=1)
     preds = jax.jit(lambda v, b: jmodel.apply(v, b, False))(variables, inputs)
+    jassigner = jax_make_anchor_assigner(jcfg, jmc)
     return {"jcfg": jcfg, "jmc": jmc, "pcfg": pcfg, "pmc": pmc, "jmodel": jmodel,
             "batch": batch, "init": init, "variables": variables,
-            "preds": jax.tree_util.tree_map(np.asarray, preds)}
+            "preds": jax.tree_util.tree_map(np.asarray, preds), "jassigner": jassigner,
+            # JAX's targets of the batch's boxes, eager (under jit XLA fuses
+            # the codes' arithmetic), computed once for the tests that read them
+            "targets": jassigner(jnp.asarray(batch["gt_boxes"]))}
 
 
 def test_multihead_assigner_matches_jax(mh):
@@ -180,13 +184,13 @@ def test_multihead_assigner_matches_jax(mh):
     and weights exactly; the 10-wide codes within one f32 rounding (XLA's
     and PyTorch's log and division differ in the last bit of 0.1% of
     them)."""
-    jassigner = jax_make_anchor_assigner(mh["jcfg"], mh["jmc"])
+    jassigner = mh["jassigner"]
     passigner = make_multihead_assigner(mh["pmc"], device="cpu")
     np.testing.assert_array_equal(passigner.flat_anchors.numpy(),
                                   np.asarray(jassigner.flat_anchors))
     assert passigner.num_per_loc == jassigner.num_per_loc
     gt = mh["batch"]["gt_boxes"]
-    ref = jassigner(jnp.asarray(gt))
+    ref = mh["targets"]
     got = passigner(t(gt))
     labels = np.asarray(ref["box_cls_labels"])
     assert (labels > 0).sum() > 20 and (labels == -1).any()
@@ -254,17 +258,16 @@ def test_model_matches_jax(family, single, mh):
 def test_multi_loss_matches_jax(mh):
     """Random head outputs against the multi-head targets: every term."""
     rng = np.random.RandomState(5)
-    jassigner = jax_make_anchor_assigner(mh["jcfg"], mh["jmc"])
+    jassigner = mh["jassigner"]
     passigner = make_multihead_assigner(mh["pmc"], device="cpu")
     preds = {k: [rng.normal(-2 if k == "cls_preds" else 0, 1.0, np.shape(p)).astype(np.float32)
                  for p in mh["preds"][k]] for k in ("cls_preds", "box_preds")}
     gt = mh["batch"]["gt_boxes"]
     lw = mh["pmc"].loss_weights
     grid_hw = 40 * 40
-    ref_total, ref_tb = janchor_head.anchor_head_multi_loss(
-        {k: [jnp.asarray(p) for p in v] for k, v in preds.items()}, jassigner(jnp.asarray(gt)),
-        jassigner, {k: list(v) if isinstance(v, tuple) else v for k, v in lw.items()},
-        mh["jmc"].rpn_head_cfgs, grid_hw)
+    ref_total, ref_tb = jax.jit(lambda p, tg: janchor_head.anchor_head_multi_loss(
+        p, tg, jassigner, {k: list(v) if isinstance(v, tuple) else v for k, v in lw.items()},
+        mh["jmc"].rpn_head_cfgs, grid_hw))(preds, mh["targets"])
     total, tb = anchor_head.anchor_head_multi_loss(
         {k: [t(p) for p in v] for k, v in preds.items()}, passigner(t(gt)), passigner, lw,
         mh["pmc"].rpn_head_cfgs, grid_hw)
@@ -279,11 +282,10 @@ def test_multihead_step_matches_jax(mh):
     (``torch_parity.lift_bn_biases``): with them at 0 the 20 train-mode
     conv layers' ReLUs flip under the 1e-7 probes and 60-70 tensors exceed
     the sensitivity cap for every weight and batch seed tried."""
-    jassigner = jax_make_anchor_assigner(mh["jcfg"], mh["jmc"])
     lw = {k: list(v) if isinstance(v, tuple) else v for k, v in mh["pmc"].loss_weights.items()}
     report = compare_one_step(
         lift_bn_biases(mh["variables"]),
-        lambda tx: jax_make_multihead_step(mh["jmodel"], jassigner, tx, lw, mh["jmc"]),
+        lambda tx: jax_make_multihead_step(mh["jmodel"], mh["jassigner"], tx, lw, mh["jmc"]),
         lambda: PointPillarMultiHeadModel(mh["pmc"], device="cpu"),
         lambda m, opt: make_train_step_for_cfg(m, opt, mh["pmc"])[1],
         mh["batch"], OPTIM_CFG)
@@ -312,7 +314,7 @@ def test_post_process_multihead_matches_jax(mh):
     """Per (head, class) NMS at the config's 0.2, 83 kept: the same rows as
     JAX's, block by block."""
     preds = _tie_free_preds(mh)
-    jassigner = jax_make_anchor_assigner(mh["jcfg"], mh["jmc"])
+    jassigner = mh["jassigner"]
     post = copy.deepcopy(dict(mh["jcfg"].MODEL.POST_PROCESSING))
     post["NMS_CONFIG"] = {**post["NMS_CONFIG"], "NMS_PRE_MAXSIZE": CPU_PRE_MAX}
     ref = jax.jit(lambda p: jax_post_process_multihead(p, jassigner, mh["jmc"], post))(

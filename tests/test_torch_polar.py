@@ -339,7 +339,8 @@ def test_one_polar_step_matches_jax(jax_polar):
                            class_names=TINY.class_names)
     jstep = jax.jit(jax_make_train_step(jmodel, assigner, tx, LOSS_WEIGHTS, TINY_POLAR))
     state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+                       opt_state=jax.jit(tx.init)(variables["params"]),
+                       step=np.zeros((), np.int32))
     after, tb = jstep(state, batch)
     got, lr = _port_step(variables, batch)
     probes = [_port_step(variables, batch, seed)[0]["grads"] for seed in (1, 2)]

@@ -147,7 +147,7 @@ def test_build_network_by_name_and_refusals():
     assert type(build_network("PillarNet", _port_cfg(), device="cpu")) is RadarOnlyModel
     # every other name of the JAX registry: ROADMAP.md queue 1 item 9
     unported = sorted(set(JAX_DETECTORS) - set(DETECTORS))
-    assert len(unported) == 6
+    assert len(unported) == 4
     for name in unported:
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             build_network(name, _port_cfg(), device="cpu")

@@ -52,7 +52,7 @@ def _capture():
     """An optax transformation that passes the gradients on and keeps them
     as its state, so the jitted step returns what it differentiated."""
     return optax.GradientTransformation(
-        lambda params: jax.tree_util.tree_map(np.zeros_like, params),
+        lambda params: jax.tree_util.tree_map(jax.numpy.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
 
 
@@ -152,7 +152,8 @@ def runs():
                            class_names=TINY.class_names)
     jstep = jax.jit(jax_make_train_step(jmodel, assigner, tx, LOSS_WEIGHTS, TINY_PALLAS))
     first = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+                       opt_state=jax.jit(tx.init)(variables["params"]),
+                       step=np.zeros((), np.int32))
     out = {"ref": [], "got": [], "lr": [], "frozen_changed": [], "stats_still": [],
            "trajectory": [], "init": _port_tree(first.params, first.batch_stats)}
     trajectory = first

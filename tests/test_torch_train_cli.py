@@ -142,9 +142,9 @@ def test_cli_refusals(setup, tmp_path):
     # radar-only PillarNet config is built (its training: test_torch_radar_only.py)
     _write_cfg(tmp_path / "pillarnet.yaml", tmp_path / "data")
     assert yaml_network_class(load_config(tmp_path / "pillarnet.yaml")) is RadarOnlyModel
-    with pytest.raises(NotImplementedError, match="PartA2Net is not ported.*queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="PointRCNN is not ported.*queue 1 item 9"):
         train.main(["--cfg_file", str(tmp_path / "pillarnet.yaml"), "--device", "cpu",
-                    "--set", "MODEL.NAME", "PartA2Net"])
+                    "--set", "MODEL.NAME", "PointRCNN"])
     with pytest.raises(SystemExit, match="dataset is empty"):
         train.main(_argv(setup, "--set", "DATA_CONFIG.DATA_PATH", str(tmp_path)))
     if not torch.cuda.is_available():

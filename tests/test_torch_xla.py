@@ -121,7 +121,8 @@ def test_train_step_matches_jax_xla(tiny):
     loss_weights = dict(jcfg.MODEL.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS)
     jstep = jax.jit(jax_make_train_step(tiny["jmodel"], assigner, tx, loss_weights, jm))
     state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+                       opt_state=jax.jit(tx.init)(variables["params"]),
+                       step=np.zeros((), np.int32))
     got, lr = _port_step(pcfg, variables, batch)
     probes = [_port_step(pcfg, variables, batch, s)[0]["grads"] for s in (1, 2)]
     after, tb = jstep(state, batch)

@@ -133,7 +133,7 @@ def _grad_capture():
     import optax
 
     return optax.GradientTransformation(
-        lambda params: jax.tree_util.tree_map(np.zeros_like, params),
+        lambda params: jax.tree_util.tree_map(jax.numpy.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
 
 
@@ -178,7 +178,8 @@ def compare_one_step(variables, jax_make_step, port_model, port_make_step, batch
     tx, _ = jax_build_optimizer(optim_cfg, total_steps=total_steps, params=variables["params"])
     tx = optax.chain(_grad_capture(), tx)
     state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), step=np.zeros((), np.int32))
+                       opt_state=jax.jit(tx.init)(variables["params"]),
+                       step=np.zeros((), np.int32))
     after, tb = jax.jit(jax_make_step(tx))(state, {k: np.asarray(v) for k, v in batch.items()})
     names = list(got["grads"])
     grads = port_tree(after.opt_state[0], after.batch_stats)
